@@ -1,0 +1,142 @@
+"""The port's host layer and imports.
+
+The framework-free modules of tuna_tpu are copied into tuna_tpu_torch
+(importing them from tuna_tpu would import jax); these tests keep the copies
+from drifting, and check that the port imports without jax, triton or nvcc.
+"""
+
+import ast
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import tuna_tpu
+import tuna_tpu.basis
+import tuna_tpu.config
+import tuna_tpu.constants
+import tuna_tpu.methods
+import tuna_tpu.periodic
+
+import tuna_tpu_torch
+import tuna_tpu_torch.basis
+import tuna_tpu_torch.config
+import tuna_tpu_torch.constants
+import tuna_tpu_torch.methods
+import tuna_tpu_torch.periodic
+from tuna_tpu_torch import _kernels
+from tuna_tpu_torch.cli import parse_input, process_method
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+COPIED = ["constants.py", "methods.py", "output.py", "periodic.py", "spherical.py",
+          "system.py", "config.py", "props.py", "basis/__init__.py"]
+SLICE_LINE = "SPE : N N 1.1 : CCSD[T] 6-311G : TIGHTSCF"
+
+
+def _without_data_path(source: str) -> str:
+    """AST dump of a module with its `_DATA = ...` assignment removed (the
+    copies read tuna_tpu's data files by path)."""
+    tree = ast.parse(source)
+    tree.body = [node for node in tree.body
+                 if not (isinstance(node, ast.Assign)
+                         and any(getattr(t, "id", None) == "_DATA" for t in node.targets))]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("relative", COPIED)
+def test_host_copies_match_tuna_tpu_source(relative):
+    original = (REPO / "tuna_tpu" / relative).read_text()
+    copy = (REPO / "tuna_tpu_torch" / relative).read_text()
+    assert _without_data_path(copy) == _without_data_path(original)
+
+
+def test_copies_read_tuna_tpu_data_files():
+    assert tuna_tpu_torch.periodic._DATA.resolve() == tuna_tpu.periodic._DATA.resolve()
+    assert tuna_tpu_torch.basis._DATA.resolve() == tuna_tpu.basis._DATA.resolve()
+
+
+def _plain(value):
+    """A comparable form of host-layer values across the two packages."""
+    if dataclasses.is_dataclass(value):
+        return _plain(dataclasses.asdict(value))
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_plain(v) for v in value]
+    if isinstance(value, np.ndarray):
+        return value.tolist()
+    return value
+
+
+def test_host_tables_match_tuna_tpu():
+    for name in ("ELECTRONIC_STRUCTURE_METHODS", "BASIS_ALIASES", "CALCULATION_TYPES"):
+        assert _plain(getattr(tuna_tpu_torch.methods, name)) == _plain(
+            getattr(tuna_tpu.methods, name)), name
+    assert tuna_tpu_torch.basis.BASIS_TABLES == tuna_tpu.basis.BASIS_TABLES
+    assert _plain(tuna_tpu_torch.periodic.ATOMIC_PROPERTIES) == _plain(
+        tuna_tpu.periodic.ATOMIC_PROPERTIES)
+    numbers = {k: v for k, v in vars(tuna_tpu.constants).items()
+               if isinstance(v, (int, float, dict)) and not k.startswith("_")}
+    assert numbers
+    for key, value in numbers.items():
+        assert getattr(tuna_tpu_torch.constants, key) == value, key
+
+
+def test_slice_config_matches_tuna_tpu():
+    from tuna_tpu.cli import parse_input as jax_parse_input, process_method as jax_process
+
+    parsed, jax_parsed = parse_input(SLICE_LINE), jax_parse_input(SLICE_LINE)
+    assert _plain(parsed[:5]) == _plain(jax_parsed[:5])
+    assert list(parsed[5]) == list(jax_parsed[5])
+    cfg = tuna_tpu_torch.config.Config(parsed[0], process_method(parsed[1]), 0.0,
+                                       parsed[5], parsed[2], parsed[3])
+    jax_cfg = tuna_tpu.config.Config(jax_parsed[0], jax_process(jax_parsed[1]), 0.0,
+                                     jax_parsed[5], jax_parsed[2], jax_parsed[3])
+    settings = {k: _plain(v) for k, v in vars(cfg).items() if k != "params"}
+    jax_settings = {k: _plain(v) for k, v in vars(jax_cfg).items() if k != "params"}
+    assert settings == jax_settings
+    assert cfg.SCF_conv["name"].upper().startswith("TIGHT")
+
+
+def test_package_imports_without_jax_triton_or_nvcc(tmp_path):
+    """Every module of tuna_tpu_torch imports with triton unimportable and
+    no nvcc, and importing it loads neither jax nor tuna_tpu."""
+    script = f"""
+import importlib, json, pkgutil, sys
+sys.modules["triton"] = None          # any "import triton" now raises
+sys.path.insert(0, {str(REPO)!r})
+import tuna_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(tuna_tpu_torch.__path__, "tuna_tpu_torch.")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({{"modules": names,
+                   "loaded": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "tuna_tpu"))}}))
+"""
+    env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": str(tmp_path / "no-cuda"),
+           "HOME": str(tmp_path), "PYTHONPATH": ""}
+    result = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                            env=env, cwd=tmp_path, timeout=120, check=True)
+    report = json.loads(result.stdout.strip().splitlines()[-1])
+    assert "tuna_tpu_torch.post.cc" in report["modules"]
+    assert "tuna_tpu_torch.ops.integrals" in report["modules"]
+    assert report["loaded"] == []
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _kernels.build()
+    assert set(_kernels.SIGNATURES) == {"tuna_eri_packed", "tuna_one_electron",
+                                        "tuna_ccsd_t_energy"}
+    assert set(_kernels.launches) == {"eri_packed", "one_electron", "ccsd_t_energy"}

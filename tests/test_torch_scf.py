@@ -1,0 +1,46 @@
+"""The port's restricted Hartree-Fock (tuna_tpu_torch, on the CPU) against
+tuna_tpu on the JAX CPU backend, end to end through each package's
+cli.run.  Same iteration semantics and tight convergence: total energies
+and orbital energies agree to 1e-10 Ha."""
+
+import numpy as np
+import pytest
+import torch
+
+from tuna_tpu.cli import run as jax_run
+
+from tuna_tpu_torch.cli import run
+from tuna_tpu_torch.output import TunaError
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("line", [
+    "SPE : H H 0.74 : HF STO-3G : TIGHTSCF",
+    "SPE : N N 1.1 : HF 6-31G : TIGHTSCF",
+])
+def test_rhf_matches_tuna_tpu(line):
+    jax_scf, _, jax_energy, _ = jax_run(line, suppress_output=True)
+    scf, molecule, energy, P = run(line, suppress_output=True, device="cpu")
+    assert abs(energy - jax_energy) <= 1e-10
+    assert abs(scf.energy - jax_scf.energy) <= 1e-10
+    np.testing.assert_allclose(scf.epsilons.numpy(), np.asarray(jax_scf.epsilons),
+                               rtol=0, atol=1e-10)
+    n = molecule.n_basis
+    assert P.shape == (n, n) and P.device.type == "cpu"
+    # Tr(PS) counts the electrons
+    assert abs(float(torch.trace(P @ scf.S)) - molecule.n_electrons) <= 1e-10
+    assert len(scf.iteration_seconds) >= 1
+
+
+def test_cli_refuses_to_run_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(TunaError, match="GPU"):
+        run("SPE : H H 0.74 : HF STO-3G", suppress_output=True)
+
+
+def test_unported_calculations_raise():
+    with pytest.raises(TunaError, match="not yet ported"):
+        run("OPT : H H 0.74 : HF STO-3G", suppress_output=True, device="cpu")
+    with pytest.raises(TunaError, match="not yet ported"):
+        run("SPE : H H 0.74 : UHF STO-3G", suppress_output=True, device="cpu")

@@ -1,0 +1,601 @@
+"""Molecular integrals: McMurchie-Davidson with the diatomic z-axis
+specialisation, as plain torch and as hand-written CUDA kernels.
+
+Twin of tuna_tpu/ops/integrals.py.  `IntegralPlan` enumerates the primitive
+pairs on the host exactly as the JAX plan does.  Its two device kernels
+dispatch on the device of the coordinates they are given:
+
+  * one_electron (S, T, V_NE, D, Q): csrc/one_electron.cu on a CUDA tensor,
+    `_one_electron_plain` on a CPU tensor;
+  * eri_pair_packed (the packed (n_pairs, n_pairs) ERI matrix): csrc/eri.cu
+    on a CUDA tensor, `_eri_packed_plain` on a CPU tensor.
+
+The plain versions mirror the JAX functions, including the TPU's scaled
+Hermite form (Rt[v,n] = R[v,n] / (2 alpha)^(n+v)); the kernels work
+unscaled in native float64 (csrc/hermite.cuh).  Both assume every atom on
+the z axis, as drivers/common.py enforces.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from .boys import boys_table, taylor_table
+
+TWO_PI_POW_2_5 = 2.0 * math.pi ** 2.5  # 34.9868366552497...
+PI_POW_1_5 = math.pi ** 1.5
+KERNEL_MAX_LMAX = 3                    # highest LMAX instantiated in csrc/
+_F64 = torch.float64
+
+
+def _double_factorial(n: int) -> float:
+    result = 1.0
+    while n > 1:
+        result *= n
+        n -= 2
+    return result
+
+
+def _powers(base, n: int):
+    """base^0..base^n along a new last axis, by repeated multiplication."""
+    outs = [torch.ones_like(base)]
+    for _ in range(n):
+        outs.append(outs[-1] * base)
+    return torch.stack(outs, dim=-1)
+
+
+# =========================================================================
+# Hermite expansion coefficient tables (vectorised over a batch of pairs)
+# =========================================================================
+
+def build_E_table(l1max: int, l2max: int, AB, a, b, include_exp=True):
+    """E_t^{ij} tables for one Cartesian direction, batched.
+
+    Returns list-of-lists E[i][j] -> (batch, i+j+1) tensors."""
+    p = a + b
+    mu = a * b / p
+    one_over_2p = 0.5 / p
+    shift1 = -(mu / a) * AB   # X_PA
+    shift2 = (mu / b) * AB    # X_PB
+
+    base = torch.exp(-mu * AB * AB) if include_exp else torch.ones_like(p)
+
+    E = [[None] * (l2max + 1) for _ in range(l1max + 1)]
+    E[0][0] = base[:, None]  # (batch, 1)
+
+    def raise_index(prev, shift, nt_prev):
+        nt = nt_prev + 1
+        cols = []
+        for t in range(nt):
+            val = torch.zeros_like(p)
+            if t - 1 >= 0:
+                val = one_over_2p * prev[:, t - 1]
+            if t < nt_prev:
+                val = val + shift * prev[:, t]
+            if t + 1 < nt_prev:
+                val = val + (t + 1) * prev[:, t + 1]
+            cols.append(val)
+        return torch.stack(cols, dim=-1)
+
+    for i in range(1, l1max + 1):
+        E[i][0] = raise_index(E[i - 1][0], shift1, i)
+    for i in range(l1max + 1):
+        for j in range(1, l2max + 1):
+            E[i][j] = raise_index(E[i][j - 1], shift2, i + j)
+    return E
+
+
+def stack_E_table(E, l1max, l2max, tmax):
+    """Stack ragged E[i][j] into (l1max+1, l2max+1, tmax+1, batch)."""
+    rows = []
+    for i in range(l1max + 1):
+        cols = []
+        for j in range(l2max + 1):
+            tab = E[i][j]  # (batch, i+j+1)
+            pad = tmax + 1 - tab.shape[1]
+            if pad > 0:
+                tab = torch.nn.functional.pad(tab, (0, pad))
+            cols.append(tab[:, :tmax + 1].T)  # (tmax+1, batch)
+        rows.append(torch.stack(cols))
+    return torch.stack(rows)
+
+
+def gather_E_row(E_stacked, l1_idx, l2_idx):
+    """Select E[l1, l2, :, k] per batch element -> (batch, tmax+1)."""
+    I, J, T, batch = E_stacked.shape
+    flat = E_stacked.reshape(I * J, T, batch)
+    lin = l1_idx * J + l2_idx
+    return flat[lin, :, torch.arange(batch, device=flat.device)]
+
+
+def gather_E_scalar(E_stacked, l1_idx, l2_idx, t: int):
+    I, J, T, batch = E_stacked.shape
+    flat = E_stacked.reshape(I * J * T, batch)
+    lin = (l1_idx * J + l2_idx) * T + t
+    return flat[lin, torch.arange(batch, device=flat.device)]
+
+
+# =========================================================================
+# Scaled z-axis Coulomb Hermite table
+# =========================================================================
+
+def build_scaled_Rz_table(vmax: int, nmax: int, PQz, alpha):
+    """Rt[v][n] = R^n_{00v} / (2 alpha)^(n+v), built from (-1)^n F_n.
+
+    Returns (batch, vmax+1, nmax+1); entries with n > nmax - v are unused
+    and callers only touch valid (v, n)."""
+    F = boys_table(nmax, alpha * PQz * PQz)  # (batch, nmax+1)
+    signs = torch.tensor([(-1.0) ** n for n in range(nmax + 1)], dtype=F.dtype,
+                         device=F.device)
+    rows = [F * signs]
+    inv_s = 0.5 / alpha
+    for v in range(1, vmax + 1):
+        prev1 = rows[v - 1]
+        shifted1 = torch.cat([prev1[:, 1:], torch.zeros_like(prev1[:, :1])], dim=1)
+        row = PQz[:, None] * shifted1
+        if v > 1:
+            prev2 = rows[v - 2]
+            shifted2 = torch.cat([prev2[:, 1:], torch.zeros_like(prev2[:, :1])], dim=1)
+            row = row + ((v - 1) * inv_s)[:, None] * shifted2
+        rows.append(row)
+    return torch.stack(rows, dim=1)
+
+
+# =========================================================================
+# Integral plan: host-side primitive-pair enumeration + device kernels
+# =========================================================================
+
+# Workspace per block pair of the plain ERI sweep; the block edge follows.
+_PLAIN_BLOCK_BYTES = 64e6
+
+
+class IntegralPlan:
+    """Static (per chemical system + basis) plan for all AO integrals.
+
+    The host enumerates the primitive pairs of every AO pair (i >= j) once,
+    contiguous per AO pair; the kernels take only the coordinates (and the
+    charges and dipole origin)."""
+
+    def __init__(self, basis_functions, n_atoms: int):
+        N = len(basis_functions)
+        ao_i, ao_j, pair_id = [], [], []
+        a_list, b_list, coef_list = [], [], []
+        l1_list, l2_list = [], []
+        atom1, atom2 = [], []
+        pid = 0
+        pair_index = np.zeros((N, N), dtype=np.int32)
+        for i in range(N):
+            bi = basis_functions[i]
+            for j in range(i + 1):
+                bj = basis_functions[j]
+                pair_index[i, j] = pair_index[j, i] = pid
+                for k in range(bi.num_exps):
+                    for l in range(bj.num_exps):
+                        ao_i.append(i)
+                        ao_j.append(j)
+                        pair_id.append(pid)
+                        a_list.append(bi.exps[k])
+                        b_list.append(bj.exps[l])
+                        coef_list.append(bi.coefs[k] * bi.norms[k] * bj.coefs[l] * bj.norms[l])
+                        l1_list.append(bi.lmn)
+                        l2_list.append(bj.lmn)
+                        atom1.append(bi.atom_index)
+                        atom2.append(bj.atom_index)
+                pid += 1
+        self._set_arrays(a_list, b_list, coef_list, l1_list, l2_list, atom1, atom2,
+                         ao_i, ao_j, pair_id, pair_index, n_atoms)
+
+    @classmethod
+    def from_arrays(cls, a, b, coef, l1, l2, atom1, atom2, ao_i, ao_j, pair_id,
+                    pair_index, n_atoms: int) -> "IntegralPlan":
+        """A plan over given primitive-pair arrays (numpy or array-likes),
+        e.g. those of a `tuna_tpu` plan, so that two engines integrate
+        identical primitive data."""
+        plan = cls.__new__(cls)
+        plan._set_arrays(a, b, coef, l1, l2, atom1, atom2, ao_i, ao_j, pair_id,
+                         pair_index, n_atoms)
+        return plan
+
+    def _set_arrays(self, a, b, coef, l1, l2, atom1, atom2, ao_i, ao_j, pair_id,
+                    pair_index, n_atoms):
+        self.a = np.array(a, dtype=np.float64)
+        self.b = np.array(b, dtype=np.float64)
+        self.coef = np.array(coef, dtype=np.float64)
+        self.l1 = np.array(l1, dtype=np.int32).reshape(-1, 3)
+        self.l2 = np.array(l2, dtype=np.int32).reshape(-1, 3)
+        self.atom1 = np.array(atom1, dtype=np.int32)
+        self.atom2 = np.array(atom2, dtype=np.int32)
+        self.ao_i = np.array(ao_i, dtype=np.int32)
+        self.ao_j = np.array(ao_j, dtype=np.int32)
+        self.pair_id = np.array(pair_id, dtype=np.int32)
+        self.pair_index = np.array(pair_index, dtype=np.int32)
+        self.n_atoms = int(n_atoms)
+        self.n_basis = N = self.pair_index.shape[0]
+        self.n_pairs = N * (N + 1) // 2
+        self.n_prim_pairs = len(self.a)
+        self.lmax = int(max(self.l1.sum(axis=1).max(), self.l2.sum(axis=1).max()))
+        if np.any(np.diff(self.pair_id) < 0):
+            raise ValueError("primitive pairs must be contiguous per AO pair")
+        # CSR offsets of each AO pair's primitive pairs
+        self.pair_start = np.searchsorted(
+            self.pair_id, np.arange(self.n_pairs + 1)).astype(np.int32)
+        self._device_tensors: dict = {}
+        self._setup_plain_blocks()
+
+    def _setup_plain_blocks(self):
+        """Parity-blocked symmetric quartet sweep of the plain ERI version.
+
+        For molecules on the z axis a quartet vanishes unless its bra and
+        ket pairs have matching x and matching y Hermite parities, so the
+        primitive pairs are grouped into 4 parity classes and the sweep
+        visits class-diagonal, upper-triangular block pairs only
+        (tuna_tpu/ops/integrals.py:226-276)."""
+        parity_cls = (2 * ((self.l1[:, 0] + self.l2[:, 0]) & 1)
+                      + ((self.l1[:, 1] + self.l2[:, 1]) & 1))
+        npp = self.n_prim_pairs
+        class_idx = [np.where(parity_cls == k)[0] for k in range(4)]
+        lmax = self.lmax
+        per_quartet_bytes = 8 * ((4 * lmax + 1) * (4 * lmax + 1)
+                                 + 14 * (2 * lmax + 1))
+        T = int(np.sqrt(_PLAIN_BLOCK_BYTES / per_quartet_bytes))
+        max_class = max((len(ix) for ix in class_idx if len(ix)), default=1)
+        T = max(8, min(T, (max_class + 3) // 4))
+        blocks, block_pairs = [], []
+        for ix in class_idx:
+            if len(ix) == 0:
+                continue
+            nb = (len(ix) + T - 1) // T
+            padded = np.full(nb * T, npp, dtype=np.int64)  # npp = sentinel
+            padded[:len(ix)] = ix
+            base = len(blocks)
+            blocks.extend(padded.reshape(nb, T))
+            for bi in range(nb):
+                for bj in range(bi, nb):
+                    block_pairs.append((base + bi, base + bj))
+        self._plain_blocks = np.asarray(blocks, dtype=np.int64).reshape(-1, T)
+        self._plain_block_pairs = block_pairs
+
+    def tensors(self, device) -> dict:
+        """The plan's arrays as contiguous tensors on `device` (cached)."""
+        device = torch.device(device)
+        cached = self._device_tensors.get(device)
+        if cached is None:
+            def f64(x):
+                return torch.as_tensor(x, dtype=_F64, device=device).contiguous()
+
+            def i32(x):
+                return torch.as_tensor(x, dtype=torch.int32, device=device).contiguous()
+
+            cached = {
+                "a": f64(self.a), "b": f64(self.b), "coef": f64(self.coef),
+                "l1": i32(self.l1), "l2": i32(self.l2),
+                "atom1": i32(self.atom1), "atom2": i32(self.atom2),
+                "ao_i": i32(self.ao_i), "ao_j": i32(self.ao_j),
+                "pair_id": i32(self.pair_id), "pair_start": i32(self.pair_start),
+                "pair_index": torch.as_tensor(self.pair_index, dtype=torch.int64,
+                                              device=device),
+                "boys_eri": taylor_table(4 * self.lmax, device).contiguous(),
+                "boys_one_electron": taylor_table(2 * self.lmax, device).contiguous(),
+            }
+            self._device_tensors[device] = cached
+        return cached
+
+    # ------------------------------------------------------------------
+    # One-electron integrals: S, T, V_NE, D (3), Q (3)  [Cartesian basis]
+    # ------------------------------------------------------------------
+
+    def one_electron(self, coords, charges, dipole_origin_z):
+        """(S, T, V_NE, D, Q) for float64 coords (n_atoms, 3) and charges
+        (n_atoms,): the K3 kernel on a CUDA tensor, the plain version on a
+        CPU tensor."""
+        if coords.device.type == "cpu":
+            return self._one_electron_plain(coords, charges, dipole_origin_z)
+        if coords.device.type == "cuda":
+            return self._one_electron_kernel(coords, charges, dipole_origin_z)
+        raise ValueError(f"no one-electron integrals for device {coords.device}")
+
+    def _one_electron_kernel(self, coords, charges, dipole_origin_z):
+        self._check_kernel_lmax()
+        device = coords.device
+        N, n_atoms = self.n_basis, self.n_atoms
+        _kernels.check_tensor("coords", coords, (n_atoms, 3), _F64, device)
+        _kernels.check_tensor("charges", charges, (n_atoms,), _F64, device)
+        t = self.tensors(device)
+        out = torch.empty((9, N, N), dtype=_F64, device=device)
+        _kernels.launch(
+            "one_electron", "tuna_one_electron", device,
+            self.lmax, n_atoms, N, self.n_pairs,
+            coords.data_ptr(), charges.data_ptr(), t["a"].data_ptr(),
+            t["b"].data_ptr(), t["coef"].data_ptr(), t["l1"].data_ptr(),
+            t["l2"].data_ptr(), t["atom1"].data_ptr(), t["atom2"].data_ptr(),
+            t["ao_i"].data_ptr(), t["ao_j"].data_ptr(), t["pair_start"].data_ptr(),
+            t["boys_one_electron"].data_ptr(), float(dipole_origin_z), out.data_ptr())
+        return out[0], out[1], out[2], out[3:6], out[6:9]
+
+    def _one_electron_plain(self, coords, charges, dipole_origin_z):
+        t = self.tensors(coords.device)
+        lmax = self.lmax
+        A = coords[t["atom1"].long()]  # (Npp, 3)
+        B = coords[t["atom2"].long()]
+        a, b = t["a"], t["b"]
+        p = a + b
+        prefactor = t["coef"] * PI_POW_1_5 / (p * torch.sqrt(p))
+
+        # E tables per axis, up to l2 + 2 on the second index (kinetic and
+        # quadrupole raise the second function's angular momentum by 2).
+        tmax = 2 * lmax + 2
+        E_axes = []
+        for axis in range(3):
+            E = build_E_table(lmax, lmax + 2, A[:, axis] - B[:, axis], a, b)
+            E_axes.append(stack_E_table(E, lmax, lmax + 2, tmax))
+
+        l1, l2 = t["l1"].long(), t["l2"].long()
+        S_axis, T_axis, D_axis, Q_axis = [], [], [], []
+        P_coord = (a[:, None] * A + b[:, None] * B) / p[:, None]
+        origin = [0.0, 0.0, float(dipole_origin_z)]
+        for axis in range(3):
+            Etab = E_axes[axis]
+            l1x, l2x = l1[:, axis], l2[:, axis]
+            S0 = gather_E_scalar(Etab, l1x, l2x, 0)
+            E1 = gather_E_scalar(Etab, l1x, l2x, 1)
+            E2 = gather_E_scalar(Etab, l1x, l2x, 2)
+            S_plus2 = gather_E_scalar(Etab, l1x, l2x + 2, 0)
+            S_minus2 = torch.where(
+                l2x >= 2, gather_E_scalar(Etab, l1x, torch.clamp(l2x - 2, min=0), 0), 0.0)
+            Tx = ((2 * l2x + 1) * b * S0
+                  - 2.0 * b * b * S_plus2
+                  - 0.5 * (l2x * (l2x - 1)) * S_minus2)
+            Px = P_coord[:, axis] - origin[axis]
+            Dx = E1 + Px * S0
+            Qx = 2.0 * E2 + 2.0 * Px * E1 + (Px * Px + 0.5 / p) * S0
+            S_axis.append(S0)
+            T_axis.append(Tx)
+            D_axis.append(Dx)
+            Q_axis.append(Qx)
+
+        Sx, Sy, Sz = S_axis
+        s_val = prefactor * Sx * Sy * Sz
+        t_val = prefactor * (T_axis[0] * Sy * Sz + Sx * T_axis[1] * Sz + Sx * Sy * T_axis[2])
+        d_vals = [prefactor * D_axis[0] * Sy * Sz,
+                  prefactor * Sx * D_axis[1] * Sz,
+                  prefactor * Sx * Sy * D_axis[2]]
+        q_vals = [prefactor * Q_axis[0] * Sy * Sz,
+                  prefactor * Sx * Q_axis[1] * Sz,
+                  prefactor * Sx * Sy * Q_axis[2]]
+
+        # ---- nuclear attraction (z-axis Hermite table) -------------------
+        # Scaled form: each Hermite coefficient picks up (2p)^(t/2) for x/y
+        # and (2p)^v for z, matching Rt[v,n] = R[v,n]/(2p)^(n+v).
+        Ex = gather_E_row(E_axes[0], l1[:, 0], l2[:, 0])[:, :2 * lmax + 1]
+        Ey = gather_E_row(E_axes[1], l1[:, 1], l2[:, 1])[:, :2 * lmax + 1]
+        Ez = gather_E_row(E_axes[2], l1[:, 2], l2[:, 2])[:, :2 * lmax + 1]
+        half_powers = _powers(torch.sqrt(2.0 * p), 2 * lmax)
+        full_powers = half_powers * half_powers
+        Ex_s = Ex * half_powers
+        Ey_s = Ey * half_powers
+        Ez_s = Ez * full_powers
+
+        mmax = lmax
+        vmax = 2 * lmax
+        nmax = 2 * lmax
+
+        v_total = torch.zeros_like(p)
+        for atom in range(self.n_atoms):
+            PCz = P_coord[:, 2] - coords[atom, 2]
+            Rz = build_scaled_Rz_table(vmax, nmax, PCz, p)  # (Npp, vmax+1, nmax+1)
+            ax = torch.stack([Ex_s[:, 2 * m] * _double_factorial(2 * m - 1)
+                              for m in range(mmax + 1)], dim=1)
+            ay = torch.stack([Ey_s[:, 2 * m] * _double_factorial(2 * m - 1)
+                              for m in range(mmax + 1)], dim=1)
+            axy = torch.zeros((p.shape[0], nmax + 1), dtype=p.dtype, device=p.device)
+            for m1 in range(mmax + 1):
+                for m2 in range(mmax + 1):
+                    axy[:, m1 + m2] += ax[:, m1] * ay[:, m2]
+            contrib = torch.einsum("bv,bn,bvn->b", Ez_s, axy, Rz[:, :2 * lmax + 1, :])
+            v_total = v_total - charges[atom] * contrib * 2.0 * math.pi / p
+
+        v_val = t["coef"] * v_total
+
+        # ---- scatter into matrices ---------------------------------------
+        ao_i, ao_j = t["ao_i"].long(), t["ao_j"].long()
+
+        def scatter(values):
+            M = torch.zeros((self.n_basis, self.n_basis), dtype=values.dtype,
+                            device=values.device)
+            M.index_put_((ao_i, ao_j), values, accumulate=True)
+            return M + torch.triu(M.T, diagonal=1)
+
+        S = scatter(s_val)
+        T = scatter(t_val)
+        V = scatter(v_val)
+        D = torch.stack([scatter(v) for v in d_vals])
+        Q = torch.stack([scatter(v) for v in q_vals])
+        return S, T, V, D, Q
+
+    # ------------------------------------------------------------------
+    # Electron repulsion integrals  [Cartesian basis]
+    # ------------------------------------------------------------------
+
+    def eri(self, coords):
+        """The dense (N, N, N, N) chemists' ERI tensor (ij|kl)."""
+        packed = self.eri_pair_packed(coords)
+        pidx = self.tensors(coords.device)["pair_index"]
+        return packed[pidx[:, :, None, None], pidx[None, None, :, :]]
+
+    def eri_pair_packed(self, coords):
+        """Packed (n_pairs, n_pairs) matrix, element (pair_ij, pair_kl) =
+        (ij|kl): the K1 kernel on a CUDA tensor, the plain version on a CPU
+        tensor."""
+        if coords.device.type == "cpu":
+            return self._eri_packed_plain(coords)
+        if coords.device.type == "cuda":
+            return self._eri_packed_kernel(coords)
+        raise ValueError(f"no electron repulsion integrals for device {coords.device}")
+
+    def _check_kernel_lmax(self):
+        if self.lmax > KERNEL_MAX_LMAX:
+            raise NotImplementedError(
+                f"the CUDA integral kernels are instantiated up to lmax = "
+                f"{KERNEL_MAX_LMAX}; this basis has lmax = {self.lmax}")
+
+    def _eri_packed_kernel(self, coords):
+        self._check_kernel_lmax()
+        device = coords.device
+        _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
+        t = self.tensors(device)
+        row_size = 3 * (2 * self.lmax + 1) + 3
+        rows = torch.empty((self.n_prim_pairs, row_size), dtype=_F64, device=device)
+        packed = torch.empty((self.n_pairs, self.n_pairs), dtype=_F64, device=device)
+        _kernels.launch(
+            "eri_packed", "tuna_eri_packed", device,
+            self.lmax, self.n_atoms, self.n_pairs, self.n_prim_pairs,
+            coords.data_ptr(), t["a"].data_ptr(), t["b"].data_ptr(),
+            t["coef"].data_ptr(), t["l1"].data_ptr(), t["l2"].data_ptr(),
+            t["atom1"].data_ptr(), t["atom2"].data_ptr(), t["pair_start"].data_ptr(),
+            t["boys_eri"].data_ptr(), rows.data_ptr(), packed.data_ptr())
+        return packed
+
+    def _pair_data(self, coords):
+        """Per-primitive-pair scaled Hermite vectors for the ERI sweep."""
+        t = self.tensors(coords.device)
+        lmax = self.lmax
+        tmax = 2 * lmax
+        A = coords[t["atom1"].long()]
+        B = coords[t["atom2"].long()]
+        a, b = t["a"], t["b"]
+        p = a + b
+        Pz = (a * A[:, 2] + b * B[:, 2]) / p
+
+        hs = []
+        for axis in range(3):
+            E = build_E_table(lmax, lmax, A[:, axis] - B[:, axis], a, b)
+            Etab = stack_E_table(E, lmax, lmax, tmax)
+            hs.append(gather_E_row(Etab, t["l1"][:, axis].long(), t["l2"][:, axis].long()))
+
+        half_powers = _powers(torch.sqrt(2.0 * p), tmax)
+        full_powers = half_powers * half_powers
+        return hs[0] * half_powers, hs[1] * half_powers, hs[2] * full_powers, p, Pz
+
+    def _eri_packed_plain(self, coords):
+        """The parity-blocked symmetric quartet sweep in plain torch: each
+        unordered primitive quartet once, its value added to both packed
+        positions."""
+        device = coords.device
+        t = self.tensors(device)
+        lmax = self.lmax
+        tmax = 2 * lmax          # max Hermite order per pair per axis
+        vmax4 = 2 * tmax         # total z Hermite order per quartet
+        nmax4 = 4 * lmax         # Boys order cap per quartet
+
+        hx, hy, hz, p, Pz = self._pair_data(coords)
+        sign = torch.tensor([(-1.0) ** k for k in range(tmax + 1)], dtype=_F64,
+                            device=device)
+
+        # One sentinel row (index npp) backs block padding: the zero
+        # coefficient kills its contributions, p = 1 keeps alpha finite.
+        def ext(x, fill=0.0):
+            return torch.cat([x, torch.full((1,) + x.shape[1:], fill, dtype=x.dtype,
+                                            device=device)])
+
+        data = {"hx": ext(hx), "hy": ext(hy), "hz": ext(hz), "p": ext(p, 1.0),
+                "Pz": ext(Pz), "coef": ext(t["coef"]),
+                "pid": ext(t["pair_id"].long(), 0)}
+
+        # t + u -> T coupling, and the x/y pairing of even orders T = 2 m1,
+        # U = 2 m2 into n = m1 + m2 with the (T-1)!! (U-1)!! weights
+        n2t = 2 * tmax
+        conv = np.zeros((tmax + 1, tmax + 1, n2t + 1))
+        for k1 in range(tmax + 1):
+            for k2 in range(tmax + 1):
+                conv[k1, k2, k1 + k2] = 1.0
+        pair_xy = np.zeros((n2t + 1, n2t + 1, nmax4 + 1))
+        for T in range(0, n2t + 1, 2):
+            for U in range(0, n2t + 1, 2):
+                if T // 2 + U // 2 <= nmax4:
+                    pair_xy[T, U, T // 2 + U // 2] = (_double_factorial(T - 1)
+                                                      * _double_factorial(U - 1))
+        vn_mask = np.array([[1.0 if n <= nmax4 - V else 0.0 for n in range(nmax4 + 1)]
+                            for V in range(vmax4 + 1)])
+        conv = torch.as_tensor(conv, dtype=_F64, device=device)
+        pair_xy = torch.as_tensor(pair_xy, dtype=_F64, device=device)
+        vn_mask = torch.as_tensor(vn_mask, dtype=_F64, device=device)
+
+        def block_values(rows, cols):
+            p12 = data["p"][rows][:, None]
+            q34 = data["p"][cols][None, :]
+            psum = p12 + q34
+            alpha = p12 * q34 / psum
+            PQz = data["Pz"][rows][:, None] - data["Pz"][cols][None, :]
+            r12_half = _powers(torch.sqrt(q34 / psum), tmax)
+            r34_half = _powers(torch.sqrt(p12 / psum), tmax)
+            G = []
+            for key, r12, r34 in (("hx", r12_half, r34_half), ("hy", r12_half, r34_half),
+                                  ("hz", r12_half * r12_half, r34_half * r34_half)):
+                g12 = data[key][rows][:, None, :] * r12
+                g34 = (data[key][cols] * sign)[None, :, :] * r34
+                G.append(torch.einsum("rct,rcu,tuT->rcT", g12, g34, conv))
+            Gx, Gy, Gz = G
+            axy = torch.einsum("rcT,rcU,TUn->rcn", Gx, Gy, pair_xy)
+            Rz = build_scaled_Rz_table(vmax4, nmax4, PQz.reshape(-1), alpha.reshape(-1))
+            Rz = Rz.reshape(PQz.shape + (vmax4 + 1, nmax4 + 1)) * vn_mask
+            total = torch.einsum("rcv,rcvn,rcn->rc", Gz, Rz, axy)
+            pref = TWO_PI_POW_2_5 / (p12 * q34 * torch.sqrt(psum))
+            return data["coef"][rows][:, None] * data["coef"][cols][None, :] * pref * total
+
+        blocks = torch.as_tensor(self._plain_blocks, device=device)
+        packed = torch.zeros((self.n_pairs, self.n_pairs), dtype=_F64, device=device)
+        for bl, br in self._plain_block_pairs:
+            rows, cols = blocks[bl], blocks[br]
+            v = block_values(rows, cols)
+            upper = cols[None, :] >= rows[:, None]
+            strict = cols[None, :] > rows[:, None]
+            pid_r, pid_c = data["pid"][rows][:, None], data["pid"][cols][None, :]
+            packed.index_put_((pid_r, pid_c), torch.where(upper, v, 0.0), accumulate=True)
+            packed.index_put_((pid_c, pid_r), torch.where(strict, v, 0.0), accumulate=True)
+        return packed
+
+
+def cross_overlap(basis_functions_1, basis_functions_2) -> np.ndarray:
+    """Overlap matrix between two basis sets, on the host (used for guesses).
+
+    Mirrors tuna_integral.pyx:626-768 and tuna_tpu's cross_overlap."""
+    lmax1 = max(bf.l_total for bf in basis_functions_1)
+    lmax2 = max(bf.l_total for bf in basis_functions_2)
+
+    rows_i, rows_j, a_l, b_l, coef_l, l1_l, l2_l, A_l, B_l = [], [], [], [], [], [], [], [], []
+    for i, bi in enumerate(basis_functions_1):
+        for j, bj in enumerate(basis_functions_2):
+            for k in range(bi.num_exps):
+                for l in range(bj.num_exps):
+                    rows_i.append(i)
+                    rows_j.append(j)
+                    a_l.append(bi.exps[k])
+                    b_l.append(bj.exps[l])
+                    coef_l.append(bi.coefs[k] * bi.norms[k] * bj.coefs[l] * bj.norms[l])
+                    l1_l.append(bi.lmn)
+                    l2_l.append(bj.lmn)
+                    A_l.append(bi.origin)
+                    B_l.append(bj.origin)
+
+    a = torch.tensor(a_l, dtype=_F64)
+    b = torch.tensor(b_l, dtype=_F64)
+    coef = torch.tensor(coef_l, dtype=_F64)
+    l1 = torch.tensor(l1_l, dtype=torch.int64)
+    l2 = torch.tensor(l2_l, dtype=torch.int64)
+    A = torch.tensor(np.array(A_l), dtype=_F64)
+    B = torch.tensor(np.array(B_l), dtype=_F64)
+
+    p = a + b
+    s = coef * PI_POW_1_5 / (p * torch.sqrt(p))
+    for axis in range(3):
+        E = build_E_table(lmax1, lmax2, A[:, axis] - B[:, axis], a, b)
+        Etab = stack_E_table(E, lmax1, lmax2, lmax1 + lmax2)
+        s = s * gather_E_scalar(Etab, l1[:, axis], l2[:, axis], 0)
+
+    S = torch.zeros((len(basis_functions_1), len(basis_functions_2)), dtype=_F64)
+    S.index_put_((torch.tensor(rows_i), torch.tensor(rows_j)), s, accumulate=True)
+    return S.numpy()
