@@ -138,5 +138,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _kernels.build()
     assert set(_kernels.SIGNATURES) == {"tuna_eri_packed", "tuna_one_electron",
-                                        "tuna_ccsd_t_energy"}
-    assert set(_kernels.launches) == {"eri_packed", "one_electron", "ccsd_t_energy"}
+                                        "tuna_ccsd_t_energy", "tuna_ao_on_grid",
+                                        "tuna_density_on_grid", "tuna_vv10_energy"}
+    assert set(_kernels.launches) == {"eri_packed", "one_electron", "ccsd_t_energy",
+                                      "ao_on_grid", "density_on_grid", "vv10_energy"}

@@ -44,3 +44,30 @@ def test_unported_calculations_raise():
         run("OPT : H H 0.74 : HF STO-3G", suppress_output=True, device="cpu")
     with pytest.raises(TunaError, match="not yet ported"):
         run("SPE : H H 0.74 : UHF STO-3G", suppress_output=True, device="cpu")
+
+
+@pytest.mark.parametrize("spread", [1.0, 1e-7])
+def test_diis_solve_matches_tuna_tpu(spread):
+    """The bordered DIIS system, well conditioned and nearly singular (error
+    vectors that differ by `spread`): the same Gauss-Jordan arithmetic
+    gives tuna_tpu's coefficients and its ok flag."""
+    import jax.numpy as jnp
+
+    from tuna_tpu.ops.linalg import solve_linear_small as jax_solve
+    from tuna_tpu_torch.ops.linalg import solve_linear_small
+
+    rng = np.random.default_rng(3)
+    base = rng.standard_normal(40)
+    errors = base + spread * rng.standard_normal((6, 40))
+    n = errors.shape[0]
+    B = errors @ errors.T
+    A = np.zeros((n + 1, n + 1))
+    A[:n, :n] = B / np.max(np.abs(B))
+    A[:n, n] = A[n, :n] = -1.0
+    b = np.zeros(n + 1)
+    b[n] = -1.0
+    x, ok = solve_linear_small(torch.as_tensor(A), torch.as_tensor(b))
+    x_ref, ok_ref = jax_solve(jnp.asarray(A), jnp.asarray(b))
+    assert ok == bool(ok_ref)
+    np.testing.assert_allclose(x.numpy(), np.asarray(x_ref), rtol=1e-12,
+                               atol=1e-12 * float(np.max(np.abs(np.asarray(x_ref)))))

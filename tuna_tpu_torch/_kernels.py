@@ -10,7 +10,7 @@ every module of the package on a machine with no `nvcc` and no GPU.
 Each C entry point launches on the stream it is given, allocates nothing and
 returns the `cudaError_t` of its launch; `launch()` raises on a non-zero
 code.  `launches` counts, per kernel, the launches of the CUDA path only
-(the wrappers in ops/ and post/ call `launch`, never on the CPU path).
+(the wrappers in ops/, post/ and dft/ call `launch`, never on the CPU path).
 """
 
 from __future__ import annotations
@@ -44,10 +44,19 @@ SIGNATURES = {
     "tuna_one_electron": [_I, _I, _I, _I] + [_P] * 13 + [_D, _P] + [_P],
     # no, nv, g_oovv, g_ovvv, g_oovo, t1, t2, eps_o, eps_v, v_scale, partial
     "tuna_ccsd_t_energy": [_I, _I] + [_P] * 7 + [_D, _P] + [_P],
+    # n_ao, n_points, with_gradients, points, origin, lmn, prim_start, exps,
+    # coefs, values (out), gradients (out)
+    "tuna_ao_on_grid": [_I, _I, _I] + [_P] * 8 + [_P],
+    # n_ao, n_points, with_gradients, P, phi, grads, density, gradient
+    "tuna_density_on_grid": [_I, _I, _I] + [_P] * 5 + [_P],
+    # n_points, n_slices, slice_size, points, omega, kappa, weighted
+    # density, beta, partial
+    "tuna_vv10_energy": [_I, _I, _I] + [_P] * 4 + [_D, _P] + [_P],
 }
 
 # Launches of each kernel's CUDA path since the last reset.
-launches = {"eri_packed": 0, "one_electron": 0, "ccsd_t_energy": 0}
+launches = {"eri_packed": 0, "one_electron": 0, "ccsd_t_energy": 0,
+            "ao_on_grid": 0, "density_on_grid": 0, "vv10_energy": 0}
 
 _lock = threading.Lock()
 _library = None

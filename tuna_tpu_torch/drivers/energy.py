@@ -1,9 +1,9 @@
-"""Single-point energy pipeline: molecule + integrals + guess -> SCF ->
-post-SCF correlation.
+"""Single-point energy pipeline: molecule + integrals + guess (+ DFT grid)
+-> SCF -> VV10 -> post-SCF correlation.
 
 Twin of the single-point path of tuna_tpu/drivers/energy.py.  Every tensor
 lives on the `device` the caller names; the minimal-basis guess SCF runs on
-the same device.
+the same device, with its own grid when the calculation is DFT or VV10.
 """
 
 from __future__ import annotations
@@ -11,6 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..dft import make_xc_closure, unported_functional
+from ..dft import grid as dft_grid
+from ..dft import vv10
 from ..output import error, log, timer
 from ..scf import clean_density_matrix, run_self_consistent_field
 from ..scf import guess as guess_mod
@@ -23,8 +26,12 @@ _F64 = torch.float64
 
 def _refuse_unported(calculation, do_correlation):
     """Raise for the options of this pipeline that the port lacks so far."""
+    dft = calculation.DFT_calculation
+    missing_functional = unported_functional(calculation) if dft else None
     unported = [
-        (calculation.DFT_calculation or calculation.VV10, "density functional theory"),
+        (dft and calculation.method.unrestricted, "unrestricted Kohn-Sham"),
+        (dft and calculation.MPC_prop != 0, "double-hybrid functionals (they need MP2)"),
+        (missing_functional is not None, missing_functional or ""),
         (getattr(calculation, "direct_scf", False), 'the "DIRECT" keyword'),
         (getattr(calculation, "read_checkpoint", False)
          or getattr(calculation, "checkpoint", False), "checkpoints"),
@@ -115,7 +122,15 @@ def build_molecule_and_integrals(calculation, atomic_symbols, coordinates, silen
     P_guess, P_guess_alpha, P_guess_beta = enforce_density_matrix_trace(
         P_guess_alpha, P_guess_beta, integrals.S, molecule.n_alpha, molecule.n_beta)
     guess_container = (P_guess, P_guess_alpha, P_guess_beta, E_guess)
-    return molecule, integrals, guess_container, X, V_NN, E_dispersion
+
+    # DFT integration grid
+    if calculation.DFT_calculation or calculation.VV10:
+        grid_container = dft_grid.set_up_integration_grid(
+            molecule, P_guess_alpha, P_guess_beta, calculation, silent, device)
+    else:
+        grid_container = (None, None, None, None)
+
+    return molecule, integrals, guess_container, grid_container, X, V_NN, E_dispersion
 
 
 def calculate_energy(calculation, atomic_symbols, coordinates, P_guess=None,
@@ -128,7 +143,7 @@ def calculate_energy(calculation, atomic_symbols, coordinates, P_guess=None,
     guess_container = (P_guess, P_guess_alpha, P_guess_beta, E_guess)
     coordinates = common.clean_coordinates(coordinates)
 
-    (molecule, integrals, guess_container, X, V_NN,
+    (molecule, integrals, guess_container, grid_container, X, V_NN,
      E_dispersion) = build_molecule_and_integrals(
         calculation, atomic_symbols, coordinates, silent, guess_container,
         do_correlation, device, integrals=integrals)
@@ -141,16 +156,24 @@ def calculate_energy(calculation, atomic_symbols, coordinates, P_guess=None,
                    if np.linalg.norm(calculation.electric_field_gradient) > 0
                    else torch.zeros_like(integrals.S))
 
+    xc_closure = (make_xc_closure(calculation, grid_container)
+                  if calculation.DFT_calculation else None)
+
     SCF_output = run_self_consistent_field(
-        molecule, calculation, integrals, V_NN, X, guess_container, silent)
+        molecule, calculation, integrals, V_NN, X, guess_container, silent,
+        xc_closure=xc_closure)
 
     if not do_correlation:
         return SCF_output, molecule, SCF_output.energy, SCF_output.P
 
+    if calculation.VV10 or calculation.method.name == "B97M-V":
+        E_dispersion = vv10.calculate_VV10_energy(SCF_output.P, grid_container,
+                                                  calculation, silent)
     SCF_output.set_dispersion_energy(E_dispersion)
 
     final_energy, P = run_post_SCF_energy_calculation(
-        molecule, integrals, SCF_output, calculation, X, V_NN, silent, terse)
+        molecule, integrals, SCF_output, grid_container, calculation, X, V_NN, silent,
+        terse)
     return SCF_output, molecule, final_energy, P
 
 

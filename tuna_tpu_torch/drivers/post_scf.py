@@ -1,39 +1,49 @@
-"""Post-SCF dispatcher: energy components, restricted coupled cluster,
-energy summation and property printing.
+"""Post-SCF dispatcher: energy components, the integrated density of a
+Kohn-Sham run, restricted coupled cluster, energy summation and property
+printing.
 
-Twin of the Hartree-Fock and restricted coupled-cluster branches of
-tuna_tpu/drivers/post_scf.py (reference: tuna_kernel.py:1076-1323).  The
-host-side printing code (`props.py`, numpy) receives host copies of the
-device tensors.
+Twin of the Hartree-Fock, restricted Kohn-Sham and restricted
+coupled-cluster branches of tuna_tpu/drivers/post_scf.py (reference:
+tuna_kernel.py:1076-1323).  The host-side printing code (`props.py`, numpy)
+receives host copies of the device tensors.
 """
 
 from __future__ import annotations
 
 from .. import props
 from ..containers import to_numpy
+from ..dft import grid as dft_grid
 from ..output import error, log
 
 
 def _print_scf_energy(final_energy, reference, method, calculation, silent):
+    space = " " * max(0, 8 - len(method.name))
     if reference == "RHF" and not calculation.DFT_calculation:
         log("\n Restricted Hartree-Fock energy:   " + f"{final_energy:16.10f}",
             calculation, 1, silent=silent)
-    else:
+    elif reference == "UHF" and not calculation.DFT_calculation:
         log("\n Unrestricted Hartree-Fock energy: " + f"{final_energy:16.10f}",
+            calculation, 1, silent=silent)
+    elif reference == "RHF":
+        log(f"\n Restricted {method.name} energy: {space}      " + f"{final_energy:16.10f}",
+            calculation, 1, silent=silent)
+    else:
+        log(f"\n Unrestricted {method.name} energy: {space}    " + f"{final_energy:16.10f}",
             calculation, 1, silent=silent)
 
 
-def run_post_SCF_energy_calculation(molecule, integrals, SCF_output, calculation, X, V_NN,
-                                    silent, terse):
+def run_post_SCF_energy_calculation(molecule, integrals, SCF_output, grid_container,
+                                    calculation, X, V_NN, silent, terse):
     reference = calculation.reference
     method = calculation.method
+    _, weights, _, _ = grid_container
 
     if (calculation.stability_analysis or method.perturbative_method
             or calculation.MPC_prop != 0 or method.excited_state_method
             or calculation.time_dependent or calculation.plot_something):
         error(f"The {method.name} method and these keywords are not yet ported to "
               "tuna_tpu_torch!")
-    if method.method_base not in ("HF", "CC"):
+    if method.method_base not in ("HF", "DFT", "CC"):
         error(f"The {method.name} method is not yet ported to tuna_tpu_torch!")
 
     P = SCF_output.P
@@ -48,6 +58,11 @@ def run_post_SCF_energy_calculation(molecule, integrals, SCF_output, calculation
     SCF_output.Q = integrals.Q
 
     props.print_energy_components(SCF_output, V_NN, calculation, silent=silent)
+
+    if calculation.DFT_calculation:
+        dft_grid.integrate_final_density(
+            SCF_output.alpha_density, SCF_output.beta_density, SCF_output.density,
+            weights, calculation, silent)
 
     if method.method_base == "CC":
         from ..post import cc

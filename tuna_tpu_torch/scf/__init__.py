@@ -1,11 +1,12 @@
-"""Self-consistent field engine, restricted Hartree-Fock.
+"""Self-consistent field engine, restricted Hartree-Fock and Kohn-Sham.
 
 Twin of tuna_tpu/scf/__init__.py with the same iteration semantics: Fock
-build from the stored ERI, commutator DIIS, Zerner-Hehenberger dynamic
+build from the stored ERI plus, for Kohn-Sham, the XC matrix of the density
+at the start of the iteration; commutator DIIS, Zerner-Hehenberger dynamic
 damping, four-condition convergence, and the energy of the fresh density
-against the previous iteration's J/K (tuna_scf.py:1137-1141).  A Python
-loop on the device takes the place of the jitted while_loop; it prints each
-iteration as it completes and records its wall time.
+against the previous iteration's J/K and XC terms (tuna_scf.py:1137-1141).
+A Python loop on the device takes the place of the jitted while_loop; it
+prints each iteration as it completes and records its wall time.
 """
 
 from __future__ import annotations
@@ -152,17 +153,19 @@ def _diis_extrapolate(focks, errors):
     return ok, torch.einsum("m,mij->ij", coeffs, torch.stack(focks))
 
 
-def _electronic_energy(P_a, P_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G, HFX_prop):
+def _electronic_energy(P_a, P_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G, HFX_prop,
+                       E_x_grid=0.0, E_c_grid=0.0):
     """Restricted energy and its components (kinetic, nuclear-electron,
-    Coulomb, exchange, correlation, field, field gradient)."""
+    Coulomb, exchange, correlation, field, field gradient); E_x_grid and
+    E_c_grid are the XC energies on the grid."""
     P = P_a + P_b
     kinetic = torch.sum(P * T)
     nuclear_electron = torch.sum(P * V_NE)
     field = torch.sum(P * Fld)
     field_gradient = torch.sum(P * G)
     coulomb = 0.5 * torch.sum(P * (J_a + J_b))
-    exchange = -0.25 * torch.sum(P * (K_a + K_b)) * HFX_prop
-    correlation = torch.zeros_like(kinetic)
+    exchange = -0.25 * torch.sum(P * (K_a + K_b)) * HFX_prop + E_x_grid
+    correlation = torch.zeros_like(kinetic) + E_c_grid
     total = kinetic + nuclear_electron + coulomb + exchange + correlation + field + field_gradient
     components = torch.stack([kinetic, nuclear_electron, coulomb, exchange,
                               correlation, field, field_gradient])
@@ -170,12 +173,15 @@ def _electronic_energy(P_a, P_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G, HFX_prop):
 
 
 def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
-                   HFX_prop, conv, static_damping, max_damping, on_iteration):
+                   HFX_prop, conv, static_damping, max_damping, on_iteration,
+                   xc_closure=None, DFX_prop=0.0, DFC_prop=0.0):
     """The restricted SCF iteration until convergence or max_iter.
 
-    on_iteration(step, [E, dE, rmsDP, maxDP, commutator, damping], seconds)
-    is called after each iteration.  Returns (n_steps, converged, E, P_a,
-    outputs of the last iteration)."""
+    xc_closure(P_a, P_b, DFX, DFC) -> (V_XC_a, V_XC_b, E_x_grid,
+    E_c_grid, density, alpha_density, beta_density), or None for
+    Hartree-Fock.  on_iteration(step, [E, dE, rmsDP, maxDP, commutator,
+    damping], seconds) is called after each iteration.  Returns (n_steps,
+    converged, E, P_a, outputs of the last iteration)."""
     N = settings.n_basis
     zeros = torch.zeros((N, N), dtype=T.dtype, device=T.device)
     E = torch.as_tensor(E0, dtype=T.dtype, device=T.device)
@@ -188,8 +194,15 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
     while step <= settings.max_iter and not converged:
         start = time.perf_counter()
         P = 2.0 * P_a
+        # XC of the density at the start of the iteration (the "old" density)
+        if xc_closure is not None:
+            V_XC, _, E_x_grid, E_c_grid, density, dens_a, dens_b = xc_closure(
+                P_a, P_a, DFX_prop, DFC_prop)
+        else:
+            V_XC, E_x_grid, E_c_grid = 0.0, 0.0, 0.0
+            density = dens_a = dens_b = None
         J_a, K_a = coulomb_matrix(P_a, ERI), exchange_matrix(P_a, ERI)
-        F_a = symmetrise(T + V_NE + Fld + G + 2.0 * J_a - K_a * HFX_prop)
+        F_a = symmetrise(T + V_NE + Fld + G + 2.0 * J_a - K_a * HFX_prop + V_XC)
 
         # DIIS error from pre-diagonalisation Fock and density
         commutator, err_a = _diis_error(F_a, P_a, S, X)
@@ -203,8 +216,10 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
         P_new = density_matrix(mos_a, settings.n_alpha, 2) / 2.0
 
         # Energy: fresh density against this iteration's (old density's) J/K
+        # and XC energies
         E_new, components = _electronic_energy(P_new, P_new, J_a, J_a, K_a, K_a,
-                                               T, V_NE, Fld, G, HFX_prop)
+                                               T, V_NE, Fld, G, HFX_prop,
+                                               E_x_grid, E_c_grid)
 
         if settings.use_diis and step > 2 and float(commutator) < 0.3:
             ok, F_x = _diis_extrapolate(focks, errors)
@@ -226,7 +241,8 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
         stats = torch.stack([E_new, delta_E, rms_DP, max_DP, commutator, damping]).tolist()
         converged = (abs(stats[1]) < conv["delta_E"] and stats[3] < conv["max_DP"]
                      and stats[2] < conv["RMS_DP"] and stats[4] < conv["commutator"])
-        outs = {"mos_a": mos_a, "eps_a": eps_a, "F_a": F_a, "components": components}
+        outs = {"mos_a": mos_a, "eps_a": eps_a, "F_a": F_a, "components": components,
+                "density": density, "dens_a": dens_a, "dens_b": dens_b}
         on_iteration(step, stats, time.perf_counter() - start)
 
         E = E_new
@@ -241,8 +257,9 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
 # ---------------------------------------------------------------------------
 
 def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
-                              X, guess_objects, silent=False) -> Output:
-    """Run the SCF loop and assemble the Output container."""
+                              X, guess_objects, silent=False, xc_closure=None) -> Output:
+    """Run the SCF loop and assemble the Output container; xc_closure (see
+    run_scf_cycles) makes it Kohn-Sham."""
     timer("Self-consistent field", 0)
     P, P_alpha, P_beta, E_guess = guess_objects
     if calculation.reference != "RHF":
@@ -287,7 +304,8 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
     n_steps, converged, E, P_a, outs = run_scf_cycles(
         settings, integrals.T, integrals.V_NE, integrals.ERI_AO, integrals.S, X, Fld, G,
         P_alpha, E_guess, calculation.HFX_prop, calculation.SCF_conv, static_damping,
-        calculation.max_damping, on_iteration)
+        calculation.max_damping, on_iteration, xc_closure, calculation.DFX_prop,
+        calculation.DFC_prop)
 
     if not converged:
         error(f"Self-consistent field not converged in {calculation.max_iter} "
@@ -310,7 +328,8 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
         molecular_orbitals=mos, molecular_orbitals_alpha=mos,
         molecular_orbitals_beta=mos,
         epsilons=eps, epsilons_alpha=eps, epsilons_beta=eps,
-        density=None, alpha_density=None, beta_density=None,
+        density=outs["density"], alpha_density=outs["dens_a"],
+        beta_density=outs["dens_b"],
         F_alpha=F_half, F_beta=F_half, T=integrals.T, V_NE=integrals.V_NE,
         integrals=integrals, iteration_seconds=iteration_seconds,
     )
