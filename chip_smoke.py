@@ -20,7 +20,17 @@ non-zero without printing a result):
      with its SCF iteration count, and its profile;
   6. DFT kernels: K7a, K7b and K6 against their plain versions at the DFT
      path's shapes (N2/cc-pVTZ on the medium grid; K6 on the active points
-     of the converged density of phase 5).
+     of the converged density of phase 5);
+  7. DIRECT kernels: K4 (the direct Fock build) against its plain version at
+     N2/cc-pVTZ and N2/6-311G with a seeded density-like P, and against a
+     repeated call of itself (its atomics sum in no fixed order); K5 (the
+     packed half-transform) against its plain version at the DIRECT path's
+     shapes, both variants, and on 64 rows at the cc-pV6Z shape (N = 252,
+     n_mo = 182), where it runs in panels; K2 again at o = 7, v = 53;
+  8. DIRECT path: `SPE : N N 1.1 : CCSD[T] CC-PVTZ : DIRECT TIGHTSCF`, the
+     N^4 tensor never stored, held against tuna_tpu's energy and iteration
+     counts and against the port's stored twin (the same line without
+     DIRECT, run once), then its profile.
 
 Each path's launch counts are read from zero: the counts are reset just
 before the path runs and read just after, so launches made to compare a
@@ -28,9 +38,11 @@ kernel with its plain version do not count.  Each kernel's record carries
 `bound_ms`, the least time the card could take for the same work: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its float64 operations, counted from the kernel's loop body
-at this run's inputs, over 34 TFLOP/s (the H100 SXM data sheet's float64
-rate outside the tensor cores).  exp, sqrt and a division count as one
-operation each, so the bound is a lower bound.
+at this run's inputs, over the H100 SXM data sheet's float64 rates: 67
+TFLOP/s for the matrix products that the tensor cores can take (K5's two
+products, K7b's P^T phi, the contractions of (T)), 34 TFLOP/s for the
+rest.  exp, sqrt and a division count as one operation each, so the bound
+is a lower bound.
 
 A path's profile, printed as one `profile` JSON line, comes from
 WARM_RUNS more runs after the counted one (host clock, each ending in a
@@ -45,10 +57,11 @@ The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
 --compare times the coupled-cluster path alone, WARM_RUNS warm runs after a
-cold one, with the tuna_tpu_torch of each ROOT in turn (each in its own
-interpreter, building its own kernels), and prints one JSON line for each:
-two checkouts, say a parent commit and this one, compared on one card in
-one call (run them in the order A B B A).
+cold one, and then K1 alone at N2/cc-pVTZ (median of 10), with the
+tuna_tpu_torch of each ROOT in turn (each in its own interpreter, building
+its own kernels), and prints one JSON line for each: two checkouts, say a
+parent commit and this one, compared on one card in one call (run them in
+the order A B B A).
 """
 
 from __future__ import annotations
@@ -72,6 +85,7 @@ from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.constants import angstrom_to_bohr
 from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
+from tuna_tpu_torch.ops import motransform
 from tuna_tpu_torch.ops.integrals import IntegralPlan
 from tuna_tpu_torch.post import cc
 from tuna_tpu_torch.system import Molecule
@@ -89,16 +103,31 @@ LINE_DFT = "SPE : N N 1.1 : B3LYP CC-PVTZ : NL TIGHTSCF"
 # ("Self-consistent field converged in 11 cycles!" in its printout).
 E_REF_DFT = -109.43605607252006
 SCF_ITERATIONS_DFT = 11
+LINE_DIRECT = "SPE : N N 1.1 : CCSD[T] CC-PVTZ : DIRECT TIGHTSCF"
+LINE_DIRECT_STORED = "SPE : N N 1.1 : CCSD[T] CC-PVTZ : TIGHTSCF"
+# Total energy and SCF and CCSD iteration counts of LINE_DIRECT from the
+# reference package on the JAX CPU backend (~4 min there):
+#   env JAX_PLATFORMS=cpu python -c 'from tuna_tpu.cli import run; \
+#       print(repr(run("SPE : N N 1.1 : CCSD[T] CC-PVTZ : DIRECT TIGHTSCF")[2]))'
+# ("Self-consistent field converged in 14 cycles!" and 13 rows in the
+# coupled-cluster iteration table of its printout).
+E_REF_DIRECT = -109.39989748904053
+SCF_ITERATIONS_DIRECT = 14
+CC_ITERATIONS_DIRECT = 13
 E_TOLERANCE = 1e-8          # Ha, the BASELINE contract
+DIRECT_TOLERANCE = 1e-10    # Ha, DIRECT against the port's stored twin
 INTEGRAL_TOLERANCE = 1e-12  # absolute, kernel against plain version
 TRIPLES_TOLERANCE = 1e-12   # relative, kernel against plain version
 GRID_TOLERANCE = 1e-12      # absolute, AO values and density on the grid
 VV10_TOLERANCE = 1e-12      # relative, VV10 energy
+FOCK_TOLERANCE = 1e-12      # relative to the largest |entry| of J and of K
+TRANSFORM_TOLERANCE = 1e-12  # relative to the largest |entry| of the output
 
 WARM_RUNS = 9                  # warm runs of a path, for its profile and --compare
 
 BYTES_PER_MS = 3.35e12 / 1e3   # H100 SXM device memory
 FP64_PER_MS = 34e12 / 1e3      # float64 outside the tensor cores
+FP64_MMA_PER_MS = 67e12 / 1e3  # float64 matrix products on the tensor cores (DMMA)
 
 KERNELS = {
     "eri_packed": ("tuna_tpu_torch/csrc/eri.cu", "tuna_tpu/ops/integrals.py:470"),
@@ -107,10 +136,15 @@ KERNELS = {
     "ao_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu", "tuna_tpu/dft/grid.py:80"),
     "density_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu", "tuna_tpu/dft/grid.py:137"),
     "vv10_energy": ("tuna_tpu_torch/csrc/vv10.cu", "tuna_tpu/dft/vv10.py:26"),
+    "fock_direct": ("tuna_tpu_torch/csrc/fock_direct.cu", "tuna_tpu/ops/integrals.py:754"),
+    "mo_half_transform": ("tuna_tpu_torch/csrc/mo_transform.cu",
+                          "tuna_tpu/ops/motransform.py:51"),
 }
 CC_PATH_KERNELS = ("eri_packed", "one_electron", "ccsd_t_energy")
 DFT_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid",
                     "vv10_energy")
+DIRECT_PATH_KERNELS = ("eri_packed", "one_electron", "fock_direct", "mo_half_transform",
+                       "ccsd_t_energy")
 
 
 class SmokeFailure(RuntimeError):
@@ -184,6 +218,27 @@ def eri_operations(plan: IntegralPlan) -> float:
     return quartets * per_quartet
 
 
+def fock_direct_operations(plan: IntegralPlan) -> float:
+    """csrc/fock_direct.cu: the quartet values as in eri_operations, plus per
+    AO-pair quartet and orientation 3 operations for J and 2 for each K
+    term, (1 + [i != j]) (1 + [k != l]) of them; both orientations of the
+    unordered quartets sum to all ordered (P, Q) of one parity class."""
+    first = plan.pair_start[:-1]
+    parity = (2 * ((plan.l1[first, 0] + plan.l2[first, 0]) & 1)
+              + ((plan.l1[first, 1] + plan.l2[first, 1]) & 1))
+    w = 1.0 + (plan.pid_i != plan.pid_j)
+    jk = sum(3.0 * np.sum(parity == cls) ** 2 + 2.0 * np.sum(w[parity == cls]) ** 2
+             for cls in range(4))
+    return eri_operations(plan) + jk
+
+
+def half_transform_operations(n_rows: int, n: int, n_mo: int) -> float:
+    """csrc/mo_transform.cu: per row, T = W^T D (n_mo n^2 FMAs) and the
+    packed W^T-side product (n n_mo (n_mo + 1) / 2 FMAs), two operations
+    an FMA."""
+    return 2.0 * n_rows * (n_mo * n * n + n * n_mo * (n_mo + 1) / 2)
+
+
 def one_electron_operations(plan: IntegralPlan) -> float:
     """csrc/one_electron.cu: per primitive pair, three Hermite rows raised
     up to j + 2 (5 operations an entry), the S, T, D, Q terms and sums, the
@@ -199,11 +254,12 @@ def one_electron_operations(plan: IntegralPlan) -> float:
     return float(np.sum(per_pair) + plan.n_prim_pairs * plan.n_atoms * per_atom)
 
 
-def triples_operations(no: int, nv: int) -> float:
+def triples_ms(no: int, nv: int) -> float:
     """csrc/ccsd_t.cu: per (ijk, abc), six raw terms of nv + no
-    multiply-adds and the weighting, disconnected term, denominator and
-    accumulation."""
-    return float(no ** 3 * nv ** 3 * (12 * (no + nv) + 26))
+    multiply-adds (contractions, at the matrix-product rate) and the
+    weighting, disconnected term, denominator and accumulation (26)."""
+    n = float(no ** 3 * nv ** 3)
+    return n * 12 * (no + nv) / FP64_MMA_PER_MS + n * 26 / FP64_PER_MS
 
 
 def ao_on_grid_operations(basis: grid.GridBasis, n_points: int, with_gradients: bool) -> float:
@@ -219,12 +275,12 @@ def ao_on_grid_operations(basis: grid.GridBasis, n_points: int, with_gradients: 
     return float(n_points * np.sum(per_ao))
 
 
-def density_operations(n: int, n_points: int, with_gradients: bool) -> float:
+def density_ms(n: int, n_points: int, with_gradients: bool) -> float:
     """csrc/dft_grid.cu density_on_grid_kernel: per point, Y = P^T phi (2
-    n^2), rho (2 n) and with gradients three more dot products (6 n) and
-    their doubling (3)."""
-    per_point = 2.0 * n * n + 2.0 * n + ((6.0 * n + 3) if with_gradients else 0.0)
-    return n_points * per_point
+    n^2, a matrix product), rho (2 n) and with gradients three more dot
+    products (6 n) and their doubling (3)."""
+    rest = 2.0 * n + ((6.0 * n + 3) if with_gradients else 0.0)
+    return n_points * (2.0 * n * n / FP64_MMA_PER_MS + rest / FP64_PER_MS)
 
 
 # ---------------------------------------------------------------------------
@@ -265,15 +321,16 @@ def check_integrals(basis: str, device, record: dict) -> str:
     for name, err in (("one_electron", err_1e), ("eri_packed", err_eri)):
         entry = record.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    t = plan.tensors(device)
+    inputs = [coords, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"], t["atom2"],
+              t["pair_start"]]
+    eri_bound = bound(tensor_bytes(*inputs, t["boys_eri"]) + 8 * plan.n_pairs ** 2,
+                      eri_operations(plan) / FP64_PER_MS)
     if basis == "6-311G":
-        t = plan.tensors(device)
-        inputs = [coords, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"], t["atom2"],
-                  t["pair_start"]]
         N = plan.n_basis
         record["eri_packed"].update(
             ms=times["eri_packed"][0], plain_ms=times["eri_packed"][1], library_ms=None,
-            **bound(tensor_bytes(*inputs, t["boys_eri"]) + 8 * plan.n_pairs ** 2,
-                    eri_operations(plan) / FP64_PER_MS))
+            **eri_bound)
         record["one_electron"].update(
             ms=times["one_electron"][0], plain_ms=times["one_electron"][1], library_ms=None,
             **bound(tensor_bytes(*inputs, charges, t["ao_i"], t["ao_j"],
@@ -283,11 +340,13 @@ def check_integrals(basis: str, device, record: dict) -> str:
             f"{plan.n_prim_pairs} primitive pairs; one_electron max|diff| {err_1e:.3e} "
             f"({times['one_electron'][0]:.4f} ms vs plain {times['one_electron'][1]:.4f} ms); "
             f"eri_packed max|diff| {err_eri:.3e} "
-            f"({times['eri_packed'][0]:.4f} ms vs plain {times['eri_packed'][1]:.4f} ms)")
+            f"({times['eri_packed'][0]:.4f} ms vs plain {times['eri_packed'][1]:.4f} ms, "
+            f"bound {eri_bound['bound_ms']:.5f} ms by {eri_bound['bound_by']})")
 
 
-def check_triples(device, record: dict) -> str:
-    no, nv = 7, 19
+def check_triples(no: int, nv: int, device, record: dict) -> str:
+    """K2 against its plain version at o = no, v = nv; the record keeps the
+    largest error over the shapes checked and the times of the first."""
     rng = np.random.default_rng(7)
 
     def tensor(*shape, scale):
@@ -314,11 +373,14 @@ def check_triples(device, record: dict) -> str:
     require(err <= TRIPLES_TOLERANCE * abs(e_plain),
             f"(T) kernel off its plain version by {err:.3e} (relative {err / abs(e_plain):.3e})")
     ms, plain_ms = median_ms(kernel), median_ms(plain)
-    record["ccsd_t_energy"] = {
+    triples_bound = bound(tensor_bytes(*args) + 8 * nv ** 3, triples_ms(no, nv))
+    entry = record.setdefault("ccsd_t_energy", {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        **bound(tensor_bytes(*args) + 8 * nv ** 3, triples_operations(no, nv) / FP64_PER_MS)}
+        **triples_bound})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
     return (f"kernels (T): o {no}, v {nv}; E {e_kernel:.15e}, |diff| {err:.3e} "
-            f"(relative {err / abs(e_plain):.3e}); {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+            f"(relative {err / abs(e_plain):.3e}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+            f"bound {triples_bound['bound_ms']:.5f} ms by {triples_bound['bound_by']}")
 
 
 # ---------------------------------------------------------------------------
@@ -468,8 +530,7 @@ def check_dft_kernels(molecule, P_converged, device, record: dict) -> str:
     record["density_on_grid"] = {
         "max_abs_err": err_rho, "ms": median_ms(kernel_rho), "plain_ms": median_ms(plain_rho),
         "library_ms": median_ms(library_rho),
-        **bound(tensor_bytes(P, bfs, bf_grads, rho, grad_rho),
-                density_operations(n, G, True) / FP64_PER_MS)}
+        **bound(tensor_bytes(P, bfs, bf_grads, rho, grad_rho), density_ms(n, G, True))}
 
     # K6: the active points of the converged density of the DFT path
     density, gradient = grid.density_on_grid(P_converged, bfs, bf_grads)
@@ -507,6 +568,156 @@ def check_dft_kernels(molecule, P_converged, device, record: dict) -> str:
 
 
 # ---------------------------------------------------------------------------
+# Phases 7 and 8: K4 and K5 at the DIRECT path's shapes, the DIRECT path
+# ---------------------------------------------------------------------------
+
+def _relative(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
+def check_fock_direct(basis: str, device, record: dict) -> str:
+    molecule = diatomic("N", 1.1, basis)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
+    N = plan.n_basis
+    C = np.random.default_rng(13).standard_normal((N, 7)) / np.sqrt(N)
+    P = torch.as_tensor(C @ C.T, dtype=torch.float64, device=device)  # density-like
+
+    def kernel():
+        return plan.fock_direct(coords, P)
+
+    def plain():
+        return plan._fock_direct_plain(coords, P)
+
+    (J, K), (J2, K2), (J_p, K_p) = kernel(), kernel(), plain()
+    require(bool(torch.all(torch.isfinite(J)) and torch.all(torch.isfinite(K))),
+            f"{basis}: non-finite J or K")
+    err = max(_relative(J, J_p), _relative(K, K_p))
+    repeat = max(_relative(J2, J), _relative(K2, K))
+    torch.cuda.synchronize()
+    require(err <= FOCK_TOLERANCE, f"{basis}: fock_direct off its plain version by {err:.3e}")
+    require(repeat <= FOCK_TOLERANCE, f"{basis}: two fock_direct calls differ by {repeat:.3e}")
+    ms, plain_ms = median_ms(kernel), median_ms(plain, repeats=1)
+    entry = record.setdefault("fock_direct", {"max_abs_err": 0.0})
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               float(torch.max(torch.abs(J - J_p))),
+                               float(torch.max(torch.abs(K - K_p))))
+    if basis == "CC-PVTZ":
+        t = plan.tensors(device)
+        inputs = [coords, P, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"],
+                  t["atom2"], t["pair_start"], t["pid_i"], t["pid_j"], t["boys_eri"]]
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                     **bound(tensor_bytes(*inputs, J, K),
+                             fock_direct_operations(plan) / FP64_PER_MS))
+    return (f"kernels DIRECT {basis}: fock_direct relative max|diff| {err:.3e}, repeated "
+            f"call {repeat:.3e} ({ms:.4f} ms vs plain {plain_ms:.4f} ms)")
+
+
+def check_mo_transform(device, record: dict) -> str:
+    molecule = diatomic("N", 1.1, "CC-PVTZ")
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
+    G_pair = plan.eri_pair_packed(coords)
+    pair_index = plan.tensors(device)["pair_index"]
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    n_mo = U.shape[0]
+    rng = np.random.default_rng(17)
+
+    def coefficients():   # W = U^T C for a seeded C
+        C = torch.as_tensor(rng.standard_normal((n_mo, n_mo)) / np.sqrt(n_mo),
+                            dtype=torch.float64, device=device)
+        return (U.T @ C).contiguous()
+
+    W, W_left, W_right = coefficients(), coefficients(), coefficients()
+    tri = motransform.mo_pair_indices(n_mo)
+
+    def plain(G, W_l, W_r):
+        H = motransform._chunked_half_transform(G, pair_index, W_r, tri, 128)
+        return motransform._chunked_half_transform(H.T, pair_index, W_l, tri, 128)
+
+    def kernel():
+        return motransform.pair_packed_to_mo(G_pair, pair_index, W, n_mo)
+
+    def plain_same():
+        return plain(G_pair, W, W)
+
+    got, expected = kernel(), plain_same()
+    mixed = motransform.pair_packed_to_mo_mixed(G_pair, pair_index, W_left, W_right, n_mo)
+    mixed_expected = plain(G_pair, W_left, W_right).T
+    require(bool(torch.all(torch.isfinite(got))), "mo_half_transform: non-finite output")
+    err = max(_relative(got, expected), _relative(mixed, mixed_expected))
+
+    # the cc-pV6Z shape: 64 rows of a random packed symmetric matrix, read
+    # as rows and, transposed, as columns
+    N6, n_mo6, rows6 = 252, 182, 64
+    tril = np.tril_indices(N6)
+    pidx6 = np.zeros((N6, N6), dtype=np.int64)
+    pidx6[tril] = pidx6[tril[::-1]] = np.arange(len(tril[0]))
+    pidx6 = torch.as_tensor(pidx6, device=device)
+    M6 = torch.as_tensor(rng.random((rows6, len(tril[0]))), device=device)
+    W6 = torch.as_tensor(rng.standard_normal((N6, n_mo6)) / np.sqrt(N6), device=device)
+    expected6 = motransform._half_transform_plain(M6, pidx6, W6, motransform.mo_pair_indices(n_mo6))
+    err6 = max(_relative(motransform.half_transform(M6, pidx6, W6), expected6),
+               _relative(motransform.half_transform(M6.T.contiguous(), pidx6, W6,
+                                                    transposed=True), expected6))
+    torch.cuda.synchronize()
+    require(err <= TRANSFORM_TOLERANCE,
+            f"mo_half_transform off its plain version by {err:.3e} (relative)")
+    require(err6 <= TRANSFORM_TOLERANCE,
+            f"mo_half_transform at the cc-pV6Z shape off its plain version by {err6:.3e}")
+    ms, plain_ms = median_ms(kernel), median_ms(plain_same)
+    n_mo_pairs = n_mo * (n_mo + 1) // 2
+    N = plan.n_basis
+    H_bytes = 8 * plan.n_pairs * n_mo_pairs
+    record["mo_half_transform"] = {
+        "max_abs_err": max(float(torch.max(torch.abs(got - expected))),
+                           float(torch.max(torch.abs(mixed - mixed_expected)))),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        # two launches: G -> H, then H (read transposed) -> G_mo
+        **bound(tensor_bytes(G_pair, got) + 2 * H_bytes + 2 * tensor_bytes(W, pair_index),
+                (half_transform_operations(plan.n_pairs, N, n_mo)
+                 + half_transform_operations(n_mo_pairs, N, n_mo)) / FP64_MMA_PER_MS)}
+    return (f"kernels DIRECT: mo_half_transform N2/cc-pVTZ ({plan.n_pairs} AO pairs -> "
+            f"{n_mo_pairs} MO pairs, both phases) relative max|diff| {err:.3e} (mixed "
+            f"included), cc-pV6Z shape ({rows6} rows, N {N6}, n_mo {n_mo6}) {err6:.3e}; "
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
+
+
+def check_direct_path() -> dict:
+    """Phase 8: the DIRECT path against tuna_tpu and against the port's
+    stored twin, then its profile; returns the DIRECT run's launches."""
+    SCF_output, molecule, energy, P, wall, launches = drive(LINE_DIRECT, DIRECT_PATH_KERNELS)
+    require(SCF_output.integrals.ERI_AO is None, f"{LINE_DIRECT}: the ERI tensor was stored")
+    delta = energy - E_REF_DIRECT
+    scf_seconds = SCF_output.iteration_seconds
+    cc_seconds = SCF_output.correlation_iteration_seconds
+    require(abs(delta) <= E_TOLERANCE,
+            f"E_total {energy:.12f} is {delta:.3e} Ha from the reference {E_REF_DIRECT:.12f}")
+    require((len(scf_seconds), len(cc_seconds)) == (SCF_ITERATIONS_DIRECT, CC_ITERATIONS_DIRECT),
+            f"{len(scf_seconds)} SCF and {len(cc_seconds)} CCSD iterations, the reference "
+            f"takes {SCF_ITERATIONS_DIRECT} and {CC_ITERATIONS_DIRECT}")
+    print(f"end to end: {LINE_DIRECT}; E_total {energy!r}, E_total - E_ref {delta:.3e} Ha; "
+          f"SCF {len(scf_seconds)} iterations, median "
+          f"{statistics.median(scf_seconds) * 1e3:.3f} ms/iteration; CCSD {len(cc_seconds)} "
+          f"iterations, median {statistics.median(cc_seconds) * 1e3:.3f} ms/iteration; "
+          f"wall {wall:.3f} s; launches {launches}")
+    stored, _, stored_energy, _, stored_wall, _ = drive(LINE_DIRECT_STORED, CC_PATH_KERNELS)
+    require(stored.integrals.ERI_AO is not None, f"{LINE_DIRECT_STORED}: no stored tensor")
+    require(abs(energy - stored_energy) <= DIRECT_TOLERANCE,
+            f"DIRECT and stored differ by {energy - stored_energy:.3e} Ha")
+    require((len(stored.iteration_seconds), len(stored.correlation_iteration_seconds))
+            == (len(scf_seconds), len(cc_seconds)), "DIRECT and stored iteration counts differ")
+    print(f"stored twin: {LINE_DIRECT_STORED}; E_total {stored_energy!r}, E_DIRECT - E_stored "
+          f"{energy - stored_energy:.3e} Ha; SCF {len(stored.iteration_seconds)} iterations, "
+          f"median {statistics.median(stored.iteration_seconds) * 1e3:.3f} ms/iteration; "
+          f"CCSD median {statistics.median(stored.correlation_iteration_seconds) * 1e3:.3f} "
+          f"ms/iteration; wall {stored_wall:.3f} s")
+    print("profile: " + json.dumps(profile_path(LINE_DIRECT)))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # --compare: the coupled-cluster path's warm walls from another checkout
 # ---------------------------------------------------------------------------
 
@@ -529,12 +740,33 @@ for i in range(runs + 1):
         scf_ms.append(1e3 * statistics.median(out.iteration_seconds))
         cc_ms.append(1e3 * statistics.median(out.correlation_iteration_seconds))
 q1, _, q3 = statistics.quantiles(walls, n=4)
+# K1 alone at N2/cc-pVTZ, CUDA events, median of 10 after a warm-up
+import numpy as np
+from tuna_tpu_torch.config import Config
+from tuna_tpu_torch.constants import angstrom_to_bohr
+from tuna_tpu_torch.methods import lookup_method
+from tuna_tpu_torch.ops.integrals import IntegralPlan
+from tuna_tpu_torch.system import Molecule
+cfg = Config("SPE", lookup_method("HF"), 0.0, [], "CC-PVTZ", ["N", "N"], suppress_output=True)
+mol = Molecule(["N", "N"], np.array([[0.0, 0.0, 0.0], [0.0, 0.0, angstrom_to_bohr(1.1)]]), cfg)
+plan = IntegralPlan(mol.cartesian_basis_functions, mol.n_atoms)
+coords = torch.as_tensor(mol.coordinates, dtype=torch.float64, device="cuda")
+plan.eri_pair_packed(coords)
+eri_ms = []
+for _ in range(10):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plan.eri_pair_packed(coords)
+    end.record()
+    torch.cuda.synchronize()
+    eri_ms.append(start.elapsed_time(end))
 print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__, "energy": energy,
                   "warm_wall_s": {"median": statistics.median(walls), "q1": q1, "q3": q3},
                   "scf_ms_per_iteration": statistics.median(scf_ms),
                   "cc_ms_per_iteration": statistics.median(cc_ms),
                   "iterations": [len(out.iteration_seconds),
-                                 len(out.correlation_iteration_seconds)]}))
+                                 len(out.correlation_iteration_seconds)],
+                  "eri_packed_cc_pvtz_ms": statistics.median(eri_ms)}))
 """
 
 
@@ -587,7 +819,7 @@ def main() -> int:
     record: dict = {}
     for basis in ("6-311G", "STO-3G", "6-31G**", "CC-PVTZ"):
         print(check_integrals(basis, device, record))
-    print(check_triples(device, record))
+    print(check_triples(7, 19, device, record))
 
     # --- 4. coupled-cluster path ---------------------------------------------
     SCF_output, molecule, energy, P, wall, launches = drive(LINE, CC_PATH_KERNELS)
@@ -619,12 +851,22 @@ def main() -> int:
           f"E_VV10 {SCF_output.dispersion_energy!r}; SCF {len(scf_seconds)} iterations, "
           f"median {statistics.median(scf_seconds) * 1e3:.3f} ms/iteration; "
           f"wall {wall:.3f} s; launches {launches}")
-    # each kernel's launches over the two paths' runs
+    # each kernel's launches over the paths' runs
     path_launches = {name: cc_launches[name] + launches[name] for name in KERNELS}
     print("profile: " + json.dumps(profile_path(LINE_DFT)))
 
     # --- 6. DFT kernels against their plain versions --------------------------
     print(check_dft_kernels(molecule, P, device, record))
+
+    # --- 7. DIRECT kernels against their plain versions -----------------------
+    for basis in ("CC-PVTZ", "6-311G"):
+        print(check_fock_direct(basis, device, record))
+    print(check_mo_transform(device, record))
+    print(check_triples(7, 53, device, record))   # K2 at the DIRECT path's shape
+
+    # --- 8. DIRECT path ---------------------------------------------------------
+    launches = check_direct_path()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": path_launches[name], **record[name]}

@@ -9,7 +9,9 @@ neither jax nor tuna_tpu, so it runs on a machine without JAX:
 (tests/conftest.py configures JAX).  Tolerances: 1e-12 absolute for the
 integrals, the AO values and the density on the grid, and 1e-12 relative
 for the (T) and VV10 energies -- the same float64 math, the kernels
-unscaled and summed in another order.
+unscaled and summed in another order; 1e-12 of the largest |entry| for the
+direct Fock build's J and K, whose atomics sum in no fixed order, and for
+the packed MO half-transform.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.constants import angstrom_to_bohr
 from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
+from tuna_tpu_torch.ops import motransform
 from tuna_tpu_torch.ops.integrals import IntegralPlan
 from tuna_tpu_torch.post import cc
 from tuna_tpu_torch.system import Molecule
@@ -180,3 +183,84 @@ def test_wrong_dtype_on_the_card_raises(cuda):
     with pytest.raises(ValueError, match="dtype"):
         vv10.vv10_energy(x.float() + 1, x, x, points.T[:64].contiguous().float(), 4.8, 0.0093)
     assert _kernels.launches == {**{k: 0 for k in _kernels.launches}, "ao_on_grid": 1}
+
+
+def _relative(got, expected):
+    return float(torch.max(torch.abs(got - expected)) / torch.max(torch.abs(expected)))
+
+
+@pytest.mark.parametrize("basis", ["6-311G", "6-31G**", "CC-PVTZ"])
+def test_fock_direct_kernel_matches_plain(cuda, basis):
+    molecule, plan = _n2_plan(basis)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    N = plan.n_basis
+    C = np.random.default_rng(9).standard_normal((N, 7)) / np.sqrt(N)
+    P = torch.as_tensor(C @ C.T, device=cuda)
+    _kernels.reset_launch_counts()
+    J, K = plan.fock_direct(coords, P)
+    J2, K2 = plan.fock_direct(coords, P)
+    assert _kernels.launches["fock_direct"] == 2
+    J_p, K_p = plan._fock_direct_plain(coords, P)
+    assert _relative(J, J_p) <= 1e-12 and _relative(K, K_p) <= 1e-12
+    # the atomics sum in another order on each call
+    assert _relative(J2, J) <= 1e-12 and _relative(K2, K) <= 1e-12
+    # a symmetric P that is not a density: the seeded P + P.T of tuna_tpu's test
+    A = np.random.RandomState(3).randn(N, N)
+    P = torch.as_tensor(A + A.T, device=cuda)
+    for got, expected in zip(plan.fock_direct(coords, P), plan._fock_direct_plain(coords, P)):
+        assert _relative(got, expected) <= 1e-12
+
+
+def test_fock_direct_kernel_refuses_lmax_4(cuda):
+    molecule, plan = _n2_plan("CC-PVQZ")
+    assert plan.lmax == 4
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    P = torch.eye(plan.n_basis, dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError, match="lmax"):
+        plan.fock_direct(coords, P)
+
+
+def _mo_inputs(basis, device, seed):
+    molecule, plan = _n2_plan(basis)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    rng = np.random.default_rng(seed)
+    n_mo = U.shape[0]
+    Ws = [(U.T @ torch.as_tensor(rng.standard_normal((n_mo, n_mo)) / np.sqrt(n_mo),
+                                 device=device)).contiguous() for _ in range(2)]
+    return plan.eri_pair_packed(coords), plan.tensors(device)["pair_index"], Ws, n_mo
+
+
+@pytest.mark.parametrize("basis", ["6-31G**", "CC-PVTZ"])
+def test_mo_transform_kernel_matches_plain(cuda, basis):
+    G_pair, pair_index, (W_left, W_right), n_mo = _mo_inputs(basis, cuda, 21)
+    tri = motransform.mo_pair_indices(n_mo)
+
+    def plain(W_l, W_r):
+        H = motransform._chunked_half_transform(G_pair, pair_index, W_r, tri, 128)
+        return motransform._chunked_half_transform(H.T, pair_index, W_l, tri, 128)
+
+    _kernels.reset_launch_counts()
+    got = motransform.pair_packed_to_mo(G_pair, pair_index, W_left, n_mo)
+    mixed = motransform.pair_packed_to_mo_mixed(G_pair, pair_index, W_left, W_right, n_mo)
+    assert _kernels.launches["mo_half_transform"] == 4
+    assert _relative(got, plain(W_left, W_left)) <= 1e-12
+    assert _relative(mixed, plain(W_left, W_right).T) <= 1e-12
+
+
+def test_mo_transform_kernel_at_the_cc_pv6z_shape(cuda):
+    """N = 252 Cartesian AOs and n_mo = 182 (H2/cc-pV6Z): D_r and W^T D_r do
+    not fit in shared memory, so the kernel runs in panels of columns."""
+    N, n_mo, rows = 252, 182, 64
+    tril = np.tril_indices(N)
+    pair_index = np.zeros((N, N), dtype=np.int64)
+    pair_index[tril] = pair_index[tril[::-1]] = np.arange(len(tril[0]))
+    pair_index = torch.as_tensor(pair_index, device=cuda)
+    rng = np.random.RandomState(17)
+    M = torch.as_tensor(rng.rand(rows, len(tril[0])), device=cuda)
+    W = torch.as_tensor(rng.randn(N, n_mo) / np.sqrt(N), device=cuda)
+    expected = motransform._half_transform_plain(M, pair_index, W,
+                                                 motransform.mo_pair_indices(n_mo))
+    assert _relative(motransform.half_transform(M, pair_index, W), expected) <= 1e-12
+    transposed = motransform.half_transform(M.T.contiguous(), pair_index, W, transposed=True)
+    assert _relative(transposed, expected) <= 1e-12

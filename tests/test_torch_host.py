@@ -139,6 +139,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
         _kernels.build()
     assert set(_kernels.SIGNATURES) == {"tuna_eri_packed", "tuna_one_electron",
                                         "tuna_ccsd_t_energy", "tuna_ao_on_grid",
-                                        "tuna_density_on_grid", "tuna_vv10_energy"}
+                                        "tuna_density_on_grid", "tuna_vv10_energy",
+                                        "tuna_fock_direct", "tuna_mo_half_transform"}
     assert set(_kernels.launches) == {"eri_packed", "one_electron", "ccsd_t_energy",
-                                      "ao_on_grid", "density_on_grid", "vv10_energy"}
+                                      "ao_on_grid", "density_on_grid", "vv10_energy",
+                                      "fock_direct", "mo_half_transform"}

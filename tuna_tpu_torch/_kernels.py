@@ -28,10 +28,11 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "tuna_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _D = ctypes.c_double
 
 # C entry points: argument types in order, the stream last.
@@ -52,11 +53,18 @@ SIGNATURES = {
     # n_points, n_slices, slice_size, points, omega, kappa, weighted
     # density, beta, partial
     "tuna_vv10_energy": [_I, _I, _I] + [_P] * 4 + [_D, _P] + [_P],
+    # lmax, n_pairs, n_prim_pairs, n_basis, coords, a, b, coef, l1, l2,
+    # atom1, atom2, pair_start, pid_i, pid_j, boys_table, P, rows (scratch),
+    # J_pair (scratch), J, K
+    "tuna_fock_direct": [_I, _I, _I, _I] + [_P] * 17 + [_P],
+    # n_rows, n_ao, n_mo, panel, row_stride, col_stride, M, pair_index, W, out
+    "tuna_mo_half_transform": [_I, _I, _I, _I, _L, _L] + [_P] * 4 + [_P],
 }
 
 # Launches of each kernel's CUDA path since the last reset.
 launches = {"eri_packed": 0, "one_electron": 0, "ccsd_t_energy": 0,
-            "ao_on_grid": 0, "density_on_grid": 0, "vv10_energy": 0}
+            "ao_on_grid": 0, "density_on_grid": 0, "vv10_energy": 0,
+            "fock_direct": 0, "mo_half_transform": 0}
 
 _lock = threading.Lock()
 _library = None
@@ -92,22 +100,38 @@ def _nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists.
+    """Compile csrc/*.cu into the hashed library unless it already exists:
+    one nvcc per source, all started together, then one link.
 
     The compiler's report (ptxas registers, shared memory, spills) is kept
     beside the library as `<name>.log`."""
     target = library_path()
     if target.exists():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{target.stem}.{os.getpid()}.objects"
+    work.mkdir(parents=True, exist_ok=True)
+    units = sorted(CSRC.glob("*.cu"))
+    objects = [work / f"{unit.stem}.o" for unit in units]
+    compiles = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(unit)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for unit, obj in zip(units, objects)]
+    reports = [(unit, process.communicate()[0], process.returncode)
+               for unit, process in zip(units, compiles)]
+    log = "".join(f"== {unit.name}\n{report}" for unit, report, _ in reports)
+    failed = [unit.name for unit, _, code in reports if code != 0]
     partial = target.with_name(f"{target.stem}.{os.getpid()}.partial.so")
-    command = [_nvcc(), *NVCC_FLAGS, "-o", str(partial),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    result = subprocess.run(command, capture_output=True, text=True, check=False)
-    target.with_suffix(".log").write_text(result.stdout + result.stderr)
-    if result.returncode != 0:
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(partial), *map(str, objects)],
+                              capture_output=True, text=True, check=False)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
+    target.with_suffix(".log").write_text(log)
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
         partial.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({result.returncode}):\n{result.stderr}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log[-8000:]}")
     os.replace(partial, target)
     return target
 

@@ -149,12 +149,14 @@ def calculate_analytical_integrals(molecule, calculation, silent, device) -> Int
     if molecule.n_atoms == 2 and (np.abs(coords[:, :2]) > 1e-10).any():
         error("Molecule is incorrectly aligned! Unable to calculate molecular integrals.")
 
+    direct = bool(getattr(calculation, "direct_scf", False))
     memory_bytes = 8 * molecule.n_cartesian_basis**4
     log(f" Memory required for two-electron integrals is "
         f"{memory_bytes / 1e9:.2f} GB\n", calculation, 3, silent=silent)
-    if memory_bytes > 12e9:
+    if memory_bytes > 12e9 and not direct:
         error("Not enough memory to store two-electron integrals! "
-              "Use a smaller basis set.")
+              'Use the "DIRECT" keyword (integral-direct SCF) or a smaller '
+              "basis set.")
 
     plan = get_integral_plan(molecule)
     coords_t = torch.as_tensor(coords, dtype=_F64, device=device).contiguous()
@@ -167,11 +169,20 @@ def calculate_analytical_integrals(molecule, calculation, silent, device) -> Int
     timer("One-electron integrals", 1)
     log("[Done]", calculation, 1, silent=silent)
 
-    log(" Calculating two-electron integrals...     ", calculation, 1, end="", silent=silent)
-    timer("Two-electron integrals", 0)
-    ERI = plan.eri(coords_t)
-    timer("Two-electron integrals", 1)
-    log("[Done]", calculation, 1, silent=silent)
+    if direct:
+        # Integral-direct SCF: J/K are contracted against the quartet values
+        # as they are generated (IntegralPlan.fock_direct), so the N^4
+        # tensor is never formed.
+        log(" Two-electron integrals deferred (integral-direct SCF).",
+            calculation, 1, silent=silent)
+        ERI = None
+    else:
+        log(" Calculating two-electron integrals...     ", calculation, 1, end="",
+            silent=silent)
+        timer("Two-electron integrals", 0)
+        ERI = plan.eri(coords_t)
+        timer("Two-electron integrals", 1)
+        log("[Done]", calculation, 1, silent=silent)
 
     S, T, V_NE, D, Q, ERI = transform_to_spherical_harmonics(
         S, T, V_NE, D, Q, ERI, molecule, calculation, silent)

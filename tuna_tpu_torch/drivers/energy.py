@@ -23,6 +23,40 @@ from .post_scf import run_post_SCF_energy_calculation
 
 _F64 = torch.float64
 
+# Methods the DIRECT keyword serves (tuna_tpu/drivers/energy.py:184-197):
+# mean-field SCF contracts J/K during the sweep, restricted correlated
+# methods get their MO integrals transform-direct from the packed pair
+# matrix.  Methods that consume the AO tensor every iteration and the
+# spin-orbital MPn densities need the stored tensor.
+_DIRECT_OK = {
+    "HF", "UHF", "RHF", "MP2", "SCS-MP2", "MP3", "SCS-MP3", "MP4",
+    "CID", "CISD", "CCD", "CEPA", "CEPA0", "CEPA[0]", "CEPA(0)",
+    "LCCD", "LCCSD", "QCISD", "QCISD[T]", "QCISD(T)",
+    "CCSD", "CCSD[T]", "CCSD(T)",
+}
+
+
+def _direct_fock_closure(calculation, molecule, device):
+    """The integral-direct P -> (J, K) closure under the DIRECT keyword,
+    else None; raises for what DIRECT does not serve, with tuna_tpu's
+    texts.  (tuna_tpu's narrower set for UHF references comes with the
+    port's unrestricted SCF, which refuses them until then.)"""
+    if not getattr(calculation, "direct_scf", False):
+        return None
+    if calculation.DFT_calculation or calculation.method.name not in _DIRECT_OK:
+        error('The "DIRECT" (integral-direct) keyword supports mean-field '
+              "HF/UHF and correlated MPn/CI/CC families (restricted, plus "
+              "the UHF-reference CC/CI set); DFT, spin-orbital MPn "
+              "densities and AO-tensor-iterating methods (CC2/CC3/"
+              "CCSDT+/OMP2/LMP2) need the stored two-electron tensor.")
+    if calculation.stability_analysis or calculation.time_dependent:
+        error("Stability analysis and excited states need the stored "
+              'two-electron tensor; remove the "DIRECT" keyword.')
+    closure = common.get_integral_plan(molecule).fock_closure(
+        None if calculation.cartesian_harmonics else molecule.spherical_transformation)
+    coords = torch.as_tensor(molecule.coordinates, dtype=_F64, device=device)
+    return lambda P: closure(coords, P)
+
 
 def _refuse_unported(calculation, do_correlation):
     """Raise for the options of this pipeline that the port lacks so far."""
@@ -32,7 +66,6 @@ def _refuse_unported(calculation, do_correlation):
         (dft and calculation.method.unrestricted, "unrestricted Kohn-Sham"),
         (dft and calculation.MPC_prop != 0, "double-hybrid functionals (they need MP2)"),
         (missing_functional is not None, missing_functional or ""),
-        (getattr(calculation, "direct_scf", False), 'the "DIRECT" keyword'),
         (getattr(calculation, "read_checkpoint", False)
          or getattr(calculation, "checkpoint", False), "checkpoints"),
         (calculation.extrapolate, "basis-set extrapolation"),
@@ -158,10 +191,11 @@ def calculate_energy(calculation, atomic_symbols, coordinates, P_guess=None,
 
     xc_closure = (make_xc_closure(calculation, grid_container)
                   if calculation.DFT_calculation else None)
+    fock_closure = _direct_fock_closure(calculation, molecule, device)
 
     SCF_output = run_self_consistent_field(
         molecule, calculation, integrals, V_NN, X, guess_container, silent,
-        xc_closure=xc_closure)
+        xc_closure=xc_closure, fock_closure=fock_closure)
 
     if not do_correlation:
         return SCF_output, molecule, SCF_output.energy, SCF_output.P

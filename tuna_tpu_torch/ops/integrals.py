@@ -2,13 +2,16 @@
 specialisation, as plain torch and as hand-written CUDA kernels.
 
 Twin of tuna_tpu/ops/integrals.py.  `IntegralPlan` enumerates the primitive
-pairs on the host exactly as the JAX plan does.  Its two device kernels
+pairs on the host exactly as the JAX plan does.  Its three device kernels
 dispatch on the device of the coordinates they are given:
 
   * one_electron (S, T, V_NE, D, Q): csrc/one_electron.cu on a CUDA tensor,
     `_one_electron_plain` on a CPU tensor;
   * eri_pair_packed (the packed (n_pairs, n_pairs) ERI matrix): csrc/eri.cu
-    on a CUDA tensor, `_eri_packed_plain` on a CPU tensor.
+    on a CUDA tensor, `_eri_packed_plain` on a CPU tensor;
+  * fock_direct (J and K of a density, the integral-direct SCF's Fock
+    build, the N^4 tensor never stored): csrc/fock_direct.cu on a CUDA
+    tensor, `_fock_direct_plain` on a CPU tensor.
 
 The plain versions mirror the JAX functions, including the TPU's scaled
 Hermite form (Rt[v,n] = R[v,n] / (2 alpha)^(n+v)); the kernels work
@@ -220,6 +223,12 @@ class IntegralPlan:
         self.lmax = int(max(self.l1.sum(axis=1).max(), self.l2.sum(axis=1).max()))
         if np.any(np.diff(self.pair_id) < 0):
             raise ValueError("primitive pairs must be contiguous per AO pair")
+        # AO indices (i >= j) of each AO pair
+        tri_i, tri_j = np.tril_indices(N)
+        self.pid_i = np.zeros(self.n_pairs, dtype=np.int32)
+        self.pid_j = np.zeros(self.n_pairs, dtype=np.int32)
+        self.pid_i[self.pair_index[tri_i, tri_j]] = tri_i
+        self.pid_j[self.pair_index[tri_i, tri_j]] = tri_j
         # CSR offsets of each AO pair's primitive pairs
         self.pair_start = np.searchsorted(
             self.pair_id, np.arange(self.n_pairs + 1)).astype(np.int32)
@@ -276,6 +285,7 @@ class IntegralPlan:
                 "atom1": i32(self.atom1), "atom2": i32(self.atom2),
                 "ao_i": i32(self.ao_i), "ao_j": i32(self.ao_j),
                 "pair_id": i32(self.pair_id), "pair_start": i32(self.pair_start),
+                "pid_i": i32(self.pid_i), "pid_j": i32(self.pid_j),
                 "pair_index": torch.as_tensor(self.pair_index, dtype=torch.int64,
                                               device=device),
                 "boys_eri": taylor_table(4 * self.lmax, device).contiguous(),
@@ -480,10 +490,16 @@ class IntegralPlan:
         full_powers = half_powers * half_powers
         return hs[0] * half_powers, hs[1] * half_powers, hs[2] * full_powers, p, Pz
 
-    def _eri_packed_plain(self, coords):
-        """The parity-blocked symmetric quartet sweep in plain torch: each
-        unordered primitive quartet once, its value added to both packed
-        positions."""
+    def _plain_sweep(self, coords):
+        """(data, block_values) of the plain parity-blocked quartet sweep,
+        shared by the plain ERI and direct Fock builds.
+
+        data holds the per-primitive-pair rows (Hermite vectors, p, P_z,
+        coefficient, AO pair id) with one sentinel row at index npp that
+        backs the block padding: its zero coefficient kills its
+        contributions, p = 1 keeps alpha finite.  block_values(rows, cols)
+        gives the (T, T) contracted primitive-quartet values of two blocks of
+        primitive-pair indices (tuna_tpu/ops/integrals.py::_sweep_blocks)."""
         device = coords.device
         t = self.tensors(device)
         lmax = self.lmax
@@ -495,8 +511,6 @@ class IntegralPlan:
         sign = torch.tensor([(-1.0) ** k for k in range(tmax + 1)], dtype=_F64,
                             device=device)
 
-        # One sentinel row (index npp) backs block padding: the zero
-        # coefficient kills its contributions, p = 1 keeps alpha finite.
         def ext(x, fill=0.0):
             return torch.cat([x, torch.full((1,) + x.shape[1:], fill, dtype=x.dtype,
                                             device=device)])
@@ -546,17 +560,135 @@ class IntegralPlan:
             pref = TWO_PI_POW_2_5 / (p12 * q34 * torch.sqrt(psum))
             return data["coef"][rows][:, None] * data["coef"][cols][None, :] * pref * total
 
-        blocks = torch.as_tensor(self._plain_blocks, device=device)
-        packed = torch.zeros((self.n_pairs, self.n_pairs), dtype=_F64, device=device)
+        return data, block_values
+
+    def _plain_block_sweep(self, coords):
+        """(rows, cols, v, upper, strict) for every block pair of the plain
+        sweep: the forward mask c >= r keeps each unordered primitive
+        quartet once (the diagonal included), the strict mask c > r marks
+        the quartets whose mirror orientation still has to be added."""
+        data, block_values = self._plain_sweep(coords)
+        blocks = torch.as_tensor(self._plain_blocks, device=coords.device)
         for bl, br in self._plain_block_pairs:
             rows, cols = blocks[bl], blocks[br]
-            v = block_values(rows, cols)
-            upper = cols[None, :] >= rows[:, None]
-            strict = cols[None, :] > rows[:, None]
-            pid_r, pid_c = data["pid"][rows][:, None], data["pid"][cols][None, :]
-            packed.index_put_((pid_r, pid_c), torch.where(upper, v, 0.0), accumulate=True)
-            packed.index_put_((pid_c, pid_r), torch.where(strict, v, 0.0), accumulate=True)
+            yield (data["pid"][rows], data["pid"][cols], block_values(rows, cols),
+                   cols[None, :] >= rows[:, None], cols[None, :] > rows[:, None])
+
+    def _eri_packed_plain(self, coords):
+        """The parity-blocked symmetric quartet sweep in plain torch: each
+        unordered primitive quartet once, its value added to both packed
+        positions."""
+        packed = torch.zeros((self.n_pairs, self.n_pairs), dtype=_F64, device=coords.device)
+        for pid_r, pid_c, v, upper, strict in self._plain_block_sweep(coords):
+            packed.index_put_((pid_r[:, None], pid_c[None, :]), torch.where(upper, v, 0.0),
+                              accumulate=True)
+            packed.index_put_((pid_c[None, :], pid_r[:, None]), torch.where(strict, v, 0.0),
+                              accumulate=True)
         return packed
+
+    # ------------------------------------------------------------------
+    # Direct Fock build: J/K contracted as the quartets are generated, the
+    # N^4 tensor never materialised  [Cartesian basis]
+    # ------------------------------------------------------------------
+
+    def fock_direct(self, coords, P):
+        """Coulomb and exchange matrices J_ij = sum_kl (ij|kl) P_kl and
+        K_ij = sum_kl (il|kj) P_kl of a symmetric (N, N) float64 density:
+        the K4 kernel on a CUDA tensor, the plain version on a CPU tensor."""
+        if coords.device.type == "cpu":
+            return self._fock_direct_plain(coords, P)
+        if coords.device.type == "cuda":
+            return self._fock_direct_kernel(coords, P)
+        raise ValueError(f"no direct Fock build for device {coords.device}")
+
+    def fock_closure(self, spherical_transformation=None):
+        """(coords, P) -> (J, K) for the integral-direct SCF, in the
+        spherical AO basis when a (n_spherical, n_cartesian) transformation
+        U is given: the Cartesian density is U^T P U, and the closure
+        returns U J_c U^T and U K_c U^T (tuna_tpu's fock_closure with
+        dispatch=False)."""
+        if spherical_transformation is None:
+            return self.fock_direct
+        U_host = np.asarray(spherical_transformation, dtype=np.float64)
+        U_on: dict = {}
+
+        def closure(coords, P):
+            U = U_on.get(P.device)
+            if U is None:
+                U = U_on[P.device] = torch.as_tensor(U_host, device=P.device)
+            J_c, K_c = self.fock_direct(coords, U.T @ P @ U)
+            return U @ J_c @ U.T, U @ K_c @ U.T
+
+        return closure
+
+    def _fock_direct_kernel(self, coords, P):
+        self._check_kernel_lmax()
+        device = coords.device
+        N = self.n_basis
+        _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
+        _kernels.check_tensor("P", P, (N, N), _F64, device)
+        t = self.tensors(device)
+        row_size = 3 * (2 * self.lmax + 1) + 3
+        rows = torch.empty((self.n_prim_pairs, row_size), dtype=_F64, device=device)
+        J_pair = torch.empty(self.n_pairs, dtype=_F64, device=device)
+        J = torch.empty((N, N), dtype=_F64, device=device)
+        K = torch.empty((N, N), dtype=_F64, device=device)
+        _kernels.launch(
+            "fock_direct", "tuna_fock_direct", device,
+            self.lmax, self.n_pairs, self.n_prim_pairs, N,
+            coords.data_ptr(), t["a"].data_ptr(), t["b"].data_ptr(),
+            t["coef"].data_ptr(), t["l1"].data_ptr(), t["l2"].data_ptr(),
+            t["atom1"].data_ptr(), t["atom2"].data_ptr(), t["pair_start"].data_ptr(),
+            t["pid_i"].data_ptr(), t["pid_j"].data_ptr(), t["boys_eri"].data_ptr(),
+            P.data_ptr(), rows.data_ptr(), J_pair.data_ptr(), J.data_ptr(), K.data_ptr())
+        return J, K
+
+    def _fock_direct_plain(self, coords, P):
+        """tuna_tpu's _fock_sweep over the plain sweep's blocks: each block
+        pair's values added in both orientations (rows as "ij", then the
+        strict part transposed), J binned per AO pair, K scattered to its
+        dense rows; then _fock_unpack."""
+        device = coords.device
+        N = self.n_basis
+        t = self.tensors(device)
+        pi, pj = t["pid_i"].long(), t["pid_j"].long()
+        # pair degeneracy for J; off-diagonal mask for the k <-> l swap of K
+        Pp_pair = P[pi, pj] * torch.where(pi == pj, 1.0, 2.0)
+        m_pair = (pi != pj).to(_F64)
+        J_pair = torch.zeros(self.n_pairs, dtype=_F64, device=device)
+        K = torch.zeros((N, N), dtype=_F64, device=device)
+
+        def seg(values, segments):   # (Tr, Tc) -> (Tr, N), summed by column segment
+            out = torch.zeros((values.shape[0], N), dtype=_F64, device=device)
+            return out.index_add_(1, segments, values)
+
+        def accumulate(v, rpid, cpid):
+            # v: (Tr, Tc) quartet values with rows acting as "ij", cols "kl"
+            irow, jrow = pi[rpid], pj[rpid]       # AO i >= j
+            kcol, lcol = pi[cpid], pj[cpid]       # AO k >= l
+            m_kl = m_pair[cpid][None, :]
+            m_ij = m_pair[rpid][:, None]
+            J_pair.index_add_(0, rpid, v @ Pp_pair[cpid])
+            # K[m,n] += (ms|tn) P[t,s] over the distinct dense positions of
+            # this packed value: (m,s) in {(i,j),(j,i)}, (t,n) in {(k,l),(l,k)}
+            P_kj = P[kcol[None, :], jrow[:, None]]
+            P_lj = P[lcol[None, :], jrow[:, None]]
+            P_ki = P[kcol[None, :], irow[:, None]]
+            P_li = P[lcol[None, :], irow[:, None]]
+            K.index_add_(0, irow, seg(v * P_kj, lcol) + seg(v * P_lj * m_kl, kcol))
+            K.index_add_(0, jrow, (seg(v * P_ki, lcol) + seg(v * P_li * m_kl, kcol)) * m_ij)
+
+        for pid_r, pid_c, v, upper, strict in self._plain_block_sweep(coords):
+            accumulate(torch.where(upper, v, 0.0), pid_r, pid_c)
+            accumulate(torch.where(strict, v, 0.0).T, pid_c, pid_r)
+        return self._fock_unpack(J_pair, K)
+
+    def _fock_unpack(self, J_pair, K):
+        """Expand the packed J pair vector symmetrically."""
+        t = self.tensors(J_pair.device)
+        J = torch.zeros((self.n_basis, self.n_basis), dtype=J_pair.dtype, device=J_pair.device)
+        J[t["pid_i"].long(), t["pid_j"].long()] = J_pair
+        return J + torch.triu(J.T, diagonal=1), K
 
 
 def cross_overlap(basis_functions_1, basis_functions_2) -> np.ndarray:

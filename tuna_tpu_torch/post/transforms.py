@@ -2,13 +2,17 @@
 
 Twin of the spatial-orbital pieces of tuna_tpu/post/transforms.py: the AO
 ERI tensor is stored in chemists' notation (mn|kl); `ao_to_mo_chemists`
-returns (pq|rs); physicists' <pq|rs> = chemists (pr|qs).
+returns (pq|rs); physicists' <pq|rs> = chemists (pr|qs).  Under DIRECT no
+AO tensor is stored, and `transform_direct_mo_chemists` builds (pq|rs)
+from the packed pair matrix.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..drivers import common
+from ..ops import motransform
 from ..output import error, log, timer
 
 
@@ -18,6 +22,26 @@ def ao_to_mo_chemists(ERI_AO, C):
     for _ in range(4):
         out = torch.movedim(torch.tensordot(C.T, out, dims=([1], [0])), 0, 3)
     return out
+
+
+def transform_direct_mo_chemists(molecule, SCF_output, calculation):
+    """Chemists' MO tensor straight from the packed pair sweep, the
+    integral-direct correlation path (DIRECT keyword): the dense N^4 AO
+    tensor, Cartesian or spherical, is never materialised."""
+    plan = common.get_integral_plan(molecule)
+    C = SCF_output.molecular_orbitals
+    device = C.device
+    coords = torch.as_tensor(molecule.coordinates, dtype=C.dtype, device=device)
+    if calculation.cartesian_harmonics:
+        W = C
+    else:
+        W = torch.as_tensor(molecule.spherical_transformation, dtype=C.dtype,
+                            device=device).T @ C
+    n_mo = int(C.shape[1])
+    G_pair = plan.eri_pair_packed(coords)
+    G_mo = motransform.pair_packed_to_mo(G_pair, plan.tensors(device)["pair_index"],
+                                         W.contiguous(), n_mo)
+    return motransform.expand_mo_chemists(G_mo, n_mo)
 
 
 # --- energy denominators ---------------------------------------------------
@@ -59,8 +83,11 @@ def begin_spatial_orbital_calculation(molecule, ERI_AO, SCF_output, calculation,
         silent=silent)
     timer("Molecular orbital transformation", 0)
     if ERI_AO is None:
-        error('The "DIRECT" transform is not yet ported to tuna_tpu_torch!')
-    ERI_MO = ao_to_mo_chemists(ERI_AO, SCF_output.molecular_orbitals)
+        # Integral-direct SCF deferred the stored tensor; transform straight
+        # from the packed pair sweep.
+        ERI_MO = transform_direct_mo_chemists(molecule, SCF_output, calculation)
+    else:
+        ERI_MO = ao_to_mo_chemists(ERI_AO, SCF_output.molecular_orbitals)
     timer("Molecular orbital transformation", 1)
 
     if calculation.freeze_core and molecule.n_core_orbitals != 0:

@@ -1,10 +1,11 @@
 """Self-consistent field engine, restricted Hartree-Fock and Kohn-Sham.
 
 Twin of tuna_tpu/scf/__init__.py with the same iteration semantics: Fock
-build from the stored ERI plus, for Kohn-Sham, the XC matrix of the density
-at the start of the iteration; commutator DIIS, Zerner-Hehenberger dynamic
-damping, four-condition convergence, and the energy of the fresh density
-against the previous iteration's J/K and XC terms (tuna_scf.py:1137-1141).
+build from the stored ERI, or from the integral-direct J/K closure, plus,
+for Kohn-Sham, the XC matrix of the density at the start of the iteration;
+commutator DIIS, Zerner-Hehenberger dynamic damping, four-condition
+convergence, and the energy of the fresh density against the previous
+iteration's J/K and XC terms (tuna_scf.py:1137-1141).
 A Python loop on the device takes the place of the jitted while_loop; it
 prints each iteration as it completes and records its wall time.
 """
@@ -174,14 +175,16 @@ def _electronic_energy(P_a, P_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G, HFX_prop,
 
 def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
                    HFX_prop, conv, static_damping, max_damping, on_iteration,
-                   xc_closure=None, DFX_prop=0.0, DFC_prop=0.0):
+                   xc_closure=None, DFX_prop=0.0, DFC_prop=0.0, fock_closure=None):
     """The restricted SCF iteration until convergence or max_iter.
 
     xc_closure(P_a, P_b, DFX, DFC) -> (V_XC_a, V_XC_b, E_x_grid,
     E_c_grid, density, alpha_density, beta_density), or None for
-    Hartree-Fock.  on_iteration(step, [E, dE, rmsDP, maxDP, commutator,
-    damping], seconds) is called after each iteration.  Returns (n_steps,
-    converged, E, P_a, outputs of the last iteration)."""
+    Hartree-Fock.  fock_closure(P_a) -> (J_a, K_a) replaces the
+    stored-ERI contractions (integral-direct SCF; ERI may then be None).
+    on_iteration(step, [E, dE, rmsDP, maxDP, commutator, damping],
+    seconds) is called after each iteration.  Returns (n_steps, converged,
+    E, P_a, outputs of the last iteration)."""
     N = settings.n_basis
     zeros = torch.zeros((N, N), dtype=T.dtype, device=T.device)
     E = torch.as_tensor(E0, dtype=T.dtype, device=T.device)
@@ -201,7 +204,10 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
         else:
             V_XC, E_x_grid, E_c_grid = 0.0, 0.0, 0.0
             density = dens_a = dens_b = None
-        J_a, K_a = coulomb_matrix(P_a, ERI), exchange_matrix(P_a, ERI)
+        if fock_closure is not None:
+            J_a, K_a = fock_closure(P_a)
+        else:
+            J_a, K_a = coulomb_matrix(P_a, ERI), exchange_matrix(P_a, ERI)
         F_a = symmetrise(T + V_NE + Fld + G + 2.0 * J_a - K_a * HFX_prop + V_XC)
 
         # DIIS error from pre-diagonalisation Fock and density
@@ -257,9 +263,10 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
 # ---------------------------------------------------------------------------
 
 def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
-                              X, guess_objects, silent=False, xc_closure=None) -> Output:
+                              X, guess_objects, silent=False, xc_closure=None,
+                              fock_closure=None) -> Output:
     """Run the SCF loop and assemble the Output container; xc_closure (see
-    run_scf_cycles) makes it Kohn-Sham."""
+    run_scf_cycles) makes it Kohn-Sham, fock_closure integral-direct."""
     timer("Self-consistent field", 0)
     P, P_alpha, P_beta, E_guess = guess_objects
     if calculation.reference != "RHF":
@@ -305,7 +312,7 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
         settings, integrals.T, integrals.V_NE, integrals.ERI_AO, integrals.S, X, Fld, G,
         P_alpha, E_guess, calculation.HFX_prop, calculation.SCF_conv, static_damping,
         calculation.max_damping, on_iteration, xc_closure, calculation.DFX_prop,
-        calculation.DFC_prop)
+        calculation.DFC_prop, fock_closure)
 
     if not converged:
         error(f"Self-consistent field not converged in {calculation.max_iter} "
