@@ -8,10 +8,14 @@ non-zero without printing a result):
 
   1. device: the card's name and power limit (nvidia-smi), torch, CUDA and
      scipy versions; a visible CUDA device is required;
-  2. build: compiles the CUDA kernels of tuna_tpu_torch/csrc with nvcc;
+  2. build: compiles the CUDA kernels of tuna_tpu_torch/csrc with nvcc, with
+     the build time and the registers of each kernel (ptxas);
   3. kernels: K1-K3 against their plain PyTorch versions on the card, on the
      same inputs at the coupled-cluster path's shapes (N2/6-311G and
-     N2/STO-3G for the integrals, o = 7 and v = 19 for (T)), with both times;
+     N2/STO-3G for the integrals, o = 7 and v = 19 for (T)) and at 6-31G**
+     and cc-pVTZ, with both times; K1 against a repeated call of itself
+     (bitwise), and the quartet work list's classes, light/heavy split and
+     kernels a call;
   4. coupled-cluster path: `SPE : N N 1.1 : CCSD[T] 6-311G : TIGHTSCF`
      through tuna_tpu_torch.cli.run on the card, held against tuna_tpu's
      energy on the JAX CPU backend, with the launch count of each kernel;
@@ -23,7 +27,8 @@ non-zero without printing a result):
      of the converged density of phase 5);
   7. DIRECT kernels: K4 (the direct Fock build) against its plain version at
      N2/cc-pVTZ and N2/6-311G with a seeded density-like P, and against a
-     repeated call of itself (its atomics sum in no fixed order); K5 (the
+     repeated call of itself (its atomics sum in no fixed order), beside K1
+     on the same plan (bitwise over two calls); K5 (the
      packed half-transform) against its plain version at the DIRECT path's
      shapes, both variants, and on 64 rows at the cc-pV6Z shape (N = 252,
      n_mo = 182), where it runs in panels; K2 again at o = 7, v = 53;
@@ -38,7 +43,8 @@ kernel with its plain version do not count.  Each kernel's record carries
 `bound_ms`, the least time the card could take for the same work: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its float64 operations, counted from the kernel's loop body
-at this run's inputs, over the H100 SXM data sheet's float64 rates: 67
+at this run's inputs (K1 and K4: see eri_operations), over the H100 SXM
+data sheet's float64 rates: 67
 TFLOP/s for the matrix products that the tensor cores can take (K5's two
 products, K7b's P^T phi, the contractions of (T)), 34 TFLOP/s for the
 rest.  exp, sqrt and a division count as one operation each, so the bound
@@ -50,18 +56,19 @@ device sync: wall median and quartiles, the medians of SCF and CC ms per
 iteration, and the medians of the port's phase timers) and one run under
 torch.profiler (device busy time as the union of the kernel intervals, the
 device idle share, kernel and cudaLaunchKernel counts, the device time
-of the top kernels, and the launches and device time of each kernel of
-csrc/).
+of the top kernels, the launches and device time of each kernel of csrc/,
+and for K1 and K4 the union of their class kernels' intervals a call).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
 --compare times the coupled-cluster path alone, WARM_RUNS warm runs after a
-cold one, and then K1 alone at N2/cc-pVTZ (median of 10), with the
-tuna_tpu_torch of each ROOT in turn (each in its own interpreter, building
-its own kernels), and prints one JSON line for each: two checkouts, say a
-parent commit and this one, compared on one card in one call (run them in
-the order A B B A).
+cold one, then K1 and K4 alone at N2/cc-pVTZ (median of 10; K4 on a seeded
+density) and the DIRECT path's SCF ms per iteration (median over three warm
+runs), with the tuna_tpu_torch of each ROOT in turn (each in its own
+interpreter, building its own kernels), and prints one JSON line for each:
+two checkouts, say a parent commit and this one, compared on one card in
+one call (run them in the order A B B A).
 """
 
 from __future__ import annotations
@@ -86,7 +93,7 @@ from tuna_tpu_torch.constants import angstrom_to_bohr
 from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
 from tuna_tpu_torch.ops import motransform
-from tuna_tpu_torch.ops.integrals import IntegralPlan
+from tuna_tpu_torch.ops.integrals import HEAVY_THRESHOLD, IntegralPlan, quartet_operations
 from tuna_tpu_torch.post import cc
 from tuna_tpu_torch.system import Molecule
 
@@ -156,20 +163,28 @@ def require(condition: bool, message: str) -> None:
         raise SmokeFailure(message)
 
 
+def medians_ms(fns, repeats: int) -> list[float]:
+    """Median device time of each of fns over `repeats` rounds that call
+    them in turn, after one warm-up call each."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(repeats):
+        for fn, fn_times in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            fn_times.append(start.elapsed_time(end))
+    return [statistics.median(fn_times) for fn_times in times]
+
+
 def median_ms(fn, repeats: int = 5) -> float:
     """Median device time of fn() over `repeats` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return medians_ms((fn,), repeats)[0]
 
 
 def bound(n_bytes: float, ops_ms: float) -> dict:
@@ -194,31 +209,56 @@ def diatomic(symbol: str, bond_angstrom: float, basis: str) -> Molecule:
 # Operation counts, from each kernel's loop body
 # ---------------------------------------------------------------------------
 
-def eri_operations(plan: IntegralPlan) -> float:
-    """csrc/eri.cu: the primitive quartets of every unordered AO-pair
-    quartet with matching x/y parities, times the work of one: the Hermite
-    products, axy, alpha and T, the Boys evaluation, the Hermite Coulomb
-    table and the prefactor (pair_rows_kernel, ~0.1% of it, is left out)."""
-    L = plan.lmax
-    TL, MX, NMAX = 2 * L + 1, 2 * L, 4 * L
-    hermite = 2 * TL * TL + 4 * ((TL * TL + 1) // 2)
-    axy = 3 * (MX + 1) ** 2
-    boys = 23 + 4 * NMAX
-    coulomb = 4 * (NMAX + 1) + 1 + 5 * NMAX * (NMAX + 1) // 2 + 2 * NMAX
-    per_quartet = hermite + axy + 6 + boys + coulomb + 8
-    start = plan.pair_start
-    n_prim = np.diff(start).astype(np.float64)
-    first = start[:-1]
-    parity = (2 * ((plan.l1[first, 0] + plan.l2[first, 0]) & 1)
-              + ((plan.l1[first, 1] + plan.l2[first, 1]) & 1))
-    quartets = 0.0
-    for cls in range(4):
-        n = n_prim[parity == cls]
-        quartets += (n.sum() ** 2 + (n * n).sum()) / 2   # unordered, P >= Q
-    return quartets * per_quartet
+def shell_pairs(plan: IntegralPlan) -> tuple[np.ndarray, np.ndarray]:
+    """(shell-pair id of each AO pair, primitive pairs of each shell pair).
+    The AOs of one atom with one total angular momentum and the same
+    primitive exponents form a shell (a general contraction's shells
+    merge), so the AO pairs of a shell pair have the same primitive pairs'
+    p and P_z, whatever their Cartesian components."""
+    n_prim = np.diff(plan.pair_start)
+    shell_of, shells = np.empty(plan.n_basis, dtype=np.int64), {}
+    for i in range(plan.n_basis):
+        diagonal = plan.pair_index[i, i]
+        s, n = plan.pair_start[diagonal], int(round(np.sqrt(n_prim[diagonal])))
+        key = (int(plan.atom1[s]), int(plan.l1[s].sum()), plan.b[s:s + n].tobytes())
+        shell_of[i] = shells.setdefault(key, len(shells))
+    si, sj = shell_of[plan.pid_i], shell_of[plan.pid_j]
+    _, first, ids = np.unique(np.maximum(si, sj) * len(shells) + np.minimum(si, sj),
+                              return_index=True, return_inverse=True)
+    return ids, n_prim[first].astype(np.float64)
 
 
-def fock_direct_operations(plan: IntegralPlan) -> float:
+def eri_operations(plan: IntegralPlan) -> tuple[float, float]:
+    """(needed, kernel's) float64 operations of the packed ERI matrix over
+    the unordered AO-pair quartets with matching x/y parities, each at its
+    own class (L_bra, L_ket), from ops/integrals.py::quartet_operations;
+    higher orders are exact zeros.
+
+    The kernel computes every part of quartet_operations for each primitive
+    quartet of each AO-pair quartet.  The function needs the shared part
+    (alpha and T, Boys, the R^n_00v recursion) only once a primitive
+    quartet of a shell-pair quartet (shell_pairs), and the own part
+    (Hermite products, x/y pairing, contraction) for each AO-pair quartet:
+    that count is the bound's.  pair_rows_kernel, ~0.1% of either, is left
+    out."""
+    quartets, classes = plan.work_list()
+    n_prim = np.diff(plan.pair_start).astype(np.float64)
+    counts = n_prim[quartets[:, 0]] * n_prim[quartets[:, 1]]
+    shell_pair, shell_prim = shell_pairs(plan)
+    n_shell_pairs = len(shell_prim)
+    needed = kernel = 0.0
+    for la, lb, begin, _, end, _, _ in classes:
+        shared, own = quartet_operations(la, lb)
+        primitive_quartets = counts[begin:end].sum()
+        kernel += (shared + own) * primitive_quartets
+        bra, ket = shell_pair[quartets[begin:end, 0]], shell_pair[quartets[begin:end, 1]]
+        shell_quartets = np.unique(np.maximum(bra, ket) * n_shell_pairs + np.minimum(bra, ket))
+        needed += own * primitive_quartets + shared * np.sum(
+            shell_prim[shell_quartets // n_shell_pairs] * shell_prim[shell_quartets % n_shell_pairs])
+    return float(needed), float(kernel)
+
+
+def fock_direct_operations(plan: IntegralPlan) -> tuple[float, float]:
     """csrc/fock_direct.cu: the quartet values as in eri_operations, plus per
     AO-pair quartet and orientation 3 operations for J and 2 for each K
     term, (1 + [i != j]) (1 + [k != l]) of them; both orientations of the
@@ -229,7 +269,47 @@ def fock_direct_operations(plan: IntegralPlan) -> float:
     w = 1.0 + (plan.pid_i != plan.pid_j)
     jk = sum(3.0 * np.sum(parity == cls) ** 2 + 2.0 * np.sum(w[parity == cls]) ** 2
              for cls in range(4))
-    return eri_operations(plan) + jk
+    needed, kernel = eri_operations(plan)
+    return needed + jk, kernel + jk
+
+
+def work_list_summary(plan: IntegralPlan) -> str:
+    """The work list's size, classes and light/heavy split, and the class
+    kernels one K1 or K4 call launches."""
+    quartets, classes = plan.work_list()
+    light = int(np.sum(classes[:, 3] - classes[:, 2]))
+    heavy = int(np.sum(classes[:, 4] - classes[:, 3]))
+    kernels = int(np.sum(classes[:, 3] > classes[:, 2]) + np.sum(classes[:, 4] > classes[:, 3]))
+    return (f"work list {len(quartets)} quartets in {len(classes)} classes, {light} light / "
+            f"{heavy} heavy (threshold {HEAVY_THRESHOLD}); a call launches {kernels} "
+            f"class kernels + pair rows (K4: + J unpack)")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers of each kernel, and its spill stores if any, from the
+    build's ptxas report, keyed by source and kernel (the class kernels as
+    quartet_light_kernel<L_bra,L_ket>)."""
+    report, unit, kernel, spills = {}, "", "", 0
+    for line in log.splitlines():
+        if line.startswith("== "):
+            unit = line[3:].removesuffix(".cu")
+        elif "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            kernel = mangled
+            scope = re.match(r"_ZN(\d+)", mangled)   # _ZN <namespace> <name> ...
+            if scope:
+                rest = mangled[scope.end() + int(scope.group(1)):]
+                length = re.match(r"\d+", rest)
+                kernel = rest[length.end():length.end() + int(length.group())]
+                args = re.findall(r"Li(\d+)E", rest)
+                kernel += f"<{','.join(args)}>" if args else ""
+        elif "bytes spill stores" in line:
+            spills = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "registers" in line and "Used" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            report[f"{unit}:{kernel}"] = f"{regs} ({spills} B spilled)" if spills else regs
+            spills = 0
+    return report
 
 
 def half_transform_operations(n_rows: int, n: int, n_mo: int) -> float:
@@ -308,7 +388,7 @@ def check_integrals(basis: str, device, record: dict) -> str:
 
     err_1e = max(float(torch.max(torch.abs(k - p)))
                  for k, p in zip(kernel_1e(), plain_1e()))
-    packed_kernel, packed_plain = kernel_eri(), plain_eri()
+    packed_kernel, packed_again, packed_plain = kernel_eri(), kernel_eri(), plain_eri()
     require(bool(torch.all(torch.isfinite(packed_kernel))), f"{basis}: non-finite ERI")
     err_eri = float(torch.max(torch.abs(packed_kernel - packed_plain)))
     torch.cuda.synchronize()
@@ -316,32 +396,46 @@ def check_integrals(basis: str, device, record: dict) -> str:
             f"{basis}: one-electron kernel off its plain version by {err_1e:.3e}")
     require(err_eri <= INTEGRAL_TOLERANCE,
             f"{basis}: ERI kernel off its plain version by {err_eri:.3e}")
+    require(torch.equal(packed_kernel, packed_again), f"{basis}: two ERI kernel calls differ")
     times = {"one_electron": (median_ms(kernel_1e), median_ms(plain_1e)),
              "eri_packed": (median_ms(kernel_eri), median_ms(plain_eri))}
     for name, err in (("one_electron", err_1e), ("eri_packed", err_eri)):
         entry = record.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    needed, algorithm = eri_operations(plan)
+    eri_bound = bound(eri_input_bytes(plan, coords) + 8 * plan.n_pairs ** 2,
+                      needed / FP64_PER_MS)
     t = plan.tensors(device)
-    inputs = [coords, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"], t["atom2"],
-              t["pair_start"]]
-    eri_bound = bound(tensor_bytes(*inputs, t["boys_eri"]) + 8 * plan.n_pairs ** 2,
-                      eri_operations(plan) / FP64_PER_MS)
+    N = plan.n_basis
+    one_electron_bound = bound(
+        tensor_bytes(coords, charges, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"],
+                     t["atom2"], t["pair_start"], t["ao_i"], t["ao_j"], t["boys_one_electron"])
+        + 8 * 9 * N * N, one_electron_operations(plan) / FP64_PER_MS)
     if basis == "6-311G":
-        N = plan.n_basis
         record["eri_packed"].update(
             ms=times["eri_packed"][0], plain_ms=times["eri_packed"][1], library_ms=None,
             **eri_bound)
         record["one_electron"].update(
             ms=times["one_electron"][0], plain_ms=times["one_electron"][1], library_ms=None,
-            **bound(tensor_bytes(*inputs, charges, t["ao_i"], t["ao_j"],
-                                 t["boys_one_electron"]) + 8 * 9 * N * N,
-                    one_electron_operations(plan) / FP64_PER_MS))
+            **one_electron_bound)
     return (f"kernels {basis}: lmax {plan.lmax}, {plan.n_pairs} AO pairs, "
-            f"{plan.n_prim_pairs} primitive pairs; one_electron max|diff| {err_1e:.3e} "
-            f"({times['one_electron'][0]:.4f} ms vs plain {times['one_electron'][1]:.4f} ms); "
-            f"eri_packed max|diff| {err_eri:.3e} "
-            f"({times['eri_packed'][0]:.4f} ms vs plain {times['eri_packed'][1]:.4f} ms, "
-            f"bound {eri_bound['bound_ms']:.5f} ms by {eri_bound['bound_by']})")
+            f"{plan.n_prim_pairs} primitive pairs, {work_list_summary(plan)}; one_electron "
+            f"max|diff| {err_1e:.3e} ({times['one_electron'][0]:.4f} ms vs plain "
+            f"{times['one_electron'][1]:.4f} ms, bound {one_electron_bound['bound_ms']:.5f} ms "
+            f"by {one_electron_bound['bound_by']}); eri_packed max|diff| {err_eri:.3e}, two "
+            f"calls bitwise equal ({times['eri_packed'][0]:.4f} ms vs plain "
+            f"{times['eri_packed'][1]:.4f} ms, bound {eri_bound['bound_ms']:.5f} ms by "
+            f"{eri_bound['bound_by']}; {needed:.4g} operations needed, "
+            f"{algorithm:.4g} in the kernel's algorithm, {algorithm / FP64_PER_MS:.5f} ms)")
+
+
+def eri_input_bytes(plan: IntegralPlan, coords) -> int:
+    """Bytes of the inputs of the function K1 and K4 compute: the
+    coordinates and the basis's primitive-pair arrays (not the kernels' own
+    work list and Boys tables)."""
+    t = plan.tensors(coords.device)
+    return tensor_bytes(coords, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"],
+                        t["atom2"], t["pair_start"])
 
 
 def check_triples(no: int, nv: int, device, record: dict) -> str:
@@ -434,7 +528,7 @@ def profile_path(line: str) -> dict:
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        _, _, _, _, profiled_wall, _ = drive(line, ())
+        _, _, _, _, profiled_wall, profiled_launches = drive(line, ())
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
@@ -443,13 +537,22 @@ def profile_path(line: str) -> dict:
     for e in kernels:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    hand: dict = {}  # the kernels of csrc/, by their function name
+    hand: dict = {}  # the kernels of csrc/, by function name (and K1/K4 output)
     for e in kernels:
         match = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.name)
         if match:
-            entry = hand.setdefault(match.group(1), {"launches": 0, "device_ms": 0.0})
+            output_of = re.search(r"(PackedOut|FockOut)", e.name)
+            key = match.group(1) + (f"[{output_of.group(1)}]" if output_of else "")
+            entry = hand.setdefault(key, {"launches": 0, "device_ms": 0.0})
             entry["launches"] += 1
             entry["device_ms"] += e.time_range.elapsed_us() / 1e3
+    # K1's and K4's class kernels overlap on side streams: a wrapper call's
+    # device time is the union of its kernels' intervals
+    quartet_ms_a_launch = {
+        name: _busy_us([(e.time_range.start, e.time_range.end) for e in kernels
+                        if output_name in e.name]) / 1e3 / profiled_launches[name]
+        for name, output_name in (("eri_packed", "PackedOut"), ("fock_direct", "FockOut"))
+        if profiled_launches[name]}
     q1, _, q3 = statistics.quantiles(walls, n=4)
     return {
         "line": line,
@@ -465,6 +568,7 @@ def profile_path(line: str) -> dict:
         "cudaLaunchKernel_host_ms": sum(e.cpu_time_total for e in launch_calls) / 1e3,
         "top_kernels_device_ms": {name[:90]: us / 1e3 for name, us in top_kernels},
         "hand_kernels": hand,
+        "quartet_class_kernels_busy_ms_a_launch": quartet_ms_a_launch,
     }
 
 
@@ -590,6 +694,9 @@ def check_fock_direct(basis: str, device, record: dict) -> str:
     def plain():
         return plan._fock_direct_plain(coords, P)
 
+    def kernel_eri():
+        return plan.eri_pair_packed(coords)
+
     (J, K), (J2, K2), (J_p, K_p) = kernel(), kernel(), plain()
     require(bool(torch.all(torch.isfinite(J)) and torch.all(torch.isfinite(K))),
             f"{basis}: non-finite J or K")
@@ -598,20 +705,26 @@ def check_fock_direct(basis: str, device, record: dict) -> str:
     torch.cuda.synchronize()
     require(err <= FOCK_TOLERANCE, f"{basis}: fock_direct off its plain version by {err:.3e}")
     require(repeat <= FOCK_TOLERANCE, f"{basis}: two fock_direct calls differ by {repeat:.3e}")
-    ms, plain_ms = median_ms(kernel), median_ms(plain, repeats=1)
+    require(torch.equal(kernel_eri(), kernel_eri()), f"{basis}: two ERI kernel calls differ")
+    # K4 against K1 on one plan: 21 rounds that call them in turn
+    ms, eri_ms = medians_ms((kernel, kernel_eri), repeats=21)
+    plain_ms = median_ms(plain, repeats=1)
+    t = plan.tensors(device)
+    needed, algorithm = fock_direct_operations(plan)
+    fock_bound = bound(eri_input_bytes(plan, coords)
+                       + tensor_bytes(P, t["pid_i"], t["pid_j"], J, K), needed / FP64_PER_MS)
     entry = record.setdefault("fock_direct", {"max_abs_err": 0.0})
     entry["max_abs_err"] = max(entry["max_abs_err"],
                                float(torch.max(torch.abs(J - J_p))),
                                float(torch.max(torch.abs(K - K_p))))
     if basis == "CC-PVTZ":
-        t = plan.tensors(device)
-        inputs = [coords, P, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"],
-                  t["atom2"], t["pair_start"], t["pid_i"], t["pid_j"], t["boys_eri"]]
-        entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                     **bound(tensor_bytes(*inputs, J, K),
-                             fock_direct_operations(plan) / FP64_PER_MS))
-    return (f"kernels DIRECT {basis}: fock_direct relative max|diff| {err:.3e}, repeated "
-            f"call {repeat:.3e} ({ms:.4f} ms vs plain {plain_ms:.4f} ms)")
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=None, **fock_bound)
+    return (f"kernels DIRECT {basis}: {work_list_summary(plan)}; fock_direct relative "
+            f"max|diff| {err:.3e}, repeated call {repeat:.3e} ({ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms, bound {fock_bound['bound_ms']:.5f} ms by "
+            f"{fock_bound['bound_by']}; the kernel's algorithm {algorithm / FP64_PER_MS:.5f} "
+            f"ms); eri_packed on the same plan {eri_ms:.4f} ms, two "
+            f"calls bitwise equal; fock_direct / eri_packed {ms / eri_ms:.3f}")
 
 
 def check_mo_transform(device, record: dict) -> str:
@@ -722,7 +835,8 @@ def check_direct_path() -> dict:
 # ---------------------------------------------------------------------------
 
 # Run in a fresh interpreter per package root; it needs nothing of the root
-# but tuna_tpu_torch.cli.run and Output.{,correlation_}iteration_seconds.
+# but tuna_tpu_torch.cli.run, Output.{,correlation_}iteration_seconds and
+# IntegralPlan.eri_pair_packed and .fock_direct.
 _WALLS = """
 import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -751,30 +865,48 @@ cfg = Config("SPE", lookup_method("HF"), 0.0, [], "CC-PVTZ", ["N", "N"], suppres
 mol = Molecule(["N", "N"], np.array([[0.0, 0.0, 0.0], [0.0, 0.0, angstrom_to_bohr(1.1)]]), cfg)
 plan = IntegralPlan(mol.cartesian_basis_functions, mol.n_atoms)
 coords = torch.as_tensor(mol.coordinates, dtype=torch.float64, device="cuda")
-plan.eri_pair_packed(coords)
-eri_ms = []
-for _ in range(10):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    plan.eri_pair_packed(coords)
-    end.record()
+C = np.random.default_rng(13).standard_normal((plan.n_basis, 7)) / np.sqrt(plan.n_basis)
+P = torch.as_tensor(C @ C.T, dtype=torch.float64, device="cuda")   # density-like
+
+
+def median_ms(fn):
+    fn()
+    times = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+eri_ms = median_ms(lambda: plan.eri_pair_packed(coords))
+fock_ms = median_ms(lambda: plan.fock_direct(coords, P))
+# the DIRECT path's SCF ms per iteration: a cold run, then three warm ones
+direct_scf_ms = []
+for i in range(4):
+    out_direct, _, _, _ = run(sys.argv[4], suppress_output=True, device="cuda")
     torch.cuda.synchronize()
-    eri_ms.append(start.elapsed_time(end))
+    if i:
+        direct_scf_ms.append(1e3 * statistics.median(out_direct.iteration_seconds))
 print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__, "energy": energy,
                   "warm_wall_s": {"median": statistics.median(walls), "q1": q1, "q3": q3},
                   "scf_ms_per_iteration": statistics.median(scf_ms),
                   "cc_ms_per_iteration": statistics.median(cc_ms),
                   "iterations": [len(out.iteration_seconds),
                                  len(out.correlation_iteration_seconds)],
-                  "eri_packed_cc_pvtz_ms": statistics.median(eri_ms)}))
+                  "eri_packed_cc_pvtz_ms": eri_ms, "fock_direct_cc_pvtz_ms": fock_ms,
+                  "direct_scf_ms_per_iteration": statistics.median(direct_scf_ms)}))
 """
 
 
 def compare(roots) -> int:
     for root in roots:
         result = subprocess.run([sys.executable, "-c", _WALLS, str(pathlib.Path(root).resolve()),
-                                 LINE, str(WARM_RUNS)], cwd=root, capture_output=True,
-                                text=True, timeout=600)
+                                 LINE, str(WARM_RUNS), LINE_DIRECT], cwd=root,
+                                capture_output=True, text=True, timeout=600)
         if result.returncode != 0:
             print(result.stderr[-4000:], file=sys.stderr)
             return result.returncode
@@ -810,10 +942,9 @@ def main() -> int:
     start = time.perf_counter()
     library = _kernels.build()
     _kernels.library()
-    report = library.with_suffix(".log").read_text().splitlines()
-    usage = [line.split("ptxas info    : ")[-1] for line in report if "Used" in line]
-    print(f"build: {library.name} in {time.perf_counter() - start:.1f} s; "
-          f"ptxas: {' | '.join(usage)}")
+    registers = ptxas_report(library.with_suffix(".log").read_text())
+    print(f"build: {library.name} in {time.perf_counter() - start:.1f} s; {len(registers)} "
+          f"kernels; registers (ptxas): {json.dumps(registers)}")
 
     # --- 3. K1-K3 against their plain versions -------------------------------
     record: dict = {}

@@ -23,7 +23,7 @@ from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.constants import angstrom_to_bohr
 from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
-from tuna_tpu_torch.ops import motransform
+from tuna_tpu_torch.ops import integrals, motransform
 from tuna_tpu_torch.ops.integrals import IntegralPlan
 from tuna_tpu_torch.post import cc
 from tuna_tpu_torch.system import Molecule
@@ -48,6 +48,11 @@ def _n2(basis, method="HF"):
 def _n2_plan(basis):
     molecule = _n2(basis)
     return molecule, IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+
+
+def _density(N, seed):
+    C = np.random.default_rng(seed).standard_normal((N, 7)) / np.sqrt(N)
+    return C @ C.T
 
 
 def _n2_grid(basis, device):
@@ -207,6 +212,53 @@ def test_fock_direct_kernel_matches_plain(cuda, basis):
     # a symmetric P that is not a density: the seeded P + P.T of tuna_tpu's test
     A = np.random.RandomState(3).randn(N, N)
     P = torch.as_tensor(A + A.T, device=cuda)
+    for got, expected in zip(plan.fock_direct(coords, P), plan._fock_direct_plain(coords, P)):
+        assert _relative(got, expected) <= 1e-12
+
+
+def test_eri_kernel_is_bitwise_reproducible(cuda):
+    """K1 at N2/cc-pVTZ, where the heavy part of the work list (a warp a
+    quartet, a shuffle reduction) is used: no atomics, fixed order."""
+    molecule, plan = _n2_plan("CC-PVTZ")
+    _, classes = plan.work_list()
+    assert np.sum(classes[:, 4] - classes[:, 3]) > 0
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    assert torch.equal(plan.eri_pair_packed(coords), plan.eri_pair_packed(coords))
+
+
+def test_quartet_kernels_on_a_one_class_plan(cuda):
+    """H2/STO-3G: s functions only, so one class (0, 0) and one kernel."""
+    calculation = Config("SPE", lookup_method("HF"), 0.0, [], "STO-3G", ["H", "H"],
+                         suppress_output=True)
+    molecule = Molecule(["H", "H"], np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 1.4]]), calculation)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    _, classes = plan.work_list()
+    assert classes[:, :2].tolist() == [[0, 0]]
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    P = torch.as_tensor(_density(plan.n_basis, 2), device=cuda)
+    _kernels.reset_launch_counts()
+    packed = plan.eri_pair_packed(coords)
+    J, K = plan.fock_direct(coords, P)
+    assert _kernels.launches["eri_packed"] == 1 and _kernels.launches["fock_direct"] == 1
+    torch.testing.assert_close(packed, plan._eri_packed_plain(coords), rtol=0, atol=1e-12)
+    J_p, K_p = plan._fock_direct_plain(coords, P)
+    assert _relative(J, J_p) <= 1e-12 and _relative(K, K_p) <= 1e-12
+
+
+@pytest.mark.parametrize("threshold", [0, 10 ** 9])
+def test_quartet_kernels_all_light_or_all_heavy(cuda, threshold, monkeypatch):
+    """Threshold 0 sends every quartet of every class of N2/6-31G** (lmax
+    2, classes up to (4, 4)) to the heavy kernels, 10^9 every one to the
+    light kernels; both match the plain versions."""
+    monkeypatch.setattr(integrals, "HEAVY_THRESHOLD", threshold)
+    molecule, plan = _n2_plan("6-31G**")
+    _, classes = plan.work_list()
+    heavy = np.sum(classes[:, 4] - classes[:, 3])
+    assert heavy == (np.sum(classes[:, 4] - classes[:, 2]) if threshold == 0 else 0)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    torch.testing.assert_close(plan.eri_pair_packed(coords), plan._eri_packed_plain(coords),
+                               rtol=0, atol=1e-12)
+    P = torch.as_tensor(_density(plan.n_basis, 4), device=cuda)
     for got, expected in zip(plan.fock_direct(coords, P), plan._fock_direct_plain(coords, P)):
         assert _relative(got, expected) <= 1e-12
 

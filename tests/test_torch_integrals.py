@@ -26,8 +26,12 @@ from tuna_tpu.system import Molecule as JaxMolecule
 from tuna_tpu_torch import _kernels
 from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.methods import lookup_method
-from tuna_tpu_torch.ops import boys
-from tuna_tpu_torch.ops.integrals import IntegralPlan, cross_overlap
+from tuna_tpu_torch.basis import BASIS_TABLES
+from tuna_tpu_torch.ops import boys, integrals
+from tuna_tpu_torch.ops.integrals import (KERNEL_MAX_LMAX, SHARED_MEMORY_PER_BLOCK,
+                                          TWO_PI_POW_2_5, IntegralPlan, _double_factorial,
+                                          build_E_table, cross_overlap, gather_E_row,
+                                          heavy_shared_bytes, stack_E_table)
 from tuna_tpu_torch.system import Molecule
 
 torch.set_num_threads(2)
@@ -145,3 +149,192 @@ def test_kernels_dispatch_by_device():
         plan.eri_pair_packed(coords.to("meta"))
     with pytest.raises(ValueError):
         plan.one_electron(coords.to("meta"), charges.to("meta"), 0.0)
+
+
+# --- the quartet kernels' work list (csrc/quartet.cuh) ----------------------
+
+WORK_LIST_SYSTEMS = [
+    (("N", "N"), 1.10, "6-31G"),
+    (("H", "F"), 0.95, "6-31G**"),
+    (("N", "N"), 1.10, "CC-PVTZ"),   # f shells: classes up to (6, 6)
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(symbols, bond, basis):
+    _, molecule = _molecules(symbols, bond, basis)
+    return molecule, IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+
+
+def _pair_angular_momenta(molecule, plan):
+    """(L, x parity, y parity) of each AO pair, from the basis functions."""
+    lmn = np.array([bf.lmn for bf in molecule.cartesian_basis_functions])
+    pair = lmn[plan.pid_i] + lmn[plan.pid_j]
+    return pair.sum(axis=1), pair[:, 0] % 2, pair[:, 1] % 2
+
+
+@pytest.mark.parametrize("symbols,bond,basis", WORK_LIST_SYSTEMS)
+def test_work_list_holds_each_parity_matched_quartet_once(symbols, bond, basis):
+    molecule, plan = _plan(symbols, bond, basis)
+    quartets, _ = plan.work_list()
+    L, px, py = _pair_angular_momenta(molecule, plan)
+    P, Q = np.tril_indices(plan.n_pairs)
+    keep = (px[P] == px[Q]) & (py[P] == py[Q])
+    expected = np.sort(P[keep].astype(np.int64) * plan.n_pairs + Q[keep])
+    bra, ket = quartets[:, 0].astype(np.int64), quartets[:, 1].astype(np.int64)
+    got = np.sort(np.maximum(bra, ket) * plan.n_pairs + np.minimum(bra, ket))
+    np.testing.assert_array_equal(got, expected)   # each once, nothing else
+    assert np.all(L[bra] >= L[ket])
+
+
+@pytest.mark.parametrize("threshold", [0, 16, 10 ** 9])
+@pytest.mark.parametrize("symbols,bond,basis", WORK_LIST_SYSTEMS)
+def test_work_list_classes_are_uniform_sorted_and_split(symbols, bond, basis, threshold,
+                                                        monkeypatch):
+    molecule, _ = _plan(symbols, bond, basis)
+    monkeypatch.setattr(integrals, "HEAVY_THRESHOLD", threshold)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    quartets, classes = plan.work_list()
+    L, _, _ = _pair_angular_momenta(molecule, plan)
+    n_prim = np.diff(plan.pair_start)
+    counts = n_prim[quartets[:, 0]] * n_prim[quartets[:, 1]]
+    assert classes.dtype == np.int32 and classes.shape[1] == 7
+    keys = [(la, lb) for la, lb in classes[:, :2]]
+    assert len(set(keys)) == len(keys)
+    assert sorted((begin, end) for begin, end in classes[:, [2, 4]].tolist()) == [
+        (b, e) for b, e in zip(sorted(classes[:, 2]), sorted(classes[:, 4]))]
+    assert classes[:, 4].sum() - classes[:, 2].sum() == len(quartets)
+    for la, lb, begin, split, end, max_bra, max_ket in classes:
+        assert la >= lb and begin < end and begin <= split <= end
+        part = slice(begin, end)
+        assert np.all(L[quartets[part, 0]] == la) and np.all(L[quartets[part, 1]] == lb)
+        assert np.all(counts[begin:split] <= threshold)              # light
+        assert np.all(counts[split:end] > threshold)                 # heavy
+        for sorted_part in (slice(begin, split), slice(split, end)):  # largest count first
+            assert np.all(np.diff(counts[sorted_part]) <= 0)
+        heavy = slice(split, end)
+        assert max_bra == n_prim[quartets[heavy, 0]].max(initial=0)
+        assert max_ket == n_prim[quartets[heavy, 1]].max(initial=0)
+
+
+def test_heavy_rows_fit_in_shared_memory_for_every_basis():
+    """A heavy quartet's warp stages its bra and ket primitive pairs in
+    shared memory.  For each basis of the library the kernels take (lmax <=
+    3), the most primitive pairs of a pair of total angular momentum L over
+    all its elements bounds any molecule's rows of that L; every class
+    (L_bra, L_ket) at that bound fits a block."""
+    worst = 0
+    for name, table in BASIS_TABLES.items():
+        most = {}   # angular momentum -> most primitives of a shell
+        for shells in table.values():
+            for letter, primitives in shells:
+                l = "SPDFGH".index(letter)
+                most[l] = max(most.get(l, 0), len(primitives))
+        if max(most) > KERNEL_MAX_LMAX:
+            continue
+        pairs = {}  # L -> most primitive pairs of an AO pair
+        for l1, n1 in most.items():
+            for l2, n2 in most.items():
+                pairs[l1 + l2] = max(pairs.get(l1 + l2, 0), n1 * n2)
+        classes = np.array([(la, lb, 0, 0, 1, pairs[la], pairs[lb])
+                            for la in pairs for lb in pairs if lb <= la])
+        need = int(heavy_shared_bytes(classes).max())
+        assert need <= SHARED_MEMORY_PER_BLOCK, name
+        worst = max(worst, need)
+    assert worst == 221648   # (ss|ss) of the ANO bases' 21-primitive s shells
+
+
+def test_heavy_rows_of_the_most_contracted_basis(monkeypatch):
+    """Ar in aug-ANO-pVTZ (s shells of 21 primitives, f shells): the work
+    list's heavy parts fit, the largest being (ss|ss) at 441 x 441
+    primitive pairs; a block too small for it is refused on the host."""
+    _, molecule = _molecules(("AR",), 0.0, "AUG-ANO-PVTZ")
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    assert plan.lmax == 3
+    _, classes = plan.work_list()
+    need = heavy_shared_bytes(classes)
+    worst = classes[int(np.argmax(need))]
+    assert worst.tolist()[:2] + worst.tolist()[5:] == [0, 0, 441, 441]
+    assert need.max() <= SHARED_MEMORY_PER_BLOCK
+    plan._kernel_work_list("cpu")
+    monkeypatch.setattr(integrals, "SHARED_MEMORY_PER_BLOCK", int(need.max()) - 1)
+    with pytest.raises(NotImplementedError, match=r"class \(0, 0\)"):
+        plan._kernel_work_list("cpu")
+
+
+def _eri_packed_by_class(plan, coords):
+    """The quartet kernels' arithmetic in plain torch, unscaled: every class
+    of the work list at its own (L_bra, L_ket), Hermite rows cut to L + 1
+    orders an axis, Boys of order L_bra + L_ket from its own Taylor table,
+    and the Hermite Coulomb sum over v + 2n <= L_bra + L_ket only."""
+    t = plan.tensors("cpu")
+    lmax = plan.lmax
+    A, B = coords[t["atom1"].long()], coords[t["atom2"].long()]
+    a, b = t["a"], t["b"]
+    p = a + b
+    Pz = (a * A[:, 2] + b * B[:, 2]) / p
+    E = [gather_E_row(stack_E_table(build_E_table(lmax, lmax, A[:, axis] - B[:, axis], a, b),
+                                    lmax, lmax, 2 * lmax),
+                      t["l1"][:, axis].long(), t["l2"][:, axis].long())
+         for axis in range(3)]
+    start = plan.pair_start.astype(np.int64)
+    quartets, classes = plan.work_list()
+    packed = torch.zeros((plan.n_pairs, plan.n_pairs), dtype=torch.float64)
+    for la, lb, begin, _, end, _, _ in classes:
+        bra, ket = quartets[begin:end, 0], quartets[begin:end, 1]
+        nr, nc = start[bra + 1] - start[bra], start[ket + 1] - start[ket]
+        n = nr * nc
+        owner = np.repeat(np.arange(len(bra)), n)
+        k = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+        r = torch.as_tensor(start[bra][owner] + k // nc[owner])
+        c = torch.as_tensor(start[ket][owner] + k % nc[owner])
+        nm, nxy = int(la + lb), int(la + lb) // 2
+        sign = torch.tensor([(-1.0) ** u for u in range(lb + 1)], dtype=torch.float64)
+        g = []
+        for axis in range(3):
+            prod = E[axis][r, :la + 1, None] * (E[axis][c, :lb + 1] * sign)[:, None, :]
+            total = torch.zeros((len(r), nm + 1), dtype=torch.float64)
+            for ti in range(la + 1):
+                total[:, ti:ti + lb + 1] += prod[:, ti, :]
+            g.append(total)
+        double_factorial = torch.tensor([_double_factorial(2 * m - 1) for m in range(nxy + 1)],
+                                        dtype=torch.float64)
+        gx = g[0][:, 0:2 * nxy + 1:2] * double_factorial
+        gy = g[1][:, 0:2 * nxy + 1:2] * double_factorial
+        axy = torch.zeros((len(r), nxy + 1), dtype=torch.float64)
+        for mx in range(nxy + 1):
+            axy[:, mx:] += gx[:, mx:mx + 1] * gy[:, :nxy + 1 - mx]
+        q = p[c]
+        alpha = p[r] * q / (p[r] + q)
+        PQz = Pz[r] - Pz[c]
+        F = boys.boys_table(nm, alpha * PQz * PQz)
+        R = [F * (-2.0 * alpha[:, None]) ** torch.arange(nm + 1, dtype=torch.float64)]
+        for v in range(1, nm + 1):   # R[v][:, n] = R^n_{00v}, n <= nm - v
+            row = PQz[:, None] * R[v - 1][:, 1:]
+            if v > 1:
+                row = row + (v - 1) * R[v - 2][:, 1:nm - v + 2]
+            R.append(row)
+        value = torch.zeros(len(r), dtype=torch.float64)
+        for v in range(nm + 1):
+            n_top = min(nxy, (nm - v) // 2)
+            value += g[2][:, v] * torch.sum(axy[:, :n_top + 1] * R[v][:, :n_top + 1], dim=1)
+        value *= (t["coef"][r] * t["coef"][c] * TWO_PI_POW_2_5
+                  / (p[r] * q * torch.sqrt(p[r] + q)))
+        sums = torch.zeros(len(bra), dtype=torch.float64).index_add_(
+            0, torch.as_tensor(owner), value)
+        packed[bra, ket] = sums
+        packed[ket, bra] = sums
+    return packed
+
+
+def test_class_truncation_is_exact():
+    """Cutting each quartet to its own class drops only exact zeros: the
+    class-by-class arithmetic equals the plain sweep at the molecule's
+    LMAX (HF/6-31G**, lmax 2, classes up to (4, 4)) and tuna_tpu."""
+    molecule, plan, _, packed_jax, _ = _reference(("H", "F"), 0.95, "6-31G**")
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64)
+    got = _eri_packed_by_class(plan, coords)
+    assert len(plan.work_list()[1]) == 15   # every (L_bra, L_ket) up to (4, 4)
+    np.testing.assert_allclose(got.numpy(), plan._eri_packed_plain(coords).numpy(),
+                               rtol=0, atol=1e-13)
+    np.testing.assert_allclose(got.numpy(), packed_jax, rtol=0, atol=1e-12)

@@ -37,9 +37,10 @@ _D = ctypes.c_double
 
 # C entry points: argument types in order, the stream last.
 SIGNATURES = {
-    # lmax, n_atoms, n_pairs, n_prim_pairs, coords, a, b, coef, l1, l2,
-    # atom1, atom2, pair_start, boys_table, rows (scratch), packed (out)
-    "tuna_eri_packed": [_I, _I, _I, _I] + [_P] * 12 + [_P],
+    # lmax, n_pairs, n_prim_pairs, coords, a, b, coef, l1, l2, atom1, atom2,
+    # pair_start, quartets, n_classes, classes (host), boys tables, rows
+    # (scratch), packed (out)
+    "tuna_eri_packed": [_I, _I, _I] + [_P] * 10 + [_I] + [_P] * 4 + [_P],
     # lmax, n_atoms, n_basis, n_pairs, coords, charges, a, b, coef, l1, l2,
     # atom1, atom2, ao_i, ao_j, pair_start, boys_table, dipole_origin_z, out
     "tuna_one_electron": [_I, _I, _I, _I] + [_P] * 13 + [_D, _P] + [_P],
@@ -54,9 +55,9 @@ SIGNATURES = {
     # density, beta, partial
     "tuna_vv10_energy": [_I, _I, _I] + [_P] * 4 + [_D, _P] + [_P],
     # lmax, n_pairs, n_prim_pairs, n_basis, coords, a, b, coef, l1, l2,
-    # atom1, atom2, pair_start, pid_i, pid_j, boys_table, P, rows (scratch),
-    # J_pair (scratch), J, K
-    "tuna_fock_direct": [_I, _I, _I, _I] + [_P] * 17 + [_P],
+    # atom1, atom2, pair_start, pid_i, pid_j, quartets, n_classes, classes
+    # (host), boys tables, P, rows (scratch), J_pair (scratch), J, K
+    "tuna_fock_direct": [_I, _I, _I, _I] + [_P] * 12 + [_I] + [_P] * 7 + [_P],
     # n_rows, n_ao, n_mo, panel, row_stride, col_stride, M, pair_index, W, out
     "tuna_mo_half_transform": [_I, _I, _I, _I, _L, _L] + [_P] * 4 + [_P],
 }

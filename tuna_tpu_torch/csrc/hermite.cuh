@@ -59,15 +59,19 @@ __device__ __forceinline__ void hermite_row(int i, int j, double a, double b, do
   for (int s = 0; s < j; ++s) hermite_raise(e, inv2p, x_pb);
 }
 
-// sum_v gz[v] sum_n axy[n] R^n_{00v}(alpha, PQz) over v + n <= NMAX.
+// sum_v gz[v] sum_n axy[n] R^n_{00v}(alpha, PQz) over n <= NXY and
+// v + STEP n <= NMAX.
 // The z-axis Hermite Coulomb table (all centres on the z axis):
 //   R^n_{000} = (-2 alpha)^n F_n(alpha PQz^2)
 //   R^n_{00v} = PQz R^{n+1}_{00,v-1} + (v - 1) R^{n+1}_{00,v-2}
-// built row by row over v, three rows live at a time.
-template <int NMAX, int VMAX>
+// built row by row over v, three rows live at a time.  The quartet kernels
+// pass STEP = 2: there n = m_x + m_y counts pairs of x/y orders, so a term
+// with v + 2n above the quartet's total angular momentum NMAX is an exact
+// zero and is left out.
+template <int NMAX, int VMAX, int NXY = NMAX, int STEP = 1>
 __device__ __forceinline__ double hermite_coulomb(const double (&F)[NMAX + 1], double alpha,
                                                   double PQz, const double (&gz)[VMAX + 1],
-                                                  const double (&axy)[NMAX + 1]) {
+                                                  const double (&axy)[NXY + 1]) {
   double r_older[NMAX + 1], r_old[NMAX + 1], r_new[NMAX + 1];
   double scale = 1.0;
 #pragma unroll
@@ -78,7 +82,7 @@ __device__ __forceinline__ double hermite_coulomb(const double (&F)[NMAX + 1], d
   }
   double dot0 = 0.0;
 #pragma unroll
-  for (int n = 0; n <= NMAX; ++n) dot0 += axy[n] * r_old[n];
+  for (int n = 0; n <= NXY && STEP * n <= NMAX; ++n) dot0 += axy[n] * r_old[n];
   double total = gz[0] * dot0;
 #pragma unroll
   for (int v = 1; v <= VMAX; ++v) {
@@ -86,7 +90,7 @@ __device__ __forceinline__ double hermite_coulomb(const double (&F)[NMAX + 1], d
 #pragma unroll
     for (int n = 0; n + v <= NMAX; ++n) {
       r_new[n] = PQz * r_old[n + 1] + (v - 1) * r_older[n + 1];
-      dot += axy[n] * r_new[n];
+      if (n <= NXY && v + STEP * n <= NMAX) dot += axy[n] * r_new[n];
     }
 #pragma unroll
     for (int n = 0; n <= NMAX; ++n) {

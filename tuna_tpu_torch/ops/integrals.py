@@ -13,6 +13,9 @@ dispatch on the device of the coordinates they are given:
     build, the N^4 tensor never stored): csrc/fock_direct.cu on a CUDA
     tensor, `_fock_direct_plain` on a CPU tensor.
 
+The two quartet kernels share csrc/quartet.cuh and walk the plan's work
+list (`IntegralPlan.work_list`), built on the host once per basis.
+
 The plain versions mirror the JAX functions, including the TPU's scaled
 Hermite form (Rt[v,n] = R[v,n] / (2 alpha)^(n+v)); the kernels work
 unscaled in native float64 (csrc/hermite.cuh).  Both assume every atom on
@@ -32,6 +35,16 @@ from .boys import boys_table, taylor_table
 TWO_PI_POW_2_5 = 2.0 * math.pi ** 2.5  # 34.9868366552497...
 PI_POW_1_5 = math.pi ** 1.5
 KERNEL_MAX_LMAX = 3                    # highest LMAX instantiated in csrc/
+# Primitive quartets above which a work-list quartet gets a warp of its own
+# instead of a thread (csrc/quartet.cuh); tuned on the card (PERF.md).
+HEAVY_THRESHOLD = 16
+# Shared memory of a heavy class kernel's block (csrc/quartet.cuh): the Boys
+# Taylor table (TUNA_BOYS_TABLE_SIZE doubles, csrc/boys.cuh) and, for each of
+# its kHeavyWarps warps, the staged bra and ket rows.  An H100 gives a block
+# at most 227 KB.
+_HEAVY_WARPS = 4
+_BOYS_TABLE_BYTES = 8 * 301 * 10
+SHARED_MEMORY_PER_BLOCK = 227 * 1024
 _F64 = torch.float64
 
 
@@ -41,6 +54,39 @@ def _double_factorial(n: int) -> float:
         result *= n
         n -= 2
     return result
+
+
+def quartet_operations(l_bra: int, l_ket: int) -> tuple[int, int]:
+    """Float64 operations of one primitive quartet of class (l_bra, l_ket)
+    in csrc/quartet.cuh::primitive_quartet, as (shared, own); exp, sqrt and
+    a division count as one operation each.
+
+    `shared` depends only on the two primitive pairs' exponents and
+    centres, so every Cartesian component of a shell quartet could share
+    it: alpha and T, the Boys evaluation of order l_bra + l_ket, the
+    R^n_00v recursion and the exponent part of the prefactor.  `own` is
+    the rest: the Hermite products to l + 1 orders an axis, the x/y
+    pairing, their contraction with R^n_00v and the coefficients."""
+    ta, tb, nm = l_bra + 1, l_ket + 1, l_bra + l_ket
+    nxy = nm // 2
+    hermite = 2 * ta * tb + 4 * ((ta * tb + 1) // 2)
+    pairing = 3 * (nxy + 1) * (nxy + 2) // 2
+    boys = 23 + 4 * nm
+    recursion = 2 * (nm + 1) + 3 * nm * (nm + 1) // 2
+    dots = sum(min(nxy, (nm - v) // 2) + 1 for v in range(nm + 1))
+    contraction = 2 * dots + 2 * nm + 1
+    return 6 + boys + recursion + 4, hermite + pairing + contraction + 4
+
+
+def heavy_shared_bytes(classes: np.ndarray) -> np.ndarray:
+    """Shared memory of the block of each class's heavy kernel, for the rows
+    of `IntegralPlan.work_list`'s class table (0 for a class without a
+    heavy part).  A staged row has 3 (L + 1) + 3 doubles, rounded up to an
+    odd count (csrc/quartet.cuh::ClassShape)."""
+    la, lb, split, end, max_bra, max_ket = (classes[:, k].astype(np.int64)
+                                            for k in (0, 1, 3, 4, 5, 6))
+    rows = max_bra * ((3 * la + 6) | 1) + max_ket * ((3 * lb + 6) | 1)
+    return np.where(end > split, _BOYS_TABLE_BYTES + 8 * _HEAVY_WARPS * rows, 0)
 
 
 def _powers(base, n: int):
@@ -233,6 +279,8 @@ class IntegralPlan:
         self.pair_start = np.searchsorted(
             self.pair_id, np.arange(self.n_pairs + 1)).astype(np.int32)
         self._device_tensors: dict = {}
+        self._work_list = None
+        self._device_quartets: dict = {}  # device -> the work list's quartets
         self._setup_plain_blocks()
 
     def _setup_plain_blocks(self):
@@ -288,11 +336,89 @@ class IntegralPlan:
                 "pid_i": i32(self.pid_i), "pid_j": i32(self.pid_j),
                 "pair_index": torch.as_tensor(self.pair_index, dtype=torch.int64,
                                               device=device),
-                "boys_eri": taylor_table(4 * self.lmax, device).contiguous(),
+                # the quartet kernels' Taylor tables, Boys orders 0..4 lmax
+                "boys_quartets": torch.stack([taylor_table(n, device)
+                                              for n in range(4 * self.lmax + 1)]).contiguous(),
                 "boys_one_electron": taylor_table(2 * self.lmax, device).contiguous(),
             }
             self._device_tensors[device] = cached
         return cached
+
+    def work_list(self) -> tuple[np.ndarray, np.ndarray]:
+        """(quartets, classes): the quartet kernels' work list
+        (csrc/quartet.cuh), split at HEAVY_THRESHOLD.
+
+        quartets, (n, 2) int32, holds every unordered AO-pair quartet whose
+        x and y Hermite parities match, each once, as (bra, ket) with
+        L_bra >= L_ket (L = |l1| + |l2| of the pair), grouped by class
+        (L_bra, L_ket).  A class is its light part (primitive-quartet counts
+        up to the threshold, one thread a quartet), then its heavy part (one
+        warp a quartet), each sorted by count, largest first, so that the
+        lanes of a warp do equal work and the longest quartets start first.
+        classes, (n_classes, 7) int32, has one row per non-empty class:
+        L_bra, L_ket, begin, split, end ([begin, split) light, [split, end)
+        heavy), and the most primitive pairs of a bra and of a ket in the
+        heavy part.  Its rows are in launch order: the longest serial chain
+        of a thread or lane first, then the most work.  It depends on the
+        basis only, so it is built once."""
+        if self._work_list is not None:
+            return self._work_list
+        first = self.pair_start[:-1]
+        L = (self.l1[first].sum(axis=1) + self.l2[first].sum(axis=1)).astype(np.int64)
+        parity = (2 * ((self.l1[first, 0] + self.l2[first, 0]) & 1)
+                  + ((self.l1[first, 1] + self.l2[first, 1]) & 1))
+        n_prim = np.diff(self.pair_start).astype(np.int64)
+        P, Q = [], []
+        for cls in range(4):
+            members = np.flatnonzero(parity == cls)
+            rows, cols = np.tril_indices(len(members))
+            P.append(members[rows])
+            Q.append(members[cols])
+        P, Q = np.concatenate(P), np.concatenate(Q)
+        swap = L[Q] > L[P]
+        bra, ket = np.where(swap, Q, P), np.where(swap, P, Q)
+        count = n_prim[bra] * n_prim[ket]
+        order = np.lexsort((ket, bra, -count, count > HEAVY_THRESHOLD, L[ket], L[bra]))
+        bra, ket, count = bra[order], ket[order], count[order]
+        l_bra, l_ket = L[bra], L[ket]
+        quartets = np.ascontiguousarray(np.stack([bra, ket], axis=1), dtype=np.int32)
+
+        new_class = np.r_[True, (l_bra[1:] != l_bra[:-1]) | (l_ket[1:] != l_ket[:-1])]
+        begins = np.flatnonzero(new_class)
+        ends = np.r_[begins[1:], len(bra)].astype(np.int64)
+        classes, chain, work = [], [], []
+        for begin, end in zip(begins, ends):
+            split = begin + int(np.sum(count[begin:end] <= HEAVY_THRESHOLD))
+            heavy = slice(split, end)
+            ops = sum(quartet_operations(int(l_bra[begin]), int(l_ket[begin])))
+            classes.append((l_bra[begin], l_ket[begin], begin, split, end,
+                            n_prim[bra[heavy]].max(initial=0), n_prim[ket[heavy]].max(initial=0)))
+            # iterations of the busiest thread (light) or lane (heavy), first in each part
+            chain.append(ops * max(count[begin] if split > begin else 0,
+                                   -(-count[split] // 32) if end > split else 0))
+            work.append(ops * int(count[begin:end].sum()))
+        # rows of csrc/quartet.cuh::ClassPart
+        classes = np.array([classes[k] for k in np.lexsort((-np.array(work), -np.array(chain)))],
+                           dtype=np.int32).reshape(-1, 7)
+        self._work_list = (quartets, classes)
+        return self._work_list
+
+    def _kernel_work_list(self, device):
+        """The work list's quartets on `device` (cached) and its class table,
+        which stays on the host."""
+        quartets, classes = self.work_list()
+        need = heavy_shared_bytes(classes)
+        if need.max(initial=0) > SHARED_MEMORY_PER_BLOCK:
+            worst = classes[int(np.argmax(need))]
+            raise NotImplementedError(
+                f"the heavy quartet kernel of class ({worst[0]}, {worst[1]}) would stage "
+                f"{worst[5]} bra and {worst[6]} ket primitive pairs, {int(need.max())} bytes of "
+                f"shared memory, more than a block's {SHARED_MEMORY_PER_BLOCK}")
+        device = torch.device(device)
+        on_device = self._device_quartets.get(device)
+        if on_device is None:
+            on_device = self._device_quartets[device] = torch.as_tensor(quartets, device=device)
+        return on_device, classes
 
     # ------------------------------------------------------------------
     # One-electron integrals: S, T, V_NE, D (3), Q (3)  [Cartesian basis]
@@ -457,16 +583,18 @@ class IntegralPlan:
         device = coords.device
         _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
         t = self.tensors(device)
+        quartets, classes = self._kernel_work_list(device)
         row_size = 3 * (2 * self.lmax + 1) + 3
         rows = torch.empty((self.n_prim_pairs, row_size), dtype=_F64, device=device)
         packed = torch.empty((self.n_pairs, self.n_pairs), dtype=_F64, device=device)
         _kernels.launch(
             "eri_packed", "tuna_eri_packed", device,
-            self.lmax, self.n_atoms, self.n_pairs, self.n_prim_pairs,
+            self.lmax, self.n_pairs, self.n_prim_pairs,
             coords.data_ptr(), t["a"].data_ptr(), t["b"].data_ptr(),
             t["coef"].data_ptr(), t["l1"].data_ptr(), t["l2"].data_ptr(),
             t["atom1"].data_ptr(), t["atom2"].data_ptr(), t["pair_start"].data_ptr(),
-            t["boys_eri"].data_ptr(), rows.data_ptr(), packed.data_ptr())
+            quartets.data_ptr(), len(classes), classes.ctypes.data,
+            t["boys_quartets"].data_ptr(), rows.data_ptr(), packed.data_ptr())
         return packed
 
     def _pair_data(self, coords):
@@ -628,6 +756,7 @@ class IntegralPlan:
         _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
         _kernels.check_tensor("P", P, (N, N), _F64, device)
         t = self.tensors(device)
+        quartets, classes = self._kernel_work_list(device)
         row_size = 3 * (2 * self.lmax + 1) + 3
         rows = torch.empty((self.n_prim_pairs, row_size), dtype=_F64, device=device)
         J_pair = torch.empty(self.n_pairs, dtype=_F64, device=device)
@@ -639,7 +768,8 @@ class IntegralPlan:
             coords.data_ptr(), t["a"].data_ptr(), t["b"].data_ptr(),
             t["coef"].data_ptr(), t["l1"].data_ptr(), t["l2"].data_ptr(),
             t["atom1"].data_ptr(), t["atom2"].data_ptr(), t["pair_start"].data_ptr(),
-            t["pid_i"].data_ptr(), t["pid_j"].data_ptr(), t["boys_eri"].data_ptr(),
+            t["pid_i"].data_ptr(), t["pid_j"].data_ptr(), quartets.data_ptr(),
+            len(classes), classes.ctypes.data, t["boys_quartets"].data_ptr(),
             P.data_ptr(), rows.data_ptr(), J_pair.data_ptr(), J.data_ptr(), K.data_ptr())
         return J, K
 
