@@ -24,14 +24,16 @@ non-zero without printing a result):
      with its SCF iteration count, and its profile;
   6. DFT kernels: K7a, K7b and K6 against their plain versions at the DFT
      path's shapes (N2/cc-pVTZ on the medium grid; K6 on the active points
-     of the converged density of phase 5);
+     of the converged density of phase 5, bitwise over two calls);
   7. DIRECT kernels: K4 (the direct Fock build) against its plain version at
      N2/cc-pVTZ and N2/6-311G with a seeded density-like P, and against a
      repeated call of itself (its atomics sum in no fixed order), beside K1
      on the same plan (bitwise over two calls); K5 (the
      packed half-transform) against its plain version at the DIRECT path's
      shapes, both variants, and on 64 rows at the cc-pV6Z shape (N = 252,
-     n_mo = 182), where it runs in panels; K2 again at o = 7, v = 53;
+     n_mo = 182), where it runs in panels; K2 again at o = 7, v = 53 (both
+     K2 shapes: bitwise over two calls, peak device memory a call, stage A's
+     products as one batched torch.matmul for library_ms);
   8. DIRECT path: `SPE : N N 1.1 : CCSD[T] CC-PVTZ : DIRECT TIGHTSCF`, the
      N^4 tensor never stored, held against tuna_tpu's energy and iteration
      counts and against the port's stored twin (the same line without
@@ -43,7 +45,9 @@ kernel with its plain version do not count.  Each kernel's record carries
 `bound_ms`, the least time the card could take for the same work: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its float64 operations, counted from the kernel's loop body
-at this run's inputs (K1 and K4: see eri_operations), over the H100 SXM
+at this run's inputs, or from what the function needs where the kernel
+does more (K1 and K4: see eri_operations; K2: triples_ms; K6:
+vv10_operations; the phase lines print both counts), over the H100 SXM
 data sheet's float64 rates: 67
 TFLOP/s for the matrix products that the tensor cores can take (K5's two
 products, K7b's P^T phi, the contractions of (T)), 34 TFLOP/s for the
@@ -62,13 +66,15 @@ and for K1 and K4 the union of their class kernels' intervals a call).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
---compare times the coupled-cluster path alone, WARM_RUNS warm runs after a
-cold one, then K1 and K4 alone at N2/cc-pVTZ (median of 10; K4 on a seeded
-density) and the DIRECT path's SCF ms per iteration (median over three warm
-runs), with the tuna_tpu_torch of each ROOT in turn (each in its own
-interpreter, building its own kernels), and prints one JSON line for each:
-two checkouts, say a parent commit and this one, compared on one card in
-one call (run them in the order A B B A).
+--compare times the three paths, WARM_RUNS warm runs each after a cold one
+(warm wall median and quartiles, SCF and CC ms per iteration, iteration
+counts), then, CUDA events, median of 10 after a warm-up: K1 and K4 alone at
+N2/cc-pVTZ (K4 on a seeded density), K2 alone at o = 7, v = 53 and K6 alone
+at M = 51,320 points, both on seeded inputs through cc.ccsd_t_energy and
+vv10.vv10_energy, with their energies; with the tuna_tpu_torch of each ROOT
+in turn (each in its own interpreter, building its own kernels), and prints
+one JSON line for each: two checkouts, say a parent commit and this one,
+compared on one card in one call (run them in the order A B B A).
 """
 
 from __future__ import annotations
@@ -334,12 +340,26 @@ def one_electron_operations(plan: IntegralPlan) -> float:
     return float(np.sum(per_pair) + plan.n_prim_pairs * plan.n_atoms * per_atom)
 
 
-def triples_ms(no: int, nv: int) -> float:
-    """csrc/ccsd_t.cu: per (ijk, abc), six raw terms of nv + no
-    multiply-adds (contractions, at the matrix-product rate) and the
-    weighting, disconnected term, denominator and accumulation (26)."""
+def triples_ms(no: int, nv: int) -> tuple[float, float]:
+    """(needed, first kernel's) ms of the (T) energy's float64 operations.
+    The function needs each raw element R_ijk[abc] once, nv + no
+    multiply-adds (2 (nv + no) operations at the matrix-product rate), then
+    per (ijk, abc) the sum W of six raw terms, its weighting, the
+    disconnected term, the denominator and the accumulation (26).  The
+    first (T) kernel recomputed the six raw terms for every W element:
+    12 (nv + no)."""
     n = float(no ** 3 * nv ** 3)
-    return n * 12 * (no + nv) / FP64_MMA_PER_MS + n * 26 / FP64_PER_MS
+    rest = n * 26 / FP64_PER_MS
+    return (n * 2 * (no + nv) / FP64_MMA_PER_MS + rest,
+            n * 12 * (no + nv) / FP64_MMA_PER_MS + rest)
+
+
+def vv10_operations(M: int) -> tuple[float, float]:
+    """(needed, first kernel's) float64 operations of the VV10 pair sum: 18 a
+    pair over the symmetric half, M (M + 1) / 2 pairs, which the function
+    needs since K_ij = K_ji; the first VV10 kernel visited all M^2 ordered
+    pairs."""
+    return 18.0 * M * (M + 1) / 2, 18.0 * M * M
 
 
 def ao_on_grid_operations(basis: grid.GridBasis, n_points: int, with_gradients: bool) -> float:
@@ -438,16 +458,16 @@ def eri_input_bytes(plan: IntegralPlan, coords) -> int:
                         t["atom2"], t["pair_start"])
 
 
-def check_triples(no: int, nv: int, device, record: dict) -> str:
-    """K2 against its plain version at o = no, v = nv; the record keeps the
-    largest error over the shapes checked and the times of the first."""
+def triples_args(no: int, nv: int, device) -> tuple:
+    """Seeded (T) inputs at o = no, v = nv: <oo|vv>, <ov|vv>, <oo|vo>, t1,
+    t2, eps_o, eps_v."""
     rng = np.random.default_rng(7)
 
     def tensor(*shape, scale):
         return torch.as_tensor(scale * rng.standard_normal(shape), dtype=torch.float64,
                                device=device)
 
-    args = (tensor(no, no, nv, nv, scale=0.1), tensor(no, nv, nv, nv, scale=0.1),
+    return (tensor(no, no, nv, nv, scale=0.1), tensor(no, nv, nv, nv, scale=0.1),
             tensor(no, no, nv, no, scale=0.1), tensor(no, nv, scale=0.01),
             tensor(no, no, nv, nv, scale=0.05),
             torch.as_tensor(-np.sort(rng.uniform(0.5, 15.0, no))[::-1].copy(),
@@ -455,26 +475,68 @@ def check_triples(no: int, nv: int, device, record: dict) -> str:
             torch.as_tensor(np.sort(rng.uniform(0.3, 5.0, nv)), dtype=torch.float64,
                             device=device))
 
+
+def stage_a_library_ms(args) -> float:
+    """One batched torch.matmul computing K2's stage-A products, R_ijk[:, b, :]
+    = [G_ib | -O_ij] . [T_kj^T ; T_kb] for every ordered (i, j, k) and b
+    (the operands are built before the timing)."""
+    g_oovv, g_ovvv, g_oovo, t1, t2 = args[:5]
+    no, nv = t1.shape
+    i, j, k = (torch.arange(no, device=t1.device)[:, None, None].expand(no, no, no).reshape(-1),
+               torch.arange(no, device=t1.device)[None, :, None].expand(no, no, no).reshape(-1),
+               torch.arange(no, device=t1.device)[None, None, :].expand(no, no, no).reshape(-1))
+    A = torch.cat([g_ovvv[i], -g_oovo[i, j][:, None].expand(-1, nv, nv, no)], dim=3)
+    B = torch.cat([t2[k, j].transpose(1, 2)[:, None].expand(-1, nv, nv, nv),
+                   t2[:, k].permute(1, 2, 0, 3)], dim=2)
+    A, B = A.reshape(-1, nv, nv + no).contiguous(), B.reshape(-1, nv + no, nv).contiguous()
+    ms = median_ms(lambda: torch.matmul(A, B))
+    del A, B
+    return ms
+
+
+def check_triples(no: int, nv: int, device, record: dict) -> str:
+    """K2 against its plain version at o = no, v = nv, with its peak device
+    memory a call; the record keeps the largest error over the shapes, the
+    times of the first shape checked (the coupled-cluster path's, v = 19)
+    and every shape's measurements under `shapes`."""
+    args = triples_args(no, nv, device)
+
     def kernel():
         return cc.ccsd_t_energy(*args)
 
     def plain():
         return cc._ccsd_t_energy_plain(*args, 1.0)
 
-    e_kernel, e_plain = float(kernel()), float(plain())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    e_kernel = float(kernel())
+    peak_bytes = torch.cuda.max_memory_allocated() - before
+    e_plain = float(plain())
     err = abs(e_kernel - e_plain)
     require(np.isfinite(e_kernel), "(T) kernel returned a non-finite energy")
     require(err <= TRIPLES_TOLERANCE * abs(e_plain),
             f"(T) kernel off its plain version by {err:.3e} (relative {err / abs(e_plain):.3e})")
+    require(torch.equal(kernel(), kernel()), "two (T) kernel calls differ")
     ms, plain_ms = median_ms(kernel), median_ms(plain)
-    triples_bound = bound(tensor_bytes(*args) + 8 * nv ** 3, triples_ms(no, nv))
-    entry = record.setdefault("ccsd_t_energy", {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        **triples_bound})
+    library_ms = stage_a_library_ms(args)
+    needed, old_count = triples_ms(no, nv)
+    triples_bound = bound(tensor_bytes(*args), needed)
+    entry = record.setdefault("ccsd_t_energy", {"max_abs_err": 0.0, "shapes": []})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if "ms" not in entry:
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **triples_bound)
+    entry["shapes"].append({"o": no, "v": nv, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "max_abs_err": err, **triples_bound,
+                            "peak_bytes_a_call": peak_bytes})
+    n_batches = len(cc.triples_plan(no, nv, cc.TRIPLES_WORKSPACE_BYTES)[0])
     return (f"kernels (T): o {no}, v {nv}; E {e_kernel:.15e}, |diff| {err:.3e} "
-            f"(relative {err / abs(e_plain):.3e}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-            f"bound {triples_bound['bound_ms']:.5f} ms by {triples_bound['bound_by']}")
+            f"(relative {err / abs(e_plain):.3e}), two calls bitwise equal; {ms:.4f} ms vs "
+            f"plain {plain_ms:.4f} ms, stage A as one batched torch.matmul {library_ms:.4f} ms; "
+            f"bound {triples_bound['bound_ms']:.5f} ms by {triples_bound['bound_by']} (raw once "
+            f"an element; six raw terms an element, the first kernel's count: {old_count:.5f} ms); "
+            f"{n_batches} batches, peak device memory a call {peak_bytes} bytes (one o^3 v^3 "
+            f"tensor: {8 * no ** 3 * nv ** 3} bytes)")
 
 
 # ---------------------------------------------------------------------------
@@ -657,18 +719,22 @@ def check_dft_kernels(molecule, P_converged, device, record: dict) -> str:
     err_vv10 = abs(e_kernel - e_plain)
     require(np.isfinite(e_kernel) and err_vv10 <= VV10_TOLERANCE * abs(e_plain),
             f"vv10_energy off its plain version by {err_vv10:.3e} (E {e_kernel!r})")
+    require(torch.equal(kernel_vv10(), kernel_vv10()), "two vv10_energy calls differ")
+    needed, old_count = vv10_operations(M)
+    vv10_bound = bound(6 * 8 * M, needed / FP64_PER_MS)
     record["vv10_energy"] = {
         "max_abs_err": err_vv10, "ms": median_ms(kernel_vv10), "plain_ms": plain_ms,
-        "library_ms": None,
-        **bound(6 * 8 * M, 18.0 * M * M / FP64_PER_MS)}
+        "library_ms": None, **vv10_bound}
     return (f"DFT kernels: N2/{molecule.basis}, {n} spherical AOs ({basis.n_ao} Cartesian), {G} grid "
             f"points, {M} VV10 points; ao_on_grid max|diff| {err_ao:.3e} "
             f"({record['ao_on_grid']['ms']:.4f} ms vs plain {record['ao_on_grid']['plain_ms']:.4f} ms); "
             f"density_on_grid max|diff| {err_rho:.3e} ({record['density_on_grid']['ms']:.4f} ms, "
             f"rho only {rho_only_ms:.4f} ms, vs plain {record['density_on_grid']['plain_ms']:.4f} ms, "
             f"einsum (rho only) {record['density_on_grid']['library_ms']:.4f} ms); "
-            f"vv10_energy E {e_kernel!r}, |diff| {err_vv10:.3e} "
-            f"({record['vv10_energy']['ms']:.4f} ms vs plain {plain_ms:.4f} ms, one run)")
+            f"vv10_energy E {e_kernel!r}, |diff| {err_vv10:.3e}, two calls bitwise equal "
+            f"({record['vv10_energy']['ms']:.4f} ms vs plain {plain_ms:.4f} ms, one run; bound "
+            f"{vv10_bound['bound_ms']:.5f} ms by {vv10_bound['bound_by']} over the M (M + 1) / 2 "
+            f"pairs of the symmetric half, {old_count / FP64_PER_MS:.5f} ms over all M^2)")
 
 
 # ---------------------------------------------------------------------------
@@ -835,41 +901,46 @@ def check_direct_path() -> dict:
 # ---------------------------------------------------------------------------
 
 # Run in a fresh interpreter per package root; it needs nothing of the root
-# but tuna_tpu_torch.cli.run, Output.{,correlation_}iteration_seconds and
-# IntegralPlan.eri_pair_packed and .fock_direct.
+# but tuna_tpu_torch.cli.run, Output.{,correlation_}iteration_seconds,
+# IntegralPlan.eri_pair_packed and .fock_direct, post.cc.ccsd_t_energy and
+# dft.vv10.vv10_energy, which every checkout with the DIRECT path has.
 _WALLS = """
 import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
+import numpy as np
 import torch
 import tuna_tpu_torch
 from tuna_tpu_torch.cli import run
-line, runs = sys.argv[2], int(sys.argv[3])
-walls, scf_ms, cc_ms = [], [], []
-for i in range(runs + 1):
-    start = time.perf_counter()
-    out, _, energy, _ = run(line, suppress_output=True, device="cuda")
-    torch.cuda.synchronize()
-    if i:  # run 0 is cold
-        walls.append(time.perf_counter() - start)
-        scf_ms.append(1e3 * statistics.median(out.iteration_seconds))
-        cc_ms.append(1e3 * statistics.median(out.correlation_iteration_seconds))
-q1, _, q3 = statistics.quantiles(walls, n=4)
-# K1 alone at N2/cc-pVTZ, CUDA events, median of 10 after a warm-up
-import numpy as np
 from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.constants import angstrom_to_bohr
+from tuna_tpu_torch.dft import vv10
 from tuna_tpu_torch.methods import lookup_method
 from tuna_tpu_torch.ops.integrals import IntegralPlan
+from tuna_tpu_torch.post import cc
 from tuna_tpu_torch.system import Molecule
-cfg = Config("SPE", lookup_method("HF"), 0.0, [], "CC-PVTZ", ["N", "N"], suppress_output=True)
-mol = Molecule(["N", "N"], np.array([[0.0, 0.0, 0.0], [0.0, 0.0, angstrom_to_bohr(1.1)]]), cfg)
-plan = IntegralPlan(mol.cartesian_basis_functions, mol.n_atoms)
-coords = torch.as_tensor(mol.coordinates, dtype=torch.float64, device="cuda")
-C = np.random.default_rng(13).standard_normal((plan.n_basis, 7)) / np.sqrt(plan.n_basis)
-P = torch.as_tensor(C @ C.T, dtype=torch.float64, device="cuda")   # density-like
+runs, lines = int(sys.argv[2]), sys.argv[3:]
 
 
-def median_ms(fn):
+def warm(line):
+    walls, scf_ms, cc_ms = [], [], []
+    for i in range(runs + 1):
+        start = time.perf_counter()
+        out, _, energy, _ = run(line, suppress_output=True, device="cuda")
+        torch.cuda.synchronize()
+        if i:  # run 0 is cold
+            walls.append(time.perf_counter() - start)
+            scf_ms.append(1e3 * statistics.median(out.iteration_seconds))
+            if out.correlation_iteration_seconds:
+                cc_ms.append(1e3 * statistics.median(out.correlation_iteration_seconds))
+    q1, _, q3 = statistics.quantiles(walls, n=4)
+    return {"energy": energy, "warm_wall_s": {"median": statistics.median(walls), "q1": q1,
+                                              "q3": q3},
+            "scf_ms_per_iteration": statistics.median(scf_ms),
+            "cc_ms_per_iteration": statistics.median(cc_ms) if cc_ms else None,
+            "iterations": [len(out.iteration_seconds), len(out.correlation_iteration_seconds)]}
+
+
+def median_ms(fn):   # CUDA events, median of 10 after a warm-up
     fn()
     times = []
     for _ in range(10):
@@ -882,30 +953,41 @@ def median_ms(fn):
     return statistics.median(times)
 
 
-eri_ms = median_ms(lambda: plan.eri_pair_packed(coords))
-fock_ms = median_ms(lambda: plan.fock_direct(coords, P))
-# the DIRECT path's SCF ms per iteration: a cold run, then three warm ones
-direct_scf_ms = []
-for i in range(4):
-    out_direct, _, _, _ = run(sys.argv[4], suppress_output=True, device="cuda")
-    torch.cuda.synchronize()
-    if i:
-        direct_scf_ms.append(1e3 * statistics.median(out_direct.iteration_seconds))
-print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__, "energy": energy,
-                  "warm_wall_s": {"median": statistics.median(walls), "q1": q1, "q3": q3},
-                  "scf_ms_per_iteration": statistics.median(scf_ms),
-                  "cc_ms_per_iteration": statistics.median(cc_ms),
-                  "iterations": [len(out.iteration_seconds),
-                                 len(out.correlation_iteration_seconds)],
-                  "eri_packed_cc_pvtz_ms": eri_ms, "fock_direct_cc_pvtz_ms": fock_ms,
-                  "direct_scf_ms_per_iteration": statistics.median(direct_scf_ms)}))
+paths = {line: warm(line) for line in lines}
+# K1 and K4 alone at N2/cc-pVTZ (K4 on a seeded density-like P)
+cfg = Config("SPE", lookup_method("HF"), 0.0, [], "CC-PVTZ", ["N", "N"], suppress_output=True)
+mol = Molecule(["N", "N"], np.array([[0.0, 0.0, 0.0], [0.0, 0.0, angstrom_to_bohr(1.1)]]), cfg)
+plan = IntegralPlan(mol.cartesian_basis_functions, mol.n_atoms)
+coords = torch.as_tensor(mol.coordinates, dtype=torch.float64, device="cuda")
+C = np.random.default_rng(13).standard_normal((plan.n_basis, 7)) / np.sqrt(plan.n_basis)
+P = torch.as_tensor(C @ C.T, dtype=torch.float64, device="cuda")   # density-like
+# K2 alone at o = 7, v = 53 and K6 alone at M = 51,320, seeded
+rng = np.random.default_rng(19)
+no, nv, M = 7, 53, 51320
+gpu = lambda x: torch.as_tensor(x, dtype=torch.float64, device="cuda")
+triples = [gpu(s * rng.standard_normal(shape)) for s, shape in (
+    (0.1, (no, no, nv, nv)), (0.1, (no, nv, nv, nv)), (0.1, (no, no, nv, no)), (0.01, (no, nv)),
+    (0.05, (no, no, nv, nv)))]
+triples += [gpu(np.sort(rng.uniform(-15.0, -0.5, no))), gpu(np.sort(rng.uniform(0.3, 5.0, nv)))]
+density = 10.0 ** rng.uniform(-6, 1, M)
+points = [gpu(density), gpu(rng.uniform(0.0, 0.05, M)),
+          gpu(density ** (8 / 3) * rng.uniform(0.0, 4.0, M)), gpu(rng.uniform(-8.0, 8.0, (M, 3)))]
+print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__,
+                  "paths": paths,
+                  "eri_packed_cc_pvtz_ms": median_ms(lambda: plan.eri_pair_packed(coords)),
+                  "fock_direct_cc_pvtz_ms": median_ms(lambda: plan.fock_direct(coords, P)),
+                  "ccsd_t_energy_o7_v53_ms": median_ms(lambda: cc.ccsd_t_energy(*triples)),
+                  "ccsd_t_energy_o7_v53": float(cc.ccsd_t_energy(*triples)),
+                  "vv10_energy_m51320_ms": median_ms(lambda: vv10.vv10_energy(*points, 6.0,
+                                                                             0.01)),
+                  "vv10_energy_m51320": float(vv10.vv10_energy(*points, 6.0, 0.01))}))
 """
 
 
 def compare(roots) -> int:
     for root in roots:
         result = subprocess.run([sys.executable, "-c", _WALLS, str(pathlib.Path(root).resolve()),
-                                 LINE, str(WARM_RUNS), LINE_DIRECT], cwd=root,
+                                 str(WARM_RUNS), LINE, LINE_DFT, LINE_DIRECT], cwd=root,
                                 capture_output=True, text=True, timeout=600)
         if result.returncode != 0:
             print(result.stderr[-4000:], file=sys.stderr)

@@ -271,6 +271,49 @@ def test_vv10_pair_sum_matches_tuna_tpu():
     assert abs(got - expected) <= 1e-12 * abs(expected)
 
 
+def _vv10_by_tile_pairs(pts, omega, kappa, weighted_density, beta, tile):
+    """K6's decomposition in plain torch: the tile pairs J >= I only, an
+    off-diagonal pair counted twice, a diagonal tile summed whole (i = j
+    included) with beta w_i added once."""
+    M = len(weighted_density)
+    n_tiles = -(-M // tile)
+    energy = torch.zeros((), dtype=torch.float64)
+    for I in range(n_tiles):
+        i = slice(I * tile, (I + 1) * tile)
+        for J in range(I, n_tiles):
+            j = slice(J * tile, (J + 1) * tile)
+            d2 = torch.sum((pts[i, None, :] - pts[None, j, :]) ** 2, dim=-1)
+            g_i = d2 * omega[i, None] + kappa[i, None]
+            g_j = d2 * omega[None, j] + kappa[None, j]
+            inner = (1.0 / (g_i * g_j * (g_i + g_j))) @ weighted_density[j]
+            energy += weighted_density[i] @ (beta - 0.75 * inner if I == J else -1.5 * inner)
+    return energy
+
+
+@pytest.mark.parametrize("M, tile", [(1, vv10.VV10_TILE), (1300, vv10.VV10_TILE), (1300, 97),
+                                     (1024, vv10.VV10_TILE)])
+def test_vv10_tile_pairs_match_tuna_tpu(M, tile):
+    """The triangular tiling of K6 at M = 1, at M not a multiple of the
+    tile, and at a multiple, against tuna_tpu's kernel on its zero-weight
+    padding to a multiple of 512 points."""
+    rng = np.random.default_rng(M + tile)
+    pts = rng.uniform(-4.0, 4.0, (M, 3))
+    density = 10.0 ** rng.uniform(-6, 1, M)
+    sigma = density ** (8 / 3) * rng.uniform(0.0, 4.0, M)
+    w = rng.uniform(0.0, 0.05, M)
+    b, C = 4.8, 0.0093
+    got = float(_vv10_by_tile_pairs(
+        torch.as_tensor(pts), *vv10._vv10_point_terms(
+            *(torch.as_tensor(v) for v in (density, w, sigma)), b, C), tile))
+    n = -(-M // 512) * 512
+    pad = lambda values, fill: np.concatenate([values, np.full((n - M,) + values.shape[1:], fill)])
+    expected = float(jax_vv10._vv10_kernel(
+        jnp.asarray(pad(density, 1.0)), jnp.asarray(pad(w, 0.0)), jnp.asarray(pad(sigma, 0.0)),
+        jnp.asarray(pad(pts, 0.0)), b, C, n))
+    assert np.isfinite(expected) and expected != 0.0
+    assert abs(got - expected) <= 1e-12 * abs(expected)
+
+
 # --------------------------------------------------------------------------
 # End to end
 # --------------------------------------------------------------------------

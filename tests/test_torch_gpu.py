@@ -82,22 +82,61 @@ def test_integral_kernels_match_plain(cuda, basis):
     torch.testing.assert_close(packed, plan._eri_packed_plain(coords), rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("v_scale", [1.0, 2.0])
-def test_triples_kernel_matches_plain(cuda, v_scale):
-    no, nv = 7, 19
-    rng = np.random.default_rng(3)
+def _triples_args(no, nv, device, seed):
+    rng = np.random.default_rng(seed)
 
     def tensor(*shape, scale=1.0):
-        return torch.as_tensor(scale * rng.standard_normal(shape), device=cuda)
+        return torch.as_tensor(scale * rng.standard_normal(shape), device=device)
 
-    args = (tensor(no, no, nv, nv, scale=0.1), tensor(no, nv, nv, nv, scale=0.1),
+    return (tensor(no, no, nv, nv, scale=0.1), tensor(no, nv, nv, nv, scale=0.1),
             tensor(no, no, nv, no, scale=0.1), tensor(no, nv, scale=0.01),
             tensor(no, no, nv, nv, scale=0.05),
-            torch.as_tensor(np.sort(rng.uniform(-15.0, -0.5, no)), device=cuda),
-            torch.as_tensor(np.sort(rng.uniform(0.3, 5.0, nv)), device=cuda))
+            torch.as_tensor(np.sort(rng.uniform(-15.0, -0.5, no)), device=device),
+            torch.as_tensor(np.sort(rng.uniform(0.3, 5.0, nv)), device=device))
+
+
+@pytest.mark.parametrize("v_scale", [1.0, 2.0])
+def test_triples_kernel_matches_plain(cuda, v_scale):
+    args = _triples_args(7, 19, cuda, 3)
     got = float(cc.ccsd_t_energy(*args, v_scale))
     expected = float(cc._ccsd_t_energy_plain(*args, v_scale))
     assert abs(got - expected) <= 1e-12 * abs(expected)
+
+
+@pytest.mark.parametrize("v_scale", [1.0, 2.0])
+@pytest.mark.parametrize("no, nv", [(1, 5), (2, 7), (3, 8), (7, 19), (7, 53), (2, 70),
+                                    (2, 130)])
+def test_triples_kernel_batches_and_repeats(cuda, no, nv, v_scale, monkeypatch):
+    """K2 at the default workspace cap and at a cap of one ordering's R,
+    which cuts every multiset of three or six orderings over ranges of a,
+    against its plain version (v = 70 and 130 take two and three 64-wide
+    tiles of a and c); two calls bitwise equal; one counted launch a call;
+    no allocation of o^3 v^3 doubles."""
+    args = _triples_args(no, nv, cuda, 10 * no + nv)
+    expected = float(cc._ccsd_t_energy_plain(*args, v_scale))
+    scale = abs(expected)
+    if no == 1:   # W is symmetric in ijk, Ww = 0: the terms' size before cancelling
+        e = (3.0 * args[5][0] - args[6][:, None, None] - args[6][:, None] - args[6]).reciprocal()
+        V, W, _ = cc._restricted_T_tensors(*args[:5], None)
+        scale = 4.0 * float(W.abs().max() * torch.sum(torch.abs((W + v_scale * V)[0, 0, 0] * e)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _kernels.reset_launch_counts()
+    first = cc.ccsd_t_energy(*args, v_scale)
+    again = cc.ccsd_t_energy(*args, v_scale)
+    assert _kernels.launches["ccsd_t_energy"] == 2
+    if 8 * no ** 3 * nv ** 3 > cc.TRIPLES_WORKSPACE_BYTES:   # more than one batch
+        assert torch.cuda.max_memory_allocated() - before < 8 * no ** 3 * nv ** 3
+    assert torch.equal(first, again)
+    assert abs(float(first) - expected) <= 1e-12 * scale
+    monkeypatch.setattr(cc, "TRIPLES_WORKSPACE_BYTES", 8 * nv ** 3)
+    batches, _, _ = cc.triples_plan(no, nv, cc.TRIPLES_WORKSPACE_BYTES)
+    assert len(np.unique(batches[:, 2])) == no * (no + 1) * (no + 2) // 6
+    assert (no == 1) == np.all(batches[:, 5] - batches[:, 4] == nv)
+    cut = cc.ccsd_t_energy(*args, v_scale)
+    assert torch.equal(cut, cc.ccsd_t_energy(*args, v_scale))
+    assert abs(float(cut) - expected) <= 1e-12 * scale
 
 
 def test_kernel_wrappers_check_their_inputs(cuda):
@@ -171,6 +210,25 @@ def test_vv10_kernel_matches_plain(cuda):
     expected = float(vv10._vv10_pair_sum_plain(
         active[3], *vv10._vv10_point_terms(*active[:3], 4.8, 0.0093)))
     assert np.isfinite(expected) and abs(got - expected) <= 1e-12 * abs(expected)
+
+
+@pytest.mark.parametrize("M", [1, 127, 129, 4097])
+def test_vv10_kernel_tiles_and_repeats(cuda, M):
+    """K6 on one tile (M = 1, 127, 129) and on 9 tiles whose last holds one
+    point (M = 4097): the plain version's energy, two calls bitwise equal."""
+    rng = np.random.default_rng(M)
+    density = 10.0 ** rng.uniform(-6, 1, M)
+    active = [torch.as_tensor(x, device=cuda) for x in (
+        density, rng.uniform(0.0, 0.05, M), density ** (8 / 3) * rng.uniform(0.0, 4.0, M),
+        rng.uniform(-4.0, 4.0, (M, 3)))]
+    _kernels.reset_launch_counts()
+    first = vv10.vv10_energy(*active, 4.8, 0.0093)
+    again = vv10.vv10_energy(*active, 4.8, 0.0093)
+    assert _kernels.launches["vv10_energy"] == 2
+    expected = float(vv10._vv10_pair_sum_plain(
+        active[3], *vv10._vv10_point_terms(*active[:3], 4.8, 0.0093)))
+    assert torch.equal(first, again)
+    assert np.isfinite(expected) and abs(float(first) - expected) <= 1e-12 * abs(expected)
 
 
 def test_wrong_dtype_on_the_card_raises(cuda):

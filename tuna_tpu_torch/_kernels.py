@@ -44,16 +44,17 @@ SIGNATURES = {
     # lmax, n_atoms, n_basis, n_pairs, coords, charges, a, b, coef, l1, l2,
     # atom1, atom2, ao_i, ao_j, pair_start, boys_table, dipole_origin_z, out
     "tuna_one_electron": [_I, _I, _I, _I] + [_P] * 13 + [_D, _P] + [_P],
-    # no, nv, g_oovv, g_ovvv, g_oovo, t1, t2, eps_o, eps_v, v_scale, partial
-    "tuna_ccsd_t_energy": [_I, _I] + [_P] * 7 + [_D, _P] + [_P],
+    # no, nv, n_batches, batches (host), slots, multisets, orbits, g_oovv,
+    # g_ovvv, g_oovo, t1, t2, eps_o, eps_v, v_scale, workspace, partial
+    "tuna_ccsd_t_energy": [_I, _I, _I] + [_P] * 11 + [_D, _P, _P] + [_P],
     # n_ao, n_points, with_gradients, points, origin, lmn, prim_start, exps,
     # coefs, values (out), gradients (out)
     "tuna_ao_on_grid": [_I, _I, _I] + [_P] * 8 + [_P],
     # n_ao, n_points, with_gradients, P, phi, grads, density, gradient
     "tuna_density_on_grid": [_I, _I, _I] + [_P] * 5 + [_P],
-    # n_points, n_slices, slice_size, points, omega, kappa, weighted
-    # density, beta, partial
-    "tuna_vv10_energy": [_I, _I, _I] + [_P] * 4 + [_D, _P] + [_P],
+    # n_points, n_tiles, points, omega, kappa, weighted density, beta,
+    # partial
+    "tuna_vv10_energy": [_I, _I] + [_P] * 4 + [_D, _P] + [_P],
     # lmax, n_pairs, n_prim_pairs, n_basis, coords, a, b, coef, l1, l2,
     # atom1, atom2, pair_start, pid_i, pid_j, quartets, n_classes, classes
     # (host), boys tables, P, rows (scratch), J_pair (scratch), J, K

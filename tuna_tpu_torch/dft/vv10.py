@@ -21,8 +21,7 @@ from . import xc
 from .grid import density_on_grid
 
 _F64 = torch.float64
-_THREADS = 128       # points i per block of csrc/vv10.cu
-_SLICE = 4096        # points j per block of csrc/vv10.cu
+VV10_TILE = 512     # points a tile of csrc/vv10.cu, which visits the tile pairs J >= I
 _PLAIN_ROWS = 256    # rows per chunk of the plain pair sum
 
 
@@ -56,11 +55,13 @@ def _vv10_pair_sum_kernel(pts, omega, kappa, weighted_density, beta):
     for name, tensor in (("omega", omega), ("kappa", kappa),
                          ("weighted_density", weighted_density)):
         _kernels.check_tensor(name, tensor, (M,), _F64, device)
-    n_slices = -(-M // _SLICE)
-    partial = torch.empty((n_slices, -(-M // _THREADS)), dtype=_F64, device=device)
+    if M == 0:
+        return torch.zeros((), dtype=_F64, device=device)
+    n_tiles = -(-M // VV10_TILE)
+    partial = torch.empty(n_tiles * (n_tiles + 1) // 2, dtype=_F64, device=device)
     _kernels.launch(
         "vv10_energy", "tuna_vv10_energy", device,
-        M, n_slices, _SLICE, pts.data_ptr(), omega.data_ptr(), kappa.data_ptr(),
+        M, n_tiles, pts.data_ptr(), omega.data_ptr(), kappa.data_ptr(),
         weighted_density.data_ptr(), float(beta), partial.data_ptr())
     return torch.sum(partial)
 

@@ -525,6 +525,125 @@ def _ccsd_t_energy_plain(g_oovv, g_ovvv, g_oovo, t1, t2, eps_o, eps_v, v_scale):
     return (1.0 / 3.0) * torch.einsum("ijkabc,ijkabc,ijkabc->", W + V, W_weighted, e_ijkabc)
 
 
+# K2 (csrc/ccsd_t.cu) computes R_ijk[abc] once for each distinct ordering of
+# each occupied multiset {i <= j <= k} into a workspace, a batch of multisets
+# at a time, then the energy of the batch from it.  The workspace of a batch
+# stays under TRIPLES_WORKSPACE_BYTES (tests lower it to force many batches).
+# A multiset whose orderings need more than the cap (6 v^3 doubles > 128 MB
+# at v > 149) is cut into batches of its own over ranges of a, the least
+# virtual of an orbit: triples_slot_doubles.  Fewer, larger batches run
+# faster on the H100 (PERF.md): 128 MB.
+TRIPLES_WORKSPACE_BYTES = 128 * 2 ** 20
+# the six orderings of three positions, in csrc/ccsd_t.cu's order
+TRIPLES_ORDERINGS = ((0, 1, 2), (1, 0, 2), (2, 1, 0), (0, 2, 1), (1, 2, 0), (2, 0, 1))
+_TRIPLES_THREADS = 128   # stage-B threads a block of csrc/ccsd_t.cu
+_ORBIT_BITS = 21         # bits of each virtual in a packed orbit
+
+
+def triples_slot_doubles(nv: int, a_begin: int, a_end: int) -> int:
+    """Doubles of R that one ordering needs for the orbits a <= b <= c with
+    a in [a_begin, a_end): every (x, y, z) whose least index lies in the
+    range, (v - a_begin)^3 - (v - a_end)^3 of them, stored as three boxes
+    (csrc/ccsd_t.cu)."""
+    return (nv - a_begin) ** 3 - (nv - a_end) ** 3
+
+
+def triples_plan(no: int, nv: int, cap_bytes: int):
+    """The batches of K2 for o = no, v = nv: (batches, slots, multisets), int32.
+
+    slots (n_slots, 3) lists the distinct orderings (i, j, k) of every
+    multiset, batch after batch; multisets (n_multisets, 9) holds each
+    multiset's (i, j, k) and the slot, counted from its batch's first slot,
+    of its ordering q for q in TRIPLES_ORDERINGS; batches (n_batches, 6) the
+    slot range, the multiset range and the range of a of each batch.
+    Multisets join a batch over all of a while its slots hold at most
+    cap_bytes of R; a multiset that alone needs more takes batches of its
+    own, each over the widest range of a that fits (one a at least)."""
+    batches, slots, multisets = [], [], []
+    slot_begin = multiset_begin = 0
+    a_ranges: dict = {}   # the ranges of a of a multiset cut over a, by its orderings
+
+    def cut(n_orderings):
+        ranges, a_begin = [], 0
+        while a_begin < nv:
+            a_end = a_begin + 1
+            while (a_end < nv and 8 * n_orderings
+                   * triples_slot_doubles(nv, a_begin, a_end + 1) <= cap_bytes):
+                a_end += 1
+            ranges.append((a_begin, a_end))
+            a_begin = a_end
+        return ranges
+
+    def close(ranges=((0, nv),)):
+        nonlocal slot_begin, multiset_begin
+        if len(slots) > slot_begin:
+            batches.extend((slot_begin, len(slots), multiset_begin, len(multisets), *a_range)
+                           for a_range in ranges)
+        slot_begin, multiset_begin = len(slots), len(multisets)
+
+    for i in range(no):
+        for j in range(i, no):
+            for k in range(j, no):
+                orderings = [tuple((i, j, k)[d] for d in q) for q in TRIPLES_ORDERINGS]
+                distinct = list(dict.fromkeys(orderings))
+                whole = 8 * len(distinct) * nv ** 3 <= cap_bytes
+                grown = len(slots) - slot_begin + len(distinct)
+                if not whole or 8 * grown * nv ** 3 > cap_bytes:
+                    close()
+                first = len(slots) - slot_begin
+                slots.extend(distinct)
+                multisets.append((i, j, k, *(first + distinct.index(q) for q in orderings)))
+                if not whole:
+                    if len(distinct) not in a_ranges:
+                        a_ranges[len(distinct)] = cut(len(distinct))
+                    close(a_ranges[len(distinct)])
+    close()
+    as_array = lambda rows, width: np.array(rows, dtype=np.int32).reshape(-1, width)
+    return as_array(batches, 6), as_array(slots, 3), as_array(multisets, 9)
+
+
+def triples_orbits(nv: int) -> tuple[np.ndarray, np.ndarray]:
+    """(orbits, start): the virtual triples a <= b <= c, a slowest and c
+    fastest, packed a | b << 21 | c << 42 (int64), and the index of the
+    first orbit of each a, start[nv] = the number of orbits (int32)."""
+    parts = []
+    for a in range(nv):
+        b, c = np.triu_indices(nv - a)
+        parts.append(a | (a + b) << _ORBIT_BITS | (a + c) << 2 * _ORBIT_BITS)
+    sizes = [len(part) for part in parts]
+    orbits = np.concatenate(parts).astype(np.int64) if parts else np.zeros(0, dtype=np.int64)
+    return orbits, np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]).astype(np.int32)
+
+
+# per (o, v, device): the cap it was planned for, then what
+# _triples_tables_on returns
+_triples_tables: dict = {}
+
+
+def _triples_tables_on(no: int, nv: int, device):
+    """triples_plan at TRIPLES_WORKSPACE_BYTES and triples_orbits, cached per
+    shape: the host batches (n_batches, 8), each row extended by its range
+    of orbits; the device slots, multisets and orbits; the workspace's
+    doubles; the stage-B blocks of all batches."""
+    key = (no, nv, str(device))
+    entry = _triples_tables.get(key)
+    if entry is None or entry[0] != TRIPLES_WORKSPACE_BYTES:
+        batches, slots, multisets = triples_plan(no, nv, TRIPLES_WORKSPACE_BYTES)
+        orbits, start = triples_orbits(nv)
+        batches = np.ascontiguousarray(np.concatenate([batches, start[batches[:, 4:6]]], axis=1))
+        workspace_doubles = max(
+            (slot_end - slot_begin) * triples_slot_doubles(nv, a_begin, a_end)
+            for slot_begin, slot_end, _, _, a_begin, a_end, _, _ in batches.tolist())
+        items = ((batches[:, 3] - batches[:, 2]).astype(np.int64)
+                 * (batches[:, 7] - batches[:, 6]).astype(np.int64))
+        n_blocks = int(np.sum((items + _TRIPLES_THREADS - 1) // _TRIPLES_THREADS))
+        entry = _triples_tables[key] = (
+            TRIPLES_WORKSPACE_BYTES, batches, torch.as_tensor(slots, device=device),
+            torch.as_tensor(multisets, device=device), torch.as_tensor(orbits, device=device),
+            workspace_doubles, n_blocks)
+    return entry[1:]
+
+
 def ccsd_t_energy(g_oovv, g_ovvv, g_oovo, t1, t2, eps_o, eps_v, v_scale=1.0):
     """The restricted (T) energy (a 0-d tensor) from <oo|vv>, <ov|vv>,
     <oo|vo>, the amplitudes and the orbital energies: the K2 kernel on CUDA
@@ -541,14 +660,17 @@ def ccsd_t_energy(g_oovv, g_ovvv, g_oovo, t1, t2, eps_o, eps_v, v_scale=1.0):
             ("g_oovo", g_oovo, (no, no, nv, no)), ("t1", t1, (no, nv)),
             ("t2", t2, (no, no, nv, nv)), ("eps_o", eps_o, (no,)), ("eps_v", eps_v, (nv,))):
         _kernels.check_tensor(name, tensor, shape, _F64, device)
-    if (no ** 3 + 256) * 8 > 227 * 1024:
-        raise NotImplementedError(f"the (T) kernel holds o^3 doubles in shared memory; "
-                                  f"o = {no} is too large")
-    partial = torch.empty(nv ** 3, dtype=_F64, device=device)
+    if no == 0 or nv == 0:
+        return torch.zeros((), dtype=_F64, device=device)
+    batches, slots, multisets, orbits, workspace_doubles, n_blocks = _triples_tables_on(
+        no, nv, device)
+    workspace = torch.empty(workspace_doubles, dtype=_F64, device=device)
+    partial = torch.empty(n_blocks, dtype=_F64, device=device)
     _kernels.launch("ccsd_t_energy", "tuna_ccsd_t_energy", device, no, nv,
-                    g_oovv.data_ptr(), g_ovvv.data_ptr(), g_oovo.data_ptr(),
-                    t1.data_ptr(), t2.data_ptr(), eps_o.data_ptr(), eps_v.data_ptr(),
-                    float(v_scale), partial.data_ptr())
+                    len(batches), batches.ctypes.data, slots.data_ptr(), multisets.data_ptr(),
+                    orbits.data_ptr(), g_oovv.data_ptr(), g_ovvv.data_ptr(),
+                    g_oovo.data_ptr(), t1.data_ptr(), t2.data_ptr(), eps_o.data_ptr(),
+                    eps_v.data_ptr(), float(v_scale), workspace.data_ptr(), partial.data_ptr())
     return torch.sum(partial) / 3.0
 
 
