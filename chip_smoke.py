@@ -37,7 +37,19 @@ non-zero without printing a result):
   8. DIRECT path: `SPE : N N 1.1 : CCSD[T] CC-PVTZ : DIRECT TIGHTSCF`, the
      N^4 tensor never stored, held against tuna_tpu's energy and iteration
      counts and against the port's stored twin (the same line without
-     DIRECT, run once), then its profile.
+     DIRECT, run once), then its profile;
+  9. gradient kernels: K8a (one-electron tangent) and K8b (two-electron
+     energy tangent, bitwise over two calls) against their plain versions
+     at N2/cc-pVTZ and CO/6-31G; K8c (the density's tangent on the moving
+     grid) at the DFT path's grid with its converged density, in phase 6;
+ 10. gradient path: `OPT : N N 1.1 : B3LYP CC-PVTZ : TIGHTSCF` (optimised
+     bond length, energy and iteration count) and `FREQ : C O 1.13 : HF
+     CC-PVTZ : TIGHTSCF` (frequency and zero-point energy) against
+     tuna_tpu's numbers, with a profile of the OPT line (wall per OPT
+     iteration and the gradient's share of it);
+ 11. BASELINE.json configs 3 and 5: `OPT : H H 1.0 : B3LYP 6-31G`, `FREQ :
+     C O 1.13 : HF 6-31G` and `MD : C O 1.13 : HF 6-31G : NUM 5 NOTRAJ`
+     against tuna_tpu's numbers.
 
 Each path's launch counts are read from zero: the counts are reset just
 before the path runs and read just after, so launches made to compare a
@@ -46,7 +58,7 @@ kernel with its plain version do not count.  Each kernel's record carries
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its float64 operations, counted from the kernel's loop body
 at this run's inputs, or from what the function needs where the kernel
-does more (K1 and K4: see eri_operations; K2: triples_ms; K6:
+does more (K1, K4 and K8b: see eri_operations; K2: triples_ms; K6:
 vv10_operations; the phase lines print both counts), over the H100 SXM
 data sheet's float64 rates: 67
 TFLOP/s for the matrix products that the tensor cores can take (K5's two
@@ -95,7 +107,7 @@ import tuna_tpu_torch
 from tuna_tpu_torch import _kernels, output
 from tuna_tpu_torch.cli import run
 from tuna_tpu_torch.config import Config
-from tuna_tpu_torch.constants import angstrom_to_bohr
+from tuna_tpu_torch.constants import angstrom_to_bohr, bohr_to_angstrom
 from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
 from tuna_tpu_torch.ops import motransform
@@ -127,6 +139,38 @@ LINE_DIRECT_STORED = "SPE : N N 1.1 : CCSD[T] CC-PVTZ : TIGHTSCF"
 E_REF_DIRECT = -109.39989748904053
 SCF_ITERATIONS_DIRECT = 14
 CC_ITERATIONS_DIRECT = 13
+# The gradient paths.  Constants from the reference package on the JAX CPU
+# backend, printed by
+#   env JAX_PLATFORMS=cpu python -c 'from tuna_tpu.cli import run; print(run(LINE))'
+# (OPT returns (molecule, energy): its molecule.bond_length in bohr; FREQ
+# returns (hessian, reduced mass, frequency per cm, zero-point energy); MD the
+# energy of every step; the OPT iteration count is the N of "Optimisation
+# converged in N iterations!" in its printout).  For the two cc-pVTZ lines
+# the reference's jax.grad(total_energy) needs more than 30 GB of host
+# memory there, so tuna_tpu.drivers.gradients.jax was replaced by a module
+# whose grad(f) returns R -> jax.jvp(f, (R,), (1.0,))[1]: the same derivative
+# of the same function in forward mode (on OPT H2/6-31G the two agree to
+# 4e-13 bohr and 1e-15 Ha).
+LINE_OPT = "OPT : N N 1.1 : B3LYP CC-PVTZ : TIGHTSCF"
+BOND_REF_OPT = 2.0627441514606106   # bohr
+E_REF_OPT = -109.51624311107587
+ITERATIONS_OPT = 5
+LINE_FREQ = "FREQ : C O 1.13 : HF CC-PVTZ : TIGHTSCF"
+FREQUENCY_REF_FREQ = 2223.0137561634197   # per cm
+ZPE_REF_FREQ = 0.005064397972468039
+# BASELINE.json configs 3 and 5 at their own sizes
+LINE_OPT_H2 = "OPT : H H 1.0 : B3LYP 6-31G"
+BOND_REF_OPT_H2 = 1.4042649853470401
+E_REF_OPT_H2 = -1.1687164812924133
+ITERATIONS_OPT_H2 = 7
+LINE_FREQ_CO = "FREQ : C O 1.13 : HF 6-31G"
+FREQUENCY_REF_FREQ_CO = 2291.503343670439
+ZPE_REF_FREQ_CO = 0.00522042873347617
+LINE_MD_CO = "MD : C O 1.13 : HF 6-31G : NUM 5 NOTRAJ"
+E_REF_MD_CO = (-112.6672208310967, -112.66722083319698, -112.66722083926815,
+               -112.66722084934422, -112.66722086338045)
+BOND_TOLERANCE = 1e-6       # angstrom
+FREQUENCY_TOLERANCE = 0.01  # per cm
 E_TOLERANCE = 1e-8          # Ha, the BASELINE contract
 DIRECT_TOLERANCE = 1e-10    # Ha, DIRECT against the port's stored twin
 INTEGRAL_TOLERANCE = 1e-12  # absolute, kernel against plain version
@@ -135,6 +179,7 @@ GRID_TOLERANCE = 1e-12      # absolute, AO values and density on the grid
 VV10_TOLERANCE = 1e-12      # relative, VV10 energy
 FOCK_TOLERANCE = 1e-12      # relative to the largest |entry| of J and of K
 TRANSFORM_TOLERANCE = 1e-12  # relative to the largest |entry| of the output
+DERIV_GRID_TOLERANCE = 1e-12  # relative to the largest |entry| of each K8c output
 
 WARM_RUNS = 9                  # warm runs of a path, for its profile and --compare
 
@@ -152,12 +197,22 @@ KERNELS = {
     "fock_direct": ("tuna_tpu_torch/csrc/fock_direct.cu", "tuna_tpu/ops/integrals.py:754"),
     "mo_half_transform": ("tuna_tpu_torch/csrc/mo_transform.cu",
                           "tuna_tpu/ops/motransform.py:51"),
+    "one_electron_deriv": ("tuna_tpu_torch/csrc/one_electron_deriv.cu",
+                           "tuna_tpu/drivers/gradients.py:247"),
+    "eri_deriv_energy": ("tuna_tpu_torch/csrc/eri_deriv.cu", "tuna_tpu/drivers/gradients.py:248"),
+    "density_deriv_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu",
+                              "tuna_tpu/drivers/gradients.py:123"),
 }
 CC_PATH_KERNELS = ("eri_packed", "one_electron", "ccsd_t_energy")
 DFT_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid",
                     "vv10_energy")
 DIRECT_PATH_KERNELS = ("eri_packed", "one_electron", "fock_direct", "mo_half_transform",
                        "ccsd_t_energy")
+# the KS gradient path (OPT B3LYP); the HF ones (FREQ, MD) launch the first four
+GRADIENT_PATH_KERNELS = ("eri_packed", "one_electron", "one_electron_deriv",
+                         "eri_deriv_energy", "ao_on_grid", "density_on_grid",
+                         "density_deriv_on_grid")
+HF_GRADIENT_PATH_KERNELS = GRADIENT_PATH_KERNELS[:4]
 
 
 class SmokeFailure(RuntimeError):
@@ -204,11 +259,12 @@ def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def diatomic(symbol: str, bond_angstrom: float, basis: str) -> Molecule:
-    calculation = Config("SPE", lookup_method("HF"), 0.0, [], basis, [symbol, symbol],
+def diatomic(symbol: str, bond_angstrom: float, basis: str, partner: str | None = None) -> Molecule:
+    symbols = [symbol, partner or symbol]
+    calculation = Config("SPE", lookup_method("HF"), 0.0, [], basis, symbols,
                          suppress_output=True)
     coordinates = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, angstrom_to_bohr(bond_angstrom)]])
-    return Molecule([symbol, symbol], coordinates, calculation)
+    return Molecule(symbols, coordinates, calculation)
 
 
 # ---------------------------------------------------------------------------
@@ -234,11 +290,23 @@ def shell_pairs(plan: IntegralPlan) -> tuple[np.ndarray, np.ndarray]:
     return ids, n_prim[first].astype(np.float64)
 
 
-def eri_operations(plan: IntegralPlan) -> tuple[float, float]:
+def deriv_quartet_operations(l_bra: int, l_ket: int) -> tuple[int, int]:
+    """(shared, own) float64 operations of one derivative primitive quartet
+    of csrc/eri_deriv.cu: quartet_operations' with the Boys order and the
+    R^n_00v recursion one order higher, plus the second z product of
+    [d bra | ket] + [bra | d ket] (two operations a term)."""
+    shared = quartet_operations(l_bra, l_ket + 1)[0]
+    own = quartet_operations(l_bra, l_ket)[1] + 2 * (l_bra + 2) * (l_ket + 2)
+    return shared, own
+
+
+def eri_operations(plan: IntegralPlan, derivative: bool = False) -> tuple[float, float]:
     """(needed, kernel's) float64 operations of the packed ERI matrix over
     the unordered AO-pair quartets with matching x/y parities, each at its
     own class (L_bra, L_ket), from ops/integrals.py::quartet_operations;
-    higher orders are exact zeros.
+    higher orders are exact zeros.  With `derivative`, those of K8b's
+    derivative quartets (deriv_quartet_operations), without the quartets on
+    one atom, which it skips.
 
     The kernel computes every part of quartet_operations for each primitive
     quartet of each AO-pair quartet.  The function needs the shared part
@@ -250,14 +318,20 @@ def eri_operations(plan: IntegralPlan) -> tuple[float, float]:
     quartets, classes = plan.work_list()
     n_prim = np.diff(plan.pair_start).astype(np.float64)
     counts = n_prim[quartets[:, 0]] * n_prim[quartets[:, 1]]
+    if derivative:
+        first = plan.pair_start[:-1]
+        atom = np.where(plan.atom1[first] == plan.atom2[first], plan.atom1[first], -1)
+        bra_atom, ket_atom = atom[quartets[:, 0]], atom[quartets[:, 1]]
+        counts = np.where((bra_atom >= 0) & (bra_atom == ket_atom), 0.0, counts)
     shell_pair, shell_prim = shell_pairs(plan)
     n_shell_pairs = len(shell_prim)
     needed = kernel = 0.0
     for la, lb, begin, _, end, _, _ in classes:
-        shared, own = quartet_operations(la, lb)
+        shared, own = (deriv_quartet_operations if derivative else quartet_operations)(la, lb)
         primitive_quartets = counts[begin:end].sum()
         kernel += (shared + own) * primitive_quartets
-        bra, ket = shell_pair[quartets[begin:end, 0]], shell_pair[quartets[begin:end, 1]]
+        live = slice(begin, end) if not derivative else np.flatnonzero(counts[begin:end]) + begin
+        bra, ket = shell_pair[quartets[live, 0]], shell_pair[quartets[live, 1]]
         shell_quartets = np.unique(np.maximum(bra, ket) * n_shell_pairs + np.minimum(bra, ket))
         needed += own * primitive_quartets + shared * np.sum(
             shell_prim[shell_quartets // n_shell_pairs] * shell_prim[shell_quartets % n_shell_pairs])
@@ -381,6 +455,39 @@ def density_ms(n: int, n_points: int, with_gradients: bool) -> float:
     products (6 n) and their doubling (3)."""
     rest = 2.0 * n + ((6.0 * n + 3) if with_gradients else 0.0)
     return n_points * (2.0 * n * n / FP64_MMA_PER_MS + rest / FP64_PER_MS)
+
+
+def one_electron_deriv_operations(plan: IntegralPlan) -> float:
+    """csrc/one_electron_deriv.cu: per primitive pair seven Hermite
+    recursions (x and y at (i, j), z at (i, j) and its four neighbours) of
+    2 lmax + 5 entries, 5 operations an entry and raise, raised i + j + 2
+    (+1) times, the tangent terms, the x/y pairing, and per atom whose
+    weight is not zero a Boys evaluation and a Hermite Coulomb table of
+    order 2 lmax + 1."""
+    L = plan.lmax
+    LEN, NMAX = 2 * L + 5, 2 * L + 1
+    l_xy = (plan.l1[:, :2] + plan.l2[:, :2]).sum(axis=1).astype(np.float64)
+    l_z = (plan.l1[:, 2] + plan.l2[:, 2]).astype(np.float64)
+    raises = l_xy + 4 + 5 * (l_z + 3)
+    per_pair = 5 * LEN * raises + 100 + 3 * (L + 1) ** 2
+    moving_a, moving_b = plan.atom1 == 1, plan.atom2 == 1
+    atoms_with_weight = (moving_a | moving_b).astype(np.float64) + (~(moving_a & moving_b))
+    per_atom = (23 + 4 * NMAX) + 4 * (NMAX + 1) + 1 + 5 * NMAX * (NMAX + 1) // 2 + 4 * NMAX + 8
+    return float(np.sum(per_pair + atoms_with_weight * per_atom))
+
+
+def density_deriv_ms(basis: grid.GridBasis, n_points: int, with_gradients: bool) -> float:
+    """csrc/dft_grid.cu density_deriv_on_grid_kernel: per point, each AO's
+    value and z derivative (~16 + 5 a primitive), Y = P phi and Y' = P phi'
+    (4 n^2, matrix products), rho and rho' (4 n), and with gradients each
+    AO's gradient and Hessian z column (~70 + 7 a primitive) and their
+    products with Y and Y' (15 n)."""
+    n = basis.n_ao
+    n_prim = float(len(basis.exps))
+    rest = 16.0 * n + 5 * n_prim + 4 * n
+    if with_gradients:
+        rest += 70.0 * n + 7 * n_prim + 15 * n
+    return n_points * (4.0 * n * n / FP64_MMA_PER_MS + rest / FP64_PER_MS)
 
 
 # ---------------------------------------------------------------------------
@@ -543,18 +650,25 @@ def check_triples(no: int, nv: int, device, record: dict) -> str:
 # Phases 4 and 5: the two paths end to end
 # ---------------------------------------------------------------------------
 
-def drive(line: str, kernels: tuple):
-    """Run `line` on the card with the launch counts read from zero; every
-    kernel of `kernels` must have launched."""
+def run_counted(line: str, kernels: tuple):
+    """Run `line` on the card with the launch counts and phase timers read
+    from zero; every kernel of `kernels` must have launched.  Returns (what
+    run returns, wall seconds, launches)."""
     output.reset_timers()
     _kernels.reset_launch_counts()
     start = time.perf_counter()
-    SCF_output, molecule, energy, P = run(line, suppress_output=True, device="cuda")
+    result = run(line, suppress_output=True, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = dict(_kernels.launches)
     for name in kernels:
         require(launches[name] > 0, f"kernel {name} was not launched on the path {line!r}")
+    return result, wall, launches
+
+
+def drive(line: str, kernels: tuple):
+    """A single point through run_counted, its outputs checked."""
+    (SCF_output, molecule, energy, P), wall, launches = run_counted(line, kernels)
     n = molecule.n_basis
     require(np.isfinite(energy), f"{line}: non-finite total energy")
     require(tuple(P.shape) == (n, n) and bool(torch.all(torch.isfinite(P))),
@@ -587,10 +701,31 @@ def profile_path(line: str) -> dict:
             cc_ms.append(statistics.median(SCF_output.correlation_iteration_seconds) * 1e3)
         for name, seconds in output.timer_table():
             phases.setdefault(name, []).append(seconds * 1e3)
+    q1, _, q3 = statistics.quantiles(walls, n=4)
+    return {
+        "line": line,
+        "warm_wall_s": {"median": statistics.median(walls), "q1": q1, "q3": q3},
+        "scf_ms_per_iteration": statistics.median(scf_ms),
+        "cc_ms_per_iteration": statistics.median(cc_ms) if cc_ms else None,
+        "phase_host_ms": {name: statistics.median(v) for name, v in phases.items()},
+        **profiled_run(line),
+    }
 
+
+# the class kernels of each quartet-engine wrapper, by kernel name
+QUARTET_KERNELS = {"eri_packed": r"PackedOut", "fock_direct": r"FockOut",
+                   "eri_deriv_energy": r"::deriv_(light|heavy)_kernel"}
+
+
+def profiled_run(line: str) -> dict:
+    """One run of `line` under torch.profiler: device busy time as the union
+    of the kernel intervals, the idle share, kernel and cudaLaunchKernel
+    counts, the top kernels, each csrc/ kernel's launches and device time,
+    and for the quartet-engine wrappers the union of their class kernels'
+    intervals a call."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        _, _, _, _, profiled_wall, profiled_launches = drive(line, ())
+        _, profiled_wall, profiled_launches = run_counted(line, ())
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
@@ -608,20 +743,13 @@ def profile_path(line: str) -> dict:
             entry = hand.setdefault(key, {"launches": 0, "device_ms": 0.0})
             entry["launches"] += 1
             entry["device_ms"] += e.time_range.elapsed_us() / 1e3
-    # K1's and K4's class kernels overlap on side streams: a wrapper call's
-    # device time is the union of its kernels' intervals
+    # the quartet engine's class kernels overlap on side streams: a wrapper
+    # call's device time is the union of its kernels' intervals
     quartet_ms_a_launch = {
         name: _busy_us([(e.time_range.start, e.time_range.end) for e in kernels
-                        if output_name in e.name]) / 1e3 / profiled_launches[name]
-        for name, output_name in (("eri_packed", "PackedOut"), ("fock_direct", "FockOut"))
-        if profiled_launches[name]}
-    q1, _, q3 = statistics.quantiles(walls, n=4)
+                        if re.search(pattern, e.name)]) / 1e3 / profiled_launches[name]
+        for name, pattern in QUARTET_KERNELS.items() if profiled_launches[name]}
     return {
-        "line": line,
-        "warm_wall_s": {"median": statistics.median(walls), "q1": q1, "q3": q3},
-        "scf_ms_per_iteration": statistics.median(scf_ms),
-        "cc_ms_per_iteration": statistics.median(cc_ms) if cc_ms else None,
-        "phase_host_ms": {name: statistics.median(v) for name, v in phases.items()},
         "profiled_wall_s": profiled_wall,
         "device_kernels": len(kernels),
         "device_busy_ms": busy_us / 1e3,
@@ -897,6 +1025,207 @@ def check_direct_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K8a-K8c, the gradient paths, BASELINE configs 3 and 5
+# ---------------------------------------------------------------------------
+
+def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, basis: str,
+                             device, record: dict) -> str:
+    """K8a and K8b against their plain versions on one molecule (atom 1
+    moving, the origin at the centre of mass), K8b on a seeded density-like
+    P and against a repeated call of itself (bitwise)."""
+    molecule = diatomic(symbol, bond_angstrom, basis, partner)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
+    charges = torch.as_tensor(molecule.charges, dtype=torch.float64, device=device)
+    masses = np.asarray(molecule.masses, dtype=np.float64)
+    fraction = float(masses[1] / masses.sum())
+    origin = fraction * molecule.bond_length
+    N = plan.n_basis
+    C = np.random.default_rng(13).standard_normal((N, 7)) / np.sqrt(N)
+    P = torch.as_tensor(C @ C.T, dtype=torch.float64, device=device)
+    hfx = 0.2
+
+    def kernel_1e():
+        return plan.one_electron_deriv(coords, charges, origin, fraction)
+
+    def plain_1e():
+        return plan._one_electron_deriv_plain(coords, charges, origin, fraction)
+
+    def kernel_2e():
+        return plan.eri_deriv_energy(coords, P, hfx)
+
+    def plain_2e():
+        return plan._eri_deriv_energy_plain(coords, P, hfx)
+
+    err_1e = max(float(torch.max(torch.abs(k - p))) for k, p in zip(kernel_1e(), plain_1e()))
+    e_kernel, e_again, e_plain = kernel_2e(), kernel_2e(), plain_2e()
+    torch.cuda.synchronize()
+    err_2e = abs(float(e_kernel - e_plain))
+    require(bool(torch.isfinite(e_kernel)), f"{basis}: non-finite two-electron tangent")
+    require(err_1e <= INTEGRAL_TOLERANCE,
+            f"{basis}: one_electron_deriv off its plain version by {err_1e:.3e}")
+    require(err_2e <= INTEGRAL_TOLERANCE,
+            f"{basis}: eri_deriv_energy off its plain version by {err_2e:.3e}")
+    require(torch.equal(e_kernel, e_again), f"{basis}: two eri_deriv_energy calls differ")
+    ms_1e, ms_1e_plain = median_ms(kernel_1e), median_ms(plain_1e)
+    ms_2e, ms_2e_plain = median_ms(kernel_2e), median_ms(plain_2e, repeats=1)
+    t = plan.tensors(device)
+    one_electron_bound = bound(
+        tensor_bytes(coords, charges, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"],
+                     t["atom2"], t["pair_start"], t["ao_i"], t["ao_j"],
+                     t["boys_one_electron_deriv"]) + 8 * 9 * N * N,
+        one_electron_deriv_operations(plan) / FP64_PER_MS)
+    needed, algorithm = eri_operations(plan, derivative=True)
+    eri_bound = bound(eri_input_bytes(plan, coords) + tensor_bytes(P, t["pid_i"], t["pid_j"]) + 8,
+                      needed / FP64_PER_MS)
+    for name, err in (("one_electron_deriv", err_1e), ("eri_deriv_energy", err_2e)):
+        entry = record.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if basis == "CC-PVTZ" and partner is None:
+        record["one_electron_deriv"].update(ms=ms_1e, plain_ms=ms_1e_plain, library_ms=None,
+                                            **one_electron_bound)
+        record["eri_deriv_energy"].update(ms=ms_2e, plain_ms=ms_2e_plain, library_ms=None,
+                                          **eri_bound)
+    return (f"gradient kernels {symbol}{partner or symbol}/{basis}: one_electron_deriv "
+            f"max|diff| {err_1e:.3e} ({ms_1e:.4f} ms vs plain {ms_1e_plain:.4f} ms, bound "
+            f"{one_electron_bound['bound_ms']:.5f} ms by {one_electron_bound['bound_by']}); "
+            f"eri_deriv_energy dE/dR {float(e_kernel)!r}, |diff| {err_2e:.3e}, two calls bitwise "
+            f"equal ({ms_2e:.4f} ms vs plain {ms_2e_plain:.4f} ms, one run; bound "
+            f"{eri_bound['bound_ms']:.5f} ms by {eri_bound['bound_by']}; {needed:.4g} "
+            f"operations needed, {algorithm:.4g} in the kernel's algorithm, "
+            f"{algorithm / FP64_PER_MS:.5f} ms)")
+
+
+def check_density_deriv(molecule, P_converged, device, record: dict) -> str:
+    """K8c against its plain version on the DFT path's grid (N2/cc-pVTZ,
+    medium grid), atom 1's half of the points moving, with the converged
+    density of that path in the Cartesian basis."""
+    points_np, _ = grid.build_molecular_grid(
+        *grid.grid_parameters(molecule, molecule.calculation), molecule.bond_length,
+        molecule.atoms)
+    G = points_np.shape[1] * points_np.shape[2]
+    points = torch.as_tensor(points_np.reshape(3, G), dtype=torch.float64, device=device)
+    basis = grid.GridBasis(molecule.cartesian_basis_functions)
+    origin = torch.as_tensor(basis.origin, dtype=torch.float64, device=device)
+    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
+                            dtype=torch.int32, device=device)
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    P = (U.T @ P_converged @ U).contiguous()
+
+    def kernel():
+        return grid.density_deriv_on_grid(basis, origin, moves, points, G // 2, P, True)
+
+    def plain():
+        return grid._density_deriv_on_grid_plain(basis, origin, moves, points, G // 2, P, True)
+
+    got, expected = kernel(), plain()
+    require(all(bool(torch.all(torch.isfinite(x))) for x in got),
+            "density_deriv_on_grid: non-finite output")
+    relative = max(_relative(a, b) for a, b in zip(got, expected))
+    absolute = max(float(torch.max(torch.abs(a - b))) for a, b in zip(got, expected))
+    require(relative <= DERIV_GRID_TOLERANCE,
+            f"density_deriv_on_grid off its plain version by {relative:.3e} (relative)")
+    ms, plain_ms = median_ms(kernel), median_ms(plain)
+    deriv_bound = bound(tensor_bytes(points, origin, moves, P, *got)
+                        + tensor_bytes(*basis.tensors(device).values()),
+                        density_deriv_ms(basis, G, True))
+    record["density_deriv_on_grid"] = {"max_abs_err": absolute, "ms": ms, "plain_ms": plain_ms,
+                                       "library_ms": None, **deriv_bound}
+    names = ("rho", "grad rho", "rho'", "grad rho'")
+    scales = ", ".join(f"{name} {float(torch.max(torch.abs(x))):.4g}"
+                       for name, x in zip(names, expected))
+    return (f"gradient kernels: density_deriv_on_grid {'-'.join(molecule.atomic_symbols)}/"
+            f"{molecule.basis}, {basis.n_ao} Cartesian "
+            f"AOs, {G} points ({G // 2} moving), converged P; relative max|diff| {relative:.3e}, "
+            f"absolute {absolute:.3e} (largest |entry|: {scales}); {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms, bound {deriv_bound['bound_ms']:.5f} ms by "
+            f"{deriv_bound['bound_by']}")
+
+
+def profile_gradient_path(line: str) -> dict:
+    """WARM_RUNS warm runs of an OPT line (the wall per OPT iteration and
+    the gradient's share of it, from the port's phase timers; one analytic
+    gradient, so one K8a launch, an iteration), then one under
+    torch.profiler."""
+    walls, per_iteration, gradient_ms, shares, phases = [], [], [], [], {}
+    for _ in range(WARM_RUNS):
+        _, wall, launches = run_counted(line, ())
+        iterations = launches["one_electron_deriv"]
+        table = dict(output.timer_table())
+        walls.append(wall)
+        per_iteration.append(wall / iterations * 1e3)
+        gradient_ms.append(table["Gradient"] / iterations * 1e3)
+        shares.append(table["Gradient"] / wall)
+        for name, seconds in table.items():
+            phases.setdefault(name, []).append(seconds * 1e3)
+    q1, _, q3 = statistics.quantiles(walls, n=4)
+    return {
+        "line": line,
+        "iterations": iterations,
+        "warm_wall_s": {"median": statistics.median(walls), "q1": q1, "q3": q3},
+        "wall_ms_per_opt_iteration": statistics.median(per_iteration),
+        "gradient_ms_per_opt_iteration": statistics.median(gradient_ms),
+        "gradient_share_of_wall": statistics.median(shares),
+        "phase_host_ms": {name: statistics.median(v) for name, v in phases.items()},
+        **profiled_run(line),
+    }
+
+
+def check_optimisation(line: str, kernels: tuple, bond_ref: float, energy_ref: float,
+                       iterations_ref: int) -> dict:
+    (molecule, energy), wall, launches = run_counted(line, kernels)
+    iterations = launches["one_electron_deriv"]   # one analytic gradient an iteration
+    delta_bond = bohr_to_angstrom(molecule.bond_length - bond_ref)
+    delta = energy - energy_ref
+    require(abs(delta_bond) <= BOND_TOLERANCE,
+            f"{line}: bond length {delta_bond:.3e} angstrom from the reference")
+    require(abs(delta) <= E_TOLERANCE, f"{line}: energy {delta:.3e} Ha from the reference")
+    require(iterations == iterations_ref,
+            f"{line}: {iterations} iterations, the reference takes {iterations_ref}")
+    gradient_s = dict(output.timer_table())["Gradient"]
+    print(f"end to end: {line}; bond {bohr_to_angstrom(molecule.bond_length)!r} angstrom "
+          f"({delta_bond:.3e} from the reference), E {energy!r} ({delta:.3e} Ha), {iterations} "
+          f"iterations as the reference; wall {wall:.3f} s, gradients {gradient_s:.3f} s; "
+          f"launches {launches}")
+    return launches
+
+
+def check_frequency(line: str, frequency_ref: float, zpe_ref: float) -> dict:
+    result, wall, launches = run_counted(line, HF_GRADIENT_PATH_KERNELS)
+    hessian, _, frequency, zpe = (float(x) for x in result)
+    require(abs(frequency - frequency_ref) <= FREQUENCY_TOLERANCE,
+            f"{line}: frequency {frequency - frequency_ref:.3e} per cm from the reference")
+    require(abs(zpe - zpe_ref) <= E_TOLERANCE,
+            f"{line}: zero-point energy {zpe - zpe_ref:.3e} Ha from the reference")
+    print(f"end to end: {line}; force constant {hessian!r}, frequency {frequency!r} per cm "
+          f"({frequency - frequency_ref:.3e} from the reference), ZPE {zpe!r} "
+          f"({zpe - zpe_ref:.3e} Ha); wall {wall:.3f} s; launches {launches}")
+    return launches
+
+
+def check_gradient_paths() -> dict:
+    """The gradient path at full width (OPT N2 B3LYP/cc-pVTZ with its
+    profile, FREQ CO HF/cc-pVTZ) and BASELINE configs 3 and 5 (OPT H2
+    B3LYP/6-31G, FREQ and MD of CO HF/6-31G), each against tuna_tpu's
+    numbers; returns the launches summed over these runs."""
+    runs = [check_optimisation(LINE_OPT, GRADIENT_PATH_KERNELS, BOND_REF_OPT, E_REF_OPT,
+                               ITERATIONS_OPT)]
+    print("profile: " + json.dumps(profile_gradient_path(LINE_OPT)))
+    runs.append(check_frequency(LINE_FREQ, FREQUENCY_REF_FREQ, ZPE_REF_FREQ))
+    runs.append(check_optimisation(LINE_OPT_H2, GRADIENT_PATH_KERNELS, BOND_REF_OPT_H2,
+                                   E_REF_OPT_H2, ITERATIONS_OPT_H2))
+    runs.append(check_frequency(LINE_FREQ_CO, FREQUENCY_REF_FREQ_CO, ZPE_REF_FREQ_CO))
+    energies, wall, launches = run_counted(LINE_MD_CO, HF_GRADIENT_PATH_KERNELS)
+    deltas = [e - ref for e, ref in zip(energies, E_REF_MD_CO)]
+    require(len(energies) == len(E_REF_MD_CO) and max(map(abs, deltas)) <= E_TOLERANCE,
+            f"{LINE_MD_CO}: step energies off the reference by {deltas}")
+    print(f"end to end: {LINE_MD_CO}; {len(energies)} steps, largest |E - E_ref| "
+          f"{max(map(abs, deltas)):.3e} Ha; wall {wall:.3f} s; launches {launches}")
+    runs.append(launches)
+    return {name: sum(r[name] for r in runs) for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # --compare: the coupled-cluster path's warm walls from another checkout
 # ---------------------------------------------------------------------------
 
@@ -1070,6 +1399,7 @@ def main() -> int:
 
     # --- 6. DFT kernels against their plain versions --------------------------
     print(check_dft_kernels(molecule, P, device, record))
+    print(check_density_deriv(molecule, P, device, record))
 
     # --- 7. DIRECT kernels against their plain versions -----------------------
     for basis in ("CC-PVTZ", "6-311G"):
@@ -1079,6 +1409,15 @@ def main() -> int:
 
     # --- 8. DIRECT path ---------------------------------------------------------
     launches = check_direct_path()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 9. gradient kernels against their plain versions ---------------------
+    for symbol, partner, bond_angstrom, basis in (("N", None, 1.1, "CC-PVTZ"),
+                                                  ("C", "O", 1.13, "6-31G")):
+        print(check_gradient_integrals(symbol, partner, bond_angstrom, basis, device, record))
+
+    # --- 10 and 11. gradient paths, BASELINE configs 3 and 5 --------------------
+    launches = check_gradient_paths()
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

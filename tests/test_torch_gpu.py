@@ -10,8 +10,9 @@ neither jax nor tuna_tpu, so it runs on a machine without JAX:
 integrals, the AO values and the density on the grid, and 1e-12 relative
 for the (T) and VV10 energies -- the same float64 math, the kernels
 unscaled and summed in another order; 1e-12 of the largest |entry| for the
-direct Fock build's J and K, whose atomics sum in no fixed order, and for
-the packed MO half-transform.
+direct Fock build's J and K, whose atomics sum in no fixed order, for
+the packed MO half-transform, and for the density's tangent on the moving
+grid (its gradient reaches 10^4 at the nuclei).
 """
 
 import numpy as np
@@ -374,3 +375,95 @@ def test_mo_transform_kernel_at_the_cc_pv6z_shape(cuda):
     assert _relative(motransform.half_transform(M, pair_index, W), expected) <= 1e-12
     transposed = motransform.half_transform(M.T.contiguous(), pair_index, W, transposed=True)
     assert _relative(transposed, expected) <= 1e-12
+
+
+def _diatomic_plan(symbols, bond, basis):
+    calculation = Config("SPE", lookup_method("HF"), 0.0, [], basis, list(symbols),
+                         suppress_output=True)
+    coords = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, angstrom_to_bohr(bond)]])
+    molecule = Molecule(list(symbols), coords, calculation)
+    return molecule, IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+
+
+@pytest.mark.parametrize("symbols, bond, basis", [
+    (("H", "H"), 0.74, "STO-3G"), (("C", "O"), 1.13, "6-31G"), (("H", "F"), 0.95, "6-31G**"),
+    (("N", "N"), 1.1, "CC-PVTZ"), (("C", "O"), 1.13, "CC-PVTZ")])
+def test_gradient_integral_kernels_match_plain(cuda, symbols, bond, basis):
+    """K8a and K8b (atom 1 moving) against their plain versions, f shells
+    included (cc-pVTZ: Boys order 13); K8b bitwise over two calls."""
+    molecule, plan = _diatomic_plan(symbols, bond, basis)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    charges = torch.as_tensor(molecule.charges, dtype=torch.float64, device=cuda)
+    masses = np.asarray(molecule.masses, dtype=np.float64)
+    fraction = float(masses[1] / masses.sum())
+    P = torch.as_tensor(_density(plan.n_basis, 8), device=cuda)
+    _kernels.reset_launch_counts()
+    got = plan.one_electron_deriv(coords, charges, fraction * molecule.bond_length, fraction)
+    first, second = plan.eri_deriv_energy(coords, P, 0.25), plan.eri_deriv_energy(coords, P, 0.25)
+    assert _kernels.launches["one_electron_deriv"] == 1
+    assert _kernels.launches["eri_deriv_energy"] == 2
+    expected = plan._one_electron_deriv_plain(coords, charges, fraction * molecule.bond_length,
+                                              fraction)
+    for g, e in zip(got, expected):
+        torch.testing.assert_close(g, e, rtol=0, atol=1e-12)
+    assert torch.equal(first, second)
+    assert abs(float(first) - float(plan._eri_deriv_energy_plain(coords, P, 0.25))) <= 1e-12
+
+
+@pytest.mark.parametrize("threshold", [0, 10 ** 9])
+def test_eri_deriv_kernel_all_light_or_all_heavy(cuda, threshold, monkeypatch):
+    monkeypatch.setattr(integrals, "HEAVY_THRESHOLD", threshold)
+    molecule, plan = _diatomic_plan(("H", "F"), 0.95, "6-31G**")
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    P = torch.as_tensor(_density(plan.n_basis, 9), device=cuda)
+    got = float(plan.eri_deriv_energy(coords, P, 1.0))
+    assert abs(got - float(plan._eri_deriv_energy_plain(coords, P, 1.0))) <= 1e-12
+
+
+@pytest.mark.parametrize("basis", ["6-31G**", "CC-PVTZ"])
+@pytest.mark.parametrize("with_gradients", [True, False])
+def test_density_deriv_kernel_matches_plain(cuda, basis, with_gradients):
+    """K8c on N2's medium grid, atom 1's half of the points moving: 1e-12 of
+    each output's largest |entry| (the gradients reach 10^4 at the nuclei)."""
+    molecule, points, _, basis_g = _n2_grid(basis, cuda)
+    G = points.shape[1]
+    origin = torch.as_tensor(basis_g.origin, device=cuda)
+    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
+                            dtype=torch.int32, device=cuda)
+    P = torch.as_tensor(_density(basis_g.n_ao, 6), device=cuda)
+    _kernels.reset_launch_counts()
+    got = grid.density_deriv_on_grid(basis_g, origin, moves, points, G // 2, P, with_gradients)
+    assert _kernels.launches["density_deriv_on_grid"] == 1
+    expected = grid._density_deriv_on_grid_plain(basis_g, origin, moves, points, G // 2, P,
+                                                 with_gradients)
+    for g, e in zip(got, expected):
+        if e is None:
+            assert g is None
+        else:
+            assert _relative(g, e) <= 1e-12
+
+
+def test_optimisation_runs_through_the_gradient_kernels(cuda):
+    """OPT H2 B3LYP/6-31G on the card: tuna_tpu's bond length and energy
+    (tests/test_torch_gradients.py), one K8a, K8b and K8c launch a
+    gradient, seven gradients."""
+    from tuna_tpu_torch.cli import run
+    _kernels.reset_launch_counts()
+    molecule, energy = run("OPT : H H 1.0 : B3LYP 6-31G", suppress_output=True, device="cuda")
+    assert abs(molecule.bond_length - 1.4042649853470401) <= angstrom_to_bohr(1e-6)
+    assert abs(energy - -1.1687164812924133) <= 1e-8
+    for name in ("one_electron_deriv", "eri_deriv_energy", "density_deriv_on_grid"):
+        assert _kernels.launches[name] == 7, name
+
+
+def test_force_and_optfreq_run_on_the_card(cuda):
+    """FORCE and OPTFREQ through cli.run on the card, against tuna_tpu's
+    numbers (tests/test_torch_gradients.py)."""
+    from tuna_tpu_torch.cli import run
+    _kernels.reset_launch_counts()
+    assert run("FORCE : C O 1.13 : HF STO-3G", suppress_output=True, device="cuda") is None
+    assert _kernels.launches["one_electron_deriv"] == 1
+    _, _, frequency, zpe = run("OPTFREQ : H H 0.74 : HF STO-3G", suppress_output=True,
+                               device="cuda")
+    assert abs(frequency - 5481.715496129465) <= 0.01
+    assert abs(zpe - 0.01248826678074945) <= 1e-8

@@ -41,7 +41,8 @@ def test_cli_refuses_to_run_without_a_gpu(monkeypatch):
 
 def test_unported_calculations_raise():
     with pytest.raises(TunaError, match="not yet ported"):
-        run("OPT : H H 0.74 : HF STO-3G", suppress_output=True, device="cpu")
+        run("SCAN : H H 0.74 : HF STO-3G : STEP 0.1 NUM 2", suppress_output=True,
+            device="cpu")
     with pytest.raises(TunaError, match="not yet ported"):
         run("SPE : H H 0.74 : UHF STO-3G", suppress_output=True, device="cpu")
 

@@ -61,12 +61,26 @@ SIGNATURES = {
     "tuna_fock_direct": [_I, _I, _I, _I] + [_P] * 12 + [_I] + [_P] * 7 + [_P],
     # n_rows, n_ao, n_mo, panel, row_stride, col_stride, M, pair_index, W, out
     "tuna_mo_half_transform": [_I, _I, _I, _I, _L, _L] + [_P] * 4 + [_P],
+    # lmax, n_atoms, n_basis, n_pairs, coords, charges, a, b, coef, l1, l2,
+    # atom1, atom2, ao_i, ao_j, pair_start, boys_table, dipole_origin_z,
+    # origin_rate, out
+    "tuna_one_electron_deriv": [_I, _I, _I, _I] + [_P] * 13 + [_D, _D, _P] + [_P],
+    # lmax, n_prim_pairs, n_basis, coords, a, b, coef, l1, l2, atom1, atom2,
+    # pair_start, pid_i, pid_j, quartets, n_classes, classes (host), boys
+    # tables, P, hfx, rows (scratch), n_partials, partials (scratch), out
+    "tuna_eri_deriv_energy": [_I, _I, _I] + [_P] * 12 + [_I] + [_P] * 3
+                             + [_D, _P, _I, _P, _P] + [_P],
+    # n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves,
+    # lmn, prim_start, exps, coefs, P, density, gradient, d_density,
+    # d_gradient
+    "tuna_density_deriv_on_grid": [_I, _I, _I, _I] + [_P] * 12 + [_P],
 }
 
 # Launches of each kernel's CUDA path since the last reset.
 launches = {"eri_packed": 0, "one_electron": 0, "ccsd_t_energy": 0,
             "ao_on_grid": 0, "density_on_grid": 0, "vv10_energy": 0,
-            "fock_direct": 0, "mo_half_transform": 0}
+            "fock_direct": 0, "mo_half_transform": 0, "one_electron_deriv": 0,
+            "eri_deriv_energy": 0, "density_deriv_on_grid": 0}
 
 _lock = threading.Lock()
 _library = None

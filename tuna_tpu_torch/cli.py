@@ -4,8 +4,10 @@ Twin of tuna_tpu/cli.py with the same grammar and printed output:
 
     TUNA CALC : A [B R] : METHOD BASIS [: KEYWORDS...]
 
-Single-point energies (SPE) are ported; the other calculation types raise.
-The command line runs on the GPU and refuses to run without one.
+Single points (SPE), geometry optimisation (OPT, FORCE), harmonic
+frequencies (FREQ, OPTFREQ) and molecular dynamics (MD) are ported; the
+other calculation types raise.  The command line runs on the GPU and
+refuses to run without one.
 """
 
 from __future__ import annotations
@@ -112,14 +114,43 @@ def run_calculation(calculation_type, calculation, atomic_symbols, coordinates,
                     device="cuda"):
     from .drivers import energy as energ
 
-    if calculation_type != "SPE":
+    if calculation_type in ("SCAN", "OPT", "OPTFREQ", "FORCE", "FREQ", "ANHARM",
+                            "MD", "BDE") and calculation.monatomic:
+        error(f"{CALCULATION_TYPES.get(calculation_type)} requested for a single atom!")
+    if calculation_type not in ("SPE", "OPT", "FORCE", "FREQ", "OPTFREQ", "MD"):
         error(f"{CALCULATION_TYPES.get(calculation_type)} calculations are not yet "
               "ported to tuna_tpu_torch!")
 
-    timer("Energy evaluation", 0)
-    result = energ.evaluate_molecular_energy(calculation, atomic_symbols, coordinates,
-                                             device=device)
-    timer("Energy evaluation", 1)
+    if calculation_type == "SPE":
+        timer("Energy evaluation", 0)
+        result = energ.evaluate_molecular_energy(calculation, atomic_symbols, coordinates,
+                                                 device=device)
+        timer("Energy evaluation", 1)
+
+    elif calculation_type in ("OPT", "FORCE"):
+        from .drivers import opt
+        result = opt.optimise_geometry(calculation, atomic_symbols, coordinates,
+                                       multiple_iterations=calculation_type != "FORCE",
+                                       device=device)
+
+    elif calculation_type == "FREQ":
+        from .drivers import freq
+        result = freq.calculate_harmonic_frequency(
+            calculation, atomic_symbols=atomic_symbols, coordinates=coordinates, device=device)
+
+    elif calculation_type == "OPTFREQ":
+        from .drivers import freq, opt
+        optimised_molecule, optimised_energy = opt.optimise_geometry(
+            calculation, atomic_symbols, coordinates, device=device)
+        result = freq.calculate_harmonic_frequency(
+            calculation, molecule=optimised_molecule, energy=optimised_energy, device=device)
+
+    elif calculation_type == "MD":
+        from .drivers import md
+        if not calculation.no_trajectory:
+            calculation.trajectory = True
+        result = md.run_molecular_dynamics_simulation(calculation, atomic_symbols,
+                                                      coordinates, device=device)
     return result
 
 

@@ -1,5 +1,7 @@
 // K7: the DFT grid -- atomic orbitals on the grid (K7a) and the density
-// and its gradient from a density matrix (K7b).
+// and its gradient from a density matrix (K7b).  K8c, the R-tangent of the
+// density and its gradient on a moving grid, is described at its kernel
+// below.
 //
 // K7a replaces tuna_tpu/dft/grid.py::construct_basis_functions_on_grid
 // (:80) and construct_basis_function_gradients_on_grid (:102), host NumPy
@@ -154,7 +156,139 @@ density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double*
   }
 }
 
+// K8c: the density, its gradient and their R-tangents at fixed P, when
+// atom 1 moves along +z and the points of its half of the grid move with
+// it.  An AO value moves by (s_k - s_mu) d phi/dz, s = 1 for what moves
+// with atom 1 (a function and a point on the same atom move together), its
+// gradient by (s_k - s_mu) d(grad phi)/dz, the z column of the AO's
+// Hessian.  With Y = P phi and Y' = P phi' (P symmetric, Cartesian):
+//   rho' = 2 phi' . Y,   grad rho' = 2 (grad phi . Y' + grad phi' . Y).
+// One thread a point, as K7b; its columns phi and phi' in shared memory
+// (2 n_ao doubles a thread), each row of P the same for the warp (served
+// from L1), the AO gradients and Hessian columns recomputed from the
+// primitives row by row.  Every sum runs in a fixed order.
+constexpr int kDerivPoints = 32;  // threads (points) per block of K8c
+
+__global__ void __launch_bounds__(kDerivPoints)
+density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_gradients,
+                             const double* __restrict__ points, const double* __restrict__ origin,
+                             const int* __restrict__ ao_moves, const int* __restrict__ lmn,
+                             const int* __restrict__ prim_start, const double* __restrict__ exps,
+                             const double* __restrict__ coefs, const double* __restrict__ P,
+                             double* __restrict__ density, double* __restrict__ gradient,
+                             double* __restrict__ d_density, double* __restrict__ d_gradient) {
+  extern __shared__ double shared[];
+  double* phi = shared;                                            // phi[j * kDerivPoints + t]
+  double* dphi = shared + static_cast<size_t>(n_ao) * kDerivPoints;  // its R-tangent
+  const int t = threadIdx.x;
+  const int k = blockIdx.x * kDerivPoints + t;
+  if (k >= n_points) return;  // no barrier below
+  const size_t G = static_cast<size_t>(n_points);
+  const double x = points[k], y = points[G + k], z = points[2 * G + k];
+  const double point_moves = k >= first_moving ? 1.0 : 0.0;
+  for (int mu = 0; mu < n_ao; ++mu) {
+    const double X = x - origin[3 * mu], Y = y - origin[3 * mu + 1], Z = z - origin[3 * mu + 2];
+    const double r2 = X * X + Y * Y + Z * Z;
+    double s0 = 0.0, s1 = 0.0;
+    for (int p = prim_start[mu]; p < prim_start[mu + 1]; ++p) {
+      const double term = coefs[p] * exp(-exps[p] * r2);
+      s0 += term;
+      s1 += exps[p] * term;
+    }
+    const int l = lmn[3 * mu], m = lmn[3 * mu + 1], n = lmn[3 * mu + 2];
+    const double px = int_pow(X, l), py = int_pow(Y, m), pz = int_pow(Z, n);
+    const double poly = px * py * pz;
+    const double dz = n > 0 ? n * px * py * int_pow(Z, n - 1) : 0.0;
+    phi[mu * kDerivPoints + t] = s0 * poly;
+    dphi[mu * kDerivPoints + t] = (point_moves - ao_moves[mu]) * (dz * s0 - 2.0 * Z * poly * s1);
+  }
+  double rho = 0.0, drho = 0.0, g[3] = {0.0, 0.0, 0.0}, dg[3] = {0.0, 0.0, 0.0};
+  for (int i = 0; i < n_ao; ++i) {
+    const double* row = P + static_cast<size_t>(i) * n_ao;
+    double Yi = 0.0, dYi = 0.0;
+    for (int j = 0; j < n_ao; ++j) {
+      Yi += row[j] * phi[j * kDerivPoints + t];
+      dYi += row[j] * dphi[j * kDerivPoints + t];
+    }
+    rho += phi[i * kDerivPoints + t] * Yi;
+    drho += dphi[i * kDerivPoints + t] * Yi;
+    if (!with_gradients) continue;
+    const double X = x - origin[3 * i], Y = y - origin[3 * i + 1], Z = z - origin[3 * i + 2];
+    const double r2 = X * X + Y * Y + Z * Z;
+    double s0 = 0.0, s1 = 0.0, s2 = 0.0;  // sum c a^q e^(-a r2), q = 0, 1, 2
+    for (int p = prim_start[i]; p < prim_start[i + 1]; ++p) {
+      const double term = coefs[p] * exp(-exps[p] * r2);
+      s0 += term;
+      s1 += exps[p] * term;
+      s2 += exps[p] * exps[p] * term;
+    }
+    const int l = lmn[3 * i], m = lmn[3 * i + 1], n = lmn[3 * i + 2];
+    const double px = int_pow(X, l), py = int_pow(Y, m), pz = int_pow(Z, n);
+    const double poly = px * py * pz;
+    // monomial derivatives, each only where its power is positive (the
+    // Lebedev directions hold X = 0, where 0^(-1) would give NaN)
+    const double dx = l > 0 ? l * int_pow(X, l - 1) * py * pz : 0.0;
+    const double dy = m > 0 ? m * px * int_pow(Y, m - 1) * pz : 0.0;
+    const double dz = n > 0 ? n * px * py * int_pow(Z, n - 1) : 0.0;
+    const double dxz = l > 0 && n > 0 ? l * n * int_pow(X, l - 1) * py * int_pow(Z, n - 1) : 0.0;
+    const double dyz = m > 0 && n > 0 ? m * n * px * int_pow(Y, m - 1) * int_pow(Z, n - 1) : 0.0;
+    const double dzz = n > 1 ? n * (n - 1) * px * py * int_pow(Z, n - 2) : 0.0;
+    const double grad[3] = {dx * s0 - 2.0 * X * poly * s1, dy * s0 - 2.0 * Y * poly * s1,
+                            dz * s0 - 2.0 * Z * poly * s1};
+    const double hess_z[3] = {
+        dxz * s0 - 2.0 * Z * dx * s1 - 2.0 * X * dz * s1 + 4.0 * X * Z * poly * s2,
+        dyz * s0 - 2.0 * Z * dy * s1 - 2.0 * Y * dz * s1 + 4.0 * Y * Z * poly * s2,
+        dzz * s0 - 4.0 * Z * dz * s1 - 2.0 * poly * s1 + 4.0 * Z * Z * poly * s2};
+    const double moves = point_moves - ao_moves[i];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      g[c] += grad[c] * Yi;
+      dg[c] += grad[c] * dYi + moves * hess_z[c] * Yi;
+    }
+  }
+  density[k] = rho;
+  d_density[k] = 2.0 * drho;
+  if (with_gradients) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      gradient[c * G + k] = 2.0 * g[c];
+      d_gradient[c * G + k] = 2.0 * dg[c];
+    }
+  }
+}
+
 }  // namespace
+
+// points (3, n_points), the points from first_moving on moving with atom 1;
+// origin (n_ao, 3) and ao_moves (n_ao, 1 for an AO on atom 1) of the
+// Cartesian AOs, lmn, prim_start, exps and coefs as for tuna_ao_on_grid;
+// P (n_ao, n_ao) symmetric.  density and d_density (n_points,); gradient
+// and d_gradient (3, n_points), written only when with_gradients is
+// non-zero (they may be null otherwise).  A block's columns take
+// 2 n_ao x 256 bytes of shared memory: past the default 48 KB (n_ao > 96)
+// the launch asks for more.
+extern "C" int tuna_density_deriv_on_grid(int n_ao, int n_points, int first_moving,
+                                          int with_gradients, const double* points,
+                                          const double* origin, const int* ao_moves,
+                                          const int* lmn, const int* prim_start,
+                                          const double* exps, const double* coefs,
+                                          const double* P, double* density, double* gradient,
+                                          double* d_density, double* d_gradient,
+                                          cudaStream_t stream) {
+  if (n_points == 0) return cudaSuccess;
+  const size_t shared = 2 * static_cast<size_t>(n_ao) * kDerivPoints * sizeof(double);
+  if (shared > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(density_deriv_on_grid_kernel,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    static_cast<int>(shared));
+    if (status != cudaSuccess) return status;
+  }
+  const int blocks = (n_points + kDerivPoints - 1) / kDerivPoints;
+  density_deriv_on_grid_kernel<<<blocks, kDerivPoints, shared, stream>>>(
+      n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves, lmn, prim_start,
+      exps, coefs, P, density, gradient, d_density, d_gradient);
+  return cudaGetLastError();
+}
 
 // values (n_ao, n_points); gradients (3, n_ao, n_points), written only when
 // with_gradients is non-zero (it may be null otherwise).

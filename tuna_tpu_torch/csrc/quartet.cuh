@@ -1,5 +1,7 @@
 // The quartet engine shared by the packed ERI sweep (K1, eri.cu) and the
-// direct Fock build (K4, fock_direct.cu), so the two kernels cannot drift.
+// direct Fock build (K4, fock_direct.cu), so the two kernels cannot drift;
+// the R-tangent of the two-electron energy (K8b, eri_deriv.cu) walks the
+// same work list with the same x/y pairing, Coulomb table and side streams.
 //
 // Work list.  IntegralPlan.work_list (ops/integrals.py) builds, once per
 // basis, the unordered AO-pair quartets whose x and y Hermite parities match
@@ -148,28 +150,24 @@ struct PairRow {
   }
 };
 
-// The value of one primitive quartet: Boys from the Taylor table `tab` of
-// order LA + LB (shared memory), the z Hermite Coulomb table in registers.
-template <int LA, int LB>
-__device__ __forceinline__ double primitive_quartet(const PairRow<LA + 1>& A,
-                                                    const PairRow<LB + 1>& C,
-                                                    const double* __restrict__ tab) {
+// The x/y pairing of one primitive quartet of class (LA, LB), from rows
+// with TA and TB orders of E_x and E_y: even total orders 2m only
+// (matching parities), with the ket's (-1)^u sign and the (2m - 1)!!
+// weight of R_{TUV} on an axis of zero separation.  Shared by the forward
+// quartet (primitive_quartet) and K8b's derivative quartet (eri_deriv.cu).
+template <int LA, int LB, class RowA, class RowC>
+__device__ __forceinline__ void xy_pairing(const RowA& A, const RowC& C,
+                                           double (&axy)[ClassShape<LA, LB>::NXY + 1]) {
   using S = ClassShape<LA, LB>;
-  // x and y: even total orders 2m only (matching parities), with the ket's
-  // (-1)^u sign and the (2m - 1)!! weight of R_{TUV} on an axis of zero
-  // separation.
-  double gx[S::NXY + 1], gy[S::NXY + 1], gz[S::NM + 1], axy[S::NXY + 1];
+  double gx[S::NXY + 1], gy[S::NXY + 1];
 #pragma unroll
   for (int m = 0; m <= S::NXY; ++m) gx[m] = gy[m] = axy[m] = 0.0;
-#pragma unroll
-  for (int n = 0; n <= S::NM; ++n) gz[n] = 0.0;
 #pragma unroll
   for (int t = 0; t < S::TA; ++t) {
 #pragma unroll
     for (int u = 0; u < S::TB; ++u) {
-      const double sign = (u & 1) ? -1.0 : 1.0;
-      gz[t + u] += A.ez[t] * sign * C.ez[u];
       if (((t + u) & 1) == 0) {
+        const double sign = (u & 1) ? -1.0 : 1.0;
         gx[(t + u) / 2] += A.ex[t] * sign * C.ex[u];
         gy[(t + u) / 2] += A.ey[t] * sign * C.ey[u];
       }
@@ -183,13 +181,45 @@ __device__ __forceinline__ double primitive_quartet(const PairRow<LA + 1>& A,
                       tuna::odd_double_factorial(my);
     }
   }
-  const double psum = A.p + C.p;
-  const double alpha = A.p * C.p / psum;
-  const double PQz = A.Pz - C.Pz;
-  double F[S::NM + 1];
-  tuna::boys_eval<S::NM>(alpha * PQz * PQz, tab, F);
-  const double value = tuna::hermite_coulomb<S::NM, S::NM, S::NXY, 2>(F, alpha, PQz, gz, axy);
-  return A.coef * C.coef * kTwoPiPow2_5 / (A.p * C.p * sqrt(psum)) * value;
+}
+
+// The contracted value of a primitive quartet from its z products gz (up
+// to order NM) and x/y pairing axy: Boys of order NM from the Taylor table
+// `tab` (shared memory), the z Hermite Coulomb table in registers.
+template <int NM, int NXY>
+__device__ __forceinline__ double quartet_value(double p, double q, double Pz, double Qz,
+                                                double coef, const double (&gz)[NM + 1],
+                                                const double (&axy)[NXY + 1],
+                                                const double* __restrict__ tab) {
+  const double psum = p + q;
+  const double alpha = p * q / psum;
+  const double PQz = Pz - Qz;
+  double F[NM + 1];
+  tuna::boys_eval<NM>(alpha * PQz * PQz, tab, F);
+  const double value = tuna::hermite_coulomb<NM, NM, NXY, 2>(F, alpha, PQz, gz, axy);
+  return coef * kTwoPiPow2_5 / (p * q * sqrt(psum)) * value;
+}
+
+// The value of one primitive quartet of class (LA, LB), Boys of order
+// LA + LB.
+template <int LA, int LB>
+__device__ __forceinline__ double primitive_quartet(const PairRow<LA + 1>& A,
+                                                    const PairRow<LB + 1>& C,
+                                                    const double* __restrict__ tab) {
+  using S = ClassShape<LA, LB>;
+  double gz[S::NM + 1], axy[S::NXY + 1];
+  xy_pairing<LA, LB>(A, C, axy);
+#pragma unroll
+  for (int n = 0; n <= S::NM; ++n) gz[n] = 0.0;
+#pragma unroll
+  for (int t = 0; t < S::TA; ++t) {
+#pragma unroll
+    for (int u = 0; u < S::TB; ++u) {
+      const double sign = (u & 1) ? -1.0 : 1.0;
+      gz[t + u] += A.ez[t] * sign * C.ez[u];
+    }
+  }
+  return quartet_value<S::NM, S::NXY>(A.p, C.p, A.Pz, C.Pz, A.coef * C.coef, gz, axy, tab);
 }
 
 // ---------------------------------------------------------------------------
@@ -378,25 +408,21 @@ cudaError_t side_streams(SideStreams** out) {
   return cudaSuccess;
 }
 
-// Launches every class of the work list on side streams that wait for
-// `stream` and that `stream` then waits for: work enqueued on `stream`
-// before the call runs first, work enqueued after runs after.
-template <class Out>
-cudaError_t launch_work_list(int n_classes, const ClassPart* classes, const QuartetPart& part,
-                             const Out& out, cudaStream_t stream) {
-  SideStreams* side = nullptr;
-  cudaError_t err = side_streams(&side);
-  if (err != cudaSuccess) return err;
-  err = cudaEventRecord(side->fork, stream);
-  if (err != cudaSuccess) return err;
+// Makes the side streams wait for `stream`: work enqueued on `stream`
+// before runs first.
+cudaError_t fork_side_streams(cudaStream_t stream, SideStreams** side) {
+  cudaError_t err = side_streams(side);
+  if (err == cudaSuccess) err = cudaEventRecord((*side)->fork, stream);
   for (int s = 0; s < kSideStreams && err == cudaSuccess; ++s) {
-    err = cudaStreamWaitEvent(side->stream[s], side->fork, 0);
+    err = cudaStreamWaitEvent((*side)->stream[s], (*side)->fork, 0);
   }
-  for (int i = 0; i < n_classes && err == cudaSuccess; ++i) {
-    err = launch_class_part(classes[i], part, out, side->stream[(2 * i) % kSideStreams],
-                            side->stream[(2 * i + 1) % kSideStreams]);
-  }
-  // joined after an error too, so `stream` never runs ahead of a launch
+  return err;
+}
+
+// Makes `stream` wait for the side streams, after an error of the launches
+// (`err`) too, so `stream` never runs ahead of a launch; returns the first
+// error.
+cudaError_t join_side_streams(SideStreams* side, cudaStream_t stream, cudaError_t err) {
   for (int s = 0; s < kSideStreams; ++s) {
     const cudaError_t join = cudaEventRecord(side->join[s], side->stream[s]);
     const cudaError_t wait =
@@ -404,6 +430,22 @@ cudaError_t launch_work_list(int n_classes, const ClassPart* classes, const Quar
     if (err == cudaSuccess) err = wait;
   }
   return err;
+}
+
+// Launches every class of the work list on the side streams, forked from
+// and joined back into `stream`: work enqueued on `stream` before the call
+// runs first, work enqueued after runs after.
+template <class Out>
+cudaError_t launch_work_list(int n_classes, const ClassPart* classes, const QuartetPart& part,
+                             const Out& out, cudaStream_t stream) {
+  SideStreams* side = nullptr;
+  cudaError_t err = fork_side_streams(stream, &side);
+  if (side == nullptr) return err;
+  for (int i = 0; i < n_classes && err == cudaSuccess; ++i) {
+    err = launch_class_part(classes[i], part, out, side->stream[(2 * i) % kSideStreams],
+                            side->stream[(2 * i + 1) % kSideStreams]);
+  }
+  return join_side_streams(side, stream, err);
 }
 
 }  // namespace

@@ -3,7 +3,7 @@ diatomic partitioning, the atomic orbitals (and their gradients) on the
 grid, and the density on the grid.
 
 Twin of tuna_tpu/dft/grid.py.  The grid geometry is host NumPy, copied (it
-is cheap and geometry only).  The two device functions dispatch on the
+is cheap and geometry only).  The device functions dispatch on the
 device of the tensors they are given:
 
   * basis_on_grid (AO values and gradients): kernel K7a `ao_on_grid`
@@ -11,7 +11,11 @@ device of the tensors they are given:
     tensor; the spherical transform is a torch.matmul after either;
   * density_on_grid (rho and grad rho from P): kernel K7b
     `density_on_grid` on a CUDA tensor, the reference einsums
-    (`_density_on_grid_plain`) on a CPU tensor.
+    (`_density_on_grid_plain`) on a CPU tensor;
+  * density_deriv_on_grid (rho, grad rho and their R-tangents at fixed P on
+    a grid whose second half moves with atom 1, for the analytic gradient):
+    kernel K8c on a CUDA tensor, `_density_deriv_on_grid_plain` on a CPU
+    tensor.
 
 Grid tensors keep tuna_tpu's layout: points (3, N, M), weights (N, M), AO
 values (n_basis, N, M) and gradients (3, n_basis, N, M).
@@ -95,7 +99,7 @@ def build_molecular_grid(radial_grid_cutoff, n_radial, lebedev_order,
 # =========================================================================
 
 class GridBasis:
-    """The Cartesian AOs in the flat form kernel K7a reads: per AO its
+    """The Cartesian AOs in the flat form kernels K7a and K8c read: per AO its
     origin and (l, m, n) and a CSR range of primitives (exponent and
     coefficient x normalisation)."""
 
@@ -231,6 +235,91 @@ def _density_on_grid_plain(P, bfs, grads=None):
     gradient = (2 * torch.einsum("ij,i...,aj...->a...", P, bfs, grads)
                 if grads is not None else None)
     return density, gradient
+
+
+# =========================================================================
+# K8c: the density, its gradient and their R-tangents on a moving grid
+# =========================================================================
+
+def density_deriv_on_grid(basis: GridBasis, origin, ao_moves, points, first_moving: int, P,
+                          with_gradients: bool):
+    """(rho, grad rho or None, rho', grad rho' or None) at points (3, G)
+    for the symmetric Cartesian density P, where ' is d/dR at fixed P when
+    atom 1 moves along +z: its AOs (ao_moves, int32 (n_ao,), 1 on atom 1)
+    and the points from `first_moving` on move with it.  origin (n_ao, 3)
+    holds the AO centres at this geometry (basis.origin is not read).
+    Kernel K8c on a CUDA tensor, the plain version on a CPU tensor; no
+    floor applied."""
+    if points.device.type == "cpu":
+        return _density_deriv_on_grid_plain(basis, origin, ao_moves, points, first_moving, P,
+                                            with_gradients)
+    if points.device.type != "cuda":
+        raise ValueError(f"no density derivative on the grid for device {points.device}")
+    device = points.device
+    G, n = points.shape[1], basis.n_ao
+    _kernels.check_tensor("points", points, (3, G), _F64, device)
+    _kernels.check_tensor("origin", origin, (n, 3), _F64, device)
+    _kernels.check_tensor("ao_moves", ao_moves, (n,), torch.int32, device)
+    _kernels.check_tensor("P", P, (n, n), _F64, device)
+    t = basis.tensors(device)
+    density, d_density = (torch.empty(G, dtype=_F64, device=device) for _ in range(2))
+    gradient, d_gradient = ((torch.empty((3, G), dtype=_F64, device=device)
+                             if with_gradients else None) for _ in range(2))
+    _kernels.launch(
+        "density_deriv_on_grid", "tuna_density_deriv_on_grid", device,
+        n, G, int(first_moving), int(with_gradients), points.data_ptr(), origin.data_ptr(),
+        ao_moves.data_ptr(), t["lmn"].data_ptr(), t["prim_start"].data_ptr(),
+        t["exps"].data_ptr(), t["coefs"].data_ptr(), P.data_ptr(), density.data_ptr(),
+        gradient.data_ptr() if with_gradients else None, d_density.data_ptr(),
+        d_gradient.data_ptr() if with_gradients else None)
+    return density, gradient, d_density, d_gradient
+
+
+def _density_deriv_on_grid_plain(basis: GridBasis, origin, ao_moves, points, first_moving: int,
+                                 P, with_gradients: bool):
+    """Per-AO torch: values, gradients and the z column of each AO's
+    Hessian on every point, then the contractions with P."""
+    X, Y, Z = points
+    G = points.shape[1]
+    zero = torch.zeros_like(X)
+    values, grads, hess_z = [], [], []
+    for mu in range(basis.n_ao):
+        Xr, Yr, Zr = X - origin[mu, 0], Y - origin[mu, 1], Z - origin[mu, 2]
+        l, m, n = (int(v) for v in basis.lmn[mu])
+        lo, hi = basis.prim_start[mu], basis.prim_start[mu + 1]
+        exps = torch.as_tensor(basis.exps[lo:hi], dtype=_F64, device=points.device)
+        coefs = torch.as_tensor(basis.coefs[lo:hi], dtype=_F64, device=points.device)
+        e = torch.exp(-exps[:, None] * (Xr * Xr + Yr * Yr + Zr * Zr)[None, :])
+        s0, s1, s2 = coefs @ e, (coefs * exps) @ e, (coefs * exps * exps) @ e
+        px, py, pz = Xr**l, Yr**m, Zr**n
+        poly = px * py * pz
+        dx = l * Xr**(l - 1) * py * pz if l > 0 else zero
+        dy = m * px * Yr**(m - 1) * pz if m > 0 else zero
+        dz = n * px * py * Zr**(n - 1) if n > 0 else zero
+        dxz = l * n * Xr**(l - 1) * py * Zr**(n - 1) if l > 0 and n > 0 else zero
+        dyz = m * n * px * Yr**(m - 1) * Zr**(n - 1) if m > 0 and n > 0 else zero
+        dzz = n * (n - 1) * px * py * Zr**(n - 2) if n > 1 else zero
+        values.append(s0 * poly)
+        grads.append(torch.stack([dx * s0 - 2 * Xr * poly * s1, dy * s0 - 2 * Yr * poly * s1,
+                                  dz * s0 - 2 * Zr * poly * s1]))
+        hess_z.append(torch.stack([
+            dxz * s0 - 2 * Zr * dx * s1 - 2 * Xr * dz * s1 + 4 * Xr * Zr * poly * s2,
+            dyz * s0 - 2 * Zr * dy * s1 - 2 * Yr * dz * s1 + 4 * Yr * Zr * poly * s2,
+            dzz * s0 - 4 * Zr * dz * s1 - 2 * poly * s1 + 4 * Zr * Zr * poly * s2]))
+    phi = torch.stack(values)                    # (n, G)
+    grad_phi = torch.stack(grads, dim=1)         # (3, n, G)
+    point_moves = (torch.arange(G, device=points.device) >= first_moving).to(_F64)
+    moves = point_moves[None, :] - ao_moves.to(_F64)[:, None]
+    d_phi = moves * grad_phi[2]
+    Yv, dY = P @ phi, P @ d_phi
+    density = torch.sum(phi * Yv, dim=0)
+    d_density = 2 * torch.sum(d_phi * Yv, dim=0)
+    if not with_gradients:
+        return density, None, d_density, None
+    d_grad_phi = moves * torch.stack(hess_z, dim=1)
+    gradient = 2 * torch.sum(grad_phi * Yv, dim=1)
+    d_gradient = 2 * torch.sum(grad_phi * dY + d_grad_phi * Yv, dim=1)
+    return density, gradient, d_density, d_gradient
 
 
 def construct_density_on_grid(P, bfs_on_grid, clean_density=True):

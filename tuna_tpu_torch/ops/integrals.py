@@ -11,10 +11,15 @@ dispatch on the device of the coordinates they are given:
     on a CUDA tensor, `_eri_packed_plain` on a CPU tensor;
   * fock_direct (J and K of a density, the integral-direct SCF's Fock
     build, the N^4 tensor never stored): csrc/fock_direct.cu on a CUDA
-    tensor, `_fock_direct_plain` on a CPU tensor.
+    tensor, `_fock_direct_plain` on a CPU tensor;
+  * one_electron_deriv and eri_deriv_energy (the R-tangents of the
+    one-electron integrals and of the two-electron energy at fixed P, atom
+    1 moving along +z, for drivers/gradients.py): csrc/one_electron_deriv.cu
+    and csrc/eri_deriv.cu on a CUDA tensor, `_one_electron_deriv_plain` and
+    `_eri_deriv_energy_plain` on a CPU tensor.
 
-The two quartet kernels share csrc/quartet.cuh and walk the plan's work
-list (`IntegralPlan.work_list`), built on the host once per basis.
+The quartet kernels share csrc/quartet.cuh and walk the plan's work list
+(`IntegralPlan.work_list`), built on the host once per basis.
 
 The plain versions mirror the JAX functions, including the TPU's scaled
 Hermite form (Rt[v,n] = R[v,n] / (2 alpha)^(n+v)); the kernels work
@@ -336,10 +341,12 @@ class IntegralPlan:
                 "pid_i": i32(self.pid_i), "pid_j": i32(self.pid_j),
                 "pair_index": torch.as_tensor(self.pair_index, dtype=torch.int64,
                                               device=device),
-                # the quartet kernels' Taylor tables, Boys orders 0..4 lmax
+                # the quartet kernels' Taylor tables, Boys orders 0..4 lmax + 1
+                # (the derivative quartets of K8b go one order higher)
                 "boys_quartets": torch.stack([taylor_table(n, device)
-                                              for n in range(4 * self.lmax + 1)]).contiguous(),
+                                              for n in range(4 * self.lmax + 2)]).contiguous(),
                 "boys_one_electron": taylor_table(2 * self.lmax, device).contiguous(),
+                "boys_one_electron_deriv": taylor_table(2 * self.lmax + 1, device).contiguous(),
             }
             self._device_tensors[device] = cached
         return cached
@@ -535,8 +542,11 @@ class IntegralPlan:
             v_total = v_total - charges[atom] * contrib * 2.0 * math.pi / p
 
         v_val = t["coef"] * v_total
+        return self._scatter_one_electron(t, s_val, t_val, v_val, d_vals, q_vals)
 
-        # ---- scatter into matrices ---------------------------------------
+    def _scatter_one_electron(self, t, s_val, t_val, v_val, d_vals, q_vals):
+        """Per-primitive-pair values summed into symmetric (N, N) matrices:
+        (S, T, V, D (3), Q (3))."""
         ao_i, ao_j = t["ao_i"].long(), t["ao_j"].long()
 
         def scatter(values):
@@ -545,12 +555,144 @@ class IntegralPlan:
             M.index_put_((ao_i, ao_j), values, accumulate=True)
             return M + torch.triu(M.T, diagonal=1)
 
-        S = scatter(s_val)
-        T = scatter(t_val)
-        V = scatter(v_val)
-        D = torch.stack([scatter(v) for v in d_vals])
-        Q = torch.stack([scatter(v) for v in q_vals])
-        return S, T, V, D, Q
+        return (scatter(s_val), scatter(t_val), scatter(v_val),
+                torch.stack([scatter(v) for v in d_vals]),
+                torch.stack([scatter(v) for v in q_vals]))
+
+    # ------------------------------------------------------------------
+    # R-tangents of the one-electron integrals  [Cartesian basis]
+    # ------------------------------------------------------------------
+
+    def one_electron_deriv(self, coords, charges, dipole_origin_z, origin_rate):
+        """d/dR of (S, T, V_NE, D, Q) when atom 1 moves along +z at unit
+        rate, its nucleus with it, and the multipole origin at
+        `origin_rate` (the mass fraction of atom 1): the K8a kernel on a
+        CUDA tensor, the plain version on a CPU tensor.  Same layout as
+        `one_electron`."""
+        if coords.device.type == "cpu":
+            return self._one_electron_deriv_plain(coords, charges, dipole_origin_z, origin_rate)
+        if coords.device.type == "cuda":
+            return self._one_electron_deriv_kernel(coords, charges, dipole_origin_z, origin_rate)
+        raise ValueError(f"no one-electron integral derivatives for device {coords.device}")
+
+    def _one_electron_deriv_kernel(self, coords, charges, dipole_origin_z, origin_rate):
+        self._check_kernel_lmax()
+        device = coords.device
+        N, n_atoms = self.n_basis, self.n_atoms
+        _kernels.check_tensor("coords", coords, (n_atoms, 3), _F64, device)
+        _kernels.check_tensor("charges", charges, (n_atoms,), _F64, device)
+        t = self.tensors(device)
+        out = torch.empty((9, N, N), dtype=_F64, device=device)
+        _kernels.launch(
+            "one_electron_deriv", "tuna_one_electron_deriv", device,
+            self.lmax, n_atoms, N, self.n_pairs,
+            coords.data_ptr(), charges.data_ptr(), t["a"].data_ptr(),
+            t["b"].data_ptr(), t["coef"].data_ptr(), t["l1"].data_ptr(),
+            t["l2"].data_ptr(), t["atom1"].data_ptr(), t["atom2"].data_ptr(),
+            t["ao_i"].data_ptr(), t["ao_j"].data_ptr(), t["pair_start"].data_ptr(),
+            t["boys_one_electron_deriv"].data_ptr(), float(dipole_origin_z),
+            float(origin_rate), out.data_ptr())
+        return out[0], out[1], out[2], out[3:6], out[6:9]
+
+    def _one_electron_deriv_plain(self, coords, charges, dipole_origin_z, origin_rate):
+        """The tangent term by term.  Only z positions move, so of the
+        three axis factors of S, T, D, Q only the z factor X^{ij} changes:
+
+            dX^{ij} = cA (2a X^{i+1,j} - i X^{i-1,j})
+                    + cB (2b X^{i,j+1} - j X^{i,j-1})   [- f S^{ij} for D,
+                                                         - 2 f D^{ij} for Q]
+
+        with cA, cB = 1 for a function on atom 1 (d/dA_z of a Cartesian
+        Gaussian raises and lowers its z power) and f = origin_rate.  V_NE
+        of nucleus C takes the same raised/lowered z Hermite rows with
+        weights cA - [C = 1] and cB - [C = 1] (translation invariance,
+        d/dC = -(d/dA + d/dB)), so its Hermite Coulomb table and Boys
+        function go one order higher."""
+        t = self.tensors(coords.device)
+        lmax = self.lmax
+        atom1, atom2 = t["atom1"].long(), t["atom2"].long()
+        A, B = coords[atom1], coords[atom2]
+        a, b = t["a"], t["b"]
+        p = a + b
+        prefactor = t["coef"] * PI_POW_1_5 / (p * torch.sqrt(p))
+        cA, cB = (atom1 == 1).to(_F64), (atom2 == 1).to(_F64)
+        f = float(origin_rate)
+        l1, l2 = t["l1"].long(), t["l2"].long()
+        P_coord = (a[:, None] * A + b[:, None] * B) / p[:, None]
+        origin = [0.0, 0.0, float(dipole_origin_z)]
+
+        # x and y up to (lmax, lmax + 2) as the forward, z up to (lmax + 1, lmax + 3)
+        E_axes = []
+        for axis, extra in ((0, 0), (1, 0), (2, 1)):
+            E = build_E_table(lmax + extra, lmax + 2 + extra, A[:, axis] - B[:, axis], a, b)
+            E_axes.append(stack_E_table(E, lmax + extra, lmax + 2 + extra,
+                                        2 * lmax + 2 + 2 * extra))
+
+        def one_d(axis, i, j):
+            """S, T, D, Q of one axis at powers (i, j); entries at a negative
+            power are garbage that callers weight by zero."""
+            Etab = E_axes[axis]
+            i, j = torch.clamp(i, min=0), torch.clamp(j, min=0)
+            S0 = gather_E_scalar(Etab, i, j, 0)
+            E1 = gather_E_scalar(Etab, i, j, 1)
+            E2 = gather_E_scalar(Etab, i, j, 2)
+            S_plus2 = gather_E_scalar(Etab, i, j + 2, 0)
+            S_minus2 = torch.where(j >= 2, gather_E_scalar(Etab, i, torch.clamp(j - 2, min=0), 0),
+                                   0.0)
+            T = (2 * j + 1) * b * S0 - 2.0 * b * b * S_plus2 - 0.5 * (j * (j - 1)) * S_minus2
+            Pc = P_coord[:, axis] - origin[axis]
+            D = E1 + Pc * S0
+            Q = 2.0 * E2 + 2.0 * Pc * E1 + (Pc * Pc + 0.5 / p) * S0
+            return S0, T, D, Q
+
+        Sx, Tx, Dx, Qx = one_d(0, l1[:, 0], l2[:, 0])
+        Sy, Ty, Dy, Qy = one_d(1, l1[:, 1], l2[:, 1])
+        iz, jz = l1[:, 2], l2[:, 2]
+        Sz, _, Dz, _ = one_d(2, iz, jz)
+        up_i, down_i = one_d(2, iz + 1, jz), one_d(2, iz - 1, jz)
+        up_j, down_j = one_d(2, iz, jz + 1), one_d(2, iz, jz - 1)
+        dS, dT, dD, dQ = (cA * (2 * a * ui - iz * di) + cB * (2 * b * uj - jz * dj)
+                          for ui, di, uj, dj in zip(up_i, down_i, up_j, down_j))
+        dD = dD - f * Sz
+        dQ = dQ - 2.0 * f * Dz
+
+        s_val = prefactor * Sx * Sy * dS
+        t_val = prefactor * (Tx * Sy * dS + Sx * Ty * dS + Sx * Sy * dT)
+        d_vals = [prefactor * Dx * Sy * dS, prefactor * Sx * Dy * dS, prefactor * Sx * Sy * dD]
+        q_vals = [prefactor * Qx * Sy * dS, prefactor * Sx * Qy * dS, prefactor * Sx * Sy * dQ]
+
+        # ---- nuclear attraction: the z rows of d/dA_z and d/dB_z ---------
+        nz = 2 * lmax + 2
+        Ex = gather_E_row(E_axes[0], l1[:, 0], l2[:, 0])[:, :2 * lmax + 1]
+        Ey = gather_E_row(E_axes[1], l1[:, 1], l2[:, 1])[:, :2 * lmax + 1]
+
+        def z_row(i, j):
+            return gather_E_row(E_axes[2], torch.clamp(i, min=0), torch.clamp(j, min=0))[:, :nz]
+
+        half_powers = _powers(torch.sqrt(2.0 * p), nz - 1)
+        full_powers = half_powers * half_powers
+        row_A = (2 * a[:, None] * z_row(iz + 1, jz) - iz[:, None] * z_row(iz - 1, jz)) * full_powers
+        row_B = (2 * b[:, None] * z_row(iz, jz + 1) - jz[:, None] * z_row(iz, jz - 1)) * full_powers
+        Ex_s = Ex * half_powers[:, :2 * lmax + 1]
+        Ey_s = Ey * half_powers[:, :2 * lmax + 1]
+        ax = torch.stack([Ex_s[:, 2 * m] * _double_factorial(2 * m - 1)
+                          for m in range(lmax + 1)], dim=1)
+        ay = torch.stack([Ey_s[:, 2 * m] * _double_factorial(2 * m - 1)
+                          for m in range(lmax + 1)], dim=1)
+        axy = torch.zeros((p.shape[0], nz), dtype=p.dtype, device=p.device)
+        for m1 in range(lmax + 1):
+            for m2 in range(lmax + 1):
+                axy[:, m1 + m2] += ax[:, m1] * ay[:, m2]
+
+        v_total = torch.zeros_like(p)
+        for atom in range(self.n_atoms):
+            moves = 1.0 if atom == 1 else 0.0
+            gz = (cA - moves)[:, None] * row_A + (cB - moves)[:, None] * row_B
+            Rz = build_scaled_Rz_table(nz - 1, nz - 1, P_coord[:, 2] - coords[atom, 2], p)
+            contrib = torch.einsum("bv,bn,bvn->b", gz, axy, Rz)
+            v_total = v_total - charges[atom] * contrib * 2.0 * math.pi / p
+        v_val = t["coef"] * v_total
+        return self._scatter_one_electron(t, s_val, t_val, v_val, d_vals, q_vals)
 
     # ------------------------------------------------------------------
     # Electron repulsion integrals  [Cartesian basis]
@@ -618,41 +760,80 @@ class IntegralPlan:
         full_powers = half_powers * half_powers
         return hs[0] * half_powers, hs[1] * half_powers, hs[2] * full_powers, p, Pz
 
-    def _plain_sweep(self, coords):
+    def _pair_dz(self, coords):
+        """Scaled R-tangent of each primitive pair's z Hermite row when atom
+        1 moves along +z, orders 0..2 lmax + 1:
+        cA (2a E^{i+1,j} - i E^{i-1,j}) + cB (2b E^{i,j+1} - j E^{i,j-1})
+        on the z axis, times (2p)^t as _pair_data scales hz."""
+        t = self.tensors(coords.device)
+        lmax = self.lmax
+        nz = 2 * lmax + 2
+        atom1, atom2 = t["atom1"].long(), t["atom2"].long()
+        a, b = t["a"], t["b"]
+        p = a + b
+        E = build_E_table(lmax + 1, lmax + 1, coords[atom1, 2] - coords[atom2, 2], a, b)
+        Etab = stack_E_table(E, lmax + 1, lmax + 1, nz - 1)
+        i, j = t["l1"][:, 2].long(), t["l2"][:, 2].long()
+
+        def row(ii, jj):
+            return gather_E_row(Etab, torch.clamp(ii, min=0), torch.clamp(jj, min=0))
+
+        cA, cB = (atom1 == 1).to(_F64)[:, None], (atom2 == 1).to(_F64)[:, None]
+        dz = (cA * (2 * a[:, None] * row(i + 1, j) - i[:, None] * row(i - 1, j))
+              + cB * (2 * b[:, None] * row(i, j + 1) - j[:, None] * row(i, j - 1)))
+        half_powers = _powers(torch.sqrt(2.0 * p), nz - 1)
+        return dz * half_powers * half_powers
+
+    def _plain_sweep(self, coords, derivative=False):
         """(data, block_values) of the plain parity-blocked quartet sweep,
-        shared by the plain ERI and direct Fock builds.
+        shared by the plain ERI and direct Fock builds and, with
+        `derivative`, the plain R-tangent of the ERI (atom 1 moving).
 
         data holds the per-primitive-pair rows (Hermite vectors, p, P_z,
         coefficient, AO pair id) with one sentinel row at index npp that
         backs the block padding: its zero coefficient kills its
         contributions, p = 1 keeps alpha finite.  block_values(rows, cols)
         gives the (T, T) contracted primitive-quartet values of two blocks of
-        primitive-pair indices (tuna_tpu/ops/integrals.py::_sweep_blocks)."""
+        primitive-pair indices (tuna_tpu/ops/integrals.py::_sweep_blocks).
+
+        A derivative quartet is [d bra | ket] + [bra | d ket]: the z
+        Hermite rows go one order higher (_pair_dz), so do the Coulomb table
+        and the Boys order; x and y, and so the parity classes, are those of
+        the forward.  Quartets whose four functions sit on one atom are set
+        to zero (their tangent vanishes by translation invariance), as
+        csrc/eri_deriv.cu skips them."""
         device = coords.device
         t = self.tensors(device)
         lmax = self.lmax
         tmax = 2 * lmax          # max Hermite order per pair per axis
-        vmax4 = 2 * tmax         # total z Hermite order per quartet
-        nmax4 = 4 * lmax         # Boys order cap per quartet
+        nz = tmax + 1 + int(derivative)   # z Hermite orders of a pair's row
+        vmax4 = 2 * (nz - 1)     # total z Hermite order per quartet
+        nmax4 = 4 * lmax + int(derivative)   # Boys order cap per quartet
 
         hx, hy, hz, p, Pz = self._pair_data(coords)
-        sign = torch.tensor([(-1.0) ** k for k in range(tmax + 1)], dtype=_F64,
-                            device=device)
+        sign = torch.tensor([(-1.0) ** k for k in range(nz)], dtype=_F64, device=device)
 
         def ext(x, fill=0.0):
             return torch.cat([x, torch.full((1,) + x.shape[1:], fill, dtype=x.dtype,
                                             device=device)])
 
-        data = {"hx": ext(hx), "hy": ext(hy), "hz": ext(hz), "p": ext(p, 1.0),
+        data = {"hx": ext(hx), "hy": ext(hy), "p": ext(p, 1.0),
                 "Pz": ext(Pz), "coef": ext(t["coef"]),
                 "pid": ext(t["pair_id"].long(), 0)}
+        if derivative:
+            data["hz"] = ext(torch.nn.functional.pad(hz, (0, 1)))
+            data["dz"] = ext(self._pair_dz(coords))
+            one_atom = torch.where(t["atom1"] == t["atom2"], t["atom1"], -1).long()
+            data["one_atom"] = ext(one_atom, -1)
+        else:
+            data["hz"] = ext(hz)
 
         # t + u -> T coupling, and the x/y pairing of even orders T = 2 m1,
         # U = 2 m2 into n = m1 + m2 with the (T-1)!! (U-1)!! weights
         n2t = 2 * tmax
-        conv = np.zeros((tmax + 1, tmax + 1, n2t + 1))
-        for k1 in range(tmax + 1):
-            for k2 in range(tmax + 1):
+        conv = np.zeros((nz, nz, 2 * nz - 1))
+        for k1 in range(nz):
+            for k2 in range(nz):
                 conv[k1, k2, k1 + k2] = 1.0
         pair_xy = np.zeros((n2t + 1, n2t + 1, nmax4 + 1))
         for T in range(0, n2t + 1, 2):
@@ -672,42 +853,56 @@ class IntegralPlan:
             psum = p12 + q34
             alpha = p12 * q34 / psum
             PQz = data["Pz"][rows][:, None] - data["Pz"][cols][None, :]
-            r12_half = _powers(torch.sqrt(q34 / psum), tmax)
-            r34_half = _powers(torch.sqrt(p12 / psum), tmax)
+            r12_half = _powers(torch.sqrt(q34 / psum), nz - 1)
+            r34_half = _powers(torch.sqrt(p12 / psum), nz - 1)
+            xy_conv = conv[:tmax + 1, :tmax + 1, :n2t + 1]
             G = []
-            for key, r12, r34 in (("hx", r12_half, r34_half), ("hy", r12_half, r34_half),
-                                  ("hz", r12_half * r12_half, r34_half * r34_half)):
-                g12 = data[key][rows][:, None, :] * r12
-                g34 = (data[key][cols] * sign)[None, :, :] * r34
-                G.append(torch.einsum("rct,rcu,tuT->rcT", g12, g34, conv))
-            Gx, Gy, Gz = G
+            for key in ("hx", "hy"):
+                g12 = data[key][rows][:, None, :] * r12_half[..., :tmax + 1]
+                g34 = (data[key][cols] * sign[:tmax + 1])[None, :, :] * r34_half[..., :tmax + 1]
+                G.append(torch.einsum("rct,rcu,tuT->rcT", g12, g34, xy_conv))
+            Gx, Gy = G
+            r12, r34 = r12_half * r12_half, r34_half * r34_half
+
+            def z_product(key12, key34):
+                g12 = data[key12][rows][:, None, :] * r12
+                g34 = (data[key34][cols] * sign)[None, :, :] * r34
+                return torch.einsum("rct,rcu,tuT->rcT", g12, g34, conv)
+
+            Gz = (z_product("dz", "hz") + z_product("hz", "dz") if derivative
+                  else z_product("hz", "hz"))
             axy = torch.einsum("rcT,rcU,TUn->rcn", Gx, Gy, pair_xy)
             Rz = build_scaled_Rz_table(vmax4, nmax4, PQz.reshape(-1), alpha.reshape(-1))
             Rz = Rz.reshape(PQz.shape + (vmax4 + 1, nmax4 + 1)) * vn_mask
             total = torch.einsum("rcv,rcvn,rcn->rc", Gz, Rz, axy)
             pref = TWO_PI_POW_2_5 / (p12 * q34 * torch.sqrt(psum))
-            return data["coef"][rows][:, None] * data["coef"][cols][None, :] * pref * total
+            values = data["coef"][rows][:, None] * data["coef"][cols][None, :] * pref * total
+            if derivative:
+                atom_r, atom_c = data["one_atom"][rows][:, None], data["one_atom"][cols][None, :]
+                values = torch.where((atom_r >= 0) & (atom_r == atom_c), 0.0, values)
+            return values
 
         return data, block_values
 
-    def _plain_block_sweep(self, coords):
+    def _plain_block_sweep(self, coords, derivative=False):
         """(rows, cols, v, upper, strict) for every block pair of the plain
         sweep: the forward mask c >= r keeps each unordered primitive
         quartet once (the diagonal included), the strict mask c > r marks
         the quartets whose mirror orientation still has to be added."""
-        data, block_values = self._plain_sweep(coords)
+        data, block_values = self._plain_sweep(coords, derivative)
         blocks = torch.as_tensor(self._plain_blocks, device=coords.device)
         for bl, br in self._plain_block_pairs:
             rows, cols = blocks[bl], blocks[br]
             yield (data["pid"][rows], data["pid"][cols], block_values(rows, cols),
                    cols[None, :] >= rows[:, None], cols[None, :] > rows[:, None])
 
-    def _eri_packed_plain(self, coords):
+    def _eri_packed_plain(self, coords, derivative=False):
         """The parity-blocked symmetric quartet sweep in plain torch: each
         unordered primitive quartet once, its value added to both packed
-        positions."""
+        positions; with `derivative`, the R-tangent of each value (atom 1
+        moving)."""
         packed = torch.zeros((self.n_pairs, self.n_pairs), dtype=_F64, device=coords.device)
-        for pid_r, pid_c, v, upper, strict in self._plain_block_sweep(coords):
+        for pid_r, pid_c, v, upper, strict in self._plain_block_sweep(coords, derivative):
             packed.index_put_((pid_r[:, None], pid_c[None, :]), torch.where(upper, v, 0.0),
                               accumulate=True)
             packed.index_put_((pid_c[None, :], pid_r[:, None]), torch.where(strict, v, 0.0),
@@ -819,6 +1014,66 @@ class IntegralPlan:
         J = torch.zeros((self.n_basis, self.n_basis), dtype=J_pair.dtype, device=J_pair.device)
         J[t["pid_i"].long(), t["pid_j"].long()] = J_pair
         return J + torch.triu(J.T, diagonal=1), K
+
+    # ------------------------------------------------------------------
+    # R-tangent of the two-electron energy at fixed density  [Cartesian]
+    # ------------------------------------------------------------------
+
+    def eri_deriv_energy(self, coords, P, hfx):
+        """d/dR, at fixed symmetric (N, N) float64 density P, of
+        E_2 = 1/2 sum P_ij P_kl (ij|kl) - hfx/4 sum P_ik P_jl (ij|kl) when
+        atom 1 moves along +z (tuna_tpu/drivers/gradients.py:266-271,
+        restricted), as a 0-d tensor: the K8b kernel on a CUDA tensor, the
+        plain version on a CPU tensor."""
+        if coords.device.type == "cpu":
+            return self._eri_deriv_energy_plain(coords, P, hfx)
+        if coords.device.type == "cuda":
+            return self._eri_deriv_energy_kernel(coords, P, hfx)
+        raise ValueError(f"no two-electron energy derivative for device {coords.device}")
+
+    def deriv_partial_count(self) -> int:
+        """Block partial sums of one K8b call: a block of 128 light quartets
+        or of 4 heavy ones (csrc/eri_deriv.cu), class part by class part."""
+        _, classes = self.work_list()
+        light = classes[:, 3].astype(np.int64) - classes[:, 2]
+        heavy = classes[:, 4].astype(np.int64) - classes[:, 3]
+        return int(np.sum(-(-light // 128)) + np.sum(-(-heavy // _HEAVY_WARPS)))
+
+    def _eri_deriv_energy_kernel(self, coords, P, hfx):
+        self._check_kernel_lmax()
+        device = coords.device
+        N = self.n_basis
+        _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
+        _kernels.check_tensor("P", P, (N, N), _F64, device)
+        t = self.tensors(device)
+        quartets, classes = self._kernel_work_list(device)
+        row_size = 4 * (2 * self.lmax + 1) + 4
+        rows = torch.empty((self.n_prim_pairs, row_size), dtype=_F64, device=device)
+        n_partials = self.deriv_partial_count()
+        partials = torch.empty(max(n_partials, 1), dtype=_F64, device=device)
+        out = torch.empty((), dtype=_F64, device=device)
+        _kernels.launch(
+            "eri_deriv_energy", "tuna_eri_deriv_energy", device,
+            self.lmax, self.n_prim_pairs, N,
+            coords.data_ptr(), t["a"].data_ptr(), t["b"].data_ptr(),
+            t["coef"].data_ptr(), t["l1"].data_ptr(), t["l2"].data_ptr(),
+            t["atom1"].data_ptr(), t["atom2"].data_ptr(), t["pair_start"].data_ptr(),
+            t["pid_i"].data_ptr(), t["pid_j"].data_ptr(), quartets.data_ptr(),
+            len(classes), classes.ctypes.data, t["boys_quartets"].data_ptr(),
+            P.data_ptr(), float(hfx), rows.data_ptr(), n_partials, partials.data_ptr(),
+            out.data_ptr())
+        return out
+
+    def _eri_deriv_energy_plain(self, coords, P, hfx):
+        """The plain sweep's derivative values expanded to the N^4 tensor
+        and contracted by einsum, as tuna_tpu's total_energy contracts the
+        ERI: for small bases only."""
+        packed = self._eri_packed_plain(coords, derivative=True)
+        pidx = self.tensors(coords.device)["pair_index"]
+        d_eri = packed[pidx[:, :, None, None], pidx[None, None, :, :]]
+        J = torch.einsum("ijkl,kl->ij", d_eri, P)
+        K = torch.einsum("ilkj,kl->ij", d_eri, P)
+        return 0.5 * torch.sum(P * J) - 0.25 * hfx * torch.sum(P * K)
 
 
 def cross_overlap(basis_functions_1, basis_functions_2) -> np.ndarray:
