@@ -49,7 +49,19 @@ non-zero without printing a result):
      iteration and the gradient's share of it);
  11. BASELINE.json configs 3 and 5: `OPT : H H 1.0 : B3LYP 6-31G`, `FREQ :
      C O 1.13 : HF 6-31G` and `MD : C O 1.13 : HF 6-31G : NUM 5 NOTRAJ`
-     against tuna_tpu's numbers.
+     against tuna_tpu's numbers;
+ 12. spin-orbital (T) kernel: K2u against its plain version on seeded
+     antisymmetric inputs at the UHF paths' shapes, (o, v) = (16, 36),
+     (9, 79) and (16, 104), and with QCISD's disconnected scale 2 at (16,
+     36): bitwise over two calls, peak device memory a call, stage A's
+     products as batched torch.matmul for library_ms;
+ 13. UHF paths: `SPE : O O 1.21 : CCSD(T) 6-311G : ML 3 TIGHTSCF` (triplet
+     O2), stored and DIRECT; `SPE : O H 0.97 : CCSD(T) CC-PVTZ : ML 2
+     TIGHTSCF` (OH radical, f shells); `SPE : O O 1.21 : CCSD(T) CC-PVTZ :
+     ML 3 DIRECT TIGHTSCF` with its stored twin; `SPE : O O 1.21 :
+     QCISD(T) 6-311G : ML 3 TIGHTSCF`; each against tuna_tpu's SCF and
+     CC energies and iteration counts, its (T) against K2u's plain version
+     on the path's own amplitudes and integrals, with its profile.
 
 Each path's launch counts are read from zero: the counts are reset just
 before the path runs and read just after, so launches made to compare a
@@ -78,7 +90,7 @@ and for K1 and K4 the union of their class kernels' intervals a call).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
---compare times the three paths, WARM_RUNS warm runs each after a cold one
+--compare times the three restricted paths, WARM_RUNS warm runs each after a cold one
 (warm wall median and quartiles, SCF and CC ms per iteration, iteration
 counts), then, CUDA events, median of 10 after a warm-up: K1 and K4 alone at
 N2/cc-pVTZ (K4 on a seeded density), K2 alone at o = 7, v = 53 and K6 alone
@@ -169,10 +181,40 @@ ZPE_REF_FREQ_CO = 0.00522042873347617
 LINE_MD_CO = "MD : C O 1.13 : HF 6-31G : NUM 5 NOTRAJ"
 E_REF_MD_CO = (-112.6672208310967, -112.66722083319698, -112.66722083926815,
                -112.66722084934422, -112.66722086338045)
+# The UHF paths.  Constants from the reference package on the JAX CPU
+# backend, printed by
+#   env JAX_PLATFORMS=cpu python -c 'from tuna_tpu.cli import run; \
+#       out = run(LINE); print(repr(out[0].energy), repr(out[2]))'
+# (the SCF and total energies; the iteration counts from "Self-consistent
+# field converged in N cycles!" and the rows of the coupled-cluster
+# iteration table of its printout).  For the two cc-pVTZ lines tuna_tpu's
+# (T) forms o^3 v^3 arrays several times over (2.9 GB each at o = 9, v =
+# 79; 37 GB at o = 16, v = 104), so the constants are those of the same
+# line with CCSD in place of CCSD(T) (SCF and CCSD energies), and the
+# port's (T) is held to K2u's plain version on the card.
+LINE_UHF = "SPE : O O 1.21 : CCSD(T) 6-311G : ML 3 TIGHTSCF"
+E_SCF_REF_UHF = -149.59617783487772
+E_REF_UHF = -149.88873114519333
+ITERATIONS_UHF = (16, 15)                 # SCF, CCSD
+LINE_UHF_DIRECT = "SPE : O O 1.21 : CCSD(T) 6-311G : ML 3 DIRECT TIGHTSCF"
+E_REF_UHF_DIRECT = -149.88873114519345
+LINE_UHF_QCISD = "SPE : O O 1.21 : QCISD(T) 6-311G : ML 3 TIGHTSCF"
+E_REF_UHF_QCISD = -149.8894356699433
+ITERATIONS_UHF_QCISD = (16, 16)
+LINE_UHF_OH = "SPE : O H 0.97 : CCSD(T) CC-PVTZ : ML 2 TIGHTSCF"
+E_SCF_REF_UHF_OH = -75.41925053512463
+E_CCSD_REF_UHF_OH = -75.64482066183278    # "SPE : O H 0.97 : CCSD CC-PVTZ : ML 2 TIGHTSCF"
+ITERATIONS_UHF_OH = (18, 17)
+LINE_UHF_TZ = "SPE : O O 1.21 : CCSD(T) CC-PVTZ : ML 3 DIRECT TIGHTSCF"
+LINE_UHF_TZ_STORED = "SPE : O O 1.21 : CCSD(T) CC-PVTZ : ML 3 TIGHTSCF"
+E_SCF_REF_UHF_TZ = -149.67472478511564
+E_CCSD_REF_UHF_TZ = -150.135420506447     # "SPE : O O 1.21 : CCSD CC-PVTZ : ML 3 DIRECT TIGHTSCF"
+ITERATIONS_UHF_TZ = (15, 15)
 BOND_TOLERANCE = 1e-6       # angstrom
 FREQUENCY_TOLERANCE = 0.01  # per cm
 E_TOLERANCE = 1e-8          # Ha, the BASELINE contract
 DIRECT_TOLERANCE = 1e-10    # Ha, DIRECT against the port's stored twin
+UHF_TOLERANCE = 1e-10       # Ha, the UHF paths' energies against tuna_tpu's
 INTEGRAL_TOLERANCE = 1e-12  # absolute, kernel against plain version
 TRIPLES_TOLERANCE = 1e-12   # relative, kernel against plain version
 GRID_TOLERANCE = 1e-12      # absolute, AO values and density on the grid
@@ -191,6 +233,7 @@ KERNELS = {
     "eri_packed": ("tuna_tpu_torch/csrc/eri.cu", "tuna_tpu/ops/integrals.py:470"),
     "one_electron": ("tuna_tpu_torch/csrc/one_electron.cu", "tuna_tpu/ops/integrals.py:332"),
     "ccsd_t_energy": ("tuna_tpu_torch/csrc/ccsd_t.cu", "tuna_tpu/post/cc.py:1741"),
+    "uccsd_t_energy": ("tuna_tpu_torch/csrc/ccsd_t_u.cu", "tuna_tpu/post/cc.py:1783"),
     "ao_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu", "tuna_tpu/dft/grid.py:80"),
     "density_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu", "tuna_tpu/dft/grid.py:137"),
     "vv10_energy": ("tuna_tpu_torch/csrc/vv10.cu", "tuna_tpu/dft/vv10.py:26"),
@@ -213,6 +256,9 @@ GRADIENT_PATH_KERNELS = ("eri_packed", "one_electron", "one_electron_deriv",
                          "eri_deriv_energy", "ao_on_grid", "density_on_grid",
                          "density_deriv_on_grid")
 HF_GRADIENT_PATH_KERNELS = GRADIENT_PATH_KERNELS[:4]
+UHF_PATH_KERNELS = ("eri_packed", "one_electron", "uccsd_t_energy")
+UHF_DIRECT_PATH_KERNELS = ("eri_packed", "one_electron", "fock_direct", "mo_half_transform",
+                           "uccsd_t_energy")
 
 
 class SmokeFailure(RuntimeError):
@@ -673,7 +719,8 @@ def drive(line: str, kernels: tuple):
     require(np.isfinite(energy), f"{line}: non-finite total energy")
     require(tuple(P.shape) == (n, n) and bool(torch.all(torch.isfinite(P))),
             f"{line}: density matrix has the wrong shape or non-finite entries")
-    require(tuple(SCF_output.molecular_orbitals.shape) == (n, n), f"{line}: MO matrix shape")
+    require(tuple(SCF_output.molecular_orbitals_alpha.shape) == (n, n),
+            f"{line}: MO matrix shape")
     return SCF_output, molecule, energy, P, wall, launches
 
 
@@ -1226,6 +1273,224 @@ def check_gradient_paths() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 12 and 13: K2u, the UHF paths
+# ---------------------------------------------------------------------------
+
+def u_triples_ms(no: int, nv: int) -> float:
+    """ms of the spin-orbital (T) energy's float64 operations as K2u counts
+    them over the unique i < j < k, a < b < c: stage A's X_ijk[a, (b < c)],
+    3 (v + o) multiply-adds an element (2 C(o,3) v C(v,2) 3 (v + o)
+    operations at the matrix-product rate), then per (triple, orbit) the
+    connected term from three X values, the nine disconnected products, the
+    denominator and the accumulation (30)."""
+    triples = no * (no - 1) * (no - 2) / 6
+    stage_a = 2.0 * triples * nv * nv * (nv - 1) / 2 * 3 * (nv + no)
+    stage_b = 30.0 * triples * nv * (nv - 1) * (nv - 2) / 6
+    return stage_a / FP64_MMA_PER_MS + stage_b / FP64_PER_MS
+
+
+def u_triples_args(no: int, nv: int, device) -> tuple:
+    """Seeded spin-orbital (T) inputs at o = no, v = nv: <oo||vv>, <vo||vv>,
+    <ov||oo>, t1, t2, eps_o, eps_v, antisymmetric in each index pair as the
+    path's are."""
+    rng = np.random.default_rng(17)
+
+    def pairs(x):
+        x = x - x.swapaxes(0, 1) if x.shape[0] == x.shape[1] else x
+        return x - x.swapaxes(2, 3)
+
+    def tensor(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64, device=device)
+
+    return (tensor(0.1 * pairs(rng.standard_normal((no, no, nv, nv)))),
+            tensor(0.1 * pairs(rng.standard_normal((nv, no, nv, nv)))),
+            tensor(0.1 * pairs(rng.standard_normal((no, nv, no, no)))),
+            tensor(0.01 * rng.standard_normal((no, nv))),
+            tensor(0.05 * pairs(rng.standard_normal((no, no, nv, nv)))),
+            tensor(np.sort(rng.uniform(-15.0, -0.5, no))),
+            tensor(np.sort(rng.uniform(0.3, 5.0, nv))))
+
+
+def u_stage_a_library_ms(args) -> float:
+    """Batched torch.matmul computing K2u's stage-A products, X_ijk[a, (b <
+    c)] = [A_ijk | -A_jik | -A_kji] . [B_i ; B_j ; B_k] for every unique
+    triple (one product per batch of the kernel's plan; the operands are
+    built before the timing)."""
+    g_oovv, g_vovv, g_ovoo, t1, t2 = args[:5]
+    no, nv = t1.shape
+    device = t1.device
+    triples = torch.as_tensor(cc.unique_triples(no), dtype=torch.long, device=device)
+    b, c = (torch.as_tensor(x, device=device) for x in np.triu_indices(nv, 1))
+    left, right = [], []
+    for (r, p, q), sign in cc._U_ORDERINGS:
+        r, p, q = triples[:, r], triples[:, p], triples[:, q]
+        left.append(sign * torch.cat([t2[p, q], -g_ovoo[:, :, p, q].permute(2, 1, 0)], dim=2))
+        right.append(torch.cat([g_vovv[:, r][:, :, b, c].transpose(0, 1), t2[r][:, :, b, c]],
+                               dim=1))
+    A, B = torch.cat(left, dim=2), torch.cat(right, dim=1)
+    del left, right
+    batches = cc.u_triples_plan(no, nv, cc.U_TRIPLES_WORKSPACE_BYTES).tolist()
+    ms = sum(medians_ms([lambda begin=begin, end=end: torch.matmul(A[begin:end], B[begin:end])
+                         for begin, end in batches], 5))
+    del A, B
+    return ms
+
+
+def check_u_triples(no: int, nv: int, device, record: dict, v_scale: float = 1.0) -> str:
+    """K2u against its plain version at o = no, v = nv, bitwise over two
+    calls, with its peak device memory a call (its device time a launch is
+    in the UHF paths' profiles); the record keeps the largest error over
+    the shapes, the times of the first shape checked (config A's, o = 16,
+    v = 36) and every shape's measurements under `shapes`."""
+    args = u_triples_args(no, nv, device)
+
+    def kernel():
+        return cc.uccsd_t_energy(*args, v_scale)
+
+    def plain():
+        return cc._uccsd_t_energy_plain(*args, v_scale)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    e_kernel = float(kernel())
+    peak_bytes = torch.cuda.max_memory_allocated() - before
+    e_plain = float(plain())
+    err = abs(e_kernel - e_plain)
+    require(np.isfinite(e_kernel), "spin-orbital (T) kernel returned a non-finite energy")
+    require(err <= TRIPLES_TOLERANCE * abs(e_plain),
+            f"spin-orbital (T) kernel off its plain version by {err:.3e} "
+            f"(relative {err / abs(e_plain):.3e})")
+    require(torch.equal(kernel(), kernel()), "two spin-orbital (T) kernel calls differ")
+    ms, plain_ms = medians_ms((kernel, plain), 5)
+    library_ms = u_stage_a_library_ms(args)
+    u_bound = bound(tensor_bytes(*args), u_triples_ms(no, nv))
+    entry = record.setdefault("uccsd_t_energy", {"max_abs_err": 0.0, "shapes": []})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if "ms" not in entry:
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **u_bound)
+    entry["shapes"].append({"o": no, "v": nv, "v_scale": v_scale, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "max_abs_err": err, **u_bound,
+                            "peak_bytes_a_call": peak_bytes})
+    n_batches = len(cc.u_triples_plan(no, nv, cc.U_TRIPLES_WORKSPACE_BYTES))
+    return (f"kernels spin-orbital (T): o {no}, v {nv}, v_scale {v_scale}; E {e_kernel:.15e}, "
+            f"|diff| {err:.3e} (relative {err / abs(e_plain):.3e}), two calls bitwise equal; "
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, stage A as batched torch.matmul "
+            f"{library_ms:.4f} ms; bound {u_bound['bound_ms']:.5f} ms by "
+            f"{u_bound['bound_by']}; {n_batches} batches, peak device memory a call "
+            f"{peak_bytes} bytes (one o^3 v^3 tensor: {8 * no ** 3 * nv ** 3} bytes)")
+
+
+class TriplesRecorder:
+    """Wraps post.cc.uccsd_t_energy while a path runs, keeping the inputs
+    and the energy of each call, so that the path's (T) can be held to
+    K2u's plain version on the same tensors."""
+
+    def __enter__(self):
+        self.calls, self.original = [], cc.uccsd_t_energy
+
+        def recording(*args):
+            energy = self.original(*args)
+            self.calls.append((args, energy))
+            return energy
+
+        cc.uccsd_t_energy = recording
+        return self
+
+    def __exit__(self, *exc):
+        cc.uccsd_t_energy = self.original
+
+
+def check_uhf_path(line: str, kernels: tuple, iterations_ref: tuple, E_scf_ref: float,
+                   E_ref: float | None = None, E_ccsd_ref: float | None = None) -> tuple:
+    """A UHF CC(T) line on the card against tuna_tpu's SCF energy and
+    iteration counts and its total (or, where tuna_tpu's (T) does not fit
+    the host, CCSD) energy, to UHF_TOLERANCE; the path's (T) against K2u's
+    plain version on the path's own inputs.  Returns (energy, SCF output,
+    launches)."""
+    with TriplesRecorder() as recorder:
+        SCF_output, _, energy, _, wall, launches = drive(line, kernels)
+    require(len(recorder.calls) == 1, f"{line}: {len(recorder.calls)} (T) calls")
+    args, E_T = recorder.calls[0]
+    E_T = float(E_T)
+    E_T_plain = float(cc._uccsd_t_energy_plain(*args))
+    err_T = abs(E_T - E_T_plain)
+    require(err_T <= TRIPLES_TOLERANCE * abs(E_T_plain),
+            f"{line}: (T) {E_T!r} off its plain version by {err_T:.3e}")
+    iterations = (len(SCF_output.iteration_seconds),
+                  len(SCF_output.correlation_iteration_seconds))
+    require(iterations[0] == iterations_ref[0] and abs(iterations[1] - iterations_ref[1]) <= 1,
+            f"{line}: {iterations} SCF and CC iterations, the reference takes {iterations_ref}")
+    deltas = {"E_SCF": SCF_output.energy - E_scf_ref}
+    if E_ref is not None:
+        deltas["E_total"] = energy - E_ref
+    if E_ccsd_ref is not None:
+        deltas["E_total - E_(T)"] = energy - E_T - E_ccsd_ref
+    for name, delta in deltas.items():
+        require(abs(delta) <= UHF_TOLERANCE, f"{line}: {name} {delta:.3e} Ha from the reference")
+    print(f"end to end: {line}; E_total {energy!r}, E_(T) {E_T!r} (plain version "
+          f"{E_T_plain!r}, relative {err_T / abs(E_T_plain):.3e}); from the reference: "
+          + ", ".join(f"{name} {delta:.3e} Ha" for name, delta in deltas.items())
+          + f"; SCF {iterations[0]} iterations, median "
+          f"{statistics.median(SCF_output.iteration_seconds) * 1e3:.3f} ms/iteration; CC "
+          f"{iterations[1]} iterations, median "
+          f"{statistics.median(SCF_output.correlation_iteration_seconds) * 1e3:.3f} "
+          f"ms/iteration; wall {wall:.3f} s; launches {launches}")
+    return energy, SCF_output, launches
+
+
+def check_uhf_twin(line: str, energy: float, SCF_output) -> None:
+    """The stored twin of a DIRECT UHF line (or the DIRECT twin of a stored
+    one): the same energy to DIRECT_TOLERANCE and the same iteration
+    counts."""
+    twin, _, twin_energy, _, wall, _ = drive(line, ())
+    require((twin.integrals.ERI_AO is None) != (SCF_output.integrals.ERI_AO is None),
+            f"{line}: not the other storage of its twin")
+    require(abs(energy - twin_energy) <= DIRECT_TOLERANCE,
+            f"{line}: DIRECT and stored differ by {energy - twin_energy:.3e} Ha")
+    require((len(twin.iteration_seconds), len(twin.correlation_iteration_seconds))
+            == (len(SCF_output.iteration_seconds),
+                len(SCF_output.correlation_iteration_seconds)),
+            f"{line}: DIRECT and stored iteration counts differ")
+    print(f"twin: {line}; E_total {twin_energy!r}, difference {energy - twin_energy:.3e} Ha; "
+          f"wall {wall:.3f} s")
+
+
+def check_uhf_paths() -> dict:
+    """Phase 13: the UHF paths with their profiles; returns the launches
+    summed over the counted runs."""
+    runs = []
+    energy, scf, launches = check_uhf_path(LINE_UHF, UHF_PATH_KERNELS, ITERATIONS_UHF,
+                                           E_SCF_REF_UHF, E_ref=E_REF_UHF)
+    runs.append(launches)
+    print("profile: " + json.dumps(profile_path(LINE_UHF)))
+    direct_energy, direct_scf, launches = check_uhf_path(
+        LINE_UHF_DIRECT, UHF_DIRECT_PATH_KERNELS, ITERATIONS_UHF, E_SCF_REF_UHF,
+        E_ref=E_REF_UHF_DIRECT)
+    require(direct_scf.integrals.ERI_AO is None, f"{LINE_UHF_DIRECT}: the ERI tensor was stored")
+    require(abs(direct_energy - energy) <= DIRECT_TOLERANCE,
+            f"{LINE_UHF_DIRECT}: DIRECT and stored differ by {direct_energy - energy:.3e} Ha")
+    runs.append(launches)
+    print("profile: " + json.dumps(profile_path(LINE_UHF_DIRECT)))
+    _, _, launches = check_uhf_path(LINE_UHF_QCISD, UHF_PATH_KERNELS, ITERATIONS_UHF_QCISD,
+                                    E_SCF_REF_UHF, E_ref=E_REF_UHF_QCISD)
+    runs.append(launches)
+    print("profile: " + json.dumps(profile_path(LINE_UHF_QCISD)))
+    _, _, launches = check_uhf_path(LINE_UHF_OH, UHF_PATH_KERNELS, ITERATIONS_UHF_OH,
+                                    E_SCF_REF_UHF_OH, E_ccsd_ref=E_CCSD_REF_UHF_OH)
+    runs.append(launches)
+    print("profile: " + json.dumps(profile_path(LINE_UHF_OH)))
+    energy, scf, launches = check_uhf_path(LINE_UHF_TZ, UHF_DIRECT_PATH_KERNELS,
+                                           ITERATIONS_UHF_TZ, E_SCF_REF_UHF_TZ,
+                                           E_ccsd_ref=E_CCSD_REF_UHF_TZ)
+    require(scf.integrals.ERI_AO is None, f"{LINE_UHF_TZ}: the ERI tensor was stored")
+    runs.append(launches)
+    check_uhf_twin(LINE_UHF_TZ_STORED, energy, scf)
+    print("profile: " + json.dumps(profile_path(LINE_UHF_TZ)))
+    return {name: sum(r[name] for r in runs) for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # --compare: the coupled-cluster path's warm walls from another checkout
 # ---------------------------------------------------------------------------
 
@@ -1418,6 +1683,14 @@ def main() -> int:
 
     # --- 10 and 11. gradient paths, BASELINE configs 3 and 5 --------------------
     launches = check_gradient_paths()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 12. the spin-orbital (T) kernel against its plain version -----------
+    for no, nv, v_scale in ((16, 36, 1.0), (16, 36, 2.0), (9, 79, 1.0), (16, 104, 1.0)):
+        print(check_u_triples(no, nv, device, record, v_scale))
+
+    # --- 13. UHF paths ---------------------------------------------------------
+    launches = check_uhf_paths()
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -240,15 +240,13 @@ def test_direct_energy_matches_tuna_tpu(line):
 
 
 def test_direct_refusals_match_tuna_tpu():
-    """DFT is refused with tuna_tpu's own text; unrestricted SCF, which
-    tuna_tpu serves under DIRECT, is refused by the port's refusal of
-    unrestricted SCF."""
-    line = "SPE : N N 1.1 : B3LYP 6-31G : DIRECT"
-    with pytest.raises(JaxTunaError) as expected:
-        jax_run(line, suppress_output=True)
-    with pytest.raises(TunaError) as got:
-        run(line, suppress_output=True, device="cpu")
-    assert str(got.value) == str(expected.value)
-    assert '"DIRECT" (integral-direct) keyword supports' in str(got.value)
-    with pytest.raises(TunaError, match="Unrestricted SCF is not yet ported"):
-        run("SPE : H H 0.74 : UHF STO-3G : DIRECT", suppress_output=True, device="cpu")
+    """DFT, and on a UHF reference the spin-orbital MPn densities, are
+    refused with tuna_tpu's own text."""
+    for line in ("SPE : N N 1.1 : B3LYP 6-31G : DIRECT",
+                 "SPE : O O 1.21 : MP2 STO-3G : ML 3 DIRECT"):
+        with pytest.raises(JaxTunaError) as expected:
+            jax_run(line, suppress_output=True)
+        with pytest.raises(TunaError) as got:
+            run(line, suppress_output=True, device="cpu")
+        assert str(got.value) == str(expected.value)
+        assert '"DIRECT" (integral-direct) keyword supports' in str(got.value)

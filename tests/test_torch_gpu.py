@@ -140,6 +140,81 @@ def test_triples_kernel_batches_and_repeats(cuda, no, nv, v_scale, monkeypatch):
     assert abs(float(cut) - expected) <= 1e-12 * scale
 
 
+def _u_triples_args(no, nv, device, seed):
+    """Seeded spin-orbital (T) inputs <oo||vv>, <vo||vv>, <ov||oo>, t1, t2,
+    eps_o, eps_v, antisymmetric in each index pair as the real ones are
+    (K2u reads X[c, (a, b)] for -X[c, b, a])."""
+    rng = np.random.default_rng(seed)
+
+    def pairs(x):
+        x = x - x.swapaxes(0, 1) if x.shape[0] == x.shape[1] else x
+        return x - x.swapaxes(2, 3)
+
+    def tensor(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    return (tensor(0.1 * pairs(rng.standard_normal((no, no, nv, nv)))),
+            tensor(0.1 * pairs(rng.standard_normal((nv, no, nv, nv)))),
+            tensor(0.1 * pairs(rng.standard_normal((no, nv, no, no)))),
+            tensor(0.01 * rng.standard_normal((no, nv))),
+            tensor(0.05 * pairs(rng.standard_normal((no, no, nv, nv)))),
+            tensor(np.sort(rng.uniform(-15.0, -0.5, no))),
+            tensor(np.sort(rng.uniform(0.3, 5.0, nv))))
+
+
+@pytest.mark.parametrize("v_scale", [1.0, 2.0])
+@pytest.mark.parametrize("no, nv", [(2, 5), (3, 1), (5, 2), (3, 3), (4, 7), (6, 11),
+                                    (5, 70), (16, 36)])
+def test_uccsd_t_kernel_matches_plain(cuda, no, nv, v_scale, monkeypatch):
+    """K2u against its plain version: zero without a unique occupied or
+    virtual triple (no launch); odd v; v = 70, two 64-wide tiles of a and
+    38 of pairs; config A's shape (o = 16, v = 36); at the default
+    workspace cap and at one of three triples, which cuts the triples into
+    batches; two calls bitwise equal, one counted launch a call."""
+    args = _u_triples_args(no, nv, cuda, 100 * no + nv)
+    expected = float(cc._uccsd_t_energy_plain(*args, v_scale))
+    _kernels.reset_launch_counts()
+    first = cc.uccsd_t_energy(*args, v_scale)
+    again = cc.uccsd_t_energy(*args, v_scale)
+    if no < 3 or nv < 3:
+        assert expected == 0.0 and float(first) == 0.0
+        assert _kernels.launches["uccsd_t_energy"] == 0
+        return
+    assert _kernels.launches["uccsd_t_energy"] == 2
+    assert torch.equal(first, again)
+    assert abs(float(first) - expected) <= 1e-12 * abs(expected)
+    monkeypatch.setattr(cc, "U_TRIPLES_WORKSPACE_BYTES", 3 * 8 * nv * nv * (nv - 1) // 2)
+    assert len(cc.u_triples_plan(no, nv, cc.U_TRIPLES_WORKSPACE_BYTES)) == -(
+        -(no * (no - 1) * (no - 2) // 6) // 3)
+    cut = cc.uccsd_t_energy(*args, v_scale)
+    assert torch.equal(cut, cc.uccsd_t_energy(*args, v_scale))
+    assert abs(float(cut) - expected) <= 1e-12 * abs(expected)
+
+
+def test_uccsd_t_kernel_checks_its_inputs(cuda):
+    args = list(_u_triples_args(4, 5, cuda, 1))
+    args[1] = args[1].transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.uccsd_t_energy(*args)
+    args[1] = args[1].contiguous().float()
+    with pytest.raises(ValueError, match="dtype"):
+        cc.uccsd_t_energy(*args)
+
+
+def test_unrestricted_ccsd_t_runs_through_k2u(cuda):
+    """A UHF CCSD(T) line on the card: K2u launched once, the energy the
+    CPU path's to 1e-10 Ha."""
+    from tuna_tpu_torch.cli import run
+
+    line = "SPE : O O 1.21 : CCSD(T) 6-31G : ML 3 TIGHTSCF"
+    _kernels.reset_launch_counts()
+    _, _, energy, _ = run(line, suppress_output=True, device="cuda")
+    assert _kernels.launches["uccsd_t_energy"] == 1
+    assert _kernels.launches["ccsd_t_energy"] == 0
+    _, _, energy_cpu, _ = run(line, suppress_output=True, device="cpu")
+    assert abs(energy - energy_cpu) <= 1e-10
+
+
 def test_kernel_wrappers_check_their_inputs(cuda):
     molecule, plan = _n2_plan("STO-3G")
     coords = torch.as_tensor(molecule.coordinates, dtype=torch.float32, device=cuda)

@@ -311,6 +311,8 @@ def test_single_atom_optimisation_raises():
 
 
 def test_uhf_and_correlated_gradients_are_not_analytic():
+    """Correlated and VV10 gradients take finite differences, as in
+    tuna_tpu; UHF, which tuna_tpu differentiates analytically, is refused."""
     for line in ("OPT : H H 0.74 : UHF STO-3G", "OPT : H H 0.74 : CCSD STO-3G",
                  "OPT : H H 0.74 : B3LYP STO-3G : NL"):
         calc_type, method, basis, symbols, coordinates, params = parse_input(line)
@@ -318,4 +320,8 @@ def test_uhf_and_correlated_gradients_are_not_analytic():
                              suppress_output=True)
         molecule = Molecule(symbols, coordinates, calculation)
         molecule.process_basis_functions(calculation, molecule.spherical_transformation.shape[0])
-        assert not gradients.analytic_gradient_available(calculation, molecule), line
+        if calculation.reference == "UHF":
+            with pytest.raises(TunaError, match="Unrestricted analytic gradients"):
+                gradients.analytic_gradient_available(calculation, molecule)
+        else:
+            assert not gradients.analytic_gradient_available(calculation, molecule), line

@@ -139,12 +139,13 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _kernels.build()
     assert set(_kernels.SIGNATURES) == {"tuna_eri_packed", "tuna_one_electron",
-                                        "tuna_ccsd_t_energy", "tuna_ao_on_grid",
+                                        "tuna_ccsd_t_energy", "tuna_uccsd_t_energy",
+                                        "tuna_ao_on_grid",
                                         "tuna_density_on_grid", "tuna_vv10_energy",
                                         "tuna_fock_direct", "tuna_mo_half_transform",
                                         "tuna_one_electron_deriv", "tuna_eri_deriv_energy",
                                         "tuna_density_deriv_on_grid"}
     assert set(_kernels.launches) == {"eri_packed", "one_electron", "ccsd_t_energy",
-                                      "ao_on_grid", "density_on_grid", "vv10_energy",
+                                      "uccsd_t_energy", "ao_on_grid", "density_on_grid", "vv10_energy",
                                       "fock_direct", "mo_half_transform", "one_electron_deriv",
                                       "eri_deriv_energy", "density_deriv_on_grid"}

@@ -44,7 +44,7 @@ def test_unported_calculations_raise():
         run("SCAN : H H 0.74 : HF STO-3G : STEP 0.1 NUM 2", suppress_output=True,
             device="cpu")
     with pytest.raises(TunaError, match="not yet ported"):
-        run("SPE : H H 0.74 : UHF STO-3G", suppress_output=True, device="cpu")
+        run("SPE : O O 1.21 : B3LYP STO-3G : ML 3", suppress_output=True, device="cpu")
 
 
 @pytest.mark.parametrize("spread", [1.0, 1e-7])

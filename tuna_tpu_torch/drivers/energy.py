@@ -23,27 +23,31 @@ from .post_scf import run_post_SCF_energy_calculation
 
 _F64 = torch.float64
 
-# Methods the DIRECT keyword serves (tuna_tpu/drivers/energy.py:184-197):
-# mean-field SCF contracts J/K during the sweep, restricted correlated
-# methods get their MO integrals transform-direct from the packed pair
-# matrix.  Methods that consume the AO tensor every iteration and the
-# spin-orbital MPn densities need the stored tensor.
+# Methods the DIRECT keyword serves (tuna_tpu/drivers/energy.py:184-205):
+# mean-field SCF contracts J/K during the sweep, correlated methods get
+# their MO integrals transform-direct from the packed pair matrix
+# (spatial-orbital for RHF, spin-orbital for UHF references).  Methods that
+# consume the AO tensor every iteration, and the spin-orbital MPn
+# densities, need the stored tensor.
 _DIRECT_OK = {
     "HF", "UHF", "RHF", "MP2", "SCS-MP2", "MP3", "SCS-MP3", "MP4",
     "CID", "CISD", "CCD", "CEPA", "CEPA0", "CEPA[0]", "CEPA(0)",
     "LCCD", "LCCSD", "QCISD", "QCISD[T]", "QCISD(T)",
     "CCSD", "CCSD[T]", "CCSD(T)",
 }
+_MPN_NAMES = {"MP2", "SCS-MP2", "MP3", "SCS-MP3", "MP4"}
+_DIRECT_OK_UHF = _DIRECT_OK - _MPN_NAMES - {"RHF"}
 
 
 def _direct_fock_closure(calculation, molecule, device):
     """The integral-direct P -> (J, K) closure under the DIRECT keyword,
     else None; raises for what DIRECT does not serve, with tuna_tpu's
-    texts.  (tuna_tpu's narrower set for UHF references comes with the
-    port's unrestricted SCF, which refuses them until then.)"""
+    texts."""
     if not getattr(calculation, "direct_scf", False):
         return None
-    if calculation.DFT_calculation or calculation.method.name not in _DIRECT_OK:
+    name = calculation.method.name
+    if (calculation.DFT_calculation or name not in _DIRECT_OK
+            or (calculation.reference != "RHF" and name not in _DIRECT_OK_UHF)):
         error('The "DIRECT" (integral-direct) keyword supports mean-field '
               "HF/UHF and correlated MPn/CI/CC families (restricted, plus "
               "the UHF-reference CC/CI set); DFT, spin-orbital MPn "

@@ -27,6 +27,7 @@ import torch
 
 from ..dft import grid as dft_grid
 from ..dft import xc
+from ..output import error
 from . import common
 
 _F64 = torch.float64
@@ -36,10 +37,16 @@ def analytic_gradient_available(calculation, molecule=None) -> bool:
     """True when the restricted SCF energy has an analytic gradient here:
     Hartree-Fock, or Kohn-Sham with the port's restricted LDA/GGA
     functionals (VV10, double hybrids and ghost-atom grids go through
-    finite differences, as in tuna_tpu)."""
+    finite differences, as in tuna_tpu).  Raises for the unrestricted SCF
+    energies that tuna_tpu differentiates analytically."""
     method = calculation.method
-    if (calculation.extrapolate or calculation.decontract or method.correlated_method
-            or calculation.reference != "RHF"):
+    if calculation.extrapolate or calculation.decontract or method.correlated_method:
+        return False
+    if calculation.reference != "RHF":
+        # tuna_tpu differentiates UHF (and UKS) analytically; finite
+        # differences here would take another route than the reference's
+        if method.name in ("HF", "UHF") or calculation.DFT_calculation:
+            error("Unrestricted analytic gradients are not yet ported to tuna_tpu_torch!")
         return False
     if method.name == "HF":
         return True

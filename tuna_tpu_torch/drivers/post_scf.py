@@ -1,10 +1,9 @@
-"""Post-SCF dispatcher: energy components, the integrated density of a
-Kohn-Sham run, restricted coupled cluster, energy summation and property
-printing.
+"""Post-SCF dispatcher: spin contamination of an unrestricted reference,
+energy components, the integrated density of a Kohn-Sham run, coupled
+cluster, energy summation and property printing.
 
-Twin of the Hartree-Fock, restricted Kohn-Sham and restricted
-coupled-cluster branches of tuna_tpu/drivers/post_scf.py (reference:
-tuna_kernel.py:1076-1323).  The host-side printing code (`props.py`, numpy)
+Twin of the Hartree-Fock, restricted Kohn-Sham and coupled-cluster branches
+of tuna_tpu/drivers/post_scf.py (reference: tuna_kernel.py:1076-1323).  The host-side printing code (`props.py`, numpy)
 receives host copies of the device tensors.
 """
 
@@ -56,6 +55,14 @@ def run_post_SCF_energy_calculation(molecule, integrals, SCF_output, grid_contai
 
     SCF_output.D = integrals.D
     SCF_output.Q = integrals.Q
+
+    if reference == "UHF":
+        if calculation.natural_orbitals:
+            error("Natural orbitals of unrestricted references are not yet ported to "
+                  "tuna_tpu_torch!")
+        props.calculate_spin_contamination(
+            to_numpy(P_alpha), to_numpy(P_beta), molecule.n_alpha, molecule.n_beta,
+            to_numpy(integrals.S), calculation, "UHF", silent=silent)
 
     props.print_energy_components(SCF_output, V_NN, calculation, silent=silent)
 

@@ -1,21 +1,27 @@
-"""Restricted coupled cluster (CCSD, CISD) with the (T)/[T] triples energy.
+"""Coupled cluster and iterative CI with the (T)/[T] triples energy:
+restricted CCSD and CISD, and on UHF references the spin-orbital LCCD,
+CCD, LCCSD (CEPA), CID, CISD, QCISD and CCSD.
 
-Twin of the restricted closed-shell path of tuna_tpu/post/cc.py: the
+Twin of tuna_tpu/post/cc.py's restricted closed-shell path (the
 spin-adapted spatial-orbital equations in the tau-based formulation with
 occupied-leading integral blocks and L = 2<pq|rs> - <pq|sr>, the fused CCSD
-residual, and the pure-float64 amplitude DIIS loop of `_build_cc_solver_fn`
-(its f32 spread extrapolation included, so iterates follow tuna_tpu's CPU
-path).  A Python loop on the device takes the place of the while_loop.
+residual) and its unrestricted path (the antisymmetrised spin-orbital
+equations on <pq||rs>), both on the pure-float64 amplitude DIIS loop of
+`_build_cc_solver_fn` (its f32 spread extrapolation included, so iterates
+follow tuna_tpu's CPU path).  A Python loop on the device takes the place
+of the while_loop.
 
-The (T) energy runs through `ccsd_t_energy`: the K2 CUDA kernel
-(csrc/ccsd_t.cu) on CUDA tensors, `_restricted_T_tensors` and the Lee
-contraction in plain torch on CPU tensors.
+The restricted (T) energy runs through `ccsd_t_energy`, the K2 CUDA kernel
+(csrc/ccsd_t.cu) on CUDA tensors; the unrestricted one through
+`uccsd_t_energy`, the K2u kernel (csrc/ccsd_t_u.cu).  On CPU tensors each
+takes its plain torch version.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -32,6 +38,11 @@ _F64 = torch.float64
 # ---------------------------------------------------------------------------
 # Small tensor helpers
 # ---------------------------------------------------------------------------
+
+def _permute(x, axis_1, axis_2):
+    """Antisymmetric permutation P-(axis_1, axis_2): x - x with the axes swapped."""
+    return x - x.transpose(axis_1, axis_2)
+
 
 def _sym_pair(r):
     """Symmetrise a doubles residual over simultaneous (ij)(ab) exchange."""
@@ -68,6 +79,17 @@ def _restricted_blocks(g, o, v):
     return B
 
 
+def _unrestricted_blocks(g, o, v):
+    """Spin-orbital antisymmetrised blocks <pq||rs>."""
+    B = {
+        "oooo": g[o, o, o, o], "ooov": g[o, o, o, v], "oovo": g[o, o, v, o],
+        "oovv": g[o, o, v, v], "ovoo": g[o, v, o, o], "ovov": g[o, v, o, v],
+        "ovvo": g[o, v, v, o], "ovvv": g[o, v, v, v],
+        "vovv": g[v, o, v, v], "vvvo": g[v, v, v, o], "vvvv": g[v, v, v, v],
+    }
+    return {key: value.contiguous() for key, value in B.items()}
+
+
 _NO_DISCONNECTED = ("LCCD", "LCCSD", "QCISD", "QCISD[T]", "QCISD(T)", "CISD",
                     "CID", "CISDT")
 _NO_SINGLES = ("LCCD", "CCD", "CID")
@@ -78,6 +100,16 @@ def _restricted_energy(B, F_ov, t1, t2, keep_disconnected: bool):
     E_conn = torch.einsum("ijab,ijab->", B["Loovv"], t2)
     if keep_disconnected:
         E_disc = torch.einsum("ijab,ia,jb->", B["Loovv"], t1, t1)
+    else:
+        E_disc = torch.zeros_like(E_conn)
+    return E_singles + E_conn + E_disc, E_singles, E_conn, E_disc
+
+
+def _unrestricted_energy(B, F_ov, t1, t2, keep_disconnected: bool):
+    E_singles = torch.einsum("ia,ia->", F_ov, t1)
+    E_conn = 0.25 * torch.einsum("ijab,ijab->", B["oovv"], t2)
+    if keep_disconnected:
+        E_disc = 0.5 * torch.einsum("ijab,ia,jb->", B["oovv"], t1, t1)
     else:
         E_disc = torch.zeros_like(E_conn)
     return E_singles + E_conn + E_disc, E_singles, E_conn, E_disc
@@ -276,12 +308,194 @@ _RESTRICTED_UPDATES = {"CCSD": _r_ccsd, "CISD": _r_cisd}
 
 
 # ---------------------------------------------------------------------------
+# Unrestricted (spin-orbital) residual -> new-amplitude maps
+# ---------------------------------------------------------------------------
+# Each update has signature (B, F, o, v, d1, d2, t1, t2) -> (t1_new, t2_new),
+# F the spin-orbital Fock matrix of the correlated window.  tuna_tpu's
+# three-operand einsums are written as two two-operand contractions.
+
+def _off_diagonal(F, s):
+    """The s block of F with its diagonal set to zero."""
+    return F[s, s] - torch.diag(torch.diagonal(F))[s, s]
+
+
+def _u_so_tau(t1, t2, factor):
+    pair = torch.einsum("ia,jb->ijab", t1, t1)
+    return t2 + factor * (pair - pair.transpose(2, 3))
+
+
+def _u_linear_doubles(B, F_oo_off, F_vv_off, t1, t2, with_fock: bool):
+    """Linear doubles terms shared by every spin-orbital method."""
+    r = (B["oovv"]
+         + 0.5 * torch.einsum("abcd,ijcd->ijab", B["vvvv"], t2)
+         + 0.5 * torch.einsum("ijkl,klab->ijab", B["oooo"], t2)
+         + _permute(_permute(torch.einsum("icak,jkbc->ijab", B["ovvo"], t2), 2, 3), 0, 1))
+    if with_fock:
+        r = r + _permute(torch.einsum("ijae,be->ijab", t2, F_vv_off), 2, 3)
+        r = r - _permute(torch.einsum("imab,mj->ijab", t2, F_oo_off), 0, 1)
+    return r
+
+
+def _u_singles_driven(B, t1):
+    return (_permute(torch.einsum("abcj,ic->ijab", B["vvvo"], t1), 0, 1)
+            - _permute(torch.einsum("kbij,ka->ijab", B["ovoo"], t1), 2, 3))
+
+
+def _u_singles_tail(B, t1, t2):
+    """The integral terms every spin-orbital singles residual ends with."""
+    return (- torch.einsum("nf,naif->ia", t1, B["ovov"])
+            - 0.5 * torch.einsum("imef,maef->ia", t2, B["ovvv"])
+            - 0.5 * torch.einsum("mnae,nmei->ia", t2, B["oovo"]))
+
+
+def _u_linear_singles(B, F, o, v, t1, t2):
+    return (F[o, v]
+            + torch.einsum("ie,ae->ia", t1, _off_diagonal(F, v))
+            - torch.einsum("ma,mi->ia", t1, _off_diagonal(F, o))
+            + torch.einsum("imae,me->ia", t2, F[o, v])
+            + _u_singles_tail(B, t1, t2))
+
+
+def _u_lccd(B, F, o, v, d1, d2, t1, t2):
+    return t1, d2 * _u_linear_doubles(B, None, None, t1, t2, False)
+
+
+def _u_ccd(B, F, o, v, d1, d2, t1, t2):
+    g = B["oovv"]
+    r = _u_linear_doubles(B, None, None, t1, t2, False)
+    # "cdkl,ijac,klbd->ijab" with <cd||kl> = <kl||cd>
+    r = r - 0.5 * _permute(torch.einsum("ijac,cb->ijab", t2,
+                                        torch.einsum("klcd,klbd->cb", g, t2)), 2, 3)
+    # "cdkl,ikab,jlcd->ijab"
+    r = r - 0.5 * _permute(torch.einsum("ikab,kj->ijab", t2,
+                                        torch.einsum("klcd,jlcd->kj", g, t2)), 0, 1)
+    # "cdkl,ijcd,klab->ijab"
+    r = r + 0.25 * torch.einsum("ijkl,klab->ijab", torch.einsum("ijcd,klcd->ijkl", t2, g), t2)
+    # "cdkl,ikac,jlbd->ijab"
+    r = r + _permute(torch.einsum("iald,jlbd->ijab", torch.einsum("ikac,klcd->iald", t2, g),
+                                  t2), 0, 1)
+    return t1, d2 * r
+
+
+def _u_lccsd(B, F, o, v, d1, d2, t1, t2):
+    """Incremental update (the reference quirk, tuna_cc.py:1118-1119): the
+    fixed point satisfies residual = 0 either way."""
+    r1 = (F[o, v] + torch.einsum("ac,ic->ia", F[v, v], t1)
+          + torch.einsum("kc,ikac->ia", F[o, v], t2)
+          - torch.einsum("ki,ka->ia", F[o, o], t1)
+          + torch.einsum("kaci,kc->ia", B["ovvo"], t1)
+          + 0.5 * torch.einsum("kacd,kicd->ia", B["ovvv"], t2)
+          - 0.5 * torch.einsum("klci,klca->ia", B["oovo"], t2))
+    r2 = (_u_linear_doubles(B, F[o, o], F[v, v], t1, t2, False)
+          + _permute(torch.einsum("bc,ijac->ijab", F[v, v], t2), 2, 3)
+          - _permute(torch.einsum("kj,ikab->ijab", F[o, o], t2), 0, 1)
+          + _u_singles_driven(B, t1))
+    return t1 + d1 * r1, t2 + d2 * r2
+
+
+def _u_cid(B, F, o, v, d1, d2, t1, t2):
+    off_vv = _off_diagonal(F, v)
+    r = _u_linear_doubles(B, torch.zeros_like(F[o, o]), off_vv, t1, t2, False)
+    r = r + _permute(torch.einsum("ijae,be->ijab", t2, off_vv), 2, 3)
+    E_corr = 0.25 * torch.einsum("ijab,ijab->", B["oovv"], t2)
+    return t1, d2 * (r - E_corr * t2)
+
+
+def _u_cisd(B, F, o, v, d1, d2, t1, t2):
+    r1 = _u_linear_singles(B, F, o, v, t1, t2)
+    r2 = (_u_linear_doubles(B, _off_diagonal(F, o), _off_diagonal(F, v), t1, t2, True)
+          + _u_singles_driven(B, t1))
+    E_corr = 0.25 * torch.einsum("ijab,ijab->", B["oovv"], t2)
+    return d1 * (r1 - E_corr * t1), d2 * (r2 - E_corr * t2)
+
+
+def _u_qcisd(B, F, o, v, d1, d2, t1, t2):
+    g = B["oovv"]
+    Pvv = _off_diagonal(F, v) - 0.5 * torch.einsum("mnaf,mnef->ae", t2, g)
+    Poo = _off_diagonal(F, o) + 0.5 * torch.einsum("inef,mnef->mi", t2, g)
+    Pov = F[o, v] + torch.einsum("nf,mnef->me", t1, g)
+
+    Hoooo = B["oooo"] + 0.25 * torch.einsum("ijef,mnef->mnij", t2, g)
+    Hvvvv = B["vvvv"] + 0.25 * torch.einsum("mnab,mnef->abef", t2, g)
+    Hovvo = B["ovvo"] - 0.5 * torch.einsum("jnfb,mnef->mbej", t2, g)
+
+    r1 = (F[o, v] + torch.einsum("ie,ae->ia", t1, Pvv)
+          - torch.einsum("ma,mi->ia", t1, Poo)
+          + torch.einsum("imae,me->ia", t2, Pov)
+          + _u_singles_tail(B, t1, t2))
+
+    r2 = (g
+          + _permute(torch.einsum("ijae,be->ijab", t2, Pvv), 2, 3)
+          - _permute(torch.einsum("imab,mj->ijab", t2, Poo), 0, 1)
+          + 0.5 * torch.einsum("mnab,mnij->ijab", t2, Hoooo)
+          + 0.5 * torch.einsum("ijef,abef->ijab", t2, Hvvvv)
+          + _permute(_permute(torch.einsum("imae,mbej->ijab", t2, Hovvo), 2, 3), 0, 1)
+          + _u_singles_driven(B, t1))
+    return d1 * r1, d2 * r2
+
+
+def _u_ccsd(B, F, o, v, d1, d2, t1, t2):
+    """Spin-orbital CCSD in the standard DPD intermediate form."""
+    g = B["oovv"]
+    tau_h = _u_so_tau(t1, t2, 0.5)
+    tau = _u_so_tau(t1, t2, 1.0)
+
+    Pvv = (_off_diagonal(F, v)
+           - 0.5 * torch.einsum("me,ma->ae", F[o, v], t1)
+           + torch.einsum("mf,mafe->ae", t1, B["ovvv"])
+           - 0.5 * torch.einsum("mnaf,mnef->ae", tau_h, g))
+    Poo = (_off_diagonal(F, o)
+           + 0.5 * torch.einsum("ie,me->mi", t1, F[o, v])
+           + torch.einsum("ne,mnie->mi", t1, B["ooov"])
+           + 0.5 * torch.einsum("inef,mnef->mi", tau_h, g))
+    Pov = F[o, v] + torch.einsum("nf,mnef->me", t1, g)
+
+    Hoooo = (B["oooo"]
+             + _permute(torch.einsum("je,mnie->mnij", t1, B["ooov"]), 2, 3)
+             + 0.25 * torch.einsum("ijef,mnef->mnij", tau, g))
+    Hvvvv = (B["vvvv"]
+             - _permute(torch.einsum("mb,amef->abef", t1, B["vovv"]), 0, 1)
+             + 0.25 * torch.einsum("mnab,mnef->abef", tau, g))
+    Hovvo = (B["ovvo"]
+             + torch.einsum("jf,mbef->mbej", t1, B["ovvv"])
+             - torch.einsum("nb,mnej->mbej", t1, B["oovo"])
+             - torch.einsum("jnfb,mnef->mbej",
+                            0.5 * t2 + torch.einsum("jf,nb->jnfb", t1, t1), g))
+
+    r1 = (F[o, v] + torch.einsum("ie,ae->ia", t1, Pvv)
+          - torch.einsum("ma,mi->ia", t1, Poo)
+          + torch.einsum("imae,me->ia", t2, Pov)
+          + _u_singles_tail(B, t1, t2))
+
+    # "ie,ma,mbej->ijab"
+    t1_t1_ovvo = torch.einsum("ma,mbij->ijab", t1, torch.einsum("ie,mbej->mbij", t1, B["ovvo"]))
+    r2 = (g
+          + _permute(torch.einsum("ijae,be->ijab", t2,
+                                  Pvv - 0.5 * torch.einsum("mb,me->be", t1, Pov)), 2, 3)
+          - _permute(torch.einsum("imab,mj->ijab", t2,
+                                  Poo + 0.5 * torch.einsum("je,me->mj", t1, Pov)), 0, 1)
+          + 0.5 * torch.einsum("mnab,mnij->ijab", tau, Hoooo)
+          + 0.5 * torch.einsum("ijef,abef->ijab", tau, Hvvvv)
+          + _permute(_permute(torch.einsum("imae,mbej->ijab", t2, Hovvo) - t1_t1_ovvo,
+                              2, 3), 0, 1)
+          + _u_singles_driven(B, t1))
+    return d1 * r1, d2 * r2
+
+
+_UNRESTRICTED_UPDATES = {
+    "LCCD": _u_lccd, "CCD": _u_ccd, "LCCSD": _u_lccsd, "CID": _u_cid,
+    "CISD": _u_cisd, "QCISD": _u_qcisd, "CCSD": _u_ccsd,
+}
+
+
+# ---------------------------------------------------------------------------
 # The amplitude solver (pure float64 DIIS loop, cc.py:919-1058)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class CCSettings:
-    method: str            # base iterative method name ("CCSD", "CISD")
+    method: str            # base iterative method name ("CCSD", "CISD", ...)
+    restricted: bool
     update_singles: bool
     keep_disconnected: bool
     n_occ: int
@@ -338,12 +552,18 @@ def solve_amplitudes(settings: CCSettings, g, F, d1, d2, t1_0, t2_0, energy_conv
     M = settings.max_diis
     no = settings.n_occ
     o, v = slice(0, no), slice(no, None)
-    update = _RESTRICTED_UPDATES[settings.method]
-    B = _restricted_blocks(g, o, v)
     F_ov = F[o, v]
+    if settings.restricted:
+        B = _restricted_blocks(g, o, v)
+        update = partial(_RESTRICTED_UPDATES[settings.method], B, F_ov)
+        energy = _restricted_energy
+    else:
+        B = _unrestricted_blocks(g, o, v)
+        update = partial(_UNRESTRICTED_UPDATES[settings.method], B, F, o, v)
+        energy = _unrestricted_energy
 
     def energy_fn(t1, t2):
-        return _restricted_energy(B, F_ov, t1, t2, settings.keep_disconnected)
+        return energy(B, F_ov, t1, t2, settings.keep_disconnected)
 
     if on_start is not None:
         on_start(float(energy_fn(torch.zeros_like(t1_0), t2_0)[0]))
@@ -361,7 +581,7 @@ def solve_amplitudes(settings: CCSettings, g, F, d1, d2, t1_0, t2_0, energy_conv
     step = 1
     while step <= settings.max_iter and not converged and not failed:
         start = time.perf_counter()
-        t1n, t2n = update(B, F_ov, d1, d2, t1, t2)
+        t1n, t2n = update(d1, d2, t1, t2)
         En = energy_fn(t1n, t2n)[0]
         dE = En - E
 
@@ -436,20 +656,23 @@ def _initial_print(E_MP2, method, calculation, silent):
 
 def calculate_coupled_cluster_energy(g, o, v, t_amplitudes, e_denominators, F,
                                      method, calculation, silent):
-    """Solve the amplitude equations for one iterative restricted method.
+    """Solve the amplitude equations for one iterative method, restricted
+    or (on a UHF reference) spin-orbital.
 
     Returns (E_CC, (t1, t2), per-iteration wall seconds)."""
     original_name = method.name
     base_name = method.name
     for tag in ("[T]", "[Q]", "(T)", "(Q)"):
         base_name = base_name.split(tag)[0]
-    if base_name not in _RESTRICTED_UPDATES:
+    restricted = calculation.reference == "RHF"
+    if base_name not in (_RESTRICTED_UPDATES if restricted else _UNRESTRICTED_UPDATES):
         error(f"The {base_name} method is not yet ported to tuna_tpu_torch!")
 
     t_ia, t_ijab = t_amplitudes
     d1, d2 = e_denominators
     settings = CCSettings(
         method=base_name,
+        restricted=restricted,
         update_singles=base_name not in _NO_SINGLES,
         keep_disconnected=base_name not in _NO_DISCONNECTED,
         n_occ=o.stop - (o.start or 0),
@@ -696,17 +919,171 @@ def restricted_CCSD_T(g, epsilons, t_ia, t_ijab, o, v, method, calculation, sile
     return E_T
 
 
+# The spin-orbital (T): K2u (csrc/ccsd_t_u.cu) and its plain version sum
+# only the unique i < j < k, a < b < c, each standing for the 36 orderings
+# that A(conn) and A(disc), antisymmetric in (ijk) and (abc), make equal.
+# K2u forms X_ijk[a, (b < c)] = P(i/jk) conn_ijk for a batch of triples at a
+# time into a workspace under U_TRIPLES_WORKSPACE_BYTES (at least one
+# triple's v C(v, 2) doubles; tests lower it to force many batches).
+U_TRIPLES_WORKSPACE_BYTES = 128 * 2 ** 20
+# the three occupied orderings of P(i/jk), positions of (i, j, k) in (r, p,
+# q) of conn_rpq[abc] = t2[pqae] <er||bc> - t2[rmbc] <ma||pq>, and signs
+_U_ORDERINGS = (((0, 1, 2), 1.0), ((1, 0, 2), -1.0), ((2, 1, 0), -1.0))
+
+
+def unique_triples(n: int) -> np.ndarray:
+    """(C(n, 3), 3) int32: every i < j < k, i slowest and k fastest."""
+    parts = []
+    for i in range(n):
+        j, k = np.triu_indices(n - i - 1, 1)
+        parts.append(np.stack([np.full(len(j), i), i + 1 + j, i + 1 + k], axis=1))
+    return (np.concatenate(parts) if parts else np.zeros((0, 3))).astype(np.int32)
+
+
+def u_triples_plan(no: int, nv: int, cap_bytes: int) -> np.ndarray:
+    """The batches of K2u for o = no, v = nv: (n_batches, 2) int32, the
+    range of unique occupied triples of each, as many a batch as fit the
+    cap with v C(v, 2) doubles a triple (one at least)."""
+    n_triples = no * (no - 1) * (no - 2) // 6
+    per_batch = max(1, cap_bytes // (8 * nv * (nv * (nv - 1) // 2))) if nv > 1 else n_triples
+    starts = np.arange(0, n_triples, max(per_batch, 1))
+    return np.stack([starts, np.minimum(starts + per_batch, n_triples)], axis=1).astype(np.int32)
+
+
+# per (o, v, device): the cap it was planned for, then what
+# _u_triples_tables_on returns
+_u_triples_tables: dict = {}
+
+
+def _u_triples_tables_on(no: int, nv: int, device):
+    """u_triples_plan at U_TRIPLES_WORKSPACE_BYTES with the device's triples,
+    pairs b < c and orbits a < b < c (packed as K2's), cached per shape: the
+    host batches, the device tables, the workspace's doubles and the
+    stage-B blocks of all batches."""
+    key = (no, nv, str(device))
+    entry = _u_triples_tables.get(key)
+    if entry is None or entry[0] != U_TRIPLES_WORKSPACE_BYTES:
+        batches = u_triples_plan(no, nv, U_TRIPLES_WORKSPACE_BYTES)
+        triples = unique_triples(no)
+        pairs = np.stack(np.triu_indices(nv, 1), axis=1).astype(np.int32)
+        a, b, c = unique_triples(nv).astype(np.int64).T
+        orbits = a | b << _ORBIT_BITS | c << 2 * _ORBIT_BITS
+        per_batch = batches[:, 1] - batches[:, 0]
+        n_blocks = int(np.sum((per_batch.astype(np.int64) * len(orbits) + _TRIPLES_THREADS - 1)
+                              // _TRIPLES_THREADS))
+        entry = _u_triples_tables[key] = (
+            U_TRIPLES_WORKSPACE_BYTES, np.ascontiguousarray(batches),
+            torch.as_tensor(triples, device=device), torch.as_tensor(pairs, device=device),
+            torch.as_tensor(orbits, device=device),
+            int(per_batch.max(initial=0)) * nv * len(pairs), n_blocks)
+    return entry[1:]
+
+
+def _uccsd_t_energy_plain(g_oovv, g_vovv, g_ovoo, t1, t2, eps_o, eps_v, v_scale=1.0):
+    """K2u's sum in torch.einsum, over blocks of unique occupied triples of
+    at most U_TRIPLES_WORKSPACE_BYTES of X (v^3 a triple), never o^3 v^3."""
+    no, nv = t1.shape
+    device = t1.device
+    total = torch.zeros((), dtype=_F64, device=device)
+    if no < 3 or nv < 3:
+        return total
+    triples = torch.as_tensor(unique_triples(no), dtype=torch.long, device=device)
+    a, b, c = torch.as_tensor(unique_triples(nv), dtype=torch.long, device=device).T
+    block = max(1, U_TRIPLES_WORKSPACE_BYTES // (8 * nv ** 3))
+    for start in range(0, len(triples), block):
+        ijk = triples[start:start + block]
+        X = 0.0
+        for positions, sign in _U_ORDERINGS:
+            r, p, q = (ijk[:, d] for d in positions)
+            conn = (torch.einsum("tae,tebc->tabc", t2[p, q], g_vovv[:, r].transpose(0, 1))
+                    - torch.einsum("tma,tmbc->tabc", g_ovoo[:, :, p, q].permute(2, 0, 1), t2[r]))
+            X = X + sign * conn
+        A_conn = X[:, a, b, c] - X[:, b, a, c] - X[:, c, b, a]
+        i, j, k = ijk.T
+        o3, v3 = (i, j, k), (a, b, c)
+        A_disc = 0.0
+        for x in range(3):
+            x1, x2 = (1, 2) if x == 0 else (0, 2) if x == 1 else (0, 1)
+            for u in range(3):
+                u1, u2 = (1, 2) if u == 0 else (0, 2) if u == 1 else (0, 1)
+                term = (t1[o3[x]][:, v3[u]]
+                        * g_oovv[o3[x1], o3[x2]][:, v3[u1], v3[u2]])
+                A_disc = A_disc + (term if (x + u) % 2 == 0 else -term)
+        D = ((eps_o[i] + eps_o[j] + eps_o[k])[:, None]
+             - (eps_v[a] + eps_v[b] + eps_v[c])[None, :])
+        total = total + torch.sum(A_conn * (A_conn + v_scale * A_disc) / D)
+    return total
+
+
+def uccsd_t_energy(g_oovv, g_vovv, g_ovoo, t1, t2, eps_o, eps_v, v_scale=1.0):
+    """The spin-orbital (T) energy (a 0-d tensor) from <oo||vv>, <vo||vv>,
+    <ov||oo>, the amplitudes and the orbital energies: the K2u kernel on
+    CUDA tensors, the plain version on CPU tensors.  v_scale multiplies the
+    disconnected term (1 for CCSD[T], 2 for QCISD[T])."""
+    device = t2.device
+    if device.type == "cpu":
+        return _uccsd_t_energy_plain(g_oovv, g_vovv, g_ovoo, t1, t2, eps_o, eps_v, v_scale)
+    if device.type != "cuda":
+        raise ValueError(f"no (T) energy for device {device}")
+    no, nv = t1.shape
+    for name, tensor, shape in (
+            ("g_oovv", g_oovv, (no, no, nv, nv)), ("g_vovv", g_vovv, (nv, no, nv, nv)),
+            ("g_ovoo", g_ovoo, (no, nv, no, no)), ("t1", t1, (no, nv)),
+            ("t2", t2, (no, no, nv, nv)), ("eps_o", eps_o, (no,)), ("eps_v", eps_v, (nv,))):
+        _kernels.check_tensor(name, tensor, shape, _F64, device)
+    if no < 3 or nv < 3:   # no unique triple i < j < k or a < b < c
+        return torch.zeros((), dtype=_F64, device=device)
+    batches, triples, pairs, orbits, workspace_doubles, n_blocks = _u_triples_tables_on(
+        no, nv, device)
+    workspace = torch.empty(workspace_doubles, dtype=_F64, device=device)
+    partial = torch.empty(n_blocks, dtype=_F64, device=device)
+    _kernels.launch("uccsd_t_energy", "tuna_uccsd_t_energy", device, no, nv, len(batches),
+                    batches.ctypes.data, triples.data_ptr(), pairs.data_ptr(),
+                    orbits.data_ptr(), g_oovv.data_ptr(), g_vovv.data_ptr(),
+                    g_ovoo.data_ptr(), t1.data_ptr(), t2.data_ptr(), eps_o.data_ptr(),
+                    eps_v.data_ptr(), float(v_scale), workspace.data_ptr(), partial.data_ptr())
+    return torch.sum(partial)
+
+
+def unrestricted_CCSD_T(g, epsilons, t_ia, t_ijab, o, v, method, calculation, silent):
+    """(T) via the spin-orbital formulation (ref: tuna_cc.py:2769-2837)."""
+    method.name = method.name.replace("[", "(").replace("]", ")")
+    log_spacer(calculation, silent=silent, start="\n")
+    log(f"                   {method.name} Energy  ", calculation, 1, silent=silent)
+    log_spacer(calculation, silent=silent)
+
+    space = "" if "QCISD" in method.name else " "
+    log("  Forming disconnected amplitudes...         ", calculation, 1, silent=silent)
+    log("  Forming connected amplitudes...            ", calculation, 1, silent=silent)
+    E_T = float(uccsd_t_energy(
+        g[o, o, v, v].contiguous(), g[v, o, v, v].contiguous(), g[o, v, o, o].contiguous(),
+        t_ia.contiguous(), t_ijab.contiguous(), epsilons[o].contiguous(),
+        epsilons[v].contiguous(), 2.0 if "QCISD" in method.name else 1.0))
+    log(f"\n  Calculating {method.name} correlation energy... {space}[Done]",
+        calculation, 1, silent=silent)
+    log(f"\n  {method.name} correlation energy:       {space} {E_T:13.10f}",
+        calculation, 1, silent=silent)
+    return E_T
+
+
 # ---------------------------------------------------------------------------
 # Post-processing
 # ---------------------------------------------------------------------------
 
-def _linearised_density_mo(t_ia, t_ijab, n_orbitals, n_occ, o_start, o_stop):
+def _linearised_density_mo(t_ia, t_ijab, n_orbitals, n_occ, o_start, o_stop, rhf):
+    # o/v address the correlated window of the full orbital space (o_start
+    # is nonzero under FREEZECORE); P_ref fills every occupied orbital.
     o, v = slice(o_start, o_stop), slice(o_stop, None)
     P_CC = torch.zeros((n_orbitals, n_orbitals), dtype=t_ia.dtype, device=t_ia.device)
-    u_ijab = _u_of(t_ijab)
-    P_CC[v, v] += torch.einsum("ijbc,ijac->ab", t_ijab, u_ijab)
-    P_CC[o, o] += -torch.einsum("ikab,jkab->ij", t_ijab, u_ijab)
-    P_CC[o, v] += t_ia + torch.einsum("ijab,jb->ia", u_ijab, t_ia)
+    if rhf:
+        u_ijab = _u_of(t_ijab)
+        P_CC[v, v] += torch.einsum("ijbc,ijac->ab", t_ijab, u_ijab)
+        P_CC[o, o] += -torch.einsum("ikab,jkab->ij", t_ijab, u_ijab)
+        P_CC[o, v] += t_ia + torch.einsum("ijab,jb->ia", u_ijab, t_ia)
+    else:
+        P_CC[v, v] += 0.5 * torch.einsum("ijbc,ijac->ab", t_ijab, t_ijab)
+        P_CC[o, o] += -0.5 * torch.einsum("ikab,jkab->ij", t_ijab, t_ijab)
+        P_CC[o, v] += t_ia + torch.einsum("ijab,jb->ia", t_ijab, t_ia)
     P_CC[v, o] = P_CC[o, v].T
     P_CC[v, v] += torch.einsum("ia,ib->ab", t_ia, t_ia)
     P_CC[o, o] += -torch.einsum("ia,ja->ij", t_ia, t_ia)
@@ -718,56 +1095,98 @@ def _linearised_density_mo(t_ia, t_ijab, n_orbitals, n_occ, o_start, o_stop):
 
 def linearised_density(t_ia, t_ijab, n_orbitals, n_occ, o, v, calculation,
                        molecular_orbitals, silent):
-    """Restricted linearised CC density in the AO basis: (P, P_alpha, P_beta)."""
+    """Linearised CC density in the AO basis: (P, P_alpha, P_beta); for a
+    UHF reference from the spin-orbital density and coefficients."""
     log("\n  Constructing linearised density...    ", calculation, 1, end="", silent=silent)
     P = _linearised_density_mo(t_ia, t_ijab, int(n_orbitals), int(n_occ),
-                               int(o.start or 0), int(o.stop))
+                               int(o.start or 0), int(o.stop), calculation.reference == "RHF")
     C = molecular_orbitals
-    P = C @ (2 * P) @ C.T
-    P_alpha = P_beta = P / 2
+    if calculation.reference == "UHF":
+        P, P_alpha, P_beta = transforms.density_so_to_ao(P, C, int(n_orbitals))
+    else:
+        P = C @ (2 * P) @ C.T
+        P_alpha = P_beta = P / 2
     log("     [Done]", calculation, 1, silent=silent)
     return P, P_alpha, P_beta
 
 
-def T1_diagnostic(molecule, t_ia, n_occ, calculation, silent):
+def T1_diagnostic(molecule, t_ia, spin_labels_sorted, n_occ, n_alpha, n_beta,
+                  calculation, silent):
     t_ia = to_numpy(t_ia)
-    n_occ -= molecule.n_core_orbitals
-    n_occ *= 2
-    t_norm = np.linalg.norm(t_ia)
+    if calculation.reference == "UHF":
+        alpha_idx = [i for i, s in enumerate(spin_labels_sorted) if s == "a" and i < n_occ]
+        beta_idx = [i for i, s in enumerate(spin_labels_sorted) if s == "b" and i < n_occ]
+        alpha_idx = (np.array(alpha_idx[molecule.n_core_alpha_electrons:])
+                     - molecule.n_core_spin_orbitals)
+        beta_idx = (np.array(beta_idx[molecule.n_core_beta_electrons:])
+                    - molecule.n_core_spin_orbitals)
+        t_alpha = np.array([t_ia[i] for i in alpha_idx]) if len(alpha_idx) else np.zeros((0,))
+        t_beta = np.array([t_ia[i] for i in beta_idx]) if len(beta_idx) else np.zeros((0,))
+        n_alpha -= molecule.n_core_alpha_electrons
+        n_beta -= molecule.n_core_beta_electrons
+        n_occ -= molecule.n_core_alpha_electrons + molecule.n_core_beta_electrons
+        t_norm = (n_alpha / n_occ * np.linalg.norm(t_alpha)
+                  + n_beta / n_occ * np.linalg.norm(t_beta))
+    else:
+        n_occ -= molecule.n_core_orbitals
+        n_occ *= 2
+        t_norm = np.linalg.norm(t_ia)
     T1 = t_norm / np.sqrt(n_occ)
     log(f"\n  Norm of singles amplitudes:         {t_norm:13.10f}", calculation, 1, silent=silent)
     log(f"  Value of T1 diagnostic:             {T1:13.10f}", calculation, 1, silent=silent)
     return T1
 
 
-def print_largest_amplitudes(t_ia, t_ijab, n_occ, calculation, silent):
+def print_largest_amplitudes(t_ia, t_ijab, n_occ, calculation, spin_orbital_labels,
+                             silent):
+    """tuna_tpu's printout of the largest |t2| and |t1|, in one sorted list.
+    For UHF it labels the amplitudes, keeps the spin-conserving ones, puts
+    alpha first and drops repeats; each row is made only as the sorted list
+    is walked, until print_n_amplitudes rows are found."""
     log("\n  Searching for largest amplitudes...        ", calculation, 2, end="", silent=silent)
     t_ia, t_ijab = to_numpy(t_ia), to_numpy(t_ijab)
-    t_ijab_flat = np.abs(t_ijab).ravel()
-    t_ia_flat = np.abs(t_ia).ravel()
-    idx_ijab = np.vstack(np.unravel_index(np.arange(t_ijab_flat.size), t_ijab.shape)).T
-    idx_ia = np.vstack(np.unravel_index(np.arange(t_ia_flat.size), t_ia.shape)).T
-    idx_ijab[:, 2:] += n_occ
-    idx_ia[:, 1] += n_occ
-    singles = np.full((idx_ia.shape[0], 4), -1, dtype=int)
-    singles[:, 0] = idx_ia[:, 0]
-    singles[:, 2] = idx_ia[:, 1]
-    amplitudes = np.concatenate([t_ijab_flat, t_ia_flat])
-    indices = np.vstack([idx_ijab, singles])
+    amplitudes = np.concatenate([np.abs(t_ijab).ravel(), np.abs(t_ia).ravel()])
     order = np.argsort(-amplitudes)
-    values = amplitudes[order]
-    indices = indices[order] + 1
+
+    def row_at(flat):
+        """(i, j, a, b) of an amplitude, virtuals counted after n_occ; a
+        single is (i, -1, a, -1)."""
+        if flat < t_ijab.size:
+            i, j, a, b = (int(x) for x in np.unravel_index(flat, t_ijab.shape))
+            return [i, j, a + n_occ, b + n_occ]
+        i, a = (int(x) for x in np.unravel_index(flat - t_ijab.size, t_ia.shape))
+        return [i, -1, a + n_occ, -1]
+
+    n_print = min(calculation.print_n_amplitudes, len(order))
+    if calculation.reference == "UHF":
+        labels = list(spin_orbital_labels) + ["ERR"] * n_occ
+        indices, values, seen = [], [], set()
+        for flat in order:
+            if len(indices) == n_print:
+                break
+            row = [labels[x] for x in row_at(flat)]
+            if row[1][-1] != row[3][-1] or row[0][-1] != row[2][-1]:
+                continue
+            if row[1].endswith("a") or row[0].endswith("b"):
+                row = [row[1], row[0], row[3], row[2]]
+            if tuple(row) not in seen:
+                seen.add(tuple(row))
+                indices.append(row)
+                values.append(amplitudes[flat])
+    else:
+        indices = [[x + 1 for x in row_at(flat)] for flat in order[:n_print]]
+        values = amplitudes[order[:n_print]]
 
     log("[Done]", calculation, 2, silent=silent)
     log("\n  Largest amplitudes:\n", calculation, 2, silent=silent)
 
-    n_print = min(calculation.print_n_amplitudes, len(indices))
-    for i in range(n_print):
+    for i in range(len(indices)):
         a1, b1, a2, b2 = [f"{indices[i][j]:<3}" for j in (0, 1, 2, 3)]
         value = values[i]
         stars = "~~~~~~~~  "
-        left = f"{a1}->  {a2}" if a1 != a2 else stars
-        right = f"{b1}->  {b2}" if b1 != b2 else stars
+        space, antispace = (" ", "") if calculation.reference == "RHF" else ("", " ")
+        left = f"{a1}-> {space}{a2}{antispace}" if a1 != a2 else stars
+        right = f"{b1}-> {space}{b2}{antispace}" if b1 != b2 else stars
         if value > 1e-6:
             log(f"    {left}   {right}  :    {value:6f}", calculation, 2, silent=silent)
 
@@ -778,22 +1197,31 @@ def print_largest_amplitudes(t_ia, t_ijab, n_occ, calculation, silent):
 
 def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X,
                                       calculation, silent):
-    """Restricted CC on the SCF orbitals; returns (E_CC, E_perturbative,
-    (P, P_alpha, P_beta), None, None) and records the per-iteration wall
-    seconds on SCF_output.correlation_iteration_seconds."""
+    """CC on the SCF orbitals, spatial for RHF and spin-orbital for UHF
+    references; returns (E_CC, E_perturbative, (P, P_alpha, P_beta), None,
+    None) and records the per-iteration wall seconds on
+    SCF_output.correlation_iteration_seconds."""
     timer("Coupled cluster", 0)
     E_perturbative = 0.0
-    if calculation.reference != "RHF":
-        error("Unrestricted coupled cluster is not yet ported to tuna_tpu_torch!")
     if calculation.natural_orbitals:
         error("Natural orbitals are not yet ported to tuna_tpu_torch!")
 
-    n_occ = molecule.n_doubly_occ
-    g, molecular_orbitals, epsilons, o, v = transforms.begin_spatial_orbital_calculation(
-        molecule, integrals.ERI_AO, SCF_output, calculation, silent=silent)
-    # All CC uses non-interleaved physicists' notation: (pr|qs) -> <pq|rs>
-    g = g.transpose(1, 2)
-    F = torch.diag(epsilons)
+    if calculation.reference == "RHF":
+        n_occ = molecule.n_doubly_occ
+        g, molecular_orbitals, epsilons, o, v = transforms.begin_spatial_orbital_calculation(
+            molecule, integrals.ERI_AO, SCF_output, calculation, silent=silent)
+        # All CC uses non-interleaved physicists' notation: (pr|qs) -> <pq|rs>
+        g = g.transpose(1, 2)
+        F = torch.diag(epsilons)
+        spin_labels_sorted = spin_orbital_labels_sorted = None
+    else:
+        n_occ = molecule.n_occ
+        (g, molecular_orbitals, epsilons, o, v, spin_labels_sorted,
+         spin_orbital_labels_sorted) = transforms.begin_spin_orbital_calculation(
+            molecule, integrals.ERI_AO, SCF_output, calculation, silent=silent)
+        H_core_SO = transforms.transform_matrix_ao_to_so(
+            transforms.spin_block_matrix(integrals.H_core), molecular_orbitals)
+        F = transforms.spin_orbital_fock(H_core_SO, g, slice(0, n_occ))
 
     log("\n Preparing arrays for coupled cluster...     ", calculation, 1, end="", silent=silent)
     e_ia = transforms.singles_epsilons(epsilons, o, v)
@@ -806,16 +1234,19 @@ def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X
         g, o, v, (t_ia, t_ijab), (e_ia, e_ijab), F, method, calculation, silent)
     SCF_output.correlation_iteration_seconds = iteration_seconds
 
-    T1_diagnostic(molecule, t_ia, n_occ, calculation, silent)
-    print_largest_amplitudes(t_ia, t_ijab, n_occ, calculation, silent)
+    T1_diagnostic(molecule, t_ia, spin_labels_sorted, n_occ, molecule.n_alpha,
+                  molecule.n_beta, calculation, silent)
+    print_largest_amplitudes(t_ia, t_ijab, n_occ, calculation, spin_orbital_labels_sorted,
+                             silent)
 
     density_matrices = linearised_density(t_ia, t_ijab, molecule.n_orbitals, n_occ,
                                           o, v, calculation, molecular_orbitals,
                                           silent=silent)
 
     if "[T]" in method.name or "(T)" in method.name:
-        E_perturbative = restricted_CCSD_T(g, epsilons, t_ia, t_ijab, o, v,
-                                           method, calculation, silent)
+        triples = (restricted_CCSD_T if calculation.reference == "RHF"
+                   else unrestricted_CCSD_T)
+        E_perturbative = triples(g, epsilons, t_ia, t_ijab, o, v, method, calculation, silent)
 
     log_spacer(calculation, silent=silent)
     timer("Coupled cluster", 1)

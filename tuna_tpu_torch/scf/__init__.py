@@ -1,9 +1,12 @@
-"""Self-consistent field engine, restricted Hartree-Fock and Kohn-Sham.
+"""Self-consistent field engine: restricted and unrestricted Hartree-Fock,
+restricted Kohn-Sham.
 
 Twin of tuna_tpu/scf/__init__.py with the same iteration semantics: Fock
-build from the stored ERI, or from the integral-direct J/K closure, plus,
-for Kohn-Sham, the XC matrix of the density at the start of the iteration;
-commutator DIIS, Zerner-Hehenberger dynamic damping, four-condition
+build from the stored ERI, or from the integral-direct J/K closure (called
+once per spin for UHF), plus, for Kohn-Sham, the XC matrix of the density
+at the start of the iteration; commutator DIIS (for UHF over both spins'
+Fock matrices, with their errors concatenated), Zerner-Hehenberger dynamic
+damping (for UHF per spin, each with its own commutator), four-condition
 convergence, and the energy of the fresh density against the previous
 iteration's J/K and XC terms (tuna_scf.py:1137-1141).
 A Python loop on the device takes the place of the jitted while_loop; it
@@ -15,9 +18,10 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from ..containers import Integrals, Output
+from ..containers import Integrals, Output, to_numpy
 from ..ops import linalg
 from ..output import error, log, log_big_spacer, timer
 
@@ -63,8 +67,10 @@ def clean_density_matrix(P, S, n_electrons: int):
 
 @dataclass(frozen=True)
 class SCFSettings:
+    reference: str           # "RHF" | "UHF"
     n_basis: int
     n_alpha: int
+    n_beta: int
     max_iter: int
     use_diis: bool
     max_diis: int
@@ -132,7 +138,8 @@ def _diis_error(F, P, S, X):
 
 def _diis_extrapolate(focks, errors):
     """Solve the bordered DIIS equations over the stored (Fock, error)
-    pairs; returns (ok, extrapolated Fock)."""
+    pairs; returns (ok, extrapolated Fock).  A UHF entry holds both spins'
+    Fock matrices, stacked, and their errors, concatenated."""
     n = len(errors)
     errs = torch.stack([e.reshape(-1) for e in errors])
     B = errs @ errs.T
@@ -151,21 +158,24 @@ def _diis_extrapolate(focks, errors):
     csum = torch.sum(coeffs)
     coeffs = coeffs / torch.where(torch.abs(csum) > 1e-3, csum, torch.ones_like(csum))
     ok = ok & (torch.abs(csum) > 1e-3) & torch.all(torch.isfinite(coeffs))
-    return ok, torch.einsum("m,mij->ij", coeffs, torch.stack(focks))
+    return ok, torch.einsum("m,m...->...", coeffs, torch.stack(focks))
 
 
 def _electronic_energy(P_a, P_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G, HFX_prop,
-                       E_x_grid=0.0, E_c_grid=0.0):
-    """Restricted energy and its components (kinetic, nuclear-electron,
-    Coulomb, exchange, correlation, field, field gradient); E_x_grid and
-    E_c_grid are the XC energies on the grid."""
+                       restricted: bool, E_x_grid=0.0, E_c_grid=0.0):
+    """Energy and its components (kinetic, nuclear-electron, Coulomb,
+    exchange, correlation, field, field gradient); E_x_grid and E_c_grid
+    are the XC energies on the grid."""
     P = P_a + P_b
     kinetic = torch.sum(P * T)
     nuclear_electron = torch.sum(P * V_NE)
     field = torch.sum(P * Fld)
     field_gradient = torch.sum(P * G)
     coulomb = 0.5 * torch.sum(P * (J_a + J_b))
-    exchange = -0.25 * torch.sum(P * (K_a + K_b)) * HFX_prop + E_x_grid
+    if restricted:
+        exchange = -0.25 * torch.sum(P * (K_a + K_b)) * HFX_prop + E_x_grid
+    else:
+        exchange = -0.5 * (torch.sum(P_a * K_a) + torch.sum(P_b * K_b)) * HFX_prop + E_x_grid
     correlation = torch.zeros_like(kinetic) + E_c_grid
     total = kinetic + nuclear_electron + coulomb + exchange + correlation + field + field_gradient
     components = torch.stack([kinetic, nuclear_electron, coulomb, exchange,
@@ -173,30 +183,48 @@ def _electronic_energy(P_a, P_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G, HFX_prop,
     return total, components
 
 
-def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
+def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, P_b0, E0,
                    HFX_prop, conv, static_damping, max_damping, on_iteration,
                    xc_closure=None, DFX_prop=0.0, DFC_prop=0.0, fock_closure=None):
-    """The restricted SCF iteration until convergence or max_iter.
+    """The SCF iteration until convergence or max_iter.
 
     xc_closure(P_a, P_b, DFX, DFC) -> (V_XC_a, V_XC_b, E_x_grid,
     E_c_grid, density, alpha_density, beta_density), or None for
-    Hartree-Fock.  fock_closure(P_a) -> (J_a, K_a) replaces the
-    stored-ERI contractions (integral-direct SCF; ERI may then be None).
-    on_iteration(step, [E, dE, rmsDP, maxDP, commutator, damping],
-    seconds) is called after each iteration.  Returns (n_steps, converged,
-    E, P_a, outputs of the last iteration)."""
+    Hartree-Fock (restricted references only).  fock_closure(P) -> (J, K)
+    replaces the stored-ERI contractions (integral-direct SCF; ERI may then
+    be None), called once per spin for UHF.  on_iteration(step, [E, dE,
+    rmsDP, maxDP, commutator, damping], seconds) is called after each
+    iteration.  Returns (n_steps, converged, E, P_a, P_b, outputs of the
+    last iteration)."""
+    restricted = settings.reference == "RHF"
     N = settings.n_basis
     zeros = torch.zeros((N, N), dtype=T.dtype, device=T.device)
     E = torch.as_tensor(E0, dtype=T.dtype, device=T.device)
-    P_a = P_a0
-    P_old, P_raw_prev, P_very_old = zeros, zeros, zeros
+    P_a, P_b = P_a0, P_b0
+    P_old_a = P_raw_prev_a = P_very_old_a = zeros
+    P_old_b = P_raw_prev_b = P_very_old_b = zeros
     focks, errors = [], []
     converged = False
     outs = {}
     step = 1
+
+    def jk(P_spin):
+        if fock_closure is not None:
+            return fock_closure(P_spin)
+        return coulomb_matrix(P_spin, ERI), exchange_matrix(P_spin, ERI)
+
+    def densities(F_a, F_b):
+        eps_a, mos_a = diagonalise_fock(F_a, X)
+        if restricted:
+            P_new = density_matrix(mos_a, settings.n_alpha, 2) / 2.0
+            return (eps_a, mos_a, P_new), (eps_a, mos_a, P_new)
+        eps_b, mos_b = diagonalise_fock(F_b, X)
+        return ((eps_a, mos_a, density_matrix(mos_a, settings.n_alpha, 1)),
+                (eps_b, mos_b, density_matrix(mos_b, settings.n_beta, 1)))
+
     while step <= settings.max_iter and not converged:
         start = time.perf_counter()
-        P = 2.0 * P_a
+        P = P_a + P_b
         # XC of the density at the start of the iteration (the "old" density)
         if xc_closure is not None:
             V_XC, _, E_x_grid, E_c_grid, density, dens_a, dens_b = xc_closure(
@@ -204,58 +232,77 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, E0,
         else:
             V_XC, E_x_grid, E_c_grid = 0.0, 0.0, 0.0
             density = dens_a = dens_b = None
-        if fock_closure is not None:
-            J_a, K_a = fock_closure(P_a)
+        J_a, K_a = jk(P_a)
+        if restricted:
+            J_b, K_b = J_a, K_a
+            F_a = F_b = symmetrise(T + V_NE + Fld + G + 2.0 * J_a - K_a * HFX_prop + V_XC)
         else:
-            J_a, K_a = coulomb_matrix(P_a, ERI), exchange_matrix(P_a, ERI)
-        F_a = symmetrise(T + V_NE + Fld + G + 2.0 * J_a - K_a * HFX_prop + V_XC)
+            J_b, K_b = jk(P_b)
+            F_a = symmetrise(T + V_NE + J_a + J_b + Fld + G - K_a * HFX_prop)
+            F_b = symmetrise(T + V_NE + J_a + J_b + Fld + G - K_b * HFX_prop)
 
         # DIIS error from pre-diagonalisation Fock and density
-        commutator, err_a = _diis_error(F_a, P_a, S, X)
+        comm_a, err_a = _diis_error(F_a, P_a, S, X)
+        if restricted:
+            comm_b, commutator = comm_a, comm_a
+            fock_entry, err_entry = F_a, err_a
+        else:
+            comm_b, err_b = _diis_error(F_b, P_b, S, X)
+            commutator = torch.maximum(comm_a, comm_b)
+            fock_entry = torch.stack([F_a, F_b])
+            err_entry = torch.cat([err_a.reshape(-1), err_b.reshape(-1)])
         if len(errors) == settings.max_diis:
             focks.pop(0)
             errors.pop(0)
-        focks.append(F_a)
-        errors.append(err_a)
+        focks.append(fock_entry)
+        errors.append(err_entry)
 
-        eps_a, mos_a = diagonalise_fock(F_a, X)
-        P_new = density_matrix(mos_a, settings.n_alpha, 2) / 2.0
+        (eps_a, mos_a, P_new_a), (eps_b, mos_b, P_new_b) = densities(F_a, F_b)
 
         # Energy: fresh density against this iteration's (old density's) J/K
         # and XC energies
-        E_new, components = _electronic_energy(P_new, P_new, J_a, J_a, K_a, K_a,
-                                               T, V_NE, Fld, G, HFX_prop,
+        E_new, components = _electronic_energy(P_new_a, P_new_b, J_a, J_b, K_a, K_b,
+                                               T, V_NE, Fld, G, HFX_prop, restricted,
                                                E_x_grid, E_c_grid)
 
         if settings.use_diis and step > 2 and float(commutator) < 0.3:
             ok, F_x = _diis_extrapolate(focks, errors)
             if bool(ok):
-                _, mos_x = diagonalise_fock(F_x, X)
-                P_new = density_matrix(mos_x, settings.n_alpha, 2) / 2.0
+                F_x_a, F_x_b = (F_x, F_x) if restricted else (F_x[0], F_x[1])
+                (_, _, P_new_a), (_, _, P_new_b) = densities(F_x_a, F_x_b)
             else:
                 # singular DIIS system resets the history (tuna_scf.py:1038-1048)
                 focks, errors = [], []
 
-        P_raw = P_new
-        P_damp, damping = _apply_damping(P_new, P_a, P_raw_prev, P_very_old, commutator,
-                                         S, settings, static_damping, max_damping, step)
+        P_raw_a, P_raw_b = P_new_a, P_new_b
+        P_damp_a, damping = _apply_damping(P_new_a, P_a, P_raw_prev_a, P_very_old_a, comm_a,
+                                           S, settings, static_damping, max_damping, step)
+        if restricted:
+            P_damp_b = P_damp_a
+        else:
+            P_damp_b, damping_b = _apply_damping(P_new_b, P_b, P_raw_prev_b, P_very_old_b,
+                                                 comm_b, S, settings, static_damping,
+                                                 max_damping, step)
+            damping = torch.maximum(damping, damping_b)
 
         delta_E = E_new - E
-        delta_P = 2.0 * P_damp - P
+        delta_P = P_damp_a + P_damp_b - P
         max_DP = torch.max(torch.abs(delta_P))
         rms_DP = torch.sqrt(torch.mean(delta_P ** 2))
         stats = torch.stack([E_new, delta_E, rms_DP, max_DP, commutator, damping]).tolist()
         converged = (abs(stats[1]) < conv["delta_E"] and stats[3] < conv["max_DP"]
                      and stats[2] < conv["RMS_DP"] and stats[4] < conv["commutator"])
-        outs = {"mos_a": mos_a, "eps_a": eps_a, "F_a": F_a, "components": components,
+        outs = {"mos_a": mos_a, "mos_b": mos_b, "eps_a": eps_a, "eps_b": eps_b,
+                "F_a": F_a, "F_b": F_b, "components": components,
                 "density": density, "dens_a": dens_a, "dens_b": dens_b}
         on_iteration(step, stats, time.perf_counter() - start)
 
         E = E_new
-        P_very_old, P_old, P_raw_prev = P_old, P_a, P_raw
-        P_a = P_damp
+        P_very_old_a, P_old_a, P_raw_prev_a = P_old_a, P_a, P_raw_a
+        P_very_old_b, P_old_b, P_raw_prev_b = P_old_b, P_b, P_raw_b
+        P_a, P_b = P_damp_a, P_damp_b
         step += 1
-    return step - 1, converged, E, P_a, outs
+    return step - 1, converged, E, P_a, P_b, outs
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +316,7 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
     run_scf_cycles) makes it Kohn-Sham, fock_closure integral-direct."""
     timer("Self-consistent field", 0)
     P, P_alpha, P_beta, E_guess = guess_objects
-    if calculation.reference != "RHF":
-        error("Unrestricted SCF is not yet ported to tuna_tpu_torch!")
+    restricted = calculation.reference == "RHF"
 
     log(" Beginning self-consistent field cycle...\n", calculation, 1, silent=silent)
     log(f' Using "{calculation.SCF_conv["name"]}" SCF convergence criteria.',
@@ -286,8 +332,10 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
     log_big_spacer(calculation, silent=silent)
 
     settings = SCFSettings(
+        reference=calculation.reference,
         n_basis=int(integrals.n_basis),
         n_alpha=molecule.n_alpha,
+        n_beta=molecule.n_beta,
         max_iter=calculation.max_iter,
         use_diis=bool(calculation.DIIS),
         max_diis=int(calculation.max_DIIS_matrices),
@@ -308,11 +356,11 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
             f"{mx:16.10f} {comm:16.10f}     {damp_str}", calculation, 1, silent=silent)
         iteration_seconds.append(seconds)
 
-    n_steps, converged, E, P_a, outs = run_scf_cycles(
+    n_steps, converged, E, P_a, P_b, outs = run_scf_cycles(
         settings, integrals.T, integrals.V_NE, integrals.ERI_AO, integrals.S, X, Fld, G,
-        P_alpha, E_guess, calculation.HFX_prop, calculation.SCF_conv, static_damping,
-        calculation.max_damping, on_iteration, xc_closure, calculation.DFX_prop,
-        calculation.DFC_prop, fock_closure)
+        P_alpha, P_alpha if restricted else P_beta, E_guess, calculation.HFX_prop,
+        calculation.SCF_conv, static_damping, calculation.max_damping, on_iteration,
+        xc_closure, calculation.DFX_prop, calculation.DFC_prop, fock_closure)
 
     if not converged:
         error(f"Self-consistent field not converged in {calculation.max_iter} "
@@ -322,8 +370,20 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
     log(f"\n Self-consistent field converged in {n_steps} cycles!\n",
         calculation, 1, silent=silent)
 
-    mos, eps = outs["mos_a"], outs["eps_a"]
-    F_half = outs["F_a"] / 2.0
+    mos_a, mos_b = outs["mos_a"], outs["mos_b"]
+    eps_a, eps_b = outs["eps_a"], outs["eps_b"]
+    if restricted:
+        mos, eps = mos_a, eps_a
+        F_a = F_b = outs["F_a"] / 2.0
+    else:
+        # both spins' orbitals in one list by energy (one electron: alpha's)
+        if molecule.n_electrons > 1:
+            eps, mos = torch.cat([eps_a, eps_b]), torch.cat([mos_a, mos_b], dim=1)
+        else:
+            eps, mos = eps_a, mos_a
+        order = torch.as_tensor(np.argsort(to_numpy(eps)), device=eps.device)
+        eps, mos = eps[order], mos[:, order]
+        F_a, F_b = outs["F_a"], outs["F_b"]
     k, ne, co, ex, corr, fe, fge = outs["components"].tolist()
 
     output = Output(
@@ -331,13 +391,13 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
         kinetic_energy=k, nuclear_electron_energy=ne, coulomb_energy=co,
         exchange_energy=ex, correlation_energy=corr,
         electric_field_energy=fe, electric_field_gradient_energy=fge,
-        P=2.0 * P_a, P_alpha=P_a, P_beta=P_a, S=integrals.S, X=X,
-        molecular_orbitals=mos, molecular_orbitals_alpha=mos,
-        molecular_orbitals_beta=mos,
-        epsilons=eps, epsilons_alpha=eps, epsilons_beta=eps,
+        P=P_a + P_b, P_alpha=P_a, P_beta=P_b, S=integrals.S, X=X,
+        molecular_orbitals=mos, molecular_orbitals_alpha=mos_a,
+        molecular_orbitals_beta=mos_b,
+        epsilons=eps, epsilons_alpha=eps_a, epsilons_beta=eps_b,
         density=outs["density"], alpha_density=outs["dens_a"],
         beta_density=outs["dens_b"],
-        F_alpha=F_half, F_beta=F_half, T=integrals.T, V_NE=integrals.V_NE,
+        F_alpha=F_a, F_beta=F_b, T=integrals.T, V_NE=integrals.V_NE,
         integrals=integrals, iteration_seconds=iteration_seconds,
     )
     timer("Self-consistent field", 1)
