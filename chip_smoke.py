@@ -31,7 +31,8 @@ non-zero without printing a result):
      on the same plan (bitwise over two calls); K5 (the
      packed half-transform) against its plain version at the DIRECT path's
      shapes, both variants, and on 64 rows at the cc-pV6Z shape (N = 252,
-     n_mo = 182), where it runs in panels; K2 again at o = 7, v = 53 (both
+     n_mo = 182), where it runs in panels, with its two phases' products as
+     torch.matmul on the expanded rows for library_ms; K2 again at o = 7, v = 53 (both
      K2 shapes: bitwise over two calls, peak device memory a call, stage A's
      products as one batched torch.matmul for library_ms);
   8. DIRECT path: `SPE : N N 1.1 : CCSD[T] CC-PVTZ : DIRECT TIGHTSCF`, the
@@ -61,7 +62,17 @@ non-zero without printing a result):
      ML 3 DIRECT TIGHTSCF` with its stored twin; `SPE : O O 1.21 :
      QCISD(T) 6-311G : ML 3 TIGHTSCF`; each against tuna_tpu's SCF and
      CC energies and iteration counts, its (T) against K2u's plain version
-     on the path's own amplitudes and integrals, with its profile.
+     on the path's own amplitudes and integrals, with its profile;
+ 14. (Q) kernel: K9 against its plain version on seeded inputs at (o, v) =
+     (7, 19) and (7, 53), E_MP5 and E_MP6 each: bitwise over four calls,
+     peak device memory a call, the v^5 products of its raw terms as
+     batched torch.matmul for library_ms;
+ 15. (Q) path: `SPE : N N 1.1 : CCSDT(Q) 6-311G : TIGHTSCF` against
+     tuna_tpu's SCF and CCSDT energies and iteration counts and its printed
+     (Q) parts and total, its (Q) against K9's plain version on the path's
+     own amplitudes and integrals, one K9 launch, with its profile; then
+     CCSDTQ, UCCSDT, UCISDT and CCSDT(Q) on a UHF reference on LiH/STO-3G
+     against tuna_tpu's energies and iteration counts.
 
 Each path's launch counts are read from zero: the counts are reset just
 before the path runs and read just after, so launches made to compare a
@@ -71,10 +82,10 @@ larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its float64 operations, counted from the kernel's loop body
 at this run's inputs, or from what the function needs where the kernel
 does more (K1, K4 and K8b: see eri_operations; K2: triples_ms; K6:
-vv10_operations; the phase lines print both counts), over the H100 SXM
-data sheet's float64 rates: 67
+vv10_operations; K9: quadruples_ms; the phase lines print both counts),
+over the H100 SXM data sheet's float64 rates: 67
 TFLOP/s for the matrix products that the tensor cores can take (K5's two
-products, K7b's P^T phi, the contractions of (T)), 34 TFLOP/s for the
+products, K7b's P^T phi, the contractions of (T) and (Q)), 34 TFLOP/s for the
 rest.  exp, sqrt and a division count as one operation each, so the bound
 is a lower bound.
 
@@ -210,6 +221,35 @@ LINE_UHF_TZ_STORED = "SPE : O O 1.21 : CCSD(T) CC-PVTZ : ML 3 TIGHTSCF"
 E_SCF_REF_UHF_TZ = -149.67472478511564
 E_CCSD_REF_UHF_TZ = -150.135420506447     # "SPE : O O 1.21 : CCSD CC-PVTZ : ML 3 DIRECT TIGHTSCF"
 ITERATIONS_UHF_TZ = (15, 15)
+# The (Q) path and the iterative triples family.  tuna_tpu's (Q) forms
+# o^4 v^4 arrays several times over (30 GB of host memory at o = 7, v = 19),
+# so its full-precision constants for LINE_Q are those of the CCSDT line
+#   env JAX_PLATFORMS=cpu python -c 'from tuna_tpu.cli import run; \
+#       out = run("SPE : N N 1.1 : CCSDT 6-311G : TIGHTSCF"); \
+#       print(repr(out[0].energy), repr(out[2]))'
+# (SCF energy, CCSDT total energy; 12 SCF cycles and 16 CCSDT rows in its
+# printout), and its (Q) parts and total are the 10-decimal values of its
+# printout of LINE_Q itself ("Contribution from MP5", "... MP6", "CCSDT(Q)
+# correlation energy", "Final single point energy"): held to 1e-10 Ha, of
+# which rounding takes up to 5e-11.  The small lines' constants come from
+# the same command on each line.
+LINE_Q = "SPE : N N 1.1 : CCSDT(Q) 6-311G : TIGHTSCF"
+E_SCF_REF_Q = -108.89398390039997
+E_CCSDT_REF_Q = -109.1789129704332
+E_REF_Q = -109.1808014663           # printed: final single point energy
+E_Q_REF_Q = (-0.0015224988, -0.0003659970, -0.0018884959)   # printed: MP5, MP6, (Q)
+ITERATIONS_Q = (12, 16)                   # SCF, CCSDT
+TRIPLES_LINES = (   # line, E_total, (SCF, CC) iterations, kernels
+    ("SPE : LI H 1.6 : CCSDTQ STO-3G : TIGHTSCF", -7.882324393465053, (10, 10),
+     ("eri_packed", "one_electron")),
+    ("SPE : LI H 1.6 : UCCSDT STO-3G : NOROTATE TIGHTSCF", -7.882324255984166, (10, 11),
+     ("eri_packed", "one_electron")),
+    ("SPE : LI H 1.6 : UCISDT STO-3G : NOROTATE TIGHTSCF", -7.882321365060808, (10, 11),
+     ("eri_packed", "one_electron")),
+    ("SPE : LI H 1.6 : CCSDT(Q) STO-3G : ML 3 TIGHTSCF", -7.766669285383415, (9, 8),
+     ("eri_packed", "one_electron", "ccsdt_q_energy")),
+)
+Q_TOLERANCE = 1e-10         # Ha, the (Q) path and the triples lines against tuna_tpu
 BOND_TOLERANCE = 1e-6       # angstrom
 FREQUENCY_TOLERANCE = 0.01  # per cm
 E_TOLERANCE = 1e-8          # Ha, the BASELINE contract
@@ -234,6 +274,7 @@ KERNELS = {
     "one_electron": ("tuna_tpu_torch/csrc/one_electron.cu", "tuna_tpu/ops/integrals.py:332"),
     "ccsd_t_energy": ("tuna_tpu_torch/csrc/ccsd_t.cu", "tuna_tpu/post/cc.py:1741"),
     "uccsd_t_energy": ("tuna_tpu_torch/csrc/ccsd_t_u.cu", "tuna_tpu/post/cc.py:1783"),
+    "ccsdt_q_energy": ("tuna_tpu_torch/csrc/ccsdt_q.cu", "tuna_tpu/post/cc.py:1821"),
     "ao_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu", "tuna_tpu/dft/grid.py:80"),
     "density_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu", "tuna_tpu/dft/grid.py:137"),
     "vv10_energy": ("tuna_tpu_torch/csrc/vv10.cu", "tuna_tpu/dft/vv10.py:26"),
@@ -259,6 +300,7 @@ HF_GRADIENT_PATH_KERNELS = GRADIENT_PATH_KERNELS[:4]
 UHF_PATH_KERNELS = ("eri_packed", "one_electron", "uccsd_t_energy")
 UHF_DIRECT_PATH_KERNELS = ("eri_packed", "one_electron", "fock_direct", "mo_half_transform",
                            "uccsd_t_energy")
+Q_PATH_KERNELS = ("eri_packed", "one_electron", "ccsdt_q_energy")
 
 
 class SmokeFailure(RuntimeError):
@@ -1021,13 +1063,25 @@ def check_mo_transform(device, record: dict) -> str:
     require(err6 <= TRANSFORM_TOLERANCE,
             f"mo_half_transform at the cc-pV6Z shape off its plain version by {err6:.3e}")
     ms, plain_ms = median_ms(kernel), median_ms(plain_same)
+    # library_ms: the two phases' products as torch.matmul, W^T (M_r W), on
+    # the rows expanded to dense (N, N) before the timing
+    expanded = (G_pair[:, pair_index],
+                motransform._chunked_half_transform(G_pair, pair_index, W, tri, 128)
+                .T.contiguous()[:, pair_index])
+
+    def library():
+        for dense in expanded:
+            torch.matmul(W.T, torch.matmul(dense, W))
+
+    library_ms = median_ms(library)
+    del expanded
     n_mo_pairs = n_mo * (n_mo + 1) // 2
     N = plan.n_basis
     H_bytes = 8 * plan.n_pairs * n_mo_pairs
     record["mo_half_transform"] = {
         "max_abs_err": max(float(torch.max(torch.abs(got - expected))),
                            float(torch.max(torch.abs(mixed - mixed_expected)))),
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         # two launches: G -> H, then H (read transposed) -> G_mo
         **bound(tensor_bytes(G_pair, got) + 2 * H_bytes + 2 * tensor_bytes(W, pair_index),
                 (half_transform_operations(plan.n_pairs, N, n_mo)
@@ -1035,7 +1089,8 @@ def check_mo_transform(device, record: dict) -> str:
     return (f"kernels DIRECT: mo_half_transform N2/cc-pVTZ ({plan.n_pairs} AO pairs -> "
             f"{n_mo_pairs} MO pairs, both phases) relative max|diff| {err:.3e} (mixed "
             f"included), cc-pV6Z shape ({rows6} rows, N {N6}, n_mo {n_mo6}) {err6:.3e}; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, both phases' products as torch.matmul "
+            f"on the expanded rows {library_ms:.4f} ms")
 
 
 def check_direct_path() -> dict:
@@ -1381,24 +1436,27 @@ def check_u_triples(no: int, nv: int, device, record: dict, v_scale: float = 1.0
             f"{peak_bytes} bytes (one o^3 v^3 tensor: {8 * no ** 3 * nv ** 3} bytes)")
 
 
-class TriplesRecorder:
-    """Wraps post.cc.uccsd_t_energy while a path runs, keeping the inputs
-    and the energy of each call, so that the path's (T) can be held to
-    K2u's plain version on the same tensors."""
+class Recorder:
+    """Wraps the function `name` of post.cc while a path runs, keeping the
+    inputs and the result of each call, so that the path's (T) or (Q) can
+    be held to the kernel's plain version on the same tensors."""
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
-        self.calls, self.original = [], cc.uccsd_t_energy
+        self.calls, self.original = [], getattr(cc, self.name)
 
         def recording(*args):
-            energy = self.original(*args)
-            self.calls.append((args, energy))
-            return energy
+            result = self.original(*args)
+            self.calls.append((args, result))
+            return result
 
-        cc.uccsd_t_energy = recording
+        setattr(cc, self.name, recording)
         return self
 
     def __exit__(self, *exc):
-        cc.uccsd_t_energy = self.original
+        setattr(cc, self.name, self.original)
 
 
 def check_uhf_path(line: str, kernels: tuple, iterations_ref: tuple, E_scf_ref: float,
@@ -1408,7 +1466,7 @@ def check_uhf_path(line: str, kernels: tuple, iterations_ref: tuple, E_scf_ref: 
     the host, CCSD) energy, to UHF_TOLERANCE; the path's (T) against K2u's
     plain version on the path's own inputs.  Returns (energy, SCF output,
     launches)."""
-    with TriplesRecorder() as recorder:
+    with Recorder("uccsd_t_energy") as recorder:
         SCF_output, _, energy, _, wall, launches = drive(line, kernels)
     require(len(recorder.calls) == 1, f"{line}: {len(recorder.calls)} (T) calls")
     args, E_T = recorder.calls[0]
@@ -1487,6 +1545,235 @@ def check_uhf_paths() -> dict:
     runs.append(launches)
     check_uhf_twin(LINE_UHF_TZ_STORED, energy, scf)
     print("profile: " + json.dumps(profile_path(LINE_UHF_TZ)))
+    return {name: sum(r[name] for r in runs) for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# Phases 14 and 15: K9, the (Q) path and the iterative triples lines
+# ---------------------------------------------------------------------------
+
+def quadruples_ms(no: int, nv: int) -> tuple[float, float]:
+    """(needed, K9's) ms of the (Q) energy's float64 operations.  The
+    function needs, for each ordered (ijkl) and each of its v^4 elements,
+    the six raw terms and alpha and beta, 4 v + 6 o multiply-adds once the
+    vvvv term's half W[ijcfab] is formed (o^2 v^5 multiply-adds, one a pair
+    ij; S2 and S4 are S1 and S3 with c and d exchanged, so they need none),
+    and the o v^2 intermediates X, Y, V (o^4 v^2 (o + 2 v)); 2 operations
+    each at the matrix-product rate.  Then, per ordered (ijkl) and element,
+    the symmetrisation and Z (~20 operations), and per multiset and element
+    the denominator and two products (~10).  K9 forms S2 and S4 (4 v + 8 o
+    an element), and W (or U) and X, Y, V once an ordering and range of
+    min(y) of its plan at the default cap."""
+    o4v4 = float(no ** 4 * nv ** 4)
+    multisets = float(np.prod(range(no, no + 4)) / 24)
+    rest = (20.0 * o4v4 + 10.0 * multisets * nv ** 4) / FP64_PER_MS
+    xyv = float(no ** 4 * nv ** 2 * (no + 2 * nv))
+    needed = o4v4 * (4 * nv + 6 * no) + xyv + float(no ** 2 * nv ** 5)
+    batches = cc.quadruples_plan(no, nv, cc.QUADRUPLES_WORKSPACE_BYTES)[0]
+    own = o4v4 * (4 * nv + 8 * no)
+    for a0, a1 in dict.fromkeys(map(tuple, batches[:, 6:].tolist())):
+        elements, slot = cc.quadruples_cut(no, nv, a0, a1)
+        w = slot - 3 * elements - 3 * no * nv * nv
+        own += float(no ** 4 * w * nv) + xyv
+    return (2.0 * needed / FP64_MMA_PER_MS + rest, 2.0 * own / FP64_MMA_PER_MS + rest)
+
+
+def quadruples_args(no: int, nv: int, device) -> tuple:
+    """Seeded (Q) inputs at o = no, v = nv: the window's chemists' (pq|rs),
+    symmetric as real orbitals' are, pair-symmetric t2 and t3, eps_o,
+    eps_v."""
+    rng = np.random.default_rng(23)
+    n = no + nv
+    c = rng.standard_normal((n, n, n, n))
+    c = c + c.transpose(1, 0, 2, 3)
+    c = c + c.transpose(0, 1, 3, 2)
+    t2 = rng.standard_normal((no, no, nv, nv))
+    t3 = rng.standard_normal((no, no, no, nv, nv, nv))
+    t3 = t3 + t3.transpose(1, 0, 2, 4, 3, 5)
+
+    def tensor(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64, device=device)
+
+    return (tensor(0.05 * (c + c.transpose(2, 3, 0, 1))),
+            tensor(0.05 * (t2 + t2.transpose(1, 0, 3, 2))), tensor(0.01 * t3),
+            tensor(np.sort(rng.uniform(-15.0, -0.5, no))),
+            tensor(np.sort(rng.uniform(0.3, 5.0, nv))))
+
+
+def once_ms(fn) -> float:
+    """Device time of one call of fn (CUDA events), for calls of seconds."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def quadruples_library_ms(args) -> float:
+    """Batched torch.matmul computing the v^5 products of K9's raw terms for
+    every ordered (ijkl), the plan's slots in chunks of 16: W = (cf|a e)
+    t2[ij e b], (ia|b e) t3[jkl e cd] and W t2[kl f d] (the operands are
+    gathered before the timing; the o^4 v^4 products are never all held)."""
+    c, t2, t3 = args[:3]
+    no, nv = t2.shape[0], t2.shape[2]
+    o, v = slice(0, no), slice(no, None)
+    i, j, k, l = torch.as_tensor(cc.quadruples_plan(no, nv, cc.QUADRUPLES_WORKSPACE_BYTES)[1]
+                                 .T.astype(np.int64), device=c.device)
+    c_vvvv = c[v, v, v, v].reshape(nv ** 3, nv).contiguous()
+    c_ovvv = c[o, v, v, v].reshape(no, nv * nv, nv).contiguous()
+    t3_v = t3.reshape(no, no, no, nv, nv * nv)
+    chunks = []
+    for begin in range(0, len(i), 16):
+        s = slice(begin, begin + 16)
+        chunks.append((c_ovvv[i[s]], t3_v[j[s], k[s], l[s]].contiguous(),
+                       t2[i[s], j[s]].contiguous(), t2[k[s], l[s]].contiguous()))
+    out1 = torch.empty((16, nv * nv, nv * nv), dtype=torch.float64, device=c.device)
+    w = torch.empty((16, nv ** 3, nv), dtype=torch.float64, device=c.device)
+    out5 = torch.empty((16, nv ** 3, nv), dtype=torch.float64, device=c.device)
+
+    def products():
+        for a1, b1, t2_ij, t2_kl in chunks:
+            n = len(a1)
+            torch.matmul(a1, b1, out=out1[:n])
+            torch.matmul(c_vvvv, t2_ij, out=w[:n])
+            torch.matmul(w[:n], t2_kl, out=out5[:n])
+
+    products()
+    ms = once_ms(products)
+    del chunks, out1, w, out5
+    return ms
+
+
+def check_quadruples(no: int, nv: int, device, record: dict) -> str:
+    """K9 against its plain version at o = no, v = nv (E_MP5 and E_MP6 each
+    to TRIPLES_TOLERANCE relative), bitwise over two calls, with its peak
+    device memory a call; the record keeps the largest error over the
+    shapes, the times of the first shape checked (the (Q) path's, v = 19)
+    and every shape's measurements under `shapes`.  Kernel ms: median of
+    three timed calls after the first, each bitwise equal to it; plain ms:
+    the compared call (calls take seconds at v = 53)."""
+    args = quadruples_args(no, nv, device)
+    results = []
+
+    def kernel():
+        results.append(cc.ccsdt_q_energy(*args))
+
+    def plain():
+        results.append(cc._ccsdt_q_energy_plain(*args))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernel()
+    peak_bytes = torch.cuda.max_memory_allocated() - before
+    first = results[-1]
+    plain_ms = once_ms(plain)
+    e_kernel, e_plain = first.tolist(), results[-1].tolist()
+    errors = [abs(a - b) for a, b in zip(e_kernel, e_plain)]
+    require(all(np.isfinite(e_kernel)), "(Q) kernel returned a non-finite energy")
+    require(all(err <= TRIPLES_TOLERANCE * abs(b) for err, b in zip(errors, e_plain)),
+            f"(Q) kernel {e_kernel} off its plain version {e_plain}")
+    times = []
+    for _ in range(3):
+        times.append(once_ms(kernel))
+        require(torch.equal(results[-1], first), "two (Q) kernel calls differ")
+    ms = statistics.median(times)
+    library_ms = quadruples_library_ms(args)
+    needed, own = quadruples_ms(no, nv)
+    q_bound = bound(tensor_bytes(*args), needed)
+    entry = record.setdefault("ccsdt_q_energy", {"max_abs_err": 0.0, "shapes": []})
+    entry["max_abs_err"] = max(entry["max_abs_err"], *errors)
+    if "ms" not in entry:
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **q_bound)
+    batches = cc.quadruples_plan(no, nv, cc.QUADRUPLES_WORKSPACE_BYTES)[0]
+    entry["shapes"].append({"o": no, "v": nv, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "max_abs_err": max(errors), **q_bound,
+                            "kernel_own_count_ms": own, "peak_bytes_a_call": peak_bytes,
+                            "batches": len(batches), "ranges": len(np.unique(batches[:, 6]))})
+    relative = [err / abs(b) for err, b in zip(errors, e_plain)]
+    return (f"kernels (Q): o {no}, v {nv}; E_MP5 {e_kernel[0]:.15e}, E_MP6 {e_kernel[1]:.15e}, "
+            f"relative {relative[0]:.3e}, {relative[1]:.3e}; four calls bitwise equal; "
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, the v^5 products as batched "
+            f"torch.matmul {library_ms:.4f} ms; bound {q_bound['bound_ms']:.5f} ms by "
+            f"{q_bound['bound_by']} (W once a pair; K9's count, W once an ordering and range: "
+            f"{own:.5f} ms); {len(batches)} batches over {len(np.unique(batches[:, 6]))} ranges "
+            f"of min(y), peak device memory a call {peak_bytes} "
+            f"bytes (one o^4 v^4 tensor: {8 * no ** 4 * nv ** 4} bytes)")
+
+
+def check_triples_line(line: str, energy_ref: float, iterations_ref: tuple,
+                       kernels: tuple) -> dict:
+    """A line of the iterative triples family on the card against tuna_tpu's
+    total energy (Q_TOLERANCE) and SCF and CC iteration counts; its (Q),
+    where it has one, against K9's plain version on the path's own inputs.
+    Returns the launches."""
+    with Recorder("ccsdt_q_energy") as recorder:
+        SCF_output, _, energy, _, wall, launches = drive(line, kernels)
+    iterations = (len(SCF_output.iteration_seconds),
+                  len(SCF_output.correlation_iteration_seconds))
+    require(iterations == iterations_ref,
+            f"{line}: {iterations} SCF and CC iterations, the reference takes {iterations_ref}")
+    require(abs(energy - energy_ref) <= Q_TOLERANCE,
+            f"{line}: E_total {energy - energy_ref:.3e} Ha from the reference")
+    require(len(recorder.calls) == ("(Q)" in line),
+            f"{line}: {len(recorder.calls)} (Q) calls")
+    note = ""
+    for args, energies in recorder.calls:
+        plain = cc._ccsdt_q_energy_plain(*args).tolist()
+        errors = [abs(a - b) for a, b in zip(energies.tolist(), plain)]
+        require(all(err <= TRIPLES_TOLERANCE * max(abs(b), 1e-300) or err == 0.0
+                    for err, b in zip(errors, plain)),
+                f"{line}: (Q) {energies.tolist()} off its plain version {plain}")
+        note = f"; (Q) {energies.tolist()} against its plain version |diff| {max(errors):.3e}"
+    print(f"end to end: {line}; E_total {energy!r}, E_total - E_ref {energy - energy_ref:.3e} "
+          f"Ha; SCF {iterations[0]} and CC {iterations[1]} iterations (the reference's); CC "
+          f"median {statistics.median(SCF_output.correlation_iteration_seconds) * 1e3:.3f} "
+          f"ms/iteration; wall {wall:.3f} s{note}; launches {launches}")
+    return launches
+
+
+def check_quadruples_path() -> dict:
+    """Phase 15: LINE_Q against tuna_tpu's numbers, its (Q) against K9's
+    plain version on the path's own amplitudes and integrals, one K9 launch,
+    its profile; then the small triples lines.  Returns the launches summed
+    over the counted runs."""
+    with Recorder("ccsdt_q_energy") as recorder:
+        SCF_output, _, energy, _, wall, launches = drive(LINE_Q, Q_PATH_KERNELS)
+    require(launches["ccsdt_q_energy"] == 1 and len(recorder.calls) == 1,
+            f"{LINE_Q}: {launches['ccsdt_q_energy']} K9 launches")
+    args, energies = recorder.calls[0]
+    E_MP5, E_MP6 = energies.tolist()
+    plain = cc._ccsdt_q_energy_plain(*args).tolist()
+    errors = [abs(a - b) for a, b in zip((E_MP5, E_MP6), plain)]
+    require(all(err <= TRIPLES_TOLERANCE * abs(b) for err, b in zip(errors, plain)),
+            f"{LINE_Q}: (Q) {(E_MP5, E_MP6)} off its plain version {plain}")
+    iterations = (len(SCF_output.iteration_seconds),
+                  len(SCF_output.correlation_iteration_seconds))
+    require(iterations == ITERATIONS_Q,
+            f"{LINE_Q}: {iterations} SCF and CCSDT iterations, the reference takes "
+            f"{ITERATIONS_Q}")
+    deltas = {"E_SCF": SCF_output.energy - E_SCF_REF_Q,
+              "E_total - E_(Q)": energy - (E_MP5 + E_MP6) - E_CCSDT_REF_Q,
+              "E_total (printed)": energy - E_REF_Q,
+              "E_MP5 (printed)": E_MP5 - E_Q_REF_Q[0], "E_MP6 (printed)": E_MP6 - E_Q_REF_Q[1],
+              "E_(Q) (printed)": E_MP5 + E_MP6 - E_Q_REF_Q[2]}
+    for name, delta in deltas.items():
+        require(abs(delta) <= Q_TOLERANCE, f"{LINE_Q}: {name} {delta:.3e} Ha from the reference")
+    print(f"end to end: {LINE_Q}; E_total {energy!r}, E_MP5 {E_MP5!r}, E_MP6 {E_MP6!r} (plain "
+          f"version relative {max(e / abs(b) for e, b in zip(errors, plain)):.3e}); from the "
+          f"reference: " + ", ".join(f"{name} {delta:.3e} Ha" for name, delta in deltas.items())
+          + f"; SCF {iterations[0]} iterations, median "
+          f"{statistics.median(SCF_output.iteration_seconds) * 1e3:.3f} ms/iteration; CCSDT "
+          f"{iterations[1]} iterations, median "
+          f"{statistics.median(SCF_output.correlation_iteration_seconds) * 1e3:.3f} "
+          f"ms/iteration; wall {wall:.3f} s; launches {launches}")
+    runs = [launches]
+    print("profile: " + json.dumps(profile_path(LINE_Q)))
+    for line, energy_ref, iterations_ref, kernels in TRIPLES_LINES:
+        runs.append(check_triples_line(line, energy_ref, iterations_ref, kernels))
     return {name: sum(r[name] for r in runs) for name in KERNELS}
 
 
@@ -1691,6 +1978,14 @@ def main() -> int:
 
     # --- 13. UHF paths ---------------------------------------------------------
     launches = check_uhf_paths()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 14. the (Q) kernel against its plain version --------------------------
+    for no, nv in ((7, 19), (7, 53)):
+        print(check_quadruples(no, nv, device, record))
+
+    # --- 15. the (Q) path and the iterative triples lines -----------------------
+    launches = check_quadruples_path()
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

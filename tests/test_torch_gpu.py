@@ -542,3 +542,131 @@ def test_force_and_optfreq_run_on_the_card(cuda):
                                device="cuda")
     assert abs(frequency - 5481.715496129465) <= 0.01
     assert abs(zpe - 0.01248826678074945) <= 1e-8
+
+
+def _quadruples_args(no, nv, device, seed):
+    """Seeded (Q) inputs: the window's chemists' (pq|rs) (symmetric as real
+    orbitals' are), pair-symmetric t2 and t3, orbital energies."""
+    rng = np.random.default_rng(seed)
+    n = no + nv
+    c = rng.standard_normal((n, n, n, n))
+    c = c + c.transpose(1, 0, 2, 3)
+    c = c + c.transpose(0, 1, 3, 2)
+    c = 0.05 * (c + c.transpose(2, 3, 0, 1))
+    t2 = rng.standard_normal((no, no, nv, nv))
+    t2 = 0.05 * (t2 + t2.transpose(1, 0, 3, 2))
+    t3 = 0.02 * rng.standard_normal((no, no, no, nv, nv, nv))
+
+    def tensor(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    return (tensor(c), tensor(t2), tensor(t3),
+            tensor(np.sort(rng.uniform(-15.0, -0.5, no))),
+            tensor(np.sort(rng.uniform(0.3, 5.0, nv))))
+
+
+def _quadruples_term_sizes(c, t2, t3, eps_o, eps_v):
+    """The size of the (Q) terms before they cancel, for MP5 and MP6: the
+    sum over the multisets and y of 1/2 |e| Gabs Zabs, with Gabs the sum of
+    |Graw| over sigma and Zabs every product of Z taken as its absolute
+    value (at v = 1, L = K and Z5 is 0; at o = 1, alpha = beta and Z6 is 0,
+    so the energies are rounding alone)."""
+    no, nv = t2.shape[0], t2.shape[2]
+    B = cc._quadruples_blocks(c, no)
+    _, slots, multisets = cc.quadruples_plan(no, nv, 2 ** 62)
+    i, j, k, l = torch.as_tensor(slots.T.astype(np.int64), device=t2.device)
+    G, alpha, beta = cc._quadruples_slot_blocks(B, t2, t3, i, j, k, l, 0)
+    u, K, L = cc._u_of(t2)[k, l].abs(), B["K"][i, j].abs(), B["L"][i, j].abs()
+    Z5 = (torch.einsum("sab,scd->sabcd", u, K) + 2.0 * torch.einsum("sbd,sac->sabcd", u, L)
+          + torch.einsum("scd,sab->sabcd", u, L))
+    at = lambda x, dims: x.abs().permute(0, *(1 + d for d in dims))
+    Z6 = 2.0 * (2.0 * at(alpha, (0, 1, 2, 3)) + at(alpha, (2, 3, 0, 1)) + at(alpha, (1, 0, 2, 3))
+                + 2.0 * at(beta, (2, 1, 3, 0)) + at(beta, (2, 0, 3, 1))
+                + 2.0 * at(beta, (3, 1, 0, 2)) + at(beta, (3, 0, 1, 2)))
+    inverse = [tuple(int(np.argsort(sigma)[n]) for n in range(4))
+               for sigma in cc.QUADRUPLES_PERMUTATIONS]
+    e_v = eps_v[:, None, None, None] + eps_v[:, None, None] + eps_v[:, None] + eps_v
+    sizes = [0.0, 0.0]
+    for row in multisets.tolist():
+        g_abs = sum(G[row[4 + s]].abs().permute(dims) for s, dims in enumerate(inverse))
+        firsts = [(row[4 + s], dims) for s, dims in enumerate(inverse) if row[28] >> s & 1]
+        weighted = torch.abs(0.5 * g_abs / (eps_o[row[:4]].sum() - e_v))
+        for n, Z in enumerate((Z5, Z6)):
+            sizes[n] += float(torch.sum(weighted * sum(Z[slot].permute(dims)
+                                                       for slot, dims in firsts)))
+    return sizes
+
+
+def _quadruples_caps(no, nv):
+    """Workspace caps that cut the plan: room for 1 and 5 slots of the whole
+    range of min(y) beside a carry (multisets cut over their slots), and
+    for one slot of the range [0, 1) (the virtual quadruples cut over ranges
+    of their smallest index too, where v > 1)."""
+    whole = cc.quadruples_cut(no, nv, 0, nv)
+    one_a = cc.quadruples_cut(no, nv, 0, 1)
+    return [8 * (3 * whole[0] + whole[1]), 8 * (3 * whole[0] + 5 * whole[1]),
+            8 * (3 * one_a[0] + one_a[1])]
+
+
+@pytest.mark.parametrize("no, nv", [(2, 2), (2, 3), (3, 4), (4, 5), (5, 2), (7, 11), (1, 1),
+                                    (1, 4), (4, 1), (3, 6)])
+def test_ccsdt_q_kernel_matches_plain(cuda, no, nv, monkeypatch):
+    """K9 against its plain version, E_MP5 and E_MP6 each to 1e-12
+    relative (of the terms' size at o = 1 or v = 1): repeated occupied
+    indices of every kind (o = 3 to 7); at the default workspace cap and at
+    caps where the plan cuts multisets over their slots and the virtual
+    quadruples over ranges of min(y); two calls bitwise equal, one counted
+    launch a call."""
+    args = _quadruples_args(no, nv, cuda, 10 * no + nv)
+    expected = cc._ccsdt_q_energy_plain(*args)
+    scales = [abs(x) for x in expected.tolist()]
+    if no == 1 or nv == 1:
+        scales = _quadruples_term_sizes(*args)
+    _kernels.reset_launch_counts()
+    first = cc.ccsdt_q_energy(*args)
+    again = cc.ccsdt_q_energy(*args)
+    assert _kernels.launches["ccsdt_q_energy"] == 2
+    assert torch.equal(first, again)
+    for got, want, scale in zip(first.tolist(), expected.tolist(), scales):
+        assert abs(got - want) <= 1e-12 * scale
+    for cap in _quadruples_caps(no, nv):
+        monkeypatch.setattr(cc, "QUADRUPLES_WORKSPACE_BYTES", cap)
+        cut = cc.ccsdt_q_energy(*args)
+        assert torch.equal(cut, cc.ccsdt_q_energy(*args))
+        for got, want, scale in zip(cut.tolist(), expected.tolist(), scales):
+            assert abs(got - want) <= 1e-12 * scale
+
+
+def test_ccsdt_q_kernel_checks_its_inputs(cuda, monkeypatch):
+    """Non-contiguous and float32 inputs are refused, and so is a plan whose
+    workspace or partials do not fit the buffers it is given."""
+    args = list(_quadruples_args(3, 4, cuda, 1))
+    args[2] = args[2].transpose(3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.ccsdt_q_energy(*args)
+    args[2] = args[2].contiguous().float()
+    with pytest.raises(ValueError, match="dtype"):
+        cc.ccsdt_q_energy(*args)
+    args[2] = args[2].double()
+    cc._quadruples_tables_on(3, 4, cuda)
+    key = (3, 4, str(cuda))
+    entry = cc._quadruples_tables[key]
+    for at in (4, 6):   # the workspace's doubles, the partials' doubles
+        short = entry[:at] + (entry[at] - 1,) + entry[at + 1:]
+        monkeypatch.setitem(cc._quadruples_tables, key, short)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cc.ccsdt_q_energy(*args)
+
+
+@pytest.mark.parametrize("line", ["SPE : LI H 1.6 : CCSDT(Q) STO-3G : TIGHTSCF",
+                                  "SPE : LI H 1.6 : CCSDT(Q) STO-3G : ML 3 TIGHTSCF"])
+def test_ccsdt_q_runs_through_k9(cuda, line):
+    """A CCSDT(Q) line on the card, closed and open shell: K9 launched
+    once, the energy the CPU path's to 1e-10 Ha."""
+    from tuna_tpu_torch.cli import run
+
+    _kernels.reset_launch_counts()
+    _, _, energy, _ = run(line, suppress_output=True, device="cuda")
+    assert _kernels.launches["ccsdt_q_energy"] == 1
+    _, _, energy_cpu, _ = run(line, suppress_output=True, device="cpu")
+    assert abs(energy - energy_cpu) <= 1e-10

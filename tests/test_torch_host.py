@@ -58,6 +58,20 @@ def test_host_copies_match_tuna_tpu_source(relative):
     assert _without_data_path(copy) == _without_data_path(original)
 
 
+def test_uccsdt_term_table_matches_tuna_tpu():
+    """post/_uccsdt_terms.py is tuna_tpu's term table; only the module
+    docstring differs (it names the evaluator's einsum)."""
+    def without_docstring(relative):
+        tree = ast.parse((REPO / relative / "post" / "_uccsdt_terms.py").read_text())
+        assert isinstance(tree.body[0], ast.Expr)
+        tree.body = tree.body[1:]
+        return ast.dump(tree)
+
+    assert without_docstring("tuna_tpu_torch") == without_docstring("tuna_tpu")
+    from tuna_tpu_torch.post import _uccsdt_terms
+    assert len(_uccsdt_terms.TERMS_T1) == 15
+
+
 def test_copies_read_tuna_tpu_data_files():
     assert tuna_tpu_torch.periodic._DATA.resolve() == tuna_tpu.periodic._DATA.resolve()
     assert tuna_tpu_torch.basis._DATA.resolve() == tuna_tpu.basis._DATA.resolve()
@@ -144,8 +158,9 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
                                         "tuna_density_on_grid", "tuna_vv10_energy",
                                         "tuna_fock_direct", "tuna_mo_half_transform",
                                         "tuna_one_electron_deriv", "tuna_eri_deriv_energy",
-                                        "tuna_density_deriv_on_grid"}
+                                        "tuna_density_deriv_on_grid", "tuna_ccsdt_q_energy"}
     assert set(_kernels.launches) == {"eri_packed", "one_electron", "ccsd_t_energy",
                                       "uccsd_t_energy", "ao_on_grid", "density_on_grid", "vv10_energy",
                                       "fock_direct", "mo_half_transform", "one_electron_deriv",
-                                      "eri_deriv_energy", "density_deriv_on_grid"}
+                                      "eri_deriv_energy", "density_deriv_on_grid",
+                                      "ccsdt_q_energy"}

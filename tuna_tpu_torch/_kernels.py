@@ -50,6 +50,10 @@ SIGNATURES = {
     # no, nv, n_batches, batches (host), triples, pairs, orbits, g_oovv,
     # g_vovv, g_ovoo, t1, t2, eps_o, eps_v, v_scale, workspace, partial
     "tuna_uccsd_t_energy": [_I, _I, _I] + [_P] * 11 + [_D, _P, _P] + [_P],
+    # no, nv, n_batches, batches (host), slots, multisets, c, cvt, t2, t3,
+    # eps_o, eps_v, energy_blocks, workspace and its doubles, partial and its
+    # doubles
+    "tuna_ccsdt_q_energy": [_I, _I, _I] + [_P] * 9 + [_I, _P, _L, _P, _L] + [_P],
     # n_ao, n_points, with_gradients, points, origin, lmn, prim_start, exps,
     # coefs, values (out), gradients (out)
     "tuna_ao_on_grid": [_I, _I, _I] + [_P] * 8 + [_P],
@@ -81,6 +85,7 @@ SIGNATURES = {
 
 # Launches of each kernel's CUDA path since the last reset.
 launches = {"eri_packed": 0, "one_electron": 0, "ccsd_t_energy": 0, "uccsd_t_energy": 0,
+            "ccsdt_q_energy": 0,
             "ao_on_grid": 0, "density_on_grid": 0, "vv10_energy": 0,
             "fock_direct": 0, "mo_half_transform": 0, "one_electron_deriv": 0,
             "eri_deriv_energy": 0, "density_deriv_on_grid": 0}

@@ -1,6 +1,7 @@
-"""Coupled cluster and iterative CI with the (T)/[T] triples energy:
-restricted CCSD and CISD, and on UHF references the spin-orbital LCCD,
-CCD, LCCSD (CEPA), CID, CISD, QCISD and CCSD.
+"""Coupled cluster and iterative CI with the (T)/[T] triples and the (Q)/[Q]
+quadruples energies: restricted CCSD and CISD, and on UHF references the
+spin-orbital LCCD, CCD, LCCSD (CEPA), CID, CISD, QCISD and CCSD; CCSDT,
+CISDT and CCSDTQ are iterated by post/cc_triples.py.
 
 Twin of tuna_tpu/post/cc.py's restricted closed-shell path (the
 spin-adapted spatial-orbital equations in the tau-based formulation with
@@ -13,12 +14,14 @@ of the while_loop.
 
 The restricted (T) energy runs through `ccsd_t_energy`, the K2 CUDA kernel
 (csrc/ccsd_t.cu) on CUDA tensors; the unrestricted one through
-`uccsd_t_energy`, the K2u kernel (csrc/ccsd_t_u.cu).  On CPU tensors each
-takes its plain torch version.
+`uccsd_t_energy`, the K2u kernel (csrc/ccsd_t_u.cu); the (Q) energy of
+CCSDT[Q]/(Q) through `ccsdt_q_energy`, the K9 kernel (csrc/ccsdt_q.cu).  On
+CPU tensors each takes its plain torch version.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 from functools import partial
@@ -39,9 +42,14 @@ _F64 = torch.float64
 # Small tensor helpers
 # ---------------------------------------------------------------------------
 
-def _permute(x, axis_1, axis_2):
+def permute(x, axis_1, axis_2):
     """Antisymmetric permutation P-(axis_1, axis_2): x - x with the axes swapped."""
     return x - x.transpose(axis_1, axis_2)
+
+
+def permute_symmetric(x, pair_1, pair_2):
+    """x plus x with both axis pairs swapped."""
+    return x + x.transpose(*pair_1).transpose(*pair_2)
 
 
 def _sym_pair(r):
@@ -57,6 +65,40 @@ def _u_of(t2):
 def _tau_of(t1, t2):
     """tau[ijab] = t2[ijab] + t1[ia] t1[jb]."""
     return t2 + torch.einsum("ia,jb->ijab", t1, t1)
+
+
+# ---------------------------------------------------------------------------
+# T1 dressing (tuna_tpu/post/cc.py:505-537): CCSDT and CCSDTQ here, CC2 and
+# CC3 later
+# ---------------------------------------------------------------------------
+
+def _t1_dressed_orbitals(C, t1, o, v):
+    """X = C (1 - t1 on the ov block), Y = C (1 + t1^T on the vo block)."""
+    X, Y = C.clone(), C.clone()
+    X[:, v] -= C[:, o] @ t1
+    Y[:, o] += C[:, v] @ t1.T
+    return X, Y
+
+
+def _t1_dressed_mo_tensor(G, t1, o, v):
+    """T1-dressed chemists' tensor from the undressed full-space MO tensor G:
+    four one-index updates, each contracting the small t1 block, O(o v n^4)
+    instead of the O(n^5) AO rebuild; bra indices (1, 3) carry X's
+    dressing, ket indices (2, 4) Y's.  G is not modified."""
+    G = G.clone()
+    G[v] += torch.einsum("ip,iqrs->pqrs", -t1, G[o])
+    G[:, o] += torch.einsum("qb,pbrs->pqrs", t1, G[:, v])
+    G[:, :, v] += torch.einsum("ir,pqis->pqrs", -t1, G[:, :, o])
+    G[:, :, :, o] += torch.einsum("sd,pqrd->pqrs", t1, G[:, :, :, v])
+    return G
+
+
+def _t1_dressed_mo_oneelectron(H_MO, t1, o, v):
+    """h_hat = A^T H_MO B with the low-rank A, B of the tensor dressing."""
+    H = H_MO.clone()
+    H[v] += torch.einsum("ip,iq->pq", -t1, H[o])
+    H[:, o] += torch.einsum("qb,pb->pq", t1, H[:, v])
+    return H
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +135,9 @@ def _unrestricted_blocks(g, o, v):
 _NO_DISCONNECTED = ("LCCD", "LCCSD", "QCISD", "QCISD[T]", "QCISD(T)", "CISD",
                     "CID", "CISDT")
 _NO_SINGLES = ("LCCD", "CCD", "CID")
+# the methods that iterate t3 (tuna_tpu's calculate_triples list, less the
+# perturbative and CC3 ones, which form no t3 here)
+_ITERATIVE_TRIPLES = ("CCSDT", "CCSDT[Q]", "CCSDT(Q)", "CCSDTQ", "CISDT")
 
 
 def _restricted_energy(B, F_ov, t1, t2, keep_disconnected: bool):
@@ -329,16 +374,16 @@ def _u_linear_doubles(B, F_oo_off, F_vv_off, t1, t2, with_fock: bool):
     r = (B["oovv"]
          + 0.5 * torch.einsum("abcd,ijcd->ijab", B["vvvv"], t2)
          + 0.5 * torch.einsum("ijkl,klab->ijab", B["oooo"], t2)
-         + _permute(_permute(torch.einsum("icak,jkbc->ijab", B["ovvo"], t2), 2, 3), 0, 1))
+         + permute(permute(torch.einsum("icak,jkbc->ijab", B["ovvo"], t2), 2, 3), 0, 1))
     if with_fock:
-        r = r + _permute(torch.einsum("ijae,be->ijab", t2, F_vv_off), 2, 3)
-        r = r - _permute(torch.einsum("imab,mj->ijab", t2, F_oo_off), 0, 1)
+        r = r + permute(torch.einsum("ijae,be->ijab", t2, F_vv_off), 2, 3)
+        r = r - permute(torch.einsum("imab,mj->ijab", t2, F_oo_off), 0, 1)
     return r
 
 
 def _u_singles_driven(B, t1):
-    return (_permute(torch.einsum("abcj,ic->ijab", B["vvvo"], t1), 0, 1)
-            - _permute(torch.einsum("kbij,ka->ijab", B["ovoo"], t1), 2, 3))
+    return (permute(torch.einsum("abcj,ic->ijab", B["vvvo"], t1), 0, 1)
+            - permute(torch.einsum("kbij,ka->ijab", B["ovoo"], t1), 2, 3))
 
 
 def _u_singles_tail(B, t1, t2):
@@ -364,16 +409,16 @@ def _u_ccd(B, F, o, v, d1, d2, t1, t2):
     g = B["oovv"]
     r = _u_linear_doubles(B, None, None, t1, t2, False)
     # "cdkl,ijac,klbd->ijab" with <cd||kl> = <kl||cd>
-    r = r - 0.5 * _permute(torch.einsum("ijac,cb->ijab", t2,
-                                        torch.einsum("klcd,klbd->cb", g, t2)), 2, 3)
+    r = r - 0.5 * permute(torch.einsum("ijac,cb->ijab", t2,
+                                       torch.einsum("klcd,klbd->cb", g, t2)), 2, 3)
     # "cdkl,ikab,jlcd->ijab"
-    r = r - 0.5 * _permute(torch.einsum("ikab,kj->ijab", t2,
-                                        torch.einsum("klcd,jlcd->kj", g, t2)), 0, 1)
+    r = r - 0.5 * permute(torch.einsum("ikab,kj->ijab", t2,
+                                       torch.einsum("klcd,jlcd->kj", g, t2)), 0, 1)
     # "cdkl,ijcd,klab->ijab"
     r = r + 0.25 * torch.einsum("ijkl,klab->ijab", torch.einsum("ijcd,klcd->ijkl", t2, g), t2)
     # "cdkl,ikac,jlbd->ijab"
-    r = r + _permute(torch.einsum("iald,jlbd->ijab", torch.einsum("ikac,klcd->iald", t2, g),
-                                  t2), 0, 1)
+    r = r + permute(torch.einsum("iald,jlbd->ijab", torch.einsum("ikac,klcd->iald", t2, g),
+                                 t2), 0, 1)
     return t1, d2 * r
 
 
@@ -387,8 +432,8 @@ def _u_lccsd(B, F, o, v, d1, d2, t1, t2):
           + 0.5 * torch.einsum("kacd,kicd->ia", B["ovvv"], t2)
           - 0.5 * torch.einsum("klci,klca->ia", B["oovo"], t2))
     r2 = (_u_linear_doubles(B, F[o, o], F[v, v], t1, t2, False)
-          + _permute(torch.einsum("bc,ijac->ijab", F[v, v], t2), 2, 3)
-          - _permute(torch.einsum("kj,ikab->ijab", F[o, o], t2), 0, 1)
+          + permute(torch.einsum("bc,ijac->ijab", F[v, v], t2), 2, 3)
+          - permute(torch.einsum("kj,ikab->ijab", F[o, o], t2), 0, 1)
           + _u_singles_driven(B, t1))
     return t1 + d1 * r1, t2 + d2 * r2
 
@@ -396,7 +441,7 @@ def _u_lccsd(B, F, o, v, d1, d2, t1, t2):
 def _u_cid(B, F, o, v, d1, d2, t1, t2):
     off_vv = _off_diagonal(F, v)
     r = _u_linear_doubles(B, torch.zeros_like(F[o, o]), off_vv, t1, t2, False)
-    r = r + _permute(torch.einsum("ijae,be->ijab", t2, off_vv), 2, 3)
+    r = r + permute(torch.einsum("ijae,be->ijab", t2, off_vv), 2, 3)
     E_corr = 0.25 * torch.einsum("ijab,ijab->", B["oovv"], t2)
     return t1, d2 * (r - E_corr * t2)
 
@@ -425,11 +470,11 @@ def _u_qcisd(B, F, o, v, d1, d2, t1, t2):
           + _u_singles_tail(B, t1, t2))
 
     r2 = (g
-          + _permute(torch.einsum("ijae,be->ijab", t2, Pvv), 2, 3)
-          - _permute(torch.einsum("imab,mj->ijab", t2, Poo), 0, 1)
+          + permute(torch.einsum("ijae,be->ijab", t2, Pvv), 2, 3)
+          - permute(torch.einsum("imab,mj->ijab", t2, Poo), 0, 1)
           + 0.5 * torch.einsum("mnab,mnij->ijab", t2, Hoooo)
           + 0.5 * torch.einsum("ijef,abef->ijab", t2, Hvvvv)
-          + _permute(_permute(torch.einsum("imae,mbej->ijab", t2, Hovvo), 2, 3), 0, 1)
+          + permute(permute(torch.einsum("imae,mbej->ijab", t2, Hovvo), 2, 3), 0, 1)
           + _u_singles_driven(B, t1))
     return d1 * r1, d2 * r2
 
@@ -451,10 +496,10 @@ def _u_ccsd(B, F, o, v, d1, d2, t1, t2):
     Pov = F[o, v] + torch.einsum("nf,mnef->me", t1, g)
 
     Hoooo = (B["oooo"]
-             + _permute(torch.einsum("je,mnie->mnij", t1, B["ooov"]), 2, 3)
+             + permute(torch.einsum("je,mnie->mnij", t1, B["ooov"]), 2, 3)
              + 0.25 * torch.einsum("ijef,mnef->mnij", tau, g))
     Hvvvv = (B["vvvv"]
-             - _permute(torch.einsum("mb,amef->abef", t1, B["vovv"]), 0, 1)
+             - permute(torch.einsum("mb,amef->abef", t1, B["vovv"]), 0, 1)
              + 0.25 * torch.einsum("mnab,mnef->abef", tau, g))
     Hovvo = (B["ovvo"]
              + torch.einsum("jf,mbef->mbej", t1, B["ovvv"])
@@ -470,14 +515,14 @@ def _u_ccsd(B, F, o, v, d1, d2, t1, t2):
     # "ie,ma,mbej->ijab"
     t1_t1_ovvo = torch.einsum("ma,mbij->ijab", t1, torch.einsum("ie,mbej->mbij", t1, B["ovvo"]))
     r2 = (g
-          + _permute(torch.einsum("ijae,be->ijab", t2,
-                                  Pvv - 0.5 * torch.einsum("mb,me->be", t1, Pov)), 2, 3)
-          - _permute(torch.einsum("imab,mj->ijab", t2,
-                                  Poo + 0.5 * torch.einsum("je,me->mj", t1, Pov)), 0, 1)
+          + permute(torch.einsum("ijae,be->ijab", t2,
+                                 Pvv - 0.5 * torch.einsum("mb,me->be", t1, Pov)), 2, 3)
+          - permute(torch.einsum("imab,mj->ijab", t2,
+                                 Poo + 0.5 * torch.einsum("je,me->mj", t1, Pov)), 0, 1)
           + 0.5 * torch.einsum("mnab,mnij->ijab", tau, Hoooo)
           + 0.5 * torch.einsum("ijef,abef->ijab", tau, Hvvvv)
-          + _permute(_permute(torch.einsum("imae,mbej->ijab", t2, Hovvo) - t1_t1_ovvo,
-                              2, 3), 0, 1)
+          + permute(permute(torch.einsum("imae,mbej->ijab", t2, Hovvo) - t1_t1_ovvo,
+                            2, 3), 0, 1)
           + _u_singles_driven(B, t1))
     return d1 * r1, d2 * r2
 
@@ -511,6 +556,15 @@ def _push_ring(buf, entry, n_valid, max_n):
     shifted = torch.roll(buf, -1, dims=0)
     shifted[max_n - 1] = entry
     return shifted, min(n_valid + 1, max_n)
+
+
+def _diis_coefficients(err_buf, n_valid, M):
+    """DIIS coefficients from the full Gram of the last n_valid error
+    vectors (the triples loop's; the rank-2 loop keeps its Gram
+    incrementally)."""
+    valid = torch.arange(M, device=err_buf.device) >= (M - n_valid)
+    errs = torch.where(valid[:, None], err_buf, 0.0)
+    return _diis_coefficients_from_gram(errs @ errs.T, n_valid, M)
 
 
 def _diis_coefficients_from_gram(G, n_valid, M):
@@ -655,21 +709,27 @@ def _initial_print(E_MP2, method, calculation, silent):
 
 
 def calculate_coupled_cluster_energy(g, o, v, t_amplitudes, e_denominators, F,
-                                     method, calculation, silent):
+                                     method, calculation, silent, SCF_output, integrals):
     """Solve the amplitude equations for one iterative method, restricted
-    or (on a UHF reference) spin-orbital.
+    or (on a UHF reference) spin-orbital; CCSDT, CISDT and CCSDTQ go to
+    post/cc_triples.py.  t_amplitudes and e_denominators hold ranks 1-4
+    (None where a method has no such rank).
 
-    Returns (E_CC, (t1, t2), per-iteration wall seconds)."""
+    Returns (E_CC, (t1, t2, t3, t4), per-iteration wall seconds)."""
     original_name = method.name
     base_name = method.name
     for tag in ("[T]", "[Q]", "(T)", "(Q)"):
         base_name = base_name.split(tag)[0]
+    if base_name in ("CCSDT", "CISDT", "CCSDTQ"):
+        from .cc_triples import solve_triples_method
+        return solve_triples_method(g, o, v, t_amplitudes, e_denominators, F, method,
+                                    base_name, calculation, silent, SCF_output, integrals)
     restricted = calculation.reference == "RHF"
     if base_name not in (_RESTRICTED_UPDATES if restricted else _UNRESTRICTED_UPDATES):
         error(f"The {base_name} method is not yet ported to tuna_tpu_torch!")
 
-    t_ia, t_ijab = t_amplitudes
-    d1, d2 = e_denominators
+    t_ia, t_ijab = t_amplitudes[:2]
+    d1, d2 = e_denominators[:2]
     settings = CCSettings(
         method=base_name,
         restricted=restricted,
@@ -714,7 +774,7 @@ def calculate_coupled_cluster_energy(g, o, v, t_amplitudes, e_denominators, F,
     log(f"\n  {base_name} correlation energy:  {' ' * (10 - len(base_name))}    {E_CC:.10f}",
         calculation, 1, silent=silent)
     method.name = original_name
-    return E_CC, (t1, t2), iteration_seconds
+    return E_CC, (t1, t2, *t_amplitudes[2:]), iteration_seconds
 
 
 # ---------------------------------------------------------------------------
@@ -1067,7 +1127,318 @@ def unrestricted_CCSD_T(g, epsilons, t_ia, t_ijab, o, v, method, calculation, si
 
 
 # ---------------------------------------------------------------------------
-# Post-processing
+# Perturbative quadruples: K9
+# ---------------------------------------------------------------------------
+# tuna_tpu's restricted_CCSDT_Q forms t4 = e * G/2 with G the sum of six raw
+# terms symmetrised over the 24 simultaneous permutations sigma of (ijkl)
+# and (abcd), then E_MP5 and E_MP6 from t4 and o^4 v^4 intermediates.  Both
+# energies are linear in t4, E = sum t4 Z, and t4 is symmetric under every
+# sigma, so with the occupied quadruple x = (i, j, k, l) of a multiset
+# {i <= j <= k <= l}, its distinct orderings x.tau and y.sigma the virtuals
+# permuted alike ((y.sigma)_p = y_sigma(p)):
+#
+#   E = 1/2 sum_multisets sum_y e[x, y] Gsym[y] Zsym[y],
+#   Gsym[y] = sum_sigma Graw[x.sigma, y.sigma],
+#   Zsym[y] = sum_distinct tau Z[x.tau, y.tau].
+#
+# Z takes the MP5 products u2 K and u2 L and, for MP6, alpha and beta of
+# the same ordering at seven permutations of their virtuals (t_bar's and
+# t_tilde's permutations moved onto them; t_tilde's (i, j, l, k) ordering
+# is t4's own by its symmetry).  So a multiset needs, for each distinct
+# ordering (a slot), three v^4 blocks -- Graw, alpha, beta -- and never
+# anything o^4 v^4.  Permuting y keeps min(y), so the sum also splits over
+# ranges [a0, a1) of min(y), and a slot then needs those blocks only at the
+# y with min(y) in the range.  K9 (csrc/ccsdt_q.cu) and its plain version
+# run the same plan: for each range, batches of whole multisets whose slots
+# fit QUADRUPLES_WORKSPACE_BYTES, or, for a multiset with more slots than
+# fit, batches of its own over ranges of its slots, with Gsym and the two
+# Zsym carried from one batch to the next (tests lower the cap to force
+# both cuts).
+QUADRUPLES_WORKSPACE_BYTES = 128 * 2 ** 20
+# sigma(p) for p = 0..3, in csrc/ccsdt_q.cu's order
+QUADRUPLES_PERMUTATIONS = tuple(itertools.permutations(range(4)))
+
+
+def quadruples_cut(no: int, nv: int, a0: int, a1: int) -> tuple[int, int]:
+    """(elements, doubles a slot) of K9 for the range [a0, a1) of min(y):
+    the (a, b, c, d) with min in the range, (v - a0)^4 - (v - a1)^4, and
+    what a slot stores there -- Graw, alpha and beta at those elements, the
+    vvvv term's half (W at the (a, b, c) of boxes 0-2, U at the (a, c, d)
+    of box 3, by v each) and X, Y, V (o v^2 each): the boxes of
+    csrc/ccsdt_q.cu's Cut, box p with positions q < p over [a1, v), p over
+    [a0, a1) and q > p over [a0, v).  A carried multiset takes 3 elements
+    more."""
+    elements = w = 0
+    for p in range(4):
+        n0, n1, n2, n3 = [nv - a1] * p + [a1 - a0] + [nv - a0] * (3 - p)
+        elements += n0 * n1 * n2 * n3
+        w += (n0 * n1 * n2 if p < 3 else n0 * n2 * n3) * nv
+    return elements, 3 * elements + w + 3 * no * nv * nv
+
+
+def quadruples_plan(no: int, nv: int, cap_bytes: int):
+    """The batches of K9 for o = no, v = nv: (batches, slots, multisets),
+    int32.
+
+    slots (n_slots, 4) lists the distinct orderings (i, j, k, l) of every
+    multiset, multiset after multiset; multisets (n_multisets, 29) holds
+    each multiset's (i, j, k, l), the slot of its ordering x.sigma for
+    sigma in QUADRUPLES_PERMUTATIONS, and a mask with bit sigma set where
+    sigma is the first permutation to reach its slot; batches (n_batches, 8)
+    the slot range, the multiset range, two flags -- the batch starts its
+    multisets (1) or carries one on, and it ends them (1) or passes one on
+    -- and the range [a0, a1) of min(y), range after range.  A range is as
+    wide as fits one slot and a carry in cap_bytes (one value of a at
+    least); a batch of whole multisets holds as many slots as fit the cap,
+    a piece of a cut multiset as many as fit beside its carry (one at
+    least).  So the workspace stays under the cap while one slot of one
+    value of a and its carry fit it: up to v = 84 at o = 7 and 128 MB;
+    above, it is that minimum (239 MB at v = 104, 0.7 GB at v = 150)."""
+    cap = cap_bytes // 8
+
+    def fits(a0, a1):
+        elements, slot = quadruples_cut(no, nv, a0, a1)
+        return 3 * elements + slot <= cap
+
+    slots, multisets, spans = [], [], []
+    for quadruple in itertools.combinations_with_replacement(range(no), 4):
+        orderings = [tuple(quadruple[p] for p in sigma) for sigma in QUADRUPLES_PERMUTATIONS]
+        distinct = list(dict.fromkeys(orderings))
+        first = len(slots)
+        slots.extend(distinct)
+        spans.append((first, len(slots)))
+        mask = sum(1 << s for s, ordering in enumerate(orderings)
+                   if orderings.index(ordering) == s)
+        multisets.append((*quadruple, *(first + distinct.index(q) for q in orderings), mask))
+    batches = []
+    a0 = 0
+    while a0 < nv:
+        # the widest that fits (W's and U's boxes make the size not monotonic in a1)
+        a1 = max((b for b in range(a0 + 2, nv + 1) if fits(a0, b)), default=a0 + 1)
+        elements, slot = quadruples_cut(no, nv, a0, a1)
+        capacity = max(1, cap // slot)
+        piece = max(1, (cap - 3 * elements) // slot)
+        open_slot = open_multiset = 0
+        for m, (s0, s1) in enumerate(spans):
+            if s1 - open_slot > capacity:
+                if m > open_multiset:
+                    batches.append((open_slot, s0, open_multiset, m, 1, 1, a0, a1))
+                open_slot, open_multiset = s0, m
+            if s1 - s0 > capacity:
+                for begin in range(s0, s1, piece):
+                    end = min(begin + piece, s1)
+                    batches.append((begin, end, m, m + 1, int(begin == s0), int(end == s1),
+                                    a0, a1))
+                open_slot, open_multiset = s1, m + 1
+        if len(multisets) > open_multiset:
+            batches.append((open_slot, len(slots), open_multiset, len(multisets), 1, 1, a0, a1))
+        a0 = a1
+    as_array = lambda rows, width: np.array(rows, dtype=np.int32).reshape(-1, width)
+    return as_array(batches, 8), as_array(slots, 4), as_array(multisets, 29)
+
+
+def _quadruples_blocks(c, no):
+    """The blocks of the correlated window's chemists' tensor (pq|rs) that
+    (Q) reads, with K[ijab] = (ia|jb) and L = 2 K - K^T of its MP5 terms."""
+    o, v = slice(0, no), slice(no, None)
+    K = c[o, v, o, v].permute(0, 2, 1, 3)
+    return {"ovvv": c[o, v, v, v], "ovoo": c[o, v, o, o], "oooo": c[o, o, o, o],
+            "ovov": c[o, v, o, v], "vvvv": c[v, v, v, v], "vvoo": c[v, v, o, o],
+            "K": K, "L": 2.0 * K - K.transpose(2, 3)}
+
+
+def _quadruples_slot_blocks(B, t2, t3, i, j, k, l, a0):
+    """Graw, alpha and beta, (S, w, w, w, w) each with w = v - a0, of the
+    orderings (i[s], j[s], k[s], l[s]): the six raw terms of tuna_tpu's G
+    and its MP6 alpha and beta, all at the ordering's own (a, b, c, d) in
+    [a0, v)^4 (the summed virtual indices run over every v)."""
+    f = slice(a0, None)
+    t2_l = t2[:, l][:, :, f, f].transpose(0, 1)                       # s, m, x, y
+    t3_ji = t3[:, j, i][:, :, f, f, f].transpose(0, 1)                # s, m, c, b, a
+    X = torch.einsum("smn,smac->snac", B["oooo"].permute(1, 3, 0, 2)[i, j],
+                     t2[:, k][:, :, f, f].transpose(0, 1))
+    Y = torch.einsum("same,seb->samb", B["ovov"][i][:, f], t2[k, j][:, :, f])
+    V = torch.einsum("sbem,sce->sbmc", B["vvoo"].permute(3, 0, 1, 2)[i][:, f],
+                     t2[k, j][:, f])
+    W = torch.einsum("cfae,seb->scfab", B["vvvv"][f, :, f], t2[i, j][:, :, f])
+    G = (torch.einsum("sabe,secd->sabcd", B["ovvv"][i][:, f, f], t3[j, k, l][:, :, f, f])
+         - torch.einsum("sam,smbcd->sabcd", B["ovoo"].permute(0, 3, 1, 2)[i, j][:, f],
+                        t3[:, k, l][:, :, f, f, f].transpose(0, 1))
+         + torch.einsum("snac,snbd->sabcd", X, t2_l)
+         - 2.0 * torch.einsum("samb,smcd->sabcd", Y, t2_l)
+         + torch.einsum("scfab,sfd->sabcd", W, t2[k, l][:, :, f])
+         - 2.0 * torch.einsum("sbmc,smad->sabcd", V, t2_l))
+    # S1 = sum_m t3[mjicba] (ld|km), S3 the same with (kd|lm); T1 = sum_e
+    # t3[kjieba] (ld|ce), T2 = sum_e t3[ljieba] (kd|ce); S2, S4 are S1, S3
+    # with c and d exchanged
+    ovoo = B["ovoo"].permute(0, 2, 1, 3)                              # l, k, d, m
+    S1 = torch.einsum("smcba,sdm->sabcd", t3_ji, ovoo[l, k][:, f])
+    S3 = torch.einsum("smcba,sdm->sabcd", t3_ji, ovoo[k, l][:, f])
+    ovvv = B["ovvv"][:, f, f]
+    T1 = torch.einsum("seba,sdce->sabcd", t3[k, j, i][:, :, f, f], ovvv[l])
+    T2 = torch.einsum("seba,sdce->sabcd", t3[l, j, i][:, :, f, f], ovvv[k])
+    alpha = 2.0 * S1 - S1.transpose(3, 4) - 2.0 * T1 + T2
+    beta = 2.0 * S3 - S3.transpose(3, 4) - 2.0 * T2 + T1
+    return G, alpha, beta
+
+
+def _quadruples_z(B, u2, alpha, beta, i, j, k, l, a0):
+    """(Z5, Z6) of the orderings (i[s], j[s], k[s], l[s]) at their own (a, b,
+    c, d) in [a0, v)^4: E_MP5 = sum t4 Z5 and E_MP6 = sum t4 Z6 over those
+    orderings."""
+    f = slice(a0, None)
+    u_kl, K_ij, L_ij = u2[k, l][:, f, f], B["K"][i, j][:, f, f], B["L"][i, j][:, f, f]
+    Z5 = (torch.einsum("sab,scd->sabcd", u_kl, K_ij)
+          - 2.0 * torch.einsum("sbd,sac->sabcd", u_kl, L_ij)
+          + torch.einsum("scd,sab->sabcd", u_kl, L_ij))
+    at = lambda x, dims: x.permute(0, *(1 + d for d in dims))
+    Z6 = 2.0 * (-2.0 * alpha - at(alpha, (2, 3, 0, 1)) + at(alpha, (1, 0, 2, 3))
+                + 2.0 * at(beta, (2, 1, 3, 0)) - at(beta, (2, 0, 3, 1))
+                + 2.0 * at(beta, (3, 1, 0, 2)) - at(beta, (3, 0, 1, 2)))
+    return Z5, Z6
+
+
+def _ccsdt_q_energy_plain(c, t2, t3, eps_o, eps_v):
+    """K9's sum in torch.einsum over the batches of quadruples_plan: the
+    tensor (E_MP5, E_MP6) from the correlated window's chemists' (pq|rs),
+    t2, the projected t3 and the orbital energies, never o^4 v^4.  A batch
+    of the range [a0, a1) forms its blocks over [a0, v)^4 and sums the y
+    with min(y) < a1."""
+    no, nv = t2.shape[0], t2.shape[2]
+    device = t2.device
+    energies = torch.zeros(2, dtype=_F64, device=device)
+    if no == 0 or nv == 0:
+        return energies
+    B = _quadruples_blocks(c, no)
+    u2 = _u_of(t2)
+    inverse = [tuple(int(np.argsort(sigma)[n]) for n in range(4))
+               for sigma in QUADRUPLES_PERMUTATIONS]
+    batches, slots, multisets = quadruples_plan(no, nv, QUADRUPLES_WORKSPACE_BYTES)
+    carried = None
+    for (slot_begin, slot_end, multiset_begin, multiset_end, first, last,
+         a0, a1) in batches.tolist():
+        i, j, k, l = torch.as_tensor(slots[slot_begin:slot_end].T.astype(np.int64),
+                                     device=device)
+        G, alpha, beta = _quadruples_slot_blocks(B, t2, t3, i, j, k, l, a0)
+        Z5, Z6 = _quadruples_z(B, u2, alpha, beta, i, j, k, l, a0)
+        del alpha, beta
+        below = torch.arange(nv - a0, device=device) < a1 - a0
+        in_range = (below[:, None, None, None] | below[None, :, None, None]
+                    | below[None, None, :, None] | below[None, None, None, :])
+        e_v = eps_v[a0:]
+        eps_v4 = (e_v[:, None, None, None] + e_v[None, :, None, None]
+                  + e_v[None, None, :, None] + e_v[None, None, None, :])
+        for row in multisets[multiset_begin:multiset_end].tolist():
+            sums = [0.0, 0.0, 0.0] if first else carried
+            for s, dims in enumerate(inverse):
+                slot = row[4 + s]
+                if not slot_begin <= slot < slot_end:
+                    continue
+                sums[0] = sums[0] + G[slot - slot_begin].permute(dims)
+                if row[28] >> s & 1:
+                    sums[1] = sums[1] + Z5[slot - slot_begin].permute(dims)
+                    sums[2] = sums[2] + Z6[slot - slot_begin].permute(dims)
+            if not last:
+                carried = sums
+                continue
+            weighted = torch.where(in_range, 0.5 * sums[0] / (eps_o[row[:4]].sum() - eps_v4),
+                                   0.0)
+            energies = energies + torch.stack([torch.sum(weighted * sums[1]),
+                                               torch.sum(weighted * sums[2])])
+    return energies
+
+
+# per (o, v, device): the cap it was planned for, then what
+# _quadruples_tables_on returns
+_quadruples_tables: dict = {}
+
+
+def _quadruples_tables_on(no: int, nv: int, device):
+    """quadruples_plan at QUADRUPLES_WORKSPACE_BYTES, cached per shape: the
+    host batches, the device slots and multisets, the workspace's doubles
+    (the largest batch's slots, with its carry where it is a piece of a
+    cut multiset), the energy blocks a multiset and the partials' doubles
+    (two an energy block of each multiset of every batch that ends its
+    multisets)."""
+    key = (no, nv, str(device))
+    entry = _quadruples_tables.get(key)
+    if entry is None or entry[0] != QUADRUPLES_WORKSPACE_BYTES:
+        batches, slots, multisets = quadruples_plan(no, nv, QUADRUPLES_WORKSPACE_BYTES)
+        workspace = most = 0
+        for slot_begin, slot_end, _, _, first, last, a0, a1 in batches.tolist():
+            elements, slot = quadruples_cut(no, nv, a0, a1)
+            carry = 0 if first and last else 3 * elements
+            workspace = max(workspace, carry + (slot_end - slot_begin) * slot)
+            most = max(most, elements)
+        # about an element a thread of 256-thread blocks, 1024 blocks at
+        # most; any count is right, the kernel strides over the elements
+        energy_blocks = min(1024, -(-most // 256))
+        ends = batches[:, 5] == 1
+        n_partials = 2 * energy_blocks * int(np.sum(batches[ends, 3] - batches[ends, 2]))
+        entry = _quadruples_tables[key] = (
+            QUADRUPLES_WORKSPACE_BYTES, np.ascontiguousarray(batches),
+            torch.as_tensor(slots, device=device), torch.as_tensor(multisets, device=device),
+            workspace, energy_blocks, n_partials)
+    return entry[1:]
+
+
+def ccsdt_q_energy(c, t2, t3, eps_o, eps_v):
+    """The (Q) energies, a tensor (E_MP5, E_MP6), from the correlated
+    window's chemists' tensor c = (pq|rs) (n = o + v a side), t2, the
+    projected t3 and the orbital energies: the K9 kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    device = t2.device
+    if device.type == "cpu":
+        return _ccsdt_q_energy_plain(c, t2, t3, eps_o, eps_v)
+    if device.type != "cuda":
+        raise ValueError(f"no (Q) energy for device {device}")
+    no, nv = t2.shape[0], t2.shape[2]
+    n = no + nv
+    for name, tensor, shape in (
+            ("c", c, (n, n, n, n)), ("t2", t2, (no, no, nv, nv)),
+            ("t3", t3, (no, no, no, nv, nv, nv)), ("eps_o", eps_o, (no,)),
+            ("eps_v", eps_v, (nv,))):
+        _kernels.check_tensor(name, tensor, shape, _F64, device)
+    if no == 0 or nv == 0:
+        return torch.zeros(2, dtype=_F64, device=device)
+    batches, slots, multisets, workspace_doubles, energy_blocks, n_partials = (
+        _quadruples_tables_on(no, nv, device))
+    # (ld|ce) as [l][c][e][d]: the kernel's T1 and T2 read it along d
+    cvt = c[:no, no:, no:, no:].permute(0, 2, 3, 1).contiguous()
+    workspace = torch.empty(workspace_doubles, dtype=_F64, device=device)
+    partial = torch.empty(n_partials, dtype=_F64, device=device)
+    _kernels.launch("ccsdt_q_energy", "tuna_ccsdt_q_energy", device, no, nv, len(batches),
+                    batches.ctypes.data, slots.data_ptr(), multisets.data_ptr(),
+                    c.data_ptr(), cvt.data_ptr(), t2.data_ptr(), t3.data_ptr(),
+                    eps_o.data_ptr(), eps_v.data_ptr(), energy_blocks,
+                    workspace.data_ptr(), workspace_doubles, partial.data_ptr(), n_partials)
+    return torch.sum(partial.view(-1, 2), dim=0)
+
+
+def restricted_CCSDT_Q(g, epsilons, t_ijab, t_ijkabc, o, v, calculation, silent):
+    """Perturbative quadruples, MP5 + MP6 form (ref: tuna_cc.py:2848-2939),
+    through ccsdt_q_energy: g is the physicists' <pq|rs> of every orbital
+    (spin orbitals on a UHF reference, where tuna_tpu applies the same
+    formula), o and v slice its correlated occupied and virtual orbitals."""
+    log_spacer(calculation, silent=silent, start="\n")
+    log("                   CCSDT(Q) Energy ", calculation, 1, silent=silent)
+    log_spacer(calculation, silent=silent)
+    log("  Forming quadruples amplitudes...           ", calculation, 1, end="", silent=silent)
+    window = slice(o.start or 0, None)
+    c = g[window, window, window, window].transpose(1, 2).contiguous()
+    E_MP5, E_MP6 = ccsdt_q_energy(c, t_ijab.contiguous(), t_ijkabc.contiguous(),
+                                  epsilons[o].contiguous(), epsilons[v].contiguous()).tolist()
+    log("[Done]", calculation, 1, silent=silent)
+    log("\n  Calculating MP5 contribution to energy...  ", calculation, 1, end="", silent=silent)
+    log("[Done]", calculation, 1, silent=silent)
+    log("  Calculating MP6 contribution to energy...  ", calculation, 1, end="", silent=silent)
+    E_Q = E_MP5 + E_MP6
+    log("[Done]", calculation, 1, silent=silent)
+
+    log(f"\n  Contribution from MP5:              {E_MP5:13.10f}", calculation, 2, silent=silent)
+    log(f"  Contribution from MP6:              {E_MP6:13.10f}", calculation, 2, silent=silent)
+    log(f"\n  CCSDT(Q) correlation energy:        {E_Q:13.10f}", calculation, 1, silent=silent)
+    return E_Q
 # ---------------------------------------------------------------------------
 
 def _linearised_density_mo(t_ia, t_ijab, n_orbitals, n_occ, o_start, o_stop, rhf):
@@ -1226,12 +1597,21 @@ def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X
     log("\n Preparing arrays for coupled cluster...     ", calculation, 1, end="", silent=silent)
     e_ia = transforms.singles_epsilons(epsilons, o, v)
     e_ijab = transforms.doubles_epsilons(epsilons, epsilons, o, o, v, v)
+    # (Q) reads the orbital energies, so only CCSDTQ's update forms e_ijklabcd
+    e_ijkabc = (transforms.triples_epsilons(epsilons, o, v)
+                if method.name in _ITERATIVE_TRIPLES else None)
+    e_ijklabcd = (transforms.quadruples_epsilons(epsilons, o, v)
+                  if method.name == "CCSDTQ" else None)
     t_ia = e_ia * F[o, v]
     t_ijab = g[o, o, v, v] * e_ijab
+    t_ijkabc = torch.zeros_like(e_ijkabc) if e_ijkabc is not None else None
+    t_ijklabcd = torch.zeros_like(e_ijklabcd) if e_ijklabcd is not None else None
     log("[Done]", calculation, 1, silent=silent)
 
-    E_CC, (t_ia, t_ijab), iteration_seconds = calculate_coupled_cluster_energy(
-        g, o, v, (t_ia, t_ijab), (e_ia, e_ijab), F, method, calculation, silent)
+    E_CC, (t_ia, t_ijab, t_ijkabc, t_ijklabcd), iteration_seconds = (
+        calculate_coupled_cluster_energy(
+            g, o, v, (t_ia, t_ijab, t_ijkabc, t_ijklabcd), (e_ia, e_ijab, e_ijkabc, e_ijklabcd),
+            F, method, calculation, silent, SCF_output, integrals))
     SCF_output.correlation_iteration_seconds = iteration_seconds
 
     T1_diagnostic(molecule, t_ia, spin_labels_sorted, n_occ, molecule.n_alpha,
@@ -1247,6 +1627,11 @@ def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X
         triples = (restricted_CCSD_T if calculation.reference == "RHF"
                    else unrestricted_CCSD_T)
         E_perturbative = triples(g, epsilons, t_ia, t_ijab, o, v, method, calculation, silent)
+    elif "[Q]" in method.name or "(Q)" in method.name:
+        # on a UHF reference too, as tuna_tpu does: the restricted formula on
+        # the spin-orbital integrals and amplitudes
+        E_perturbative = restricted_CCSDT_Q(g, epsilons, t_ijab, t_ijkabc, o, v, calculation,
+                                            silent)
 
     log_spacer(calculation, silent=silent)
     timer("Coupled cluster", 1)

@@ -186,6 +186,18 @@ def triples_epsilons(epsilons, o, v, level_shift=0.0):
                   - 3 * level_shift)
 
 
+def quadruples_epsilons(epsilons, o, v, level_shift=0.0):
+    """The o^4 v^4 denominators; only CCSDTQ's update takes them ((Q) reads
+    the orbital energies)."""
+    e_o, e_v = epsilons[o], epsilons[v]
+    n = None
+    return 1.0 / (e_o[:, n, n, n, n, n, n, n] + e_o[n, :, n, n, n, n, n, n]
+                  + e_o[n, n, :, n, n, n, n, n] + e_o[n, n, n, :, n, n, n, n]
+                  - e_v[n, n, n, n, :, n, n, n] - e_v[n, n, n, n, n, :, n, n]
+                  - e_v[n, n, n, n, n, n, :, n] - e_v[n, n, n, n, n, n, n, :]
+                  - 4 * level_shift)
+
+
 # --- calculation preamble ---------------------------------------------------
 
 def begin_spatial_orbital_calculation(molecule, ERI_AO, SCF_output, calculation,
