@@ -72,7 +72,22 @@ non-zero without printing a result):
      (Q) parts and total, its (Q) against K9's plain version on the path's
      own amplitudes and integrals, one K9 launch, with its profile; then
      CCSDTQ, UCCSDT, UCISDT and CCSDT(Q) on a UHF reference on LiH/STO-3G
-     against tuna_tpu's energies and iteration counts.
+     against tuna_tpu's energies and iteration counts;
+ 16. batched VV10 kernel: K6b against its plain version on the active
+     points of the 8 densities of `SCAN : N N 1.0 : B3LYP CC-PVTZ : NL NUM
+     8 STEP 0.05` (1.00-1.35 angstrom) converged at EXTREMESCF in one
+     batch, each on its own grid, 1e-12 relative an element, bitwise over
+     two calls; and on a ragged batch of an empty element, 300 points and
+     a whole one;
+ 17. batched scan: that line at TIGHTSCF, its 8 points through
+     parallel.scan_points_parallel on the card (one K6b launch for the
+     batch) against the port's serial SCAN through cli.run (1e-8 Ha a
+     point, see SCAN_TOLERANCE; the 1.10 angstrom point 1e-8 Ha from
+     E_REF_DFT), and at EXTREMESCF phase 16's batch against the serial
+     SCAN (1e-10 Ha); `SCAN : O O 1.21 : HF 6-311G : ML 3 NUM 4 STEP 0.05
+     TIGHTSCF` batched against serial (1e-8 Ha); and a `profile` line with
+     both DFT walls (SCAN_WARM_RUNS runs each, SCF iterations a point, one
+     run each under torch.profiler).
 
 Each path's launch counts are read from zero: the counts are reset just
 before the path runs and read just after, so launches made to compare a
@@ -82,7 +97,8 @@ larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its float64 operations, counted from the kernel's loop body
 at this run's inputs, or from what the function needs where the kernel
 does more (K1, K4 and K8b: see eri_operations; K2: triples_ms; K6:
-vv10_operations; K9: quadruples_ms; the phase lines print both counts),
+vv10_operations, K6b its sum over the batch; K9: quadruples_ms; the phase
+lines print both counts),
 over the H100 SXM data sheet's float64 rates: 67
 TFLOP/s for the matrix products that the tensor cores can take (K5's two
 products, K7b's P^T phi, the contractions of (T) and (Q)), 34 TFLOP/s for the
@@ -115,6 +131,7 @@ compared on one card in one call (run them in the order A B B A).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import re
@@ -127,8 +144,8 @@ import numpy as np
 import torch
 
 import tuna_tpu_torch
-from tuna_tpu_torch import _kernels, output
-from tuna_tpu_torch.cli import run
+from tuna_tpu_torch import _kernels, output, parallel
+from tuna_tpu_torch.cli import parse_input, process_method, run
 from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.constants import angstrom_to_bohr, bohr_to_angstrom
 from tuna_tpu_torch.dft import grid, vv10
@@ -249,6 +266,18 @@ TRIPLES_LINES = (   # line, E_total, (SCF, CC) iterations, kernels
     ("SPE : LI H 1.6 : CCSDT(Q) STO-3G : ML 3 TIGHTSCF", -7.766669285383415, (9, 8),
      ("eri_packed", "one_electron", "ccsdt_q_energy")),
 )
+LINE_SCAN = "SCAN : N N 1.0 : B3LYP CC-PVTZ : NL NUM 8 STEP 0.05 TIGHTSCF"
+LINE_SCAN_UHF = "SCAN : O O 1.21 : HF 6-311G : ML 3 NUM 4 STEP 0.05 TIGHTSCF"
+LINE_SCAN_EXTREME = LINE_SCAN.replace("TIGHTSCF", "EXTREMESCF")
+# Ha, a batched scan point against the serial SCAN's: at TIGHTSCF the two
+# stop at the 1e-9 Ha energy-change criterion from other guesses (the core
+# Hamiltonian; the STO-3G SCF chained by MOREAD), and differed by up to
+# 3.3e-9 Ha on an H100 at this line, so the BASELINE contract holds there,
+# and 1e-10 at EXTREMESCF, where they differed by at most 5.8e-12 Ha
+SCAN_TOLERANCE = 1e-8
+SCAN_EXTREME_TOLERANCE = 1e-10
+SCAN_UHF_TOLERANCE = 1e-8   # Ha, the UHF batch against its serial SCAN
+SCAN_WARM_RUNS = 3          # warm runs of the batched and of the serial scan, for the profile
 Q_TOLERANCE = 1e-10         # Ha, the (Q) path and the triples lines against tuna_tpu
 BOND_TOLERANCE = 1e-6       # angstrom
 FREQUENCY_TOLERANCE = 0.01  # per cm
@@ -286,6 +315,7 @@ KERNELS = {
     "eri_deriv_energy": ("tuna_tpu_torch/csrc/eri_deriv.cu", "tuna_tpu/drivers/gradients.py:248"),
     "density_deriv_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu",
                               "tuna_tpu/drivers/gradients.py:123"),
+    "vv10_energy_batch": ("tuna_tpu_torch/csrc/vv10.cu", "tuna_tpu/dft/vv10.py:63"),
 }
 CC_PATH_KERNELS = ("eri_packed", "one_electron", "ccsd_t_energy")
 DFT_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid",
@@ -301,6 +331,8 @@ UHF_PATH_KERNELS = ("eri_packed", "one_electron", "uccsd_t_energy")
 UHF_DIRECT_PATH_KERNELS = ("eri_packed", "one_electron", "fock_direct", "mo_half_transform",
                            "uccsd_t_energy")
 Q_PATH_KERNELS = ("eri_packed", "one_electron", "ccsdt_q_energy")
+BATCH_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid",
+                      "vv10_energy_batch")
 
 
 class SmokeFailure(RuntimeError):
@@ -807,14 +839,20 @@ QUARTET_KERNELS = {"eri_packed": r"PackedOut", "fock_direct": r"FockOut",
 
 
 def profiled_run(line: str) -> dict:
-    """One run of `line` under torch.profiler: device busy time as the union
-    of the kernel intervals, the idle share, kernel and cudaLaunchKernel
-    counts, the top kernels, each csrc/ kernel's launches and device time,
-    and for the quartet-engine wrappers the union of their class kernels'
-    intervals a call."""
+    """One run of `line` under torch.profiler (see profiled_call)."""
+    return profiled_call(lambda: run_counted(line, ())[1:])
+
+
+def profiled_call(counted) -> dict:
+    """One call of counted() (which returns its wall seconds and launches)
+    under torch.profiler: device busy time as the union of the kernel
+    intervals, the idle share, kernel and cudaLaunchKernel counts, the top
+    kernels, each csrc/ kernel's launches and device time, and for the
+    quartet-engine wrappers the union of their class kernels' intervals a
+    call."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        _, profiled_wall, profiled_launches = run_counted(line, ())
+        profiled_wall, profiled_launches = counted()
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
@@ -1778,6 +1816,187 @@ def check_quadruples_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 16 and 17: K6b, the batched scan
+# ---------------------------------------------------------------------------
+
+def scan_setup(line: str):
+    """(calculation, atomic symbols, bond lengths in bohr) of a SCAN line,
+    the bond lengths stepped as the serial walk steps them."""
+    calculation_type, method, basis, symbols, coordinates, params = parse_input(line)
+    calculation = Config(calculation_type, process_method(method), time.time(), params, basis,
+                         symbols, suppress_output=True)
+    bonds, bond = [], float(coordinates[1][2])
+    for _ in range(calculation.number_of_steps):
+        bonds.append(bond)
+        bond = bond + angstrom_to_bohr(calculation.step)
+    return calculation, symbols, bonds
+
+
+def check_vv10_batch(device, record: dict, registers: dict) -> np.ndarray:
+    """Phase 16: K6b against its plain version on the active points of the
+    scan's densities converged at EXTREMESCF, on their own grids (a batched
+    solve of the scan's points, not counted), and on a ragged batch of an
+    empty element, 300 points around the densest one (one tile) and one
+    element whole.  Returns that batch's total energies."""
+    calculation, symbols, bonds = scan_setup(LINE_SCAN_EXTREME)
+    energies, converged, P, meta = parallel.stencil_points_parallel(calculation, symbols, bonds,
+                                                                    [device])
+    require(converged.all() and np.all(np.isfinite(energies)),
+            f"{LINE_SCAN_EXTREME}: the batch of its points did not converge")
+    b, C, _ = vv10._parameters(calculation.functional)
+    active = []
+    for P_point, m in zip(P, meta):
+        bfs, w, grads, pts = m["grid"]
+        active.append(vv10._active_points(P_point, bfs, grads, w, pts))
+
+    def ragged(elements):
+        counts = [int(e[0].shape[0]) for e in elements]
+        inputs = [torch.cat(parts).contiguous() for parts in zip(*elements)]
+        terms = vv10._vv10_point_terms(*inputs[:3], b, C)
+        return (lambda: vv10.vv10_energy_batch(counts, *inputs, b, C),
+                lambda: vv10._vv10_pair_sums_plain(counts, inputs[3], *terms), counts)
+
+    kernel, plain, counts = ragged(active)
+    e_kernel, e_plain = kernel(), plain()
+    err = torch.abs(e_kernel - e_plain)
+    relative = float(torch.max(err / torch.abs(e_plain)))
+    require(bool(torch.all(torch.isfinite(e_kernel))) and relative <= VV10_TOLERANCE,
+            f"vv10_energy_batch off its plain version by {relative:.3e} relative")
+    require(torch.equal(kernel(), kernel()), "two vv10_energy_batch calls differ")
+    empty = tuple(x[:0] for x in active[0])
+    densest = max(int(torch.argmax(active[0][0])), 150)   # 300 points around it: one tile
+    small = tuple(x[densest - 150:densest + 150] for x in active[0])
+    kernel_r, plain_r, counts_r = ragged([empty, small, active[1]])
+    e_r, e_rp = kernel_r(), plain_r()
+    relative_r = float(torch.max(torch.abs(e_r - e_rp)[1:] / torch.abs(e_rp[1:])))
+    require(float(e_r[0]) == 0.0 and relative_r <= VV10_TOLERANCE
+            and torch.equal(kernel_r(), e_r),
+            f"vv10_energy_batch on counts {counts_r}: {e_r.tolist()} against {e_rp.tolist()}")
+    needed = sum(vv10_operations(m)[0] for m in counts)
+    batch_bound = bound(6 * 8 * sum(counts) + 8 * len(counts), needed / FP64_PER_MS)
+    plain_ms = median_ms(plain, repeats=1)
+    record["vv10_energy_batch"] = {
+        "max_abs_err": float(torch.max(err)), "ms": median_ms(kernel), "plain_ms": plain_ms,
+        "library_ms": None, **batch_bound}
+    kernel_registers = {k: v for k, v in registers.items() if k.startswith("vv10:")}
+    print(f"K6b: {LINE_SCAN_EXTREME}'s {len(counts)} converged densities, {counts} active "
+          f"points; energies {e_kernel.tolist()}, relative to the plain version "
+          f"{relative:.3e}, two calls bitwise equal ({record['vv10_energy_batch']['ms']:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms, one run; bound {batch_bound['bound_ms']:.5f} ms by "
+          f"{batch_bound['bound_by']}); ragged {counts_r}: {e_r.tolist()}, relative "
+          f"{relative_r:.3e}, bitwise; registers {kernel_registers}")
+    return energies
+
+
+@contextlib.contextmanager
+def scf_iterations():
+    """The SCF iteration counts a point of the runs inside the block:
+    "serial" from each run_self_consistent_field of the energy driver at
+    the largest basis seen (not the STO-3G guess SCFs), "batch" from each
+    lockstep batch of parallel.py."""
+    from tuna_tpu_torch.drivers import energy
+    counts = {"serial": [], "batch": []}
+    serial_scf, lockstep = energy.run_self_consistent_field, parallel.run_in_lockstep
+
+    def serial_counted(molecule, *args, **kwargs):
+        SCF_output = serial_scf(molecule, *args, **kwargs)
+        counts["serial"].append((molecule.n_basis, len(SCF_output.iteration_seconds)))
+        return SCF_output
+
+    def batch_counted(loops):
+        results = lockstep(loops)
+        counts["batch"].extend(int(n) for result in results for n in result[0])
+        return results
+
+    energy.run_self_consistent_field, parallel.run_in_lockstep = serial_counted, batch_counted
+    try:
+        yield counts
+    finally:
+        energy.run_self_consistent_field, parallel.run_in_lockstep = serial_scf, lockstep
+        largest = max((n for n, _ in counts["serial"]), default=0)
+        counts["serial"] = [its for n, its in counts["serial"] if n == largest]
+
+
+def batched_scan(line: str, device):
+    """parallel.scan_points_parallel over a SCAN line's points on one card,
+    the launch counts read from zero: (energies, converged, dipoles), wall
+    seconds, launches."""
+    calculation, symbols, bonds = scan_setup(line)
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    result = parallel.scan_points_parallel(calculation, symbols, bonds, devices=[device])
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - start, dict(_kernels.launches)
+
+
+def check_batched_scan(device, extreme_batch: np.ndarray) -> dict:
+    """Phase 17: the scan's 8 points through parallel.scan_points_parallel
+    (one K6b launch) and through the serial cli.run SCAN, point by point;
+    the 1.10 angstrom point against E_REF_DFT; the EXTREMESCF batch of
+    phase 16 against the serial SCAN at EXTREMESCF; a 4-point UHF batch
+    against its serial SCAN; a profile of both DFT walls (the counted run
+    and SCAN_WARM_RUNS - 1 more each, and one each under torch.profiler).
+    Returns the launches summed over the four counted runs."""
+    _, _, bonds = scan_setup(LINE_SCAN)
+    with scf_iterations() as iterations:
+        (energies, converged, dipoles), batch_wall, batch_launches = batched_scan(LINE_SCAN,
+                                                                                  device)
+        (serial_bonds, serial_energies, _), serial_wall, serial_launches = run_counted(
+            LINE_SCAN, DFT_PATH_KERNELS)
+    for name in BATCH_PATH_KERNELS:
+        require(batch_launches[name] > 0, f"kernel {name} was not launched by the batched scan")
+    require(batch_launches["vv10_energy_batch"] == 1,
+            f"{batch_launches['vv10_energy_batch']} K6b launches for one batch")
+    require(converged.all() and energies.shape == (8,) and np.all(np.isfinite(energies))
+            and np.all(np.isfinite(dipoles)), f"{LINE_SCAN}: batch {energies}, {converged}")
+    require(np.allclose(serial_bonds, bonds, rtol=0, atol=1e-12),
+            f"{LINE_SCAN}: the serial walk took other bond lengths")
+    deltas = np.asarray(energies) - np.asarray(serial_energies)
+    require(np.max(np.abs(deltas)) <= SCAN_TOLERANCE,
+            f"{LINE_SCAN}: batch minus serial {deltas.tolist()} Ha")
+    at_ref = int(np.argmin(np.abs(np.array(bonds) - angstrom_to_bohr(1.1))))
+    delta_ref = energies[at_ref] - E_REF_DFT
+    require(abs(delta_ref) <= E_TOLERANCE,
+            f"{LINE_SCAN}: {delta_ref:.3e} Ha from the reference at 1.10 angstrom")
+    extreme_serial = run(LINE_SCAN_EXTREME, suppress_output=True, device="cuda")[1]
+    extreme_deltas = extreme_batch - np.asarray(extreme_serial)
+    require(np.max(np.abs(extreme_deltas)) <= SCAN_EXTREME_TOLERANCE,
+            f"{LINE_SCAN_EXTREME}: batch minus serial {extreme_deltas.tolist()} Ha")
+
+    (u_energies, u_converged, _), u_wall, u_launches = batched_scan(LINE_SCAN_UHF, device)
+    (_, u_serial, _), u_serial_wall, u_serial_launches = run_counted(
+        LINE_SCAN_UHF, ("eri_packed", "one_electron"))
+    u_deltas = np.asarray(u_energies) - np.asarray(u_serial)
+    require(u_converged.all() and np.max(np.abs(u_deltas)) <= SCAN_UHF_TOLERANCE,
+            f"{LINE_SCAN_UHF}: batch minus serial {u_deltas.tolist()} Ha")
+    print(f"end to end: {LINE_SCAN}; batch energies {energies.tolist()}, minus the serial "
+          f"SCAN's {deltas.tolist()} Ha (at EXTREMESCF {extreme_deltas.tolist()} Ha); 1.10 "
+          f"angstrom point {delta_ref:.3e} Ha from the reference; SCF iterations batch "
+          f"{iterations['batch']}, serial {iterations['serial']}; wall batch "
+          f"{batch_wall:.3f} s, serial {serial_wall:.3f} s; launches batch {batch_launches}, "
+          f"serial {serial_launches}. {LINE_SCAN_UHF}: batch minus serial "
+          f"{u_deltas.tolist()} Ha; wall batch {u_wall:.3f} s, serial {u_serial_wall:.3f} s")
+
+    def batch_counted():
+        return batched_scan(LINE_SCAN, device)[1:]
+
+    def serial_counted():
+        return run_counted(LINE_SCAN, ())[1:]
+
+    def walls(first: float, counted) -> dict:
+        runs = [first] + [counted()[0] for _ in range(SCAN_WARM_RUNS - 1)]
+        return {"median": statistics.median(runs), "min": min(runs), "max": max(runs)}
+
+    print("profile: " + json.dumps({
+        "line": LINE_SCAN, "points": len(bonds), "warm_runs": SCAN_WARM_RUNS,
+        "batch": {"warm_wall_s": walls(batch_wall, batch_counted),
+                  "scf_iterations": iterations["batch"], **profiled_call(batch_counted)},
+        "serial": {"warm_wall_s": walls(serial_wall, serial_counted),
+                   "scf_iterations": iterations["serial"], **profiled_call(serial_counted)}}))
+    runs = (batch_launches, serial_launches, u_launches, u_serial_launches)
+    return {name: sum(r[name] for r in runs) for name in KERNELS}
+
+# ---------------------------------------------------------------------------
 # --compare: the coupled-cluster path's warm walls from another checkout
 # ---------------------------------------------------------------------------
 
@@ -1986,6 +2205,13 @@ def main() -> int:
 
     # --- 15. the (Q) path and the iterative triples lines -----------------------
     launches = check_quadruples_path()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 16. K6b against its plain version at the scan's densities -------------
+    extreme_batch = check_vv10_batch(device, record, registers)
+
+    # --- 17. the batched scan against the serial SCAN ---------------------------
+    launches = check_batched_scan(device, extreme_batch)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

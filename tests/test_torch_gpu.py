@@ -9,7 +9,8 @@ neither jax nor tuna_tpu, so it runs on a machine without JAX:
 (tests/conftest.py configures JAX).  Tolerances: 1e-12 absolute for the
 integrals, the AO values and the density on the grid, and 1e-12 relative
 for the (T) and VV10 energies -- the same float64 math, the kernels
-unscaled and summed in another order; 1e-12 of the largest |entry| for the
+unscaled and summed in another order (K6b: each element of the batch);
+1e-12 of the largest |entry| for the
 direct Fock build's J and K, whose atomics sum in no fixed order, for
 the packed MO half-transform, and for the density's tangent on the moving
 grid (its gradient reaches 10^4 at the nuclei).
@@ -21,7 +22,7 @@ import torch
 
 from tuna_tpu_torch import _kernels
 from tuna_tpu_torch.config import Config
-from tuna_tpu_torch.constants import angstrom_to_bohr
+from tuna_tpu_torch.constants import angstrom_to_bohr, bohr_to_angstrom
 from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
 from tuna_tpu_torch.ops import integrals, motransform
@@ -305,6 +306,62 @@ def test_vv10_kernel_tiles_and_repeats(cuda, M):
         active[3], *vv10._vv10_point_terms(*active[:3], 4.8, 0.0093)))
     assert torch.equal(first, again)
     assert np.isfinite(expected) and abs(float(first) - expected) <= 1e-12 * abs(expected)
+
+
+def _vv10_batch_inputs(counts, device, seed=5):
+    rng = np.random.default_rng(seed)
+    M = sum(counts)
+    density = 10.0 ** rng.uniform(-6, 1, M)
+    return [torch.as_tensor(x, device=device) for x in (
+        density, rng.uniform(0.0, 0.05, M), density ** (8 / 3) * rng.uniform(0.0, 4.0, M),
+        rng.uniform(-4.0, 4.0, (M, 3)))]
+
+
+@pytest.mark.parametrize("counts", [[0, 1, 512, 513, 2000], [300], [0, 0], [4097, 0, 129]])
+def test_vv10_batch_kernel_matches_plain(cuda, counts):
+    """K6b over a ragged batch (empty elements, one point, one full tile,
+    one tile and one point, several tiles): each element within 1e-12
+    relative of the plain version, 0 for an empty one, two calls bitwise
+    equal, one launch a call."""
+    active = _vv10_batch_inputs(counts, cuda)
+    _kernels.reset_launch_counts()
+    first = vv10.vv10_energy_batch(counts, *active, 4.8, 0.0093)
+    again = vv10.vv10_energy_batch(counts, *active, 4.8, 0.0093)
+    assert _kernels.launches["vv10_energy_batch"] == 2
+    assert torch.equal(first, again)
+    expected = vv10.vv10_energy_batch(counts, *(x.cpu() for x in active), 4.8, 0.0093)
+    for got, want, m in zip(first.cpu().tolist(), expected.tolist(), counts):
+        if m == 0:
+            assert got == 0.0
+        else:
+            assert np.isfinite(want) and abs(got - want) <= 1e-12 * abs(want)
+
+
+def test_vv10_batch_kernel_checks_its_inputs(cuda):
+    active = _vv10_batch_inputs([10, 20], cuda)
+    with pytest.raises(ValueError, match="counts"):
+        vv10.vv10_energy_batch([10, 19], *active, 4.8, 0.0093)
+    with pytest.raises(ValueError, match="dtype"):
+        vv10.vv10_energy_batch([10, 20], *active[:3], active[3].float(), 4.8, 0.0093)
+
+
+def test_batched_scan_runs_through_k6b(cuda):
+    """parallel.scan_points_parallel on one card: one K6b launch for the
+    batch, energies within 1e-9 Ha of the serial single points."""
+    from tuna_tpu_torch import parallel
+    from tuna_tpu_torch.cli import run
+
+    calculation = Config("SCAN", lookup_method("B3LYP"), 0.0, ["NL", "TIGHTSCF"], "6-31G",
+                         ["H", "F"], suppress_output=True)
+    bonds = [angstrom_to_bohr(r) for r in (0.85, 0.92, 1.0)]
+    _kernels.reset_launch_counts()
+    energies, converged, dipoles = parallel.scan_points_parallel(
+        calculation, ["H", "F"], bonds, devices=[cuda])
+    assert _kernels.launches["vv10_energy_batch"] == 1
+    assert converged.all() and np.all(np.isfinite(dipoles))
+    for R, E in zip(bonds, energies):
+        line = f"SPE : H F {bohr_to_angstrom(R):.12f} : B3LYP 6-31G : NL TIGHTSCF"
+        assert abs(E - run(line, suppress_output=True, device="cuda")[2]) <= 1e-9
 
 
 def test_wrong_dtype_on_the_card_raises(cuda):

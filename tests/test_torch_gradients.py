@@ -295,7 +295,7 @@ def test_md_writes_tuna_tpus_trajectory(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("line", [
     "ANHARM : C O 1.13 : HF STO-3G",
-    "SCAN : C O 1.13 : HF STO-3G : STEP 0.1 NUM 2",
+    "SCAN : C O 1.13 : HF STO-3G : STEP 0.1 NUM 2 DIPOLE",
     "IP : C O 1.13 : HF STO-3G",
     "BDE : C O 1.13 : HF STO-3G",
     "FREQ : C O 1.13 : HF STO-3G : DIPOLE",

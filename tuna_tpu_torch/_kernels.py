@@ -62,6 +62,9 @@ SIGNATURES = {
     # n_points, n_tiles, points, omega, kappa, weighted density, beta,
     # partial
     "tuna_vv10_energy": [_I, _I] + [_P] * 4 + [_D, _P] + [_P],
+    # n_batch, n_pairs, point_offsets, pair_offsets, points, omega, kappa,
+    # weighted density, beta, partial, energies
+    "tuna_vv10_energy_batch": [_I, _I] + [_P] * 6 + [_D, _P, _P] + [_P],
     # lmax, n_pairs, n_prim_pairs, n_basis, coords, a, b, coef, l1, l2,
     # atom1, atom2, pair_start, pid_i, pid_j, quartets, n_classes, classes
     # (host), boys tables, P, rows (scratch), J_pair (scratch), J, K
@@ -87,6 +90,7 @@ SIGNATURES = {
 launches = {"eri_packed": 0, "one_electron": 0, "ccsd_t_energy": 0, "uccsd_t_energy": 0,
             "ccsdt_q_energy": 0,
             "ao_on_grid": 0, "density_on_grid": 0, "vv10_energy": 0,
+            "vv10_energy_batch": 0,
             "fock_direct": 0, "mo_half_transform": 0, "one_electron_deriv": 0,
             "eri_deriv_energy": 0, "density_deriv_on_grid": 0}
 

@@ -4,9 +4,9 @@ Twin of tuna_tpu/cli.py with the same grammar and printed output:
 
     TUNA CALC : A [B R] : METHOD BASIS [: KEYWORDS...]
 
-Single points (SPE), geometry optimisation (OPT, FORCE), harmonic
-frequencies (FREQ, OPTFREQ) and molecular dynamics (MD) are ported; the
-other calculation types raise.  The command line runs on the GPU and
+Single points (SPE), coordinate scans (SCAN), geometry optimisation (OPT,
+FORCE), harmonic frequencies (FREQ, OPTFREQ) and molecular dynamics (MD)
+are ported; the other calculation types raise.  The command line runs on the GPU and
 refuses to run without one.
 """
 
@@ -117,7 +117,7 @@ def run_calculation(calculation_type, calculation, atomic_symbols, coordinates,
     if calculation_type in ("SCAN", "OPT", "OPTFREQ", "FORCE", "FREQ", "ANHARM",
                             "MD", "BDE") and calculation.monatomic:
         error(f"{CALCULATION_TYPES.get(calculation_type)} requested for a single atom!")
-    if calculation_type not in ("SPE", "OPT", "FORCE", "FREQ", "OPTFREQ", "MD"):
+    if calculation_type not in ("SPE", "SCAN", "OPT", "FORCE", "FREQ", "OPTFREQ", "MD"):
         error(f"{CALCULATION_TYPES.get(calculation_type)} calculations are not yet "
               "ported to tuna_tpu_torch!")
 
@@ -126,6 +126,13 @@ def run_calculation(calculation_type, calculation, atomic_symbols, coordinates,
         result = energ.evaluate_molecular_energy(calculation, atomic_symbols, coordinates,
                                                  device=device)
         timer("Energy evaluation", 1)
+
+    elif calculation_type == "SCAN":
+        if calculation.step is None:
+            error('Coordinate scan requested but no step size given by keyword "STEP"!')
+        if calculation.number_of_steps is None:
+            error('Coordinate scan requested but no number of steps given by keyword "NUM"!')
+        result = energ.scan_coordinate(calculation, atomic_symbols, coordinates, device=device)
 
     elif calculation_type in ("OPT", "FORCE"):
         from .drivers import opt

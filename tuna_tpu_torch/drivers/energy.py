@@ -1,9 +1,10 @@
 """Single-point energy pipeline: molecule + integrals + guess (+ DFT grid)
--> SCF -> VV10 -> post-SCF correlation.
+-> SCF -> VV10 -> post-SCF correlation, and the coordinate scan.
 
-Twin of the single-point path of tuna_tpu/drivers/energy.py.  Every tensor
-lives on the `device` the caller names; the minimal-basis guess SCF runs on
-the same device, with its own grid when the calculation is DFT or VV10.
+Twin of the single-point path and the scan of tuna_tpu/drivers/energy.py.
+Every tensor lives on the `device` the caller names; the minimal-basis
+guess SCF runs on the same device, with its own grid when the calculation
+is DFT or VV10.
 """
 
 from __future__ import annotations
@@ -11,10 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..dft import make_xc_closure, unported_functional
+from .. import constants, parallel
+from ..containers import to_numpy
 from ..dft import grid as dft_grid
+from ..dft import make_xc_closure, unported_functional
 from ..dft import vv10
-from ..output import error, log, timer
+from ..output import error, log, log_big_spacer, log_spacer, timer
 from ..scf import clean_density_matrix, run_self_consistent_field
 from ..scf import guess as guess_mod
 from ..system import Molecule
@@ -223,3 +226,98 @@ def evaluate_molecular_energy(calculation, atomic_symbols, coordinates,
     return calculate_energy(calculation, atomic_symbols, coordinates, P_guess,
                             P_guess_alpha, P_guess_beta, E_guess, terse, silent,
                             do_correlation, integrals, device)
+
+
+def _print_scan_table(calculation, silent, energies, bond_lengths):
+    log_big_spacer(calculation, start="\n", space="", silent=silent)
+    log("\nCoordinate scan calculation finished!\n\n Printing energy as a "
+        "function of bond length...\n", calculation, 1, silent=silent)
+    log_spacer(calculation, silent=silent)
+    log("                   Coordinate Scan", calculation, 1, silent=silent)
+    log_spacer(calculation, silent=silent)
+    log("  Step         Bond Length               Energy", calculation, 1, silent=silent)
+    log_spacer(calculation, silent=silent)
+    for i, (energy, bond) in enumerate(zip(energies, bond_lengths)):
+        log(f" {i + 1:4.0f}            {constants.bohr_to_angstrom(bond):.5f}"
+            f"             {energy:13.10f}", calculation, 1, silent=silent)
+    log_spacer(calculation, silent=silent)
+
+
+def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
+                    silent=False, device="cuda"):
+    """Bond-length scan with MOREAD density chaining (tuna_energy.py:975-1085).
+    Returns (bond lengths, energies, analytic dipole moments).  tuna_tpu's
+    `reverse` walk serves ANHARM, which is not ported yet."""
+    from .. import props as props_mod
+
+    if calculation.dipole:
+        error("Numerical dipole moments in a coordinate scan are not yet ported to "
+              "tuna_tpu_torch!")
+    if calculation.scan_plot:
+        error("Plotting a coordinate scan is not yet ported to tuna_tpu_torch!")
+    timer("Coordinate scan", 0)
+    coordinates = common.clean_coordinates(starting_coordinates)
+    step_size = constants.angstrom_to_bohr(calculation.step)
+
+    bond_length = float(np.linalg.norm(coordinates[1] - coordinates[0]))
+    log(f"Initialising a {calculation.number_of_steps} step coordinate scan in "
+        f"{step_size:.4f} angstrom increments.", calculation, 1, silent=silent)
+    log(f"Starting at a bond length of "
+        f"{constants.bohr_to_angstrom(bond_length):.4f} angstroms.\n",
+        calculation, 1, silent=silent)
+
+    bond_lengths, energies, dipole_moments = [], [], []
+    P_guess = P_guess_alpha = P_guess_beta = E_guess = None
+
+    # More than one device: the scan points are independent, so the whole
+    # scan runs as one batched SCF (parallel.py) instead of the serial
+    # MOREAD-chained walk, which stays the fallback for an unconverged batch.
+    if (parallel.device_count() > 1
+            and parallel.mean_field_batchable(calculation, atomic_symbols)):
+        bonds, bond = [], bond_length
+        for _ in range(calculation.number_of_steps):
+            bonds.append(bond)
+            bond = bond + step_size
+        devices = parallel.devices_like(device)
+        log(f"Distributing {len(bonds)} scan points over "
+            f"{len(devices)} devices...", calculation, 1, silent=silent)
+        batch_E, batch_conv, batch_dip = parallel.scan_points_parallel(
+            calculation, atomic_symbols, bonds, devices)
+        if batch_conv.all():
+            bond_lengths = [float(bv) for bv in bonds]
+            energies = [float(E) for E in batch_E]
+            dipole_moments = [float(d) for d in batch_dip]
+            _print_scan_table(calculation, silent, energies, bond_lengths)
+            timer("Coordinate scan", 1)
+            return bond_lengths, energies, dipole_moments
+        log("Sharded scan did not fully converge; falling back to the serial "
+            "density-chained walk.", calculation, 1, silent=silent)
+
+    for step in range(1, calculation.number_of_steps + 1):
+        bond_length = float(np.linalg.norm(coordinates[1] - coordinates[0]))
+        log_big_spacer(calculation, start="\n", space="", silent=silent)
+        log(f"Starting scan step {step} of {calculation.number_of_steps} with "
+            f"bond length of {constants.bohr_to_angstrom(bond_length):.5f} "
+            "angstroms...", calculation, 1, silent=silent)
+        log_big_spacer(calculation, space="", silent=silent)
+
+        SCF_output, molecule, energy, _ = evaluate_molecular_energy(
+            calculation, atomic_symbols, coordinates, P_guess, P_guess_alpha,
+            P_guess_beta, E_guess, terse=True, silent=silent, device=device)
+
+        dipole_moment, _, _ = props_mod.calculate_analytical_dipole_moment(
+            molecule.centre_of_mass, molecule.charges, coordinates,
+            to_numpy(SCF_output.P), to_numpy(SCF_output.integrals.D))
+        dipole_moments.append(dipole_moment)
+
+        if calculation.MO_read:
+            P_guess, E_guess = SCF_output.P, energy
+            P_guess_alpha, P_guess_beta = SCF_output.P_alpha, SCF_output.P_beta
+
+        energies.append(energy)
+        bond_lengths.append(bond_length)
+        coordinates = np.array([coordinates[0], [0, 0, bond_length + step_size]])
+
+    _print_scan_table(calculation, silent, energies, bond_lengths)
+    timer("Coordinate scan", 1)
+    return bond_lengths, energies, dipole_moments

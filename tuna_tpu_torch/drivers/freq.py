@@ -1,11 +1,12 @@
 """Vibrational frequencies: harmonic (with IR intensity and thermochemistry)
 and VPT1/VPT2 perturbative anharmonicity.
 
-Twin of the single-device path of tuna_tpu/drivers/freq.py.  The dipole
-derivative is the seminumerical one; the fully numerical route (DIPOLE)
-needs the finite-field electric properties, which the energy driver
-refuses, and the scanned-PES anharmonic frequency (ANHARM) needs the
-coordinate scan: neither is ported yet.  Every tensor lives on `device`.
+Twin of tuna_tpu/drivers/freq.py; its stencils batch through
+opt._batched_displaced_energies when more than one device is visible.  The
+dipole derivative is the seminumerical one; the fully numerical route
+(DIPOLE) needs the finite-field electric properties, which the energy
+driver refuses, and the scanned-PES anharmonic frequency (ANHARM) is not
+ported yet.  Every tensor lives on `device`.
 """
 
 from __future__ import annotations
@@ -166,12 +167,23 @@ def vibrational_perturbation_theory(frequency_hartree, energy, calculation,
                          "must be computed on the five-point path")
 
     extra = {}
-    for label, mult in (("1 of 4", -4), ("2 of 4", -3), ("3 of 4", 3), ("4 of 4", 4)):
-        log(f"  Calculating displaced energy {label}...     ", calculation, end="")
-        _, _, E, _ = energ.evaluate_molecular_energy(
-            calculation, atomic_symbols, coordinates + mult * prod, silent=True, device=device)
-        extra[mult] = E
+    multiples = (-4, -3, 3, 4)
+    batched = opt._batched_displaced_energies(
+        coordinates, calculation, atomic_symbols, [m * h for m in multiples],
+        silent=True, energies_only=True, device=device)
+    if batched is not None:
+        log("  Calculating 4 displaced energies in one sharded batch...     ",
+            calculation, end="")
+        extra = dict(zip(multiples, batched[0]))
         log("[Done]", calculation)
+    else:
+        for label, mult in (("1 of 4", -4), ("2 of 4", -3), ("3 of 4", 3), ("4 of 4", 4)):
+            log(f"  Calculating displaced energy {label}...     ", calculation, end="")
+            _, _, E, _ = energ.evaluate_molecular_energy(
+                calculation, atomic_symbols, coordinates + mult * prod, silent=True,
+                device=device)
+            extra[mult] = E
+            log("[Done]", calculation)
 
     d3E = third_derivative(extra[-4], extra[-3], E_fb, E_b, E_f, E_ff, extra[3], extra[4], h)
     d4E = fourth_derivative(extra[-4], extra[-3], E_fb, E_b, energy, E_f, E_ff,

@@ -1,19 +1,21 @@
 """Geometry optimisation: Newton steps with approximate (gradient-update) or
 exact Hessian, trust radius, convexity guard and MOREAD warm starts.
 
-Twin of the single-device path of tuna_tpu/drivers/opt.py: the
-multi-device stencil batch (_batched_displaced_energies) is not ported, so
-every displaced energy is solved in turn, as tuna_tpu does on one device.
-The gradient is analytic (drivers/gradients.py) for restricted HF and KS,
-a central finite difference of full energy evaluations otherwise.  Every
-tensor lives on `device`.
+Twin of tuna_tpu/drivers/opt.py.  The gradient is analytic
+(drivers/gradients.py) for restricted HF and KS, a central finite
+difference of full energy evaluations otherwise.  With more than one
+device visible, a mean-field stencil's displaced geometries are solved in
+one batched SCF (_batched_displaced_energies, parallel.py); otherwise, and
+for correlated methods, in turn.  Every tensor lives on `device`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .. import constants, props
+from types import SimpleNamespace
+
+from .. import constants, parallel, props
 from ..containers import to_numpy
 from ..output import error, log, log_big_spacer, log_spacer, timer, warning
 from ..stencils import first_derivative, second_derivative
@@ -38,6 +40,14 @@ def calculate_gradient(coordinates, calculation, atomic_symbols, silent=False,
     h = constants.FIRST_GEOM_DERIVATIVE_STEP
     prod = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, h]])
 
+    # More than one device: both displacements of the central difference in
+    # one batch
+    batched = _batched_displaced_energies(coordinates, calculation, atomic_symbols, [-h, h],
+                                          silent=silent, energies_only=True, device=device)
+    if batched is not None:
+        (E_backward, E_forward), _, _ = batched
+        return first_derivative(E_backward, E_forward, h)
+
     log(" Calculating energy on displaced geometry 1 of 2...   ", calculation, 1,
         end="", silent=silent)
     _, _, E_forward, _ = energ.evaluate_molecular_energy(
@@ -49,6 +59,38 @@ def calculate_gradient(coordinates, calculation, atomic_symbols, silent=False,
         calculation, atomic_symbols, coordinates - prod, silent=True, device=device)
     log("[Done]", calculation, 1, silent=silent)
     return first_derivative(E_backward, E_forward, h)
+
+
+def _batched_displaced_energies(coordinates, calculation, atomic_symbols, displacements,
+                                silent=False, energies_only=False, device="cuda"):
+    """The displaced bond lengths of a finite-difference stencil in one
+    batched SCF when more than one device is visible and the method is
+    mean-field (tuna_tpu/drivers/opt.py:60).  Returns (energies, total
+    densities, integrals containers) in displacement order, or None when
+    the stencil must walk serially.  With energies_only tuna_tpu also
+    batches restricted MP2 and CC energies; the port does not yet, so those
+    walk serially."""
+    coords = np.asarray(coordinates, dtype=float)
+    clean_diatomic = (coords.shape == (2, 3) and np.allclose(coords[0], 0.0)
+                      and np.allclose(coords[1][:2], 0.0) and coords[1][2] > 0)
+    has_ghost = any(str(s).upper().startswith("X") for s in atomic_symbols)
+    if (parallel.device_count() <= 1 or not clean_diatomic or has_ghost
+            or not parallel.mean_field_batchable(calculation, atomic_symbols)):
+        return None
+
+    bonds = [coords[1][2] + d for d in displacements]
+    if min(bonds) <= 0.01:
+        return None
+    devices = parallel.devices_like(device)
+    log(f" Distributing {len(bonds)} displaced geometries over "
+        f"{len(devices)} devices...", calculation, 1, silent=silent)
+    energies, converged, P, meta = parallel.stencil_points_parallel(
+        calculation, atomic_symbols, bonds, devices)
+    if not converged.all():
+        log(" Sharded stencil did not fully converge; falling back to the "
+            "serial walk.", calculation, 1, silent=silent)
+        return None
+    return [float(E) for E in energies], P, [m["integrals"] for m in meta]
 
 
 def calculate_hessian(coordinates, calculation, atomic_symbols, energy, silent=False,
@@ -82,6 +124,18 @@ def calculate_hessian(coordinates, calculation, atomic_symbols, energy, silent=F
         hessian = (g_f - g_b) / (2 * h)
         return (hessian, SCF_forward, P_forward, SCF_backward, P_backward,
                 (None, E_b, E_f, None))
+
+    # More than one device: the four displaced geometries of the five-point
+    # stencil in one batch
+    batched = _batched_displaced_energies(coordinates, calculation, atomic_symbols,
+                                          [-2 * h, -h, h, 2 * h], silent=silent, device=device)
+    if batched is not None:
+        (E_bb, E_b, E_f, E_ff), P_batch, integrals_batch = batched
+        SCF_backward = SimpleNamespace(integrals=integrals_batch[1])
+        SCF_forward = SimpleNamespace(integrals=integrals_batch[2])
+        hessian = second_derivative(E_bb, E_b, energy, E_f, E_ff, h)
+        return (hessian, SCF_forward, P_batch[2], SCF_backward, P_batch[1],
+                (E_bb, E_b, E_f, E_ff))
 
     log("\n Calculating energy on displaced geometry 1 of 4...   ",
         calculation, 1, end="", silent=silent)

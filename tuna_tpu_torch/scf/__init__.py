@@ -27,11 +27,12 @@ from ..output import error, log, log_big_spacer, timer
 
 
 # ---------------------------------------------------------------------------
-# Small pure helpers (shared with guess / post-SCF modules)
+# Small pure helpers (shared with guess / post-SCF modules).  The helpers
+# of the iteration take a leading batch axis too (the batched loop below).
 # ---------------------------------------------------------------------------
 
 def symmetrise(M):
-    return 0.5 * (M + M.T)
+    return 0.5 * (M + M.mT)
 
 
 def coulomb_matrix(P, ERI):
@@ -43,13 +44,13 @@ def exchange_matrix(P, ERI):
 
 
 def density_matrix(mos, n_occ: int, n_per_orbital: int):
-    occ = mos[:, :n_occ]
-    return symmetrise(n_per_orbital * occ @ occ.T)
+    occ = mos[..., :n_occ]
+    return symmetrise(n_per_orbital * occ @ occ.mT)
 
 
 def diagonalise_fock(F, X):
     """Orthogonalise, diagonalise, back-transform."""
-    F_ortho = symmetrise(X.T @ F @ X)
+    F_ortho = symmetrise(X.mT @ F @ X)
     eps, vecs = torch.linalg.eigh(F_ortho)
     return eps, X @ vecs
 
@@ -80,16 +81,34 @@ class SCFSettings:
     n_atoms: int
 
 
+def scf_settings(calculation, molecule) -> SCFSettings:
+    """The SCF settings of a calculation on a processed molecule."""
+    return SCFSettings(
+        reference=calculation.reference,
+        n_basis=int(molecule.n_basis),
+        n_alpha=molecule.n_alpha,
+        n_beta=molecule.n_beta,
+        max_iter=calculation.max_iter,
+        use_diis=bool(calculation.DIIS),
+        max_diis=int(calculation.max_DIIS_matrices),
+        use_damping=bool(calculation.damping),
+        dynamic_damping=calculation.damping_factor is None,
+        partition_0=int(molecule.partition_ranges[0]),
+        n_atoms=molecule.n_atoms,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Iteration pieces
 # ---------------------------------------------------------------------------
 
 def _mulliken_populations(P, S, settings: SCFSettings):
-    diag = torch.diagonal(P @ S)
+    diag = torch.diagonal(P @ S, dim1=-2, dim2=-1)
     if settings.n_atoms == 1:
-        return torch.stack([torch.sum(diag), torch.zeros_like(diag[0])])
+        return torch.stack([torch.sum(diag, dim=-1), torch.zeros_like(diag[..., 0])], dim=-1)
     k = settings.partition_0
-    return torch.stack([torch.sum(diag[:k]), torch.sum(diag[k:])])
+    return torch.stack([torch.sum(diag[..., :k], dim=-1), torch.sum(diag[..., k:], dim=-1)],
+                       dim=-1)
 
 
 def _dynamic_damping_factor(P_new, P_old_damped, P_old_raw, P_very_old_damped,
@@ -104,21 +123,22 @@ def _dynamic_damping_factor(P_new, P_old_damped, P_old_raw, P_very_old_damped,
     safe = torch.abs(denominator) > 1e-300
     alpha = torch.where(safe, (A_n_out - A_n1_out)
                         / torch.where(safe, denominator, torch.ones_like(denominator)), 0.0)
-    alpha = torch.where(torch.all(safe), alpha, torch.zeros_like(alpha))
+    alpha = torch.where(torch.all(safe, dim=-1, keepdim=True), alpha, torch.zeros_like(alpha))
 
     if settings.n_atoms == 2:
         n0 = settings.partition_0
         n1 = settings.n_basis - n0
-        factor = (alpha[0] * n0 + alpha[1] * n1) / (n0 + n1)
+        factor = (alpha[..., 0] * n0 + alpha[..., 1] * n1) / (n0 + n1)
     else:
-        factor = alpha[0]
+        factor = alpha[..., 0]
     factor = torch.clamp(factor, min=0.0)
     return torch.clamp(factor, max=max_damping)
 
 
 def _apply_damping(P_new, P_old_damped, P_old_raw, P_very_old_damped, commutator,
                    S, settings: SCFSettings, static_factor, max_damping, step):
-    zero = torch.zeros((), dtype=P_new.dtype, device=P_new.device)
+    """(damped density, factor); with a batch axis, a factor a geometry."""
+    zero = torch.zeros(P_new.shape[:-2], dtype=P_new.dtype, device=P_new.device)
     if not settings.use_damping:
         return P_new, zero
     if not settings.dynamic_damping:
@@ -127,12 +147,13 @@ def _apply_damping(P_new, P_old_damped, P_old_raw, P_very_old_damped, commutator
         dynamic = _dynamic_damping_factor(P_new, P_old_damped, P_old_raw,
                                           P_very_old_damped, S, settings, max_damping)
         factor = torch.where((commutator > 0.01) & (step > 1), dynamic, zero)
-    return factor * P_old_damped + (1.0 - factor) * P_new, factor
+    f = factor[..., None, None]
+    return f * P_old_damped + (1.0 - f) * P_new, factor
 
 
 def _diis_error(F, P, S, X):
-    err = X.T @ (F @ P @ S - S @ P @ F) @ X
-    commutator = torch.sqrt(torch.mean(err * err))
+    err = X.mT @ (F @ P @ S - S @ P @ F) @ X
+    commutator = torch.sqrt(torch.mean(err * err, dim=(-2, -1)))
     return commutator, err
 
 
@@ -140,9 +161,15 @@ def _diis_extrapolate(focks, errors):
     """Solve the bordered DIIS equations over the stored (Fock, error)
     pairs; returns (ok, extrapolated Fock).  A UHF entry holds both spins'
     Fock matrices, stacked, and their errors, concatenated."""
-    n = len(errors)
     errs = torch.stack([e.reshape(-1) for e in errors])
-    B = errs @ errs.T
+    ok, coeffs = _diis_coefficients(errs @ errs.T)
+    return ok, torch.einsum("m,m...->...", coeffs, torch.stack(focks))
+
+
+def _diis_coefficients(B):
+    """(ok, coefficients) of the bordered DIIS equations of the Gram matrix
+    B of the stored errors, oldest first, on B's device."""
+    n = B.shape[0]
     # Pre-scale the Gram block to O(1): the bordered solution is invariant
     # under B -> B/s (only the Lagrange multiplier rescales).
     s = torch.clamp(torch.max(torch.abs(B)), min=1e-30)
@@ -158,7 +185,7 @@ def _diis_extrapolate(focks, errors):
     csum = torch.sum(coeffs)
     coeffs = coeffs / torch.where(torch.abs(csum) > 1e-3, csum, torch.ones_like(csum))
     ok = ok & (torch.abs(csum) > 1e-3) & torch.all(torch.isfinite(coeffs))
-    return ok, torch.einsum("m,m...->...", coeffs, torch.stack(focks))
+    return ok, coeffs
 
 
 def _electronic_energy(P_a, P_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G, HFX_prop,
@@ -166,21 +193,24 @@ def _electronic_energy(P_a, P_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G, HFX_prop,
     """Energy and its components (kinetic, nuclear-electron, Coulomb,
     exchange, correlation, field, field gradient); E_x_grid and E_c_grid
     are the XC energies on the grid."""
+    def total(A):
+        return torch.sum(A, dim=(-2, -1))
+
     P = P_a + P_b
-    kinetic = torch.sum(P * T)
-    nuclear_electron = torch.sum(P * V_NE)
-    field = torch.sum(P * Fld)
-    field_gradient = torch.sum(P * G)
-    coulomb = 0.5 * torch.sum(P * (J_a + J_b))
+    kinetic = total(P * T)
+    nuclear_electron = total(P * V_NE)
+    field = total(P * Fld)
+    field_gradient = total(P * G)
+    coulomb = 0.5 * total(P * (J_a + J_b))
     if restricted:
-        exchange = -0.25 * torch.sum(P * (K_a + K_b)) * HFX_prop + E_x_grid
+        exchange = -0.25 * total(P * (K_a + K_b)) * HFX_prop + E_x_grid
     else:
-        exchange = -0.5 * (torch.sum(P_a * K_a) + torch.sum(P_b * K_b)) * HFX_prop + E_x_grid
+        exchange = -0.5 * (total(P_a * K_a) + total(P_b * K_b)) * HFX_prop + E_x_grid
     correlation = torch.zeros_like(kinetic) + E_c_grid
-    total = kinetic + nuclear_electron + coulomb + exchange + correlation + field + field_gradient
+    energy = kinetic + nuclear_electron + coulomb + exchange + correlation + field + field_gradient
     components = torch.stack([kinetic, nuclear_electron, coulomb, exchange,
-                              correlation, field, field_gradient])
-    return total, components
+                              correlation, field, field_gradient], dim=-1)
+    return energy, components
 
 
 def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, P_b0, E0,
@@ -306,6 +336,206 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, P_b0
 
 
 # ---------------------------------------------------------------------------
+# The batched loop: B geometries in lockstep
+# ---------------------------------------------------------------------------
+
+def scf_batch_iterations(settings: SCFSettings, T, V_NE, ERI, S, X, P_a0, P_b0, HFX_prop,
+                         conv, static_damping, max_damping, xc_closures=None, DFX_prop=0.0,
+                         DFC_prop=0.0):
+    """The SCF of B geometries in lockstep, as a generator that yields after
+    each iteration and returns what run_scf_cycles_batched returns.
+
+    The semantics of jax.vmap over tuna_tpu's SCF while_loop
+    (tuna_tpu/scf/__init__.py:208, cond at :425-427): every geometry
+    iterates until the last one has converged or max_iter is reached, and
+    a converged geometry's state (P, E, DIIS history, damping history,
+    orbitals) stays as it was.  J/K (one einsum over the stacked ERI),
+    eigh, damping, the energy and the convergence tests are batched; each
+    geometry's DIIS keeps its own history in a ring of max_diis slots and
+    is solved on the host by run_scf_cycles's arithmetic, from the Gram
+    matrices of all B rings, copied in one transfer an iteration.
+    T, V_NE, S, X (B, N, N) and ERI (B, N, N, N, N) on one device; the
+    guesses P_a0, P_b0 (B, N, N); the starting energy is 0, as tuna_tpu's
+    batch passes it.  xc_closures: one closure of run_scf_cycles's form a
+    geometry (restricted Kohn-Sham), called for the geometries still
+    iterating, or None."""
+    restricted = settings.reference == "RHF"
+    B, N, M = T.shape[0], settings.n_basis, settings.max_diis
+    device, dtype = T.device, T.dtype
+    zeros = torch.zeros((B, N, N), dtype=dtype, device=device)
+    E = torch.zeros(B, dtype=dtype, device=device)
+    P_a, P_b = P_a0, P_b0
+    P_old_a = P_raw_prev_a = P_very_old_a = zeros
+    P_old_b = P_raw_prev_b = P_very_old_b = zeros
+    n_spin = 1 if restricted else 2
+    fock_ring = torch.zeros((B, M, n_spin, N, N), dtype=dtype, device=device)
+    error_ring = torch.zeros((B, M, n_spin * N * N), dtype=dtype, device=device)
+    ring_start, ring_size = [0] * B, [0] * B
+    active = np.ones(B, dtype=bool)
+    converged = np.zeros(B, dtype=bool)
+    n_steps = np.zeros(B, dtype=np.int64)
+    outs = {"mos_a": zeros, "mos_b": zeros,
+            "eps_a": torch.zeros((B, N), dtype=dtype, device=device),
+            "eps_b": torch.zeros((B, N), dtype=dtype, device=device),
+            "iteration_seconds": []}
+    step = 1
+
+    while step <= settings.max_iter and active.any():
+        start = time.perf_counter()
+        rows = np.flatnonzero(active)
+        live = torch.as_tensor(active, device=device)
+        P = P_a + P_b
+        if xc_closures is not None:
+            xc = [(zeros[0], zeros[0, 0, 0], zeros[0, 0, 0])] * B
+            for i in rows:
+                V, _, E_x, E_c, *_ = xc_closures[i](P_a[i], P_a[i], DFX_prop, DFC_prop)
+                xc[i] = (V, E_x, E_c)
+            V_XC, E_x_grid, E_c_grid = (torch.stack(parts) for parts in zip(*xc))
+        else:
+            V_XC, E_x_grid, E_c_grid = 0.0, 0.0, 0.0
+        J_a = torch.einsum("bijkl,bkl->bij", ERI, P_a)
+        K_a = torch.einsum("bilkj,bkl->bij", ERI, P_a)
+        if restricted:
+            J_b, K_b = J_a, K_a
+            F_a = F_b = symmetrise(T + V_NE + 2.0 * J_a - K_a * HFX_prop + V_XC)
+        else:
+            J_b = torch.einsum("bijkl,bkl->bij", ERI, P_b)
+            K_b = torch.einsum("bilkj,bkl->bij", ERI, P_b)
+            F_a = symmetrise(T + V_NE + J_a + J_b - K_a * HFX_prop)
+            F_b = symmetrise(T + V_NE + J_a + J_b - K_b * HFX_prop)
+
+        comm_a, err_a = _diis_error(F_a, P_a, S, X)
+        if restricted:
+            comm_b, commutator = comm_a, comm_a
+            fock_entry, err_entry = F_a[:, None], err_a.reshape(B, -1)
+        else:
+            comm_b, err_b = _diis_error(F_b, P_b, S, X)
+            commutator = torch.maximum(comm_a, comm_b)
+            fock_entry = torch.stack([F_a, F_b], dim=1)
+            err_entry = torch.cat([err_a.reshape(B, -1), err_b.reshape(B, -1)], dim=1)
+        if settings.use_diis:
+            slots = []
+            for i in rows:
+                if ring_size[i] == M:
+                    slots.append(ring_start[i])
+                    ring_start[i] = (ring_start[i] + 1) % M
+                else:
+                    slots.append((ring_start[i] + ring_size[i]) % M)
+                    ring_size[i] += 1
+            index = (torch.as_tensor(rows, device=device), torch.as_tensor(slots, device=device))
+            fock_ring[index] = fock_entry[index[0]]
+            error_ring[index] = err_entry[index[0]]
+
+        eps_a, mos_a = diagonalise_fock(F_a, X)
+        if restricted:
+            eps_b, mos_b = eps_a, mos_a
+            P_new_a = P_new_b = density_matrix(mos_a, settings.n_alpha, 2) / 2.0
+        else:
+            eps_b, mos_b = diagonalise_fock(F_b, X)
+            P_new_a = density_matrix(mos_a, settings.n_alpha, 1)
+            P_new_b = density_matrix(mos_b, settings.n_beta, 1)
+
+        # Energy: fresh density against this iteration's (old density's) J/K
+        # and XC energies
+        E_new, _ = _electronic_energy(P_new_a, P_new_b, J_a, J_b, K_a, K_b, T, V_NE, zeros,
+                                      zeros, HFX_prop, restricted, E_x_grid, E_c_grid)
+
+        if settings.use_diis and step > 2:
+            grams = (error_ring @ error_ring.mT).reshape(B, M * M)
+            host = torch.cat([commutator[:, None], grams], dim=1).cpu()
+            coeffs = torch.zeros((B, M), dtype=dtype)
+            use = np.zeros(B, dtype=bool)
+            for i in rows:
+                if not float(host[i, 0]) < 0.3:
+                    continue
+                order = [(ring_start[i] + k) % M for k in range(ring_size[i])]
+                gram = host[i, 1:].reshape(M, M)[order][:, order]
+                ok, c = _diis_coefficients(gram)
+                if bool(ok):
+                    coeffs[i, order] = c
+                    use[i] = True
+                else:
+                    # singular DIIS system resets the history (tuna_scf.py:1038-1048)
+                    ring_size[i] = 0
+            if use.any():
+                F_x = torch.einsum("bm,bm...->b...", coeffs.to(device), fock_ring)
+                keep = torch.as_tensor(use, device=device)[:, None, None]
+                _, mos_x = diagonalise_fock(F_x[:, 0], X)
+                if restricted:
+                    P_x = density_matrix(mos_x, settings.n_alpha, 2) / 2.0
+                    P_new_a = P_new_b = torch.where(keep, P_x, P_new_a)
+                else:
+                    P_new_a = torch.where(keep, density_matrix(mos_x, settings.n_alpha, 1),
+                                          P_new_a)
+                    _, mos_x = diagonalise_fock(F_x[:, 1], X)
+                    P_new_b = torch.where(keep, density_matrix(mos_x, settings.n_beta, 1),
+                                          P_new_b)
+
+        P_damp_a, damping = _apply_damping(P_new_a, P_a, P_raw_prev_a, P_very_old_a, comm_a,
+                                           S, settings, static_damping, max_damping, step)
+        if restricted:
+            P_damp_b = P_damp_a
+        else:
+            P_damp_b, damping_b = _apply_damping(P_new_b, P_b, P_raw_prev_b, P_very_old_b,
+                                                 comm_b, S, settings, static_damping,
+                                                 max_damping, step)
+            damping = torch.maximum(damping, damping_b)
+
+        delta_E = E_new - E
+        delta_P = P_damp_a + P_damp_b - P
+        max_DP = torch.amax(torch.abs(delta_P), dim=(-2, -1))
+        rms_DP = torch.sqrt(torch.mean(delta_P ** 2, dim=(-2, -1)))
+        stats = torch.stack([E_new, delta_E, rms_DP, max_DP, commutator, damping],
+                            dim=1).cpu().numpy()
+        now = ((np.abs(stats[:, 1]) < conv["delta_E"]) & (stats[:, 3] < conv["max_DP"])
+               & (stats[:, 2] < conv["RMS_DP"]) & (stats[:, 4] < conv["commutator"]))
+
+        # a converged geometry keeps its state
+        def update(new, old):
+            return torch.where(live.reshape(-1, *[1] * (new.dim() - 1)), new, old)
+
+        E = update(E_new, E)
+        P_very_old_a, P_old_a, P_raw_prev_a = (update(P_old_a, P_very_old_a), update(P_a, P_old_a),
+                                               update(P_new_a, P_raw_prev_a))
+        P_very_old_b, P_old_b, P_raw_prev_b = (update(P_old_b, P_very_old_b), update(P_b, P_old_b),
+                                               update(P_new_b, P_raw_prev_b))
+        P_a, P_b = update(P_damp_a, P_a), update(P_damp_b, P_b)
+        for name, new in (("mos_a", mos_a), ("mos_b", mos_b), ("eps_a", eps_a), ("eps_b", eps_b)):
+            outs[name] = update(new, outs[name])
+        n_steps[rows] += 1
+        converged[rows] = now[rows]
+        active &= ~converged
+        step += 1
+        outs["iteration_seconds"].append(time.perf_counter() - start)
+        yield
+    return n_steps, converged, E, P_a, P_b, outs
+
+
+def run_in_lockstep(loops):
+    """Advance generators such as scf_batch_iterations one iteration each
+    in turn until every one has ended; returns their return values."""
+    results = [None] * len(loops)
+    live = list(range(len(loops)))
+    while live:
+        for k in list(live):
+            try:
+                next(loops[k])
+            except StopIteration as stop:
+                results[k] = stop.value
+                live.remove(k)
+    return results
+
+
+def run_scf_cycles_batched(*args, **kwargs):
+    """The batched twin of run_scf_cycles (arguments: see
+    scf_batch_iterations).  Returns (n_steps (B,), converged (B,), numpy;
+    E (B,), P_a, P_b (B, N, N) and outputs: mos_a, mos_b, eps_a, eps_b of
+    each geometry's last iteration and the wall seconds of each iteration
+    of the batch)."""
+    return run_in_lockstep([scf_batch_iterations(*args, **kwargs)])[0]
+
+
+# ---------------------------------------------------------------------------
 # Host-level driver
 # ---------------------------------------------------------------------------
 
@@ -331,19 +561,7 @@ def run_self_consistent_field(molecule, calculation, integrals: Integrals, V_NN,
         calculation, 1, silent=silent)
     log_big_spacer(calculation, silent=silent)
 
-    settings = SCFSettings(
-        reference=calculation.reference,
-        n_basis=int(integrals.n_basis),
-        n_alpha=molecule.n_alpha,
-        n_beta=molecule.n_beta,
-        max_iter=calculation.max_iter,
-        use_diis=bool(calculation.DIIS),
-        max_diis=int(calculation.max_DIIS_matrices),
-        use_damping=bool(calculation.damping),
-        dynamic_damping=calculation.damping_factor is None,
-        partition_0=int(molecule.partition_ranges[0]),
-        n_atoms=molecule.n_atoms,
-    )
+    settings = scf_settings(calculation, molecule)
     Fld = integrals.F if integrals.F is not None else torch.zeros_like(integrals.S)
     G = integrals.G if integrals.G is not None else torch.zeros_like(integrals.S)
     static_damping = calculation.damping_factor if calculation.damping_factor is not None else 0.0
