@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare ROOT [ROOT ...]
+    python3 chip_smoke.py --uks-spe-devices
 
 Phases, one line each (a phase that fails raises, and the script exits
 non-zero without printing a result):
@@ -87,7 +88,24 @@ non-zero without printing a result):
      SCAN (1e-10 Ha); `SCAN : O O 1.21 : HF 6-311G : ML 3 NUM 4 STEP 0.05
      TIGHTSCF` batched against serial (1e-8 Ha); and a `profile` line with
      both DFT walls (SCAN_WARM_RUNS runs each, SCF iterations a point, one
-     run each under torch.profiler).
+     run each under torch.profiler);
+ 18. unrestricted gradient kernels: K8bu (the two-electron energy tangent
+     with exchange per spin) against its plain version at O2/cc-pVTZ and
+     OH/6-31G on a seeded pair of density-like Pa != Pb (1e-12 relative),
+     bitwise over two calls, and at Pa = Pb = P/2 against K8b(P) (1e-14
+     relative); K8cu (both spins' density tangents in one pass) against
+     its plain version on the grid of `SPE : O O 1.21 : B3LYP CC-PVTZ : ML
+     3 TIGHTSCF` with its converged Pa and Pb, each spin bitwise equal to
+     K8c on that density; with both times, the bound and the registers;
+ 19. unrestricted gradient paths: that single point (energy within 1e-10
+     Ha, equal SCF iteration count), `OPT : O O 1.21 : B3LYP CC-PVTZ : ML
+     3 TIGHTSCF` (UKS) with its `profile` line (wall per OPT iteration,
+     the gradient's share, device busy time and idle share, K7b's, K8bu's
+     and K8cu's launches and device ms), `OPT : O O 1.21 : HF CC-PVTZ : ML
+     3 TIGHTSCF` (UHF), `FREQ : O H 0.97 : B3LYP CC-PVTZ : TIGHTSCF` (UKS,
+     doublet OH) and `MD : O H 0.97 : HF 6-31G : NUM 5 NOTRAJ` (UHF)
+     against tuna_tpu's numbers; one K8bu launch a gradient, and no K8b or
+     K8c launch on these paths.
 
 Each path's launch counts are read from zero: the counts are reset just
 before the path runs and read just after, so launches made to compare a
@@ -96,7 +114,7 @@ kernel with its plain version do not count.  Each kernel's record carries
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its float64 operations, counted from the kernel's loop body
 at this run's inputs, or from what the function needs where the kernel
-does more (K1, K4 and K8b: see eri_operations; K2: triples_ms; K6:
+does more (K1, K4, K8b and K8bu: see eri_operations; K2: triples_ms; K6:
 vv10_operations, K6b its sum over the batch; K9: quadruples_ms; the phase
 lines print both counts),
 over the H100 SXM data sheet's float64 rates: 67
@@ -126,6 +144,11 @@ vv10.vv10_energy, with their energies; with the tuna_tpu_torch of each ROOT
 in turn (each in its own interpreter, building its own kernels), and prints
 one JSON line for each: two checkouts, say a parent commit and this one,
 compared on one card in one call (run them in the order A B B A).
+
+--uks-spe-devices runs phase 19's UKS single point on the card and on the
+host's CPU and prints one JSON line: both distances from tuna_tpu's energy,
+the two runs' SCF energies iterate by iterate, and each DIIS system's
+condition number and the two runs' differences in it (uks_spe_devices).
 """
 
 from __future__ import annotations
@@ -266,6 +289,30 @@ TRIPLES_LINES = (   # line, E_total, (SCF, CC) iterations, kernels
     ("SPE : LI H 1.6 : CCSDT(Q) STO-3G : ML 3 TIGHTSCF", -7.766669285383415, (9, 8),
      ("eri_packed", "one_electron", "ccsdt_q_energy")),
 )
+# The unrestricted gradient paths.  Constants from the reference package on
+# the JAX CPU backend, printed by the command of the gradient paths above;
+# for the three cc-pVTZ gradient lines with the same jax.jvp substitute for
+# jax.grad (tests/test_torch_uhf_gradients.py::
+# test_jvp_substitute_matches_jax_grad holds its gradient to jax.grad's on a
+# UHF and a UKS line).  The SPE's energy is run(LINE)[2] and its count
+# "Self-consistent field converged in 12 cycles!".
+LINE_UKS_OPT = "OPT : O O 1.21 : B3LYP CC-PVTZ : ML 3 TIGHTSCF"
+BOND_REF_UKS_OPT = 2.27920636383765   # bohr
+E_REF_UKS_OPT = -150.3210228972032
+ITERATIONS_UKS_OPT = 4
+LINE_UHF_OPT = "OPT : O O 1.21 : HF CC-PVTZ : ML 3 TIGHTSCF"
+BOND_REF_UHF_OPT = 2.189693058877069   # bohr
+E_REF_UHF_OPT = -149.67964660021795
+ITERATIONS_UHF_OPT = 6
+LINE_UKS_FREQ = "FREQ : O H 0.97 : B3LYP CC-PVTZ : TIGHTSCF"
+FREQUENCY_REF_UKS_FREQ = 3756.7601976353126   # per cm
+ZPE_REF_UKS_FREQ = 0.008558529462628424
+LINE_UHF_MD = "MD : O H 0.97 : HF 6-31G : NUM 5 NOTRAJ"
+E_REF_UHF_MD = (-75.3631682461487, -75.36316829496981, -75.36316843380493,
+                -75.36316866494523, -75.3631689822514)
+LINE_UKS_SPE = "SPE : O O 1.21 : B3LYP CC-PVTZ : ML 3 TIGHTSCF"
+E_REF_UKS_SPE = -150.3210013296221
+SCF_ITERATIONS_UKS_SPE = 12
 LINE_SCAN = "SCAN : N N 1.0 : B3LYP CC-PVTZ : NL NUM 8 STEP 0.05 TIGHTSCF"
 LINE_SCAN_UHF = "SCAN : O O 1.21 : HF 6-311G : ML 3 NUM 4 STEP 0.05 TIGHTSCF"
 LINE_SCAN_EXTREME = LINE_SCAN.replace("TIGHTSCF", "EXTREMESCF")
@@ -291,6 +338,7 @@ VV10_TOLERANCE = 1e-12      # relative, VV10 energy
 FOCK_TOLERANCE = 1e-12      # relative to the largest |entry| of J and of K
 TRANSFORM_TOLERANCE = 1e-12  # relative to the largest |entry| of the output
 DERIV_GRID_TOLERANCE = 1e-12  # relative to the largest |entry| of each K8c output
+UNRESTRICTED_HALF_TOLERANCE = 1e-14  # relative, K8bu at Pa = Pb = P/2 against K8b(P)
 
 WARM_RUNS = 9                  # warm runs of a path, for its profile and --compare
 
@@ -316,6 +364,10 @@ KERNELS = {
     "density_deriv_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu",
                               "tuna_tpu/drivers/gradients.py:123"),
     "vv10_energy_batch": ("tuna_tpu_torch/csrc/vv10.cu", "tuna_tpu/dft/vv10.py:63"),
+    "eri_deriv_energy_unrestricted": ("tuna_tpu_torch/csrc/eri_deriv.cu",
+                                      "tuna_tpu/drivers/gradients.py:272"),
+    "density_deriv_on_grid_spin": ("tuna_tpu_torch/csrc/dft_grid.cu",
+                                   "tuna_tpu/drivers/gradients.py:184"),
 }
 CC_PATH_KERNELS = ("eri_packed", "one_electron", "ccsd_t_energy")
 DFT_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid",
@@ -333,6 +385,14 @@ UHF_DIRECT_PATH_KERNELS = ("eri_packed", "one_electron", "fock_direct", "mo_half
 Q_PATH_KERNELS = ("eri_packed", "one_electron", "ccsdt_q_energy")
 BATCH_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid",
                       "vv10_energy_batch")
+# the unrestricted gradient paths: UKS (OPT O2 B3LYP, FREQ OH B3LYP) and UHF
+# (OPT O2 HF, MD OH HF); the UKS single point launches the first two and
+# the grid kernels
+UKS_GRADIENT_PATH_KERNELS = ("eri_packed", "one_electron", "one_electron_deriv",
+                             "eri_deriv_energy_unrestricted", "ao_on_grid", "density_on_grid",
+                             "density_deriv_on_grid_spin")
+UHF_GRADIENT_PATH_KERNELS = UKS_GRADIENT_PATH_KERNELS[:4]
+UKS_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid")
 
 
 class SmokeFailure(RuntimeError):
@@ -488,7 +548,8 @@ def work_list_summary(plan: IntegralPlan) -> str:
 def ptxas_report(log: str) -> dict:
     """Registers of each kernel, and its spill stores if any, from the
     build's ptxas report, keyed by source and kernel (the class kernels as
-    quartet_light_kernel<L_bra,L_ket>)."""
+    quartet_light_kernel<L_bra,L_ket>, K8bu's as deriv_light_kernel<L_bra,
+    L_ket>[unrestricted])."""
     report, unit, kernel, spills = {}, "", "", 0
     for line in log.splitlines():
         if line.startswith("== "):
@@ -503,6 +564,7 @@ def ptxas_report(log: str) -> dict:
                 kernel = rest[length.end():length.end() + int(length.group())]
                 args = re.findall(r"Li(\d+)E", rest)
                 kernel += f"<{','.join(args)}>" if args else ""
+                kernel += "[unrestricted]" if "UnrestrictedEnergyWeight" in rest else ""
         elif "bytes spill stores" in line:
             spills = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "registers" in line and "Used" in line:
@@ -596,18 +658,20 @@ def one_electron_deriv_operations(plan: IntegralPlan) -> float:
     return float(np.sum(per_pair + atoms_with_weight * per_atom))
 
 
-def density_deriv_ms(basis: grid.GridBasis, n_points: int, with_gradients: bool) -> float:
-    """csrc/dft_grid.cu density_deriv_on_grid_kernel: per point, each AO's
-    value and z derivative (~16 + 5 a primitive), Y = P phi and Y' = P phi'
-    (4 n^2, matrix products), rho and rho' (4 n), and with gradients each
-    AO's gradient and Hessian z column (~70 + 7 a primitive) and their
-    products with Y and Y' (15 n)."""
+def density_deriv_ms(basis: grid.GridBasis, n_points: int, with_gradients: bool,
+                     n_spins: int = 1) -> float:
+    """csrc/dft_grid.cu density_deriv_on_grid_kernel over n_spins densities
+    (K8c: 1, K8cu: 2): per point, each AO's value and z derivative (~16 + 5
+    a primitive) once, then for each density Y = P phi and Y' = P phi' (4
+    n^2, matrix products) and rho and rho' (4 n); with gradients each AO's
+    gradient and Hessian z column (~70 + 7 a primitive) once and their
+    products with each density's Y and Y' (15 n)."""
     n = basis.n_ao
     n_prim = float(len(basis.exps))
-    rest = 16.0 * n + 5 * n_prim + 4 * n
+    rest = 16.0 * n + 5 * n_prim + n_spins * 4 * n
     if with_gradients:
-        rest += 70.0 * n + 7 * n_prim + 15 * n
-    return n_points * (4.0 * n * n / FP64_MMA_PER_MS + rest / FP64_PER_MS)
+        rest += 70.0 * n + 7 * n_prim + n_spins * 15 * n
+    return n_points * (n_spins * 4.0 * n * n / FP64_MMA_PER_MS + rest / FP64_PER_MS)
 
 
 # ---------------------------------------------------------------------------
@@ -835,7 +899,9 @@ def profile_path(line: str) -> dict:
 
 # the class kernels of each quartet-engine wrapper, by kernel name
 QUARTET_KERNELS = {"eri_packed": r"PackedOut", "fock_direct": r"FockOut",
-                   "eri_deriv_energy": r"::deriv_(light|heavy)_kernel"}
+                   "eri_deriv_energy": r"::deriv_(light|heavy)_kernel<[^>]*::EnergyWeight>",
+                   "eri_deriv_energy_unrestricted":
+                       r"::deriv_(light|heavy)_kernel<[^>]*UnrestrictedEnergyWeight>"}
 
 
 def profiled_run(line: str) -> dict:
@@ -861,12 +927,16 @@ def profiled_call(counted) -> dict:
     for e in kernels:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    hand: dict = {}  # the kernels of csrc/, by function name (and K1/K4 output)
+    # the kernels of csrc/, by function name (and K1/K4 output, K8b/K8bu
+    # weight, K8c/K8cu densities)
+    hand: dict = {}
     for e in kernels:
         match = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.name)
         if match:
-            output_of = re.search(r"(PackedOut|FockOut)", e.name)
-            key = match.group(1) + (f"[{output_of.group(1)}]" if output_of else "")
+            output_of = re.search(r"(PackedOut|FockOut|UnrestrictedEnergyWeight)"
+                                  r"|density_deriv_on_grid_kernel<(\d+)>", e.name)
+            tag = output_of and (output_of.group(1) or output_of.group(2))
+            key = match.group(1) + (f"[{tag}]" if tag else "")
             entry = hand.setdefault(key, {"launches": 0, "device_ms": 0.0})
             entry["launches"] += 1
             entry["device_ms"] += e.time_range.elapsed_us() / 1e3
@@ -878,6 +948,7 @@ def profiled_call(counted) -> dict:
         for name, pattern in QUARTET_KERNELS.items() if profiled_launches[name]}
     return {
         "profiled_wall_s": profiled_wall,
+        "profiled_launches": {name: n for name, n in profiled_launches.items() if n},
         "device_kernels": len(kernels),
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / profiled_wall if kernels else "not measured",
@@ -1330,8 +1401,9 @@ def check_optimisation(line: str, kernels: tuple, bond_ref: float, energy_ref: f
     return launches
 
 
-def check_frequency(line: str, frequency_ref: float, zpe_ref: float) -> dict:
-    result, wall, launches = run_counted(line, HF_GRADIENT_PATH_KERNELS)
+def check_frequency(line: str, frequency_ref: float, zpe_ref: float,
+                    kernels: tuple = HF_GRADIENT_PATH_KERNELS) -> dict:
+    result, wall, launches = run_counted(line, kernels)
     hessian, _, frequency, zpe = (float(x) for x in result)
     require(abs(frequency - frequency_ref) <= FREQUENCY_TOLERANCE,
             f"{line}: frequency {frequency - frequency_ref:.3e} per cm from the reference")
@@ -1997,6 +2069,256 @@ def check_batched_scan(device, extreme_batch: np.ndarray) -> dict:
     return {name: sum(r[name] for r in runs) for name in KERNELS}
 
 # ---------------------------------------------------------------------------
+# Phases 18 and 19: K8bu, K8cu, the unrestricted gradient paths
+# ---------------------------------------------------------------------------
+
+def check_unrestricted_eri_deriv(symbol: str, partner: str | None, bond_angstrom: float,
+                                 basis: str, device, record: dict, registers: dict) -> str:
+    """K8bu against its plain version on a seeded pair of density-like
+    Pa != Pb (relative), against a repeated call of itself (bitwise), and at
+    Pa = Pb = P/2 against K8b(P) (relative)."""
+    molecule = diatomic(symbol, bond_angstrom, basis, partner)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
+    N = plan.n_basis
+    rng = np.random.default_rng(14)
+    C_a, C_b = (rng.standard_normal((N, k)) / np.sqrt(N) for k in (8, 7))
+    P_a = torch.as_tensor(C_a @ C_a.T, dtype=torch.float64, device=device)
+    P_b = torch.as_tensor(C_b @ C_b.T, dtype=torch.float64, device=device)
+    hfx = 0.2
+
+    def kernel():
+        return plan.eri_deriv_energy_unrestricted(coords, P_a, P_b, hfx)
+
+    def plain():
+        return plan._eri_deriv_energy_unrestricted_plain(coords, P_a, P_b, hfx)
+
+    e_kernel, e_again, e_plain = kernel(), kernel(), plain()
+    P = P_a + P_b
+    e_half = plan.eri_deriv_energy_unrestricted(coords, P / 2, P / 2, hfx)
+    e_restricted = plan.eri_deriv_energy(coords, P, hfx)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(e_kernel)), f"{basis}: non-finite unrestricted tangent")
+    err = abs(float(e_kernel - e_plain))
+    relative = err / abs(float(e_plain))
+    half = abs(float(e_half - e_restricted)) / abs(float(e_restricted))
+    require(relative <= TRIPLES_TOLERANCE,
+            f"{basis}: eri_deriv_energy_unrestricted off its plain version by {relative:.3e}")
+    require(torch.equal(e_kernel, e_again),
+            f"{basis}: two eri_deriv_energy_unrestricted calls differ")
+    require(half <= UNRESTRICTED_HALF_TOLERANCE,
+            f"{basis}: K8bu at Pa = Pb = P/2 off K8b(P) by {half:.3e} (relative)")
+    ms, plain_ms = median_ms(kernel), median_ms(plain, repeats=1)
+    t = plan.tensors(device)
+    needed, algorithm = eri_operations(plan, derivative=True)
+    eri_bound = bound(eri_input_bytes(plan, coords) + 3 * tensor_bytes(P)
+                      + tensor_bytes(t["pid_i"], t["pid_j"]) + 8, needed / FP64_PER_MS)
+    entry = record.setdefault("eri_deriv_energy_unrestricted", {"max_abs_err": 0.0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if basis == "CC-PVTZ":
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=None, **eri_bound)
+    own = {k: v for k, v in registers.items() if k.endswith("[unrestricted]")}
+    return (f"unrestricted gradient kernels {symbol}{partner or symbol}/{basis}: "
+            f"eri_deriv_energy_unrestricted dE/dR {float(e_kernel)!r}, relative |diff| "
+            f"{relative:.3e}, two calls bitwise equal; at Pa = Pb = P/2 {half:.3e} from "
+            f"eri_deriv_energy(P); {ms:.4f} ms vs plain {plain_ms:.4f} ms (one run); bound "
+            f"{eri_bound['bound_ms']:.5f} ms by {eri_bound['bound_by']} ({needed:.4g} "
+            f"operations needed, {algorithm:.4g} in the kernel's algorithm); registers (ptxas) "
+            f"{max(v if isinstance(v, int) else int(str(v).split()[0]) for v in own.values())} "
+            f"at most over its {len(own)} class kernels")
+
+
+def check_spin_density_deriv(molecule, P_alpha, P_beta, device, record: dict,
+                             registers: dict) -> str:
+    """K8cu against its plain version (K8c's, density by density) on the UKS
+    path's grid (triplet O2/cc-pVTZ, medium grid), atom 1's half of the
+    points moving, with that path's converged spin densities in the
+    Cartesian basis; each spin's outputs against K8c on that density
+    (bitwise)."""
+    points_np, _ = grid.build_molecular_grid(
+        *grid.grid_parameters(molecule, molecule.calculation), molecule.bond_length,
+        molecule.atoms)
+    G = points_np.shape[1] * points_np.shape[2]
+    points = torch.as_tensor(points_np.reshape(3, G), dtype=torch.float64, device=device)
+    basis = grid.GridBasis(molecule.cartesian_basis_functions)
+    origin = torch.as_tensor(basis.origin, dtype=torch.float64, device=device)
+    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
+                            dtype=torch.int32, device=device)
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    P_stack = torch.stack([U.T @ P_alpha @ U, U.T @ P_beta @ U]).contiguous()
+
+    def kernel():
+        return grid.density_deriv_on_grid_spin(basis, origin, moves, points, G // 2, P_stack,
+                                               True)
+
+    def plain():
+        outs = [grid._density_deriv_on_grid_plain(basis, origin, moves, points, G // 2, P, True)
+                for P in P_stack]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+
+    got, expected = kernel(), plain()
+    require(all(bool(torch.all(torch.isfinite(x))) for x in got),
+            "density_deriv_on_grid_spin: non-finite output")
+    relative = max(_relative(a[s], b[s]) for a, b in zip(got, expected) for s in range(2))
+    absolute = max(float(torch.max(torch.abs(a - b))) for a, b in zip(got, expected))
+    require(relative <= DERIV_GRID_TOLERANCE,
+            f"density_deriv_on_grid_spin off its plain version by {relative:.3e} (relative)")
+    for s in range(2):
+        single = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2,
+                                            P_stack[s].contiguous(), True)
+        require(all(torch.equal(a[s], b) for a, b in zip(got, single)),
+                f"density_deriv_on_grid_spin: spin {s} differs from density_deriv_on_grid")
+    ms, plain_ms = median_ms(kernel), median_ms(plain)
+    deriv_bound = bound(tensor_bytes(points, origin, moves, P_stack, *got)
+                        + tensor_bytes(*basis.tensors(device).values()),
+                        density_deriv_ms(basis, G, True, n_spins=2))
+    record["density_deriv_on_grid_spin"] = {"max_abs_err": absolute, "ms": ms,
+                                            "plain_ms": plain_ms, "library_ms": None,
+                                            **deriv_bound}
+    return (f"unrestricted gradient kernels: density_deriv_on_grid_spin "
+            f"{'-'.join(molecule.atomic_symbols)}/{molecule.basis}, {basis.n_ao} Cartesian AOs, "
+            f"{G} points ({G // 2} moving), the converged Pa and Pb; relative max|diff| "
+            f"{relative:.3e}, absolute {absolute:.3e}; each spin bitwise equal to "
+            f"density_deriv_on_grid; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+            f"{deriv_bound['bound_ms']:.5f} ms by {deriv_bound['bound_by']}; registers "
+            f"(ptxas) {registers.get('dft_grid:density_deriv_on_grid_kernel<2>')} (K8c "
+            f"{registers.get('dft_grid:density_deriv_on_grid_kernel<1>')})")
+
+
+def check_unrestricted_gradient_kernels(device, record: dict, registers: dict) -> str:
+    """Phase 18: K8bu at O2/cc-pVTZ and OH/6-31G, then K8cu on the grid of
+    the UKS path with its converged densities (one uncounted run of
+    LINE_UKS_SPE gives them)."""
+    for symbol, partner, bond_angstrom, basis in (("O", None, 1.21, "CC-PVTZ"),
+                                                  ("O", "H", 0.97, "6-31G")):
+        print(check_unrestricted_eri_deriv(symbol, partner, bond_angstrom, basis, device,
+                                           record, registers))
+    SCF_output, molecule, _, _ = run(LINE_UKS_SPE, suppress_output=True, device="cuda")
+    return check_spin_density_deriv(molecule, SCF_output.P_alpha, SCF_output.P_beta, device,
+                                    record, registers)
+
+
+def profile_unrestricted_path(line: str) -> dict:
+    """profile_gradient_path of the UKS OPT line, with K7b's, K8bu's and
+    K8cu's launches and device ms from its profiled run."""
+    profile = profile_gradient_path(line)
+    hand, launches = profile["hand_kernels"], profile["profiled_launches"]
+    profile["path_kernels"] = {
+        "density_on_grid (K7b)": hand.get("density_on_grid_kernel"),
+        "eri_deriv_energy_unrestricted (K8bu)": {
+            "launches": launches.get("eri_deriv_energy_unrestricted", 0),
+            "class_kernel_launches": sum(v["launches"] for k, v in hand.items()
+                                         if k.endswith("[UnrestrictedEnergyWeight]")),
+            "device_ms_a_launch": profile["quartet_class_kernels_busy_ms_a_launch"].get(
+                "eri_deriv_energy_unrestricted")},
+        "density_deriv_on_grid_spin (K8cu)": hand.get("density_deriv_on_grid_kernel[2]"),
+    }
+    return profile
+
+
+def check_unrestricted_gradient_paths() -> dict:
+    """Phase 19: the UKS single point (energy and SCF iteration count), the
+    UKS OPT of triplet O2 with its profile, the UHF OPT of triplet O2, the
+    UKS FREQ of OH and the UHF MD of OH against tuna_tpu's numbers; none of
+    them launches K8b or K8c.  Returns the launches summed over these runs."""
+    SCF_output, _, energy, _, wall, launches = drive(LINE_UKS_SPE, UKS_PATH_KERNELS)
+    delta = energy - E_REF_UKS_SPE
+    iterations = len(SCF_output.iteration_seconds)
+    require(abs(delta) <= UHF_TOLERANCE,
+            f"{LINE_UKS_SPE}: E_total {delta:.3e} Ha from the reference")
+    require(iterations == SCF_ITERATIONS_UKS_SPE,
+            f"{LINE_UKS_SPE}: {iterations} SCF iterations, the reference takes "
+            f"{SCF_ITERATIONS_UKS_SPE}")
+    print(f"end to end: {LINE_UKS_SPE}; E_total {energy!r} ({delta:.3e} Ha); {iterations} SCF "
+          f"iterations as the reference, median "
+          f"{statistics.median(SCF_output.iteration_seconds) * 1e3:.3f} ms/iteration; wall "
+          f"{wall:.3f} s; launches {launches}")
+    runs = [launches]
+    for line, kernels, bond_ref, energy_ref, iterations_ref in (
+            (LINE_UKS_OPT, UKS_GRADIENT_PATH_KERNELS, BOND_REF_UKS_OPT, E_REF_UKS_OPT,
+             ITERATIONS_UKS_OPT),
+            (LINE_UHF_OPT, UHF_GRADIENT_PATH_KERNELS, BOND_REF_UHF_OPT, E_REF_UHF_OPT,
+             ITERATIONS_UHF_OPT)):
+        launches = check_optimisation(line, kernels, bond_ref, energy_ref, iterations_ref)
+        require(launches["eri_deriv_energy_unrestricted"] == launches["one_electron_deriv"],
+                f"{line}: not one K8bu launch a gradient")
+        runs.append(launches)
+        if line == LINE_UKS_OPT:
+            print("profile: " + json.dumps(profile_unrestricted_path(line)))
+    runs.append(check_frequency(LINE_UKS_FREQ, FREQUENCY_REF_UKS_FREQ, ZPE_REF_UKS_FREQ,
+                                UKS_GRADIENT_PATH_KERNELS))
+    energies, wall, launches = run_counted(LINE_UHF_MD, UHF_GRADIENT_PATH_KERNELS)
+    deltas = [e - ref for e, ref in zip(energies, E_REF_UHF_MD)]
+    require(len(energies) == len(E_REF_UHF_MD) and max(map(abs, deltas)) <= E_TOLERANCE,
+            f"{LINE_UHF_MD}: step energies off the reference by {deltas}")
+    print(f"end to end: {LINE_UHF_MD}; {len(energies)} steps, largest |E - E_ref| "
+          f"{max(map(abs, deltas)):.3e} Ha; wall {wall:.3f} s; launches {launches}")
+    runs.append(launches)
+    for r in runs:
+        require(r["eri_deriv_energy"] == r["density_deriv_on_grid"] == 0,
+                "a restricted gradient kernel ran on an unrestricted path")
+    return {name: sum(r[name] for r in runs) for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# --uks-spe-devices: where the UKS single point's distance from tuna_tpu arises
+# ---------------------------------------------------------------------------
+
+def uks_spe_devices() -> dict:
+    """LINE_UKS_SPE on the card and on the host's CPU, with every SCF energy
+    (the STO-3G guess SCF's, then the cc-pVTZ SCF's) and every DIIS system
+    recorded: each run's distance from tuna_tpu's energy and its SCF
+    iteration count, the energies' differences between the two runs, and
+    for each DIIS solve the condition number of its bordered matrix (as
+    scf._diis_coefficients scales it, on the CPU run's Gram matrix), the
+    largest difference of the two runs' Gram matrices relative to the
+    largest |entry|, and the largest difference of their coefficients."""
+    from tuna_tpu_torch import scf
+    energy_fn, coefficients_fn = scf._electronic_energy, scf._diis_coefficients
+    runs = {}
+    for device in ("cuda", "cpu"):
+        energies, systems = [], []
+
+        def recorded_energy(*args, **kwargs):
+            E, components = energy_fn(*args, **kwargs)
+            energies.append(float(E))
+            return E, components
+
+        def recorded_coefficients(B):
+            ok, c = coefficients_fn(B)
+            systems.append((B.cpu().numpy(), c.cpu().numpy()))
+            return ok, c
+
+        scf._electronic_energy, scf._diis_coefficients = recorded_energy, recorded_coefficients
+        try:
+            start = time.perf_counter()
+            SCF_output, _, energy, _ = run(LINE_UKS_SPE, suppress_output=True, device=device)
+            seconds = time.perf_counter() - start
+        finally:
+            scf._electronic_energy, scf._diis_coefficients = energy_fn, coefficients_fn
+        runs[device] = {"energy": energy, "delta": energy - E_REF_UKS_SPE,
+                        "scf_iterations": len(SCF_output.iteration_seconds),
+                        "seconds": seconds, "energies": energies, "systems": systems}
+    card, host = runs["cuda"], runs["cpu"]
+    diis = []
+    for (B_card, c_card), (B_host, c_host) in zip(card["systems"], host["systems"]):
+        n = B_host.shape[0]
+        A = -np.ones((n + 1, n + 1))
+        A[:n, :n] = B_host / max(np.max(np.abs(B_host)), 1e-30)
+        A[n, n] = 0.0
+        diis.append({"n": n, "condition": float(np.linalg.cond(A)),
+                     "gram_relative_difference": float(np.max(np.abs(B_card - B_host))
+                                                       / np.max(np.abs(B_host))),
+                     "coefficient_difference": float(np.max(np.abs(c_card - c_host)))})
+    return {"line": LINE_UKS_SPE, "reference": E_REF_UKS_SPE,
+            **{f"{name}_{key}": runs[device][key] for name, device in (("card", "cuda"),
+                                                                       ("cpu", "cpu"))
+               for key in ("energy", "delta", "scf_iterations", "seconds")},
+            "energy_differences": [a - b for a, b in zip(card["energies"], host["energies"])],
+            "diis": diis}
+
+
+# ---------------------------------------------------------------------------
 # --compare: the coupled-cluster path's warm walls from another checkout
 # ---------------------------------------------------------------------------
 
@@ -2099,6 +2421,7 @@ def compare(roots) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--compare", nargs="+", metavar="ROOT")
+    parser.add_argument("--uks-spe-devices", action="store_true")
     args = parser.parse_args()
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2113,6 +2436,10 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     if args.compare:
         return compare(args.compare)
+    if args.uks_spe_devices:
+        _kernels.build()
+        print("uks_spe_devices: " + json.dumps(uks_spe_devices()))
+        return 0
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2212,6 +2539,13 @@ def main() -> int:
 
     # --- 17. the batched scan against the serial SCAN ---------------------------
     launches = check_batched_scan(device, extreme_batch)
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 18. K8bu and K8cu against their plain versions -------------------------
+    print(check_unrestricted_gradient_kernels(device, record, registers))
+
+    # --- 19. the unrestricted gradient paths --------------------------------------
+    launches = check_unrestricted_gradient_paths()
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

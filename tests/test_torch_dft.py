@@ -357,7 +357,7 @@ def test_n2_b3lyp_631gss_matches_tuna_tpu():
 
 
 @pytest.mark.parametrize("line", [
-    "SPE : H H 0.74 : UB3LYP STO-3G",
+    "SPE : O O 1.21 : B2PLYP STO-3G : ML 3",   # an unrestricted double hybrid
     "SPE : H H 0.74 : TPSS STO-3G",
     "SPE : H H 0.74 : B2PLYP STO-3G",
 ])

@@ -575,6 +575,83 @@ def test_density_deriv_kernel_matches_plain(cuda, basis, with_gradients):
             assert _relative(g, e) <= 1e-12
 
 
+@pytest.mark.parametrize("symbols, bond, basis", [
+    (("O", "H"), 0.97, "6-31G"), (("H", "F"), 0.95, "6-31G**"), (("O", "O"), 1.21, "CC-PVTZ")])
+def test_unrestricted_eri_deriv_kernel_matches_plain(cuda, symbols, bond, basis):
+    """K8bu against its plain version on two seeded spin densities Pa != Pb
+    (1e-12 relative), bitwise over two calls, one launch a call; and at
+    Pa = Pb = P/2 against K8b(P) (1e-14 relative: the same quartets, the
+    exchange weight summed in another order)."""
+    molecule, plan = _diatomic_plan(symbols, bond, basis)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    P_a = torch.as_tensor(_density(plan.n_basis, 10), device=cuda)
+    P_b = torch.as_tensor(_density(plan.n_basis, 11), device=cuda)
+    _kernels.reset_launch_counts()
+    first = plan.eri_deriv_energy_unrestricted(coords, P_a, P_b, 0.2)
+    assert _kernels.launches["eri_deriv_energy_unrestricted"] == 1
+    second = plan.eri_deriv_energy_unrestricted(coords, P_a, P_b, 0.2)
+    assert _kernels.launches["eri_deriv_energy_unrestricted"] == 2
+    assert _kernels.launches["eri_deriv_energy"] == 0
+    assert torch.equal(first, second)
+    if plan.n_basis <= 30:   # the plain version expands the N^4 tangent
+        expected = float(plan._eri_deriv_energy_unrestricted_plain(coords, P_a, P_b, 0.2))
+        assert abs(float(first) - expected) <= 1e-12 * abs(expected)
+    P = P_a + P_b
+    restricted = float(plan.eri_deriv_energy(coords, P, 0.2))
+    half = float(plan.eri_deriv_energy_unrestricted(coords, P / 2, P / 2, 0.2))
+    assert abs(half - restricted) <= 1e-14 * abs(restricted)
+
+
+@pytest.mark.parametrize("basis", ["6-31G**", "CC-PVTZ"])
+@pytest.mark.parametrize("with_gradients", [True, False])
+def test_spin_density_deriv_kernel_matches_plain(cuda, basis, with_gradients):
+    """K8cu on N2's medium grid with two seeded densities in one launch:
+    each output against the plain version spin by spin (1e-12 of its
+    largest |entry|), bitwise over two calls, and each spin's outputs
+    bitwise equal to K8c's on that density."""
+    molecule, points, _, basis_g = _n2_grid(basis, cuda)
+    G = points.shape[1]
+    origin = torch.as_tensor(basis_g.origin, device=cuda)
+    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
+                            dtype=torch.int32, device=cuda)
+    P_stack = torch.stack([torch.as_tensor(_density(basis_g.n_ao, seed), device=cuda)
+                           for seed in (12, 13)])
+    _kernels.reset_launch_counts()
+    got = grid.density_deriv_on_grid_spin(basis_g, origin, moves, points, G // 2, P_stack,
+                                          with_gradients)
+    assert _kernels.launches["density_deriv_on_grid_spin"] == 1
+    again = grid.density_deriv_on_grid_spin(basis_g, origin, moves, points, G // 2, P_stack,
+                                            with_gradients)
+    for s in range(2):
+        expected = grid._density_deriv_on_grid_plain(basis_g, origin, moves, points, G // 2,
+                                                      P_stack[s], with_gradients)
+        single = grid.density_deriv_on_grid(basis_g, origin, moves, points, G // 2,
+                                            P_stack[s].contiguous(), with_gradients)
+        for g, a, e, one in zip(got, again, expected, single):
+            if e is None:
+                assert g is None and a is None and one is None
+            else:
+                assert _relative(g[s], e) <= 1e-12
+                assert torch.equal(g[s], a[s])
+                assert torch.equal(g[s], one)
+
+
+def test_unrestricted_optimisation_runs_through_the_gradient_kernels(cuda):
+    """OPT of triplet O2 B3LYP/STO-3G on the card: tuna_tpu's bond length and
+    energy (tests/test_torch_uhf_gradients.py), one K8a, K8bu and K8cu
+    launch a gradient and none of K8b and K8c, five gradients."""
+    from tuna_tpu_torch.cli import run
+    _kernels.reset_launch_counts()
+    molecule, energy = run("OPT : O O 1.21 : B3LYP STO-3G : ML 3", suppress_output=True,
+                           device="cuda")
+    assert abs(molecule.bond_length - 2.4291005059331745) <= angstrom_to_bohr(1e-6)
+    assert abs(energy - -148.2204950126887) <= 1e-8
+    for name in ("one_electron_deriv", "eri_deriv_energy_unrestricted",
+                 "density_deriv_on_grid_spin"):
+        assert _kernels.launches[name] == 5, name
+    assert _kernels.launches["eri_deriv_energy"] == _kernels.launches["density_deriv_on_grid"] == 0
+
+
 def test_optimisation_runs_through_the_gradient_kernels(cuda):
     """OPT H2 B3LYP/6-31G on the card: tuna_tpu's bond length and energy
     (tests/test_torch_gradients.py), one K8a, K8b and K8c launch a

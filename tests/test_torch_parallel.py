@@ -320,6 +320,18 @@ def test_refused_lines_are_refused_through_scan(monkeypatch):
         assert "not yet ported" in str(refused.value)
 
 
+@pytest.mark.parametrize("entry", ["scan_points_parallel", "scan_energies_parallel",
+                                   "stencil_points_parallel"])
+def test_batch_refuses_unrestricted_kohn_sham(entry):
+    """The batch's XC call is restricted, so each public batch entry refuses
+    a UKS line in words rather than returning its energies without the
+    spin-resolved XC (the drivers send UKS to the serial walk)."""
+    _, cfg, symbols = _configs("SCAN : O O 1.21 : B3LYP STO-3G : ML 3 NUM 2 STEP 0.05")
+    with pytest.raises(TunaError, match="Unrestricted Kohn-Sham in the batched SCF is not yet "
+                                        "ported"):
+        getattr(parallel, entry)(cfg, symbols, [2.28, 2.38], [CPU])
+
+
 @pytest.mark.parametrize("keywords, message", [
     ("NUM 2", "STEP"), ("STEP 0.1", "NUM"), ("NUM 2 STEP 0.1 DIPOLE", "not yet ported"),
     ("NUM 2 STEP 0.1 SCANPLOT", "not yet ported")])

@@ -26,6 +26,7 @@ from tuna_tpu.post import transforms as jax_transforms
 
 from tuna_tpu_torch import _kernels
 from tuna_tpu_torch.cli import run
+from tuna_tpu_torch.constants import angstrom_to_bohr
 from tuna_tpu_torch.output import TunaError
 from tuna_tpu_torch.post import cc, transforms
 
@@ -340,18 +341,70 @@ def test_o2_triplet_ccsd_t_6311g_matches_tuna_tpu():
 # What stays refused
 # ---------------------------------------------------------------------------
 
+def _run_printed(line):
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = run(line, device="cpu")
+    return result, printed.getvalue()
+
+
+# tuna_tpu's numbers for each calculation type on the doublet OH, printed by
+#   env JAX_PLATFORMS=cpu python -c 'from tuna_tpu.cli import run; \
+#       print(run("<CALC> : O H 0.97 : HF STO-3G"))'
+# (OPT: molecule.bond_length in bohr and the energy; FREQ and OPTFREQ:
+# force constant, reduced mass, frequency per cm, zero-point energy; MD
+# with NUM 3 NOTRAJ: the step energies) and the "Gradient" rows of the
+# convergence tables of its printout.
+UHF_GRADIENT_REFERENCE = {
+    "OPT": ((1.9160679137046703, -74.36488571400076),
+            ["-0.05566024", "0.05838697", "0.00849177", "-0.00166076", "0.00003605"]),
+    "FORCE": (None, ["-0.05566024"]),
+    "FREQ": ((0.7546314606310833, 1728.2567084595278, 4586.1436735980615,
+              0.010448004047488108), []),
+    "OPTFREQ": ((0.5929258363634782, 1728.2567084595278, 4065.1857075299044,
+                 0.009261174474444881),
+                ["-0.05566024", "0.05838697", "0.00849177", "-0.00166076", "0.00003605",
+                 "0.00000015"]),
+    "MD": ((-74.36266922178697, -74.36268451191212, -74.36272992726789), []),
+}
+
+
 @pytest.mark.parametrize("calculation", ["OPT", "FORCE", "FREQ", "OPTFREQ", "MD"])
 def test_unrestricted_gradients_raise(calculation):
-    """tuna_tpu differentiates UHF analytically; the port refuses rather
-    than take finite differences."""
-    extra = " : NUM 2 NOTRAJ" if calculation == "MD" else ""
-    with pytest.raises(TunaError, match="Unrestricted analytic gradients are not yet ported"):
-        run(f"{calculation} : H H 0.74 : UHF STO-3G{extra}", suppress_output=True,
-            device="cpu")
+    """The UHF gradient, which tuna_tpu takes analytically and the port once
+    refused (the test keeps the name it had then; it now checks that each
+    driver runs), through each driver on the doublet OH against tuna_tpu's
+    numbers: bond length 1e-6 angstrom, energies 1e-8 Ha, frequency 0.01
+    per cm, force constant and zero-point energy 1e-8, its printed
+    gradients and the OPT iteration count."""
+    extra = " : NUM 3 NOTRAJ" if calculation == "MD" else ""
+    expected, gradients_printed = UHF_GRADIENT_REFERENCE[calculation]
+    _kernels.reset_launch_counts()
+    result, printed = _run_printed(f"{calculation} : O H 0.97 : HF STO-3G{extra}")
+    assert all(count == 0 for count in _kernels.launches.values())
+    assert re.findall(r"Gradient\s+(-?\d+\.\d+)", printed) == gradients_printed
+    if calculation == "OPT":
+        molecule, energy = result
+        assert abs(molecule.bond_length - expected[0]) <= angstrom_to_bohr(1e-6)
+        assert abs(energy - expected[1]) <= 1e-8
+        assert "Optimisation converged in 5 iterations!" in printed
+    elif calculation in ("FREQ", "OPTFREQ"):
+        hessian, reduced_mass, frequency, zpe = result
+        assert abs(hessian - expected[0]) <= 1e-8
+        assert reduced_mass == expected[1]
+        assert abs(frequency - expected[2]) <= 0.01
+        assert abs(zpe - expected[3]) <= 1e-8
+    elif calculation == "MD":
+        assert len(result) == len(expected)
+        assert max(abs(e - r) for e, r in zip(result, expected)) <= 1e-8
+    else:
+        assert result is None
+    if calculation != "MD":
+        assert "Calculating analytic gradient" in printed
 
 
 @pytest.mark.parametrize("line", [
-    "SPE : O O 1.21 : B3LYP STO-3G : ML 3",        # unrestricted Kohn-Sham
+    "SPE : O O 1.21 : TPSS STO-3G : ML 3",         # an unrestricted meta-GGA
     "SPE : O O 1.21 : UHF STO-3G : ML 3 NATORBS",
     "SPE : O O 1.21 : CCSD STO-3G : ML 3 NATORBS",
 ])

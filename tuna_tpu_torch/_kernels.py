@@ -80,10 +80,16 @@ SIGNATURES = {
     # tables, P, hfx, rows (scratch), n_partials, partials (scratch), out
     "tuna_eri_deriv_energy": [_I, _I, _I] + [_P] * 12 + [_I] + [_P] * 3
                              + [_D, _P, _I, _P, _P] + [_P],
+    # as tuna_eri_deriv_energy with Pt = Pa + Pb, Pa, Pb in place of P
+    "tuna_eri_deriv_energy_unrestricted": [_I, _I, _I] + [_P] * 12 + [_I] + [_P] * 5
+                                          + [_D, _P, _I, _P, _P] + [_P],
     # n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves,
     # lmn, prim_start, exps, coefs, P, density, gradient, d_density,
     # d_gradient
     "tuna_density_deriv_on_grid": [_I, _I, _I, _I] + [_P] * 12 + [_P],
+    # as tuna_density_deriv_on_grid with P (2, n_ao, n_ao) and each output
+    # stacked over the two spins
+    "tuna_density_deriv_on_grid_spin": [_I, _I, _I, _I] + [_P] * 12 + [_P],
 }
 
 # Launches of each kernel's CUDA path since the last reset.
@@ -92,7 +98,8 @@ launches = {"eri_packed": 0, "one_electron": 0, "ccsd_t_energy": 0, "uccsd_t_ene
             "ao_on_grid": 0, "density_on_grid": 0, "vv10_energy": 0,
             "vv10_energy_batch": 0,
             "fock_direct": 0, "mo_half_transform": 0, "one_electron_deriv": 0,
-            "eri_deriv_energy": 0, "density_deriv_on_grid": 0}
+            "eri_deriv_energy": 0, "density_deriv_on_grid": 0,
+            "eri_deriv_energy_unrestricted": 0, "density_deriv_on_grid_spin": 0}
 
 _lock = threading.Lock()
 _library = None

@@ -1,7 +1,7 @@
 // K7: the DFT grid -- atomic orbitals on the grid (K7a) and the density
-// and its gradient from a density matrix (K7b).  K8c, the R-tangent of the
-// density and its gradient on a moving grid, is described at its kernel
-// below.
+// and its gradient from a density matrix (K7b).  K8c and K8cu, the
+// R-tangent of the density and its gradient on a moving grid for one
+// density and for both spins, are described at their kernel below.
 //
 // K7a replaces tuna_tpu/dft/grid.py::construct_basis_functions_on_grid
 // (:80) and construct_basis_function_gradients_on_grid (:102), host NumPy
@@ -167,8 +167,19 @@ density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double*
 // (2 n_ao doubles a thread), each row of P the same for the warp (served
 // from L1), the AO gradients and Hessian columns recomputed from the
 // primitives row by row.  Every sum runs in a fixed order.
+//
+// K8cu (tuna_tpu/drivers/gradients.py:123-160 with :184-211, UHF and UKS)
+// is the same kernel over a stack of S densities (S = 2, the spins) in one
+// pass: the columns phi and phi' are formed once a point and serve every
+// density, so S costs registers (Y_s, Y'_s and the sums of each density)
+// and the S rows P_s read through L1, not a second copy of the columns.
+// Each density's sums run in the order of the single-density kernel (S =
+// 1 is K8c itself), so its outputs are K8c's on that density, bit for bit.
+// Bound as K8c: the products Y_s = P_s phi and Y'_s = P_s phi' at the
+// float64 rate, S times K8c's.
 constexpr int kDerivPoints = 32;  // threads (points) per block of K8c
 
+template <int S>
 __global__ void __launch_bounds__(kDerivPoints)
 density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_gradients,
                              const double* __restrict__ points, const double* __restrict__ origin,
@@ -184,6 +195,7 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
   const int k = blockIdx.x * kDerivPoints + t;
   if (k >= n_points) return;  // no barrier below
   const size_t G = static_cast<size_t>(n_points);
+  const size_t nn = static_cast<size_t>(n_ao) * n_ao;
   const double x = points[k], y = points[G + k], z = points[2 * G + k];
   const double point_moves = k >= first_moving ? 1.0 : 0.0;
   for (int mu = 0; mu < n_ao; ++mu) {
@@ -202,16 +214,27 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
     phi[mu * kDerivPoints + t] = s0 * poly;
     dphi[mu * kDerivPoints + t] = (point_moves - ao_moves[mu]) * (dz * s0 - 2.0 * Z * poly * s1);
   }
-  double rho = 0.0, drho = 0.0, g[3] = {0.0, 0.0, 0.0}, dg[3] = {0.0, 0.0, 0.0};
+  double rho[S], drho[S], g[S][3], dg[S][3];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    rho[s] = drho[s] = 0.0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) g[s][c] = dg[s][c] = 0.0;
+  }
   for (int i = 0; i < n_ao; ++i) {
-    const double* row = P + static_cast<size_t>(i) * n_ao;
-    double Yi = 0.0, dYi = 0.0;
-    for (int j = 0; j < n_ao; ++j) {
-      Yi += row[j] * phi[j * kDerivPoints + t];
-      dYi += row[j] * dphi[j * kDerivPoints + t];
+    double Yi[S], dYi[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const double* row = P + s * nn + static_cast<size_t>(i) * n_ao;
+      Yi[s] = 0.0;
+      dYi[s] = 0.0;
+      for (int j = 0; j < n_ao; ++j) {
+        Yi[s] += row[j] * phi[j * kDerivPoints + t];
+        dYi[s] += row[j] * dphi[j * kDerivPoints + t];
+      }
+      rho[s] += phi[i * kDerivPoints + t] * Yi[s];
+      drho[s] += dphi[i * kDerivPoints + t] * Yi[s];
     }
-    rho += phi[i * kDerivPoints + t] * Yi;
-    drho += dphi[i * kDerivPoints + t] * Yi;
     if (!with_gradients) continue;
     const double X = x - origin[3 * i], Y = y - origin[3 * i + 1], Z = z - origin[3 * i + 2];
     const double r2 = X * X + Y * Y + Z * Z;
@@ -241,20 +264,48 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
         dzz * s0 - 4.0 * Z * dz * s1 - 2.0 * poly * s1 + 4.0 * Z * Z * poly * s2};
     const double moves = point_moves - ao_moves[i];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      g[c] += grad[c] * Yi;
-      dg[c] += grad[c] * dYi + moves * hess_z[c] * Yi;
-    }
-  }
-  density[k] = rho;
-  d_density[k] = 2.0 * drho;
-  if (with_gradients) {
+    for (int s = 0; s < S; ++s) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      gradient[c * G + k] = 2.0 * g[c];
-      d_gradient[c * G + k] = 2.0 * dg[c];
+      for (int c = 0; c < 3; ++c) {
+        g[s][c] += grad[c] * Yi[s];
+        dg[s][c] += grad[c] * dYi[s] + moves * hess_z[c] * Yi[s];
+      }
     }
   }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    density[s * G + k] = rho[s];
+    d_density[s * G + k] = 2.0 * drho[s];
+    if (with_gradients) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        gradient[(3 * s + c) * G + k] = 2.0 * g[s][c];
+        d_gradient[(3 * s + c) * G + k] = 2.0 * dg[s][c];
+      }
+    }
+  }
+}
+
+template <int S>
+cudaError_t launch_density_deriv(int n_ao, int n_points, int first_moving, int with_gradients,
+                                 const double* points, const double* origin, const int* ao_moves,
+                                 const int* lmn, const int* prim_start, const double* exps,
+                                 const double* coefs, const double* P, double* density,
+                                 double* gradient, double* d_density, double* d_gradient,
+                                 cudaStream_t stream) {
+  if (n_points == 0) return cudaSuccess;
+  const size_t shared = 2 * static_cast<size_t>(n_ao) * kDerivPoints * sizeof(double);
+  if (shared > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(density_deriv_on_grid_kernel<S>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    static_cast<int>(shared));
+    if (status != cudaSuccess) return status;
+  }
+  const int blocks = (n_points + kDerivPoints - 1) / kDerivPoints;
+  density_deriv_on_grid_kernel<S><<<blocks, kDerivPoints, shared, stream>>>(
+      n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves, lmn, prim_start,
+      exps, coefs, P, density, gradient, d_density, d_gradient);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -275,19 +326,25 @@ extern "C" int tuna_density_deriv_on_grid(int n_ao, int n_points, int first_movi
                                           const double* P, double* density, double* gradient,
                                           double* d_density, double* d_gradient,
                                           cudaStream_t stream) {
-  if (n_points == 0) return cudaSuccess;
-  const size_t shared = 2 * static_cast<size_t>(n_ao) * kDerivPoints * sizeof(double);
-  if (shared > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(density_deriv_on_grid_kernel,
-                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                    static_cast<int>(shared));
-    if (status != cudaSuccess) return status;
-  }
-  const int blocks = (n_points + kDerivPoints - 1) / kDerivPoints;
-  density_deriv_on_grid_kernel<<<blocks, kDerivPoints, shared, stream>>>(
-      n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves, lmn, prim_start,
-      exps, coefs, P, density, gradient, d_density, d_gradient);
-  return cudaGetLastError();
+  return launch_density_deriv<1>(n_ao, n_points, first_moving, with_gradients, points, origin,
+                                 ao_moves, lmn, prim_start, exps, coefs, P, density, gradient,
+                                 d_density, d_gradient, stream);
+}
+
+// K8cu: as tuna_density_deriv_on_grid over the two spins' symmetric
+// densities P (2, n_ao, n_ao) in one pass; density and d_density (2,
+// n_points), gradient and d_gradient (2, 3, n_points).
+extern "C" int tuna_density_deriv_on_grid_spin(int n_ao, int n_points, int first_moving,
+                                               int with_gradients, const double* points,
+                                               const double* origin, const int* ao_moves,
+                                               const int* lmn, const int* prim_start,
+                                               const double* exps, const double* coefs,
+                                               const double* P, double* density,
+                                               double* gradient, double* d_density,
+                                               double* d_gradient, cudaStream_t stream) {
+  return launch_density_deriv<2>(n_ao, n_points, first_moving, with_gradients, points, origin,
+                                 ao_moves, lmn, prim_start, exps, coefs, P, density, gradient,
+                                 d_density, d_gradient, stream);
 }
 
 // values (n_ao, n_points); gradients (3, n_ao, n_points), written only when

@@ -2,12 +2,16 @@
 //   dE_2/dR = sum over AO quartets of d(ij|kl)/dR x
 //             [1/2 P_ij P_kl - hfx/4 P_ik P_jl],
 // when atom 1 moves along +z, as one float64 scalar.  No derivative
-// integral is stored and neither J' nor K' is formed.
+// integral is stored and neither J' nor K' is formed.  K8bu is the same
+// sweep with the unrestricted weight, exchange per spin:
+//   [1/2 Pt_ij Pt_kl - hfx/2 (Pa_ik Pa_jl + Pb_ik Pb_jl)],  Pt = Pa + Pb,
+// in one launch sequence (the class kernels are templated on the weight).
 //
 // Replaces the forward-mode part of tuna_tpu/drivers/gradients.py:286
 // (jax.grad of total_energy) that differentiates IntegralPlan.eri
 // (gradients.py:248, the K1 sweep, tuna_tpu/ops/integrals.py:470) and
-// contracts it with P (gradients.py:267-271, restricted).
+// contracts it with P (gradients.py:267-271, restricted; :272-275, UHF and
+// UKS, for K8bu).
 //
 // What bounds it on an H100: as K1 (eri.cu), latency and load balance,
 // not bytes or FLOPs: the work list of N2/cc-pVTZ holds 808,279
@@ -29,7 +33,10 @@
 //     Boys of that order;
 //   * quartets whose four functions sit on one atom are skipped (their
 //     tangent vanishes by translation invariance);
-//   * each quartet's value is weighted by its degeneracy and P at once;
+//   * each quartet's value is weighted by its degeneracy and P at once
+//     (K8bu reads three densities there, Pt, Pa and Pb, instead of one:
+//     some 1.2 MB more of L1/L2 traffic at cc-pVTZ, against the quartet's
+//     hundreds of operations);
 //     light quartets one thread each, heavy ones one warp each (lanes over
 //     the primitive quartets, rows read through L1, a fixed-order shuffle
 //     reduction), one kernel a class part on the side streams;
@@ -171,6 +178,30 @@ struct EnergyWeight {
   }
 };
 
+// The unrestricted energy weight of an unordered AO-pair quartet (A, B):
+// its degeneracy times 1/2 Pt_ij Pt_kl - hfx/4 (Pa_ik Pa_jl + Pb_ik Pb_jl
+// + Pa_il Pa_jk + Pb_il Pb_jk).  At Pa = Pb = P/2 (Pt = P) this is
+// EnergyWeight's value up to rounding.
+struct UnrestrictedEnergyWeight {
+  const int* pid_i;
+  const int* pid_j;
+  const double* Pt;
+  const double* Pa;
+  const double* Pb;
+  int n;
+  double hfx;
+
+  __device__ __forceinline__ double operator()(int A, int B) const {
+    const int i = pid_i[A], j = pid_j[A], k = pid_i[B], l = pid_j[B];
+    const double degeneracy = (i != j ? 2.0 : 1.0) * (k != l ? 2.0 : 1.0) * (A != B ? 2.0 : 1.0);
+    const double coulomb = 0.5 * Pt[i * n + j] * Pt[k * n + l];
+    const double ik_jl = Pa[i * n + k] * Pa[j * n + l] + Pb[i * n + k] * Pb[j * n + l];
+    const double il_jk = Pa[i * n + l] * Pa[j * n + k] + Pb[i * n + l] * Pb[j * n + k];
+    const double exchange = 0.25 * hfx * (ik_jl + il_jk);
+    return degeneracy * (coulomb - exchange);
+  }
+};
+
 // True when the four functions of the quartet (bra, ket) sit on one atom.
 __device__ __forceinline__ bool one_atom(const DerivPart& part, int2 q) {
   const int r = part.pair_start[q.x], c = part.pair_start[q.y];
@@ -189,9 +220,9 @@ __device__ __forceinline__ void block_partial(double* __restrict__ red, double* 
   if (threadIdx.x == 0) *out = red[0];
 }
 
-template <int LA, int LB>
+template <int LA, int LB, class Weight>
 __global__ void __launch_bounds__(kQuartetThreads)
-deriv_light_kernel(DerivPart part, EnergyWeight weight) {
+deriv_light_kernel(DerivPart part, Weight weight) {
   __shared__ double tab[TUNA_BOYS_TABLE_SIZE];
   __shared__ double red[kQuartetThreads];
   tuna::load_boys_table(tab, part.boys);
@@ -220,9 +251,9 @@ deriv_light_kernel(DerivPart part, EnergyWeight weight) {
   block_partial(red, part.partials + blockIdx.x);
 }
 
-template <int LA, int LB>
+template <int LA, int LB, class Weight>
 __global__ void __launch_bounds__(kQuartetThreads)
-deriv_heavy_kernel(DerivPart part, EnergyWeight weight) {
+deriv_heavy_kernel(DerivPart part, Weight weight) {
   __shared__ double tab[TUNA_BOYS_TABLE_SIZE];
   __shared__ double red[kQuartetThreads];
   tuna::load_boys_table(tab, part.boys);
@@ -276,15 +307,16 @@ int heavy_blocks(const ClassPart& cls) {
   return (cls.end - cls.split + kHeavyWarps - 1) / kHeavyWarps;
 }
 
-template <int LA, int LB>
-cudaError_t launch_deriv_class(const ClassPart& cls, DerivPart part, const EnergyWeight& weight,
+template <int LA, int LB, class Weight>
+cudaError_t launch_deriv_class(const ClassPart& cls, DerivPart part, const Weight& weight,
                                cudaStream_t light, cudaStream_t heavy) {
   const int2* quartets = part.quartets;
   part.boys += static_cast<size_t>(LA + LB + 1) * TUNA_BOYS_TABLE_SIZE;
   if (cls.split > cls.begin) {
     part.quartets = quartets + cls.begin;
     part.count = cls.split - cls.begin;
-    deriv_light_kernel<LA, LB><<<light_blocks(cls), kQuartetThreads, 0, light>>>(part, weight);
+    deriv_light_kernel<LA, LB, Weight>
+        <<<light_blocks(cls), kQuartetThreads, 0, light>>>(part, weight);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     part.partials += light_blocks(cls);
@@ -292,18 +324,20 @@ cudaError_t launch_deriv_class(const ClassPart& cls, DerivPart part, const Energ
   if (cls.end > cls.split) {
     part.quartets = quartets + cls.split;
     part.count = cls.end - cls.split;
-    deriv_heavy_kernel<LA, LB><<<heavy_blocks(cls), kQuartetThreads, 0, heavy>>>(part, weight);
+    deriv_heavy_kernel<LA, LB, Weight>
+        <<<heavy_blocks(cls), kQuartetThreads, 0, heavy>>>(part, weight);
   }
   return cudaGetLastError();
 }
 
+template <class Weight>
 cudaError_t launch_deriv_class_part(const ClassPart& cls, const DerivPart& part,
-                                    const EnergyWeight& weight, cudaStream_t light,
+                                    const Weight& weight, cudaStream_t light,
                                     cudaStream_t heavy) {
   switch (cls.la * 16 + cls.lb) {
 #define TUNA_DERIV_CLASS_CASE(A, B) \
   case A * 16 + B:                  \
-    return launch_deriv_class<A, B>(cls, part, weight, light, heavy);
+    return launch_deriv_class<A, B, Weight>(cls, part, weight, light, heavy);
     TUNA_QUARTET_CLASSES(TUNA_DERIV_CLASS_CASE)
 #undef TUNA_DERIV_CLASS_CASE
     default:
@@ -335,6 +369,40 @@ cudaError_t launch_deriv_rows(int lmax, int n_prim_pairs, const double* coords, 
   return cudaGetLastError();
 }
 
+// The whole sweep with one weight: the rows, the class parts on the side
+// streams, then the fixed-order sum of the block partials into out.
+template <class Weight>
+cudaError_t eri_deriv_energy(int lmax, int n_prim_pairs, const double* coords, const double* a,
+                             const double* b, const double* coef, const int* l1, const int* l2,
+                             const int* atom1, const int* atom2, const int* pair_start,
+                             const int* quartets, int n_classes, const int* classes,
+                             const double* boys_tables, const Weight& weight, double* rows,
+                             int n_partials, double* partials, double* out,
+                             cudaStream_t stream) {
+  const ClassPart* parts = reinterpret_cast<const ClassPart*>(classes);
+  int expected = 0;
+  for (int i = 0; i < n_classes; ++i) expected += light_blocks(parts[i]) + heavy_blocks(parts[i]);
+  if (expected != n_partials) return cudaErrorInvalidValue;
+  cudaError_t err = launch_deriv_rows(lmax, n_prim_pairs, coords, a, b, coef, l1, l2, atom1,
+                                      atom2, rows, stream);
+  if (err != cudaSuccess) return err;
+
+  SideStreams* side = nullptr;
+  err = fork_side_streams(stream, &side);
+  if (side == nullptr) return err;
+  DerivPart part{reinterpret_cast<const int2*>(quartets), 0, pair_start, atom1, atom2, rows,
+                 2 * lmax + 1, boys_tables, partials};
+  for (int i = 0; i < n_classes && err == cudaSuccess; ++i) {
+    err = launch_deriv_class_part(parts[i], part, weight, side->stream[(2 * i) % kSideStreams],
+                                  side->stream[(2 * i + 1) % kSideStreams]);
+    part.partials += light_blocks(parts[i]) + heavy_blocks(parts[i]);
+  }
+  err = join_side_streams(side, stream, err);
+  if (err != cudaSuccess) return err;
+  reduce_partials_kernel<<<1, kReduceThreads, 0, stream>>>(n_partials, partials, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // quartets, classes and boys_tables (orders 0..4 lmax + 1) as for
@@ -350,27 +418,23 @@ extern "C" int tuna_eri_deriv_energy(int lmax, int n_prim_pairs, int n_basis,
                                      int n_classes, const int* classes, const double* boys_tables,
                                      const double* P, double hfx, double* rows, int n_partials,
                                      double* partials, double* out, cudaStream_t stream) {
-  const ClassPart* parts = reinterpret_cast<const ClassPart*>(classes);
-  int expected = 0;
-  for (int i = 0; i < n_classes; ++i) expected += light_blocks(parts[i]) + heavy_blocks(parts[i]);
-  if (expected != n_partials) return cudaErrorInvalidValue;
-  cudaError_t err = launch_deriv_rows(lmax, n_prim_pairs, coords, a, b, coef, l1, l2, atom1,
-                                      atom2, rows, stream);
-  if (err != cudaSuccess) return err;
-
-  SideStreams* side = nullptr;
-  err = fork_side_streams(stream, &side);
-  if (side == nullptr) return err;
-  DerivPart part{reinterpret_cast<const int2*>(quartets), 0, pair_start, atom1, atom2, rows,
-                 2 * lmax + 1, boys_tables, partials};
   const EnergyWeight weight{pid_i, pid_j, P, n_basis, hfx};
-  for (int i = 0; i < n_classes && err == cudaSuccess; ++i) {
-    err = launch_deriv_class_part(parts[i], part, weight, side->stream[(2 * i) % kSideStreams],
-                                  side->stream[(2 * i + 1) % kSideStreams]);
-    part.partials += light_blocks(parts[i]) + heavy_blocks(parts[i]);
-  }
-  err = join_side_streams(side, stream, err);
-  if (err != cudaSuccess) return err;
-  reduce_partials_kernel<<<1, kReduceThreads, 0, stream>>>(n_partials, partials, out);
-  return cudaGetLastError();
+  return eri_deriv_energy(lmax, n_prim_pairs, coords, a, b, coef, l1, l2, atom1, atom2,
+                          pair_start, quartets, n_classes, classes, boys_tables, weight, rows,
+                          n_partials, partials, out, stream);
+}
+
+// K8bu: as tuna_eri_deriv_energy, with the symmetric Cartesian densities
+// Pt = Pa + Pb, Pa and Pb (n_basis x n_basis each) in place of P.
+extern "C" int tuna_eri_deriv_energy_unrestricted(
+    int lmax, int n_prim_pairs, int n_basis, const double* coords, const double* a,
+    const double* b, const double* coef, const int* l1, const int* l2, const int* atom1,
+    const int* atom2, const int* pair_start, const int* pid_i, const int* pid_j,
+    const int* quartets, int n_classes, const int* classes, const double* boys_tables,
+    const double* Pt, const double* Pa, const double* Pb, double hfx, double* rows,
+    int n_partials, double* partials, double* out, cudaStream_t stream) {
+  const UnrestrictedEnergyWeight weight{pid_i, pid_j, Pt, Pa, Pb, n_basis, hfx};
+  return eri_deriv_energy(lmax, n_prim_pairs, coords, a, b, coef, l1, l2, atom1, atom2,
+                          pair_start, quartets, n_classes, classes, boys_tables, weight, rows,
+                          n_partials, partials, out, stream);
 }

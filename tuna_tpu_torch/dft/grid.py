@@ -15,7 +15,9 @@ device of the tensors they are given:
   * density_deriv_on_grid (rho, grad rho and their R-tangents at fixed P on
     a grid whose second half moves with atom 1, for the analytic gradient):
     kernel K8c on a CUDA tensor, `_density_deriv_on_grid_plain` on a CPU
-    tensor.
+    tensor; density_deriv_on_grid_spin, the same for both spins in one
+    pass: kernel K8cu on a CUDA tensor, the plain version spin by spin on
+    a CPU tensor.
 
 Grid tensors keep tuna_tpu's layout: points (3, N, M), weights (N, M), AO
 values (n_basis, N, M) and gradients (3, n_basis, N, M).
@@ -253,6 +255,32 @@ def density_deriv_on_grid(basis: GridBasis, origin, ao_moves, points, first_movi
     if points.device.type == "cpu":
         return _density_deriv_on_grid_plain(basis, origin, ao_moves, points, first_moving, P,
                                             with_gradients)
+    return _density_deriv_kernel("density_deriv_on_grid", "tuna_density_deriv_on_grid", basis,
+                                 origin, ao_moves, points, first_moving, P, with_gradients)
+
+
+def density_deriv_on_grid_spin(basis: GridBasis, origin, ao_moves, points, first_moving: int,
+                               P_stack, with_gradients: bool):
+    """density_deriv_on_grid for a stack of symmetric Cartesian densities
+    P_stack (2, n_ao, n_ao), the two spins, in one pass: (rho, grad rho or
+    None, rho', grad rho' or None) with shapes (2, G) and (2, 3, G).
+    Kernel K8cu on a CUDA tensor, the plain version of K8c density by
+    density on a CPU tensor; no floor applied."""
+    if points.device.type == "cpu":
+        outs = [_density_deriv_on_grid_plain(basis, origin, ao_moves, points, first_moving, P,
+                                             with_gradients) for P in P_stack]
+        return tuple(torch.stack(parts) if parts[0] is not None else None
+                     for parts in zip(*outs))
+    _kernels.check_tensor("P_stack", P_stack, (2, basis.n_ao, basis.n_ao), _F64, points.device)
+    return _density_deriv_kernel("density_deriv_on_grid_spin", "tuna_density_deriv_on_grid_spin",
+                                 basis, origin, ao_moves, points, first_moving, P_stack,
+                                 with_gradients)
+
+
+def _density_deriv_kernel(kernel, entry, basis, origin, ao_moves, points, first_moving, P,
+                          with_gradients):
+    """Launch K8c (P (n, n)) or K8cu (P (2, n, n)); each output carries the
+    leading axes of P."""
     if points.device.type != "cuda":
         raise ValueError(f"no density derivative on the grid for device {points.device}")
     device = points.device
@@ -260,15 +288,17 @@ def density_deriv_on_grid(basis: GridBasis, origin, ao_moves, points, first_movi
     _kernels.check_tensor("points", points, (3, G), _F64, device)
     _kernels.check_tensor("origin", origin, (n, 3), _F64, device)
     _kernels.check_tensor("ao_moves", ao_moves, (n,), torch.int32, device)
-    _kernels.check_tensor("P", P, (n, n), _F64, device)
+    spins = P.shape[:-2]
+    _kernels.check_tensor("P", P, (*spins, n, n), _F64, device)
     t = basis.tensors(device)
-    density, d_density = (torch.empty(G, dtype=_F64, device=device) for _ in range(2))
-    gradient, d_gradient = ((torch.empty((3, G), dtype=_F64, device=device)
+    density, d_density = (torch.empty((*spins, G), dtype=_F64, device=device)
+                          for _ in range(2))
+    gradient, d_gradient = ((torch.empty((*spins, 3, G), dtype=_F64, device=device)
                              if with_gradients else None) for _ in range(2))
     _kernels.launch(
-        "density_deriv_on_grid", "tuna_density_deriv_on_grid", device,
-        n, G, int(first_moving), int(with_gradients), points.data_ptr(), origin.data_ptr(),
-        ao_moves.data_ptr(), t["lmn"].data_ptr(), t["prim_start"].data_ptr(),
+        kernel, entry, device,
+        n, G, int(first_moving), int(with_gradients), points.data_ptr(),
+        origin.data_ptr(), ao_moves.data_ptr(), t["lmn"].data_ptr(), t["prim_start"].data_ptr(),
         t["exps"].data_ptr(), t["coefs"].data_ptr(), P.data_ptr(), density.data_ptr(),
         gradient.data_ptr() if with_gradients else None, d_density.data_ptr(),
         d_gradient.data_ptr() if with_gradients else None)

@@ -1,19 +1,22 @@
-"""Restricted exchange-correlation functionals as energy densities with
-autograd derivatives.
+"""Exchange-correlation functionals as energy densities with autograd
+derivatives.
 
-Twin of the restricted LDA and GGA functionals of tuna_tpu/dft/xc.py: each
+Twin of the LDA and GGA functionals of tuna_tpu/dft/xc.py: each restricted
 functional is one energy-density expression f(rho, sigma, tau) = rho * eps,
-and df/drho, df/dsigma come from torch.autograd.grad of the summed density.
-Parameter values follow tuna_tpu (and through it the reference and LibXC).
+each spin-resolved correlation functional one expression f(rho_a, rho_b,
+sigma_aa, sigma_bb, sigma_ab, tau_a, tau_b), and their derivatives come from
+torch.autograd.grad of the summed density.  Unrestricted exchange takes the
+restricted functional by exact spin scaling (the caller's work).  Parameter
+values follow tuna_tpu (and through it the reference and LibXC).
 
-torch has no cube root.  Every cube root here takes a positive argument (the
-density and sigma are floored by `clean`, and the spin factors are 1 +- 0 in
-the restricted case), so `_cbrt` is `x.pow(1/3)`; for constants it is the
-float power.  tests/test_torch_dft.py holds it against jnp.cbrt.
+torch has no cube root.  Every cube root here takes an argument >= 0 (the
+densities and sigma are floored by `clean`, and the spin factors 1 +- zeta
+lie in [0, 2]), so `_cbrt` is `x.pow(1/3)`; for constants it is the float
+power.  tests/test_torch_dft.py holds it against jnp.cbrt.
 
-The meta-GGAs (TPSS, the SCAN family, B97M), B97 and the unrestricted
-(spin-resolved) functionals are not ported yet: their names are absent from
-the registries below, and drivers/energy.py refuses them.
+The meta-GGAs (TPSS, the SCAN family, B97M) and B97 are not ported yet:
+their names are absent from the registries below, and drivers/energy.py
+refuses them.
 """
 
 from __future__ import annotations
@@ -66,6 +69,26 @@ def restricted_derivatives(functional, density, sigma, tau, params: XCParams):
         grads = torch.autograd.grad(f.sum(), inputs)
     eps = f.detach() / density
     return grads[0], grads[1] if needs_sigma else None, None, eps
+
+
+def unrestricted_derivatives(functional, dens_a, dens_b, sigma_aa, sigma_bb, sigma_ab,
+                             tau_a, tau_b, params: XCParams):
+    """(df_dna, df_dnb, df_dsaa, df_dsbb, df_dsab, df_dta, df_dtb, eps) for
+    the spin-resolved f(na, nb, saa, sbb, sab, ta, tb) = (na + nb) * eps;
+    the sigma derivatives are None unless the functional reads sigma, the
+    tau ones always (no meta-GGA is ported)."""
+    needs_sigma = getattr(functional, "needs_sigma", False)
+    with torch.enable_grad():
+        inputs = [dens_a.detach().requires_grad_(), dens_b.detach().requires_grad_()]
+        sigmas = [None, None, None]
+        if needs_sigma:
+            sigmas = [s.detach().requires_grad_() for s in (sigma_aa, sigma_bb, sigma_ab)]
+            inputs += sigmas
+        f = functional(inputs[0], inputs[1], *sigmas, None, None, params)
+        grads = torch.autograd.grad(f.sum(), inputs, materialize_grads=True)
+    eps = f.detach() / (dens_a + dens_b)
+    d_sigma = grads[2:] if needs_sigma else (None, None, None)
+    return (grads[0], grads[1], *d_sigma, None, None, eps)
 
 
 def _mark(fn, needs_sigma=False):
@@ -177,7 +200,10 @@ def _vwn_eps(density, x_0, b, c, A):
 
 
 _VWN3_PARA = (-0.409286, 13.0720, 42.7198, 0.0310907)
+_VWN3_FERRO = (-0.743294, 20.1231, 101.578, 0.01554535)
 _VWN5_PARA = (-0.10498, 3.72744, 12.9352, 0.0310907)
+_VWN5_FERRO = (-0.32500, 7.06042, 18.0578, 0.01554535)
+_VWN5_STIFF = (-0.0047584, 1.13107, 13.0045, 1 / (6 * PI**2))
 
 
 def _pw92_eps(density, A, alpha_1, beta_1, beta_2, beta_3, beta_4, P=1):
@@ -209,6 +235,28 @@ def f_pw_c(density, sigma, tau, params):
     return density * _pw92_eps(density, *_PW92_PARA)
 
 
+def f_u_vwn3_c(na, nb, saa, sbb, sab, ta, tb, params):
+    density = na + nb
+    zeta = (na - nb) / density
+    e0 = _vwn_eps(density, *_VWN3_PARA)
+    e1 = _vwn_eps(density, *_VWN3_FERRO)
+    return density * (e0 + (e1 - e0) * _zeta_f(zeta))
+
+
+def f_u_vwn5_c(na, nb, saa, sbb, sab, ta, tb, params):
+    density = na + nb
+    zeta = (na - nb) / density
+    e0 = _vwn_eps(density, *_VWN5_PARA)
+    e1 = _vwn_eps(density, *_VWN5_FERRO)
+    minus_alpha = _vwn_eps(density, *_VWN5_STIFF)
+    alpha_c = -minus_alpha
+    fz = _zeta_f(zeta)
+    fpp0 = 8 / (9 * (_cbrt(2)**4 - 2))
+    z4 = zeta**4
+    eps = e0 + alpha_c * fz / fpp0 * (1 - z4) + (e1 - e0) * fz * z4
+    return density * eps
+
+
 def _pw92_eps_spin(density, zeta):
     e0 = _pw92_eps(density, *_PW92_PARA)
     e1 = _pw92_eps(density, *_PW92_FERRO)
@@ -217,6 +265,12 @@ def _pw92_eps_spin(density, zeta):
     fpp0 = 8 / (9 * (_cbrt(2)**4 - 2))
     z4 = zeta**4
     return e0 + alpha_c * fz / fpp0 * (1 - z4) + (e1 - e0) * fz * z4
+
+
+def f_u_pw_c(na, nb, saa, sbb, sab, ta, tb, params):
+    density = na + nb
+    zeta = (na - nb) / density
+    return density * _pw92_eps_spin(density, zeta)
 
 
 # =========================================================================
@@ -249,6 +303,10 @@ def f_lyp_c(density, sigma, tau, params):
     return _lyp_f(half, half, quarter, quarter, quarter)
 
 
+def f_u_lyp_c(na, nb, saa, sbb, sab, ta, tb, params):
+    return _lyp_f(na, nb, saa, sbb, sab)
+
+
 def _pbe_c_f(density, zeta, sigma):
     """PBE correlation on the PW92 LDA base (beta matched to ORCA)."""
     gamma = (1 - math.log(2.0)) / PI**2
@@ -266,6 +324,13 @@ def _pbe_c_f(density, zeta, sigma):
 
 def f_pbe_c(density, sigma, tau, params):
     return _pbe_c_f(density, torch.zeros_like(density), sigma)
+
+
+def f_u_pbe_c(na, nb, saa, sbb, sab, ta, tb, params):
+    density = na + nb
+    zeta = (na - nb) / density
+    sigma = saa + 2 * sab + sbb
+    return _pbe_c_f(density, zeta, sigma)
 
 
 def _p86_f(na, nb, saa, sbb, sab):
@@ -296,6 +361,10 @@ def f_p86_c(density, sigma, tau, params):
     return _p86_f(half, half, quarter, quarter, quarter)
 
 
+def f_u_p86_c(na, nb, saa, sbb, sab, ta, tb, params):
+    return _p86_f(na, nb, saa, sbb, sab)
+
+
 def f_3p_c(density, sigma, tau, params):
     """B3LYP-style 3-parameter correlation: 0.81 GGA + 0.19 LDA
     (tuna_xc.py:5843-5883; the "/G" spelling selects VWN-III)."""
@@ -303,6 +372,14 @@ def f_3p_c(density, sigma, tau, params):
     lda = f_vwn3_c if "G" in method else f_vwn5_c
     gga = f_p86_c if "P86" in method else f_lyp_c
     return 0.81 * gga(density, sigma, tau, params) + 0.19 * lda(density, None, None, params)
+
+
+def f_u_3p_c(na, nb, saa, sbb, sab, ta, tb, params):
+    method = params.method_name
+    lda = f_u_vwn3_c if "G" in method else f_u_vwn5_c
+    gga = f_u_p86_c if "P86" in method else f_u_lyp_c
+    return (0.81 * gga(na, nb, saa, sbb, sab, ta, tb, params)
+            + 0.19 * lda(na, nb, None, None, None, None, None, params))
 
 
 def _phi_zeta(zeta):
@@ -342,8 +419,12 @@ def f_pw91_c(density, sigma, tau, params):
     return _pw91_c_f(half, half, sigma)
 
 
+def f_u_pw91_c(na, nb, saa, sbb, sab, ta, tb, params):
+    return _pw91_c_f(na, nb, clean(saa + sbb + 2.0 * sab, SIGMA_FLOOR))
+
+
 # =========================================================================
-# Registries (the restricted functionals ported so far)
+# Registries (the LDA and GGA functionals ported so far)
 # =========================================================================
 
 EXCHANGE_FUNCTIONALS = {
@@ -367,4 +448,16 @@ CORRELATION_FUNCTIONALS = {
     "P86": _mark(f_p86_c, needs_sigma=True),
     "UP86": _mark(f_p86_c, needs_sigma=True),
     "PW91": _mark(f_pw91_c, needs_sigma=True),
+}
+
+UNRESTRICTED_CORRELATION_FUNCTIONALS = {
+    "VWN3": _mark(f_u_vwn3_c),
+    "VWN5": _mark(f_u_vwn5_c),
+    "PW": _mark(f_u_pw_c),
+    "LYP": _mark(f_u_lyp_c, needs_sigma=True),
+    "3P": _mark(f_u_3p_c, needs_sigma=True),
+    "PBE": _mark(f_u_pbe_c, needs_sigma=True),
+    "P86": _mark(f_u_p86_c, needs_sigma=True),
+    "UP86": _mark(f_u_p86_c, needs_sigma=True),
+    "PW91": _mark(f_u_pw91_c, needs_sigma=True),
 }

@@ -70,7 +70,6 @@ def _refuse_unported(calculation, do_correlation):
     dft = calculation.DFT_calculation
     missing_functional = unported_functional(calculation) if dft else None
     unported = [
-        (dft and calculation.method.unrestricted, "unrestricted Kohn-Sham"),
         (dft and calculation.MPC_prop != 0, "double-hybrid functionals (they need MP2)"),
         (missing_functional is not None, missing_functional or ""),
         (getattr(calculation, "read_checkpoint", False)

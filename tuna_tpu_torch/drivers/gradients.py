@@ -1,20 +1,23 @@
-"""Analytic nuclear gradients of restricted SCF energies (RHF and RKS with
-the port's LDA and GGA functionals).
+"""Analytic nuclear gradients of SCF energies (RHF, UHF, and RKS and UKS
+with the port's LDA and GGA functionals).
 
-Twin of the restricted branch of tuna_tpu/drivers/gradients.py.  For a
-converged SCF the energy is variational in the density, so dE/dR is the
-derivative of the energy expression at fixed density plus the Pulay term
-with the energy-weighted density W (tuna_tpu's total_energy, term for term):
+Twin of tuna_tpu/drivers/gradients.py.  For a converged SCF the energy is
+variational in the density, so dE/dR is the derivative of the energy
+expression at fixed density plus the Pulay term with the energy-weighted
+density W (tuna_tpu's total_energy, term for term):
 
     dE/dR = sum P (T' + V') [+ sum_i F_i sum P D_i' + F_grad . Q']
-          + E_2'(P) - sum W S' - Z_A Z_B / R^2 + E_xc'(R, P) [+ E_D2'(R)]
+          + E_2'(P_a, P_b) - sum W S' - Z_A Z_B / R^2 + E_xc'(R, P_a, P_b)
+          [+ E_D2'(R)]
 
 A diatomic has one coordinate, R (atom 1 at (0, 0, R)), so instead of
-jax.grad's reverse mode the port takes R-tangents at fixed P and W: K8a
-(IntegralPlan.one_electron_deriv) for the one-electron integrals, K8b
-(IntegralPlan.eri_deriv_energy) for the two-electron energy, K8c
-(dft.grid.density_deriv_on_grid) for the density on the moving grid.  The
-spherical transform is linear, so P and W enter in the Cartesian basis
+jax.grad's reverse mode the port takes R-tangents at fixed densities and W:
+K8a (IntegralPlan.one_electron_deriv) for the one-electron integrals, K8b
+(IntegralPlan.eri_deriv_energy; K8bu, eri_deriv_energy_unrestricted, with
+exchange per spin) for the two-electron energy, K8c
+(dft.grid.density_deriv_on_grid; K8cu, density_deriv_on_grid_spin, both
+spins in one pass) for the density on the moving grid.  The spherical
+transform is linear, so the densities and W enter in the Cartesian basis
 (U^T P U).  The rest of E_xc' is elementwise torch: the functionals'
 derivatives by the same autograd the SCF's V_XC uses, and the Becke
 weights' R-derivative by autograd on the weights alone.
@@ -27,28 +30,21 @@ import torch
 
 from ..dft import grid as dft_grid
 from ..dft import xc
-from ..output import error
 from . import common
 
 _F64 = torch.float64
 
 
 def analytic_gradient_available(calculation, molecule=None) -> bool:
-    """True when the restricted SCF energy has an analytic gradient here:
-    Hartree-Fock, or Kohn-Sham with the port's restricted LDA/GGA
-    functionals (VV10, double hybrids and ghost-atom grids go through
-    finite differences, as in tuna_tpu).  Raises for the unrestricted SCF
-    energies that tuna_tpu differentiates analytically."""
+    """True when the SCF energy has an analytic gradient here: Hartree-Fock
+    (RHF or UHF), or Kohn-Sham with the port's LDA/GGA functionals, the
+    correlation functional looked up in the registry of the reference
+    (tuna_tpu's gate).  VV10, double hybrids and ghost-atom grids go
+    through finite differences, as in tuna_tpu."""
     method = calculation.method
     if calculation.extrapolate or calculation.decontract or method.correlated_method:
         return False
-    if calculation.reference != "RHF":
-        # tuna_tpu differentiates UHF (and UKS) analytically; finite
-        # differences here would take another route than the reference's
-        if method.name in ("HF", "UHF") or calculation.DFT_calculation:
-            error("Unrestricted analytic gradients are not yet ported to tuna_tpu_torch!")
-        return False
-    if method.name == "HF":
+    if method.name in ("HF", "UHF"):
         return True
     if calculation.DFT_calculation:
         functional = calculation.functional
@@ -58,9 +54,10 @@ def analytic_gradient_available(calculation, molecule=None) -> bool:
             return False
         if functional.functional_class not in ("LDA", "GGA"):
             return False
+        c_registry = (xc.CORRELATION_FUNCTIONALS if calculation.reference == "RHF"
+                      else xc.UNRESTRICTED_CORRELATION_FUNCTIONALS)
         return ((functional.x_name is None or functional.x_name in xc.EXCHANGE_FUNCTIONALS)
-                and (functional.c_name is None
-                     or functional.c_name in xc.CORRELATION_FUNCTIONALS))
+                and (functional.c_name is None or functional.c_name in c_registry))
     return False
 
 
@@ -68,17 +65,19 @@ _GRAD_CACHE: dict = {}
 
 
 def _build_xc_gradient_fn(molecule, calculation, device):
-    """(R, P_cart) -> dE_xc/dR at fixed P: the moving grid's density and
-    its tangent from K8c, then tuna_tpu's _build_xc_energy_fn derivative
-    (restricted) as elementwise torch."""
+    """(R, P) -> dE_xc/dR at a fixed Cartesian density P, the total
+    (restricted) or the stack (2, n, n) of both spins (unrestricted): the
+    moving grid's densities and their tangents from K8c or K8cu, then the
+    derivative of tuna_tpu's _build_xc_energy_fn as elementwise torch."""
     functional = calculation.functional
+    restricted = calculation.reference == "RHF"
     x_fn = xc.EXCHANGE_FUNCTIONALS.get(functional.x_name)
-    c_fn = xc.CORRELATION_FUNCTIONALS.get(functional.c_name)
+    c_fn = (xc.CORRELATION_FUNCTIONALS.get(functional.c_name) if restricted
+            else xc.UNRESTRICTED_CORRELATION_FUNCTIONALS.get(functional.c_name))
     params = xc.XCParams(x_alpha=calculation.X_alpha, method_name=calculation.method.name,
                          x_name=functional.x_name)
     needs_gradient = functional.functional_class == "GGA"
-    terms = [(fn, float(prop)) for fn, prop in ((x_fn, calculation.DFX_prop),
-                                               (c_fn, calculation.DFC_prop)) if fn is not None]
+    DFX_prop, DFC_prop = float(calculation.DFX_prop), float(calculation.DFC_prop)
 
     extent, n_radial, lebedev_order = dft_grid.grid_parameters(molecule, calculation)
     points_A, w_atomic = dft_grid.build_atomic_radial_and_angular_grid(
@@ -110,24 +109,27 @@ def _build_xc_gradient_fn(molecule, calculation, device):
             s = (3 * s - s**3) / 2
         return torch.cat([w_atomic * ((1 - s) / 2)[:n_A], w_atomic * ((1 + s) / 2)[n_A:]])
 
-    def xc_gradient(R, P):
-        points = torch.stack([X, Y, torch.cat([points_A[2], points_A[2] + R])]).contiguous()
-        origin = torch.zeros((basis.n_ao, 3), dtype=_F64, device=device)
-        origin[:, 2] = ao_moves.to(_F64) * R
-        rho, grad_rho, d_rho, d_grad_rho = dft_grid.density_deriv_on_grid(
-            basis, origin, ao_moves, points, n_A, P, needs_gradient)
-        # the floors of xc.clean pass no derivative below them
+    def cleaned(rho, grad_rho, d_rho, d_grad_rho):
+        """The floored density and sigma of xc.clean with their tangents
+        (a floor passes no derivative below it)."""
         density = xc.clean(rho)
         d_density = torch.where(rho > xc.DENSITY_FLOOR, d_rho, 0.0)
         sigma = d_sigma = None
         if needs_gradient:
-            sigma_raw = torch.sum(grad_rho * grad_rho, dim=0)
+            sigma_raw = torch.sum(grad_rho * grad_rho, dim=-2)
             sigma = xc.clean(sigma_raw, floor=xc.SIGMA_FLOOR)
             d_sigma = torch.where(sigma_raw > xc.SIGMA_FLOOR,
-                                  2 * torch.sum(grad_rho * d_grad_rho, dim=0), 0.0)
+                                  2 * torch.sum(grad_rho * d_grad_rho, dim=-2), 0.0)
+        return density, d_density, sigma, d_sigma
+
+    def restricted_terms(density, d_density, sigma, d_sigma):
+        """(f, f') of tuna_tpu's restricted xc_energy (gradients.py:178-183),
+        f the energy density on the grid before the weights."""
         f = torch.zeros_like(density)
         local = torch.zeros_like(density)
-        for fn, prop in terms:
+        for fn, prop in ((x_fn, DFX_prop), (c_fn, DFC_prop)):
+            if fn is None:
+                continue
             needs_sigma = getattr(fn, "needs_sigma", False)
             df_dn, df_ds, _, eps = xc.restricted_derivatives(
                 fn, density, sigma if needs_sigma else None, None, params)
@@ -135,6 +137,54 @@ def _build_xc_gradient_fn(molecule, calculation, device):
             local = local + prop * df_dn * d_density
             if needs_sigma:
                 local = local + prop * df_ds * d_sigma
+        return f, local
+
+    def unrestricted_terms(density, d_density, sigma, d_sigma, grad_rho, d_grad_rho):
+        """(f, f') of tuna_tpu's unrestricted xc_energy (gradients.py:184-211)
+        from each spin's floored density and sigma_ss (stacked on the first
+        axis): exchange by exact spin scaling at 2 rho_s and 4 sigma_ss,
+        correlation on sigma_ab = grad rho_a . grad rho_b (no floor)."""
+        f = torch.zeros_like(density[0])
+        local = torch.zeros_like(density[0])
+        if x_fn is not None:
+            needs_sigma = getattr(x_fn, "needs_sigma", False)
+            for s in range(2):
+                df_dn, df_ds, _, eps = xc.restricted_derivatives(
+                    x_fn, 2 * density[s], 4 * sigma[s] if needs_sigma else None, None, params)
+                f = f + 0.5 * DFX_prop * eps * (2 * density[s])
+                local = local + 0.5 * DFX_prop * df_dn * (2 * d_density[s])
+                if needs_sigma:
+                    local = local + 0.5 * DFX_prop * df_ds * (4 * d_sigma[s])
+        if c_fn is not None:
+            needs_sigma = getattr(c_fn, "needs_sigma", False)
+            sigma_ab = d_sigma_ab = None
+            if needs_sigma:
+                sigma_ab = torch.sum(grad_rho[0] * grad_rho[1], dim=0)
+                d_sigma_ab = torch.sum(d_grad_rho[0] * grad_rho[1]
+                                       + grad_rho[0] * d_grad_rho[1], dim=0)
+            dfn_a, dfn_b, dfs_aa, dfs_bb, dfs_ab, _, _, eps = xc.unrestricted_derivatives(
+                c_fn, density[0], density[1], sigma[0] if needs_sigma else None,
+                sigma[1] if needs_sigma else None, sigma_ab, None, None, params)
+            f = f + DFC_prop * eps * (density[0] + density[1])
+            local = local + DFC_prop * (dfn_a * d_density[0] + dfn_b * d_density[1])
+            if needs_sigma:
+                local = local + DFC_prop * (dfs_aa * d_sigma[0] + dfs_bb * d_sigma[1]
+                                            + dfs_ab * d_sigma_ab)
+        return f, local
+
+    def xc_gradient(R, P):
+        points = torch.stack([X, Y, torch.cat([points_A[2], points_A[2] + R])]).contiguous()
+        origin = torch.zeros((basis.n_ao, 3), dtype=_F64, device=device)
+        origin[:, 2] = ao_moves.to(_F64) * R
+        if restricted:
+            rho, grad_rho, d_rho, d_grad_rho = dft_grid.density_deriv_on_grid(
+                basis, origin, ao_moves, points, n_A, P, needs_gradient)
+            f, local = restricted_terms(*cleaned(rho, grad_rho, d_rho, d_grad_rho))
+        else:
+            rho, grad_rho, d_rho, d_grad_rho = dft_grid.density_deriv_on_grid_spin(
+                basis, origin, ao_moves, points, n_A, P, needs_gradient)
+            f, local = unrestricted_terms(*cleaned(rho, grad_rho, d_rho, d_grad_rho),
+                                          grad_rho, d_grad_rho)
         with torch.enable_grad():
             R_t = torch.tensor(R, dtype=_F64, device=device, requires_grad=True)
             w = becke_weights(R_t)
@@ -158,6 +208,7 @@ def _build_gradient_fn(molecule, calculation, device):
     use_field = bool(np.linalg.norm(field) > 0)
     use_field_gradient = bool(np.linalg.norm(field_gradient) > 0)
 
+    restricted = calculation.reference == "RHF"
     dft = bool(calculation.DFT_calculation)
     hfx = float(calculation.HFX_prop) if dft else 1.0
     xc_gradient = _build_xc_gradient_fn(molecule, calculation, device) if dft else None
@@ -171,10 +222,17 @@ def _build_gradient_fn(molecule, calculation, device):
 
     Z_product = float(np.prod([float(c) for c in molecule.charges]))
 
-    def gradient(R, P, W):
+    def gradient(R, P_a, P_b, W):
+        """dE/dR at fixed (spherical) spin densities P_a, P_b and W; for a
+        restricted reference only P_a + P_b is read."""
         coords = torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, R]], dtype=_F64, device=device)
+        # the densities the two-electron and XC terms read: the total P, or
+        # the stack of both spins
+        P_spins = P_a + P_b if restricted else torch.stack([P_a, P_b])
         if U is not None:
-            P, W = U.T @ P @ U, U.T @ W @ U
+            P_spins, W = U.T @ P_spins @ U, U.T @ W @ U
+        P_spins = P_spins.contiguous()
+        P = P_spins if restricted else P_spins[0] + P_spins[1]
         dS, dT, dV, dD, dQ = plan.one_electron_deriv(coords, charges, mass_fraction * R,
                                                      mass_fraction)
         dH = dT + dV
@@ -183,10 +241,11 @@ def _build_gradient_fn(molecule, calculation, device):
         if use_field_gradient:
             Q_stack = (dQ[0], dQ[0], dQ[1])   # tuna_tpu's stacking (gradients.py:263)
             dH = dH + sum(float(field_gradient[i]) * Q_stack[i] for i in range(3))
-        total = (torch.sum(P * dH) - torch.sum(W * dS)
-                 + plan.eri_deriv_energy(coords, P.contiguous(), hfx))
+        E_2 = (plan.eri_deriv_energy(coords, P, hfx) if restricted
+               else plan.eri_deriv_energy_unrestricted(coords, P_spins[0], P_spins[1], hfx))
+        total = torch.sum(P * dH) - torch.sum(W * dS) + E_2
         if xc_gradient is not None:
-            total = total + xc_gradient(R, P.contiguous())
+            total = total + xc_gradient(R, P_spins)
         total = float(total) - Z_product / R**2
         if use_d2:
             f_damp = 1.0 / (1.0 + np.exp(-20.0 * (R / d2_vdw - 1.0)))
@@ -197,16 +256,26 @@ def _build_gradient_fn(molecule, calculation, device):
     return gradient
 
 
-def _energy_weighted_density(SCF_output, molecule):
-    """W = 2 C_occ diag(eps_occ) C_occ^T (restricted)."""
-    C_occ = SCF_output.molecular_orbitals[:, :molecule.n_doubly_occ]
-    eps = SCF_output.epsilons[:molecule.n_doubly_occ]
-    return 2.0 * (C_occ * eps) @ C_occ.T
+def _energy_weighted_density(SCF_output, molecule, restricted):
+    """W = 2 C_occ diag(eps_occ) C_occ^T (restricted), or the sum of each
+    spin's C diag(eps) C^T over its occupied orbitals (unrestricted)."""
+    if restricted:
+        C_occ = SCF_output.molecular_orbitals[:, :molecule.n_doubly_occ]
+        eps = SCF_output.epsilons[:molecule.n_doubly_occ]
+        return 2.0 * (C_occ * eps) @ C_occ.T
+    C_a = SCF_output.molecular_orbitals_alpha[:, :molecule.n_alpha]
+    e_a = SCF_output.epsilons_alpha[:molecule.n_alpha]
+    W = (C_a * e_a) @ C_a.T
+    if molecule.n_beta > 0:
+        C_b = SCF_output.molecular_orbitals_beta[:, :molecule.n_beta]
+        e_b = SCF_output.epsilons_beta[:molecule.n_beta]
+        W = W + (C_b * e_b) @ C_b.T
+    return W
 
 
 def calculate_analytic_gradient(molecule, calculation, SCF_output, coordinates):
-    """dE/dR for the converged restricted SCF state at this geometry, on the
-    device of its density."""
+    """dE/dR for the converged SCF state at this geometry, on the device of
+    its density."""
     device = SCF_output.P.device
     key = (id(common.get_integral_plan(molecule)), str(device), calculation.reference,
            bool(np.linalg.norm(calculation.electric_field) > 0),
@@ -219,5 +288,5 @@ def calculate_analytic_gradient(molecule, calculation, SCF_output, coordinates):
     if key not in _GRAD_CACHE:
         _GRAD_CACHE[key] = _build_gradient_fn(molecule, calculation, device)
     R = float(np.linalg.norm(np.asarray(coordinates)[1] - np.asarray(coordinates)[0]))
-    P = SCF_output.P_alpha + SCF_output.P_beta
-    return _GRAD_CACHE[key](R, P, _energy_weighted_density(SCF_output, molecule))
+    W = _energy_weighted_density(SCF_output, molecule, calculation.reference == "RHF")
+    return _GRAD_CACHE[key](R, SCF_output.P_alpha, SCF_output.P_beta, W)

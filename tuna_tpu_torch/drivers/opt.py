@@ -25,7 +25,8 @@ from . import gradients
 
 def calculate_gradient(coordinates, calculation, atomic_symbols, silent=False,
                        molecule=None, SCF_output=None, device="cuda"):
-    """dE/dR along the bond: analytic for restricted HF and KS, central
+    """dE/dR along the bond: analytic for HF and KS (restricted and
+    unrestricted; LDA and GGA functionals), central
     finite differences of full energy evaluations otherwise
     (tuna_opt.py:37-76)."""
     if (molecule is not None and SCF_output is not None

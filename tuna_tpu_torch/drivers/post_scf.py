@@ -62,7 +62,8 @@ def run_post_SCF_energy_calculation(molecule, integrals, SCF_output, grid_contai
                   "tuna_tpu_torch!")
         props.calculate_spin_contamination(
             to_numpy(P_alpha), to_numpy(P_beta), molecule.n_alpha, molecule.n_beta,
-            to_numpy(integrals.S), calculation, "UHF", silent=silent)
+            to_numpy(integrals.S), calculation,
+            "UKS" if calculation.DFT_calculation else "UHF", silent=silent)
 
     props.print_energy_components(SCF_output, V_NN, calculation, silent=silent)
 

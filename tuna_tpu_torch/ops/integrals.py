@@ -12,11 +12,13 @@ dispatch on the device of the coordinates they are given:
   * fock_direct (J and K of a density, the integral-direct SCF's Fock
     build, the N^4 tensor never stored): csrc/fock_direct.cu on a CUDA
     tensor, `_fock_direct_plain` on a CPU tensor;
-  * one_electron_deriv and eri_deriv_energy (the R-tangents of the
-    one-electron integrals and of the two-electron energy at fixed P, atom
-    1 moving along +z, for drivers/gradients.py): csrc/one_electron_deriv.cu
-    and csrc/eri_deriv.cu on a CUDA tensor, `_one_electron_deriv_plain` and
-    `_eri_deriv_energy_plain` on a CPU tensor.
+  * one_electron_deriv, eri_deriv_energy and eri_deriv_energy_unrestricted
+    (the R-tangents of the one-electron integrals and of the two-electron
+    energy at fixed densities, atom 1 moving along +z, for
+    drivers/gradients.py): csrc/one_electron_deriv.cu and csrc/eri_deriv.cu
+    (K8b, K8bu) on a CUDA tensor, `_one_electron_deriv_plain`,
+    `_eri_deriv_energy_plain` and `_eri_deriv_energy_unrestricted_plain` on
+    a CPU tensor.
 
 The quartet kernels share csrc/quartet.cuh and walk the plan's work list
 (`IntegralPlan.work_list`), built on the host once per basis.
@@ -1028,23 +1030,41 @@ class IntegralPlan:
         if coords.device.type == "cpu":
             return self._eri_deriv_energy_plain(coords, P, hfx)
         if coords.device.type == "cuda":
-            return self._eri_deriv_energy_kernel(coords, P, hfx)
+            return self._eri_deriv_energy_kernel("eri_deriv_energy", "tuna_eri_deriv_energy",
+                                                 coords, [P], hfx)
+        raise ValueError(f"no two-electron energy derivative for device {coords.device}")
+
+    def eri_deriv_energy_unrestricted(self, coords, P_a, P_b, hfx):
+        """d/dR, at fixed symmetric (N, N) float64 spin densities, of
+        E_2 = 1/2 sum P_ij P_kl (ij|kl) - hfx/2 sum_s sum P^s_ik P^s_jl
+        (ij|kl), P = P_a + P_b (tuna_tpu/drivers/gradients.py:266-275,
+        unrestricted), as a 0-d tensor: the K8bu kernel (one sweep) on a
+        CUDA tensor, the plain version on a CPU tensor."""
+        if coords.device.type == "cpu":
+            return self._eri_deriv_energy_unrestricted_plain(coords, P_a, P_b, hfx)
+        if coords.device.type == "cuda":
+            return self._eri_deriv_energy_kernel(
+                "eri_deriv_energy_unrestricted", "tuna_eri_deriv_energy_unrestricted", coords,
+                [P_a + P_b, P_a, P_b], hfx)
         raise ValueError(f"no two-electron energy derivative for device {coords.device}")
 
     def deriv_partial_count(self) -> int:
-        """Block partial sums of one K8b call: a block of 128 light quartets
-        or of 4 heavy ones (csrc/eri_deriv.cu), class part by class part."""
+        """Block partial sums of one K8b or K8bu call: a block of 128 light
+        quartets or of 4 heavy ones (csrc/eri_deriv.cu), class part by class
+        part."""
         _, classes = self.work_list()
         light = classes[:, 3].astype(np.int64) - classes[:, 2]
         heavy = classes[:, 4].astype(np.int64) - classes[:, 3]
         return int(np.sum(-(-light // 128)) + np.sum(-(-heavy // _HEAVY_WARPS)))
 
-    def _eri_deriv_energy_kernel(self, coords, P, hfx):
+    def _eri_deriv_energy_kernel(self, kernel, entry, coords, densities, hfx):
+        """Launch K8b (densities [P]) or K8bu ([P_a + P_b, P_a, P_b])."""
         self._check_kernel_lmax()
         device = coords.device
         N = self.n_basis
         _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
-        _kernels.check_tensor("P", P, (N, N), _F64, device)
+        for P in densities:
+            _kernels.check_tensor("P", P, (N, N), _F64, device)
         t = self.tensors(device)
         quartets, classes = self._kernel_work_list(device)
         row_size = 4 * (2 * self.lmax + 1) + 4
@@ -1053,27 +1073,42 @@ class IntegralPlan:
         partials = torch.empty(max(n_partials, 1), dtype=_F64, device=device)
         out = torch.empty((), dtype=_F64, device=device)
         _kernels.launch(
-            "eri_deriv_energy", "tuna_eri_deriv_energy", device,
+            kernel, entry, device,
             self.lmax, self.n_prim_pairs, N,
             coords.data_ptr(), t["a"].data_ptr(), t["b"].data_ptr(),
             t["coef"].data_ptr(), t["l1"].data_ptr(), t["l2"].data_ptr(),
             t["atom1"].data_ptr(), t["atom2"].data_ptr(), t["pair_start"].data_ptr(),
             t["pid_i"].data_ptr(), t["pid_j"].data_ptr(), quartets.data_ptr(),
             len(classes), classes.ctypes.data, t["boys_quartets"].data_ptr(),
-            P.data_ptr(), float(hfx), rows.data_ptr(), n_partials, partials.data_ptr(),
-            out.data_ptr())
+            *(P.data_ptr() for P in densities), float(hfx), rows.data_ptr(), n_partials,
+            partials.data_ptr(), out.data_ptr())
         return out
 
-    def _eri_deriv_energy_plain(self, coords, P, hfx):
+    def _eri_tangent_plain(self, coords):
         """The plain sweep's derivative values expanded to the N^4 tensor
-        and contracted by einsum, as tuna_tpu's total_energy contracts the
-        ERI: for small bases only."""
+        d(ij|kl)/dR: for small bases only."""
         packed = self._eri_packed_plain(coords, derivative=True)
         pidx = self.tensors(coords.device)["pair_index"]
-        d_eri = packed[pidx[:, :, None, None], pidx[None, None, :, :]]
+        return packed[pidx[:, :, None, None], pidx[None, None, :, :]]
+
+    def _eri_deriv_energy_plain(self, coords, P, hfx):
+        """The ERI tangent contracted by einsum, as tuna_tpu's total_energy
+        contracts the ERI."""
+        d_eri = self._eri_tangent_plain(coords)
         J = torch.einsum("ijkl,kl->ij", d_eri, P)
         K = torch.einsum("ilkj,kl->ij", d_eri, P)
         return 0.5 * torch.sum(P * J) - 0.25 * hfx * torch.sum(P * K)
+
+    def _eri_deriv_energy_unrestricted_plain(self, coords, P_a, P_b, hfx):
+        """The ERI tangent contracted with both spins, as tuna_tpu's
+        total_energy contracts the ERI for an unrestricted reference."""
+        d_eri = self._eri_tangent_plain(coords)
+        P = P_a + P_b
+        J = torch.einsum("ijkl,kl->ij", d_eri, P)
+        K_a = torch.einsum("ilkj,kl->ij", d_eri, P_a)
+        K_b = torch.einsum("ilkj,kl->ij", d_eri, P_b)
+        return 0.5 * torch.sum(P * J) - 0.5 * hfx * (torch.sum(P_a * K_a)
+                                                     + torch.sum(P_b * K_b))
 
 
 def cross_overlap(basis_functions_1, basis_functions_2) -> np.ndarray:

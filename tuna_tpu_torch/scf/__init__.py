@@ -1,10 +1,10 @@
-"""Self-consistent field engine: restricted and unrestricted Hartree-Fock,
-restricted Kohn-Sham.
+"""Self-consistent field engine: restricted and unrestricted Hartree-Fock
+and Kohn-Sham.
 
 Twin of tuna_tpu/scf/__init__.py with the same iteration semantics: Fock
 build from the stored ERI, or from the integral-direct J/K closure (called
 once per spin for UHF), plus, for Kohn-Sham, the XC matrix of the density
-at the start of the iteration; commutator DIIS (for UHF over both spins'
+at the start of the iteration (one a spin for UKS); commutator DIIS (for UHF over both spins'
 Fock matrices, with their errors concatenated), Zerner-Hehenberger dynamic
 damping (for UHF per spin, each with its own commutator), four-condition
 convergence, and the energy of the fresh density against the previous
@@ -220,7 +220,7 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, P_b0
 
     xc_closure(P_a, P_b, DFX, DFC) -> (V_XC_a, V_XC_b, E_x_grid,
     E_c_grid, density, alpha_density, beta_density), or None for
-    Hartree-Fock (restricted references only).  fock_closure(P) -> (J, K)
+    Hartree-Fock.  fock_closure(P) -> (J, K)
     replaces the stored-ERI contractions (integral-direct SCF; ERI may then
     be None), called once per spin for UHF.  on_iteration(step, [E, dE,
     rmsDP, maxDP, commutator, damping], seconds) is called after each
@@ -257,19 +257,19 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, P_b0
         P = P_a + P_b
         # XC of the density at the start of the iteration (the "old" density)
         if xc_closure is not None:
-            V_XC, _, E_x_grid, E_c_grid, density, dens_a, dens_b = xc_closure(
-                P_a, P_a, DFX_prop, DFC_prop)
+            V_XC_a, V_XC_b, E_x_grid, E_c_grid, density, dens_a, dens_b = xc_closure(
+                P_a, P_a if restricted else P_b, DFX_prop, DFC_prop)
         else:
-            V_XC, E_x_grid, E_c_grid = 0.0, 0.0, 0.0
+            V_XC_a = V_XC_b = E_x_grid = E_c_grid = 0.0
             density = dens_a = dens_b = None
         J_a, K_a = jk(P_a)
         if restricted:
             J_b, K_b = J_a, K_a
-            F_a = F_b = symmetrise(T + V_NE + Fld + G + 2.0 * J_a - K_a * HFX_prop + V_XC)
+            F_a = F_b = symmetrise(T + V_NE + Fld + G + 2.0 * J_a - K_a * HFX_prop + V_XC_a)
         else:
             J_b, K_b = jk(P_b)
-            F_a = symmetrise(T + V_NE + J_a + J_b + Fld + G - K_a * HFX_prop)
-            F_b = symmetrise(T + V_NE + J_a + J_b + Fld + G - K_b * HFX_prop)
+            F_a = symmetrise(T + V_NE + J_a + J_b + Fld + G - K_a * HFX_prop + V_XC_a)
+            F_b = symmetrise(T + V_NE + J_a + J_b + Fld + G - K_b * HFX_prop + V_XC_b)
 
         # DIIS error from pre-diagonalisation Fock and density
         comm_a, err_a = _diis_error(F_a, P_a, S, X)
@@ -358,8 +358,10 @@ def scf_batch_iterations(settings: SCFSettings, T, V_NE, ERI, S, X, P_a0, P_b0, 
     guesses P_a0, P_b0 (B, N, N); the starting energy is 0, as tuna_tpu's
     batch passes it.  xc_closures: one closure of run_scf_cycles's form a
     geometry (restricted Kohn-Sham), called for the geometries still
-    iterating, or None."""
+    iterating, or None; unrestricted Kohn-Sham is refused."""
     restricted = settings.reference == "RHF"
+    if xc_closures is not None and not restricted:
+        error("Unrestricted Kohn-Sham in the batched SCF is not yet ported to tuna_tpu_torch!")
     B, N, M = T.shape[0], settings.n_basis, settings.max_diis
     device, dtype = T.device, T.dtype
     zeros = torch.zeros((B, N, N), dtype=dtype, device=device)
