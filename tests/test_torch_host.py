@@ -160,10 +160,15 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
                                         "tuna_one_electron_deriv", "tuna_eri_deriv_energy",
                                         "tuna_density_deriv_on_grid", "tuna_ccsdt_q_energy",
                                         "tuna_eri_deriv_energy_unrestricted",
-                                        "tuna_density_deriv_on_grid_spin"}
+                                        "tuna_density_deriv_on_grid_spin",
+                                        "tuna_density_tau_on_grid",
+                                        "tuna_density_tau_deriv_on_grid",
+                                        "tuna_density_tau_deriv_on_grid_spin"}
     assert set(_kernels.launches) == {"eri_packed", "one_electron", "ccsd_t_energy",
                                       "uccsd_t_energy", "ao_on_grid", "density_on_grid", "vv10_energy",
                                       "vv10_energy_batch", "fock_direct", "mo_half_transform", "one_electron_deriv",
                                       "eri_deriv_energy", "density_deriv_on_grid",
                                       "ccsdt_q_energy", "eri_deriv_energy_unrestricted",
-                                      "density_deriv_on_grid_spin"}
+                                      "density_deriv_on_grid_spin", "density_tau_on_grid",
+                                      "density_tau_deriv_on_grid",
+                                      "density_tau_deriv_on_grid_spin"}

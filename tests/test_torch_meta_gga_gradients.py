@@ -1,0 +1,251 @@
+"""The port's analytic meta-GGA and B97 gradients (RKS and UKS, on the CPU)
+against tuna_tpu.
+
+* The plain twins of K8ct and K8cut (dft.grid.density_deriv_on_grid and
+  ..._spin with tau): rho, grad rho and their tangents bitwise those of the
+  plain K8c, each spin of K8cut bitwise K8ct's, tau the plain K7bt's at the
+  same geometry to 1e-14 relative, and tau' a central difference of tau
+  over R to 1e-5 relative (the difference's own truncation where tau is
+  steep, near the nuclei).
+* The gate: meta-GGAs and B97 take the analytic gradient, as in tuna_tpu
+  (B97M-V too, see test_meta_gga_gradient_gate_follows_tuna_tpu); NL and
+  the meta-GGA double hybrids do not.
+* The full gradient given tuna_tpu's own converged Pa, Pb and W, against
+  its jax.grad (calculate_analytic_gradient): 1e-10 Ha/bohr.
+* Optimisations end to end against tuna_tpu's numbers: bond length 1e-6
+  angstrom, energy 1e-8 Ha and the iteration count.
+* The forward-mode substitute for tuna_tpu's jax.grad, which gave
+  chip_smoke.py its cc-pVTZ meta-GGA OPT constants, against jax.grad on a
+  UKS meta-GGA: 1e-12 Ha/bohr.
+"""
+
+import contextlib
+import functools
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from tuna_tpu.cli import parse_input as jax_parse_input, process_method as jax_process
+from tuna_tpu.config import Config as JaxConfig
+from tuna_tpu.drivers import energy as jax_energy
+from tuna_tpu.drivers import gradients as jax_gradients
+
+from tuna_tpu_torch import _kernels
+from tuna_tpu_torch.cli import parse_input, process_method, run
+from tuna_tpu_torch.config import Config
+from tuna_tpu_torch.constants import angstrom_to_bohr
+from tuna_tpu_torch.dft import grid
+from tuna_tpu_torch.drivers import gradients
+from tuna_tpu_torch.system import Molecule
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch intra-op thread, as tests/test_torch_dft.py's fixture of
+    that name gives the functionals."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _molecule(line):
+    calc_type, method, basis, symbols, coordinates, params = parse_input(line)
+    calculation = Config(calc_type, process_method(method), 0.0, params, basis, symbols,
+                         suppress_output=True)
+    molecule = Molecule(symbols, coordinates, calculation)
+    molecule.process_basis_functions(calculation, molecule.spherical_transformation.shape[0])
+    return calculation, molecule, coordinates
+
+
+# --------------------------------------------------------------------------
+# tau on the moving grid (plain K8ct and K8cut)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def moving_grid():
+    """OH/6-31G on the loose grid, atom 1's half of the points moving, and
+    two seeded density-like Cartesian matrices."""
+    calculation, molecule, coordinates = _molecule("SPE : O H 0.97 : TPSS 6-31G : LOOSEGRID")
+    points_np, _ = grid.build_molecular_grid(*grid.grid_parameters(molecule, calculation),
+                                             molecule.bond_length, molecule.atoms)
+    G = points_np.shape[1] * points_np.shape[2]
+    points = torch.as_tensor(points_np.reshape(3, G))
+    basis = grid.GridBasis(molecule.cartesian_basis_functions)
+    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
+                            dtype=torch.int32)
+    rng = np.random.default_rng(12)
+    C = [rng.standard_normal((basis.n_ao, k)) / np.sqrt(basis.n_ao) for k in (5, 4)]
+    P_stack = torch.stack([torch.as_tensor(c @ c.T) for c in C])
+    return basis, moves, points, G, P_stack
+
+
+def test_tau_deriv_plain_keeps_k8c_and_gives_tau(moving_grid):
+    basis, moves, points, G, P_stack = moving_grid
+    origin = torch.as_tensor(basis.origin)
+    P = P_stack[0]
+    _kernels.reset_launch_counts()
+    got = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2, P, True,
+                                     with_tau=True)
+    assert _kernels.launches["density_tau_deriv_on_grid"] == 0   # the plain twin on the CPU
+    without = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2, P, True)
+    assert len(got) == 6
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], without))
+    values, gradients_ao = grid.ao_on_grid(basis, points, True)
+    _, _, tau = grid.density_on_grid(P, values, gradients_ao, with_tau=True)
+    assert torch.max(torch.abs(got[4] - tau)) <= 1e-14 * torch.max(torch.abs(tau))
+
+
+def test_tau_tangent_is_the_derivative_of_tau(moving_grid):
+    """tau' against a central difference of tau when atom 1, its AOs and
+    its half of the grid move by +-h along z."""
+    basis, moves, points, G, P_stack = moving_grid
+    P = P_stack[1]
+    origin = torch.as_tensor(basis.origin)
+    shift = torch.zeros_like(origin)
+    shift[:, 2] = moves.to(torch.float64)
+    point_shift = torch.zeros_like(points)
+    point_shift[2, G // 2:] = 1.0
+    h = 1e-5
+    taus = [grid.density_deriv_on_grid(basis, origin + s * h * shift, moves,
+                                       points + s * h * point_shift, G // 2, P, True,
+                                       with_tau=True)[4] for s in (1, -1)]
+    d_tau = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2, P, True,
+                                       with_tau=True)[5]
+    central = (taus[0] - taus[1]) / (2 * h)
+    assert torch.max(torch.abs(d_tau)) > 0
+    assert torch.max(torch.abs(d_tau - central)) <= 1e-5 * torch.max(torch.abs(d_tau))
+
+
+def test_spin_tau_deriv_plain_is_k8ct_plain_per_spin(moving_grid):
+    basis, moves, points, G, P_stack = moving_grid
+    origin = torch.as_tensor(basis.origin)
+    got = grid.density_deriv_on_grid_spin(basis, origin, moves, points, G // 2, P_stack, True,
+                                          with_tau=True)
+    assert len(got) == 6
+    for s in range(2):
+        single = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2,
+                                            P_stack[s], True, with_tau=True)
+        for g, one in zip(got, single):
+            assert g.shape[0] == 2 and torch.equal(g[s], one)
+
+
+def test_tau_needs_the_gradients(moving_grid):
+    basis, moves, points, G, P_stack = moving_grid
+    with pytest.raises(ValueError, match="with_gradients"):
+        grid.density_deriv_on_grid(basis, torch.as_tensor(basis.origin), moves, points,
+                                   G // 2, P_stack[0], False, with_tau=True)
+
+
+# --------------------------------------------------------------------------
+# The gradient
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("line,analytic", [
+    ("OPT : H H 0.74 : TPSS STO-3G", True),
+    ("OPT : O O 1.21 : R2SCAN STO-3G : ML 3", True),
+    ("OPT : H H 0.74 : B97-D STO-3G", True),
+    ("OPT : H H 0.74 : TPSSH STO-3G", True),
+    # B97M-V adds VV10 after the SCF, and tuna_tpu's gate reads only the NL
+    # keyword (drivers/gradients.py:49), so its gradient is analytic and
+    # leaves VV10's geometry derivative out: the port follows
+    ("OPT : H H 0.74 : B97M-V STO-3G", True),
+    ("OPT : H H 0.74 : TPSS STO-3G : NL", False),    # VV10: finite differences
+    ("OPT : H H 0.74 : R2SCAN0-DH STO-3G", False),   # a double hybrid
+])
+def test_meta_gga_gradient_gate_follows_tuna_tpu(line, analytic):
+    calculation, molecule, _ = _molecule(line)
+    assert gradients.analytic_gradient_available(calculation, molecule) == analytic
+    jax_line = jax_parse_input(line)
+    jax_calculation = JaxConfig(jax_line[0], jax_process(jax_line[1]), 0.0, jax_line[5],
+                                jax_line[2], jax_line[3], suppress_output=True)
+    assert jax_gradients.analytic_gradient_available(jax_calculation) == analytic
+
+
+@functools.lru_cache(maxsize=None)
+def _tuna_tpu_gradient(line):
+    """tuna_tpu's analytic gradient (jax.grad) at its converged SCF of
+    `line`: (Pa, Pb, W, dE/dR)."""
+    calc_type, method, basis, symbols, coordinates, params = jax_parse_input(line)
+    calculation = JaxConfig(calc_type, jax_process(method), 0.0, params, basis, symbols,
+                            suppress_output=True)
+    SCF_output, molecule, _, _ = jax_energy.evaluate_molecular_energy(
+        calculation, symbols, coordinates, silent=True)
+    gradient = jax_gradients.calculate_analytic_gradient(molecule, calculation, SCF_output,
+                                                         coordinates)
+    W = jax_gradients._energy_weighted_density(SCF_output, molecule,
+                                               calculation.reference == "RHF")
+    return (np.asarray(SCF_output.P_alpha), np.asarray(SCF_output.P_beta), np.asarray(W),
+            gradient)
+
+
+@pytest.mark.parametrize("line", [
+    "SPE : H H 0.74 : TPSS 6-31G",                 # RKS, meta-GGA
+    "SPE : LI H 1.6 : R2SCAN STO-3G",              # RKS, r2SCAN's hand-differentiated delta_y
+    "SPE : H F 0.92 : B97-D STO-3G",               # RKS, B97 with D2
+    "SPE : O O 1.21 : TPSS STO-3G : ML 3",         # UKS, exchange at 2 tau_s
+    "SPE : O H 0.97 : R2SCANH STO-3G",             # UKS, hybrid meta-GGA
+])
+def test_meta_gga_gradient_at_tuna_tpu_density_matches(line, one_torch_thread):
+    P_a, P_b, W, expected = _tuna_tpu_gradient(line)
+    calculation, molecule, coordinates = _molecule(line)
+    assert gradients.analytic_gradient_available(calculation, molecule)
+    gradient_fn = gradients._build_gradient_fn(molecule, calculation, torch.device("cpu"))
+    _kernels.reset_launch_counts()
+    got = gradient_fn(float(coordinates[1, 2]), torch.tensor(P_a), torch.tensor(P_b),
+                      torch.tensor(W))
+    assert all(count == 0 for count in _kernels.launches.values())
+    assert abs(got - expected) <= 1e-10, (got, expected)
+
+
+@pytest.mark.parametrize("line,bond_ref,energy_ref,iterations_ref", [
+    # env JAX_PLATFORMS=cpu python -c 'from tuna_tpu.cli import run; \
+    #     m, E = run(LINE); print(repr(m.bond_length), repr(E))'
+    # ("Optimisation converged in N iterations!" in its printout)
+    ("OPT : H H 0.74 : TPSS 6-31G : TIGHTSCF", 1.398720954009968, -1.1755184466420752, 3),
+    ("OPT : O O 1.21 : R2SCAN STO-3G : ML 3 TIGHTSCF", 2.4303666909557426,
+     -148.25522823124618, 5),
+])
+def test_meta_gga_optimisation_matches_tuna_tpu(line, bond_ref, energy_ref, iterations_ref):
+    _kernels.reset_launch_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        molecule, energy_opt = run(line, device="cpu")
+    printed = printed.getvalue()
+    assert all(count == 0 for count in _kernels.launches.values())
+    assert abs(molecule.bond_length - bond_ref) <= angstrom_to_bohr(1e-6)
+    assert abs(energy_opt - energy_ref) <= 1e-8
+    assert f"Optimisation converged in {iterations_ref} iterations!" in printed
+    assert "Calculating analytic gradient" in printed
+
+
+def test_jvp_substitute_matches_jax_grad_for_a_meta_gga(monkeypatch):
+    """chip_smoke.py's cc-pVTZ meta-GGA OPT constants come from tuna_tpu
+    with jax.grad(total_energy) replaced by its forward-mode derivative
+    (jax.grad needs > 30 GB of host memory there): on a UKS meta-GGA line
+    the substitute's gradient equals jax.grad's to 1e-12 Ha/bohr."""
+    import types
+
+    import jax
+
+    line = "SPE : O O 1.21 : TPSS STO-3G : ML 3"
+    _, _, _, expected = _tuna_tpu_gradient(line)
+    calc_type, method, basis, symbols, coordinates, params = jax_parse_input(line)
+    calculation = JaxConfig(calc_type, jax_process(method), 0.0, params, basis, symbols,
+                            suppress_output=True)
+    SCF_output, molecule, _, _ = jax_energy.evaluate_molecular_energy(
+        calculation, symbols, coordinates, silent=True)
+
+    def forward_grad(f, argnums=0):
+        return lambda R, *args: jax.jvp(lambda r: f(r, *args), (R,), (1.0,))[1]
+
+    monkeypatch.setattr(jax_gradients, "jax", types.SimpleNamespace(jit=jax.jit,
+                                                                   grad=forward_grad))
+    monkeypatch.setattr(jax_gradients, "_GRAD_CACHE", {})
+    got = jax_gradients.calculate_analytic_gradient(molecule, calculation, SCF_output,
+                                                    coordinates)
+    assert abs(got - expected) <= 1e-12, (got, expected)

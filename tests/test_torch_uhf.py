@@ -327,7 +327,7 @@ def test_unrestricted_cc_matches_tuna_tpu(line):
     assert len(scf.iteration_seconds) == jax_cycles
     assert abs(energy - jax_energy) <= 1e-10
     assert jax_cc_iterations > 0
-    assert abs(len(scf.correlation_iteration_seconds) - jax_cc_iterations) <= 1
+    assert len(scf.correlation_iteration_seconds) == jax_cc_iterations
     assert bool(torch.all(torch.isfinite(P)))
 
 
@@ -404,7 +404,7 @@ def test_unrestricted_gradients_raise(calculation):
 
 
 @pytest.mark.parametrize("line", [
-    "SPE : O O 1.21 : TPSS STO-3G : ML 3",         # an unrestricted meta-GGA
+    "SPE : O O 1.21 : R2SCAN0-DH STO-3G : ML 3",   # an unrestricted meta-GGA double hybrid
     "SPE : O O 1.21 : UHF STO-3G : ML 3 NATORBS",
     "SPE : O O 1.21 : CCSD STO-3G : ML 3 NATORBS",
 ])

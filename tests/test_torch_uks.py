@@ -93,10 +93,13 @@ def _term_scale(na, nb, saa, sbb, sab, derivatives):
     return [term, term] + [term * density / np.abs(s) for s in sigmas]
 
 
-# (name, method name): every key of the port's registry, 3P under each of
-# the method names that select its four variants
+# (name, method name): every key of the port's registry that reads no tau,
+# 3P under each of the method names that select its four variants (the
+# meta-GGAs and B97, whose opposite-spin part needs a looser bound where
+# one spin is nearly empty: tests/test_torch_meta_gga.py)
 FUNCTIONALS = (
-    [(name, "") for name in xc.UNRESTRICTED_CORRELATION_FUNCTIONALS if name != "3P"]
+    [(name, "") for name, fn in xc.UNRESTRICTED_CORRELATION_FUNCTIONALS.items()
+     if name not in ("3P", "B97") and not fn.needs_tau]
     + [("3P", method) for method in ("B3LYP", "B3LYP/G", "B3P86", "B3PW91")]
 )
 
@@ -126,12 +129,15 @@ def test_unrestricted_functional_matches_tuna_tpu(name, method, one_torch_thread
 
 def test_unrestricted_registry_has_the_restricted_keys():
     """The spin-resolved registry holds the port's restricted correlation
-    functionals, each under tuna_tpu's key and with its sigma flag; the
-    meta-GGA and B97 entries stay out."""
+    functionals, each under tuna_tpu's key and with its sigma and tau flags,
+    and every key of tuna_tpu's registry."""
     assert set(xc.UNRESTRICTED_CORRELATION_FUNCTIONALS) == set(xc.CORRELATION_FUNCTIONALS)
+    assert set(xc.UNRESTRICTED_CORRELATION_FUNCTIONALS) == set(
+        jax_xc.UNRESTRICTED_CORRELATION_FUNCTIONALS)
     for name, fn in xc.UNRESTRICTED_CORRELATION_FUNCTIONALS.items():
         reference = jax_xc.UNRESTRICTED_CORRELATION_FUNCTIONALS[name]
-        assert fn.needs_sigma == reference.needs_sigma and not fn.needs_tau, name
+        assert fn.needs_sigma == reference.needs_sigma, name
+        assert fn.needs_tau == reference.needs_tau, name
 
 
 def test_unrestricted_derivatives_work_under_no_grad():
@@ -297,3 +303,61 @@ def test_empty_spin_fails_as_in_tuna_tpu():
         assert np.isnan(got[0].numpy()[0]) == (name != "LYP"), name
     with pytest.raises(TunaError, match="not converged"):
         run("SPE : H H 0.74 : B3LYP STO-3G : ML 3", suppress_output=True, device="cpu")
+
+
+# --------------------------------------------------------------------------
+# Open-shell atoms
+# --------------------------------------------------------------------------
+#
+# Constants from tuna_tpu on the JAX CPU backend, printed by
+#   env JAX_PLATFORMS=cpu python -c 'from tuna_tpu.cli import run; \
+#       print(repr(run(LINE)[2]))'
+# ("Self-consistent field converged in N cycles!" in its printout).  An
+# atom starts from the core-Hamiltonian guess, whose 2p eigenvectors form a
+# degenerate block: LAPACK picks a basis of it, the polished eigh keeps
+# that pick, and the builds of LAPACK under jaxlib and torch pick
+# differently, so the two packages occupy differently oriented p orbitals
+# from the first iteration (carbon: guess alpha densities 0.86 apart,
+# first SCF energies 3.8e-7 Ha apart, from the Lebedev grid's anisotropy).
+# Where the p shell is full or half full (the LDA oxygen, UHF carbon) the
+# runs still agree; B and F reach tuna_tpu's energy by other SCF paths;
+# oxygen and carbon under GGAs do not converge in one package or either.
+# The runs are on one torch thread: oxygen PBE converged in 82 cycles on
+# two.
+
+@pytest.mark.parametrize("line,energy_ref,iterations_ref", [
+    ("SPE : O : SVWN 6-31G : ML 3 TIGHTSCF", -74.484843649288, 12),
+    ("SPE : C : UHF 6-31G : ML 3 TIGHTSCF", -37.67783701064292, 10),
+])
+def test_atom_matches_tuna_tpu(line, energy_ref, iterations_ref, one_torch_thread):
+    scf, _, energy, _ = run(line, suppress_output=True, device="cpu")
+    assert abs(energy - energy_ref) <= 1e-10
+    assert len(scf.iteration_seconds) == iterations_ref
+
+
+@pytest.mark.parametrize("line,energy_ref", [
+    ("SPE : B : B3LYP 6-31G : ML 2 TIGHTSCF", -24.63510531179403),   # 45 cycles there
+    ("SPE : F : B3LYP 6-31G : ML 2 TIGHTSCF", -99.67970877759895),   # 42 cycles there
+])
+def test_gga_atom_energy_matches_tuna_tpu(line, energy_ref, one_torch_thread):
+    _, _, energy, _ = run(line, suppress_output=True, device="cpu")
+    assert abs(energy - energy_ref) <= 1e-8
+
+
+def test_oxygen_pbe_does_not_converge_as_in_tuna_tpu(one_torch_thread):
+    # tuna_tpu: "Self-consistent field not converged in 100 iterations!"
+    with pytest.raises(TunaError, match="not converged"):
+        run("SPE : O : PBE 6-31G : ML 3 TIGHTSCF", suppress_output=True, device="cpu")
+
+
+@pytest.mark.xfail(strict=True, raises=TunaError,
+                   reason="the port's SCF wanders among orientations of the p hole and does "
+                          "not converge in 100 cycles, where tuna_tpu converges in 9")
+@pytest.mark.parametrize("line,energy_ref,iterations_ref", [
+    ("SPE : C : B3LYP 6-31G : ML 3 TIGHTSCF", -37.822278292425096, 9),
+    ("SPE : C : PBE 6-31G : ML 3 TIGHTSCF", -37.78009638319809, 9),
+])
+def test_carbon_gga_matches_tuna_tpu(line, energy_ref, iterations_ref, one_torch_thread):
+    scf, _, energy, _ = run(line, suppress_output=True, device="cpu")
+    assert abs(energy - energy_ref) <= 1e-10
+    assert len(scf.iteration_seconds) == iterations_ref

@@ -59,6 +59,8 @@ SIGNATURES = {
     "tuna_ao_on_grid": [_I, _I, _I] + [_P] * 8 + [_P],
     # n_ao, n_points, with_gradients, P, phi, grads, density, gradient
     "tuna_density_on_grid": [_I, _I, _I] + [_P] * 5 + [_P],
+    # n_ao, n_points, P, phi, grads, density, gradient, tau
+    "tuna_density_tau_on_grid": [_I, _I] + [_P] * 6 + [_P],
     # n_points, n_tiles, points, omega, kappa, weighted density, beta,
     # partial
     "tuna_vv10_energy": [_I, _I] + [_P] * 4 + [_D, _P] + [_P],
@@ -90,6 +92,9 @@ SIGNATURES = {
     # as tuna_density_deriv_on_grid with P (2, n_ao, n_ao) and each output
     # stacked over the two spins
     "tuna_density_deriv_on_grid_spin": [_I, _I, _I, _I] + [_P] * 12 + [_P],
+    # as tuna_density_deriv_on_grid and ..._spin, plus tau and d_tau
+    "tuna_density_tau_deriv_on_grid": [_I, _I, _I, _I] + [_P] * 14 + [_P],
+    "tuna_density_tau_deriv_on_grid_spin": [_I, _I, _I, _I] + [_P] * 14 + [_P],
 }
 
 # Launches of each kernel's CUDA path since the last reset.
@@ -99,7 +104,9 @@ launches = {"eri_packed": 0, "one_electron": 0, "ccsd_t_energy": 0, "uccsd_t_ene
             "vv10_energy_batch": 0,
             "fock_direct": 0, "mo_half_transform": 0, "one_electron_deriv": 0,
             "eri_deriv_energy": 0, "density_deriv_on_grid": 0,
-            "eri_deriv_energy_unrestricted": 0, "density_deriv_on_grid_spin": 0}
+            "eri_deriv_energy_unrestricted": 0, "density_deriv_on_grid_spin": 0,
+            "density_tau_on_grid": 0, "density_tau_deriv_on_grid": 0,
+            "density_tau_deriv_on_grid_spin": 0}
 
 _lock = threading.Lock()
 _library = None

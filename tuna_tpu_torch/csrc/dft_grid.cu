@@ -1,7 +1,9 @@
 // K7: the DFT grid -- atomic orbitals on the grid (K7a) and the density
-// and its gradient from a density matrix (K7b).  K8c and K8cu, the
-// R-tangent of the density and its gradient on a moving grid for one
-// density and for both spins, are described at their kernel below.
+// and its gradient from a density matrix (K7b; K7bt adds the kinetic
+// energy density tau of the meta-GGAs).  K8c and K8cu, the R-tangent of the
+// density and its gradient on a moving grid for one density and for both
+// spins, and K8ct and K8cut, the same with tau and its tangent, are
+// described at their kernel below.
 //
 // K7a replaces tuna_tpu/dft/grid.py::construct_basis_functions_on_grid
 // (:80) and construct_basis_function_gradients_on_grid (:102), host NumPy
@@ -39,6 +41,18 @@
 // loop because the columns' shared memory leaves L1 too small to hold P
 // (28.8 KB at n = 60), and its loads would go to L2.  Y is never stored.
 // Every sum runs in a fixed order: deterministic, no atomics.
+//
+// K7bt (TAU = true) replaces tuna_tpu/dft/__init__.py:48-49, tau = 1/2
+// sum_a sum_ij P_ij d_a phi_i d_a phi_j, once a spin for UKS, with rho and
+// grad rho in the same launch.  tau is three more quadratic forms of the
+// kind rho = phi^T P phi is, so after K7b's loop (unchanged: rho and grad
+// rho are K7b's bit for bit) the block runs that loop once more for each
+// component a, with its point's column of d_a phi staged where phi's was.
+// The shared memory stays K7b's, 46 KB at n = 60, where all four columns
+// at once would take 138 KB and one block an SM.  Bound: bytes, as K7b's
+// with gradients (phi and d phi read once, 155 MB at N2/cc-pVTZ, ~0.047
+// ms); its operations, four products of 2 n^2 a point, ~0.035 ms at the
+// DMMA rate.
 #include <cuda_runtime.h>
 
 namespace {
@@ -90,10 +104,53 @@ ao_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double* __re
   }
 }
 
+// sum_i c_i sum_j P_ji c_j for thread t's column c (staged in `column`),
+// K7b's panel loop without its gradient sums; every thread of the block
+// takes part (the panels are staged by all of them), the result is
+// meaningful where `live`.
+__device__ double quadratic_form(int n_ao, const double* __restrict__ P, const double* column,
+                                 double* panel, int t, bool live) {
+  double q = 0.0;
+  for (int i0 = 0; i0 < n_ao; i0 += kDensityPanel) {
+    __syncthreads();
+#pragma unroll 8
+    for (int e = t; e < n_ao * kDensityPanel; e += kDensityPoints) {
+      const int j = e / kDensityPanel, c = e % kDensityPanel;
+      panel[e] = i0 + c < n_ao ? P[static_cast<size_t>(j) * n_ao + i0 + c] : 0.0;
+    }
+    __syncthreads();
+    for (int i1 = 0; i1 < kDensityPanel && i0 + i1 < n_ao; i1 += kDensityRows) {
+      double y[kDensityRows];
+#pragma unroll
+      for (int r = 0; r < kDensityRows; ++r) y[r] = 0.0;
+#pragma unroll 4
+      for (int j = 0; j < n_ao; ++j) {
+        const double f = column[j * kDensityPoints + t];
+        const double2* row = reinterpret_cast<const double2*>(panel + j * kDensityPanel + i1);
+#pragma unroll
+        for (int r = 0; r < kDensityRows / 2; ++r) {
+          const double2 p = row[r];
+          y[2 * r] += p.x * f;
+          y[2 * r + 1] += p.y * f;
+        }
+      }
+      if (!live) continue;
+#pragma unroll
+      for (int r = 0; r < kDensityRows; ++r) {
+        const int i = i0 + i1 + r;
+        if (i < n_ao) q += column[i * kDensityPoints + t] * y[r];
+      }
+    }
+  }
+  return q;
+}
+
+template <bool TAU>
 __global__ void __launch_bounds__(kDensityPoints)
 density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double* __restrict__ P,
                        const double* __restrict__ phi, const double* __restrict__ grads,
-                       double* __restrict__ density, double* __restrict__ gradient) {
+                       double* __restrict__ density, double* __restrict__ gradient,
+                       double* __restrict__ tau) {
   extern __shared__ double shared[];
   // column[j * kDensityPoints + t] = phi_j at thread t's point;
   // panel[j * kDensityPanel + c] = P_j,(i0 + c), zero past the last AO
@@ -147,6 +204,17 @@ density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double*
       }
     }
   }
+  double tau_sum = 0.0;
+  if constexpr (TAU) {
+    // the loop above once more for each component, on the column of d_a phi
+    for (int a = 0; a < 3; ++a) {
+      __syncthreads();  // every thread is done with the previous panel
+#pragma unroll 8
+      for (int j = 0; j < n_ao; ++j)
+        column[j * kDensityPoints + t] = live ? grads[a * plane + j * G + k] : 0.0;
+      tau_sum += quadratic_form(n_ao, P, column, panel, t, live);
+    }
+  }
   if (!live) return;
   density[k] = rho;
   if (with_gradients) {
@@ -154,6 +222,7 @@ density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double*
     gradient[G + k] = 2.0 * gy;
     gradient[2 * G + k] = 2.0 * gz;
   }
+  if constexpr (TAU) tau[k] = 0.5 * tau_sum;
 }
 
 // K8c: the density, its gradient and their R-tangents at fixed P, when
@@ -177,9 +246,22 @@ density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double*
 // 1 is K8c itself), so its outputs are K8c's on that density, bit for bit.
 // Bound as K8c: the products Y_s = P_s phi and Y'_s = P_s phi' at the
 // float64 rate, S times K8c's.
+//
+// K8ct and K8cut (TAU = true; tuna_tpu/drivers/gradients.py:157-159, the
+// meta-GGAs' tau on the moving grid under jax.grad, used at :179-183 and
+// :187-211) add tau = 1/2 sum_a d_a phi . Y_a and its tangent tau' = sum_a
+// (d_a phi)' . Y_a with Y_a = P d_a phi, (d_a phi)' the moving Hessian
+// column K8c already forms.  The gradient columns d_a phi join phi and phi'
+// in shared memory (5 n_ao doubles a thread: 90 KB a block at n_ao = 70,
+// so the launch asks for more than the default 48 KB), formed in the first
+// loop by the expressions the row loop uses, and Y_a is summed in the same
+// j loop as Y and Y', so a density costs five products where K8c's costs
+// two: bound ~2.5 times K8c's by operations.  rho, grad rho and their
+// tangents keep K8c's order of summation, so they are K8c's (S = 1) and
+// K8cu's (S = 2) bit for bit, and each spin of K8cut is K8ct's.
 constexpr int kDerivPoints = 32;  // threads (points) per block of K8c
 
-template <int S>
+template <int S, bool TAU>
 __global__ void __launch_bounds__(kDerivPoints)
 density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_gradients,
                              const double* __restrict__ points, const double* __restrict__ origin,
@@ -187,10 +269,13 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
                              const int* __restrict__ prim_start, const double* __restrict__ exps,
                              const double* __restrict__ coefs, const double* __restrict__ P,
                              double* __restrict__ density, double* __restrict__ gradient,
-                             double* __restrict__ d_density, double* __restrict__ d_gradient) {
+                             double* __restrict__ d_density, double* __restrict__ d_gradient,
+                             double* __restrict__ tau, double* __restrict__ d_tau) {
   extern __shared__ double shared[];
-  double* phi = shared;                                            // phi[j * kDerivPoints + t]
-  double* dphi = shared + static_cast<size_t>(n_ao) * kDerivPoints;  // its R-tangent
+  const size_t column = static_cast<size_t>(n_ao) * kDerivPoints;
+  double* phi = shared;            // phi[j * kDerivPoints + t]
+  double* dphi = shared + column;  // its R-tangent
+  double* gphi = shared + 2 * column;  // TAU: d_a phi at [a * column + j * kDerivPoints + t]
   const int t = threadIdx.x;
   const int k = blockIdx.x * kDerivPoints + t;
   if (k >= n_points) return;  // no barrier below
@@ -213,24 +298,37 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
     const double dz = n > 0 ? n * px * py * int_pow(Z, n - 1) : 0.0;
     phi[mu * kDerivPoints + t] = s0 * poly;
     dphi[mu * kDerivPoints + t] = (point_moves - ao_moves[mu]) * (dz * s0 - 2.0 * Z * poly * s1);
+    if constexpr (TAU) {
+      const double dx = l > 0 ? l * int_pow(X, l - 1) * py * pz : 0.0;
+      const double dy = m > 0 ? m * px * int_pow(Y, m - 1) * pz : 0.0;
+      gphi[mu * kDerivPoints + t] = dx * s0 - 2.0 * X * poly * s1;
+      gphi[column + mu * kDerivPoints + t] = dy * s0 - 2.0 * Y * poly * s1;
+      gphi[2 * column + mu * kDerivPoints + t] = dz * s0 - 2.0 * Z * poly * s1;
+    }
   }
-  double rho[S], drho[S], g[S][3], dg[S][3];
+  double rho[S], drho[S], g[S][3], dg[S][3], ts[S], dts[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    rho[s] = drho[s] = 0.0;
+    rho[s] = drho[s] = ts[s] = dts[s] = 0.0;
 #pragma unroll
     for (int c = 0; c < 3; ++c) g[s][c] = dg[s][c] = 0.0;
   }
   for (int i = 0; i < n_ao; ++i) {
-    double Yi[S], dYi[S];
+    double Yi[S], dYi[S], Ya[S][3];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const double* row = P + s * nn + static_cast<size_t>(i) * n_ao;
       Yi[s] = 0.0;
       dYi[s] = 0.0;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) Ya[s][c] = 0.0;
       for (int j = 0; j < n_ao; ++j) {
         Yi[s] += row[j] * phi[j * kDerivPoints + t];
         dYi[s] += row[j] * dphi[j * kDerivPoints + t];
+        if constexpr (TAU) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) Ya[s][c] += row[j] * gphi[c * column + j * kDerivPoints + t];
+        }
       }
       rho[s] += phi[i * kDerivPoints + t] * Yi[s];
       drho[s] += dphi[i * kDerivPoints + t] * Yi[s];
@@ -269,6 +367,10 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
       for (int c = 0; c < 3; ++c) {
         g[s][c] += grad[c] * Yi[s];
         dg[s][c] += grad[c] * dYi[s] + moves * hess_z[c] * Yi[s];
+        if constexpr (TAU) {
+          ts[s] += grad[c] * Ya[s][c];
+          dts[s] += moves * hess_z[c] * Ya[s][c];
+        }
       }
     }
   }
@@ -283,28 +385,33 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
         d_gradient[(3 * s + c) * G + k] = 2.0 * dg[s][c];
       }
     }
+    if constexpr (TAU) {
+      tau[s * G + k] = 0.5 * ts[s];
+      d_tau[s * G + k] = dts[s];
+    }
   }
 }
 
-template <int S>
+template <int S, bool TAU>
 cudaError_t launch_density_deriv(int n_ao, int n_points, int first_moving, int with_gradients,
                                  const double* points, const double* origin, const int* ao_moves,
                                  const int* lmn, const int* prim_start, const double* exps,
                                  const double* coefs, const double* P, double* density,
                                  double* gradient, double* d_density, double* d_gradient,
-                                 cudaStream_t stream) {
+                                 double* tau, double* d_tau, cudaStream_t stream) {
   if (n_points == 0) return cudaSuccess;
-  const size_t shared = 2 * static_cast<size_t>(n_ao) * kDerivPoints * sizeof(double);
+  if (TAU && !with_gradients) return cudaErrorInvalidValue;  // tau reads the AO gradients
+  const size_t shared = (TAU ? 5 : 2) * static_cast<size_t>(n_ao) * kDerivPoints * sizeof(double);
   if (shared > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(density_deriv_on_grid_kernel<S>,
+    const cudaError_t status = cudaFuncSetAttribute(density_deriv_on_grid_kernel<S, TAU>,
                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                     static_cast<int>(shared));
     if (status != cudaSuccess) return status;
   }
   const int blocks = (n_points + kDerivPoints - 1) / kDerivPoints;
-  density_deriv_on_grid_kernel<S><<<blocks, kDerivPoints, shared, stream>>>(
+  density_deriv_on_grid_kernel<S, TAU><<<blocks, kDerivPoints, shared, stream>>>(
       n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves, lmn, prim_start,
-      exps, coefs, P, density, gradient, d_density, d_gradient);
+      exps, coefs, P, density, gradient, d_density, d_gradient, tau, d_tau);
   return cudaGetLastError();
 }
 
@@ -326,9 +433,10 @@ extern "C" int tuna_density_deriv_on_grid(int n_ao, int n_points, int first_movi
                                           const double* P, double* density, double* gradient,
                                           double* d_density, double* d_gradient,
                                           cudaStream_t stream) {
-  return launch_density_deriv<1>(n_ao, n_points, first_moving, with_gradients, points, origin,
-                                 ao_moves, lmn, prim_start, exps, coefs, P, density, gradient,
-                                 d_density, d_gradient, stream);
+  return launch_density_deriv<1, false>(n_ao, n_points, first_moving, with_gradients, points,
+                                        origin, ao_moves, lmn, prim_start, exps, coefs, P,
+                                        density, gradient, d_density, d_gradient, nullptr,
+                                        nullptr, stream);
 }
 
 // K8cu: as tuna_density_deriv_on_grid over the two spins' symmetric
@@ -342,9 +450,43 @@ extern "C" int tuna_density_deriv_on_grid_spin(int n_ao, int n_points, int first
                                                const double* P, double* density,
                                                double* gradient, double* d_density,
                                                double* d_gradient, cudaStream_t stream) {
-  return launch_density_deriv<2>(n_ao, n_points, first_moving, with_gradients, points, origin,
-                                 ao_moves, lmn, prim_start, exps, coefs, P, density, gradient,
-                                 d_density, d_gradient, stream);
+  return launch_density_deriv<2, false>(n_ao, n_points, first_moving, with_gradients, points,
+                                        origin, ao_moves, lmn, prim_start, exps, coefs, P,
+                                        density, gradient, d_density, d_gradient, nullptr,
+                                        nullptr, stream);
+}
+
+// K8ct: as tuna_density_deriv_on_grid (with_gradients non-zero, else the
+// call returns cudaErrorInvalidValue), plus tau and d_tau (n_points,).  A
+// block's columns take 5 n_ao x 256 bytes of shared memory.
+extern "C" int tuna_density_tau_deriv_on_grid(int n_ao, int n_points, int first_moving,
+                                              int with_gradients, const double* points,
+                                              const double* origin, const int* ao_moves,
+                                              const int* lmn, const int* prim_start,
+                                              const double* exps, const double* coefs,
+                                              const double* P, double* density,
+                                              double* gradient, double* d_density,
+                                              double* d_gradient, double* tau, double* d_tau,
+                                              cudaStream_t stream) {
+  return launch_density_deriv<1, true>(n_ao, n_points, first_moving, with_gradients, points,
+                                       origin, ao_moves, lmn, prim_start, exps, coefs, P, density,
+                                       gradient, d_density, d_gradient, tau, d_tau, stream);
+}
+
+// K8cut: K8ct over the two spins' P (2, n_ao, n_ao) in one pass; tau and
+// d_tau (2, n_points), the other outputs as for K8cu.
+extern "C" int tuna_density_tau_deriv_on_grid_spin(int n_ao, int n_points, int first_moving,
+                                                   int with_gradients, const double* points,
+                                                   const double* origin, const int* ao_moves,
+                                                   const int* lmn, const int* prim_start,
+                                                   const double* exps, const double* coefs,
+                                                   const double* P, double* density,
+                                                   double* gradient, double* d_density,
+                                                   double* d_gradient, double* tau,
+                                                   double* d_tau, cudaStream_t stream) {
+  return launch_density_deriv<2, true>(n_ao, n_points, first_moving, with_gradients, points,
+                                       origin, ao_moves, lmn, prim_start, exps, coefs, P, density,
+                                       gradient, d_density, d_gradient, tau, d_tau, stream);
 }
 
 // values (n_ao, n_points); gradients (3, n_ao, n_points), written only when
@@ -368,20 +510,35 @@ extern "C" int tuna_ao_on_grid(int n_ao, int n_points, int with_gradients, const
 // memory: past the default 48 KB (n_ao > 64) the launch asks for more, and
 // an n_ao past what the card holds (302 on an H100) fails with the CUDA
 // error of that request.
-extern "C" int tuna_density_on_grid(int n_ao, int n_points, int with_gradients, const double* P,
-                                    const double* phi, const double* grads, double* density,
-                                    double* gradient, cudaStream_t stream) {
+template <bool TAU>
+cudaError_t launch_density(int n_ao, int n_points, int with_gradients, const double* P,
+                           const double* phi, const double* grads, double* density,
+                           double* gradient, double* tau, cudaStream_t stream) {
   if (n_points == 0) return cudaSuccess;
   const size_t shared =
       static_cast<size_t>(n_ao) * (kDensityPoints + kDensityPanel) * sizeof(double);
   if (shared > 48 * 1024) {
     const cudaError_t status = cudaFuncSetAttribute(
-        density_on_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        density_on_grid_kernel<TAU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shared));
     if (status != cudaSuccess) return status;
   }
   const int blocks = (n_points + kDensityPoints - 1) / kDensityPoints;
-  density_on_grid_kernel<<<blocks, kDensityPoints, shared, stream>>>(
-      n_ao, n_points, with_gradients, P, phi, grads, density, gradient);
+  density_on_grid_kernel<TAU><<<blocks, kDensityPoints, shared, stream>>>(
+      n_ao, n_points, with_gradients, P, phi, grads, density, gradient, tau);
   return cudaGetLastError();
+}
+
+extern "C" int tuna_density_on_grid(int n_ao, int n_points, int with_gradients, const double* P,
+                                    const double* phi, const double* grads, double* density,
+                                    double* gradient, cudaStream_t stream) {
+  return launch_density<false>(n_ao, n_points, with_gradients, P, phi, grads, density, gradient,
+                               nullptr, stream);
+}
+
+// K7bt: as tuna_density_on_grid with the gradients, plus tau (n_points,).
+extern "C" int tuna_density_tau_on_grid(int n_ao, int n_points, const double* P,
+                                        const double* phi, const double* grads, double* density,
+                                        double* gradient, double* tau, cudaStream_t stream) {
+  return launch_density<true>(n_ao, n_points, 1, P, phi, grads, density, gradient, tau, stream);
 }

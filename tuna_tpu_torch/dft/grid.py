@@ -9,15 +9,16 @@ device of the tensors they are given:
   * basis_on_grid (AO values and gradients): kernel K7a `ao_on_grid`
     (csrc/dft_grid.cu) on a CUDA tensor, `_ao_on_grid_plain` on a CPU
     tensor; the spherical transform is a torch.matmul after either;
-  * density_on_grid (rho and grad rho from P): kernel K7b
-    `density_on_grid` on a CUDA tensor, the reference einsums
-    (`_density_on_grid_plain`) on a CPU tensor;
+  * density_on_grid (rho and grad rho from P; with_tau, tau too): kernel
+    K7b `density_on_grid` (K7bt with tau) on a CUDA tensor, the reference
+    einsums (`_density_on_grid_plain`) on a CPU tensor;
   * density_deriv_on_grid (rho, grad rho and their R-tangents at fixed P on
-    a grid whose second half moves with atom 1, for the analytic gradient):
-    kernel K8c on a CUDA tensor, `_density_deriv_on_grid_plain` on a CPU
-    tensor; density_deriv_on_grid_spin, the same for both spins in one
-    pass: kernel K8cu on a CUDA tensor, the plain version spin by spin on
-    a CPU tensor.
+    a grid whose second half moves with atom 1, for the analytic gradient;
+    with_tau, tau and its tangent too): kernel K8c (K8ct) on a CUDA tensor,
+    `_density_deriv_on_grid_plain` on a CPU tensor;
+    density_deriv_on_grid_spin, the same for both spins in one pass:
+    kernel K8cu (K8cut) on a CUDA tensor, the plain version spin by spin
+    on a CPU tensor.
 
 Grid tensors keep tuna_tpu's layout: points (3, N, M), weights (N, M), AO
 values (n_basis, N, M) and gradients (3, n_basis, N, M).
@@ -202,13 +203,17 @@ def basis_on_grid(basis_functions, points, spherical_transform, with_gradients: 
 # K7b: the density and its gradient on the grid
 # =========================================================================
 
-def density_on_grid(P, bfs, grads=None):
+def density_on_grid(P, bfs, grads=None, with_tau: bool = False):
     """rho = sum_ij P_ij phi_i phi_j on the grid, shape bfs.shape[1:], and
-    with grads, grad rho = 2 sum_ij P_ij phi_i grad phi_j, (3, ...) (no
-    floor applied): kernel K7b on a CUDA tensor, the reference einsums on
-    a CPU tensor."""
+    with grads, grad rho = 2 sum_ij P_ij phi_i grad phi_j, (3, ...); with
+    with_tau (grads needed), also the kinetic energy density tau = 1/2 sum_a
+    sum_ij P_ij d_a phi_i d_a phi_j, shape bfs.shape[1:] (no floor applied):
+    kernel K7b (K7bt with tau) on a CUDA tensor, the reference einsums on a
+    CPU tensor.  Returns (rho, grad rho or None), or (rho, grad rho, tau)."""
+    if with_tau and grads is None:
+        raise ValueError("tau on the grid needs the AO gradients")
     if bfs.device.type == "cpu":
-        return _density_on_grid_plain(P, bfs, grads)
+        return _density_on_grid_plain(P, bfs, grads, with_tau)
     if bfs.device.type != "cuda":
         raise ValueError(f"no density on the grid for device {bfs.device}")
     device = bfs.device
@@ -223,6 +228,13 @@ def density_on_grid(P, bfs, grads=None):
         _kernels.check_tensor("grads", grads, (3, n, G), _F64, device)
     density = torch.empty(G, dtype=_F64, device=device)
     gradient = torch.empty((3, G), dtype=_F64, device=device) if grads is not None else None
+    if with_tau:
+        tau = torch.empty(G, dtype=_F64, device=device)
+        _kernels.launch(
+            "density_tau_on_grid", "tuna_density_tau_on_grid", device,
+            n, G, P.data_ptr(), phi.data_ptr(), grads.data_ptr(), density.data_ptr(),
+            gradient.data_ptr(), tau.data_ptr())
+        return density.reshape(shape), gradient.reshape(3, *shape), tau.reshape(shape)
     _kernels.launch(
         "density_on_grid", "tuna_density_on_grid", device,
         n, G, int(grads is not None), P.data_ptr(), phi.data_ptr(),
@@ -232,10 +244,12 @@ def density_on_grid(P, bfs, grads=None):
             gradient.reshape(3, *shape) if gradient is not None else None)
 
 
-def _density_on_grid_plain(P, bfs, grads=None):
+def _density_on_grid_plain(P, bfs, grads=None, with_tau: bool = False):
     density = torch.einsum("ij,i...,j...->...", P, bfs, bfs)
     gradient = (2 * torch.einsum("ij,i...,aj...->a...", P, bfs, grads)
                 if grads is not None else None)
+    if with_tau:
+        return density, gradient, 0.5 * torch.einsum("ij,ai...,aj...->...", P, grads, grads)
     return density, gradient
 
 
@@ -244,43 +258,57 @@ def _density_on_grid_plain(P, bfs, grads=None):
 # =========================================================================
 
 def density_deriv_on_grid(basis: GridBasis, origin, ao_moves, points, first_moving: int, P,
-                          with_gradients: bool):
+                          with_gradients: bool, with_tau: bool = False):
     """(rho, grad rho or None, rho', grad rho' or None) at points (3, G)
     for the symmetric Cartesian density P, where ' is d/dR at fixed P when
     atom 1 moves along +z: its AOs (ao_moves, int32 (n_ao,), 1 on atom 1)
-    and the points from `first_moving` on move with it.  origin (n_ao, 3)
-    holds the AO centres at this geometry (basis.origin is not read).
-    Kernel K8c on a CUDA tensor, the plain version on a CPU tensor; no
+    and the points from `first_moving` on move with it; with_tau (which
+    needs with_gradients), then also tau and tau'.  origin (n_ao, 3) holds
+    the AO centres at this geometry (basis.origin is not read).  Kernel K8c
+    (K8ct with tau) on a CUDA tensor, the plain version on a CPU tensor; no
     floor applied."""
+    if with_tau and not with_gradients:
+        raise ValueError("tau on the moving grid needs with_gradients")
     if points.device.type == "cpu":
         return _density_deriv_on_grid_plain(basis, origin, ao_moves, points, first_moving, P,
-                                            with_gradients)
+                                            with_gradients, with_tau)
+    if with_tau:
+        return _density_deriv_kernel("density_tau_deriv_on_grid",
+                                     "tuna_density_tau_deriv_on_grid", basis, origin, ao_moves,
+                                     points, first_moving, P, with_gradients, with_tau)
     return _density_deriv_kernel("density_deriv_on_grid", "tuna_density_deriv_on_grid", basis,
                                  origin, ao_moves, points, first_moving, P, with_gradients)
 
 
 def density_deriv_on_grid_spin(basis: GridBasis, origin, ao_moves, points, first_moving: int,
-                               P_stack, with_gradients: bool):
+                               P_stack, with_gradients: bool, with_tau: bool = False):
     """density_deriv_on_grid for a stack of symmetric Cartesian densities
     P_stack (2, n_ao, n_ao), the two spins, in one pass: (rho, grad rho or
-    None, rho', grad rho' or None) with shapes (2, G) and (2, 3, G).
-    Kernel K8cu on a CUDA tensor, the plain version of K8c density by
-    density on a CPU tensor; no floor applied."""
+    None, rho', grad rho' or None[, tau, tau']) with shapes (2, G) and (2,
+    3, G).  Kernel K8cu (K8cut with tau) on a CUDA tensor, the plain version
+    of K8c density by density on a CPU tensor; no floor applied."""
+    if with_tau and not with_gradients:
+        raise ValueError("tau on the moving grid needs with_gradients")
     if points.device.type == "cpu":
         outs = [_density_deriv_on_grid_plain(basis, origin, ao_moves, points, first_moving, P,
-                                             with_gradients) for P in P_stack]
+                                             with_gradients, with_tau) for P in P_stack]
         return tuple(torch.stack(parts) if parts[0] is not None else None
                      for parts in zip(*outs))
     _kernels.check_tensor("P_stack", P_stack, (2, basis.n_ao, basis.n_ao), _F64, points.device)
+    if with_tau:
+        return _density_deriv_kernel("density_tau_deriv_on_grid_spin",
+                                     "tuna_density_tau_deriv_on_grid_spin", basis, origin,
+                                     ao_moves, points, first_moving, P_stack, with_gradients,
+                                     with_tau)
     return _density_deriv_kernel("density_deriv_on_grid_spin", "tuna_density_deriv_on_grid_spin",
                                  basis, origin, ao_moves, points, first_moving, P_stack,
                                  with_gradients)
 
 
 def _density_deriv_kernel(kernel, entry, basis, origin, ao_moves, points, first_moving, P,
-                          with_gradients):
-    """Launch K8c (P (n, n)) or K8cu (P (2, n, n)); each output carries the
-    leading axes of P."""
+                          with_gradients, with_tau=False):
+    """Launch K8c or K8ct (P (n, n)), K8cu or K8cut (P (2, n, n)); each
+    output carries the leading axes of P."""
     if points.device.type != "cuda":
         raise ValueError(f"no density derivative on the grid for device {points.device}")
     device = points.device
@@ -295,20 +323,25 @@ def _density_deriv_kernel(kernel, entry, basis, origin, ao_moves, points, first_
                           for _ in range(2))
     gradient, d_gradient = ((torch.empty((*spins, 3, G), dtype=_F64, device=device)
                              if with_gradients else None) for _ in range(2))
-    _kernels.launch(
-        kernel, entry, device,
-        n, G, int(first_moving), int(with_gradients), points.data_ptr(),
-        origin.data_ptr(), ao_moves.data_ptr(), t["lmn"].data_ptr(), t["prim_start"].data_ptr(),
-        t["exps"].data_ptr(), t["coefs"].data_ptr(), P.data_ptr(), density.data_ptr(),
-        gradient.data_ptr() if with_gradients else None, d_density.data_ptr(),
-        d_gradient.data_ptr() if with_gradients else None)
-    return density, gradient, d_density, d_gradient
+    args = [n, G, int(first_moving), int(with_gradients), points.data_ptr(),
+            origin.data_ptr(), ao_moves.data_ptr(), t["lmn"].data_ptr(),
+            t["prim_start"].data_ptr(), t["exps"].data_ptr(), t["coefs"].data_ptr(),
+            P.data_ptr(), density.data_ptr(), gradient.data_ptr() if with_gradients else None,
+            d_density.data_ptr(), d_gradient.data_ptr() if with_gradients else None]
+    if not with_tau:
+        _kernels.launch(kernel, entry, device, *args)
+        return density, gradient, d_density, d_gradient
+    tau, d_tau = (torch.empty((*spins, G), dtype=_F64, device=device) for _ in range(2))
+    _kernels.launch(kernel, entry, device, *args, tau.data_ptr(), d_tau.data_ptr())
+    return density, gradient, d_density, d_gradient, tau, d_tau
 
 
 def _density_deriv_on_grid_plain(basis: GridBasis, origin, ao_moves, points, first_moving: int,
-                                 P, with_gradients: bool):
+                                 P, with_gradients: bool, with_tau: bool = False):
     """Per-AO torch: values, gradients and the z column of each AO's
-    Hessian on every point, then the contractions with P."""
+    Hessian on every point, then the contractions with P (with tau:
+    tau = 1/2 sum_a d_a phi . P d_a phi, tau' = sum_a (d_a phi)' . P d_a
+    phi)."""
     X, Y, Z = points
     G = points.shape[1]
     zero = torch.zeros_like(X)
@@ -349,7 +382,12 @@ def _density_deriv_on_grid_plain(basis: GridBasis, origin, ao_moves, points, fir
     d_grad_phi = moves * torch.stack(hess_z, dim=1)
     gradient = 2 * torch.sum(grad_phi * Yv, dim=1)
     d_gradient = 2 * torch.sum(grad_phi * dY + d_grad_phi * Yv, dim=1)
-    return density, gradient, d_density, d_gradient
+    if not with_tau:
+        return density, gradient, d_density, d_gradient
+    Ya = P @ grad_phi                            # (3, n, G)
+    tau = 0.5 * torch.sum(grad_phi * Ya, dim=(0, 1))
+    d_tau = torch.sum(d_grad_phi * Ya, dim=(0, 1))
+    return density, gradient, d_density, d_gradient, tau, d_tau
 
 
 def construct_density_on_grid(P, bfs_on_grid, clean_density=True):

@@ -1,5 +1,5 @@
 """Analytic nuclear gradients of SCF energies (RHF, UHF, and RKS and UKS
-with the port's LDA and GGA functionals).
+with the port's LDA, GGA and meta-GGA functionals).
 
 Twin of tuna_tpu/drivers/gradients.py.  For a converged SCF the energy is
 variational in the density, so dE/dR is the derivative of the energy
@@ -16,7 +16,8 @@ K8a (IntegralPlan.one_electron_deriv) for the one-electron integrals, K8b
 (IntegralPlan.eri_deriv_energy; K8bu, eri_deriv_energy_unrestricted, with
 exchange per spin) for the two-electron energy, K8c
 (dft.grid.density_deriv_on_grid; K8cu, density_deriv_on_grid_spin, both
-spins in one pass) for the density on the moving grid.  The spherical
+spins in one pass; K8ct and K8cut with a meta-GGA's tau) for the density
+on the moving grid.  The spherical
 transform is linear, so the densities and W enter in the Cartesian basis
 (U^T P U).  The rest of E_xc' is elementwise torch: the functionals'
 derivatives by the same autograd the SCF's V_XC uses, and the Becke
@@ -37,10 +38,10 @@ _F64 = torch.float64
 
 def analytic_gradient_available(calculation, molecule=None) -> bool:
     """True when the SCF energy has an analytic gradient here: Hartree-Fock
-    (RHF or UHF), or Kohn-Sham with the port's LDA/GGA functionals, the
-    correlation functional looked up in the registry of the reference
-    (tuna_tpu's gate).  VV10, double hybrids and ghost-atom grids go
-    through finite differences, as in tuna_tpu."""
+    (RHF or UHF), or Kohn-Sham with the port's LDA/GGA/meta-GGA
+    functionals, the correlation functional looked up in the registry of
+    the reference (tuna_tpu's gate).  VV10, double hybrids and ghost-atom
+    grids go through finite differences, as in tuna_tpu."""
     method = calculation.method
     if calculation.extrapolate or calculation.decontract or method.correlated_method:
         return False
@@ -51,8 +52,6 @@ def analytic_gradient_available(calculation, molecule=None) -> bool:
         if calculation.VV10 or calculation.MPC_prop > 0:
             return False
         if molecule is not None and any(a.ghost for a in molecule.atoms):
-            return False
-        if functional.functional_class not in ("LDA", "GGA"):
             return False
         c_registry = (xc.CORRELATION_FUNCTIONALS if calculation.reference == "RHF"
                       else xc.UNRESTRICTED_CORRELATION_FUNCTIONALS)
@@ -67,8 +66,9 @@ _GRAD_CACHE: dict = {}
 def _build_xc_gradient_fn(molecule, calculation, device):
     """(R, P) -> dE_xc/dR at a fixed Cartesian density P, the total
     (restricted) or the stack (2, n, n) of both spins (unrestricted): the
-    moving grid's densities and their tangents from K8c or K8cu, then the
-    derivative of tuna_tpu's _build_xc_energy_fn as elementwise torch."""
+    moving grid's densities and their tangents from K8c or K8cu (K8ct or
+    K8cut for a meta-GGA), then the derivative of tuna_tpu's
+    _build_xc_energy_fn as elementwise torch."""
     functional = calculation.functional
     restricted = calculation.reference == "RHF"
     x_fn = xc.EXCHANGE_FUNCTIONALS.get(functional.x_name)
@@ -76,7 +76,8 @@ def _build_xc_gradient_fn(molecule, calculation, device):
             else xc.UNRESTRICTED_CORRELATION_FUNCTIONALS.get(functional.c_name))
     params = xc.XCParams(x_alpha=calculation.X_alpha, method_name=calculation.method.name,
                          x_name=functional.x_name)
-    needs_gradient = functional.functional_class == "GGA"
+    needs_gradient = functional.functional_class in ("GGA", "meta-GGA")
+    needs_tau = functional.functional_class == "meta-GGA"
     DFX_prop, DFC_prop = float(calculation.DFX_prop), float(calculation.DFC_prop)
 
     extent, n_radial, lebedev_order = dft_grid.grid_parameters(molecule, calculation)
@@ -109,20 +110,23 @@ def _build_xc_gradient_fn(molecule, calculation, device):
             s = (3 * s - s**3) / 2
         return torch.cat([w_atomic * ((1 - s) / 2)[:n_A], w_atomic * ((1 + s) / 2)[n_A:]])
 
-    def cleaned(rho, grad_rho, d_rho, d_grad_rho):
-        """The floored density and sigma of xc.clean with their tangents
-        (a floor passes no derivative below it)."""
+    def cleaned(rho, grad_rho, d_rho, d_grad_rho, tau_raw=None, d_tau_raw=None):
+        """The floored density, sigma and tau of xc.clean with their
+        tangents (a floor passes no derivative below it)."""
         density = xc.clean(rho)
         d_density = torch.where(rho > xc.DENSITY_FLOOR, d_rho, 0.0)
-        sigma = d_sigma = None
+        sigma = d_sigma = tau = d_tau = None
         if needs_gradient:
             sigma_raw = torch.sum(grad_rho * grad_rho, dim=-2)
             sigma = xc.clean(sigma_raw, floor=xc.SIGMA_FLOOR)
             d_sigma = torch.where(sigma_raw > xc.SIGMA_FLOOR,
                                   2 * torch.sum(grad_rho * d_grad_rho, dim=-2), 0.0)
-        return density, d_density, sigma, d_sigma
+        if needs_tau:
+            tau = xc.clean(tau_raw)
+            d_tau = torch.where(tau_raw > xc.DENSITY_FLOOR, d_tau_raw, 0.0)
+        return density, d_density, sigma, d_sigma, tau, d_tau
 
-    def restricted_terms(density, d_density, sigma, d_sigma):
+    def restricted_terms(density, d_density, sigma, d_sigma, tau, d_tau):
         """(f, f') of tuna_tpu's restricted xc_energy (gradients.py:178-183),
         f the energy density on the grid before the weights."""
         f = torch.zeros_like(density)
@@ -131,45 +135,59 @@ def _build_xc_gradient_fn(molecule, calculation, device):
             if fn is None:
                 continue
             needs_sigma = getattr(fn, "needs_sigma", False)
-            df_dn, df_ds, _, eps = xc.restricted_derivatives(
-                fn, density, sigma if needs_sigma else None, None, params)
+            fn_tau = getattr(fn, "needs_tau", False)
+            df_dn, df_ds, df_dt, eps = xc.restricted_derivatives(
+                fn, density, sigma if needs_sigma else None, tau if fn_tau else None, params)
             f = f + prop * eps * density
             local = local + prop * df_dn * d_density
             if needs_sigma:
                 local = local + prop * df_ds * d_sigma
+            if fn_tau:
+                local = local + prop * df_dt * d_tau
         return f, local
 
-    def unrestricted_terms(density, d_density, sigma, d_sigma, grad_rho, d_grad_rho):
+    def unrestricted_terms(density, d_density, sigma, d_sigma, tau, d_tau, grad_rho,
+                           d_grad_rho):
         """(f, f') of tuna_tpu's unrestricted xc_energy (gradients.py:184-211)
-        from each spin's floored density and sigma_ss (stacked on the first
-        axis): exchange by exact spin scaling at 2 rho_s and 4 sigma_ss,
-        correlation on sigma_ab = grad rho_a . grad rho_b (no floor)."""
+        from each spin's floored density, sigma_ss and tau (stacked on the
+        first axis): exchange by exact spin scaling at 2 rho_s, 4 sigma_ss
+        and 2 tau_s, correlation on sigma_ab = grad rho_a . grad rho_b (no
+        floor)."""
         f = torch.zeros_like(density[0])
         local = torch.zeros_like(density[0])
         if x_fn is not None:
             needs_sigma = getattr(x_fn, "needs_sigma", False)
+            fn_tau = getattr(x_fn, "needs_tau", False)
             for s in range(2):
-                df_dn, df_ds, _, eps = xc.restricted_derivatives(
-                    x_fn, 2 * density[s], 4 * sigma[s] if needs_sigma else None, None, params)
+                df_dn, df_ds, df_dt, eps = xc.restricted_derivatives(
+                    x_fn, 2 * density[s], 4 * sigma[s] if needs_sigma else None,
+                    2 * tau[s] if fn_tau else None, params)
                 f = f + 0.5 * DFX_prop * eps * (2 * density[s])
                 local = local + 0.5 * DFX_prop * df_dn * (2 * d_density[s])
                 if needs_sigma:
                     local = local + 0.5 * DFX_prop * df_ds * (4 * d_sigma[s])
+                if fn_tau:
+                    local = local + 0.5 * DFX_prop * df_dt * (2 * d_tau[s])
         if c_fn is not None:
             needs_sigma = getattr(c_fn, "needs_sigma", False)
+            fn_tau = getattr(c_fn, "needs_tau", False)
             sigma_ab = d_sigma_ab = None
             if needs_sigma:
                 sigma_ab = torch.sum(grad_rho[0] * grad_rho[1], dim=0)
                 d_sigma_ab = torch.sum(d_grad_rho[0] * grad_rho[1]
                                        + grad_rho[0] * d_grad_rho[1], dim=0)
-            dfn_a, dfn_b, dfs_aa, dfs_bb, dfs_ab, _, _, eps = xc.unrestricted_derivatives(
-                c_fn, density[0], density[1], sigma[0] if needs_sigma else None,
-                sigma[1] if needs_sigma else None, sigma_ab, None, None, params)
+            dfn_a, dfn_b, dfs_aa, dfs_bb, dfs_ab, dft_a, dft_b, eps = \
+                xc.unrestricted_derivatives(
+                    c_fn, density[0], density[1], sigma[0] if needs_sigma else None,
+                    sigma[1] if needs_sigma else None, sigma_ab,
+                    tau[0] if fn_tau else None, tau[1] if fn_tau else None, params)
             f = f + DFC_prop * eps * (density[0] + density[1])
             local = local + DFC_prop * (dfn_a * d_density[0] + dfn_b * d_density[1])
             if needs_sigma:
                 local = local + DFC_prop * (dfs_aa * d_sigma[0] + dfs_bb * d_sigma[1]
                                             + dfs_ab * d_sigma_ab)
+            if fn_tau:
+                local = local + DFC_prop * (dft_a * d_tau[0] + dft_b * d_tau[1])
         return f, local
 
     def xc_gradient(R, P):
@@ -177,14 +195,14 @@ def _build_xc_gradient_fn(molecule, calculation, device):
         origin = torch.zeros((basis.n_ao, 3), dtype=_F64, device=device)
         origin[:, 2] = ao_moves.to(_F64) * R
         if restricted:
-            rho, grad_rho, d_rho, d_grad_rho = dft_grid.density_deriv_on_grid(
-                basis, origin, ao_moves, points, n_A, P, needs_gradient)
-            f, local = restricted_terms(*cleaned(rho, grad_rho, d_rho, d_grad_rho))
+            quantities = dft_grid.density_deriv_on_grid(
+                basis, origin, ao_moves, points, n_A, P, needs_gradient, needs_tau)
+            f, local = restricted_terms(*cleaned(*quantities))
         else:
-            rho, grad_rho, d_rho, d_grad_rho = dft_grid.density_deriv_on_grid_spin(
-                basis, origin, ao_moves, points, n_A, P, needs_gradient)
-            f, local = unrestricted_terms(*cleaned(rho, grad_rho, d_rho, d_grad_rho),
-                                          grad_rho, d_grad_rho)
+            quantities = dft_grid.density_deriv_on_grid_spin(
+                basis, origin, ao_moves, points, n_A, P, needs_gradient, needs_tau)
+            grad_rho, d_grad_rho = quantities[1], quantities[3]
+            f, local = unrestricted_terms(*cleaned(*quantities), grad_rho, d_grad_rho)
         with torch.enable_grad():
             R_t = torch.tensor(R, dtype=_F64, device=device, requires_grad=True)
             w = becke_weights(R_t)

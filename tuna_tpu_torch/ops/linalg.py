@@ -1,15 +1,46 @@
 """Dense float64 linear algebra for the port.
 
-Twin of tuna_tpu/ops/linalg.py without its polishing: the TPU has no f64
-LAPACK, so tuna_tpu refines eigh and S^-1/2 with matmul iterations; the GPU
-(cuSOLVER) and the CPU (LAPACK) factorise in native float64, so the port
-calls torch.linalg.eigh directly and uses the library results as they are.
+Twin of tuna_tpu/ops/linalg.py.  S^-1/2 comes from the library's eigh as it
+is: tuna_tpu's Newton-Schulz refinement exists because the TPU has no f64
+LAPACK, while cuSOLVER and LAPACK factorise in native float64.  The SCF's
+eigh keeps tuna_tpu's polish (`eigh`) on every device, because it is part
+of the algorithm there and not only a repair of the TPU's precision: it
+zeroes the mixing inside near-degenerate blocks and sorts by Rayleigh
+quotient, which decides the orbitals of a degenerate shell.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+POLISH_STEPS = 3
+
+
+def eigh(A: torch.Tensor):
+    """Symmetric eigendecomposition of A (..., n, n), polished as
+    tuna_tpu/ops/linalg.py::eigh polishes it: the library's eigh, then
+    POLISH_STEPS first-order perturbation steps (H = V^T A V; rotate V
+    by K_ij = H_ij / (w_j - w_i), zero inside blocks whose gaps are below
+    1e-9 of the largest |w|; re-orthonormalise V <- V (3 I - V^T V) / 2),
+    and eigenvalues from the final Rayleigh quotients, stably sorted."""
+    w, V = torch.linalg.eigh(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    for _ in range(POLISH_STEPS):
+        H = V.mT @ A @ V
+        w = torch.diagonal(H, dim1=-2, dim2=-1)
+        scale = torch.clamp(torch.amax(torch.abs(w), dim=-1, keepdim=True), min=1e-30)
+        gaps = w[..., None, :] - w[..., :, None]
+        degenerate = torch.abs(gaps) < 1e-9 * scale[..., None]
+        K = torch.where(degenerate, 0.0, H / torch.where(degenerate, 1.0, gaps))
+        K = K - torch.diag_embed(torch.diagonal(K, dim1=-2, dim2=-1))
+        V = V + V @ K
+        V = V @ (1.5 * eye - 0.5 * (V.mT @ V))
+    w = torch.diagonal(V.mT @ A @ V, dim1=-2, dim2=-1)
+    order = torch.argsort(w, dim=-1, stable=True)
+    return (torch.take_along_dim(w, order, dim=-1),
+            torch.take_along_dim(V, order[..., None, :], dim=-1))
 
 
 def inverse_sqrt(S: torch.Tensor):

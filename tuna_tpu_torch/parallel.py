@@ -84,8 +84,8 @@ def mean_field_batchable(calculation, atomic_symbols, *, fields_free=True):
     the port has, stored integrals, no CBS extrapolation, no checkpoint,
     no double hybrid (its MP2 stage is not in the batch) and, with
     fields_free, no applied field.  Unrestricted Kohn-Sham walks serially
-    (the batch's XC call is restricted); what the serial path refuses
-    (meta-GGAs) is left to it, and it raises."""
+    (the batch's XC call is restricted); what the serial path refuses is
+    left to it, and it raises."""
     plain_hf = calculation.method.name in ("HF", "UHF")
     batchable_dft = (calculation.DFT_calculation
                      and not getattr(calculation, "MPC_prop", 0)

@@ -49,9 +49,9 @@ def density_matrix(mos, n_occ: int, n_per_orbital: int):
 
 
 def diagonalise_fock(F, X):
-    """Orthogonalise, diagonalise, back-transform."""
+    """Orthogonalise, polished-eigh diagonalise, back-transform."""
     F_ortho = symmetrise(X.mT @ F @ X)
-    eps, vecs = torch.linalg.eigh(F_ortho)
+    eps, vecs = linalg.eigh(F_ortho)
     return eps, X @ vecs
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import linalg
 from ..ops.integrals import cross_overlap
 from ..output import error, log
 from . import density_matrix, diagonalise_fock
@@ -62,7 +63,7 @@ def natural_orbitals_of_density(P, X, S):
     Uses inv(X) = S @ X for X = S^-1/2."""
     X_inv = S @ X
     P_ortho = X_inv @ P @ X_inv.T
-    occupancies, orbitals = torch.linalg.eigh(P_ortho)
+    occupancies, orbitals = linalg.eigh(P_ortho)
     return occupancies.flip(0), X @ orbitals.flip(1)
 
 
