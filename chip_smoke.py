@@ -30,11 +30,13 @@ non-zero without printing a result):
   7. DIRECT kernels: K4 (the direct Fock build) against its plain version at
      N2/cc-pVTZ and N2/6-311G with a seeded density-like P, and against a
      repeated call of itself (its atomics sum in no fixed order), beside K1
-     on the same plan (bitwise over two calls); K5 (the
-     packed half-transform) against its plain version at the DIRECT path's
+     on the same plan (bitwise over two calls); K5 (the packed
+     half-transform on DMMA) against its plain version at the DIRECT path's
      shapes, both variants, and on 64 rows at the cc-pV6Z shape (N = 252,
-     n_mo = 182), where it runs in panels, with its two phases' products as
-     torch.matmul on the expanded rows for library_ms; K2 again at o = 7, v = 53 (both
+     n_mo = 182), where it runs in panels, bitwise over two calls, with its
+     device ms a launch (torch.profiler), its registers (no spills) and its
+     two phases' products as torch.matmul on the expanded rows for
+     library_ms; K2 again at o = 7, v = 53 (both
      K2 shapes: bitwise over two calls, peak device memory a call, stage A's
      products as one batched torch.matmul for library_ms);
   8. DIRECT path: `SPE : N N 1.1 : CCSD[T] CC-PVTZ : DIRECT TIGHTSCF`, the
@@ -107,14 +109,16 @@ non-zero without printing a result):
      doublet OH) and `MD : O H 0.97 : HF 6-31G : NUM 5 NOTRAJ` (UHF)
      against tuna_tpu's numbers; one K8bu launch a gradient, and no K8b or
      K8c launch on these paths;
- 20. meta-GGA kernels: K7bt (rho, grad rho and tau) against its plain
-     version on the grid of `SPE : N N 1.1 : R2SCAN CC-PVTZ : TIGHTSCF`
-     with its converged density, K8ct (K8c with tau and tau') there too,
-     and K8cut (both spins) on the grid of `SPE : O O 1.21 : TPSS CC-PVTZ
-     : ML 3 TIGHTSCF` with its converged Pa and Pb: 1e-13 of each output's
-     largest |entry|, bitwise over two calls, their outputs without tau
-     bitwise K7b's, K8c's and K8cu's, each spin of K8cut bitwise K8ct's;
-     with the times, the bound and the registers;
+ 20. meta-GGA kernels: K7bt (rho, grad rho and tau, on DMMA) against its
+     plain version on the grid of `SPE : N N 1.1 : R2SCAN CC-PVTZ :
+     TIGHTSCF` with its converged density, K8ct (K8c with tau and tau')
+     there too, and K8cut (both spins) on the grid of `SPE : O O 1.21 :
+     TPSS CC-PVTZ : ML 3 TIGHTSCF` with its converged Pa and Pb: 1e-13 of
+     each output's largest |entry|, bitwise over two calls; K7bt's rho and
+     grad rho against K7b's (another summation order), the outputs of K8ct
+     and K8cut without tau bitwise K8c's and K8cu's, each spin of K8cut
+     bitwise K8ct's; with the times (K7bt's device ms a launch from
+     torch.profiler), the bound and the registers (K7bt: no spills);
  21. meta-GGA paths: those two single points (energy within 1e-10 Ha,
      equal SCF iteration counts; the R2SCAN one with its `profile` line),
      `SPE : N N 1.1 : B97M-V CC-PVTZ : TIGHTSCF` (tau and VV10), `OPT : N
@@ -161,7 +165,11 @@ last line is {"ok": true, "device": {...}}.
 counts), then, CUDA events, median of 10 after a warm-up: K1 and K4 alone at
 N2/cc-pVTZ (K4 on a seeded density), K2 alone at o = 7, v = 53 and K6 alone
 at M = 51,320 points, both on seeded inputs through cc.ccsd_t_energy and
-vv10.vv10_energy, with their energies; with the tuna_tpu_torch of each ROOT
+vv10.vv10_energy, with their energies; K5's two phases at N2/cc-pVTZ
+(motransform.pair_packed_to_mo on the packed ERI matrix, a seeded W) beside
+torch.matmul on the expanded rows, and K7bt on the N2/cc-pVTZ medium grid
+(a seeded density-like P), each with a sum of its outputs; with the
+tuna_tpu_torch of each ROOT
 in turn (each in its own interpreter, building its own kernels), and prints
 one JSON line for each: two checkouts, say a parent commit and this one,
 compared on one card in one call (run them in the order A B B A).
@@ -370,7 +378,7 @@ E_REF_UMGGA_OPT = -150.40374948414586
 ITERATIONS_UMGGA_OPT = 5
 LINE_SCAN_MGGA = "SCAN : N N 1.0 : TPSS CC-PVTZ : NUM 4 STEP 0.05 TIGHTSCF"
 TAU_TOLERANCE = 1e-13       # relative to the largest |entry|, K7bt, K8ct, K8cut
-POLISH_RUNS = 3             # warm runs a variant, for the polished eigh's cost
+POLISH_RUNS = 2             # warm runs a variant, for the polished eigh's cost
 LINE_SCAN = "SCAN : N N 1.0 : B3LYP CC-PVTZ : NL NUM 8 STEP 0.05 TIGHTSCF"
 LINE_SCAN_UHF = "SCAN : O O 1.21 : HF 6-311G : ML 3 NUM 4 STEP 0.05 TIGHTSCF"
 LINE_SCAN_EXTREME = LINE_SCAN.replace("TIGHTSCF", "EXTREMESCF")
@@ -382,7 +390,7 @@ LINE_SCAN_EXTREME = LINE_SCAN.replace("TIGHTSCF", "EXTREMESCF")
 SCAN_TOLERANCE = 1e-8
 SCAN_EXTREME_TOLERANCE = 1e-10
 SCAN_UHF_TOLERANCE = 1e-8   # Ha, the UHF batch against its serial SCAN
-SCAN_WARM_RUNS = 3          # warm runs of the batched and of the serial scan, for the profile
+SCAN_WARM_RUNS = 2          # warm runs of the batched and of the serial scan, for the profile
 Q_TOLERANCE = 1e-10         # Ha, the (Q) path and the triples lines against tuna_tpu
 BOND_TOLERANCE = 1e-6       # angstrom
 FREQUENCY_TOLERANCE = 0.01  # per cm
@@ -405,7 +413,7 @@ TRANSFORM_TOLERANCE = 1e-12  # relative to the largest |entry| of the output
 DERIV_GRID_TOLERANCE = 1e-12  # relative to the largest |entry| of each K8c output
 UNRESTRICTED_HALF_TOLERANCE = 1e-14  # relative, K8bu at Pa = Pb = P/2 against K8b(P)
 
-WARM_RUNS = 9                  # warm runs of a path, for its profile and --compare
+WARM_RUNS = 5                  # warm runs of a path, for its profile and --compare
 
 BYTES_PER_MS = 3.35e12 / 1e3   # H100 SXM device memory
 FP64_PER_MS = 34e12 / 1e3      # float64 outside the tensor cores
@@ -741,10 +749,10 @@ def one_electron_deriv_operations(plan: IntegralPlan) -> float:
 
 
 def density_tau_ms(n: int, n_points: int) -> float:
-    """csrc/dft_grid.cu density_on_grid_kernel<true> (K7bt): K7b's count
-    with gradients, plus per point the three quadratic forms of tau, each a
-    product Y_a = P^T d_a phi (2 n^2, a matrix product) and a dot product
-    (2 n), and the halving."""
+    """csrc/dft_grid.cu density_tau_on_grid_kernel (K7bt): per point the
+    four products Y_a = P^T B_a (B_0 = phi, B_a = d_a phi; 2 n^2 each, matrix
+    products), the epilogue's dot products (rho 2 n, grad rho 6 n, tau 6
+    n) and its four scalings."""
     return density_ms(n, n_points, True) + n_points * (
         3 * 2.0 * n * n / FP64_MMA_PER_MS + (3 * 2.0 * n + 1) / FP64_PER_MS)
 
@@ -1026,19 +1034,17 @@ def profiled_call(counted) -> dict:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     # the kernels of csrc/, by function name (and K1/K4 output, K8b/K8bu
-    # weight, K8c/K8cu densities; K7bt as density_on_grid_kernel[tau], K8ct
-    # and K8cut as density_deriv_on_grid_kernel[1,tau] and [2,tau])
+    # weight, K8c/K8cu densities; K8ct and K8cut as
+    # density_deriv_on_grid_kernel[1,tau] and [2,tau])
     hand: dict = {}
     for e in kernels:
         match = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.name)
         if match:
             output_of = re.search(r"(PackedOut|FockOut|UnrestrictedEnergyWeight)"
-                                  r"|density_deriv_on_grid_kernel<(\d+), (true|false)>"
-                                  r"|density_on_grid_kernel<(true)>", e.name)
+                                  r"|density_deriv_on_grid_kernel<(\d+), (true|false)>", e.name)
             tag = output_of and (output_of.group(1)
                                  or (output_of.group(2) and output_of.group(2)
-                                     + (",tau" if output_of.group(3) == "true" else ""))
-                                 or (output_of.group(4) and "tau"))
+                                     + (",tau" if output_of.group(3) == "true" else "")))
             key = match.group(1) + (f"[{tag}]" if tag else "")
             entry = hand.setdefault(key, {"launches": 0, "device_ms": 0.0})
             entry["launches"] += 1
@@ -1222,7 +1228,22 @@ def check_fock_direct(basis: str, device, record: dict) -> str:
             f"calls bitwise equal; fock_direct / eri_packed {ms / eri_ms:.3f}")
 
 
-def check_mo_transform(device, record: dict) -> str:
+def device_ms_a_launch(fn, key: str, calls: int = 5):
+    """Device ms a launch of the csrc/ kernel `key` (as profiled_call names
+    it in hand_kernels) over `calls` calls of fn() under torch.profiler."""
+    def counted():
+        _kernels.reset_launch_counts()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - start, dict(_kernels.launches)
+
+    fn()
+    return _device_ms_a_launch(profiled_call(counted), key)
+
+
+def check_mo_transform(device, record: dict, registers: dict) -> str:
     molecule = diatomic("N", 1.1, "CC-PVTZ")
     plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
     coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
@@ -1250,11 +1271,15 @@ def check_mo_transform(device, record: dict) -> str:
     def plain_same():
         return plain(G_pair, W, W)
 
-    got, expected = kernel(), plain_same()
-    mixed = motransform.pair_packed_to_mo_mixed(G_pair, pair_index, W_left, W_right, n_mo)
+    def mixed_kernel():
+        return motransform.pair_packed_to_mo_mixed(G_pair, pair_index, W_left, W_right, n_mo)
+
+    got, expected, mixed = kernel(), plain_same(), mixed_kernel()
     mixed_expected = plain(G_pair, W_left, W_right).T
     require(bool(torch.all(torch.isfinite(got))), "mo_half_transform: non-finite output")
     err = max(_relative(got, expected), _relative(mixed, mixed_expected))
+    require(torch.equal(got, kernel()) and torch.equal(mixed, mixed_kernel()),
+            "two mo_half_transform calls differ")
 
     # the cc-pV6Z shape: 64 rows of a random packed symmetric matrix, read
     # as rows and, transposed, as columns
@@ -1266,9 +1291,14 @@ def check_mo_transform(device, record: dict) -> str:
     M6 = torch.as_tensor(rng.random((rows6, len(tril[0]))), device=device)
     W6 = torch.as_tensor(rng.standard_normal((N6, n_mo6)) / np.sqrt(N6), device=device)
     expected6 = motransform._half_transform_plain(M6, pidx6, W6, motransform.mo_pair_indices(n_mo6))
-    err6 = max(_relative(motransform.half_transform(M6, pidx6, W6), expected6),
-               _relative(motransform.half_transform(M6.T.contiguous(), pidx6, W6,
-                                                    transposed=True), expected6))
+    rows6_got = motransform.half_transform(M6, pidx6, W6)
+    columns6 = M6.T.contiguous()
+    columns6_got = motransform.half_transform(columns6, pidx6, W6, transposed=True)
+    err6 = max(_relative(rows6_got, expected6), _relative(columns6_got, expected6))
+    require(torch.equal(rows6_got, motransform.half_transform(M6, pidx6, W6))
+            and torch.equal(columns6_got, motransform.half_transform(columns6, pidx6, W6,
+                                                                     transposed=True)),
+            "two mo_half_transform calls at the cc-pV6Z shape differ")
     torch.cuda.synchronize()
     require(err <= TRANSFORM_TOLERANCE,
             f"mo_half_transform off its plain version by {err:.3e} (relative)")
@@ -1287,22 +1317,33 @@ def check_mo_transform(device, record: dict) -> str:
 
     library_ms = median_ms(library)
     del expanded
+    launch_ms = device_ms_a_launch(kernel, "half_transform_kernel")
     n_mo_pairs = n_mo * (n_mo + 1) // 2
     N = plan.n_basis
     H_bytes = 8 * plan.n_pairs * n_mo_pairs
+    layout = motransform.half_transform_layout(N, n_mo)
+    staged = registers.get("mo_transform:half_transform_kernel<true>")
+    spills = {key: value for key, value in registers.items()
+              if "half_transform_kernel" in key and not isinstance(value, int)}
+    require(not spills, f"mo_half_transform spills registers: {spills}")
     record["mo_half_transform"] = {
         "max_abs_err": max(float(torch.max(torch.abs(got - expected))),
                            float(torch.max(torch.abs(mixed - mixed_expected)))),
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "device_ms_a_launch": launch_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "registers": staged,
         # two launches: G -> H, then H (read transposed) -> G_mo
         **bound(tensor_bytes(G_pair, got) + 2 * H_bytes + 2 * tensor_bytes(W, pair_index),
                 (half_transform_operations(plan.n_pairs, N, n_mo)
                  + half_transform_operations(n_mo_pairs, N, n_mo)) / FP64_MMA_PER_MS)}
     return (f"kernels DIRECT: mo_half_transform N2/cc-pVTZ ({plan.n_pairs} AO pairs -> "
-            f"{n_mo_pairs} MO pairs, both phases) relative max|diff| {err:.3e} (mixed "
-            f"included), cc-pV6Z shape ({rows6} rows, N {N6}, n_mo {n_mo6}) {err6:.3e}; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, both phases' products as torch.matmul "
-            f"on the expanded rows {library_ms:.4f} ms")
+            f"{n_mo_pairs} MO pairs, both phases; {layout}) relative max|diff| {err:.3e} "
+            f"(mixed included), cc-pV6Z shape ({rows6} rows, N {N6}, n_mo {n_mo6}, "
+            f"{motransform.half_transform_layout(N6, n_mo6)}) {err6:.3e}; two calls bitwise "
+            f"equal; {ms:.4f} ms ({launch_ms} device ms a launch) vs plain {plain_ms:.4f} ms, "
+            f"both phases' products as torch.matmul on the expanded rows {library_ms:.4f} ms; "
+            f"bound {record['mo_half_transform']['bound_ms']:.5f} ms by "
+            f"{record['mo_half_transform']['bound_by']}; registers (ptxas) {staged} (panels: "
+            f"{registers.get('mo_transform:half_transform_kernel<false>')})")
 
 
 def check_direct_path() -> dict:
@@ -2382,7 +2423,10 @@ def _largest_relative(got, expected) -> float:
 def check_tau_kernel(molecule, P_converged, device, record: dict, registers: dict) -> str:
     """K7bt against its plain version on the grid of LINE_MGGA with its
     converged density (TAU_TOLERANCE), bitwise over two calls, and its rho
-    and grad rho bitwise K7b's."""
+    and grad rho within TAU_TOLERANCE of the largest |entry| of K7b's: the
+    two kernels sum in other orders, and at this density's |grad rho| (up
+    to 2.6e3) an absolute 1e-12 is a few units in the last place, below
+    which the plain version on the card and on the host already differ."""
     points, G = _grid_of(molecule, device)
     values, grads = grid.ao_on_grid(grid.GridBasis(molecule.cartesian_basis_functions), points,
                                     True)
@@ -2407,23 +2451,34 @@ def check_tau_kernel(molecule, P_converged, device, record: dict, registers: dic
                                        f"{relative:.3e} (relative)")
     require(all(torch.equal(a, b) for a, b in zip(got, again)), "two K7bt calls differ")
     rho, gradient = grid.density_on_grid(P, bfs, bf_grads)
-    require(torch.equal(rho, got[0]) and torch.equal(gradient, got[1]),
-            "K7bt's rho and grad rho differ from K7b's")
+    k7b = _largest_relative(got[:2], (rho, gradient))
+    k7b_abs = max(float(torch.max(torch.abs(rho - got[0]))),
+                  float(torch.max(torch.abs(gradient - got[1]))))
+    require(k7b <= TAU_TOLERANCE, f"K7bt's rho and grad rho {k7b:.3e} (relative) from K7b's")
     ms, plain_ms, library_ms, k7b_ms = medians_ms(
         (kernel, plain, library, lambda: grid.density_on_grid(P, bfs, bf_grads)), 5)
+    launch_ms = device_ms_a_launch(kernel, "density_tau_on_grid_kernel")
     tau_bound = bound(tensor_bytes(P, bfs, bf_grads, *got), density_tau_ms(n, G))
+    points, whole_p, shared = grid.density_tau_layout(n)
+    spills = {key: value for key, value in registers.items()
+              if "density_tau_on_grid_kernel" in key and not isinstance(value, int)}
+    require(not spills, f"density_tau_on_grid spills registers: {spills}")
+    key = f"dft_grid:density_tau_on_grid_kernel<{'true' if whole_p else 'false'}>"
     record["density_tau_on_grid"] = {
         "max_abs_err": max(float(torch.max(torch.abs(a - b))) for a, b in zip(got, expected)),
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **tau_bound,
-        "registers": registers.get("dft_grid:density_on_grid_kernel<true>")}
+        "ms": ms, "device_ms_a_launch": launch_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, **tau_bound, "registers": registers.get(key)}
     return (f"meta-GGA kernels: density_tau_on_grid N2/{molecule.basis}, {n} spherical AOs, "
-            f"{G} points, the converged P of {LINE_MGGA}; relative max|diff| {relative:.3e} "
-            f"(largest tau {float(torch.max(torch.abs(expected[2]))):.4g}), two calls bitwise "
-            f"equal, rho and grad rho bitwise K7b's; {ms:.4f} ms (K7b {k7b_ms:.4f} ms) vs plain "
-            f"{plain_ms:.4f} ms, einsum (tau only) {library_ms:.4f} ms; bound "
-            f"{tau_bound['bound_ms']:.5f} ms by {tau_bound['bound_by']}; registers (ptxas) "
-            f"{registers.get('dft_grid:density_on_grid_kernel<true>')} (K7b "
-            f"{registers.get('dft_grid:density_on_grid_kernel<false>')})")
+            f"{G} points, the converged P of {LINE_MGGA}; {points} points a tile, P^T "
+            f"{'whole' if whole_p else 'in 16 rows'}, {shared} B of shared memory a block; "
+            f"relative max|diff| {relative:.3e} (largest tau "
+            f"{float(torch.max(torch.abs(expected[2]))):.4g}), two calls bitwise equal, rho and "
+            f"grad rho {k7b:.3e} (relative; {k7b_abs:.3e} absolute) from K7b's; {ms:.4f} ms "
+            f"({launch_ms} device ms a launch; K7b {k7b_ms:.4f} ms) vs plain {plain_ms:.4f} ms, "
+            f"einsum (tau only) {library_ms:.4f} ms; bound {tau_bound['bound_ms']:.5f} ms by {tau_bound['bound_by']}; registers "
+            f"(ptxas) P^T whole {registers.get('dft_grid:density_tau_on_grid_kernel<true>')}, "
+            f"in rows {registers.get('dft_grid:density_tau_on_grid_kernel<false>')} (K7b "
+            f"{registers.get('dft_grid:density_on_grid_kernel')})")
 
 
 def check_tau_deriv(molecule, P_stack, device, record: dict, registers: dict) -> str:
@@ -2527,7 +2582,7 @@ def profile_meta_gga_opt(line: str) -> dict:
     profile = profile_gradient_path(line)
     hand = profile["hand_kernels"]
     profile["path_kernels"] = {
-        "density_tau_on_grid (K7bt)": hand.get("density_on_grid_kernel[tau]"),
+        "density_tau_on_grid (K7bt)": hand.get("density_tau_on_grid_kernel"),
         "density_tau_deriv_on_grid (K8ct)": hand.get("density_deriv_on_grid_kernel[1,tau]"),
         "density_on_grid (K7b)": hand.get("density_on_grid_kernel"),
     }
@@ -2552,7 +2607,7 @@ def check_meta_gga_paths(device, record: dict) -> dict:
                                MGGA_TOLERANCE)]
     profile = profile_path(LINE_MGGA)
     record["density_tau_on_grid"]["device_ms_a_launch"] = _device_ms_a_launch(
-        profile, "density_on_grid_kernel[tau]")
+        profile, "density_tau_on_grid_kernel")
     print("profile: " + json.dumps(profile))
     runs.append(check_meta_gga_spe(LINE_B97MV, E_REF_B97MV, SCF_ITERATIONS_B97MV,
                                    MGGA_PATH_KERNELS + ("vv10_energy",), 1))
@@ -2705,8 +2760,10 @@ def spe_devices(line: str = LINE_UKS_SPE, reference: float = E_REF_UKS_SPE) -> d
 
 # Run in a fresh interpreter per package root; it needs nothing of the root
 # but tuna_tpu_torch.cli.run, Output.{,correlation_}iteration_seconds,
-# IntegralPlan.eri_pair_packed and .fock_direct, post.cc.ccsd_t_energy and
-# dft.vv10.vv10_energy, which every checkout with the DIRECT path has.
+# IntegralPlan.eri_pair_packed and .fock_direct, post.cc.ccsd_t_energy,
+# dft.vv10.vv10_energy, ops.motransform.pair_packed_to_mo and
+# .half_transform, and dft.grid's ao_on_grid and density_on_grid(...,
+# with_tau=True), which every checkout with the meta-GGAs has.
 _WALLS = """
 import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -2716,8 +2773,9 @@ import tuna_tpu_torch
 from tuna_tpu_torch.cli import run
 from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.constants import angstrom_to_bohr
-from tuna_tpu_torch.dft import vv10
+from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
+from tuna_tpu_torch.ops import motransform
 from tuna_tpu_torch.ops.integrals import IntegralPlan
 from tuna_tpu_torch.post import cc
 from tuna_tpu_torch.system import Molecule
@@ -2773,17 +2831,52 @@ triples = [gpu(s * rng.standard_normal(shape)) for s, shape in (
     (0.05, (no, no, nv, nv)))]
 triples += [gpu(np.sort(rng.uniform(-15.0, -0.5, no))), gpu(np.sort(rng.uniform(0.3, 5.0, nv)))]
 density = 10.0 ** rng.uniform(-6, 1, M)
-points = [gpu(density), gpu(rng.uniform(0.0, 0.05, M)),
-          gpu(density ** (8 / 3) * rng.uniform(0.0, 4.0, M)), gpu(rng.uniform(-8.0, 8.0, (M, 3)))]
+points_vv10 = [gpu(density), gpu(rng.uniform(0.0, 0.05, M)),
+               gpu(density ** (8 / 3) * rng.uniform(0.0, 4.0, M)),
+               gpu(rng.uniform(-8.0, 8.0, (M, 3)))]
+# K5's two phases at N2/cc-pVTZ on the packed ERI matrix with a seeded W,
+# beside torch.matmul on the rows expanded to dense (N, N) before the timing
+U = gpu(mol.spherical_transformation)
+n_mo = U.shape[0]
+W = (U.T @ gpu(np.random.default_rng(17).standard_normal((n_mo, n_mo)) / np.sqrt(n_mo)))
+W = W.contiguous()
+G_pair, pair_index = plan.eri_pair_packed(coords), plan.tensors(coords.device)["pair_index"]
+transform = lambda: motransform.pair_packed_to_mo(G_pair, pair_index, W, n_mo)
+H = motransform.half_transform(G_pair, pair_index, W)
+expanded = (G_pair[:, pair_index], H.T.contiguous()[:, pair_index])
+del H
+matmul = lambda: [torch.matmul(W.T, torch.matmul(dense, W)) for dense in expanded]
+transform_ms, transform_sum, matmul_ms = median_ms(transform), float(transform().sum()), \
+    median_ms(matmul)
+del expanded
+# K7bt on the N2/cc-pVTZ medium grid with a seeded density-like P
+dft = Config("SPE", lookup_method("B3LYP"), 0.0, [], "CC-PVTZ", ["N", "N"],
+             suppress_output=True)
+dft_mol = Molecule(["N", "N"], mol.coordinates, dft)
+points, _ = grid.build_molecular_grid(*grid.grid_parameters(dft_mol, dft), dft_mol.bond_length,
+                                      dft_mol.atoms)
+points = gpu(points.reshape(3, -1))
+values, grads = grid.ao_on_grid(grid.GridBasis(dft_mol.cartesian_basis_functions), points, True)
+bfs, bf_grads = (U @ values).contiguous(), torch.matmul(U, grads).contiguous()
+del values, grads
+C = np.random.default_rng(14).standard_normal((n_mo, 7)) / np.sqrt(n_mo)
+P_tau = gpu(C @ C.T)
+tau_call = lambda: grid.density_on_grid(P_tau, bfs, bf_grads, with_tau=True)
 print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__,
                   "paths": paths,
                   "eri_packed_cc_pvtz_ms": median_ms(lambda: plan.eri_pair_packed(coords)),
                   "fock_direct_cc_pvtz_ms": median_ms(lambda: plan.fock_direct(coords, P)),
                   "ccsd_t_energy_o7_v53_ms": median_ms(lambda: cc.ccsd_t_energy(*triples)),
                   "ccsd_t_energy_o7_v53": float(cc.ccsd_t_energy(*triples)),
-                  "vv10_energy_m51320_ms": median_ms(lambda: vv10.vv10_energy(*points, 6.0,
+                  "vv10_energy_m51320_ms": median_ms(lambda: vv10.vv10_energy(*points_vv10, 6.0,
                                                                              0.01)),
-                  "vv10_energy_m51320": float(vv10.vv10_energy(*points, 6.0, 0.01))}))
+                  "vv10_energy_m51320": float(vv10.vv10_energy(*points_vv10, 6.0, 0.01)),
+                  "mo_half_transform_cc_pvtz_ms": transform_ms,
+                  "mo_half_transform_cc_pvtz_sum": transform_sum,
+                  "mo_half_transform_cc_pvtz_matmul_ms": matmul_ms,
+                  "density_tau_on_grid_cc_pvtz_ms": median_ms(tau_call),
+                  "density_tau_on_grid_cc_pvtz_points": points.shape[1],
+                  "density_tau_on_grid_cc_pvtz_sums": [float(x.sum()) for x in tau_call()]}))
 """
 
 
@@ -2890,7 +2983,7 @@ def main() -> int:
     # --- 7. DIRECT kernels against their plain versions -----------------------
     for basis in ("CC-PVTZ", "6-311G"):
         print(check_fock_direct(basis, device, record))
-    print(check_mo_transform(device, record))
+    print(check_mo_transform(device, record, registers))
     print(check_triples(7, 53, device, record))   # K2 at the DIRECT path's shape
 
     # --- 8. DIRECT path ---------------------------------------------------------

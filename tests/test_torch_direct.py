@@ -178,6 +178,128 @@ def test_mixed_transform_matches_tuna_tpu():
                                rtol=0, atol=1e-12)
 
 
+# --------------------------------------------------------------------------
+# What K5's wrapper computes on the host: its layout, tile table and the
+# inverse of pair_index
+# --------------------------------------------------------------------------
+
+def _k5_tiles(n_mo, panel):
+    """The (m-tile, n-tile) pairs of each product's warp jobs in K5's
+    table, and the table's row offsets."""
+    table, n_left, n_right = motransform.tile_table(n_mo, panel)
+    tiles = []
+    for jobs in (table[:n_left], table[n_left:n_left + n_right]):
+        assert np.all(jobs >> 20 >= 1) and np.all(jobs >> 20 <= motransform._MAX_TILES)
+        tiles.append([(code & 1023, ((code >> 10) & 1023) + t)
+                      for code in jobs for t in range(code >> 20)])
+    return tiles, table[n_left + n_right:]
+
+
+@pytest.mark.parametrize("n_mo", [11, 19, 26, 60, 182])
+def test_k5_tile_table_covers_each_pair_once(n_mo):
+    """The lower 16 x 8 tiles of out = W^T T cover each p >= q exactly
+    once, at its np.tril_indices offset; the jobs of T^T = W^T D cover
+    every tile of (q, k in the panel) once."""
+    panel = 32
+    (left, right), offsets = _k5_tiles(n_mo, panel)
+    m_tiles = -(-n_mo // 16)
+    assert sorted(left) == [(i, j) for i in range(m_tiles) for j in range(panel // 8)]
+    assert len(set(right)) == len(right)
+    packed = [offsets[p] + q for i, j in right for p in range(16 * i, min(16 * i + 16, n_mo))
+              for q in range(8 * j, 8 * j + 8) if q <= p]
+    rows, cols = motransform.mo_pair_indices(n_mo)
+    assert sorted(packed) == list(range(len(rows)))
+    np.testing.assert_array_equal(offsets[rows] + cols, np.arange(len(rows)))
+
+
+@pytest.mark.parametrize("N, n_mo, staged, run, panel", [
+    (13, 11, True, 4, 16), (26, 26, True, 4, 32), (70, 60, True, 4, 72),
+    (76, 76, True, 2, 80), (90, 90, False, 1, 96), (140, 120, False, 1, 72),
+    (252, 182, False, 1, 32)])
+def test_k5_layout_fits_shared_memory(N, n_mo, staged, run, panel):
+    """N2/6-311G (26), N2/cc-pVTZ (70, 60) and smaller shapes stage W^T,
+    D_r, T^T and four rows at once, up to 80 AOs fewer rows; wider bases
+    take panels of D_r's rows that divide the padded N, within an H100
+    block's shared memory."""
+    layout = motransform.half_transform_layout(N, n_mo)
+    assert (layout.staged, layout.run, layout.panel) == (staged, run, panel)
+    assert layout.shared_bytes <= _kernels.SHARED_MEMORY_A_BLOCK
+    assert (-(-N // 8) * 8) % layout.panel == 0
+
+
+def _k5_emulated(M, pair_index, W, panel):
+    """K5's algorithm in NumPy: D_r scattered through pair_kl, panels of
+    `panel` rows k, each product over the warp jobs of tile_table on the
+    zero-padded tiles, the output written by the first panel and added to
+    by the others."""
+    N, n_mo = W.shape
+    np8, mq = -(-N // 8) * 8, -(-n_mo // 16) * 16
+    table, n_left, n_right = motransform.tile_table(n_mo, panel)
+    left, right = table[:n_left], table[n_left:n_left + n_right]
+    offsets = table[n_left + n_right:]
+    kl = motransform.pair_kl(torch.as_tensor(pair_index)).numpy()
+    k, l = kl & 0xffff, kl >> 16
+    Wt = np.zeros((mq, np8))
+    Wt[:n_mo, :N] = W.T
+    out = np.full((M.shape[0], n_mo * (n_mo + 1) // 2), np.nan)
+    for r, row in enumerate(M):
+        for k0 in range(0, np8, panel):
+            D = np.zeros((panel, np8))
+            for a, b in ((k, l), (l, k)):
+                inside = (a >= k0) & (a < k0 + panel)
+                D[a[inside] - k0, b[inside]] = row[inside]
+            Tt = np.zeros((mq, panel))
+            for code in left:
+                i, j0, count = code & 1023, (code >> 10) & 1023, code >> 20
+                Tt[16 * i:16 * i + 16, 8 * j0:8 * (j0 + count)] = (
+                    Wt[16 * i:16 * i + 16] @ D[8 * j0:8 * (j0 + count)].T)
+            for code in right:
+                i, j0, count = code & 1023, (code >> 10) & 1023, code >> 20
+                tile = Wt[16 * i:16 * i + 16, k0:k0 + panel] @ Tt[8 * j0:8 * (j0 + count)].T
+                for p in range(16 * i, min(16 * i + 16, n_mo)):
+                    for q in range(8 * j0, min(8 * (j0 + count), p + 1)):
+                        at = offsets[p] + q
+                        value = tile[p - 16 * i, q - 8 * j0]
+                        out[r, at] = value if k0 == 0 else out[r, at] + value
+    return out
+
+
+@pytest.mark.parametrize("line, n_mo, panel", [
+    ("SPE : N N 1.1 : HF 6-31G", None, None),     # staged: one panel of the padded N
+    ("SPE : N N 1.1 : HF 6-31G", None, 8),        # three panels
+    ("SPE : H F 0.95 : HF 6-31G**", 17, 8),       # fewer MOs than AOs
+])
+def test_k5_emulated_tiles_match_tuna_tpu(line, n_mo, panel):
+    """K5's host plan (layout, tile table, pair_kl) with its tiled
+    arithmetic emulated in NumPy, against tuna_tpu's half-transform on the
+    packed ERI matrix's first 40 rows: 1e-12 absolute."""
+    _, jax_plan, plan, coords = _system(line)
+    N = plan.n_basis
+    n_mo = n_mo or N
+    W = np.random.RandomState(7).randn(N, n_mo) / np.sqrt(N)
+    G_pair = np.array(jax_plan.eri_pair_packed(jnp.asarray(coords)))[:40]
+    pidx = np.asarray(plan.pair_index)
+    expected = np.asarray(jax_motransform._half_transform(
+        jnp.asarray(G_pair), jnp.asarray(pidx), jnp.asarray(W), np.tril_indices(n_mo)))
+    panel = panel or motransform.half_transform_layout(N, n_mo).panel
+    got = _k5_emulated(G_pair, pidx, W, panel)
+    np.testing.assert_allclose(got, expected, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("line", FOCK_LINES)
+def test_pair_kl_inverts_pair_index(line):
+    """pair_kl(pair_index)[c] = k | l << 16 with pair_index[k, l] = c, k >= l,
+    for every packed pair; computed once per pair_index tensor."""
+    _, _, plan, _ = _system(line)
+    pair_index = torch.as_tensor(plan.pair_index, dtype=torch.int64)
+    kl = motransform.pair_kl(pair_index)
+    assert kl.dtype == torch.int32 and kl.shape == (plan.n_pairs,)
+    k, l = (kl & 0xffff).long(), (kl >> 16).long()
+    assert bool(torch.all(k >= l))
+    np.testing.assert_array_equal(pair_index[k, l].numpy(), np.arange(plan.n_pairs))
+    assert motransform.pair_kl(pair_index) is kl
+
+
 def test_direct_kernels_dispatch_by_device():
     """CPU tensors take the plain versions and launch nothing; a device with
     no kernel raises instead of falling back."""

@@ -275,7 +275,8 @@ def test_density_kernel_wide_basis(cuda, n):
 def test_tau_kernel_matches_plain(cuda, basis):
     """K7bt on N2's medium grid: rho, grad rho and tau against the plain
     version (1e-12 absolute; tau 1e-12 of its largest |entry|), rho and
-    grad rho bitwise K7b's, bitwise over two calls."""
+    grad rho within 1e-12 absolute of K7b's (the two kernels sum in other
+    orders), bitwise over two calls."""
     molecule, points, _, basis_data = _n2_grid(basis, cuda)
     values, grads = grid.ao_on_grid(basis_data, points, True)
     U = torch.as_tensor(molecule.spherical_transformation, device=cuda)
@@ -292,7 +293,8 @@ def test_tau_kernel_matches_plain(cuda, basis):
     assert _relative(got[2], expected[2]) <= 1e-12
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     rho, gradient = grid.density_on_grid(P, bfs, bf_grads)
-    assert torch.equal(rho, got[0]) and torch.equal(gradient, got[1])
+    torch.testing.assert_close(got[0], rho, rtol=0, atol=1e-12)
+    torch.testing.assert_close(got[1], gradient, rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("n", [97, 203])
@@ -306,6 +308,29 @@ def test_tau_kernel_wide_basis(cuda, n):
     expected = grid._density_on_grid_plain(P, bfs, bf_grads, with_tau=True)
     for g, e in zip(got, expected):
         assert _relative(g, e) <= 1e-12
+
+
+@pytest.mark.parametrize("n", [9, 60, 97, 203])
+@pytest.mark.parametrize("G", [1, 63, 65])
+def test_tau_kernel_ragged_tiles(cuda, n, G):
+    """Point counts that fill no tile (the tile is 32 points at n <= 97, 16
+    at n = 203, whose P^T is staged 16 rows at a time): each output 1e-12
+    of its largest |entry| from the plain version, bitwise over two calls,
+    rho and grad rho within 1e-12 absolute of K7b's; a non-symmetric P, as
+    the plain version takes any."""
+    rng = np.random.default_rng(1000 * n + G)
+    bfs = torch.as_tensor(rng.standard_normal((n, G)) / n, device=cuda)
+    bf_grads = torch.as_tensor(rng.standard_normal((3, n, G)) / n, device=cuda)
+    P = torch.as_tensor(rng.standard_normal((n, n)) / n, device=cuda)
+    got = grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
+    expected = grid._density_on_grid_plain(P, bfs, bf_grads, with_tau=True)
+    for g, e in zip(got, expected):
+        assert g.shape == e.shape and _relative(g, e) <= 1e-12
+    again = grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    rho, gradient = grid.density_on_grid(P, bfs, bf_grads)
+    torch.testing.assert_close(got[0], rho, rtol=0, atol=1e-12)
+    torch.testing.assert_close(got[1], gradient, rtol=0, atol=1e-12)
 
 
 def test_vv10_kernel_matches_plain(cuda):
@@ -511,27 +536,76 @@ def _mo_inputs(basis, device, seed):
     return plan.eri_pair_packed(coords), plan.tensors(device)["pair_index"], Ws, n_mo
 
 
-@pytest.mark.parametrize("basis", ["6-31G**", "CC-PVTZ"])
-def test_mo_transform_kernel_matches_plain(cuda, basis):
-    G_pair, pair_index, (W_left, W_right), n_mo = _mo_inputs(basis, cuda, 21)
+def _mo_kernel_calls(G_pair, pair_index, W_left, W_right, n_mo):
+    """Each of the K5 calls held below: both phases with one W, the mixed
+    transform, and the transposed read alone."""
+    return (motransform.pair_packed_to_mo(G_pair, pair_index, W_left, n_mo),
+            motransform.pair_packed_to_mo_mixed(G_pair, pair_index, W_left, W_right, n_mo),
+            motransform.half_transform(G_pair, pair_index, W_right, transposed=True))
+
+
+def _mo_plain_calls(G_pair, pair_index, W_left, W_right, n_mo):
     tri = motransform.mo_pair_indices(n_mo)
 
     def plain(W_l, W_r):
         H = motransform._chunked_half_transform(G_pair, pair_index, W_r, tri, 128)
         return motransform._chunked_half_transform(H.T, pair_index, W_l, tri, 128)
 
+    return (plain(W_left, W_left), plain(W_left, W_right).T,
+            motransform._chunked_half_transform(G_pair.T, pair_index, W_right, tri, 128))
+
+
+@pytest.mark.parametrize("basis", ["6-311G", "6-31G**", "CC-PVTZ"])
+def test_mo_transform_kernel_matches_plain(cuda, basis):
+    """K5 at N2's shapes (6-311G: N = n_mo = 26; cc-pVTZ: N = 70, n_mo =
+    60): both phases, the mixed transform and the transposed read, 1e-12
+    of the largest |entry|, bitwise over two calls."""
+    G_pair, pair_index, (W_left, W_right), n_mo = _mo_inputs(basis, cuda, 21)
     _kernels.reset_launch_counts()
-    got = motransform.pair_packed_to_mo(G_pair, pair_index, W_left, n_mo)
-    mixed = motransform.pair_packed_to_mo_mixed(G_pair, pair_index, W_left, W_right, n_mo)
-    assert _kernels.launches["mo_half_transform"] == 4
-    assert _relative(got, plain(W_left, W_left)) <= 1e-12
-    assert _relative(mixed, plain(W_left, W_right).T) <= 1e-12
+    got = _mo_kernel_calls(G_pair, pair_index, W_left, W_right, n_mo)
+    assert _kernels.launches["mo_half_transform"] == 5
+    for g, e in zip(got, _mo_plain_calls(G_pair, pair_index, W_left, W_right, n_mo)):
+        assert _relative(g, e) <= 1e-12
+    again = _mo_kernel_calls(G_pair, pair_index, W_left, W_right, n_mo)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def _packed_inputs(N, n_mo, rows, device, seed):
+    """A random packed matrix of `rows` rows over N AOs, its pair_index
+    (the pairs in a random order, as a plan's shell-pair order is not
+    np.tril_indices'), and two seeded W."""
+    rng = np.random.default_rng(seed)
+    tril = np.tril_indices(N)
+    order = rng.permutation(len(tril[0]))
+    pair_index = np.zeros((N, N), dtype=np.int64)
+    pair_index[tril] = pair_index[tril[::-1]] = order
+    M = torch.as_tensor(rng.random((rows, len(tril[0]))), device=device)
+    Ws = [torch.as_tensor(rng.standard_normal((N, n_mo)) / np.sqrt(N), device=device)
+          for _ in range(2)]
+    return M, torch.as_tensor(pair_index, device=device), Ws
+
+
+@pytest.mark.parametrize("N, n_mo", [(13, 11), (37, 29)])
+def test_mo_transform_kernel_off_the_tile(cuda, N, n_mo):
+    """Shapes that fill no MMA tile: rows, transposed and mixed against the
+    plain version (1e-12 of the largest |entry|), bitwise over two calls,
+    on a pair order that is not np.tril_indices'."""
+    n_pairs = N * (N + 1) // 2
+    M, pair_index, (W_left, W_right) = _packed_inputs(N, n_mo, n_pairs, cuda, N)
+    G_pair = (M + M.T).contiguous()   # square and symmetric, as the ERI matrix is
+    got = _mo_kernel_calls(G_pair, pair_index, W_left, W_right, n_mo)
+    for g, e in zip(got, _mo_plain_calls(G_pair, pair_index, W_left, W_right, n_mo)):
+        assert _relative(g, e) <= 1e-12
+    again = _mo_kernel_calls(G_pair, pair_index, W_left, W_right, n_mo)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 def test_mo_transform_kernel_at_the_cc_pv6z_shape(cuda):
     """N = 252 Cartesian AOs and n_mo = 182 (H2/cc-pV6Z): D_r and W^T D_r do
-    not fit in shared memory, so the kernel runs in panels of columns."""
+    not fit in shared memory, so the kernel runs in panels of D_r's rows:
+    rows, transposed and with another W, bitwise over two calls."""
     N, n_mo, rows = 252, 182, 64
+    assert not motransform.half_transform_layout(N, n_mo).staged
     tril = np.tril_indices(N)
     pair_index = np.zeros((N, N), dtype=np.int64)
     pair_index[tril] = pair_index[tril[::-1]] = np.arange(len(tril[0]))
@@ -539,11 +613,18 @@ def test_mo_transform_kernel_at_the_cc_pv6z_shape(cuda):
     rng = np.random.RandomState(17)
     M = torch.as_tensor(rng.rand(rows, len(tril[0])), device=cuda)
     W = torch.as_tensor(rng.randn(N, n_mo) / np.sqrt(N), device=cuda)
-    expected = motransform._half_transform_plain(M, pair_index, W,
-                                                 motransform.mo_pair_indices(n_mo))
-    assert _relative(motransform.half_transform(M, pair_index, W), expected) <= 1e-12
-    transposed = motransform.half_transform(M.T.contiguous(), pair_index, W, transposed=True)
-    assert _relative(transposed, expected) <= 1e-12
+    W_other = torch.as_tensor(rng.randn(N, n_mo) / np.sqrt(N), device=cuda)
+    tri = motransform.mo_pair_indices(n_mo)
+    for weights in (W, W_other):
+        expected = motransform._half_transform_plain(M, pair_index, weights, tri)
+        got = motransform.half_transform(M, pair_index, weights)
+        assert _relative(got, expected) <= 1e-12
+        assert torch.equal(got, motransform.half_transform(M, pair_index, weights))
+        transposed = motransform.half_transform(M.T.contiguous(), pair_index, weights,
+                                                transposed=True)
+        assert _relative(transposed, expected) <= 1e-12
+        assert torch.equal(transposed, motransform.half_transform(
+            M.T.contiguous(), pair_index, weights, transposed=True))
 
 
 def _diatomic_plan(symbols, bond, basis):

@@ -310,6 +310,58 @@ def test_tau_on_the_grid_matches_tuna_tpu_einsum():
     assert torch.equal(plain_rho, density) and torch.equal(plain_gradient, gradient)
 
 
+@pytest.mark.parametrize("n, points, whole", [
+    (9, 32, True), (60, 32, True), (97, 32, True), (203, 16, False), (302, 8, False)])
+def test_tau_kernel_layout_fits_shared_memory(n, points, whole):
+    """K7bt's tile (dft/grid.py::density_tau_layout): 32 points with P^T
+    whole up to 97 AOs (N2/cc-pVTZ has 60), then fewer points with P^T
+    16 rows at a time, within an H100 block's shared memory."""
+    layout = grid.density_tau_layout(n)
+    assert layout[:2] == (points, whole)
+    assert layout[2] <= _kernels.SHARED_MEMORY_A_BLOCK
+
+
+def _k7bt_emulated(P, bfs, grads):
+    """K7bt's arithmetic in NumPy on its zero-padded tiles: for each 16 AO
+    rows i, Y_a = P^T[i, :kp] B_a[:kp] for B = (phi, d phi) (kp = n rounded
+    up to 8, the MMA's depth), then rho,
+    grad rho and tau summed over i from Y_a against B's entries at the same
+    (i, point)."""
+    n = P.shape[0]
+    mp, kp = -(-n // 16) * 16, -(-n // 8) * 8
+    Pt = np.zeros((mp, kp))
+    Pt[:n, :n] = P.T
+    B = np.zeros((4, mp, bfs.shape[1]))
+    B[0, :n], B[1:, :n] = bfs, grads
+    sums = np.zeros((5, bfs.shape[1]))
+    for i0 in range(0, mp, 16):
+        Y = [Pt[i0:i0 + 16] @ B[a, :kp] for a in range(4)]
+        rows = B[:, i0:i0 + 16]
+        sums[:4] += np.einsum("aik,ik->ak", rows, Y[0])
+        sums[4] += sum(np.einsum("ik,ik->k", rows[a], Y[a]) for a in (1, 2, 3))
+    return sums[0], 2 * sums[1:4], 0.5 * sums[4]
+
+
+def test_k7bt_emulated_tiles_match_tuna_tpu():
+    """K7bt's tiling (n padded to 16 AO rows and the products' depth to 8,
+    the sums over i a tile of rows at a time), emulated in NumPy on N2/6-31G**
+    with a seeded non-symmetric P, against tuna_tpu's einsums: 1e-13 of
+    each output's largest |entry|."""
+    jax_mol, jax_cfg, mol, cfg = _molecules(("N", "N"), 1.1, "6-31G**", "TPSS")
+    P, _ = _densities(mol, 3)
+    bfs, _, grads, _ = grid.set_up_integration_grid(mol, P, P, cfg, True, "cpu")
+    P = 2 * P + 0.1 * np.random.default_rng(4).standard_normal(P.shape) / P.shape[0]
+    bfs, grads = bfs.reshape(bfs.shape[0], -1).numpy(), grads.reshape(3, bfs.shape[0], -1).numpy()
+    assert bfs.shape[0] % 16 != 0   # the padding is exercised
+    P_j, jax_bfs, jax_grads = jnp.asarray(P), jnp.asarray(bfs), jnp.asarray(grads)
+    expected = (jnp.einsum("ij,ik,jk->k", P_j, jax_bfs, jax_bfs, optimize=True),
+                2 * jnp.einsum("ij,ik,ajk->ak", P_j, jax_bfs, jax_grads, optimize=True),
+                0.5 * jnp.einsum("ij,aik,ajk->k", P_j, jax_grads, jax_grads, optimize=True))
+    for got, e in zip(_k7bt_emulated(P, bfs, grads), expected):
+        e = np.asarray(e)
+        assert np.max(np.abs(got - e)) <= 1e-13 * np.max(np.abs(e))
+
+
 @pytest.mark.parametrize("method,symbols,bond", [
     ("R2SCAN", ("N", "N"), 1.1),     # restricted
     ("TPSS", ("O", "H"), 0.97),      # unrestricted, exchange at 2 tau_s

@@ -30,6 +30,10 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "tuna_tpu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# The shared memory one block may take on an H100 (227 KB); the hosts of
+# K5 and K7bt size their layouts against it.
+SHARED_MEMORY_A_BLOCK = 232448
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -59,8 +63,8 @@ SIGNATURES = {
     "tuna_ao_on_grid": [_I, _I, _I] + [_P] * 8 + [_P],
     # n_ao, n_points, with_gradients, P, phi, grads, density, gradient
     "tuna_density_on_grid": [_I, _I, _I] + [_P] * 5 + [_P],
-    # n_ao, n_points, P, phi, grads, density, gradient, tau
-    "tuna_density_tau_on_grid": [_I, _I] + [_P] * 6 + [_P],
+    # n_ao, n_points, points a tile, whole P, P, phi, grads, density, gradient, tau
+    "tuna_density_tau_on_grid": [_I, _I, _I, _I] + [_P] * 6 + [_P],
     # n_points, n_tiles, points, omega, kappa, weighted density, beta,
     # partial
     "tuna_vv10_energy": [_I, _I] + [_P] * 4 + [_D, _P] + [_P],
@@ -71,8 +75,9 @@ SIGNATURES = {
     # atom1, atom2, pair_start, pid_i, pid_j, quartets, n_classes, classes
     # (host), boys tables, P, rows (scratch), J_pair (scratch), J, K
     "tuna_fock_direct": [_I, _I, _I, _I] + [_P] * 12 + [_I] + [_P] * 7 + [_P],
-    # n_rows, n_ao, n_mo, panel, row_stride, col_stride, M, pair_index, W, out
-    "tuna_mo_half_transform": [_I, _I, _I, _I, _L, _L] + [_P] * 4 + [_P],
+    # n_rows, n_ao, n_mo, staged, run, panel, n_jobs1, n_jobs2, row_stride,
+    # col_stride, M, pair_kl, W, table, out
+    "tuna_mo_half_transform": [_I] * 8 + [_L, _L] + [_P] * 5 + [_P],
     # lmax, n_atoms, n_basis, n_pairs, coords, charges, a, b, coef, l1, l2,
     # atom1, atom2, ao_i, ao_j, pair_start, boys_table, dipole_origin_z,
     # origin_rate, out

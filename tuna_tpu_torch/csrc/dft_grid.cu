@@ -42,18 +42,38 @@
 // (28.8 KB at n = 60), and its loads would go to L2.  Y is never stored.
 // Every sum runs in a fixed order: deterministic, no atomics.
 //
-// K7bt (TAU = true) replaces tuna_tpu/dft/__init__.py:48-49, tau = 1/2
-// sum_a sum_ij P_ij d_a phi_i d_a phi_j, once a spin for UKS, with rho and
-// grad rho in the same launch.  tau is three more quadratic forms of the
-// kind rho = phi^T P phi is, so after K7b's loop (unchanged: rho and grad
-// rho are K7b's bit for bit) the block runs that loop once more for each
-// component a, with its point's column of d_a phi staged where phi's was.
-// The shared memory stays K7b's, 46 KB at n = 60, where all four columns
-// at once would take 138 KB and one block an SM.  Bound: bytes, as K7b's
-// with gradients (phi and d phi read once, 155 MB at N2/cc-pVTZ, ~0.047
-// ms); its operations, four products of 2 n^2 a point, ~0.035 ms at the
-// DMMA rate.
+// K7bt (density_tau_on_grid_kernel) replaces tuna_tpu/dft/__init__.py:48-49,
+// tau = 1/2 sum_a sum_ij P_ij d_a phi_i d_a phi_j, once a spin for UKS,
+// with rho and grad rho in the same launch.  What bounds it on an H100:
+// bytes, phi and d phi read once (155 MB at N2/cc-pVTZ on the medium grid,
+// 0.047 ms); its operations, the four products Y_a = P^T B_a (B_0 = phi,
+// B_a = d_a phi) of 2 n^2 a point, take 0.035 ms at the DMMA rate.  Its
+// first form ran K7b's loop once for rho and grad rho and once more for each
+// gradient column on the CUDA cores, staging P four times a block: 0.304 ms
+// a launch on the R2SCAN single point (NVIDIA H100 80GB HBM3, 700.00 W).
+// Design: persistent blocks of T / 8 warps take tiles of T points.  A block
+// stages P^T once (zero-padded to the tiles), and for each tile the four
+// columns [phi | d_x phi | d_y phi | d_z phi] of its points with cp.async,
+// all in flight at once, coalesced along the points: the only read of phi
+// and d phi.  Each warp takes 8 points and walks the 16-row tiles i of the
+// AOs: the four products Y_a[i, :] on mma.sync.m16n8k8 f64 (the A fragment,
+// P^T, shared by the four), then the epilogue multiplies each accumulator
+// entry by the staged B entries of the same (i, point) and adds them over
+// i in registers: rho and grad rho from Y_0 against phi and d_a phi, tau
+// from Y_a against d_a phi.  Y is never stored.  After the last tile of i
+// the sums over the fragment rows go through three warp shuffles, in a
+// fixed order: deterministic, no atomics, no other warp involved.  The
+// host picks T (32, 16 or 8) and whether P^T fits whole (dft/grid.py::
+// density_tau_layout); where it does not, as at n = 203, P^T is staged 16
+// rows at a time (n = 302 fits with T = 8).  Its sums
+// run in another order than K7b's: rho and grad rho agree with K7b's to
+// rounding, not bitwise.  At N2/cc-pVTZ it takes 0.089 ms a launch on the
+// R2SCAN single point's grid (1.9x its byte bound) and 0.113 on O2's in
+// the UKS TPSS optimisation, where mma.sync.m16n8k8 ran 30% faster than
+// m16n8k4 (NVIDIA H100 80GB HBM3, 700.00 W).
 #include <cuda_runtime.h>
+
+#include "dmma.cuh"
 
 namespace {
 
@@ -104,53 +124,10 @@ ao_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double* __re
   }
 }
 
-// sum_i c_i sum_j P_ji c_j for thread t's column c (staged in `column`),
-// K7b's panel loop without its gradient sums; every thread of the block
-// takes part (the panels are staged by all of them), the result is
-// meaningful where `live`.
-__device__ double quadratic_form(int n_ao, const double* __restrict__ P, const double* column,
-                                 double* panel, int t, bool live) {
-  double q = 0.0;
-  for (int i0 = 0; i0 < n_ao; i0 += kDensityPanel) {
-    __syncthreads();
-#pragma unroll 8
-    for (int e = t; e < n_ao * kDensityPanel; e += kDensityPoints) {
-      const int j = e / kDensityPanel, c = e % kDensityPanel;
-      panel[e] = i0 + c < n_ao ? P[static_cast<size_t>(j) * n_ao + i0 + c] : 0.0;
-    }
-    __syncthreads();
-    for (int i1 = 0; i1 < kDensityPanel && i0 + i1 < n_ao; i1 += kDensityRows) {
-      double y[kDensityRows];
-#pragma unroll
-      for (int r = 0; r < kDensityRows; ++r) y[r] = 0.0;
-#pragma unroll 4
-      for (int j = 0; j < n_ao; ++j) {
-        const double f = column[j * kDensityPoints + t];
-        const double2* row = reinterpret_cast<const double2*>(panel + j * kDensityPanel + i1);
-#pragma unroll
-        for (int r = 0; r < kDensityRows / 2; ++r) {
-          const double2 p = row[r];
-          y[2 * r] += p.x * f;
-          y[2 * r + 1] += p.y * f;
-        }
-      }
-      if (!live) continue;
-#pragma unroll
-      for (int r = 0; r < kDensityRows; ++r) {
-        const int i = i0 + i1 + r;
-        if (i < n_ao) q += column[i * kDensityPoints + t] * y[r];
-      }
-    }
-  }
-  return q;
-}
-
-template <bool TAU>
 __global__ void __launch_bounds__(kDensityPoints)
 density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double* __restrict__ P,
                        const double* __restrict__ phi, const double* __restrict__ grads,
-                       double* __restrict__ density, double* __restrict__ gradient,
-                       double* __restrict__ tau) {
+                       double* __restrict__ density, double* __restrict__ gradient) {
   extern __shared__ double shared[];
   // column[j * kDensityPoints + t] = phi_j at thread t's point;
   // panel[j * kDensityPanel + c] = P_j,(i0 + c), zero past the last AO
@@ -204,17 +181,6 @@ density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double*
       }
     }
   }
-  double tau_sum = 0.0;
-  if constexpr (TAU) {
-    // the loop above once more for each component, on the column of d_a phi
-    for (int a = 0; a < 3; ++a) {
-      __syncthreads();  // every thread is done with the previous panel
-#pragma unroll 8
-      for (int j = 0; j < n_ao; ++j)
-        column[j * kDensityPoints + t] = live ? grads[a * plane + j * G + k] : 0.0;
-      tau_sum += quadratic_form(n_ao, P, column, panel, t, live);
-    }
-  }
   if (!live) return;
   density[k] = rho;
   if (with_gradients) {
@@ -222,7 +188,119 @@ density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double*
     gradient[G + k] = 2.0 * gy;
     gradient[2 * G + k] = 2.0 * gz;
   }
-  if constexpr (TAU) tau[k] = 0.5 * tau_sum;
+}
+
+constexpr int kTauMaxWarps = 4;   // warps (8 points each) a block of K7bt at most
+
+// P^T rows [i0, i0 + rows) into Pt (rows, lda), zero past n_ao.
+__device__ __forceinline__ void stage_p_transposed(int n_ao, int i0, int rows, int lda,
+                                                   const double* __restrict__ P, double* Pt) {
+  for (int e = threadIdx.x; e < rows * lda; e += blockDim.x) {
+    const int r = e / lda, j = e - r * lda, i = i0 + r;
+    Pt[e] = (i < n_ao && j < n_ao) ? P[static_cast<size_t>(j) * n_ao + i] : 0.0;
+  }
+}
+
+// K7bt (see the note at the top).  Shared memory: the columns (4, mp, T +
+// 4), rows past n_ao zero, then P^T (mp, lda) when kWholeP, else 16 rows of
+// it.  mp = n_ao rounded up to 16 (the AO tiles), kp = n_ao rounded up to 8
+// (the products' depth), lda = kp + 4: a
+// row stride of 4 or 12 mod 16 doubles, as T + 4 is, keeps every fragment
+// load free of bank conflicts.
+template <bool kWholeP>
+__global__ void __launch_bounds__(32 * kTauMaxWarps, 4)
+density_tau_on_grid_kernel(int n_ao, int n_points, int points, int mp, int kp, int lda,
+                           const double* __restrict__ P, const double* __restrict__ phi,
+                           const double* __restrict__ grads, double* __restrict__ density,
+                           double* __restrict__ gradient, double* __restrict__ tau) {
+  extern __shared__ __align__(16) double shared[];
+  const int ldb = points + 4, column = mp * ldb;   // a column's doubles: (mp, ldb)
+  double* columns = shared;                         // phi, d_x phi, d_y phi, d_z phi
+  double* Pt = shared + 4 * column;
+  const int lane = threadIdx.x & 31, g = lane >> 2, quad = lane & 3;
+  const int first = 8 * (threadIdx.x >> 5);        // this warp's points in the tile
+  const size_t G = static_cast<size_t>(n_points), plane = static_cast<size_t>(n_ao) * G;
+  const int padding = (mp - n_ao) * ldb;
+  for (int e = threadIdx.x; e < 4 * padding; e += blockDim.x) {
+    const int a = e / padding;
+    columns[a * column + n_ao * ldb + e - a * padding] = 0.0;
+  }
+  if constexpr (kWholeP) stage_p_transposed(n_ao, 0, mp, lda, P, Pt);
+  const int tiles = (n_points + points - 1) / points;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int k0 = tile * points;
+    // thread (t, j0) takes point t of rows j0, j0 + 4, ...: a warp reads 256
+    // contiguous bytes of a row (T = 32) or two rows' 128 (T = 16)
+    const int t = threadIdx.x % points, j0 = threadIdx.x / points;
+    const bool inside = k0 + t < n_points;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const double* from = (a == 0 ? phi : grads + (a - 1) * plane) + k0 + t;
+      for (int j = j0; j < n_ao; j += 4) {
+        double* to = columns + a * column + j * ldb + t;
+        if (inside) cp_async8(to, from + j * G); else *to = 0.0;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    double sums[5][2] = {};   // rho, grad rho (x, y, z) / 2, 2 tau at points first + 2 quad + r
+    for (int i0 = 0; i0 < mp; i0 += 16) {
+      const double* A = Pt + i0 * lda;
+      if constexpr (!kWholeP) {
+        __syncthreads();      // every warp is done with the previous rows
+        stage_p_transposed(n_ao, i0, 16, lda, P, Pt);
+        __syncthreads();
+        A = Pt;
+      }
+      double y[4][4] = {};    // Y_a for AOs i0 + g (+ 8) at points first + 2 quad (+ 1)
+      for (int kk = quad; kk < kp; kk += 8) {
+        const double a[4] = {A[g * lda + kk], A[(g + 8) * lda + kk], A[g * lda + kk + 4],
+                             A[(g + 8) * lda + kk + 4]};
+        const double* b = columns + kk * ldb + first + g;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mma_f64(y[c], a, b[c * column], b[c * column + 4 * ldb]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const double* at = columns + (i0 + g + 8 * h) * ldb + first + 2 * quad + r;
+          const double f = at[0], dx = at[column], dy = at[2 * column], dz = at[3 * column];
+          const double y0 = y[0][2 * h + r];
+          sums[0][r] += f * y0;
+          sums[1][r] += dx * y0;
+          sums[2][r] += dy * y0;
+          sums[3][r] += dz * y0;
+          sums[4][r] += dx * y[1][2 * h + r] + dy * y[2][2 * h + r] + dz * y[3][2 * h + r];
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        double x = sums[v][r];
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 8);
+        x += __shfl_xor_sync(0xffffffffu, x, 16);
+        sums[v][r] = x;
+      }
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k = k0 + first + 2 * quad + r;
+        if (k < n_points) {
+          density[k] = sums[0][r];
+          gradient[k] = 2.0 * sums[1][r];
+          gradient[G + k] = 2.0 * sums[2][r];
+          gradient[2 * G + k] = 2.0 * sums[3][r];
+          tau[k] = 0.5 * sums[4][r];
+        }
+      }
+    }
+    __syncthreads();          // every warp is done with the tile's columns
+  }
 }
 
 // K8c: the density, its gradient and their R-tangents at fixed P, when
@@ -510,35 +588,57 @@ extern "C" int tuna_ao_on_grid(int n_ao, int n_points, int with_gradients, const
 // memory: past the default 48 KB (n_ao > 64) the launch asks for more, and
 // an n_ao past what the card holds (302 on an H100) fails with the CUDA
 // error of that request.
-template <bool TAU>
-cudaError_t launch_density(int n_ao, int n_points, int with_gradients, const double* P,
-                           const double* phi, const double* grads, double* density,
-                           double* gradient, double* tau, cudaStream_t stream) {
+extern "C" int tuna_density_on_grid(int n_ao, int n_points, int with_gradients, const double* P,
+                                    const double* phi, const double* grads, double* density,
+                                    double* gradient, cudaStream_t stream) {
   if (n_points == 0) return cudaSuccess;
   const size_t shared =
       static_cast<size_t>(n_ao) * (kDensityPoints + kDensityPanel) * sizeof(double);
   if (shared > 48 * 1024) {
     const cudaError_t status = cudaFuncSetAttribute(
-        density_on_grid_kernel<TAU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        density_on_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shared));
     if (status != cudaSuccess) return status;
   }
   const int blocks = (n_points + kDensityPoints - 1) / kDensityPoints;
-  density_on_grid_kernel<TAU><<<blocks, kDensityPoints, shared, stream>>>(
-      n_ao, n_points, with_gradients, P, phi, grads, density, gradient, tau);
+  density_on_grid_kernel<<<blocks, kDensityPoints, shared, stream>>>(
+      n_ao, n_points, with_gradients, P, phi, grads, density, gradient);
   return cudaGetLastError();
 }
 
-extern "C" int tuna_density_on_grid(int n_ao, int n_points, int with_gradients, const double* P,
-                                    const double* phi, const double* grads, double* density,
-                                    double* gradient, cudaStream_t stream) {
-  return launch_density<false>(n_ao, n_points, with_gradients, P, phi, grads, density, gradient,
-                               nullptr, stream);
-}
-
 // K7bt: as tuna_density_on_grid with the gradients, plus tau (n_points,).
-extern "C" int tuna_density_tau_on_grid(int n_ao, int n_points, const double* P,
-                                        const double* phi, const double* grads, double* density,
-                                        double* gradient, double* tau, cudaStream_t stream) {
-  return launch_density<true>(n_ao, n_points, 1, P, phi, grads, density, gradient, tau, stream);
+// points (8, 16 or 32: the tile, 8 a warp) and whole_p (P^T staged whole,
+// else 16 rows at a time) come from the host (dft/grid.py::
+// density_tau_layout); the shared memory follows from them and n_ao, and a
+// layout past what the card holds fails with the CUDA error of that
+// request.
+extern "C" int tuna_density_tau_on_grid(int n_ao, int n_points, int points, int whole_p,
+                                        const double* P, const double* phi, const double* grads,
+                                        double* density, double* gradient, double* tau,
+                                        cudaStream_t stream) {
+  if (n_points == 0) return cudaSuccess;
+  if (n_ao < 1 || points < 8 || points % 8 != 0 || points > 8 * kTauMaxWarps)
+    return cudaErrorInvalidValue;
+  const int mp = (n_ao + 15) / 16 * 16, kp = (n_ao + 7) / 8 * 8, lda = kp + 4;
+  const size_t doubles = 4 * static_cast<size_t>(mp) * (points + 4) +
+                         static_cast<size_t>(whole_p ? mp : 16) * lda;
+  const int shared = static_cast<int>(doubles * sizeof(double));
+  auto kernel = whole_p ? density_tau_on_grid_kernel<true> : density_tau_on_grid_kernel<false>;
+  const int threads = 4 * points;   // a warp for each 8 points
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shared)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles = (n_points + points - 1) / points;
+  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
+  kernel<<<blocks, threads, shared, stream>>>(n_ao, n_points, points, mp, kp, lda, P, phi, grads,
+                                             density, gradient, tau);
+  return cudaGetLastError();
 }

@@ -230,10 +230,11 @@ def density_on_grid(P, bfs, grads=None, with_tau: bool = False):
     gradient = torch.empty((3, G), dtype=_F64, device=device) if grads is not None else None
     if with_tau:
         tau = torch.empty(G, dtype=_F64, device=device)
+        points, whole_p, _ = density_tau_layout(n)
         _kernels.launch(
             "density_tau_on_grid", "tuna_density_tau_on_grid", device,
-            n, G, P.data_ptr(), phi.data_ptr(), grads.data_ptr(), density.data_ptr(),
-            gradient.data_ptr(), tau.data_ptr())
+            n, G, points, int(whole_p), P.data_ptr(), phi.data_ptr(), grads.data_ptr(),
+            density.data_ptr(), gradient.data_ptr(), tau.data_ptr())
         return density.reshape(shape), gradient.reshape(3, *shape), tau.reshape(shape)
     _kernels.launch(
         "density_on_grid", "tuna_density_on_grid", device,
@@ -242,6 +243,22 @@ def density_on_grid(P, bfs, grads=None, with_tau: bool = False):
         gradient.data_ptr() if grads is not None else None)
     return (density.reshape(shape),
             gradient.reshape(3, *shape) if gradient is not None else None)
+
+
+def density_tau_layout(n: int) -> tuple[int, bool, int]:
+    """K7bt's tile for n AOs (csrc/dft_grid.cu density_tau_on_grid_kernel):
+    (points a tile, P^T staged whole, shared bytes).  A block holds the
+    tile's four columns, (4, n rounded up to 16, points + 4) doubles, and
+    P^T whole ((n rounded up to 16) x lda doubles) or 16 rows of it; the
+    first of 32, 16 and 8 points with P^T whole that fits, else with 16
+    rows."""
+    mp, lda = -(-n // 16) * 16, -(-n // 8) * 8 + 4
+    for whole in (True, False):
+        for points in (32, 16, 8):
+            shared = 8 * (4 * mp * (points + 4) + (mp if whole else 16) * lda)
+            if shared <= _kernels.SHARED_MEMORY_A_BLOCK:
+                return points, whole, shared
+    raise ValueError(f"tau on the grid: {n} AOs do not fit one block's shared memory")
 
 
 def _density_on_grid_plain(P, bfs, grads=None, with_tau: bool = False):

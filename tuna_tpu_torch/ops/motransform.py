@@ -17,14 +17,20 @@ version (a gather and two einsums over chunks of rows) on a CPU tensor.
 
 from __future__ import annotations
 
+import functools
+import weakref
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from .. import _kernels
 
 _F64 = torch.float64
-# Dynamic shared memory one block of K5 takes: two blocks fit on an SM.
-_PANEL_BYTES = 110 * 1024
+# What K5 runs with (csrc/mo_transform.cu): its warps and the n-tiles of
+# one warp job.
+_WARPS = 16
+_MAX_TILES = 6
 
 
 def mo_pair_indices(n_mo: int):
@@ -70,6 +76,82 @@ def half_transform(M, pair_index, W, transposed: bool = False, row_chunk: int = 
     raise ValueError(f"no half-transform for device {M.device}")
 
 
+class HalfTransformLayout(NamedTuple):
+    """K5's use of shared memory for N AOs and n_mo MOs: `staged` holds
+    W^T, D_r and T^T whole and stages `run` rows at a time; otherwise D_r
+    comes in panels of `panel` rows (panel = the padded N when staged)."""
+    staged: bool
+    run: int
+    panel: int
+    shared_bytes: int
+
+
+def half_transform_layout(N: int, n_mo: int) -> HalfTransformLayout:
+    """The largest run of rows (4, 2 or 1) whose staging fits beside W^T,
+    D_r and T^T; else the widest panel of D_r rows that divides the padded
+    N and fits beside T^T's panel (csrc/mo_transform.cu sizes the same
+    arrays)."""
+    np8, mq = -(-N // 8) * 8, -(-n_mo // 16) * 16
+    ld, n_pairs = np8 + 4, N * (N + 1) // 2
+    for run in (4, 2, 1):
+        shared = 8 * (2 * mq * ld + np8 * ld + run * n_pairs)
+        if shared <= _kernels.SHARED_MEMORY_A_BLOCK:
+            return HalfTransformLayout(True, run, np8, shared)
+    for panel in range(np8, 7, -8):
+        shared = 8 * (panel * ld + mq * (panel + 4))
+        if np8 % panel == 0 and shared <= _kernels.SHARED_MEMORY_A_BLOCK:
+            return HalfTransformLayout(False, 1, panel, shared)
+    raise ValueError(f"half-transform: N = {N} and n_mo = {n_mo} leave no panel that fits "
+                     f"{_kernels.SHARED_MEMORY_A_BLOCK} bytes of shared memory")
+
+
+def _warp_jobs(tiles_per_row) -> list[int]:
+    """Warp jobs over m-tiles i with tiles_per_row[i] n-tiles each: runs of
+    at most _MAX_TILES consecutive n-tiles, as even as the warps allow, the
+    longest first; coded i | first n-tile << 10 | n-tiles << 20."""
+    size = max(1, min(_MAX_TILES, -(-sum(tiles_per_row) // _WARPS)))
+    jobs = []
+    for i, count in enumerate(tiles_per_row):
+        parts = -(-count // size)
+        bounds = [part * count // parts for part in range(parts + 1)]
+        jobs += [i | lo << 10 | (hi - lo) << 20 for lo, hi in zip(bounds, bounds[1:])]
+    return sorted(jobs, key=lambda code: -(code >> 20))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_table(n_mo: int, panel: int) -> tuple[np.ndarray, int, int]:
+    """K5's table for n_mo MOs and a panel of `panel` AO rows: the warp
+    jobs of T^T = W^T D (every 16 x 8 tile of (q, k in the panel)), then of
+    out = W^T T (the 16 x 8 tiles of (p, q) that touch p >= q), then p (p +
+    1) / 2 for each p, the packed offset of row p.  Returns (table int32,
+    jobs of the first product, jobs of the second)."""
+    m_tiles = -(-n_mo // 16)
+    left = _warp_jobs([panel // 8] * m_tiles)
+    right = _warp_jobs([min(16 * i + 15, n_mo - 1) // 8 + 1 for i in range(m_tiles)])
+    p = np.arange(n_mo)
+    table = np.concatenate([np.asarray(left + right, dtype=np.int64), p * (p + 1) // 2])
+    return table.astype(np.int32), len(left), len(right)
+
+
+_device_tables: dict = {}
+_pair_kl: dict = {}   # id(pair_index) -> (a weak reference to it, its inverse)
+
+
+def pair_kl(pair_index) -> torch.Tensor:
+    """The inverse of pair_index (symmetric, a bijection from k >= l onto
+    the packed pairs): k | l << 16 for each packed AO pair, int32 on
+    pair_index's device, computed once per pair_index tensor."""
+    entry = _pair_kl.get(id(pair_index))
+    if entry is None or entry[0]() is not pair_index:
+        N = pair_index.shape[0]
+        k, l = torch.tril_indices(N, N, device=pair_index.device)
+        kl = torch.empty(N * (N + 1) // 2, dtype=torch.int32, device=pair_index.device)
+        kl[pair_index[k, l]] = (k | l << 16).to(torch.int32)
+        entry = _pair_kl[id(pair_index)] = (weakref.ref(pair_index), kl)
+        weakref.finalize(pair_index, _pair_kl.pop, id(pair_index), None)
+    return entry[1]
+
+
 def _half_transform_kernel(M, pair_index, W, transposed):
     device = M.device
     N, n_mo = W.shape
@@ -79,16 +161,19 @@ def _half_transform_kernel(M, pair_index, W, transposed):
     _kernels.check_tensor("M", M, stored, _F64, device)
     _kernels.check_tensor("W", W, (N, n_mo), _F64, device)
     _kernels.check_tensor("pair_index", pair_index, (N, N), pair_index.dtype, device)
-    panel = min(N, _PANEL_BYTES // (8 * (N + n_mo)))
-    if panel < 1:
-        raise ValueError(f"half-transform: N = {N} and n_mo = {n_mo} leave no panel of "
-                         f"{_PANEL_BYTES} bytes")
-    index32 = pair_index.to(torch.int32).contiguous()
+    layout = half_transform_layout(N, n_mo)
+    key = (n_mo, layout.panel, device)
+    if key not in _device_tables:
+        table, n_left, n_right = tile_table(n_mo, layout.panel)
+        _device_tables[key] = (torch.as_tensor(table, device=device), n_left, n_right)
+    table, n_left, n_right = _device_tables[key]
+    kl = pair_kl(pair_index)
     out = torch.empty((n_rows, n_mo * (n_mo + 1) // 2), dtype=_F64, device=device)
     row_stride, col_stride = (1, n_rows) if transposed else (n_ao_pairs, 1)
     _kernels.launch("mo_half_transform", "tuna_mo_half_transform", device,
-                    n_rows, N, n_mo, panel, row_stride, col_stride, M.data_ptr(),
-                    index32.data_ptr(), W.data_ptr(), out.data_ptr())
+                    n_rows, N, n_mo, int(layout.staged), layout.run, layout.panel, n_left,
+                    n_right, row_stride, col_stride, M.data_ptr(), kl.data_ptr(),
+                    W.data_ptr(), table.data_ptr(), out.data_ptr())
     return out
 
 
