@@ -58,23 +58,27 @@ non-zero without printing a result):
  12. spin-orbital (T) kernel: K2u against its plain version on seeded
      antisymmetric inputs at the UHF paths' shapes, (o, v) = (16, 36),
      (9, 79) and (16, 104), and with QCISD's disconnected scale 2 at (16,
-     36): bitwise over two calls, peak device memory a call, stage A's
-     products as batched torch.matmul for library_ms;
+     36): bitwise over two calls, peak device memory a call, each stage's
+     device ms a call (torch.profiler), registers without a spill (ptxas),
+     stage A's products as batched torch.matmul for library_ms;
  13. UHF paths: `SPE : O O 1.21 : CCSD(T) 6-311G : ML 3 TIGHTSCF` (triplet
      O2), stored and DIRECT; `SPE : O H 0.97 : CCSD(T) CC-PVTZ : ML 2
      TIGHTSCF` (OH radical, f shells); `SPE : O O 1.21 : CCSD(T) CC-PVTZ :
      ML 3 DIRECT TIGHTSCF` with its stored twin; `SPE : O O 1.21 :
      QCISD(T) 6-311G : ML 3 TIGHTSCF`; each against tuna_tpu's SCF and
      CC energies and iteration counts, its (T) against K2u's plain version
-     on the path's own amplitudes and integrals, with its profile;
+     on the path's own amplitudes and integrals, with its profile (K2u's
+     device ms by stage on lines A and C);
  14. (Q) kernel: K9 against its plain version on seeded inputs at (o, v) =
-     (7, 19) and (7, 53), E_MP5 and E_MP6 each: bitwise over four calls,
-     peak device memory a call, the v^5 products of its raw terms as
-     batched torch.matmul for library_ms;
+     (7, 19) and (7, 53), E_MP5 and E_MP6 each: bitwise over five calls,
+     peak device memory a call, each of its three kernels' device ms a call
+     (torch.profiler), registers without a spill (ptxas), the v^5 products
+     of its raw terms as batched torch.matmul for library_ms;
  15. (Q) path: `SPE : N N 1.1 : CCSDT(Q) 6-311G : TIGHTSCF` against
      tuna_tpu's SCF and CCSDT energies and iteration counts and its printed
      (Q) parts and total, its (Q) against K9's plain version on the path's
-     own amplitudes and integrals, one K9 launch, with its profile; then
+     own amplitudes and integrals, one K9 launch, with its profile (K9's
+     device ms by kernel); then
      CCSDTQ, UCCSDT, UCISDT and CCSDT(Q) on a UHF reference on LiH/STO-3G
      against tuna_tpu's energies and iteration counts;
  16. batched VV10 kernel: K6b against its plain version on the active
@@ -132,6 +136,15 @@ non-zero without printing a result):
      on the CCSD[T], DFT and UKS OPT lines (POLISH_RUNS warm runs a
      variant, in the order library, polished, polished, library).
 
+A device time read from torch.profiler fails the run when the kernel ran
+and the profile has no entry for it.  A session records the launches of
+the library's kernels (csrc/, launched through ctypes) only in part, the
+fewer the shorter the session, and none in the sessions right after the
+UKS OPT's long one (phase 20's K7bt measurement).  So device ms are a
+recorded launch's, over 50 calls where the wrapper is timed alone, and a
+session without any device event is run again, a second later, up to
+PROFILE_ATTEMPTS times.
+
 Each path's launch counts are read from zero: the counts are reset just
 before the path runs and read just after, so launches made to compare a
 kernel with its plain version do not count.  Each kernel's record carries
@@ -160,7 +173,8 @@ and for K1 and K4 the union of their class kernels' intervals a call).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
---compare times the three restricted paths, WARM_RUNS warm runs each after a cold one
+--compare times the three restricted paths, the (Q) path and UHF line C (O2
+CCSD(T)/cc-pVTZ DIRECT), WARM_RUNS warm runs each after a cold one
 (warm wall median and quartiles, SCF and CC ms per iteration, iteration
 counts), then, CUDA events, median of 10 after a warm-up: K1 and K4 alone at
 N2/cc-pVTZ (K4 on a seeded density), K2 alone at o = 7, v = 53 and K6 alone
@@ -168,8 +182,9 @@ at M = 51,320 points, both on seeded inputs through cc.ccsd_t_energy and
 vv10.vv10_energy, with their energies; K5's two phases at N2/cc-pVTZ
 (motransform.pair_packed_to_mo on the packed ERI matrix, a seeded W) beside
 torch.matmul on the expanded rows, and K7bt on the N2/cc-pVTZ medium grid
-(a seeded density-like P), each with a sum of its outputs; with the
-tuna_tpu_torch of each ROOT
+(a seeded density-like P), each with a sum of its outputs; K9 at (o, v) =
+(7, 19) and (7, 53) and K2u at the UHF lines A (16, 36) and C (16, 104)
+on seeded inputs, with their energies; with the tuna_tpu_torch of each ROOT
 in turn (each in its own interpreter, building its own kernels), and prints
 one JSON line for each: two checkouts, say a parent commit and this one,
 compared on one card in one call (run them in the order A B B A).
@@ -414,6 +429,7 @@ DERIV_GRID_TOLERANCE = 1e-12  # relative to the largest |entry| of each K8c outp
 UNRESTRICTED_HALF_TOLERANCE = 1e-14  # relative, K8bu at Pa = Pb = P/2 against K8b(P)
 
 WARM_RUNS = 5                  # warm runs of a path, for its profile and --compare
+PROFILE_ATTEMPTS = 5           # torch.profiler sessions tried before a run fails
 
 BYTES_PER_MS = 3.35e12 / 1e3   # H100 SXM device memory
 FP64_PER_MS = 34e12 / 1e3      # float64 outside the tensor cores
@@ -1023,10 +1039,21 @@ def profiled_call(counted) -> dict:
     quartet-engine wrappers the union of their class kernels' intervals a
     call."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        profiled_wall, profiled_launches = counted()
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=activities) as prof:
+            profiled_wall, profiled_launches = counted()
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+        # a session records the launches of the library's kernels only in
+        # part, and short sessions after a long one (the UKS OPT's) have
+        # come back with none: wait a second and run it again
+        print(f"profiler: a session of {len(events)} events recorded no device event "
+              f"(attempt {attempt} of {PROFILE_ATTEMPTS})")
+        time.sleep(1.0)
+    require(bool(kernels), f"torch.profiler recorded no device event in {PROFILE_ATTEMPTS} "
+                           f"sessions")
     busy_us = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     launch_calls = [e for e in events if e.name == "cudaLaunchKernel"]
     by_kernel: dict = {}
@@ -1056,11 +1083,12 @@ def profiled_call(counted) -> dict:
                         if re.search(pattern, e.name)]) / 1e3 / profiled_launches[name]
         for name, pattern in QUARTET_KERNELS.items() if profiled_launches[name]}
     return {
+        "profile_attempts": attempt,
         "profiled_wall_s": profiled_wall,
         "profiled_launches": {name: n for name, n in profiled_launches.items() if n},
         "device_kernels": len(kernels),
         "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / 1e6 / profiled_wall if kernels else "not measured",
+        "device_idle_share": 1.0 - busy_us / 1e6 / profiled_wall,
         "cudaLaunchKernel_calls": len(launch_calls),
         "cudaLaunchKernel_host_ms": sum(e.cpu_time_total for e in launch_calls) / 1e3,
         "top_kernels_device_ms": {name[:90]: us / 1e3 for name, us in top_kernels},
@@ -1228,11 +1256,15 @@ def check_fock_direct(basis: str, device, record: dict) -> str:
             f"calls bitwise equal; fock_direct / eri_packed {ms / eri_ms:.3f}")
 
 
-def device_ms_a_launch(fn, key: str, calls: int = 5):
+def device_ms_a_launch(fn, key: str, calls: int = 50):
     """Device ms a launch of the csrc/ kernel `key` (as profiled_call names
-    it in hand_kernels) over `calls` calls of fn() under torch.profiler."""
+    it in hand_kernels) over `calls` calls of fn() under torch.profiler:
+    the session records the launches of the library's kernels only in
+    part, the fewer the shorter the session, so the time is a recorded
+    launch's, over enough calls."""
     def counted():
         _kernels.reset_launch_counts()
+        torch.ones(1, device="cuda")   # one torch kernel in the session as well
         start = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -1241,6 +1273,47 @@ def device_ms_a_launch(fn, key: str, calls: int = 5):
 
     fn()
     return _device_ms_a_launch(profiled_call(counted), key)
+
+
+def stage_ms(profile: dict, stages: tuple, launches_a_call: int) -> dict:
+    """Device ms a launch of each csrc/ kernel in `stages` (a wrapper's
+    kernels, each launched launches_a_call times a call) in a profile, as
+    a recorded launch's (a session may miss some), and so a call's; a stage
+    without a profiler entry fails the run."""
+    result = {}
+    for key in stages:
+        entry = profile["hand_kernels"].get(key)
+        require(entry is not None, f"no profiler entry for {key}; the profile's csrc/ kernels: "
+                                   f"{sorted(profile['hand_kernels'])}")
+        a_launch = entry["device_ms"] / entry["launches"]
+        result[key] = {"device_ms": a_launch * launches_a_call, "launches": launches_a_call,
+                       "device_ms_a_launch": a_launch, "launches_recorded": entry["launches"]}
+    return result
+
+
+def stage_ms_a_call(fn, stages: tuple, launches_a_call: int, calls: int = 5) -> dict:
+    """stage_ms over `calls` calls of fn() under torch.profiler, after one
+    call outside it."""
+    def counted():
+        _kernels.reset_launch_counts()
+        torch.ones(1, device="cuda")   # one torch kernel in the session as well
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - start, dict(_kernels.launches)
+
+    fn()
+    return stage_ms(profiled_call(counted), stages, launches_a_call)
+
+
+def unit_registers(registers: dict, unit: str) -> dict:
+    """ptxas's registers of every kernel of one source, failing the run on
+    a spill."""
+    found = {key: value for key, value in registers.items() if key.startswith(unit + ":")}
+    spills = {key: value for key, value in found.items() if not isinstance(value, int)}
+    require(bool(found) and not spills, f"{unit}.cu: kernels {found}, spills {spills}")
+    return found
 
 
 def check_mo_transform(device, record: dict, registers: dict) -> str:
@@ -1645,12 +1718,17 @@ def u_stage_a_library_ms(args) -> float:
     return ms
 
 
-def check_u_triples(no: int, nv: int, device, record: dict, v_scale: float = 1.0) -> str:
+U_TRIPLES_STAGES = ("u_triples_raw_kernel", "u_triples_energy_kernel")   # K2u's stages A, B
+
+
+def check_u_triples(no: int, nv: int, device, record: dict, registers: dict,
+                    v_scale: float = 1.0) -> str:
     """K2u against its plain version at o = no, v = nv, bitwise over two
-    calls, with its peak device memory a call (its device time a launch is
-    in the UHF paths' profiles); the record keeps the largest error over
-    the shapes, the times of the first shape checked (config A's, o = 16,
-    v = 36) and every shape's measurements under `shapes`."""
+    calls, with its peak device memory a call and each stage's device ms a
+    call (torch.profiler), no register spill (ptxas); the record keeps the
+    largest error over the shapes, the times of the first shape checked
+    (config A's, o = 16, v = 36) and every shape's measurements under
+    `shapes`."""
     args = u_triples_args(no, nv, device)
 
     def kernel():
@@ -1672,19 +1750,27 @@ def check_u_triples(no: int, nv: int, device, record: dict, v_scale: float = 1.0
             f"(relative {err / abs(e_plain):.3e})")
     require(torch.equal(kernel(), kernel()), "two spin-orbital (T) kernel calls differ")
     ms, plain_ms = medians_ms((kernel, plain), 5)
+    n_batches = len(cc.u_triples_plan(no, nv, cc.U_TRIPLES_WORKSPACE_BYTES))
+    stages = stage_ms_a_call(kernel, U_TRIPLES_STAGES, n_batches)
+    device_ms = sum(stage["device_ms"] for stage in stages.values())
     library_ms = u_stage_a_library_ms(args)
     u_bound = bound(tensor_bytes(*args), u_triples_ms(no, nv))
     entry = record.setdefault("uccsd_t_energy", {"max_abs_err": 0.0, "shapes": []})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     if "ms" not in entry:
-        entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **u_bound)
-    entry["shapes"].append({"o": no, "v": nv, "v_scale": v_scale, "ms": ms, "plain_ms": plain_ms,
-                            "library_ms": library_ms, "max_abs_err": err, **u_bound,
-                            "peak_bytes_a_call": peak_bytes})
-    n_batches = len(cc.u_triples_plan(no, nv, cc.U_TRIPLES_WORKSPACE_BYTES))
+        entry.update(ms=ms, device_ms_a_launch=device_ms, plain_ms=plain_ms,
+                     library_ms=library_ms, **u_bound,
+                     registers=unit_registers(registers, "ccsd_t_u"))
+    entry["shapes"].append({"o": no, "v": nv, "v_scale": v_scale, "ms": ms,
+                            "device_ms_a_launch": device_ms, "stages": stages,
+                            "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": err,
+                            **u_bound, "peak_bytes_a_call": peak_bytes})
     return (f"kernels spin-orbital (T): o {no}, v {nv}, v_scale {v_scale}; E {e_kernel:.15e}, "
             f"|diff| {err:.3e} (relative {err / abs(e_plain):.3e}), two calls bitwise equal; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, stage A as batched torch.matmul "
+            f"{ms:.4f} ms (device {device_ms:.4f} ms a call: stage A "
+            f"{stages['u_triples_raw_kernel']['device_ms']:.4f}, B "
+            f"{stages['u_triples_energy_kernel']['device_ms']:.4f}) vs plain {plain_ms:.4f} ms, "
+            f"stage A as batched torch.matmul "
             f"{library_ms:.4f} ms; bound {u_bound['bound_ms']:.5f} ms by "
             f"{u_bound['bound_by']}; {n_batches} batches, peak device memory a call "
             f"{peak_bytes} bytes (one o^3 v^3 tensor: {8 * no ** 3 * nv ** 3} bytes)")
@@ -1768,14 +1854,19 @@ def check_uhf_twin(line: str, energy: float, SCF_output) -> None:
           f"wall {wall:.3f} s")
 
 
-def check_uhf_paths() -> dict:
+def check_uhf_paths(record: dict) -> dict:
     """Phase 13: the UHF paths with their profiles; returns the launches
-    summed over the counted runs."""
+    summed over the counted runs and records K2u's device ms a launch by
+    stage on lines A and C from their profiles."""
     runs = []
     energy, scf, launches = check_uhf_path(LINE_UHF, UHF_PATH_KERNELS, ITERATIONS_UHF,
                                            E_SCF_REF_UHF, E_ref=E_REF_UHF)
     runs.append(launches)
-    print("profile: " + json.dumps(profile_path(LINE_UHF)))
+    profile = profile_path(LINE_UHF)
+    paths = record["uccsd_t_energy"].setdefault("paths", {})
+    paths["A"] = stage_ms(profile, U_TRIPLES_STAGES,
+                          len(cc.u_triples_plan(16, 36, cc.U_TRIPLES_WORKSPACE_BYTES)))
+    print("profile: " + json.dumps(profile))
     direct_energy, direct_scf, launches = check_uhf_path(
         LINE_UHF_DIRECT, UHF_DIRECT_PATH_KERNELS, ITERATIONS_UHF, E_SCF_REF_UHF,
         E_ref=E_REF_UHF_DIRECT)
@@ -1798,7 +1889,10 @@ def check_uhf_paths() -> dict:
     require(scf.integrals.ERI_AO is None, f"{LINE_UHF_TZ}: the ERI tensor was stored")
     runs.append(launches)
     check_uhf_twin(LINE_UHF_TZ_STORED, energy, scf)
-    print("profile: " + json.dumps(profile_path(LINE_UHF_TZ)))
+    profile = profile_path(LINE_UHF_TZ)
+    paths["C"] = stage_ms(profile, U_TRIPLES_STAGES,
+                          len(cc.u_triples_plan(16, 104, cc.U_TRIPLES_WORKSPACE_BYTES)))
+    print("profile: " + json.dumps(profile))
     return {name: sum(r[name] for r in runs) for name in KERNELS}
 
 
@@ -1816,19 +1910,16 @@ def quadruples_ms(no: int, nv: int) -> tuple[float, float]:
     each at the matrix-product rate.  Then, per ordered (ijkl) and element,
     the symmetrisation and Z (~20 operations), and per multiset and element
     the denominator and two products (~10).  K9 forms S2 and S4 (4 v + 8 o
-    an element), and W (or U) and X, Y, V once an ordering and range of
-    min(y) of its plan at the default cap."""
+    an element) and the vvvv term as two products, P = (cf|ae) t2[kl f d]
+    and t2[ij e b] P, v more an element (5 v + 8 o), and X, Y, V once an
+    ordering and range of min(y) of its plan at the default cap."""
     o4v4 = float(no ** 4 * nv ** 4)
     multisets = float(np.prod(range(no, no + 4)) / 24)
     rest = (20.0 * o4v4 + 10.0 * multisets * nv ** 4) / FP64_PER_MS
     xyv = float(no ** 4 * nv ** 2 * (no + 2 * nv))
     needed = o4v4 * (4 * nv + 6 * no) + xyv + float(no ** 2 * nv ** 5)
     batches = cc.quadruples_plan(no, nv, cc.QUADRUPLES_WORKSPACE_BYTES)[0]
-    own = o4v4 * (4 * nv + 8 * no)
-    for a0, a1 in dict.fromkeys(map(tuple, batches[:, 6:].tolist())):
-        elements, slot = cc.quadruples_cut(no, nv, a0, a1)
-        w = slot - 3 * elements - 3 * no * nv * nv
-        own += float(no ** 4 * w * nv) + xyv
+    own = o4v4 * (5 * nv + 8 * no) + xyv * len(dict.fromkeys(map(tuple, batches[:, 6:].tolist())))
     return (2.0 * needed / FP64_MMA_PER_MS + rest, 2.0 * own / FP64_MMA_PER_MS + rest)
 
 
@@ -1901,7 +1992,11 @@ def quadruples_library_ms(args) -> float:
     return ms
 
 
-def check_quadruples(no: int, nv: int, device, record: dict) -> str:
+QUADRUPLES_STAGES = ("quadruples_xyv_kernel", "quadruples_raw_kernel",
+                     "quadruples_energy_kernel")   # K9's kernels, in the order of a batch
+
+
+def check_quadruples(no: int, nv: int, device, record: dict, registers: dict) -> str:
     """K9 against its plain version at o = no, v = nv (E_MP5 and E_MP6 each
     to TRIPLES_TOLERANCE relative), bitwise over two calls, with its peak
     device memory a call; the record keeps the largest error over the
@@ -1935,24 +2030,33 @@ def check_quadruples(no: int, nv: int, device, record: dict) -> str:
         times.append(once_ms(kernel))
         require(torch.equal(results[-1], first), "two (Q) kernel calls differ")
     ms = statistics.median(times)
+    batches = cc.quadruples_plan(no, nv, cc.QUADRUPLES_WORKSPACE_BYTES)[0]
+    stages = stage_ms_a_call(kernel, QUADRUPLES_STAGES, len(batches), calls=1)
+    require(torch.equal(results[-1], first), "two (Q) kernel calls differ")
+    device_ms = sum(stage["device_ms"] for stage in stages.values())
     library_ms = quadruples_library_ms(args)
     needed, own = quadruples_ms(no, nv)
     q_bound = bound(tensor_bytes(*args), needed)
     entry = record.setdefault("ccsdt_q_energy", {"max_abs_err": 0.0, "shapes": []})
     entry["max_abs_err"] = max(entry["max_abs_err"], *errors)
     if "ms" not in entry:
-        entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **q_bound)
-    batches = cc.quadruples_plan(no, nv, cc.QUADRUPLES_WORKSPACE_BYTES)[0]
-    entry["shapes"].append({"o": no, "v": nv, "ms": ms, "plain_ms": plain_ms,
+        entry.update(ms=ms, device_ms_a_launch=device_ms, plain_ms=plain_ms,
+                     library_ms=library_ms, **q_bound,
+                     registers=unit_registers(registers, "ccsdt_q"))
+    entry["shapes"].append({"o": no, "v": nv, "ms": ms, "device_ms_a_launch": device_ms,
+                            "stages": stages, "plain_ms": plain_ms,
                             "library_ms": library_ms, "max_abs_err": max(errors), **q_bound,
                             "kernel_own_count_ms": own, "peak_bytes_a_call": peak_bytes,
                             "batches": len(batches), "ranges": len(np.unique(batches[:, 6]))})
     relative = [err / abs(b) for err, b in zip(errors, e_plain)]
     return (f"kernels (Q): o {no}, v {nv}; E_MP5 {e_kernel[0]:.15e}, E_MP6 {e_kernel[1]:.15e}, "
-            f"relative {relative[0]:.3e}, {relative[1]:.3e}; four calls bitwise equal; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, the v^5 products as batched "
+            f"relative {relative[0]:.3e}, {relative[1]:.3e}; five calls bitwise equal; "
+            f"{ms:.4f} ms (device {device_ms:.4f} ms a call: "
+            + ", ".join(f"{key.split('_')[1]} {value['device_ms']:.4f}"
+                        for key, value in stages.items())
+            + f") vs plain {plain_ms:.4f} ms, the v^5 products as batched "
             f"torch.matmul {library_ms:.4f} ms; bound {q_bound['bound_ms']:.5f} ms by "
-            f"{q_bound['bound_by']} (W once a pair; K9's count, W once an ordering and range: "
+            f"{q_bound['bound_by']} (W once a pair; K9's count, the vvvv term as two products: "
             f"{own:.5f} ms); {len(batches)} batches over {len(np.unique(batches[:, 6]))} ranges "
             f"of min(y), peak device memory a call {peak_bytes} "
             f"bytes (one o^4 v^4 tensor: {8 * no ** 4 * nv ** 4} bytes)")
@@ -1989,11 +2093,11 @@ def check_triples_line(line: str, energy_ref: float, iterations_ref: tuple,
     return launches
 
 
-def check_quadruples_path() -> dict:
+def check_quadruples_path(record: dict) -> dict:
     """Phase 15: LINE_Q against tuna_tpu's numbers, its (Q) against K9's
     plain version on the path's own amplitudes and integrals, one K9 launch,
-    its profile; then the small triples lines.  Returns the launches summed
-    over the counted runs."""
+    its profile (K9's device ms by stage, recorded); then the small triples
+    lines.  Returns the launches summed over the counted runs."""
     with Recorder("ccsdt_q_energy") as recorder:
         SCF_output, _, energy, _, wall, launches = drive(LINE_Q, Q_PATH_KERNELS)
     require(launches["ccsdt_q_energy"] == 1 and len(recorder.calls) == 1,
@@ -2025,7 +2129,10 @@ def check_quadruples_path() -> dict:
           f"{statistics.median(SCF_output.correlation_iteration_seconds) * 1e3:.3f} "
           f"ms/iteration; wall {wall:.3f} s; launches {launches}")
     runs = [launches]
-    print("profile: " + json.dumps(profile_path(LINE_Q)))
+    profile = profile_path(LINE_Q)
+    record["ccsdt_q_energy"]["path"] = stage_ms(
+        profile, QUADRUPLES_STAGES, len(cc.quadruples_plan(7, 19, cc.QUADRUPLES_WORKSPACE_BYTES)[0]))
+    print("profile: " + json.dumps(profile))
     for line, energy_ref, iterations_ref, kernels in TRIPLES_LINES:
         runs.append(check_triples_line(line, energy_ref, iterations_ref, kernels))
     return {name: sum(r[name] for r in runs) for name in KERNELS}
@@ -2589,9 +2696,13 @@ def profile_meta_gga_opt(line: str) -> dict:
     return profile
 
 
-def _device_ms_a_launch(profile: dict, key: str):
+def _device_ms_a_launch(profile: dict, key: str) -> float:
+    """Device ms a launch of the csrc/ kernel `key` in a profile; a kernel
+    that ran there and has no entry fails the run."""
     entry = profile["hand_kernels"].get(key)
-    return entry["device_ms"] / entry["launches"] if entry else "not measured"
+    require(entry is not None, f"no profiler entry for {key}; the profile's csrc/ kernels: "
+                               f"{sorted(profile['hand_kernels'])}")
+    return entry["device_ms"] / entry["launches"]
 
 
 def check_meta_gga_paths(device, record: dict) -> dict:
@@ -2762,8 +2873,9 @@ def spe_devices(line: str = LINE_UKS_SPE, reference: float = E_REF_UKS_SPE) -> d
 # but tuna_tpu_torch.cli.run, Output.{,correlation_}iteration_seconds,
 # IntegralPlan.eri_pair_packed and .fock_direct, post.cc.ccsd_t_energy,
 # dft.vv10.vv10_energy, ops.motransform.pair_packed_to_mo and
-# .half_transform, and dft.grid's ao_on_grid and density_on_grid(...,
-# with_tau=True), which every checkout with the meta-GGAs has.
+# .half_transform, dft.grid's ao_on_grid and density_on_grid(...,
+# with_tau=True), and post.cc.ccsdt_q_energy and .uccsd_t_energy, which
+# every checkout with the meta-GGAs has.
 _WALLS = """
 import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -2862,7 +2974,62 @@ del values, grads
 C = np.random.default_rng(14).standard_normal((n_mo, 7)) / np.sqrt(n_mo)
 P_tau = gpu(C @ C.T)
 tau_call = lambda: grid.density_on_grid(P_tau, bfs, bf_grads, with_tau=True)
-print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__,
+# K9 at the (Q) path's (7, 19) and cc-pVTZ's (7, 53), K2u at the UHF
+# lines A (16, 36) and C (16, 104), seeded, through the public wrappers
+def quadruples_inputs(no, nv, seed):
+    rng = np.random.default_rng(seed)
+    n = no + nv
+    c = rng.standard_normal((n, n, n, n))
+    c = c + c.transpose(1, 0, 2, 3)
+    c = c + c.transpose(0, 1, 3, 2)
+    t2 = rng.standard_normal((no, no, nv, nv))
+    return [gpu(0.05 * (c + c.transpose(2, 3, 0, 1))), gpu(0.05 * (t2 + t2.transpose(1, 0, 3, 2))),
+            gpu(0.01 * rng.standard_normal((no, no, no, nv, nv, nv))),
+            gpu(np.sort(rng.uniform(-15.0, -0.5, no))), gpu(np.sort(rng.uniform(0.3, 5.0, nv)))]
+
+
+def u_triples_inputs(no, nv, seed):
+    rng = np.random.default_rng(seed)
+
+    def pairs(x):
+        x = x - x.swapaxes(0, 1) if x.shape[0] == x.shape[1] else x
+        return x - x.swapaxes(2, 3)
+
+    return [gpu(0.1 * pairs(rng.standard_normal((no, no, nv, nv)))),
+            gpu(0.1 * pairs(rng.standard_normal((nv, no, nv, nv)))),
+            gpu(0.1 * pairs(rng.standard_normal((no, nv, no, no)))),
+            gpu(0.01 * rng.standard_normal((no, nv))),
+            gpu(0.05 * pairs(rng.standard_normal((no, no, nv, nv)))),
+            gpu(np.sort(rng.uniform(-15.0, -0.5, no))), gpu(np.sort(rng.uniform(0.3, 5.0, nv)))]
+
+
+def median_of(fn, repeats):   # CUDA events, median of `repeats` after a warm-up
+    fn()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+kernels = {}
+for no, nv, repeats in ((7, 19, 10), (7, 53, 3)):
+    q_args = quadruples_inputs(no, nv, 23)
+    kernels[f"ccsdt_q_energy_o{no}_v{nv}_ms"] = median_of(lambda: cc.ccsdt_q_energy(*q_args),
+                                                          repeats)
+    kernels[f"ccsdt_q_energy_o{no}_v{nv}"] = cc.ccsdt_q_energy(*q_args).tolist()
+    del q_args
+for line, no, nv in (("A", 16, 36), ("C", 16, 104)):
+    u_args = u_triples_inputs(no, nv, 17)
+    kernels[f"uccsd_t_energy_{line}_o{no}_v{nv}_ms"] = median_of(
+        lambda: cc.uccsd_t_energy(*u_args), 10)
+    kernels[f"uccsd_t_energy_{line}_o{no}_v{nv}"] = float(cc.uccsd_t_energy(*u_args))
+    del u_args
+print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__, **kernels,
                   "paths": paths,
                   "eri_packed_cc_pvtz_ms": median_ms(lambda: plan.eri_pair_packed(coords)),
                   "fock_direct_cc_pvtz_ms": median_ms(lambda: plan.fock_direct(coords, P)),
@@ -2883,8 +3050,9 @@ print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__,
 def compare(roots) -> int:
     for root in roots:
         result = subprocess.run([sys.executable, "-c", _WALLS, str(pathlib.Path(root).resolve()),
-                                 str(WARM_RUNS), LINE, LINE_DFT, LINE_DIRECT], cwd=root,
-                                capture_output=True, text=True, timeout=600)
+                                 str(WARM_RUNS), LINE, LINE_DFT, LINE_DIRECT, LINE_Q,
+                                 LINE_UHF_TZ], cwd=root, capture_output=True, text=True,
+                                timeout=900)
         if result.returncode != 0:
             print(result.stderr[-4000:], file=sys.stderr)
             return result.returncode
@@ -3001,18 +3169,18 @@ def main() -> int:
 
     # --- 12. the spin-orbital (T) kernel against its plain version -----------
     for no, nv, v_scale in ((16, 36, 1.0), (16, 36, 2.0), (9, 79, 1.0), (16, 104, 1.0)):
-        print(check_u_triples(no, nv, device, record, v_scale))
+        print(check_u_triples(no, nv, device, record, registers, v_scale))
 
     # --- 13. UHF paths ---------------------------------------------------------
-    launches = check_uhf_paths()
+    launches = check_uhf_paths(record)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     # --- 14. the (Q) kernel against its plain version --------------------------
     for no, nv in ((7, 19), (7, 53)):
-        print(check_quadruples(no, nv, device, record))
+        print(check_quadruples(no, nv, device, record, registers))
 
     # --- 15. the (Q) path and the iterative triples lines -----------------------
-    launches = check_quadruples_path()
+    launches = check_quadruples_path(record)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     # --- 16. K6b against its plain version at the scan's densities -------------

@@ -192,6 +192,20 @@ def test_uccsd_t_kernel_matches_plain(cuda, no, nv, v_scale, monkeypatch):
     assert abs(float(cut) - expected) <= 1e-12 * abs(expected)
 
 
+@pytest.mark.parametrize("no, nv, v_scale", [(3, 13, 1.0), (4, 17, 2.0), (3, 64, 1.0),
+                                             (3, 65, 2.0), (4, 129, 1.0)])
+def test_uccsd_t_kernel_tile_edges(cuda, no, nv, v_scale):
+    """K2u's stage-A tiles (64 a by 128 pairs, depth 16 a step) at their
+    edges: a depth 3 (v + o) that is a multiple of 16 (v = 13) and one that
+    is not; v = 64, one tile of a, and 65, two; C(v, 2) = 2016, 2080 and
+    8256, never a multiple of 128; two calls bitwise equal."""
+    args = _u_triples_args(no, nv, cuda, 7 * no + nv)
+    expected = float(cc._uccsd_t_energy_plain(*args, v_scale))
+    first = cc.uccsd_t_energy(*args, v_scale)
+    assert torch.equal(first, cc.uccsd_t_energy(*args, v_scale))
+    assert abs(float(first) - expected) <= 1e-12 * abs(expected)
+
+
 def test_uccsd_t_kernel_checks_its_inputs(cuda):
     args = list(_u_triples_args(4, 5, cuda, 1))
     args[1] = args[1].transpose(2, 3)
@@ -950,6 +964,29 @@ def test_ccsdt_q_kernel_matches_plain(cuda, no, nv, monkeypatch):
         assert torch.equal(cut, cc.ccsdt_q_energy(*args))
         for got, want, scale in zip(cut.tolist(), expected.tolist(), scales):
             assert abs(got - want) <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("no, nv", [(1, 19), (2, 17), (3, 9), (2, 33), (3, 16), (2, 8),
+                                    (1, 3)])
+def test_ccsdt_q_kernel_tile_edges(cuda, no, nv, monkeypatch):
+    """K9's tiles at their edges: v not a multiple of 8 or 16 (9, 17, 19,
+    33: two and three b tiles of 16, with 4 and 2 values of c a chunk), v
+    a multiple (8, 16), v below one tile (3), o = 1 (alpha = beta, so E_MP6
+    is rounding: held to the terms' size); at the default cap and at caps
+    that cut multisets over their slots and the virtual quadruples over
+    ranges of min(y), so that energy tiles stop at a1; two calls bitwise
+    equal."""
+    args = _quadruples_args(no, nv, cuda, 3 * no + nv)
+    expected = cc._ccsdt_q_energy_plain(*args)
+    scales = [abs(x) for x in expected.tolist()]
+    if no == 1:
+        scales = _quadruples_term_sizes(*args)
+    for cap in [cc.QUADRUPLES_WORKSPACE_BYTES] + _quadruples_caps(no, nv):
+        monkeypatch.setattr(cc, "QUADRUPLES_WORKSPACE_BYTES", cap)
+        got = cc.ccsdt_q_energy(*args)
+        assert torch.equal(got, cc.ccsdt_q_energy(*args))
+        for value, want, scale in zip(got.tolist(), expected.tolist(), scales):
+            assert abs(value - want) <= 1e-12 * scale
 
 
 def test_ccsdt_q_kernel_checks_its_inputs(cuda, monkeypatch):

@@ -197,6 +197,167 @@ def test_quadruples_plan_covers_every_ordering_once(slots):
                 assert np.all((ids >= begin) & (ids < end))
 
 
+def _chemists(x):
+    return np.ascontiguousarray(x["g"].transpose(0, 2, 1, 3))
+
+
+def _raw_emulated(c, t2, t3, slot):
+    """K9's raw stage for one ordering (i, j, k, l) in NumPy, as
+    csrc/ccsdt_q.cu composes it from the layouts its wrapper hands over
+    (quadruples_operands) and X, Y, V as the xyv kernel stores them:
+    Graw, alpha and beta over [0, v)^4."""
+    no, nv = t2.shape[0], t2.shape[2]
+    i, j, k, l = slot
+    cov, cvt, clk, t3t = (x.numpy() for x in cc.quadruples_operands(
+        torch.as_tensor(c), torch.as_tensor(t3), no))
+    o, v = slice(0, no), slice(no, None)
+    X = np.einsum("mn,mac->nac", c[o, i, o, j], t2[:, k])              # [n][a][c]
+    Y = np.einsum("ame,eb->amb", c[i, v, o, v], t2[k, j])              # [a][m][b]
+    V = np.einsum("bem,ce->cmb", c[v, v, o, i], t2[k, j])              # [c][m][b]
+    P = np.einsum("cfae,fd->aced", c[v, v, v, v], t2[k, l])            # [a][c][e][d]
+    cam = c[i, v, o, j]                                                # [a][m]
+    G = (np.einsum("abe,ecd->abcd", cov[i], t3[j, k, l])
+         + np.einsum("eb,aced->abcd", t2[i, j], P)
+         - 2.0 * np.einsum("amb,mcd->abcd", Y, t2[:, l])
+         - 2.0 * np.einsum("cmb,mad->abcd", V, t2[:, l])
+         - np.einsum("am,mbcd->abcd", cam, t3[:, k, l])
+         + np.einsum("nac,nbd->abcd", X, t2[:, l]))
+    ji = t3t[j, i]                                                     # [a][m][c][b]
+    S1 = np.einsum("amcb,md->abcd", ji, clk[l, k])
+    S2 = np.einsum("amdb,mc->abcd", ji, clk[l, k])
+    S3 = np.einsum("amcb,md->abcd", ji, clk[k, l])
+    S4 = np.einsum("amdb,mc->abcd", ji, clk[k, l])
+    T1 = np.einsum("aeb,ced->abcd", ji[:, k], cvt[l])
+    T2 = np.einsum("aeb,ced->abcd", ji[:, l], cvt[k])
+    return G, 2.0 * S1 - S2 - 2.0 * T1 + T2, 2.0 * S3 - S4 - 2.0 * T2 + T1
+
+
+def _energy_emulated(blocks, c, t2, eps, no, ranges, multisets, table):
+    """K9's energy stage in NumPy over the ranges of min(y): each multiset
+    and tile of quadruples_tiles, each permutation staging the permuted tile
+    of a slot's Graw (and of alpha and beta at Z6's 7 permutations where it
+    first reaches the slot) in the slot's storage order, each element read
+    back where staged_index puts it."""
+    nv = t2.shape[2]
+    K = c[:no, no:, :no, no:].transpose(0, 2, 1, 3)
+    L = 2.0 * K - K.transpose(0, 1, 3, 2)
+    u2 = 2.0 * t2 - t2.transpose(0, 1, 3, 2)
+    z6 = [((0, 1, 2, 3), -2.0, 1), ((2, 3, 0, 1), -1.0, 1), ((1, 0, 2, 3), 1.0, 1),
+          ((3, 1, 0, 2), 2.0, 2), ((1, 3, 0, 2), -1.0, 2), ((2, 1, 3, 0), 2.0, 2),
+          ((1, 2, 3, 0), -1.0, 2)]
+
+    def staged(array, start, extent, rho):
+        # element z of the permuted box in storage order, then where the
+        # tile's element u reads it: z_q = u_rho(q)
+        box = np.ix_(*(np.arange(start[r], start[r] + extent[r]) for r in rho))
+        flat = array[box].reshape(-1)
+        u = np.indices(extent)
+        index = np.zeros(extent, dtype=np.int64)
+        for r in rho:
+            index = index * extent[r] + u[r]
+        return flat[index]
+
+    energies = np.zeros(2)
+    for a0, a1 in ranges:
+        for row in multisets.tolist():
+            e_o = eps[list(row[:4])].sum()
+            for p, *geometry in cc.quadruples_tiles(nv, a0, a1).tolist():
+                start, extent = geometry[:4], geometry[4:]
+                y = np.ix_(*(np.arange(s, s + n) for s, n in zip(start, extent)))
+                gs, z5, zz6 = 0.0, 0.0, 0.0
+                for s, sigma in enumerate(cc.QUADRUPLES_PERMUTATIONS):
+                    slot = row[4 + s]
+                    G, alpha, beta = blocks[slot]
+                    gs = gs + staged(G, start, extent, sigma)
+                    if not row[28] >> s & 1:
+                        continue
+                    i, j, k, l = table[slot]
+                    a, b, cv, d = (y[q] for q in sigma)
+                    z5 = z5 + (u2[k, l][a, b] * K[i, j][cv, d] - 2.0 * u2[k, l][b, d] * L[i, j][a, cv]
+                               + u2[k, l][cv, d] * L[i, j][a, b])
+                    for pi, coefficient, which in z6:
+                        rho = tuple(sigma[q] for q in pi)
+                        zz6 = zz6 + 2.0 * coefficient * staged((alpha, beta)[which - 1], start,
+                                                               extent, rho)
+                e_v = sum(eps[no + y[q]] for q in range(4))
+                weighted = 0.5 * gs / (e_o - e_v)
+                energies += [np.sum(weighted * z5), np.sum(weighted * zz6)]
+    return energies
+
+
+@pytest.mark.parametrize("no, nv, a1", [(3, 4, None), (2, 6, 2)])
+def test_quadruples_kernel_layouts_match_tuna_tpu(no, nv, a1):
+    """K9's host tables emulated in NumPy with its two main stages: the raw
+    stage on quadruples_operands' layouts, the vvvv term as two products
+    and S2, S4 from t3[mjicba] at [j][i][a][m][c][b], equals the plain
+    version's blocks; the energy stage on quadruples_tiles, through
+    permuted tiles staged in storage order, gives tuna_tpu's E_MP5 and
+    E_MP6, over one range of min(y) and over several."""
+    x = _inputs(31 + no + nv, no, nv)
+    c, t2, t3, eps = _chemists(x), x["t2"], x["t3"], x["eps"]
+    cap = _cap_for_slots(no, nv, 1, a1)
+    batches, table, multisets = cc.quadruples_plan(no, nv, cap)
+    ranges = list(dict.fromkeys(map(tuple, batches[:, 6:].tolist())))
+    assert (len(ranges) > 1) == (a1 is not None)
+    B = cc._quadruples_blocks(torch.as_tensor(c), no)
+    blocks = []
+    for slot in table.tolist():
+        got = _raw_emulated(c, t2, t3, slot)
+        expected = cc._quadruples_slot_blocks(B, torch.as_tensor(t2), torch.as_tensor(t3),
+                                              *(torch.tensor([n]) for n in slot), 0)
+        for a, b in zip(got, expected):
+            assert _relative(a, b[0].numpy()) <= 1e-13
+        blocks.append(got)
+    energies = _energy_emulated(blocks, c, t2, eps, no, ranges, multisets, table.tolist())
+    for a, b in zip(energies, _tuna_tpu_parts(x, no)):
+        assert abs(a - b) <= TOLERANCE * abs(b)
+
+
+def _relative(a, b):
+    return np.max(np.abs(a - b)) / np.max(np.abs(b))
+
+
+@pytest.mark.parametrize("nv, a0, a1", [(19, 0, 19), (9, 0, 1), (9, 2, 7), (6, 5, 6),
+                                        (53, 13, 21), (2, 0, 2)])
+def test_quadruples_tiles_cover_every_element_once(nv, a0, a1):
+    """quadruples_tiles against a NumPy emulation of the kernel's decode
+    (Cut::tiles, tile_offset and tile_at: box by offset, then the axes
+    mixed-radix, the last fastest, each axis's part below a1 before its
+    part above): the same tiles in the same order; together they cover the
+    y with min(y) in [a0, a1) once, each in its box, none across a1."""
+    tiles = cc.quadruples_tiles(nv, a0, a1)
+    T = cc.QUADRUPLES_TILE
+
+    def axis(p, q):
+        lo, length = (a1, nv - a1) if q < p else ((a0, a1 - a0) if q == p else (a0, nv - a0))
+        mid = a1 if q > p else lo + length
+        return lo, mid, lo + length
+
+    decoded = []
+    for p in range(4):
+        counts = [-(-(axis(p, q)[1] - axis(p, q)[0]) // T) - (-(axis(p, q)[2] - axis(p, q)[1]) // T)
+                  for q in range(4)]
+        for index in range(int(np.prod(counts))):
+            starts, extents = [0] * 4, [0] * 4
+            for q in (3, 2, 1, 0):
+                u, index = index % counts[q], index // counts[q]
+                lo, mid, hi = axis(p, q)
+                below = -(-(mid - lo) // T)
+                starts[q] = lo + T * u if u < below else mid + T * (u - below)
+                extents[q] = min(T, (mid if u < below else hi) - starts[q])
+            decoded.append((p, *starts, *extents))
+    assert tiles.tolist() == [list(t) for t in decoded]
+    covered = np.zeros((nv,) * 4, dtype=np.int64)
+    for p, *geometry in tiles.tolist():
+        start, extent = geometry[:4], geometry[4:]
+        assert all(1 <= n <= T for n in extent)
+        assert all(s + n <= a1 or s >= a1 for s, n in zip(start, extent))
+        assert min(q for q in range(4) if start[q] < a1) == p
+        covered[tuple(slice(s, s + n) for s, n in zip(start, extent))] += 1
+    y = np.indices((nv,) * 4).min(axis=0)
+    assert np.array_equal(covered, ((y >= a0) & (y < a1)).astype(np.int64))
+
+
 def test_ccsdt_q_energy_refuses_other_devices():
     x = _inputs(26, 2, 3)
     meta = [torch.empty(t.shape, dtype=torch.float64, device="meta")

@@ -266,6 +266,54 @@ def test_u_triples_plan_covers_every_triple_once(no, nv, cap):
         (i, j, k) for i in range(no) for j in range(i + 1, no) for k in range(j + 1, no)]
 
 
+def _stage_a_emulated(args, i, j, k):
+    """K2u's stage A for the triple i < j < k in NumPy, on the layouts its
+    wrapper hands over: X[a, pair] = sum over the depth 3 (v + o) of the
+    left operand [t2[p, q, a, :] | <m a || p q> at [p][q][a][m]], signed
+    per ordering and part as the kernel signs its A fragments, times the
+    right operand read through u_triples_pair_offsets."""
+    g_vovv, g_ovoo, t2 = args[1].numpy(), args[2], args[4].numpy()
+    no, nv = t2.shape[0], t2.shape[2]
+    ovoo_t = cc.u_triples_ovoo_transposed(g_ovoo).numpy()
+    offsets = cc.u_triples_pair_offsets(nv)
+    assert ovoo_t.shape == (no, no, nv, no) and ovoo_t.flags["C_CONTIGUOUS"]
+    left, right = [], []
+    for s, (r, p, q) in enumerate(((i, j, k), (j, i, k), (k, j, i))):
+        sign = 1.0 if s == 0 else -1.0
+        left.append(np.concatenate([sign * t2[p, q], -sign * ovoo_t[p, q]], axis=1))
+        right.append(np.concatenate([g_vovv[:, r].reshape(nv, nv * nv)[:, offsets],
+                                     t2[r].reshape(no, nv * nv)[:, offsets]], axis=0))
+    return np.concatenate(left, axis=1) @ np.concatenate(right, axis=0)
+
+
+@pytest.mark.parametrize("no, nv", [(3, 3), (4, 6), (5, 7)])
+def test_u_triples_stage_a_layouts_match_tuna_tpu(no, nv):
+    """K2u's host tables (the pair offsets, b v + c in the row-major order of
+    pairs b < c, and <ov||oo> transposed to [p][q][a][m]) emulated with
+    stage A in NumPy: A(conn) = X[a, bc] - X[b, ac] + X[c, ab], as stage B
+    reads it, is tuna_tpu's connected triples at every i < j < k, a < b <
+    c."""
+    x = _so_inputs(70 + no + nv, no, nv)
+    o, v = slice(0, no), slice(no, None)
+    g = jnp.asarray(x["g"])
+    e_ijkabc = jax_transforms.triples_epsilons(jnp.asarray(x["eps"]), o, v)
+    _, t_c, _ = jax_cc._unrestricted_T_tensors(
+        g[o, o, v, v], g[v, o, v, v], g[o, v, o, o], jnp.asarray(x["t1"]),
+        jnp.asarray(x["t2"]), e_ijkabc)
+    connected = np.asarray(t_c) / np.asarray(e_ijkabc)
+    offsets = cc.u_triples_pair_offsets(nv)
+    b, c = np.triu_indices(nv, 1)
+    assert np.array_equal(offsets, b * nv + c) and offsets.dtype == np.int32
+    pair = {(y, z): n for n, (y, z) in enumerate(zip(b.tolist(), c.tolist()))}
+    args = _uccsd_t_args(x, o, v)
+    for i, j, k in cc.unique_triples(no).tolist():
+        X = _stage_a_emulated(args, i, j, k)
+        for a, b_, c_ in cc.unique_triples(nv).tolist():
+            got = X[a, pair[b_, c_]] - X[b_, pair[a, c_]] + X[c_, pair[a, b_]]
+            expected = connected[i, j, k, a, b_, c_]
+            assert abs(got - expected) <= 1e-12 * np.max(np.abs(connected))
+
+
 # ---------------------------------------------------------------------------
 # End to end against tuna_tpu
 # ---------------------------------------------------------------------------

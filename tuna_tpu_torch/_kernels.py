@@ -51,13 +51,14 @@ SIGNATURES = {
     # no, nv, n_batches, batches (host), slots, multisets, orbits, g_oovv,
     # g_ovvv, g_oovo, t1, t2, eps_o, eps_v, v_scale, workspace, partial
     "tuna_ccsd_t_energy": [_I, _I, _I] + [_P] * 11 + [_D, _P, _P] + [_P],
-    # no, nv, n_batches, batches (host), triples, pairs, orbits, g_oovv,
-    # g_vovv, g_ovoo, t1, t2, eps_o, eps_v, v_scale, workspace, partial
+    # no, nv, n_batches, batches (host), triples, pair_offsets, orbits,
+    # g_oovv, g_vovv, g_ovoo as [p][q][a][m], t1, t2, eps_o, eps_v, v_scale,
+    # workspace, partial
     "tuna_uccsd_t_energy": [_I, _I, _I] + [_P] * 11 + [_D, _P, _P] + [_P],
-    # no, nv, n_batches, batches (host), slots, multisets, c, cvt, t2, t3,
-    # eps_o, eps_v, energy_blocks, workspace and its doubles, partial and its
-    # doubles
-    "tuna_ccsdt_q_energy": [_I, _I, _I] + [_P] * 9 + [_I, _P, _L, _P, _L] + [_P],
+    # no, nv, n_batches, batches (host), slots, multisets, c, cov, cvt, clk,
+    # t2, t3, t3t, eps_o, eps_v, energy_blocks, workspace and its doubles,
+    # partial and its doubles
+    "tuna_ccsdt_q_energy": [_I, _I, _I] + [_P] * 12 + [_I, _P, _L, _P, _L] + [_P],
     # n_ao, n_points, with_gradients, points, origin, lmn, prim_start, exps,
     # coefs, values (out), gradients (out)
     "tuna_ao_on_grid": [_I, _I, _I] + [_P] * 8 + [_P],

@@ -14,8 +14,11 @@
 // the kernel sums only those, with no 1/36.
 //
 // What bounds it on an H100: stage A's products, 2 C(o,3) v C(v,2) 3(v + o)
-// operations (2.3e11 at o = 16, v = 104) at the float64 tensor-core (DMMA)
-// rate, 67 TFLOP/s; stage B does ~30 operations a (triple, orbit).
+// operations (2.25e11 at o = 16, v = 104: 3.44 ms at the float64
+// tensor-core (DMMA) rate, 67 TFLOP/s); stage B does ~30 operations a
+// (triple, orbit).  Bytes: the inputs once (0.17 GB at o = 16, v = 104)
+// and X written and read once (v C(v, 2) doubles a triple, 2.5 GB in all
+// there: >= 1.5 ms at 3.35 TB/s, under the operation bound of both stages).
 //
 // Design, in two kernels a batch of occupied triples i < j < k:
 //
@@ -24,12 +27,20 @@
 // (r, p, q) = (i, j, k), (j, i, k), (k, j, i) with signs +, -, -, each
 //   [ t2[p, q, a, :] | -<: a || p q> ]  (v x (v + o))
 //   [ <: r || b c> ; t2[r, :, b, c] ]   ((v + o) x C(v,2)),
-// concatenated along the depth with their signs folded into the left
-// operand.  A block takes one triple and a 64 x 64 tile of (a, pair); the
-// depth is staged through shared memory 32 at a time (zero past the end),
-// and each of 8 warps runs mma.sync.m16n8k4.f64 on a 16 x 32 sub-tile, as
-// K2's stage A does.  X is antisymmetric in (b, c), so only b < c is kept:
-// half of the v^3 a triple would need.
+// concatenated along the depth.  A block takes one triple and a 64 x 128
+// tile of (a, pair); each of its 8 warps holds a 32 x 32 sub-tile, 2 x 4
+// m16n8k8 tiles (csrc/dmma.cuh), so each A fragment feeds 4 products and
+// each B fragment 2.  The depth is staged 16 at a time by cp.async into one
+// of two shared buffers while the products run on the other (zero past the
+// end); rows are 20 doubles apart, so a half-warp's fragment reads hit 32
+// distinct banks.  Both operands are read along runs: the left one along e
+// of t2[p, q, a, :] and along m of <: a || p q>, which the wrapper hands
+// over transposed as [p][q][a][m] (o^3 v doubles); the right one along c
+// of <e r || b c> and t2[r, m, b, c], through a table of b v + c for each
+// pair that a block loads once.  The signs of the orderings and of the
+// integral part are applied to the A fragments, since cp.async copies
+// values as they are.  X is antisymmetric in (b, c), so only b < c is
+// kept: half of the v^3 a triple would need.
 //
 // Stage B (u_triples_energy_kernel) takes one (triple, orbit a < b < c) a
 // thread: A(conn) = X[a, bc] - X[b, ac] + X[c, ab] from the workspace, and
@@ -45,104 +56,161 @@
 // allocated.  One C call runs every batch on the caller's stream.
 #include <cuda_runtime.h>
 
+#include "dmma.cuh"
+
 namespace {
 
-constexpr int kTile = 64;           // a and pairs per stage-A block
-constexpr int kDepth = 32;          // depth staged per step
+constexpr int kRows = 64;           // a per stage-A block
+constexpr int kCols = 128;          // pairs per stage-A block
+constexpr int kDepth = 16;          // depth staged per step
 constexpr int kLd = kDepth + 4;     // row stride: 4 mod 16 doubles, no bank conflicts on reads
-constexpr int kThreadsA = 256;      // 8 warps: 4 (rows of 16) x 2 (columns of 32)
+constexpr int kStage = (kRows + kCols) * kLd;   // doubles of one buffer
+constexpr int kThreadsA = 256;      // 8 warps: 2 (rows of 32) x 4 (columns of 32)
 constexpr int kThreadsB = 128;
 constexpr int kOrbitBits = 21;      // bits of each virtual in a packed orbit
-
-// D (16x8) += A (16x4, row) . B (4x8, col) in float64 on the tensor cores
-// (Hopper's m16n8k4 shape).  With g = lane / 4, q = lane % 4: a_lo =
-// A[g][q], a_hi = A[g + 8][q], b = B[q][g], c = C[g][2q], C[g][2q + 1],
-// C[g + 8][2q], C[g + 8][2q + 1].
-__device__ __forceinline__ void mma_f64(double (&c)[4], double a0, double a1, double b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
-      "{%0, %1, %2, %3};\n"
-               : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-               : "d"(a0), "d"(a1), "d"(b));
-}
 
 // Index of the pair (y, z), y < z, in the row-major order of pairs.
 __device__ __forceinline__ long long pair_of(int nv, int y, int z) {
   return static_cast<long long>(y) * nv - static_cast<long long>(y) * (y + 1) / 2 + (z - y - 1);
 }
 
-// triples (n, 3): i < j < k of the batch; pairs (n_pairs, 2): b < c.
-// X: the batch's slots, each (v, n_pairs), pairs fastest.
-__global__ void __launch_bounds__(kThreadsA)
-u_triples_raw_kernel(int no, int nv, int n_pairs, int a_tiles, const int* __restrict__ triples,
-                     const int* __restrict__ pairs, const double* __restrict__ g_vovv,
-                     const double* __restrict__ g_ovoo, const double* __restrict__ t2,
-                     double* __restrict__ X) {
-  __shared__ double As[kTile][kLd];   // As[a][kappa]
-  __shared__ double Bs[kTile][kLd];   // Bs[pair][kappa] = B[kappa][pair]
+// Shared memory of a stage-A block: two buffers of kStage doubles, then
+// for each depth kappa (depth_pad of them, a multiple of kDepth) where the
+// left operand's row a = 0 starts and its step along a, where the right
+// operand's row starts, and the sign bit the A fragments take there.
+__host__ __device__ inline size_t raw_shared_bytes(int depth_pad) {
+  return sizeof(double) * 2 * kStage +
+         static_cast<size_t>(depth_pad) * (2 * sizeof(double*) + 2 * sizeof(int));
+}
+
+// x with its sign bit flipped where `bit` is the sign bit (0x80000000)
+__device__ __forceinline__ double flip(double x, int bit) {
+  return __hiloint2double(__double2hiint(x) ^ bit, __double2loint(x));
+}
+
+// triples (n, 3): i < j < k of the batch; pair_offsets (n_pairs): b v + c
+// of each pair b < c.  g_ovoo_t: <m a || p q> at [p][q][a][m].  X: the
+// batch's slots, each (v, n_pairs), pairs fastest.
+__global__ void __launch_bounds__(kThreadsA, 2)
+u_triples_raw_kernel(int no, int nv, int n_pairs, int a_tiles, int depth_pad,
+                     const int* __restrict__ triples, const int* __restrict__ pair_offsets,
+                     const double* __restrict__ g_vovv, const double* __restrict__ g_ovoo_t,
+                     const double* __restrict__ t2, double* __restrict__ X) {
+  extern __shared__ double staged[];
+  __shared__ int offsets[kCols];
+  const double** a_from = reinterpret_cast<const double**>(staged + 2 * kStage);
+  const double** b_from = a_from + depth_pad;
+  int* sign = reinterpret_cast<int*>(b_from + depth_pad);
+  int* a_step = sign + depth_pad;
 
   const int slot = blockIdx.x / a_tiles;
-  const int a0 = (blockIdx.x % a_tiles) * kTile, p0 = blockIdx.y * kTile;
-  const int o3[3] = {triples[3 * slot], triples[3 * slot + 1], triples[3 * slot + 2]};
+  const int a0 = (blockIdx.x % a_tiles) * kRows, p0 = blockIdx.y * kCols;
+  const int i = triples[3 * slot], j = triples[3 * slot + 1], k = triples[3 * slot + 2];
   const int segment = nv + no, depth = 3 * segment;
+  const int steps = depth_pad / kDepth;
   const size_t v2 = static_cast<size_t>(nv) * nv;
+  for (int c = threadIdx.x; c < kCols; c += kThreadsA)
+    offsets[c] = p0 + c < n_pairs ? pair_offsets[p0 + c] : -1;
+  // depth kappa: ordering s, (r, p, q) = (i, j, k), (j, i, k), (k, j, i),
+  // sign + for s = 0, times - for the integral part x >= v
+  for (int kappa = threadIdx.x; kappa < depth_pad; kappa += kThreadsA) {
+    if (kappa >= depth) {
+      a_from[kappa] = b_from[kappa] = nullptr;
+      a_step[kappa] = 0;
+      sign[kappa] = 0;
+      continue;
+    }
+    const int s = kappa / segment, x = kappa - s * segment;
+    const int r = s == 0 ? i : (s == 1 ? j : k);
+    const int p = s == 1 ? i : j, q = s == 2 ? i : k;
+    const size_t pq = static_cast<size_t>(p) * no + q;
+    a_from[kappa] = x < nv ? t2 + pq * v2 + x : g_ovoo_t + pq * nv * no + (x - nv);
+    a_step[kappa] = x < nv ? nv : no;
+    b_from[kappa] = x < nv ? g_vovv + (static_cast<size_t>(x) * no + r) * v2
+                           : t2 + (static_cast<size_t>(r) * no + (x - nv)) * v2;
+    sign[kappa] = (s == 0) == (x < nv) ? 0 : static_cast<int>(0x80000000u);
+  }
+  __syncthreads();
+
+  // each thread copies A at one depth and rows a_row + 16 t, and B at one
+  // pair and depths b_depth + 2 t
+  const int a_depth = threadIdx.x % kDepth, a_row = threadIdx.x / kDepth;
+  const int b_col = threadIdx.x % kCols, b_depth = threadIdx.x / kCols;
+  const int b_offset = offsets[b_col];
+  auto stage = [&](int k0, int buffer) {
+    double* As = staged + buffer * kStage;
+    double* Bs = As + kRows * kLd;
+    const double* from = a_from[k0 + a_depth];
+    const int step = a_step[k0 + a_depth];
+#pragma unroll
+    for (int t = 0; t < kRows * kDepth / kThreadsA; ++t) {
+      const int r = a_row + (kThreadsA / kDepth) * t, a = a0 + r;
+      const bool valid = from != nullptr && a < nv;
+      cp_async8_zfill(As + r * kLd + a_depth, valid ? from + static_cast<size_t>(a) * step : t2,
+                      valid);
+    }
+#pragma unroll
+    for (int t = 0; t < kCols * kDepth / kThreadsA; ++t) {
+      const int kk = b_depth + (kThreadsA / kCols) * t;
+      const double* row = b_from[k0 + kk];
+      const bool valid = row != nullptr && b_offset >= 0;
+      cp_async8_zfill(Bs + b_col * kLd + kk, valid ? row + b_offset : t2, valid);
+    }
+    cp_async_commit();
+  };
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int group = lane / 4, quad = lane % 4;
-  const int row0 = 16 * (warp % 4), col0 = 32 * (warp / 4);
+  const int row0 = 32 * (warp % 2), col0 = 32 * (warp / 2);
 
-  double acc[4][4] = {};
-  for (int k0 = 0; k0 < depth; k0 += kDepth) {
-    // left operand: a rows, depth fastest (t2[p, q, a, e] is contiguous in e)
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kThreadsA) {
-      const int r = e / kDepth, kk = e % kDepth, kappa = k0 + kk, a = a0 + r;
-      double value = 0.0;
-      if (kappa < depth && a < nv) {
-        const int s = kappa / segment, x = kappa % segment;
-        // ordering s: (r, p, q) = (i, j, k), (j, i, k), (k, j, i)
-        const int p = s == 1 ? o3[0] : o3[1], q = s == 2 ? o3[0] : o3[2];
-        const double sign = s == 0 ? 1.0 : -1.0;
-        const size_t pq = static_cast<size_t>(p) * no + q;
-        value = x < nv ? sign * t2[pq * v2 + static_cast<size_t>(a) * nv + x]
-                       : -sign * g_ovoo[(static_cast<size_t>(x - nv) * nv + a) * no * no + pq];
-      }
-      As[r][kk] = value;
-    }
-    // right operand: pairs fastest (<e r||b c> and t2[r, m, b, c] run along c)
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kThreadsA) {
-      const int col = e % kTile, kk = e / kTile, kappa = k0 + kk, pair = p0 + col;
-      double value = 0.0;
-      if (kappa < depth && pair < n_pairs) {
-        const int s = kappa / segment, x = kappa % segment, r = o3[s];
-        const size_t bc = static_cast<size_t>(pairs[2 * pair]) * nv + pairs[2 * pair + 1];
-        value = x < nv ? g_vovv[(static_cast<size_t>(x) * no + r) * v2 + bc]
-                       : t2[(static_cast<size_t>(r) * no + (x - nv)) * v2 + bc];
-      }
-      Bs[col][kk] = value;
-    }
+  double acc[2][4][4] = {};
+  stage(0, 0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) stage((step + 1) * kDepth, (step + 1) & 1);
+    else cp_async_commit();   // an empty group keeps the count of pending groups
+    cp_async_wait<1>();
     __syncthreads();
+    const double* As = staged + (step & 1) * kStage;
+    const double* Bs = As + kRows * kLd;
 #pragma unroll
-    for (int kk = 0; kk < kDepth; kk += 4) {
-      const double a_lo = As[row0 + group][kk + quad], a_hi = As[row0 + 8 + group][kk + quad];
+    for (int kk = 0; kk < kDepth; kk += 8) {
+      const int s_lo = sign[step * kDepth + kk + quad];
+      const int s_hi = sign[step * kDepth + kk + quad + 4];
+      double a[2][4];
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        mma_f64(acc[ni], a_lo, a_hi, Bs[col0 + 8 * ni + group][kk + quad]);
+      for (int rt = 0; rt < 2; ++rt) {
+        const double* row = As + (row0 + 16 * rt + group) * kLd + kk + quad;
+        a[rt][0] = flip(row[0], s_lo);
+        a[rt][1] = flip(row[8 * kLd], s_lo);
+        a[rt][2] = flip(row[4], s_hi);
+        a[rt][3] = flip(row[8 * kLd + 4], s_hi);
+      }
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct) {
+        const double* column = Bs + (col0 + 8 * ct + group) * kLd + kk + quad;
+        const double b0 = column[0], b1 = column[4];
+        mma_f64(acc[0][ct], a[0], b0, b1);
+        mma_f64(acc[1][ct], a[1], b0, b1);
+      }
     }
-    __syncthreads();
+    __syncthreads();   // the next step's copies overwrite this buffer
   }
 
   double* X_slot = X + static_cast<long long>(slot) * nv * n_pairs;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int a = a0 + row0 + 8 * h + group;
-    if (a >= nv) continue;
+  for (int rt = 0; rt < 2; ++rt) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
+    for (int h = 0; h < 2; ++h) {
+      const int a = a0 + row0 + 16 * rt + 8 * h + group;
+      if (a >= nv) continue;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int pair = p0 + col0 + 8 * ni + 2 * quad + r;
-        if (pair < n_pairs)
-          X_slot[static_cast<long long>(a) * n_pairs + pair] = acc[ni][2 * h + r];
+      for (int ct = 0; ct < 4; ++ct) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int pair = p0 + col0 + 8 * ct + 2 * quad + r;
+          if (pair < n_pairs)
+            X_slot[static_cast<long long>(a) * n_pairs + pair] = acc[rt][ct][2 * h + r];
+        }
       }
     }
   }
@@ -202,28 +270,36 @@ u_triples_energy_kernel(int no, int nv, int n_pairs, int n_triples, int n_orbits
 }  // namespace
 
 // batches (host, n_batches x 2): the range of triples of each batch.
-// triples (n_triples, 3), pairs (n_pairs, 2) and orbits (n_orbits) on the
-// device.  workspace holds the largest batch's slots, v n_pairs doubles
-// each; partial one double a stage-B block of every batch, batch after
-// batch (ceil(triples * orbits / 128)).
+// triples (n_triples, 3), pair_offsets (n_pairs) and orbits (n_orbits) on
+// the device; g_ovoo_t is <m a || p q> at [p][q][a][m].  workspace holds
+// the largest batch's slots, v n_pairs doubles each; partial one double a
+// stage-B block of every batch, batch after batch (ceil(triples * orbits /
+// 128)).
 extern "C" int tuna_uccsd_t_energy(int no, int nv, int n_batches, const int* batches,
-                                   const int* triples, const int* pairs, const long long* orbits,
-                                   const double* g_oovv, const double* g_vovv,
-                                   const double* g_ovoo, const double* t1, const double* t2,
-                                   const double* eps_o, const double* eps_v, double v_scale,
-                                   double* workspace, double* partial, cudaStream_t stream) {
+                                   const int* triples, const int* pair_offsets,
+                                   const long long* orbits, const double* g_oovv,
+                                   const double* g_vovv, const double* g_ovoo_t, const double* t1,
+                                   const double* t2, const double* eps_o, const double* eps_v,
+                                   double v_scale, double* workspace, double* partial,
+                                   cudaStream_t stream) {
   if (no < 3 || nv < 3) return cudaSuccess;
   const int n_pairs = nv * (nv - 1) / 2;
   const int n_orbits = static_cast<int>(static_cast<long long>(nv) * (nv - 1) * (nv - 2) / 6);
-  const int a_tiles = (nv + kTile - 1) / kTile, pair_tiles = (n_pairs + kTile - 1) / kTile;
+  const int a_tiles = (nv + kRows - 1) / kRows, pair_tiles = (n_pairs + kCols - 1) / kCols;
+  const int depth_pad = (3 * (nv + no) + kDepth - 1) / kDepth * kDepth;
+  const int shared = static_cast<int>(raw_shared_bytes(depth_pad));
+  cudaError_t err = cudaFuncSetAttribute(u_triples_raw_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return err;
   long long partial_offset = 0;
   for (int batch = 0; batch < n_batches; ++batch) {
     const int begin = batches[2 * batch], n_triples = batches[2 * batch + 1] - begin;
     if (n_triples <= 0) continue;
     const dim3 grid(static_cast<unsigned>(n_triples * a_tiles), static_cast<unsigned>(pair_tiles));
-    u_triples_raw_kernel<<<grid, kThreadsA, 0, stream>>>(
-        no, nv, n_pairs, a_tiles, triples + 3 * begin, pairs, g_vovv, g_ovoo, t2, workspace);
-    cudaError_t err = cudaGetLastError();
+    u_triples_raw_kernel<<<grid, kThreadsA, shared, stream>>>(
+        no, nv, n_pairs, a_tiles, depth_pad, triples + 3 * begin, pair_offsets, g_vovv,
+        g_ovoo_t, t2, workspace);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const long long items = static_cast<long long>(n_triples) * n_orbits;
     const long long blocks = (items + kThreadsB - 1) / kThreadsB;

@@ -1,5 +1,6 @@
 // Float64 tensor-core (DMMA) and asynchronous-copy helpers shared by K5
-// (mo_transform.cu) and K7bt (dft_grid.cu).
+// (mo_transform.cu), K7bt (dft_grid.cu), K2u (ccsd_t_u.cu) and K9
+// (ccsdt_q.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,6 +24,26 @@ __device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4], do
 __device__ __forceinline__ void cp_async8(double* dst, const double* src) {
   const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(to), "l"(src));
+}
+
+// As cp_async8, but a zero lands where `valid` is false (src is not read
+// then, but must be a device address).
+__device__ __forceinline__ void cp_async8_zfill(double* dst, const double* src, bool valid) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(to), "l"(src),
+               "r"(valid ? 8 : 0));
+}
+
+// Close the group of cp.async this thread issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `pending` of this thread's committed groups are in
+// flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
 }
 
 // Wait for every cp.async this thread issued.

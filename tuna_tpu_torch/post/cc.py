@@ -1015,17 +1015,25 @@ def u_triples_plan(no: int, nv: int, cap_bytes: int) -> np.ndarray:
 _u_triples_tables: dict = {}
 
 
+def u_triples_pair_offsets(nv: int) -> np.ndarray:
+    """(C(v, 2),) int32: b v + c for each pair b < c in K2u's row-major
+    order of pairs, the offset of the pair in a (v, v) block; K2u's stage A
+    reads its right operand along these runs of c."""
+    b, c = np.triu_indices(nv, 1)
+    return (b * nv + c).astype(np.int32)
+
+
 def _u_triples_tables_on(no: int, nv: int, device):
     """u_triples_plan at U_TRIPLES_WORKSPACE_BYTES with the device's triples,
-    pairs b < c and orbits a < b < c (packed as K2's), cached per shape: the
-    host batches, the device tables, the workspace's doubles and the
-    stage-B blocks of all batches."""
+    pair offsets (u_triples_pair_offsets) and orbits a < b < c (packed as
+    K2's), cached per shape: the host batches, the device tables, the
+    workspace's doubles and the stage-B blocks of all batches."""
     key = (no, nv, str(device))
     entry = _u_triples_tables.get(key)
     if entry is None or entry[0] != U_TRIPLES_WORKSPACE_BYTES:
         batches = u_triples_plan(no, nv, U_TRIPLES_WORKSPACE_BYTES)
         triples = unique_triples(no)
-        pairs = np.stack(np.triu_indices(nv, 1), axis=1).astype(np.int32)
+        pair_offsets = u_triples_pair_offsets(nv)
         a, b, c = unique_triples(nv).astype(np.int64).T
         orbits = a | b << _ORBIT_BITS | c << 2 * _ORBIT_BITS
         per_batch = batches[:, 1] - batches[:, 0]
@@ -1033,9 +1041,9 @@ def _u_triples_tables_on(no: int, nv: int, device):
                               // _TRIPLES_THREADS))
         entry = _u_triples_tables[key] = (
             U_TRIPLES_WORKSPACE_BYTES, np.ascontiguousarray(batches),
-            torch.as_tensor(triples, device=device), torch.as_tensor(pairs, device=device),
+            torch.as_tensor(triples, device=device), torch.as_tensor(pair_offsets, device=device),
             torch.as_tensor(orbits, device=device),
-            int(per_batch.max(initial=0)) * nv * len(pairs), n_blocks)
+            int(per_batch.max(initial=0)) * nv * len(pair_offsets), n_blocks)
     return entry[1:]
 
 
@@ -1075,6 +1083,13 @@ def _uccsd_t_energy_plain(g_oovv, g_vovv, g_ovoo, t1, t2, eps_o, eps_v, v_scale=
     return total
 
 
+def u_triples_ovoo_transposed(g_ovoo):
+    """<m a || p q> (o, v, o, o) as [p][q][a][m], contiguous: the integral
+    part of K2u's left operand, [t2[p, q, a, :] | -<: a || p q>], then runs
+    along m as the t2 part runs along e."""
+    return g_ovoo.permute(2, 3, 1, 0).contiguous()
+
+
 def uccsd_t_energy(g_oovv, g_vovv, g_ovoo, t1, t2, eps_o, eps_v, v_scale=1.0):
     """The spin-orbital (T) energy (a 0-d tensor) from <oo||vv>, <vo||vv>,
     <ov||oo>, the amplitudes and the orbital energies: the K2u kernel on
@@ -1093,14 +1108,15 @@ def uccsd_t_energy(g_oovv, g_vovv, g_ovoo, t1, t2, eps_o, eps_v, v_scale=1.0):
         _kernels.check_tensor(name, tensor, shape, _F64, device)
     if no < 3 or nv < 3:   # no unique triple i < j < k or a < b < c
         return torch.zeros((), dtype=_F64, device=device)
-    batches, triples, pairs, orbits, workspace_doubles, n_blocks = _u_triples_tables_on(
+    batches, triples, pair_offsets, orbits, workspace_doubles, n_blocks = _u_triples_tables_on(
         no, nv, device)
+    g_ovoo_t = u_triples_ovoo_transposed(g_ovoo)
     workspace = torch.empty(workspace_doubles, dtype=_F64, device=device)
     partial = torch.empty(n_blocks, dtype=_F64, device=device)
     _kernels.launch("uccsd_t_energy", "tuna_uccsd_t_energy", device, no, nv, len(batches),
-                    batches.ctypes.data, triples.data_ptr(), pairs.data_ptr(),
+                    batches.ctypes.data, triples.data_ptr(), pair_offsets.data_ptr(),
                     orbits.data_ptr(), g_oovv.data_ptr(), g_vovv.data_ptr(),
-                    g_ovoo.data_ptr(), t1.data_ptr(), t2.data_ptr(), eps_o.data_ptr(),
+                    g_ovoo_t.data_ptr(), t1.data_ptr(), t2.data_ptr(), eps_o.data_ptr(),
                     eps_v.data_ptr(), float(v_scale), workspace.data_ptr(), partial.data_ptr())
     return torch.sum(partial)
 
@@ -1162,18 +1178,41 @@ QUADRUPLES_PERMUTATIONS = tuple(itertools.permutations(range(4)))
 def quadruples_cut(no: int, nv: int, a0: int, a1: int) -> tuple[int, int]:
     """(elements, doubles a slot) of K9 for the range [a0, a1) of min(y):
     the (a, b, c, d) with min in the range, (v - a0)^4 - (v - a1)^4, and
-    what a slot stores there -- Graw, alpha and beta at those elements, the
-    vvvv term's half (W at the (a, b, c) of boxes 0-2, U at the (a, c, d)
-    of box 3, by v each) and X, Y, V (o v^2 each): the boxes of
-    csrc/ccsdt_q.cu's Cut, box p with positions q < p over [a1, v), p over
-    [a0, a1) and q > p over [a0, v).  A carried multiset takes 3 elements
-    more."""
-    elements = w = 0
+    what a slot stores there -- Graw, alpha and beta at those elements and
+    X, Y, V (o v^2 each): the boxes of csrc/ccsdt_q.cu's Cut, box p with
+    positions q < p over [a1, v), p over [a0, a1) and q > p over [a0, v).
+    A carried multiset takes 3 elements more."""
+    elements = 0
     for p in range(4):
         n0, n1, n2, n3 = [nv - a1] * p + [a1 - a0] + [nv - a0] * (3 - p)
         elements += n0 * n1 * n2 * n3
-        w += (n0 * n1 * n2 if p < 3 else n0 * n2 * n3) * nv
-    return elements, 3 * elements + w + 3 * no * nv * nv
+    return elements, 3 * elements + 3 * no * nv * nv
+
+
+QUADRUPLES_TILE = 4   # csrc/ccsdt_q.cu's kTile: energy tiles up to 4 along each axis
+
+
+def quadruples_tiles(nv: int, a0: int, a1: int) -> np.ndarray:
+    """The energy tiles of K9 for the range [a0, a1) of min(y), in
+    csrc/ccsdt_q.cu's order (Cut::tile_offset and tile_at): (n_tiles, 9)
+    int32, the box and each axis's start and extent.  Box p's axis q runs
+    over [a1, v) for q < p, [a0, a1) for q = p and [a0, v) for q > p, cut at
+    a1 into a part below and a part above; each part is tiled by
+    QUADRUPLES_TILE from its start, the last tile ragged; tiles run box
+    after box, the last axis fastest.  No tile crosses a1, so every
+    permutation of a tile lies in one box of a slot."""
+    T = QUADRUPLES_TILE
+    rows = []
+    for p in range(4):
+        axes = []
+        for q in range(4):
+            lo, hi = (a1, nv) if q < p else ((a0, a1) if q == p else (a0, nv))
+            mid = a1 if q > p else hi
+            axes.append([(start, min(T, end - start)) for begin, end in ((lo, mid), (mid, hi))
+                         for start in range(begin, end, T)])
+        for tile in itertools.product(*axes):
+            rows.append((p, *(start for start, _ in tile), *(extent for _, extent in tile)))
+    return np.array(rows, dtype=np.int32).reshape(-1, 9)
 
 
 def quadruples_plan(no: int, nv: int, cap_bytes: int):
@@ -1192,8 +1231,8 @@ def quadruples_plan(no: int, nv: int, cap_bytes: int):
     least); a batch of whole multisets holds as many slots as fit the cap,
     a piece of a cut multiset as many as fit beside its carry (one at
     least).  So the workspace stays under the cap while one slot of one
-    value of a and its carry fit it: up to v = 84 at o = 7 and 128 MB;
-    above, it is that minimum (239 MB at v = 104, 0.7 GB at v = 150)."""
+    value of a and its carry fit it: up to v = 88 at o = 7 and 128 MB;
+    above, it is that minimum (215 MB at v = 104, 0.65 GB at v = 150)."""
     cap = cap_bytes // 8
 
     def fits(a0, a1):
@@ -1369,10 +1408,11 @@ def _quadruples_tables_on(no: int, nv: int, device):
             elements, slot = quadruples_cut(no, nv, a0, a1)
             carry = 0 if first and last else 3 * elements
             workspace = max(workspace, carry + (slot_end - slot_begin) * slot)
-            most = max(most, elements)
-        # about an element a thread of 256-thread blocks, 1024 blocks at
-        # most; any count is right, the kernel strides over the elements
-        energy_blocks = min(1024, -(-most // 256))
+        for a0, a1 in dict.fromkeys(map(tuple, batches[:, 6:].tolist())):
+            most = max(most, len(quadruples_tiles(nv, a0, a1)))
+        # about four tiles a block, 1024 blocks at most; any count is
+        # right, the kernel strides over the tiles
+        energy_blocks = max(1, min(1024, -(-most // 4)))
         ends = batches[:, 5] == 1
         n_partials = 2 * energy_blocks * int(np.sum(batches[ends, 3] - batches[ends, 2]))
         entry = _quadruples_tables[key] = (
@@ -1380,6 +1420,16 @@ def _quadruples_tables_on(no: int, nv: int, device):
             torch.as_tensor(slots, device=device), torch.as_tensor(multisets, device=device),
             workspace, energy_blocks, n_partials)
     return entry[1:]
+
+
+def quadruples_operands(c, t3, no: int):
+    """The layouts K9's raw stage reads along runs, from the window's
+    chemists' c and t3: (ia|be) as [i][a][b][e], (ld|ce) as [l][c][e][d],
+    (ld|km) as [l][k][m][d] and t3[mjicba] as [j][i][a][m][c][b]."""
+    cov = c[:no, no:, no:, no:].contiguous()
+    return (cov, cov.permute(0, 2, 3, 1).contiguous(),
+            c[:no, no:, :no, :no].permute(0, 2, 3, 1).contiguous(),
+            t3.permute(1, 2, 5, 0, 3, 4).contiguous())
 
 
 def ccsdt_q_energy(c, t2, t3, eps_o, eps_v):
@@ -1403,15 +1453,15 @@ def ccsdt_q_energy(c, t2, t3, eps_o, eps_v):
         return torch.zeros(2, dtype=_F64, device=device)
     batches, slots, multisets, workspace_doubles, energy_blocks, n_partials = (
         _quadruples_tables_on(no, nv, device))
-    # (ld|ce) as [l][c][e][d]: the kernel's T1 and T2 read it along d
-    cvt = c[:no, no:, no:, no:].permute(0, 2, 3, 1).contiguous()
+    cov, cvt, clk, t3t = quadruples_operands(c, t3, no)
     workspace = torch.empty(workspace_doubles, dtype=_F64, device=device)
     partial = torch.empty(n_partials, dtype=_F64, device=device)
     _kernels.launch("ccsdt_q_energy", "tuna_ccsdt_q_energy", device, no, nv, len(batches),
                     batches.ctypes.data, slots.data_ptr(), multisets.data_ptr(),
-                    c.data_ptr(), cvt.data_ptr(), t2.data_ptr(), t3.data_ptr(),
-                    eps_o.data_ptr(), eps_v.data_ptr(), energy_blocks,
-                    workspace.data_ptr(), workspace_doubles, partial.data_ptr(), n_partials)
+                    c.data_ptr(), cov.data_ptr(), cvt.data_ptr(), clk.data_ptr(),
+                    t2.data_ptr(), t3.data_ptr(), t3t.data_ptr(), eps_o.data_ptr(),
+                    eps_v.data_ptr(), energy_blocks, workspace.data_ptr(), workspace_doubles,
+                    partial.data_ptr(), n_partials)
     return torch.sum(partial.view(-1, 2), dim=0)
 
 
