@@ -115,14 +115,16 @@ non-zero without printing a result):
      K8c launch on these paths;
  20. meta-GGA kernels: K7bt (rho, grad rho and tau, on DMMA) against its
      plain version on the grid of `SPE : N N 1.1 : R2SCAN CC-PVTZ :
-     TIGHTSCF` with its converged density, K8ct (K8c with tau and tau')
-     there too, and K8cut (both spins) on the grid of `SPE : O O 1.21 :
-     TPSS CC-PVTZ : ML 3 TIGHTSCF` with its converged Pa and Pb: 1e-13 of
-     each output's largest |entry|, bitwise over two calls; K7bt's rho and
-     grad rho against K7b's (another summation order), the outputs of K8ct
-     and K8cut without tau bitwise K8c's and K8cu's, each spin of K8cut
-     bitwise K8ct's; with the times (K7bt's device ms a launch from
-     torch.profiler), the bound and the registers (K7bt: no spills);
+     TIGHTSCF` with its converged density, K8ct (rho, grad rho, tau and
+     their tangents, on DMMA) there too, and K8cut (both spins) on the grid
+     of `SPE : O O 1.21 : TPSS CC-PVTZ : ML 3 TIGHTSCF` with its converged
+     Pa and Pb: 1e-13 of each output's largest |entry|, bitwise over two
+     calls; K7bt's rho and grad rho against K7b's, the outputs of K8ct and
+     K8cut without tau against K8c's and K8cu's (1e-13 of the largest
+     |entry|: other summation orders), each spin of K8cut bitwise K8ct's;
+     with the times (K7bt's device ms a launch from torch.profiler), K8ct's
+     and K8cut's at every tile the card holds, the products alone as one
+     batched torch.matmul, the bound and the registers (no spills);
  21. meta-GGA paths: those two single points (energy within 1e-10 Ha,
      equal SCF iteration counts; the R2SCAN one with its `profile` line),
      `SPE : N N 1.1 : B97M-V CC-PVTZ : TIGHTSCF` (tau and VV10), `OPT : N
@@ -181,8 +183,9 @@ N2/cc-pVTZ (K4 on a seeded density), K2 alone at o = 7, v = 53 and K6 alone
 at M = 51,320 points, both on seeded inputs through cc.ccsd_t_energy and
 vv10.vv10_energy, with their energies; K5's two phases at N2/cc-pVTZ
 (motransform.pair_packed_to_mo on the packed ERI matrix, a seeded W) beside
-torch.matmul on the expanded rows, and K7bt on the N2/cc-pVTZ medium grid
-(a seeded density-like P), each with a sum of its outputs; K9 at (o, v) =
+torch.matmul on the expanded rows, K7bt on the N2/cc-pVTZ medium grid (a
+seeded density-like P), and K8ct there and K8cut on O2's (atom 1's half
+moving, seeded densities), each with a sum of its outputs; K9 at (o, v) =
 (7, 19) and (7, 53) and K2u at the UHF lines A (16, 36) and C (16, 104)
 on seeded inputs, with their energies; with the tuna_tpu_torch of each ROOT
 in turn (each in its own interpreter, building its own kernels), and prints
@@ -653,8 +656,8 @@ def ptxas_report(log: str) -> dict:
     """Registers of each kernel, and its spill stores if any, from the
     build's ptxas report, keyed by source and kernel (the class kernels as
     quartet_light_kernel<L_bra,L_ket>, K8bu's as deriv_light_kernel<L_bra,
-    L_ket>[unrestricted], the grid kernels with their tau flag, as
-    density_deriv_on_grid_kernel<2,true> for K8cut)."""
+    L_ket>[unrestricted], the grid kernels with their template arguments, as
+    density_tau_deriv_on_grid_kernel<2,true> for K8cut with P whole)."""
     report, unit, kernel, spills = {}, "", "", 0
     for line in log.splitlines():
         if line.startswith("== "):
@@ -1061,17 +1064,15 @@ def profiled_call(counted) -> dict:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     # the kernels of csrc/, by function name (and K1/K4 output, K8b/K8bu
-    # weight, K8c/K8cu densities; K8ct and K8cut as
-    # density_deriv_on_grid_kernel[1,tau] and [2,tau])
+    # weight, K8c/K8cu and K8ct/K8cut densities, as
+    # density_tau_deriv_on_grid_kernel[2] for K8cut)
     hand: dict = {}
     for e in kernels:
         match = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.name)
         if match:
             output_of = re.search(r"(PackedOut|FockOut|UnrestrictedEnergyWeight)"
-                                  r"|density_deriv_on_grid_kernel<(\d+), (true|false)>", e.name)
-            tag = output_of and (output_of.group(1)
-                                 or (output_of.group(2) and output_of.group(2)
-                                     + (",tau" if output_of.group(3) == "true" else "")))
+                                  r"|density_(?:tau_)?deriv_on_grid_kernel<(\d+)", e.name)
+            tag = output_of and (output_of.group(1) or output_of.group(2))
             key = match.group(1) + (f"[{tag}]" if tag else "")
             entry = hand.setdefault(key, {"launches": 0, "device_ms": 0.0})
             entry["launches"] += 1
@@ -2432,8 +2433,8 @@ def check_spin_density_deriv(molecule, P_alpha, P_beta, device, record: dict,
             f"{relative:.3e}, absolute {absolute:.3e}; each spin bitwise equal to "
             f"density_deriv_on_grid; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
             f"{deriv_bound['bound_ms']:.5f} ms by {deriv_bound['bound_by']}; registers "
-            f"(ptxas) {registers.get('dft_grid:density_deriv_on_grid_kernel<2,false>')} (K8c "
-            f"{registers.get('dft_grid:density_deriv_on_grid_kernel<1,false>')})")
+            f"(ptxas) {registers.get('dft_grid:density_deriv_on_grid_kernel<2>')} (K8c "
+            f"{registers.get('dft_grid:density_deriv_on_grid_kernel<1>')})")
 
 
 def check_unrestricted_gradient_kernels(device, record: dict, registers: dict) -> str:
@@ -2588,11 +2589,29 @@ def check_tau_kernel(molecule, P_converged, device, record: dict, registers: dic
             f"{registers.get('dft_grid:density_on_grid_kernel')})")
 
 
+def tau_deriv_library_ms(basis, origin, moves, points, first_moving: int, P_stack) -> float:
+    """The products alone of K8ct (one density in P_stack) or K8cut (two):
+    Y_s = P_s [phi | phi' | d_x phi | d_y phi | d_z phi] for every density
+    as one batched torch.matmul on the columns handed to it (formed by K7a
+    before the timing); not the function, which also forms the columns and
+    contracts them with Y."""
+    values, grads = grid.ao_on_grid(basis, points, True)
+    G = points.shape[1]
+    point_moves = (torch.arange(G, device=points.device) >= first_moving).to(torch.float64)
+    d_phi = (point_moves[None, :] - moves.to(torch.float64)[:, None]) * grads[2]
+    columns = torch.stack([values, d_phi, *grads])          # (5, n, G)
+    del values, grads, d_phi
+    return median_ms(lambda: torch.matmul(P_stack[:, None], columns[None]))
+
+
 def check_tau_deriv(molecule, P_stack, device, record: dict, registers: dict) -> str:
     """K8ct (P_stack of one density) or K8cut (two) against its plain
     version on the molecule's grid, atom 1's half moving (TAU_TOLERANCE),
-    bitwise over two calls, its first four outputs bitwise K8c's (K8cu's),
-    and for K8cut each spin bitwise K8ct's."""
+    bitwise over two calls, its first four outputs within TAU_TOLERANCE of
+    the largest |entry| of K8c's (K8cu's: another summation order), and for
+    K8cut each spin bitwise K8ct's; its time at the host's tile and at
+    every other tile the card holds, and the products alone as one
+    batched torch.matmul (library_ms)."""
     points, G = _grid_of(molecule, device)
     basis = grid.GridBasis(molecule.cartesian_basis_functions)
     origin = torch.as_tensor(basis.origin, dtype=torch.float64, device=device)
@@ -2620,8 +2639,10 @@ def check_tau_deriv(molecule, P_stack, device, record: dict, registers: dict) ->
     require(relative <= TAU_TOLERANCE, f"{name} off its plain version by {relative:.3e}")
     require(all(torch.equal(a, b) for a, b in zip(got, again)), f"two {name} calls differ")
     without = call(basis, origin, moves, points, G // 2, P, True)
-    require(all(torch.equal(a, b) for a, b in zip(got[:4], without)),
-            f"{name}: rho, grad rho and their tangents differ from the kernel without tau")
+    from_without = _largest_relative(got[:4], without)
+    require(from_without <= TAU_TOLERANCE,
+            f"{name}: rho, grad rho and their tangents {from_without:.3e} (relative) from the "
+            f"kernel without tau")
     if n_spins == 2:
         for s in range(2):
             single = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2,
@@ -2630,22 +2651,42 @@ def check_tau_deriv(molecule, P_stack, device, record: dict, registers: dict) ->
                     f"{name}: spin {s} differs from density_tau_deriv_on_grid")
     ms, plain_ms = median_ms(kernel), median_ms(plain)
     without_ms = median_ms(lambda: call(basis, origin, moves, points, G // 2, P, True))
+    library_ms = tau_deriv_library_ms(basis, origin, moves, points, G // 2, P_stack)
+    n = basis.n_ao
+    tile, whole_p, shared = grid.density_tau_deriv_layout(n, n_spins)
+    # every tile that fits, for the choice in density_tau_deriv_layout
+    tiles = {}
+    for points_a_tile in (32, 16, 8):
+        for whole in (True, False):
+            bytes_a_block = grid.density_tau_deriv_bytes(n, n_spins, points_a_tile, whole)
+            if points_a_tile * n_spins <= 32 and bytes_a_block <= _kernels.SHARED_MEMORY_A_BLOCK:
+                tiles[f"{points_a_tile},{'whole' if whole else 'rows'}"] = median_ms(
+                    lambda: grid._density_deriv_kernel(
+                        name, "tuna_" + name, basis, origin, moves, points, G // 2, P, True,
+                        True, layout=(points_a_tile, whole)))
     deriv_bound = bound(tensor_bytes(points, origin, moves, P, *got)
                         + tensor_bytes(*basis.tensors(device).values()),
                         density_deriv_ms(basis, G, True, n_spins, with_tau=True))
-    key = f"dft_grid:density_deriv_on_grid_kernel<{n_spins},"
+    found = {key: value for key, value in registers.items()
+             if f"density_tau_deriv_on_grid_kernel<{n_spins}," in key}
+    require(bool(found) and all(isinstance(v, int) for v in found.values()),
+            f"{name}: registers {found} (a spill or no entry)")
+    key = f"dft_grid:density_tau_deriv_on_grid_kernel<{n_spins},{'true' if whole_p else 'false'}>"
     record[name] = {"max_abs_err": max(float(torch.max(torch.abs(a - b)))
                                        for a, b in zip(got, expected)),
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": None, **deriv_bound,
-                    "registers": registers.get(key + "true>")}
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **deriv_bound,
+                    "registers": registers.get(key), "tiles_ms": tiles}
     return (f"meta-GGA kernels: {name} {'-'.join(molecule.atomic_symbols)}/{molecule.basis}, "
-            f"{basis.n_ao} Cartesian AOs, {G} points ({G // 2} moving), converged P; relative "
-            f"max|diff| {relative:.3e}, two calls bitwise equal, the outputs without tau "
-            f"bitwise the kernel's without it" + (", each spin bitwise K8ct's" if n_spins == 2
-                                                  else "")
+            f"{n} Cartesian AOs, {G} points ({G // 2} moving), converged P; {tile} points a "
+            f"tile, P {'whole' if whole_p else 'in 16 rows'}, {shared} B of shared memory a "
+            f"block; relative max|diff| {relative:.3e}, two calls bitwise equal, the outputs "
+            f"without tau {from_without:.3e} (relative) from the kernel's without it"
+            + (", each spin bitwise K8ct's" if n_spins == 2 else "")
             + f"; {ms:.4f} ms (without tau {without_ms:.4f} ms) vs plain {plain_ms:.4f} ms, "
-            f"bound {deriv_bound['bound_ms']:.5f} ms by {deriv_bound['bound_by']}; registers "
-            f"(ptxas) {registers.get(key + 'true>')} (without tau {registers.get(key + 'false>')})")
+            f"the products alone as batched torch.matmul {library_ms:.4f} ms; at each tile "
+            f"{json.dumps(tiles)}; bound {deriv_bound['bound_ms']:.5f} ms by "
+            f"{deriv_bound['bound_by']}; registers (ptxas) {json.dumps(found)} (without tau "
+            f"{registers.get(f'dft_grid:density_deriv_on_grid_kernel<{n_spins}>')})")
 
 
 def check_meta_gga_kernels(device, record: dict, registers: dict) -> str:
@@ -2690,7 +2731,7 @@ def profile_meta_gga_opt(line: str) -> dict:
     hand = profile["hand_kernels"]
     profile["path_kernels"] = {
         "density_tau_on_grid (K7bt)": hand.get("density_tau_on_grid_kernel"),
-        "density_tau_deriv_on_grid (K8ct)": hand.get("density_deriv_on_grid_kernel[1,tau]"),
+        "density_tau_deriv_on_grid (K8ct)": hand.get("density_tau_deriv_on_grid_kernel[1]"),
         "density_on_grid (K7b)": hand.get("density_on_grid_kernel"),
     }
     return profile
@@ -2736,12 +2777,12 @@ def check_meta_gga_paths(device, record: dict) -> dict:
         if line == LINE_MGGA_OPT:
             profile = profile_meta_gga_opt(line)
             record[tau_kernel]["device_ms_a_launch"] = _device_ms_a_launch(
-                profile, "density_deriv_on_grid_kernel[1,tau]")
+                profile, "density_tau_deriv_on_grid_kernel[1]")
             print("profile: " + json.dumps(profile))
         else:
             profile = profiled_run(line)
             record[tau_kernel]["device_ms_a_launch"] = _device_ms_a_launch(
-                profile, "density_deriv_on_grid_kernel[2,tau]")
+                profile, "density_tau_deriv_on_grid_kernel[2]")
             print(f"profiled run: {line}; " + json.dumps(
                 {key: profile[key] for key in ("profiled_wall_s", "device_busy_ms",
                                                "device_idle_share", "hand_kernels")}))
@@ -2873,9 +2914,10 @@ def spe_devices(line: str = LINE_UKS_SPE, reference: float = E_REF_UKS_SPE) -> d
 # but tuna_tpu_torch.cli.run, Output.{,correlation_}iteration_seconds,
 # IntegralPlan.eri_pair_packed and .fock_direct, post.cc.ccsd_t_energy,
 # dft.vv10.vv10_energy, ops.motransform.pair_packed_to_mo and
-# .half_transform, dft.grid's ao_on_grid and density_on_grid(...,
-# with_tau=True), and post.cc.ccsdt_q_energy and .uccsd_t_energy, which
-# every checkout with the meta-GGAs has.
+# .half_transform, dft.grid's ao_on_grid, density_on_grid(...,
+# with_tau=True) and density_deriv_on_grid(_spin)(..., with_tau=True), and
+# post.cc.ccsdt_q_energy and .uccsd_t_energy, which every checkout with the
+# meta-GGAs has.
 _WALLS = """
 import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -2974,6 +3016,31 @@ del values, grads
 C = np.random.default_rng(14).standard_normal((n_mo, 7)) / np.sqrt(n_mo)
 P_tau = gpu(C @ C.T)
 tau_call = lambda: grid.density_on_grid(P_tau, bfs, bf_grads, with_tau=True)
+# K8ct on N2/cc-pVTZ's medium grid and K8cut on O2's (atom 1's half of the
+# points moving), seeded density-like P
+tau_deriv = {}
+for symbol, bond, spins, seed in (("N", 1.1, 1, 15), ("O", 1.21, 2, 16)):
+    tpss = Config("SPE", lookup_method("TPSS"), 0.0, [], "CC-PVTZ", [symbol, symbol],
+                  suppress_output=True)
+    tpss_mol = Molecule([symbol, symbol], np.array([[0.0, 0.0, 0.0],
+                                                    [0.0, 0.0, angstrom_to_bohr(bond)]]), tpss)
+    deriv_points, _ = grid.build_molecular_grid(*grid.grid_parameters(tpss_mol, tpss),
+                                                tpss_mol.bond_length, tpss_mol.atoms)
+    deriv_points = gpu(deriv_points.reshape(3, -1))
+    deriv_basis = grid.GridBasis(tpss_mol.cartesian_basis_functions)
+    deriv_moves = torch.as_tensor([bf.atom_index == 1 for bf in tpss_mol.cartesian_basis_functions],
+                                  dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(seed)
+    Cs = [rng.standard_normal((deriv_basis.n_ao, 8)) / np.sqrt(deriv_basis.n_ao)
+          for _ in range(spins)]
+    P_deriv = gpu(np.stack([C @ C.T for C in Cs]) if spins == 2 else Cs[0] @ Cs[0].T)
+    deriv_fn = grid.density_deriv_on_grid_spin if spins == 2 else grid.density_deriv_on_grid
+    name = f"density_tau_deriv_on_grid{'_spin' if spins == 2 else ''}_{symbol.lower()}2_cc_pvtz"
+    deriv_call = lambda: deriv_fn(deriv_basis, gpu(deriv_basis.origin), deriv_moves, deriv_points,
+                                  deriv_points.shape[1] // 2, P_deriv, True, with_tau=True)
+    tau_deriv[name + "_ms"] = median_ms(deriv_call)
+    tau_deriv[name + "_points"] = deriv_points.shape[1]
+    tau_deriv[name + "_sums"] = [float(x.sum()) for x in deriv_call()]
 # K9 at the (Q) path's (7, 19) and cc-pVTZ's (7, 53), K2u at the UHF
 # lines A (16, 36) and C (16, 104), seeded, through the public wrappers
 def quadruples_inputs(no, nv, seed):
@@ -3043,7 +3110,8 @@ print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__, **ker
                   "mo_half_transform_cc_pvtz_matmul_ms": matmul_ms,
                   "density_tau_on_grid_cc_pvtz_ms": median_ms(tau_call),
                   "density_tau_on_grid_cc_pvtz_points": points.shape[1],
-                  "density_tau_on_grid_cc_pvtz_sums": [float(x.sum()) for x in tau_call()]}))
+                  "density_tau_on_grid_cc_pvtz_sums": [float(x.sum()) for x in tau_call()],
+                  **tau_deriv}))
 """
 
 

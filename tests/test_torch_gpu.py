@@ -773,7 +773,8 @@ def test_spin_density_deriv_kernel_matches_plain(cuda, basis, with_gradients):
 def test_tau_density_deriv_kernels_match_plain(cuda, basis, n_spins):
     """K8ct (one density) and K8cut (two) on N2's medium grid: every output
     against the plain version (1e-12 of its largest |entry|), bitwise over
-    two calls, rho, grad rho and their tangents bitwise K8c's (K8cu's), and
+    two calls, rho, grad rho and their tangents within 1e-13 of the largest
+    |entry| of K8c's (K8cu's; the two kernels sum in other orders), and
     each spin of K8cut bitwise K8ct's."""
     molecule, points, _, basis_g = _n2_grid(basis, cuda)
     G = points.shape[1]
@@ -796,7 +797,7 @@ def test_tau_density_deriv_kernels_match_plain(cuda, basis, n_spins):
     again = call(basis_g, origin, moves, points, G // 2, P, True, with_tau=True)
     without = call(basis_g, origin, moves, points, G // 2, P, True)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
-    assert all(torch.equal(g, w) for g, w in zip(got[:4], without))
+    assert all(_relative(g, w) <= 1e-13 for g, w in zip(got[:4], without))
     for s in range(n_spins):
         expected = grid._density_deriv_on_grid_plain(basis_g, origin, moves, points, G // 2,
                                                       P_stack[s], True, with_tau=True)
@@ -806,6 +807,61 @@ def test_tau_density_deriv_kernels_match_plain(cuda, basis, n_spins):
             single = grid.density_deriv_on_grid(basis_g, origin, moves, points, G // 2,
                                                 P_stack[s].contiguous(), True, with_tau=True)
             assert all(torch.equal(g[s], one) for g, one in zip(got, single))
+
+
+def _seeded_basis(n, seed):
+    """n Cartesian AOs (l + m + n <= 3, one to three primitives of
+    exponents 0.2-8) on the centres (0, 0, 0) and (0, 0, 2.1), as a
+    GridBasis, and their move flags (the second centre moves)."""
+    rng = np.random.default_rng(seed)
+    basis = object.__new__(grid.GridBasis)
+    basis.n_ao = n
+    moves = rng.integers(0, 2, n)
+    basis.origin = np.stack([np.zeros(n), np.zeros(n), 2.1 * moves], axis=1)
+    powers = [(l, m, k) for l in range(4) for m in range(4) for k in range(4) if l + m + k <= 3]
+    basis.lmn = np.array([powers[i] for i in rng.integers(0, len(powers), n)], dtype=np.int32)
+    counts = rng.integers(1, 4, n)
+    basis.prim_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    basis.exps = rng.uniform(0.2, 8.0, counts.sum())
+    basis.coefs = rng.uniform(0.5, 2.0, counts.sum())
+    return basis, moves
+
+
+@pytest.mark.parametrize("n", [9, 70, 97, 140, 203])
+@pytest.mark.parametrize("G, first_moving", [(5, 0), (5, 5), (77, 37), (77, 0), (77, 77),
+                                             (200, 100)])
+def test_tau_deriv_kernels_tile_edges(cuda, n, G, first_moving):
+    """K8ct and K8cut on a seeded basis of n AOs (tiles of 32 points with P
+    whole at n = 9 and 70 for one density, 16 for two; P
+    16 rows at a time from n = 97 for two and n = 140 for one; 8 points at
+    n = 203) at G seeded points, the points from first_moving on moving:
+    every output 1e-12 of its largest |entry| from the plain version, both
+    kernels bitwise over two calls, each spin of K8cut bitwise K8ct's."""
+    basis, moves = _seeded_basis(n, n)
+    rng = np.random.default_rng(G + n)
+    points = torch.as_tensor(rng.uniform([-3.0, -3.0, -3.0], [3.0, 3.0, 5.0], (G, 3)).T.copy(),
+                             device=cuda)
+    origin = torch.as_tensor(basis.origin, device=cuda)
+    moves = torch.as_tensor(moves, dtype=torch.int32, device=cuda)
+    P_stack = torch.stack([torch.as_tensor(_density(n, seed), device=cuda) for seed in (n, n + 1)])
+    singles = [grid.density_deriv_on_grid(basis, origin, moves, points, first_moving,
+                                          P_stack[s].contiguous(), True, with_tau=True)
+               for s in range(2)]
+    _kernels.reset_launch_counts()
+    both = grid.density_deriv_on_grid_spin(basis, origin, moves, points, first_moving, P_stack,
+                                           True, with_tau=True)
+    assert _kernels.launches["density_tau_deriv_on_grid_spin"] == 1
+    again = grid.density_deriv_on_grid_spin(basis, origin, moves, points, first_moving, P_stack,
+                                            True, with_tau=True)
+    assert all(torch.equal(b, a) for b, a in zip(both, again))
+    for s in range(2):
+        expected = grid._density_deriv_on_grid_plain(basis, origin, moves, points, first_moving,
+                                                      P_stack[s], True, with_tau=True)
+        single_again = grid.density_deriv_on_grid(basis, origin, moves, points, first_moving,
+                                                  P_stack[s].contiguous(), True, with_tau=True)
+        for b, one, one_again, e in zip(both, singles[s], single_again, expected):
+            assert one.shape == e.shape and _relative(one, e) <= 1e-12
+            assert torch.equal(one, one_again) and torch.equal(b[s], one)
 
 
 @pytest.mark.parametrize("line,bond_ref,energy_ref,kernel", [

@@ -141,6 +141,115 @@ def test_tau_needs_the_gradients(moving_grid):
                                    G // 2, P_stack[0], False, with_tau=True)
 
 
+@pytest.mark.parametrize("n, spins, points, whole", [
+    (9, 1, 32, True), (9, 2, 16, True), (70, 1, 32, True), (70, 2, 16, True),
+    (140, 1, 16, False), (140, 2, 16, False), (203, 1, 8, False), (203, 2, 8, False)])
+def test_tau_deriv_kernel_layout_fits_shared_memory(n, spins, points, whole):
+    """K8ct's (spins = 1) and K8cut's (2) tile (dft/grid.py::
+    density_tau_deriv_layout): at most 32 / spins points (256 threads a
+    block); at cc-pVTZ's 70 Cartesian AOs 32 points with P whole for one
+    density, 16 for two; from cc-pVQZ's 140, P 16 rows at a time; within an
+    H100 block's shared memory, where the next larger tile is not."""
+    layout = grid.density_tau_deriv_layout(n, spins)
+    assert layout == (points, whole, grid.density_tau_deriv_bytes(n, spins, points, whole))
+    assert layout[2] <= _kernels.SHARED_MEMORY_A_BLOCK
+    if points < 32 // spins:
+        assert grid.density_tau_deriv_bytes(n, spins, 2 * points, whole) > \
+            _kernels.SHARED_MEMORY_A_BLOCK
+    if not whole:
+        assert grid.density_tau_deriv_bytes(n, spins, 8, True) > _kernels.SHARED_MEMORY_A_BLOCK
+
+
+@pytest.mark.parametrize("n, spins", [(252, 2), (288, 1)])
+def test_tau_deriv_kernel_layout_raises_past_the_card(n, spins):
+    with pytest.raises(ValueError, match=f"{n} AOs with {spins} density matrices do not fit"):
+        grid.density_tau_deriv_layout(n, spins)
+
+
+def _k8ct_columns(basis, origin, ao_moves, points, point_moves):
+    """The seven columns K8ct forms for its tile, in NumPy: phi, grad phi
+    and the moving z column of the Hessian, (s_k - s_mu) d(grad phi)/dz."""
+    columns = np.zeros((7, basis.n_ao, points.shape[1]))
+    for mu in range(basis.n_ao):
+        X, Y, Z = points - origin[mu][:, None]
+        lo, hi = basis.prim_start[mu], basis.prim_start[mu + 1]
+        a, c = basis.exps[lo:hi, None], basis.coefs[lo:hi, None]
+        e = c * np.exp(-a * (X * X + Y * Y + Z * Z))
+        s0, s1, s2 = e.sum(0), (a * e).sum(0), (a * a * e).sum(0)
+        l, m, n = basis.lmn[mu]
+        px, py, pz = X ** l, Y ** m, Z ** n
+        poly = px * py * pz
+        dx = l * X ** max(l - 1, 0) * py * pz
+        dy = m * px * Y ** max(m - 1, 0) * pz
+        dz = n * px * py * Z ** max(n - 1, 0)
+        dxz = l * n * X ** max(l - 1, 0) * py * Z ** max(n - 1, 0)
+        dyz = m * n * px * Y ** max(m - 1, 0) * Z ** max(n - 1, 0)
+        dzz = n * (n - 1) * px * py * Z ** max(n - 2, 0)
+        moves = point_moves - ao_moves[mu]
+        columns[:, mu] = [s0 * poly, dx * s0 - 2 * X * poly * s1, dy * s0 - 2 * Y * poly * s1,
+                          dz * s0 - 2 * Z * poly * s1,
+                          moves * (dxz * s0 - 2 * Z * dx * s1 - 2 * X * dz * s1
+                                   + 4 * X * Z * poly * s2),
+                          moves * (dyz * s0 - 2 * Z * dy * s1 - 2 * Y * dz * s1
+                                   + 4 * Y * Z * poly * s2),
+                          moves * (dzz * s0 - 4 * Z * dz * s1 - 2 * poly * s1
+                                   + 4 * Z * Z * poly * s2)]
+    return columns
+
+
+def _k8ct_emulated(basis, origin, ao_moves, points, first_moving, P, tile):
+    """K8ct's arithmetic in NumPy on its tiles (csrc/dft_grid.cu
+    density_tau_deriv_on_grid_kernel): a tile's seven columns with rows
+    past n zero, phi' formed from the d_z phi column, and for each 16 AO
+    rows i the products {Y, Y'} and {Y_x, Y_y, Y_z} = P[i, :kp] B[:kp] (kp =
+    n rounded up to 8, the MMA's depth), then each warp's epilogue against
+    the columns at the same (i, point), summed over i."""
+    n, G = basis.n_ao, points.shape[1]
+    mp, kp = -(-n // 16) * 16, -(-n // 8) * 8
+    P_padded = np.zeros((mp, kp))
+    P_padded[:n, :n] = P
+    moves_ao = np.zeros(mp)
+    moves_ao[:n] = ao_moves
+    sums = np.zeros((10, G))
+    for k0 in range(0, G, tile):
+        k = np.arange(k0, min(k0 + tile, G))
+        point_moves = (k >= first_moving).astype(np.float64)
+        columns = np.zeros((7, mp, len(k)))
+        columns[:, :n] = _k8ct_columns(basis, origin, ao_moves, points[:, k], point_moves)
+        moving_phi = (point_moves[None, :] - moves_ao[:, None]) * columns[3]
+        for i0 in range(0, mp, 16):
+            Y, Ym, *Yc = (P_padded[i0:i0 + 16] @ B[:kp]
+                          for B in (columns[0], moving_phi, *columns[1:4]))
+            c, f = columns[:, i0:i0 + 16], moving_phi[i0:i0 + 16]
+            sums[0, k] += np.sum(c[0] * Y, axis=0)
+            sums[1, k] += np.sum(f * Y, axis=0)
+            sums[2:5, k] += np.sum(c[1:4] * Y, axis=1)
+            sums[5:8, k] += np.sum(c[1:4] * Ym + c[4:7] * Y, axis=1)
+            sums[8, k] += sum(np.sum(c[1 + a] * Yc[a], axis=0) for a in range(3))
+            sums[9, k] += sum(np.sum(c[4 + a] * Yc[a], axis=0) for a in range(3))
+    return sums[0], 2 * sums[2:5], 2 * sums[1], 2 * sums[5:8], 0.5 * sums[8], sums[9]
+
+
+def test_k8ct_emulated_tiles_match_the_plain_version(moving_grid):
+    """K8ct's tiling (seven columns, phi' from the d_z phi column, the AO
+    rows padded to 16 and the depth to 8, the two kinds of warp's
+    epilogues), emulated in NumPy on OH/6-31G's loose grid, against the
+    plain version at a first_moving inside a tile: 1e-13 of each output's
+    largest |entry|."""
+    basis, moves, points, G, P_stack = moving_grid
+    assert basis.n_ao % 8 != 0   # the padding is exercised
+    tile = grid.density_tau_deriv_layout(basis.n_ao, 1)[0]
+    first_moving = G // 2 + tile // 2 - G // 2 % tile   # mid-tile
+    expected = grid.density_deriv_on_grid(basis, torch.as_tensor(basis.origin), moves, points,
+                                          first_moving, P_stack[1], True, with_tau=True)
+    got = _k8ct_emulated(basis, basis.origin, moves.numpy(), points.numpy(), first_moving,
+                         P_stack[1].numpy(), tile)
+    for g, e in zip(got, expected):
+        e = e.numpy()
+        assert g.shape == e.shape
+        assert np.max(np.abs(g - e)) <= 1e-13 * np.max(np.abs(e))
+
+
 # --------------------------------------------------------------------------
 # The gradient
 # --------------------------------------------------------------------------

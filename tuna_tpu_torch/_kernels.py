@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # The shared memory one block may take on an H100 (227 KB); the hosts of
-# K5 and K7bt size their layouts against it.
+# K5, K7bt, K8ct and K8cut size their layouts against it.
 SHARED_MEMORY_A_BLOCK = 232448
 
 _P = ctypes.c_void_p
@@ -98,9 +98,10 @@ SIGNATURES = {
     # as tuna_density_deriv_on_grid with P (2, n_ao, n_ao) and each output
     # stacked over the two spins
     "tuna_density_deriv_on_grid_spin": [_I, _I, _I, _I] + [_P] * 12 + [_P],
-    # as tuna_density_deriv_on_grid and ..._spin, plus tau and d_tau
-    "tuna_density_tau_deriv_on_grid": [_I, _I, _I, _I] + [_P] * 14 + [_P],
-    "tuna_density_tau_deriv_on_grid_spin": [_I, _I, _I, _I] + [_P] * 14 + [_P],
+    # n_ao, n_points, first_moving, with_gradients, points a tile, whole P,
+    # then as tuna_density_deriv_on_grid (..._spin), plus tau and d_tau
+    "tuna_density_tau_deriv_on_grid": [_I] * 6 + [_P] * 14 + [_P],
+    "tuna_density_tau_deriv_on_grid_spin": [_I] * 6 + [_P] * 14 + [_P],
 }
 
 # Launches of each kernel's CUDA path since the last reset.

@@ -3,7 +3,7 @@
 // energy density tau of the meta-GGAs).  K8c and K8cu, the R-tangent of the
 // density and its gradient on a moving grid for one density and for both
 // spins, and K8ct and K8cut, the same with tau and its tangent, are
-// described at their kernel below.
+// described at their kernels below.
 //
 // K7a replaces tuna_tpu/dft/grid.py::construct_basis_functions_on_grid
 // (:80) and construct_basis_function_gradients_on_grid (:102), host NumPy
@@ -324,22 +324,9 @@ density_tau_on_grid_kernel(int n_ao, int n_points, int points, int mp, int kp, i
 // 1 is K8c itself), so its outputs are K8c's on that density, bit for bit.
 // Bound as K8c: the products Y_s = P_s phi and Y'_s = P_s phi' at the
 // float64 rate, S times K8c's.
-//
-// K8ct and K8cut (TAU = true; tuna_tpu/drivers/gradients.py:157-159, the
-// meta-GGAs' tau on the moving grid under jax.grad, used at :179-183 and
-// :187-211) add tau = 1/2 sum_a d_a phi . Y_a and its tangent tau' = sum_a
-// (d_a phi)' . Y_a with Y_a = P d_a phi, (d_a phi)' the moving Hessian
-// column K8c already forms.  The gradient columns d_a phi join phi and phi'
-// in shared memory (5 n_ao doubles a thread: 90 KB a block at n_ao = 70,
-// so the launch asks for more than the default 48 KB), formed in the first
-// loop by the expressions the row loop uses, and Y_a is summed in the same
-// j loop as Y and Y', so a density costs five products where K8c's costs
-// two: bound ~2.5 times K8c's by operations.  rho, grad rho and their
-// tangents keep K8c's order of summation, so they are K8c's (S = 1) and
-// K8cu's (S = 2) bit for bit, and each spin of K8cut is K8ct's.
 constexpr int kDerivPoints = 32;  // threads (points) per block of K8c
 
-template <int S, bool TAU>
+template <int S>
 __global__ void __launch_bounds__(kDerivPoints)
 density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_gradients,
                              const double* __restrict__ points, const double* __restrict__ origin,
@@ -347,13 +334,11 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
                              const int* __restrict__ prim_start, const double* __restrict__ exps,
                              const double* __restrict__ coefs, const double* __restrict__ P,
                              double* __restrict__ density, double* __restrict__ gradient,
-                             double* __restrict__ d_density, double* __restrict__ d_gradient,
-                             double* __restrict__ tau, double* __restrict__ d_tau) {
+                             double* __restrict__ d_density, double* __restrict__ d_gradient) {
   extern __shared__ double shared[];
   const size_t column = static_cast<size_t>(n_ao) * kDerivPoints;
   double* phi = shared;            // phi[j * kDerivPoints + t]
   double* dphi = shared + column;  // its R-tangent
-  double* gphi = shared + 2 * column;  // TAU: d_a phi at [a * column + j * kDerivPoints + t]
   const int t = threadIdx.x;
   const int k = blockIdx.x * kDerivPoints + t;
   if (k >= n_points) return;  // no barrier below
@@ -376,37 +361,24 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
     const double dz = n > 0 ? n * px * py * int_pow(Z, n - 1) : 0.0;
     phi[mu * kDerivPoints + t] = s0 * poly;
     dphi[mu * kDerivPoints + t] = (point_moves - ao_moves[mu]) * (dz * s0 - 2.0 * Z * poly * s1);
-    if constexpr (TAU) {
-      const double dx = l > 0 ? l * int_pow(X, l - 1) * py * pz : 0.0;
-      const double dy = m > 0 ? m * px * int_pow(Y, m - 1) * pz : 0.0;
-      gphi[mu * kDerivPoints + t] = dx * s0 - 2.0 * X * poly * s1;
-      gphi[column + mu * kDerivPoints + t] = dy * s0 - 2.0 * Y * poly * s1;
-      gphi[2 * column + mu * kDerivPoints + t] = dz * s0 - 2.0 * Z * poly * s1;
-    }
   }
-  double rho[S], drho[S], g[S][3], dg[S][3], ts[S], dts[S];
+  double rho[S], drho[S], g[S][3], dg[S][3];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    rho[s] = drho[s] = ts[s] = dts[s] = 0.0;
+    rho[s] = drho[s] = 0.0;
 #pragma unroll
     for (int c = 0; c < 3; ++c) g[s][c] = dg[s][c] = 0.0;
   }
   for (int i = 0; i < n_ao; ++i) {
-    double Yi[S], dYi[S], Ya[S][3];
+    double Yi[S], dYi[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const double* row = P + s * nn + static_cast<size_t>(i) * n_ao;
       Yi[s] = 0.0;
       dYi[s] = 0.0;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) Ya[s][c] = 0.0;
       for (int j = 0; j < n_ao; ++j) {
         Yi[s] += row[j] * phi[j * kDerivPoints + t];
         dYi[s] += row[j] * dphi[j * kDerivPoints + t];
-        if constexpr (TAU) {
-#pragma unroll
-          for (int c = 0; c < 3; ++c) Ya[s][c] += row[j] * gphi[c * column + j * kDerivPoints + t];
-        }
       }
       rho[s] += phi[i * kDerivPoints + t] * Yi[s];
       drho[s] += dphi[i * kDerivPoints + t] * Yi[s];
@@ -445,10 +417,6 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
       for (int c = 0; c < 3; ++c) {
         g[s][c] += grad[c] * Yi[s];
         dg[s][c] += grad[c] * dYi[s] + moves * hess_z[c] * Yi[s];
-        if constexpr (TAU) {
-          ts[s] += grad[c] * Ya[s][c];
-          dts[s] += moves * hess_z[c] * Ya[s][c];
-        }
       }
     }
   }
@@ -463,33 +431,365 @@ density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_
         d_gradient[(3 * s + c) * G + k] = 2.0 * dg[s][c];
       }
     }
-    if constexpr (TAU) {
-      tau[s * G + k] = 0.5 * ts[s];
-      d_tau[s * G + k] = dts[s];
-    }
   }
 }
 
-template <int S, bool TAU>
+template <int S>
 cudaError_t launch_density_deriv(int n_ao, int n_points, int first_moving, int with_gradients,
                                  const double* points, const double* origin, const int* ao_moves,
                                  const int* lmn, const int* prim_start, const double* exps,
                                  const double* coefs, const double* P, double* density,
                                  double* gradient, double* d_density, double* d_gradient,
-                                 double* tau, double* d_tau, cudaStream_t stream) {
+                                 cudaStream_t stream) {
   if (n_points == 0) return cudaSuccess;
-  if (TAU && !with_gradients) return cudaErrorInvalidValue;  // tau reads the AO gradients
-  const size_t shared = (TAU ? 5 : 2) * static_cast<size_t>(n_ao) * kDerivPoints * sizeof(double);
+  const size_t shared = 2 * static_cast<size_t>(n_ao) * kDerivPoints * sizeof(double);
   if (shared > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(density_deriv_on_grid_kernel<S, TAU>,
+    const cudaError_t status = cudaFuncSetAttribute(density_deriv_on_grid_kernel<S>,
                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                     static_cast<int>(shared));
     if (status != cudaSuccess) return status;
   }
   const int blocks = (n_points + kDerivPoints - 1) / kDerivPoints;
-  density_deriv_on_grid_kernel<S, TAU><<<blocks, kDerivPoints, shared, stream>>>(
+  density_deriv_on_grid_kernel<S><<<blocks, kDerivPoints, shared, stream>>>(
       n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves, lmn, prim_start,
-      exps, coefs, P, density, gradient, d_density, d_gradient, tau, d_tau);
+      exps, coefs, P, density, gradient, d_density, d_gradient);
+  return cudaGetLastError();
+}
+
+// K8ct and K8cut (density_tau_deriv_on_grid_kernel, S = 1 and 2 densities)
+// replace tuna_tpu/drivers/gradients.py:123-160 with :157-159 (and :184-211
+// for both spins): basis_on_grid and density_quantities on the moving grid
+// under jax.grad, with the meta-GGAs' tau = 1/2 sum_c d_c phi . Y_c and its
+// tangent tau' = sum_c (d_c phi)' . Y_c, Y_c = P d_c phi, beside K8c's
+// rho, grad rho and their tangents, all in one launch.
+//
+// What bounds them on an H100: operations (chip_smoke.py density_deriv_ms:
+// 0.0854 ms for S = 1 at N2/cc-pVTZ, 70 Cartesian AOs and 80,724 points).
+// A density takes five products of 2 n^2 a point, Y = P phi, Y' = P phi'
+// and Y_c = P d_c phi, 4e9 operations there, 0.059 ms at the DMMA rate;
+// the columns (phi, grad phi and the moving Hessian z column of every AO
+// at every point, ~160 operations an (AO, point)) take 0.026 ms on the
+// CUDA cores; the bytes (points in, ten outputs a point and density out)
+// under 0.01 ms.
+//
+// Their first form (K8c's kernel with a tau flag) took 2.444 ms a launch for
+// S = 1 and 4.191 for S = 2 (NVIDIA H100 80GB HBM3, 700.00 W): one warp a
+// block, its five columns in shared memory (89.6 KB at n = 70, so two
+// warps a multiprocessor), the products as dot products on the CUDA cores
+// reading P through L1 (~3% of the DMMA rate), and every AO's primitives
+// evaluated twice.  This design, after K7bt's:
+// * Persistent blocks take tiles of T points.  The whole block forms the
+//   tile's seven columns in shared memory, a thread an AO at two points of
+//   the tile in step (two independent chains of arithmetic, which ran
+//   faster than one point a thread at n = 70; the AO's data read once for
+//   both): phi, d_x phi, d_y phi, d_z phi and the moving Hessian z column
+//   (s_k - s_mu) d(d_c phi)/dz, c = x, y, z, each primitive's exponential
+//   once an (AO, point).  phi' = (s_k - s_mu) d_z phi gets no column of
+//   its own: it is formed from the d_z phi column where it is read, as a B
+//   fragment of Y' and in the epilogue (two multiplies), which keeps the
+//   columns to seven and lets T = 32 with P whole at n = 70 for S = 1.
+//   Rows past n_ao and points past n_points are zero.
+// * The products on mma.sync.m16n8k8 f64, P (each density's, row-major,
+//   zero-padded: (mp, lda) with mp = n_ao rounded up to 16, the AO tiles,
+//   and the depth kp = n_ao rounded up to 8) staged once a block when it
+//   fits, else 16 rows at a time; lda = kp + 4 and T + 4, 4 or 12 mod 16
+//   doubles, keep the fragment loads free of bank conflicts.
+// * A block has 2S warps for each 8 points: for each density one warp
+//   takes {Y, Y'} (2 products on one A fragment) and one {Y_x, Y_y, Y_z}
+//   (3), so S = 2 doubles the warps, not a warp's registers, and each
+//   density runs exactly the code of S = 1: each spin of K8cut is K8ct's
+//   on that spin's density, bit for bit.  The two kinds alternate over the
+//   multiprocessor's four schedulers (warp w goes to scheduler w % 4).
+// * The epilogue in registers: each accumulator entry meets the staged
+//   column entries of the same (AO, point): rho += phi Y, rho' += phi' Y,
+//   g_c += d_c phi Y, g'_c += d_c phi Y' + (d_c phi)' Y from the {Y, Y'}
+//   warp; tau += sum_c d_c phi Y_c, tau' += sum_c (d_c phi)' Y_c from the
+//   other.  Summed over the AO tiles in registers, then across the
+//   fragment rows by three warp shuffles in a fixed order: deterministic,
+//   no atomics.  The outputs are disjoint between warps, so no sum
+//   crosses a warp.
+// The host picks T (32 / S, 16 or 8: at most 256 threads a block, which
+// leaves a thread up to 255 registers) and whether P is staged whole (dft/
+// grid.py::density_tau_deriv_layout).  At n = 70: S = 1 takes T = 32 and
+// P whole, 210,560 B of shared memory and 8 warps a block; S = 2 T = 16,
+// 187,520 B and 8 warps; one block a multiprocessor, 160 registers a
+// thread (ptxas), no spills.  There K8ct takes 0.281 ms a launch on the
+// R2SCAN optimisation and K8cut 0.499 on the UKS TPSS one, 3.3-3.4x the
+// bound (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py), the columns and
+// the products about equal parts, one after the other.  Reading P through
+// L1 instead of staging it, so that two to four blocks share a
+// multiprocessor, was slower for S = 1 and about as fast for S = 2.  rho,
+// grad rho and their tangents agree with K8c's (K8cu's) to rounding, not
+// bitwise.
+constexpr int kTauDerivColumns = 7;       // phi, d_x, d_y, d_z phi, (d_x, d_y, d_z of d_z phi)'
+constexpr int kTauDerivMaxThreads = 256;  // 2 S warps for each 8 of at most 32 / S points
+
+// x^n for each of two values, 1 for n <= 0.
+__device__ __forceinline__ void powers(double (&out)[2], const double (&x)[2], int n) {
+  out[0] = out[1] = 1.0;
+  for (int i = 0; i < n; ++i) {
+    out[0] *= x[0];
+    out[1] *= x[1];
+  }
+}
+
+// P rows [i0, i0 + rows) into to (rows, lda), zero past n_ao.
+__device__ __forceinline__ void stage_p_rows(int n_ao, int i0, int rows, int lda,
+                                             const double* __restrict__ P, double* to) {
+  for (int e = threadIdx.x; e < rows * lda; e += blockDim.x) {
+    const int r = e / lda, j = e - r * lda, i = i0 + r;
+    to[e] = (i < n_ao && j < n_ao) ? P[static_cast<size_t>(i) * n_ao + j] : 0.0;
+  }
+}
+
+// Shared memory: the columns (7, mp, T + 4), then ao_moves as doubles (mp,
+// zero past n_ao), then each density's P, (mp, lda) when kWholeP, else (16,
+// lda).
+template <int S, bool kWholeP>
+__global__ void __launch_bounds__(kTauDerivMaxThreads, 1)
+density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int points, int mp,
+                                 int kp, int lda, const double* __restrict__ xyz,
+                                 const double* __restrict__ origin,
+                                 const int* __restrict__ ao_moves,
+                                 const int* __restrict__ lmn, const int* __restrict__ prim_start,
+                                 const double* __restrict__ exps, const double* __restrict__ coefs,
+                                 const double* __restrict__ P, double* __restrict__ density,
+                                 double* __restrict__ gradient, double* __restrict__ d_density,
+                                 double* __restrict__ d_gradient, double* __restrict__ tau,
+                                 double* __restrict__ d_tau) {
+  extern __shared__ __align__(16) double shared[];
+  const int ldb = points + 4, column = mp * ldb;   // a column's doubles: (mp, ldb)
+  double* columns = shared;
+  double* moves_ao = shared + kTauDerivColumns * column;
+  double* Ps = moves_ao + mp;
+  const int rows = kWholeP ? mp : 16;
+  const int lane = threadIdx.x & 31, g = lane >> 2, quad = lane & 3;
+  // warp w: kind 0 ({Y, Y'}) or 1 ({Y_c}), alternating over w % 4; then its
+  // density and its 8 points
+  const int warp = threadIdx.x >> 5, kind = (warp ^ (warp >> 2)) & 1, unit = warp >> 1;
+  const int s = unit % S, first = 8 * (unit / S);
+  const double* Pd = Ps + s * rows * lda;
+  const size_t G = static_cast<size_t>(n_points), nn = static_cast<size_t>(n_ao) * n_ao;
+  const int padding = (mp - n_ao) * ldb;
+  for (int e = threadIdx.x; e < kTauDerivColumns * padding; e += blockDim.x) {
+    const int c = e / padding;
+    columns[c * column + n_ao * ldb + e - c * padding] = 0.0;
+  }
+  for (int i = threadIdx.x; i < mp; i += blockDim.x) moves_ao[i] = i < n_ao ? ao_moves[i] : 0.0;
+  if constexpr (kWholeP) {
+    for (int d = 0; d < S; ++d) stage_p_rows(n_ao, 0, mp, lda, P + d * nn, Ps + d * mp * lda);
+  }
+  const int tiles = (n_points + points - 1) / points, half = points / 2;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int k0 = tile * points;
+    // the tile's columns: thread e takes AO e / (T / 2) at the points t and
+    // t + T / 2, t = e % (T / 2), in step (two independent chains)
+    for (int e = threadIdx.x; e < n_ao * half; e += blockDim.x) {
+      const int mu = e / half, t = e - mu * half;
+      const int l = lmn[3 * mu], m = lmn[3 * mu + 1], n = lmn[3 * mu + 2];
+      // s_q = sum c a^q e^(-a r2), q = 0, 1, 2, at each of the two points
+      double X[2], Y[2], Z[2], r2[2], s0[2] = {}, s1[2] = {}, s2[2] = {};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = min(k0 + t + q * half, n_points - 1);   // past the last point: not stored
+        X[q] = xyz[k] - origin[3 * mu];
+        Y[q] = xyz[G + k] - origin[3 * mu + 1];
+        Z[q] = xyz[2 * G + k] - origin[3 * mu + 2];
+        r2[q] = X[q] * X[q] + Y[q] * Y[q] + Z[q] * Z[q];
+      }
+      for (int p = prim_start[mu]; p < prim_start[mu + 1]; ++p) {
+        const double a = exps[p], c = coefs[p];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const double term = c * exp(-a * r2[q]);
+          s0[q] += term;
+          s1[q] += a * term;
+          s2[q] += a * a * term;
+        }
+      }
+      // X^l, X^(l-1) (l > 0), ... and Z^(n-2) (n > 1): the monomial
+      // derivatives only where the power is positive (0^(-1) is NaN)
+      double px[2], py[2], pz[2], px1[2], py1[2], pz1[2], pz2[2];
+      powers(px1, X, l - 1);
+      powers(py1, Y, m - 1);
+      powers(pz2, Z, n - 2);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        px[q] = l > 0 ? px1[q] * X[q] : 1.0;
+        py[q] = m > 0 ? py1[q] * Y[q] : 1.0;
+        pz1[q] = n > 0 ? (n > 1 ? pz2[q] * Z[q] : 1.0) : 0.0;
+        pz[q] = n > 0 ? pz1[q] * Z[q] : 1.0;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        double* at = columns + mu * ldb + t + q * half;
+        if (k0 + t + q * half >= n_points) {
+#pragma unroll
+          for (int c = 0; c < kTauDerivColumns; ++c) at[c * column] = 0.0;
+          continue;
+        }
+        const double poly = px[q] * py[q] * pz[q];
+        const double dx = l > 0 ? l * px1[q] * py[q] * pz[q] : 0.0;
+        const double dy = m > 0 ? m * px[q] * py1[q] * pz[q] : 0.0;
+        const double dz = n > 0 ? n * px[q] * py[q] * pz1[q] : 0.0;
+        const double dxz = l > 0 && n > 0 ? l * n * px1[q] * py[q] * pz1[q] : 0.0;
+        const double dyz = m > 0 && n > 0 ? m * n * px[q] * py1[q] * pz1[q] : 0.0;
+        const double dzz = n > 1 ? n * (n - 1) * px[q] * py[q] * pz2[q] : 0.0;
+        const double x = X[q], y = Y[q], z = Z[q], f0 = s0[q], f1 = s1[q], f2 = s2[q];
+        const double moves = (k0 + t + q * half >= first_moving ? 1.0 : 0.0) - ao_moves[mu];
+        at[0] = f0 * poly;
+        at[column] = dx * f0 - 2.0 * x * poly * f1;
+        at[2 * column] = dy * f0 - 2.0 * y * poly * f1;
+        at[3 * column] = dz * f0 - 2.0 * z * poly * f1;
+        at[4 * column] =
+            moves * (dxz * f0 - 2.0 * z * dx * f1 - 2.0 * x * dz * f1 + 4.0 * x * z * poly * f2);
+        at[5 * column] =
+            moves * (dyz * f0 - 2.0 * z * dy * f1 - 2.0 * y * dz * f1 + 4.0 * y * z * poly * f2);
+        at[6 * column] =
+            moves * (dzz * f0 - 4.0 * z * dz * f1 - 2.0 * poly * f1 + 4.0 * z * z * poly * f2);
+      }
+    }
+    __syncthreads();
+    // whether the point of this lane's B fragment column, and of its
+    // accumulator columns first + 2 quad + r, moves with atom 1
+    const double b_moves = k0 + first + g >= first_moving ? 1.0 : 0.0;
+    const double c_moves[2] = {k0 + first + 2 * quad >= first_moving ? 1.0 : 0.0,
+                               k0 + first + 2 * quad + 1 >= first_moving ? 1.0 : 0.0};
+    // kind 0: rho, rho', grad rho / 2, grad rho' / 2; kind 1: 2 tau, tau'
+    double sums[8][2] = {};
+    for (int i0 = 0; i0 < mp; i0 += 16) {
+      const double* A = Pd + i0 * lda;
+      if constexpr (!kWholeP) {
+        __syncthreads();      // every warp is done with the previous rows
+        for (int d = 0; d < S; ++d) stage_p_rows(n_ao, i0, 16, lda, P + d * nn, Ps + d * 16 * lda);
+        __syncthreads();
+        A = Pd;
+      }
+      if (kind == 0) {
+        double y[2][4] = {};  // Y, Y' for AOs i0 + g (+ 8) at points first + 2 quad (+ 1)
+        for (int kk = quad; kk < kp; kk += 8) {
+          const double a[4] = {A[g * lda + kk], A[(g + 8) * lda + kk], A[g * lda + kk + 4],
+                               A[(g + 8) * lda + kk + 4]};
+          const double* b = columns + kk * ldb + first + g;
+          const double* bz = b + 3 * column;
+          mma_f64(y[0], a, b[0], b[4 * ldb]);
+          mma_f64(y[1], a, (b_moves - moves_ao[kk]) * bz[0],
+                  (b_moves - moves_ao[kk + 4]) * bz[4 * ldb]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + g + 8 * h;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const double* at = columns + i * ldb + first + 2 * quad + r;
+            const double f = at[0], dx = at[column], dy = at[2 * column], dz = at[3 * column];
+            const double hx = at[4 * column], hy = at[5 * column], hz = at[6 * column];
+            const double fm = (c_moves[r] - moves_ao[i]) * dz;
+            const double y0 = y[0][2 * h + r], y1 = y[1][2 * h + r];
+            sums[0][r] += f * y0;
+            sums[1][r] += fm * y0;
+            sums[2][r] += dx * y0;
+            sums[3][r] += dy * y0;
+            sums[4][r] += dz * y0;
+            sums[5][r] += dx * y1 + hx * y0;
+            sums[6][r] += dy * y1 + hy * y0;
+            sums[7][r] += dz * y1 + hz * y0;
+          }
+        }
+      } else {
+        double y[3][4] = {};  // Y_x, Y_y, Y_z, as above
+        for (int kk = quad; kk < kp; kk += 8) {
+          const double a[4] = {A[g * lda + kk], A[(g + 8) * lda + kk], A[g * lda + kk + 4],
+                               A[(g + 8) * lda + kk + 4]};
+          const double* b = columns + column + kk * ldb + first + g;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) mma_f64(y[c], a, b[c * column], b[c * column + 4 * ldb]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const double* at = columns + (i0 + g + 8 * h) * ldb + first + 2 * quad + r;
+            const double yx = y[0][2 * h + r], yy = y[1][2 * h + r], yz = y[2][2 * h + r];
+            sums[0][r] += at[column] * yx + at[2 * column] * yy + at[3 * column] * yz;
+            sums[1][r] += at[4 * column] * yx + at[5 * column] * yy + at[6 * column] * yz;
+          }
+        }
+      }
+    }
+    const int values = kind == 0 ? 8 : 2;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      if (v < values) {       // the same for the whole warp
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          double x = sums[v][r];
+          x += __shfl_xor_sync(0xffffffffu, x, 4);
+          x += __shfl_xor_sync(0xffffffffu, x, 8);
+          x += __shfl_xor_sync(0xffffffffu, x, 16);
+          sums[v][r] = x;
+        }
+      }
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const size_t k = k0 + first + 2 * quad + r;
+        if (k >= G) continue;
+        if (kind == 0) {
+          density[s * G + k] = sums[0][r];
+          d_density[s * G + k] = 2.0 * sums[1][r];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            gradient[(3 * s + c) * G + k] = 2.0 * sums[2 + c][r];
+            d_gradient[(3 * s + c) * G + k] = 2.0 * sums[5 + c][r];
+          }
+        } else {
+          tau[s * G + k] = 0.5 * sums[0][r];
+          d_tau[s * G + k] = sums[1][r];
+        }
+      }
+    }
+    __syncthreads();          // every warp is done with the tile's columns
+  }
+}
+
+template <int S>
+cudaError_t launch_density_tau_deriv(int n_ao, int n_points, int first_moving,
+                                     int with_gradients, int points, int whole_p,
+                                     const double* xyz, const double* origin,
+                                     const int* ao_moves, const int* lmn, const int* prim_start,
+                                     const double* exps, const double* coefs, const double* P,
+                                     double* density, double* gradient, double* d_density,
+                                     double* d_gradient, double* tau, double* d_tau,
+                                     cudaStream_t stream) {
+  if (n_points == 0) return cudaSuccess;
+  if (!with_gradients || n_ao < 1 || points < 8 || points % 8 != 0 || points * S > 32)
+    return cudaErrorInvalidValue;   // tau reads the AO gradients
+  const int mp = (n_ao + 15) / 16 * 16, kp = (n_ao + 7) / 8 * 8, lda = kp + 4;
+  const size_t doubles = kTauDerivColumns * static_cast<size_t>(mp) * (points + 4) + mp +
+                         static_cast<size_t>(S) * (whole_p ? mp : 16) * lda;
+  const int shared = static_cast<int>(doubles * sizeof(double));
+  auto kernel = whole_p ? density_tau_deriv_on_grid_kernel<S, true>
+                        : density_tau_deriv_on_grid_kernel<S, false>;
+  const int threads = 8 * points * S;   // 2 S warps for each 8 points
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shared)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles = (n_points + points - 1) / points;
+  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
+  kernel<<<blocks, threads, shared, stream>>>(n_ao, n_points, first_moving, points, mp, kp, lda,
+                                             xyz, origin, ao_moves, lmn, prim_start, exps, coefs,
+                                             P, density, gradient, d_density, d_gradient, tau,
+                                             d_tau);
   return cudaGetLastError();
 }
 
@@ -511,10 +811,9 @@ extern "C" int tuna_density_deriv_on_grid(int n_ao, int n_points, int first_movi
                                           const double* P, double* density, double* gradient,
                                           double* d_density, double* d_gradient,
                                           cudaStream_t stream) {
-  return launch_density_deriv<1, false>(n_ao, n_points, first_moving, with_gradients, points,
-                                        origin, ao_moves, lmn, prim_start, exps, coefs, P,
-                                        density, gradient, d_density, d_gradient, nullptr,
-                                        nullptr, stream);
+  return launch_density_deriv<1>(n_ao, n_points, first_moving, with_gradients, points, origin,
+                                 ao_moves, lmn, prim_start, exps, coefs, P, density, gradient,
+                                 d_density, d_gradient, stream);
 }
 
 // K8cu: as tuna_density_deriv_on_grid over the two spins' symmetric
@@ -528,43 +827,48 @@ extern "C" int tuna_density_deriv_on_grid_spin(int n_ao, int n_points, int first
                                                const double* P, double* density,
                                                double* gradient, double* d_density,
                                                double* d_gradient, cudaStream_t stream) {
-  return launch_density_deriv<2, false>(n_ao, n_points, first_moving, with_gradients, points,
-                                        origin, ao_moves, lmn, prim_start, exps, coefs, P,
-                                        density, gradient, d_density, d_gradient, nullptr,
-                                        nullptr, stream);
+  return launch_density_deriv<2>(n_ao, n_points, first_moving, with_gradients, points, origin,
+                                 ao_moves, lmn, prim_start, exps, coefs, P, density, gradient,
+                                 d_density, d_gradient, stream);
 }
 
 // K8ct: as tuna_density_deriv_on_grid (with_gradients non-zero, else the
-// call returns cudaErrorInvalidValue), plus tau and d_tau (n_points,).  A
-// block's columns take 5 n_ao x 256 bytes of shared memory.
+// call returns cudaErrorInvalidValue), plus tau and d_tau (n_points,).
+// points (8, 16 or 32 / S: the tile) and whole_p (P staged whole, else 16 rows
+// at a time) come from the host (dft/grid.py::density_tau_deriv_layout);
+// the shared memory follows from them and n_ao, and a layout past what the
+// card holds fails with the CUDA error of that request.
 extern "C" int tuna_density_tau_deriv_on_grid(int n_ao, int n_points, int first_moving,
-                                              int with_gradients, const double* points,
-                                              const double* origin, const int* ao_moves,
-                                              const int* lmn, const int* prim_start,
-                                              const double* exps, const double* coefs,
-                                              const double* P, double* density,
-                                              double* gradient, double* d_density,
-                                              double* d_gradient, double* tau, double* d_tau,
-                                              cudaStream_t stream) {
-  return launch_density_deriv<1, true>(n_ao, n_points, first_moving, with_gradients, points,
-                                       origin, ao_moves, lmn, prim_start, exps, coefs, P, density,
-                                       gradient, d_density, d_gradient, tau, d_tau, stream);
+                                              int with_gradients, int points, int whole_p,
+                                              const double* xyz, const double* origin,
+                                              const int* ao_moves, const int* lmn,
+                                              const int* prim_start, const double* exps,
+                                              const double* coefs, const double* P,
+                                              double* density, double* gradient,
+                                              double* d_density, double* d_gradient, double* tau,
+                                              double* d_tau, cudaStream_t stream) {
+  return launch_density_tau_deriv<1>(n_ao, n_points, first_moving, with_gradients, points,
+                                     whole_p, xyz, origin, ao_moves, lmn, prim_start, exps, coefs,
+                                     P, density, gradient, d_density, d_gradient, tau, d_tau,
+                                     stream);
 }
 
 // K8cut: K8ct over the two spins' P (2, n_ao, n_ao) in one pass; tau and
 // d_tau (2, n_points), the other outputs as for K8cu.
 extern "C" int tuna_density_tau_deriv_on_grid_spin(int n_ao, int n_points, int first_moving,
-                                                   int with_gradients, const double* points,
-                                                   const double* origin, const int* ao_moves,
-                                                   const int* lmn, const int* prim_start,
-                                                   const double* exps, const double* coefs,
-                                                   const double* P, double* density,
-                                                   double* gradient, double* d_density,
-                                                   double* d_gradient, double* tau,
-                                                   double* d_tau, cudaStream_t stream) {
-  return launch_density_deriv<2, true>(n_ao, n_points, first_moving, with_gradients, points,
-                                       origin, ao_moves, lmn, prim_start, exps, coefs, P, density,
-                                       gradient, d_density, d_gradient, tau, d_tau, stream);
+                                                   int with_gradients, int points, int whole_p,
+                                                   const double* xyz, const double* origin,
+                                                   const int* ao_moves, const int* lmn,
+                                                   const int* prim_start, const double* exps,
+                                                   const double* coefs, const double* P,
+                                                   double* density, double* gradient,
+                                                   double* d_density, double* d_gradient,
+                                                   double* tau, double* d_tau,
+                                                   cudaStream_t stream) {
+  return launch_density_tau_deriv<2>(n_ao, n_points, first_moving, with_gradients, points,
+                                     whole_p, xyz, origin, ao_moves, lmn, prim_start, exps, coefs,
+                                     P, density, gradient, d_density, d_gradient, tau, d_tau,
+                                     stream);
 }
 
 // values (n_ao, n_points); gradients (3, n_ao, n_points), written only when
