@@ -46,12 +46,17 @@ non-zero without printing a result):
   9. gradient kernels: K8a (one-electron tangent) and K8b (two-electron
      energy tangent, bitwise over two calls) against their plain versions
      at N2/cc-pVTZ and CO/6-31G; K8c (the density's tangent on the moving
-     grid) at the DFT path's grid with its converged density, in phase 6;
+     grid, on DMMA) at the DFT path's grid with its converged density, in
+     phase 6: with and without gradients 1e-12 of each output's largest
+     |entry| from its plain version and bitwise over two calls, its time
+     at every tile the card holds, its products alone as one batched
+     torch.matmul, the bound and the registers (no spills);
  10. gradient path: `OPT : N N 1.1 : B3LYP CC-PVTZ : TIGHTSCF` (optimised
      bond length, energy and iteration count) and `FREQ : C O 1.13 : HF
      CC-PVTZ : TIGHTSCF` (frequency and zero-point energy) against
      tuna_tpu's numbers, with a profile of the OPT line (wall per OPT
-     iteration and the gradient's share of it);
+     iteration and the gradient's share of it, K8c's device ms a launch),
+     one K8c launch a gradient on the OPT lines;
  11. BASELINE.json configs 3 and 5: `OPT : H H 1.0 : B3LYP 6-31G`, `FREQ :
      C O 1.13 : HF 6-31G` and `MD : C O 1.13 : HF 6-31G : NUM 5 NOTRAJ`
      against tuna_tpu's numbers;
@@ -100,10 +105,10 @@ non-zero without printing a result):
      with exchange per spin) against its plain version at O2/cc-pVTZ and
      OH/6-31G on a seeded pair of density-like Pa != Pb (1e-12 relative),
      bitwise over two calls, and at Pa = Pb = P/2 against K8b(P) (1e-14
-     relative); K8cu (both spins' density tangents in one pass) against
-     its plain version on the grid of `SPE : O O 1.21 : B3LYP CC-PVTZ : ML
-     3 TIGHTSCF` with its converged Pa and Pb, each spin bitwise equal to
-     K8c on that density; with both times, the bound and the registers;
+     relative); K8cu (both spins' density tangents in one pass) on the
+     grid of `SPE : O O 1.21 : B3LYP CC-PVTZ : ML 3 TIGHTSCF` with its
+     converged Pa and Pb, checked and timed as K8c in phase 6, each spin
+     bitwise equal to K8c on that density;
  19. unrestricted gradient paths: that single point (energy within 1e-10
      Ha, equal SCF iteration count), `OPT : O O 1.21 : B3LYP CC-PVTZ : ML
      3 TIGHTSCF` (UKS) with its `profile` line (wall per OPT iteration,
@@ -111,8 +116,8 @@ non-zero without printing a result):
      and K8cu's launches and device ms), `OPT : O O 1.21 : HF CC-PVTZ : ML
      3 TIGHTSCF` (UHF), `FREQ : O H 0.97 : B3LYP CC-PVTZ : TIGHTSCF` (UKS,
      doublet OH) and `MD : O H 0.97 : HF 6-31G : NUM 5 NOTRAJ` (UHF)
-     against tuna_tpu's numbers; one K8bu launch a gradient, and no K8b or
-     K8c launch on these paths;
+     against tuna_tpu's numbers; one K8bu launch a gradient (and one K8cu
+     launch on the UKS OPT), and no K8b or K8c launch on these paths;
  20. meta-GGA kernels: K7bt (rho, grad rho and tau, on DMMA) against its
      plain version on the grid of `SPE : N N 1.1 : R2SCAN CC-PVTZ :
      TIGHTSCF` with its converged density, K8ct (rho, grad rho, tau and
@@ -120,8 +125,8 @@ non-zero without printing a result):
      of `SPE : O O 1.21 : TPSS CC-PVTZ : ML 3 TIGHTSCF` with its converged
      Pa and Pb: 1e-13 of each output's largest |entry|, bitwise over two
      calls; K7bt's rho and grad rho against K7b's, the outputs of K8ct and
-     K8cut without tau against K8c's and K8cu's (1e-13 of the largest
-     |entry|: other summation orders), each spin of K8cut bitwise K8ct's;
+     K8cut without tau bitwise K8c's and K8cu's (one template), each spin
+     of K8cut bitwise K8ct's;
      with the times (K7bt's device ms a launch from torch.profiler), K8ct's
      and K8cut's at every tile the card holds, the products alone as one
      batched torch.matmul, the bound and the registers (no spills);
@@ -184,8 +189,8 @@ at M = 51,320 points, both on seeded inputs through cc.ccsd_t_energy and
 vv10.vv10_energy, with their energies; K5's two phases at N2/cc-pVTZ
 (motransform.pair_packed_to_mo on the packed ERI matrix, a seeded W) beside
 torch.matmul on the expanded rows, K7bt on the N2/cc-pVTZ medium grid (a
-seeded density-like P), and K8ct there and K8cut on O2's (atom 1's half
-moving, seeded densities), each with a sum of its outputs; K9 at (o, v) =
+seeded density-like P), and K8ct and K8c there and K8cut and K8cu on O2's
+(atom 1's half moving, seeded densities), each with a sum of its outputs; K9 at (o, v) =
 (7, 19) and (7, 53) and K2u at the UHF lines A (16, 36) and C (16, 104)
 on seeded inputs, with their energies; with the tuna_tpu_torch of each ROOT
 in turn (each in its own interpreter, building its own kernels), and prints
@@ -657,7 +662,7 @@ def ptxas_report(log: str) -> dict:
     build's ptxas report, keyed by source and kernel (the class kernels as
     quartet_light_kernel<L_bra,L_ket>, K8bu's as deriv_light_kernel<L_bra,
     L_ket>[unrestricted], the grid kernels with their template arguments, as
-    density_tau_deriv_on_grid_kernel<2,true> for K8cut with P whole)."""
+    moving_grid_kernel<2,2,true> for K8cut with P whole)."""
     report, unit, kernel, spills = {}, "", "", 0
     for line in log.splitlines():
         if line.startswith("== "):
@@ -778,20 +783,21 @@ def density_tau_ms(n: int, n_points: int) -> float:
 
 def density_deriv_ms(basis: grid.GridBasis, n_points: int, with_gradients: bool,
                      n_spins: int = 1, with_tau: bool = False) -> float:
-    """csrc/dft_grid.cu density_deriv_on_grid_kernel over n_spins densities
-    (K8c: 1, K8cu: 2): per point, each AO's value and z derivative (~16 + 5
-    a primitive) once, then for each density Y = P phi and Y' = P phi' (4
-    n^2, matrix products) and rho and rho' (4 n); with gradients each AO's
-    gradient and Hessian z column (~70 + 7 a primitive) once and their
-    products with each density's Y and Y' (15 n).  With tau (K8ct, K8cut):
-    each AO's three gradient columns in the first loop (~20 n), and for
-    each density Y_a = P d_a phi (6 n^2, matrix products) and tau and tau'
-    from them (15 n)."""
+    """csrc/dft_grid.cu moving_grid_kernel over n_spins densities (K8c,
+    K8ct: 1; K8cu, K8cut: 2): per point, each AO's value and z derivative
+    (~16 + 5 a primitive) once, then for each density Y = P phi (2 n^2, a
+    matrix product) and rho and rho' = 2 phi' . Y (4 n); with gradients
+    each AO's gradient and Hessian z column (~70 + 7 a primitive) once, for
+    each density Y' = P phi' (2 n^2) and their products with Y and Y' (15
+    n).  With tau (K8ct, K8cut): each AO's three gradient columns in the
+    first loop (~20 n), and for each density Y_a = P d_a phi (6 n^2, matrix
+    products) and tau and tau' from them (15 n)."""
     n = basis.n_ao
     n_prim = float(len(basis.exps))
-    products = 4.0 * n * n
+    products = 2.0 * n * n
     rest = 16.0 * n + 5 * n_prim + n_spins * 4 * n
     if with_gradients:
+        products += 2.0 * n * n
         rest += 70.0 * n + 7 * n_prim + n_spins * 15 * n
     if with_tau:
         products += 6.0 * n * n
@@ -1064,15 +1070,17 @@ def profiled_call(counted) -> dict:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     # the kernels of csrc/, by function name (and K1/K4 output, K8b/K8bu
-    # weight, K8c/K8cu and K8ct/K8cut densities, as
-    # density_tau_deriv_on_grid_kernel[2] for K8cut)
+    # weight, the moving-grid kernel's densities and output set, as
+    # moving_grid_kernel[1,1] for K8c, [2,1] for K8cu, [1,2] for K8ct,
+    # [2,2] for K8cut, [S,0] without gradients)
     hand: dict = {}
     for e in kernels:
         match = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.name)
         if match:
             output_of = re.search(r"(PackedOut|FockOut|UnrestrictedEnergyWeight)"
-                                  r"|density_(?:tau_)?deriv_on_grid_kernel<(\d+)", e.name)
-            tag = output_of and (output_of.group(1) or output_of.group(2))
+                                  r"|moving_grid_kernel<(\d+), ?(\d+)", e.name)
+            tag = output_of and (output_of.group(1)
+                                 or f"{output_of.group(2)},{output_of.group(3)}")
             key = match.group(1) + (f"[{tag}]" if tag else "")
             entry = hand.setdefault(key, {"launches": 0, "device_ms": 0.0})
             entry["launches"] += 1
@@ -1525,52 +1533,6 @@ def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, ba
             f"{algorithm / FP64_PER_MS:.5f} ms)")
 
 
-def check_density_deriv(molecule, P_converged, device, record: dict) -> str:
-    """K8c against its plain version on the DFT path's grid (N2/cc-pVTZ,
-    medium grid), atom 1's half of the points moving, with the converged
-    density of that path in the Cartesian basis."""
-    points_np, _ = grid.build_molecular_grid(
-        *grid.grid_parameters(molecule, molecule.calculation), molecule.bond_length,
-        molecule.atoms)
-    G = points_np.shape[1] * points_np.shape[2]
-    points = torch.as_tensor(points_np.reshape(3, G), dtype=torch.float64, device=device)
-    basis = grid.GridBasis(molecule.cartesian_basis_functions)
-    origin = torch.as_tensor(basis.origin, dtype=torch.float64, device=device)
-    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
-                            dtype=torch.int32, device=device)
-    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
-    P = (U.T @ P_converged @ U).contiguous()
-
-    def kernel():
-        return grid.density_deriv_on_grid(basis, origin, moves, points, G // 2, P, True)
-
-    def plain():
-        return grid._density_deriv_on_grid_plain(basis, origin, moves, points, G // 2, P, True)
-
-    got, expected = kernel(), plain()
-    require(all(bool(torch.all(torch.isfinite(x))) for x in got),
-            "density_deriv_on_grid: non-finite output")
-    relative = max(_relative(a, b) for a, b in zip(got, expected))
-    absolute = max(float(torch.max(torch.abs(a - b))) for a, b in zip(got, expected))
-    require(relative <= DERIV_GRID_TOLERANCE,
-            f"density_deriv_on_grid off its plain version by {relative:.3e} (relative)")
-    ms, plain_ms = median_ms(kernel), median_ms(plain)
-    deriv_bound = bound(tensor_bytes(points, origin, moves, P, *got)
-                        + tensor_bytes(*basis.tensors(device).values()),
-                        density_deriv_ms(basis, G, True))
-    record["density_deriv_on_grid"] = {"max_abs_err": absolute, "ms": ms, "plain_ms": plain_ms,
-                                       "library_ms": None, **deriv_bound}
-    names = ("rho", "grad rho", "rho'", "grad rho'")
-    scales = ", ".join(f"{name} {float(torch.max(torch.abs(x))):.4g}"
-                       for name, x in zip(names, expected))
-    return (f"gradient kernels: density_deriv_on_grid {'-'.join(molecule.atomic_symbols)}/"
-            f"{molecule.basis}, {basis.n_ao} Cartesian "
-            f"AOs, {G} points ({G // 2} moving), converged P; relative max|diff| {relative:.3e}, "
-            f"absolute {absolute:.3e} (largest |entry|: {scales}); {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms, bound {deriv_bound['bound_ms']:.5f} ms by "
-            f"{deriv_bound['bound_by']}")
-
-
 def profile_gradient_path(line: str) -> dict:
     """WARM_RUNS warm runs of an OPT line (the wall per OPT iteration and
     the gradient's share of it, from the port's phase timers; one analytic
@@ -1633,17 +1595,25 @@ def check_frequency(line: str, frequency_ref: float, zpe_ref: float,
     return launches
 
 
-def check_gradient_paths() -> dict:
+def check_gradient_paths(record: dict) -> dict:
     """The gradient path at full width (OPT N2 B3LYP/cc-pVTZ with its
     profile, FREQ CO HF/cc-pVTZ) and BASELINE configs 3 and 5 (OPT H2
     B3LYP/6-31G, FREQ and MD of CO HF/6-31G), each against tuna_tpu's
-    numbers; returns the launches summed over these runs."""
+    numbers, one K8c launch a gradient on the OPT lines; records K8c's
+    device ms a launch from the profile of the cc-pVTZ OPT and returns the
+    launches summed over these runs."""
     runs = [check_optimisation(LINE_OPT, GRADIENT_PATH_KERNELS, BOND_REF_OPT, E_REF_OPT,
                                ITERATIONS_OPT)]
-    print("profile: " + json.dumps(profile_gradient_path(LINE_OPT)))
+    profile = profile_gradient_path(LINE_OPT)
+    record.setdefault("density_deriv_on_grid", {})["device_ms_a_launch"] = \
+        _device_ms_a_launch(profile, "moving_grid_kernel[1,1]")
+    print("profile: " + json.dumps(profile))
     runs.append(check_frequency(LINE_FREQ, FREQUENCY_REF_FREQ, ZPE_REF_FREQ))
     runs.append(check_optimisation(LINE_OPT_H2, GRADIENT_PATH_KERNELS, BOND_REF_OPT_H2,
                                    E_REF_OPT_H2, ITERATIONS_OPT_H2))
+    for launches in (runs[0], runs[2]):
+        require(launches["density_deriv_on_grid"] == launches["one_electron_deriv"] > 0,
+                "an OPT line: not one K8c launch a gradient")
     runs.append(check_frequency(LINE_FREQ_CO, FREQUENCY_REF_FREQ_CO, ZPE_REF_FREQ_CO))
     energies, wall, launches = run_counted(LINE_MD_CO, HF_GRADIENT_PATH_KERNELS)
     deltas = [e - ref for e, ref in zip(energies, E_REF_MD_CO)]
@@ -2380,63 +2350,6 @@ def check_unrestricted_eri_deriv(symbol: str, partner: str | None, bond_angstrom
             f"at most over its {len(own)} class kernels")
 
 
-def check_spin_density_deriv(molecule, P_alpha, P_beta, device, record: dict,
-                             registers: dict) -> str:
-    """K8cu against its plain version (K8c's, density by density) on the UKS
-    path's grid (triplet O2/cc-pVTZ, medium grid), atom 1's half of the
-    points moving, with that path's converged spin densities in the
-    Cartesian basis; each spin's outputs against K8c on that density
-    (bitwise)."""
-    points_np, _ = grid.build_molecular_grid(
-        *grid.grid_parameters(molecule, molecule.calculation), molecule.bond_length,
-        molecule.atoms)
-    G = points_np.shape[1] * points_np.shape[2]
-    points = torch.as_tensor(points_np.reshape(3, G), dtype=torch.float64, device=device)
-    basis = grid.GridBasis(molecule.cartesian_basis_functions)
-    origin = torch.as_tensor(basis.origin, dtype=torch.float64, device=device)
-    moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
-                            dtype=torch.int32, device=device)
-    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
-    P_stack = torch.stack([U.T @ P_alpha @ U, U.T @ P_beta @ U]).contiguous()
-
-    def kernel():
-        return grid.density_deriv_on_grid_spin(basis, origin, moves, points, G // 2, P_stack,
-                                               True)
-
-    def plain():
-        outs = [grid._density_deriv_on_grid_plain(basis, origin, moves, points, G // 2, P, True)
-                for P in P_stack]
-        return tuple(torch.stack(parts) for parts in zip(*outs))
-
-    got, expected = kernel(), plain()
-    require(all(bool(torch.all(torch.isfinite(x))) for x in got),
-            "density_deriv_on_grid_spin: non-finite output")
-    relative = max(_relative(a[s], b[s]) for a, b in zip(got, expected) for s in range(2))
-    absolute = max(float(torch.max(torch.abs(a - b))) for a, b in zip(got, expected))
-    require(relative <= DERIV_GRID_TOLERANCE,
-            f"density_deriv_on_grid_spin off its plain version by {relative:.3e} (relative)")
-    for s in range(2):
-        single = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2,
-                                            P_stack[s].contiguous(), True)
-        require(all(torch.equal(a[s], b) for a, b in zip(got, single)),
-                f"density_deriv_on_grid_spin: spin {s} differs from density_deriv_on_grid")
-    ms, plain_ms = median_ms(kernel), median_ms(plain)
-    deriv_bound = bound(tensor_bytes(points, origin, moves, P_stack, *got)
-                        + tensor_bytes(*basis.tensors(device).values()),
-                        density_deriv_ms(basis, G, True, n_spins=2))
-    record["density_deriv_on_grid_spin"] = {"max_abs_err": absolute, "ms": ms,
-                                            "plain_ms": plain_ms, "library_ms": None,
-                                            **deriv_bound}
-    return (f"unrestricted gradient kernels: density_deriv_on_grid_spin "
-            f"{'-'.join(molecule.atomic_symbols)}/{molecule.basis}, {basis.n_ao} Cartesian AOs, "
-            f"{G} points ({G // 2} moving), the converged Pa and Pb; relative max|diff| "
-            f"{relative:.3e}, absolute {absolute:.3e}; each spin bitwise equal to "
-            f"density_deriv_on_grid; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
-            f"{deriv_bound['bound_ms']:.5f} ms by {deriv_bound['bound_by']}; registers "
-            f"(ptxas) {registers.get('dft_grid:density_deriv_on_grid_kernel<2>')} (K8c "
-            f"{registers.get('dft_grid:density_deriv_on_grid_kernel<1>')})")
-
-
 def check_unrestricted_gradient_kernels(device, record: dict, registers: dict) -> str:
     """Phase 18: K8bu at O2/cc-pVTZ and OH/6-31G, then K8cu on the grid of
     the UKS path with its converged densities (one uncounted run of
@@ -2446,8 +2359,9 @@ def check_unrestricted_gradient_kernels(device, record: dict, registers: dict) -
         print(check_unrestricted_eri_deriv(symbol, partner, bond_angstrom, basis, device,
                                            record, registers))
     SCF_output, molecule, _, _ = run(LINE_UKS_SPE, suppress_output=True, device="cuda")
-    return check_spin_density_deriv(molecule, SCF_output.P_alpha, SCF_output.P_beta, device,
-                                    record, registers)
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    P_stack = torch.stack([U.T @ SCF_output.P_alpha @ U, U.T @ SCF_output.P_beta @ U])
+    return check_moving_grid(molecule, P_stack, device, record, registers)
 
 
 def profile_unrestricted_path(line: str) -> dict:
@@ -2463,16 +2377,19 @@ def profile_unrestricted_path(line: str) -> dict:
                                          if k.endswith("[UnrestrictedEnergyWeight]")),
             "device_ms_a_launch": profile["quartet_class_kernels_busy_ms_a_launch"].get(
                 "eri_deriv_energy_unrestricted")},
-        "density_deriv_on_grid_spin (K8cu)": hand.get("density_deriv_on_grid_kernel[2]"),
+        "density_deriv_on_grid_spin (K8cu)": hand.get("moving_grid_kernel[2,1]"),
     }
     return profile
 
 
-def check_unrestricted_gradient_paths() -> dict:
+def check_unrestricted_gradient_paths(record: dict | None = None) -> dict:
     """Phase 19: the UKS single point (energy and SCF iteration count), the
-    UKS OPT of triplet O2 with its profile, the UHF OPT of triplet O2, the
-    UKS FREQ of OH and the UHF MD of OH against tuna_tpu's numbers; none of
-    them launches K8b or K8c.  Returns the launches summed over these runs."""
+    UKS OPT of triplet O2 with its profile (one K8cu launch a gradient,
+    whose device ms a launch goes into record), the UHF OPT of triplet O2,
+    the UKS FREQ of OH and the UHF MD of OH against tuna_tpu's numbers; none
+    of them launches K8b or K8c.  Returns the launches summed over these
+    runs."""
+    record = {} if record is None else record
     SCF_output, _, energy, _, wall, launches = drive(LINE_UKS_SPE, UKS_PATH_KERNELS)
     delta = energy - E_REF_UKS_SPE
     iterations = len(SCF_output.iteration_seconds)
@@ -2496,7 +2413,12 @@ def check_unrestricted_gradient_paths() -> dict:
                 f"{line}: not one K8bu launch a gradient")
         runs.append(launches)
         if line == LINE_UKS_OPT:
-            print("profile: " + json.dumps(profile_unrestricted_path(line)))
+            require(launches["density_deriv_on_grid_spin"] == launches["one_electron_deriv"],
+                    f"{line}: not one K8cu launch a gradient")
+            profile = profile_unrestricted_path(line)
+            record.setdefault("density_deriv_on_grid_spin", {})["device_ms_a_launch"] = \
+                _device_ms_a_launch(profile, "moving_grid_kernel[2,1]")
+            print("profile: " + json.dumps(profile))
     runs.append(check_frequency(LINE_UKS_FREQ, FREQUENCY_REF_UKS_FREQ, ZPE_REF_UKS_FREQ,
                                 UKS_GRADIENT_PATH_KERNELS))
     energies, wall, launches = run_counted(LINE_UHF_MD, UHF_GRADIENT_PATH_KERNELS)
@@ -2589,104 +2511,140 @@ def check_tau_kernel(molecule, P_converged, device, record: dict, registers: dic
             f"{registers.get('dft_grid:density_on_grid_kernel')})")
 
 
-def tau_deriv_library_ms(basis, origin, moves, points, first_moving: int, P_stack) -> float:
-    """The products alone of K8ct (one density in P_stack) or K8cut (two):
-    Y_s = P_s [phi | phi' | d_x phi | d_y phi | d_z phi] for every density
-    as one batched torch.matmul on the columns handed to it (formed by K7a
-    before the timing); not the function, which also forms the columns and
-    contracts them with Y."""
+def deriv_products_ms(basis, origin, moves, points, first_moving: int, P_stack,
+                      with_tau: bool) -> float:
+    """The products alone of the moving-grid kernel on P_stack's densities
+    (one: K8c, K8ct; two: K8cu, K8cut): Y_s = P_s [phi | phi'] (with tau
+    also P_s d_c phi, c = x, y, z) for every density as one batched
+    torch.matmul on columns handed to it (formed by K7a before the timing);
+    not the function, which also forms the columns and contracts them with
+    Y.  A reference beside the kernel, not a library call."""
     values, grads = grid.ao_on_grid(basis, points, True)
     G = points.shape[1]
     point_moves = (torch.arange(G, device=points.device) >= first_moving).to(torch.float64)
     d_phi = (point_moves[None, :] - moves.to(torch.float64)[:, None]) * grads[2]
-    columns = torch.stack([values, d_phi, *grads])          # (5, n, G)
+    columns = torch.stack([values, d_phi, *grads] if with_tau else [values, d_phi])
     del values, grads, d_phi
     return median_ms(lambda: torch.matmul(P_stack[:, None], columns[None]))
 
 
-def check_tau_deriv(molecule, P_stack, device, record: dict, registers: dict) -> str:
-    """K8ct (P_stack of one density) or K8cut (two) against its plain
-    version on the molecule's grid, atom 1's half moving (TAU_TOLERANCE),
-    bitwise over two calls, its first four outputs within TAU_TOLERANCE of
-    the largest |entry| of K8c's (K8cu's: another summation order), and for
-    K8cut each spin bitwise K8ct's; its time at the host's tile and at
-    every other tile the card holds, and the products alone as one
-    batched torch.matmul (library_ms)."""
+def check_moving_grid(molecule, P_stack, device, record: dict, registers: dict,
+                      with_tau: bool = False) -> str:
+    """The moving-grid kernel (csrc/dft_grid.cu moving_grid_kernel) on the
+    molecule's grid, atom 1's half of the points moving, for P_stack's one
+    density (K8c; K8ct with tau) or two (K8cu; K8cut): against its plain
+    version (DERIV_GRID_TOLERANCE, with tau TAU_TOLERANCE, of each output's
+    largest |entry|) and bitwise over two calls; without tau the LDA branch
+    (with_gradients=False) the same way; with tau its first four outputs
+    bitwise the kernel's without tau; for two densities each spin bitwise
+    the one-density kernel's.  Its time at the host's tile and at every
+    other tile the card holds (tiles_ms), the products alone as one batched
+    torch.matmul on columns handed to it (products_matmul_ms; no PyTorch
+    call computes the function, so library_ms is null), the bound and the
+    registers of its instantiations (ptxas; a spill or a missing entry
+    fails the run)."""
     points, G = _grid_of(molecule, device)
     basis = grid.GridBasis(molecule.cartesian_basis_functions)
     origin = torch.as_tensor(basis.origin, dtype=torch.float64, device=device)
     moves = torch.as_tensor([bf.atom_index == 1 for bf in molecule.cartesian_basis_functions],
                             dtype=torch.int32, device=device)
-    n_spins = P_stack.shape[0]
-    name = "density_tau_deriv_on_grid" + ("_spin" if n_spins == 2 else "")
+    n, n_spins = basis.n_ao, P_stack.shape[0]
+    name = ("density_tau_deriv_on_grid" if with_tau else "density_deriv_on_grid") + \
+        ("_spin" if n_spins == 2 else "")
     P = P_stack.contiguous() if n_spins == 2 else P_stack[0].contiguous()
     call = grid.density_deriv_on_grid_spin if n_spins == 2 else grid.density_deriv_on_grid
+    tolerance = TAU_TOLERANCE if with_tau else DERIV_GRID_TOLERANCE
 
-    def kernel():
-        return call(basis, origin, moves, points, G // 2, P, True, with_tau=True)
+    def kernel(with_gradients=True):
+        return call(basis, origin, moves, points, G // 2, P, with_gradients, with_tau)
 
-    def plain():
+    def plain(with_gradients=True):
         outs = [grid._density_deriv_on_grid_plain(basis, origin, moves, points, G // 2, Ps,
-                                                  True, with_tau=True) for Ps in P_stack]
-        return tuple(torch.stack(parts) for parts in zip(*outs)) if n_spins == 2 else outs[0]
+                                                  with_gradients, with_tau) for Ps in P_stack]
+        if n_spins == 1:
+            return outs[0]
+        return tuple(torch.stack(parts) if parts[0] is not None else None
+                     for parts in zip(*outs))
 
-    got, again, expected = kernel(), kernel(), plain()
-    require(all(bool(torch.all(torch.isfinite(x))) for x in got), f"{name}: non-finite output")
-    if n_spins == 2:
-        relative = max(_relative(a[s], b[s]) for a, b in zip(got, expected) for s in range(2))
+    def held(with_gradients):
+        """(relative, absolute) off the plain version; bitwise over two calls."""
+        got, again, expected = kernel(with_gradients), kernel(with_gradients), \
+            plain(with_gradients)
+        pairs = [(a, b) for a, b in zip(got, expected) if b is not None]
+        require(all(bool(torch.all(torch.isfinite(a))) for a, _ in pairs),
+                f"{name}: non-finite output")
+        relative = max(_relative(a[s], b[s]) if n_spins == 2 else _relative(a, b)
+                       for a, b in pairs for s in range(n_spins))
+        require(relative <= tolerance, f"{name} (with_gradients={with_gradients}) off its "
+                                       f"plain version by {relative:.3e} (relative)")
+        require(all(a is b is None or torch.equal(a, b) for a, b in zip(got, again)),
+                f"two {name} calls differ (with_gradients={with_gradients})")
+        if n_spins == 2:
+            for s in range(2):
+                single = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2,
+                                                    P_stack[s].contiguous(), with_gradients,
+                                                    with_tau)
+                require(all(a is b is None or torch.equal(a[s], b)
+                            for a, b in zip(got, single)),
+                        f"{name}: spin {s} differs from the one-density kernel")
+        return got, relative, max(float(torch.max(torch.abs(a - b))) for a, b in pairs)
+
+    got, relative, absolute = held(True)
+    checks = [f"relative max|diff| {relative:.3e}, absolute {absolute:.3e}"]
+    branches = [True]
+    if with_tau:
+        without = call(basis, origin, moves, points, G // 2, P, True)
+        require(all(torch.equal(a, b) for a, b in zip(got[:4], without)),
+                f"{name}: rho, grad rho and their tangents differ from the kernel without tau")
+        checks.append("the first four outputs bitwise the kernel's without tau")
     else:
-        relative = _largest_relative(got, expected)
-    require(relative <= TAU_TOLERANCE, f"{name} off its plain version by {relative:.3e}")
-    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"two {name} calls differ")
-    without = call(basis, origin, moves, points, G // 2, P, True)
-    from_without = _largest_relative(got[:4], without)
-    require(from_without <= TAU_TOLERANCE,
-            f"{name}: rho, grad rho and their tangents {from_without:.3e} (relative) from the "
-            f"kernel without tau")
-    if n_spins == 2:
-        for s in range(2):
-            single = grid.density_deriv_on_grid(basis, origin, moves, points, G // 2,
-                                                P_stack[s].contiguous(), True, with_tau=True)
-            require(all(torch.equal(a[s], b) for a, b in zip(got, single)),
-                    f"{name}: spin {s} differs from density_tau_deriv_on_grid")
+        _, lda_relative, lda_absolute = held(False)
+        checks.append(f"without gradients {lda_relative:.3e} (relative), {lda_absolute:.3e}")
+        branches.append(False)
+    checks.append("bitwise over two calls" + (", each spin bitwise the one-density kernel's"
+                                              if n_spins == 2 else ""))
     ms, plain_ms = median_ms(kernel), median_ms(plain)
-    without_ms = median_ms(lambda: call(basis, origin, moves, points, G // 2, P, True))
-    library_ms = tau_deriv_library_ms(basis, origin, moves, points, G // 2, P_stack)
-    n = basis.n_ao
-    tile, whole_p, shared = grid.density_tau_deriv_layout(n, n_spins)
-    # every tile that fits, for the choice in density_tau_deriv_layout
+    # without tau: the LDA branch; with tau: the kernel without it
+    other_ms = median_ms(lambda: call(basis, origin, moves, points, G // 2, P, with_tau))
+    products_ms = deriv_products_ms(basis, origin, moves, points, G // 2, P_stack, with_tau)
+    tile, whole_p, shared = grid.density_deriv_layout(n, n_spins)
+    # every tile that fits, for the choice in density_deriv_layout
     tiles = {}
-    for points_a_tile in (32, 16, 8):
-        for whole in (True, False):
-            bytes_a_block = grid.density_tau_deriv_bytes(n, n_spins, points_a_tile, whole)
-            if points_a_tile * n_spins <= 32 and bytes_a_block <= _kernels.SHARED_MEMORY_A_BLOCK:
-                tiles[f"{points_a_tile},{'whole' if whole else 'rows'}"] = median_ms(
+    for with_gradients in branches:
+        for points_a_tile in (32, 16, 8):
+            for whole in (True, False):
+                bytes_a_block = grid.density_deriv_bytes(n, n_spins, points_a_tile, whole,
+                                                         with_gradients)
+                if points_a_tile * n_spins > 32 or bytes_a_block > _kernels.SHARED_MEMORY_A_BLOCK:
+                    continue
+                key = (f"{points_a_tile},{'whole' if whole else 'rows'}"
+                       + ("" if with_gradients else ",without gradients"))
+                tiles[key] = median_ms(
                     lambda: grid._density_deriv_kernel(
-                        name, "tuna_" + name, basis, origin, moves, points, G // 2, P, True,
-                        True, layout=(points_a_tile, whole)))
+                        name, "tuna_" + name, basis, origin, moves, points, G // 2, P,
+                        with_gradients, with_tau, layout=(points_a_tile, whole)))
     deriv_bound = bound(tensor_bytes(points, origin, moves, P, *got)
                         + tensor_bytes(*basis.tensors(device).values()),
-                        density_deriv_ms(basis, G, True, n_spins, with_tau=True))
+                        density_deriv_ms(basis, G, True, n_spins, with_tau))
+    outputs = 2 if with_tau else 1
+    prefixes = [f"moving_grid_kernel<{n_spins},{outputs},"] + \
+        ([] if with_tau else [f"moving_grid_kernel<{n_spins},0,"])
     found = {key: value for key, value in registers.items()
-             if f"density_tau_deriv_on_grid_kernel<{n_spins}," in key}
-    require(bool(found) and all(isinstance(v, int) for v in found.values()),
-            f"{name}: registers {found} (a spill or no entry)")
-    key = f"dft_grid:density_tau_deriv_on_grid_kernel<{n_spins},{'true' if whole_p else 'false'}>"
-    record[name] = {"max_abs_err": max(float(torch.max(torch.abs(a - b)))
-                                       for a, b in zip(got, expected)),
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **deriv_bound,
+             if any(f"dft_grid:{prefix}" in key for prefix in prefixes)}
+    require(len(found) == 2 * len(prefixes) and all(isinstance(v, int) for v in found.values()),
+            f"{name}: registers {found} (a spill or a missing entry)")
+    key = f"dft_grid:moving_grid_kernel<{n_spins},{outputs},{'true' if whole_p else 'false'}>"
+    record[name] = {"max_abs_err": absolute, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    **deriv_bound, "products_matmul_ms": products_ms,
                     "registers": registers.get(key), "tiles_ms": tiles}
-    return (f"meta-GGA kernels: {name} {'-'.join(molecule.atomic_symbols)}/{molecule.basis}, "
+    other = "the kernel without tau" if with_tau else "without gradients"
+    return (f"moving-grid kernel: {name} {'-'.join(molecule.atomic_symbols)}/{molecule.basis}, "
             f"{n} Cartesian AOs, {G} points ({G // 2} moving), converged P; {tile} points a "
             f"tile, P {'whole' if whole_p else 'in 16 rows'}, {shared} B of shared memory a "
-            f"block; relative max|diff| {relative:.3e}, two calls bitwise equal, the outputs "
-            f"without tau {from_without:.3e} (relative) from the kernel's without it"
-            + (", each spin bitwise K8ct's" if n_spins == 2 else "")
-            + f"; {ms:.4f} ms (without tau {without_ms:.4f} ms) vs plain {plain_ms:.4f} ms, "
-            f"the products alone as batched torch.matmul {library_ms:.4f} ms; at each tile "
-            f"{json.dumps(tiles)}; bound {deriv_bound['bound_ms']:.5f} ms by "
-            f"{deriv_bound['bound_by']}; registers (ptxas) {json.dumps(found)} (without tau "
-            f"{registers.get(f'dft_grid:density_deriv_on_grid_kernel<{n_spins}>')})")
+            f"block; {'; '.join(checks)}; {ms:.4f} ms ({other} {other_ms:.4f} ms) vs plain "
+            f"{plain_ms:.4f} ms, the products alone as batched torch.matmul {products_ms:.4f} "
+            f"ms; at each tile {json.dumps(tiles)}; bound {deriv_bound['bound_ms']:.5f} ms by "
+            f"{deriv_bound['bound_by']}; registers (ptxas) {json.dumps(found)}")
 
 
 def check_meta_gga_kernels(device, record: dict, registers: dict) -> str:
@@ -2696,11 +2654,12 @@ def check_meta_gga_kernels(device, record: dict, registers: dict) -> str:
     SCF_output, molecule, _, P = run(LINE_MGGA, suppress_output=True, device="cuda")
     print(check_tau_kernel(molecule, P, device, record, registers))
     U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
-    print(check_tau_deriv(molecule, (U.T @ P @ U)[None], device, record, registers))
+    print(check_moving_grid(molecule, (U.T @ P @ U)[None], device, record, registers,
+                            with_tau=True))
     SCF_output, molecule, _, _ = run(LINE_UMGGA, suppress_output=True, device="cuda")
     U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
     P_stack = torch.stack([U.T @ SCF_output.P_alpha @ U, U.T @ SCF_output.P_beta @ U])
-    return check_tau_deriv(molecule, P_stack, device, record, registers)
+    return check_moving_grid(molecule, P_stack, device, record, registers, with_tau=True)
 
 
 def check_meta_gga_spe(line: str, energy_ref: float, iterations_ref: int, kernels: tuple,
@@ -2731,7 +2690,7 @@ def profile_meta_gga_opt(line: str) -> dict:
     hand = profile["hand_kernels"]
     profile["path_kernels"] = {
         "density_tau_on_grid (K7bt)": hand.get("density_tau_on_grid_kernel"),
-        "density_tau_deriv_on_grid (K8ct)": hand.get("density_tau_deriv_on_grid_kernel[1]"),
+        "density_tau_deriv_on_grid (K8ct)": hand.get("moving_grid_kernel[1,2]"),
         "density_on_grid (K7b)": hand.get("density_on_grid_kernel"),
     }
     return profile
@@ -2777,12 +2736,12 @@ def check_meta_gga_paths(device, record: dict) -> dict:
         if line == LINE_MGGA_OPT:
             profile = profile_meta_gga_opt(line)
             record[tau_kernel]["device_ms_a_launch"] = _device_ms_a_launch(
-                profile, "density_tau_deriv_on_grid_kernel[1]")
+                profile, "moving_grid_kernel[1,2]")
             print("profile: " + json.dumps(profile))
         else:
             profile = profiled_run(line)
             record[tau_kernel]["device_ms_a_launch"] = _device_ms_a_launch(
-                profile, "density_tau_deriv_on_grid_kernel[2]")
+                profile, "moving_grid_kernel[2,2]")
             print(f"profiled run: {line}; " + json.dumps(
                 {key: profile[key] for key in ("profiled_wall_s", "device_busy_ms",
                                                "device_idle_share", "hand_kernels")}))
@@ -2915,7 +2874,7 @@ def spe_devices(line: str = LINE_UKS_SPE, reference: float = E_REF_UKS_SPE) -> d
 # IntegralPlan.eri_pair_packed and .fock_direct, post.cc.ccsd_t_energy,
 # dft.vv10.vv10_energy, ops.motransform.pair_packed_to_mo and
 # .half_transform, dft.grid's ao_on_grid, density_on_grid(...,
-# with_tau=True) and density_deriv_on_grid(_spin)(..., with_tau=True), and
+# with_tau=True) and density_deriv_on_grid(_spin) with and without tau, and
 # post.cc.ccsdt_q_energy and .uccsd_t_energy, which every checkout with the
 # meta-GGAs has.
 _WALLS = """
@@ -3016,8 +2975,8 @@ del values, grads
 C = np.random.default_rng(14).standard_normal((n_mo, 7)) / np.sqrt(n_mo)
 P_tau = gpu(C @ C.T)
 tau_call = lambda: grid.density_on_grid(P_tau, bfs, bf_grads, with_tau=True)
-# K8ct on N2/cc-pVTZ's medium grid and K8cut on O2's (atom 1's half of the
-# points moving), seeded density-like P
+# K8ct and K8c on N2/cc-pVTZ's medium grid, K8cut and K8cu on O2's (atom
+# 1's half of the points moving), seeded density-like P
 tau_deriv = {}
 for symbol, bond, spins, seed in (("N", 1.1, 1, 15), ("O", 1.21, 2, 16)):
     tpss = Config("SPE", lookup_method("TPSS"), 0.0, [], "CC-PVTZ", [symbol, symbol],
@@ -3040,6 +2999,11 @@ for symbol, bond, spins, seed in (("N", 1.1, 1, 15), ("O", 1.21, 2, 16)):
                                   deriv_points.shape[1] // 2, P_deriv, True, with_tau=True)
     tau_deriv[name + "_ms"] = median_ms(deriv_call)
     tau_deriv[name + "_points"] = deriv_points.shape[1]
+    tau_deriv[name + "_sums"] = [float(x.sum()) for x in deriv_call()]
+    name = f"density_deriv_on_grid{'_spin' if spins == 2 else ''}_{symbol.lower()}2_cc_pvtz"
+    deriv_call = lambda: deriv_fn(deriv_basis, gpu(deriv_basis.origin), deriv_moves, deriv_points,
+                                  deriv_points.shape[1] // 2, P_deriv, True)
+    tau_deriv[name + "_ms"] = median_ms(deriv_call)
     tau_deriv[name + "_sums"] = [float(x.sum()) for x in deriv_call()]
 # K9 at the (Q) path's (7, 19) and cc-pVTZ's (7, 53), K2u at the UHF
 # lines A (16, 36) and C (16, 104), seeded, through the public wrappers
@@ -3214,7 +3178,8 @@ def main() -> int:
 
     # --- 6. DFT kernels against their plain versions --------------------------
     print(check_dft_kernels(molecule, P, device, record))
-    print(check_density_deriv(molecule, P, device, record))
+    U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
+    print(check_moving_grid(molecule, (U.T @ P @ U)[None], device, record, registers))
 
     # --- 7. DIRECT kernels against their plain versions -----------------------
     for basis in ("CC-PVTZ", "6-311G"):
@@ -3232,7 +3197,7 @@ def main() -> int:
         print(check_gradient_integrals(symbol, partner, bond_angstrom, basis, device, record))
 
     # --- 10 and 11. gradient paths, BASELINE configs 3 and 5 --------------------
-    launches = check_gradient_paths()
+    launches = check_gradient_paths(record)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     # --- 12. the spin-orbital (T) kernel against its plain version -----------
@@ -3262,7 +3227,7 @@ def main() -> int:
     print(check_unrestricted_gradient_kernels(device, record, registers))
 
     # --- 19. the unrestricted gradient paths --------------------------------------
-    launches = check_unrestricted_gradient_paths()
+    launches = check_unrestricted_gradient_paths(record)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     # --- 20. K7bt, K8ct and K8cut against their plain versions -----------------

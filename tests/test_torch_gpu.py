@@ -773,9 +773,9 @@ def test_spin_density_deriv_kernel_matches_plain(cuda, basis, with_gradients):
 def test_tau_density_deriv_kernels_match_plain(cuda, basis, n_spins):
     """K8ct (one density) and K8cut (two) on N2's medium grid: every output
     against the plain version (1e-12 of its largest |entry|), bitwise over
-    two calls, rho, grad rho and their tangents within 1e-13 of the largest
-    |entry| of K8c's (K8cu's; the two kernels sum in other orders), and
-    each spin of K8cut bitwise K8ct's."""
+    two calls, rho, grad rho and their tangents bitwise K8c's (K8cu's: the
+    same template, whose {Y, Y'} warp runs the same code with and without
+    tau), and each spin of K8cut bitwise K8ct's."""
     molecule, points, _, basis_g = _n2_grid(basis, cuda)
     G = points.shape[1]
     origin = torch.as_tensor(basis_g.origin, device=cuda)
@@ -797,7 +797,7 @@ def test_tau_density_deriv_kernels_match_plain(cuda, basis, n_spins):
     again = call(basis_g, origin, moves, points, G // 2, P, True, with_tau=True)
     without = call(basis_g, origin, moves, points, G // 2, P, True)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
-    assert all(_relative(g, w) <= 1e-13 for g, w in zip(got[:4], without))
+    assert all(torch.equal(g, w) for g, w in zip(got[:4], without))
     for s in range(n_spins):
         expected = grid._density_deriv_on_grid_plain(basis_g, origin, moves, points, G // 2,
                                                       P_stack[s], True, with_tau=True)
@@ -827,16 +827,27 @@ def _seeded_basis(n, seed):
     return basis, moves
 
 
+# (with_gradients, with_tau): K8c and K8cu without gradients (the LDA
+# branch, two columns), with them, and K8ct and K8cut
+OUTPUT_SETS = [(False, False), (True, False), (True, True)]
+
+
+@pytest.mark.parametrize("outputs", OUTPUT_SETS, ids=["rho", "gradients", "tau"])
 @pytest.mark.parametrize("n", [9, 70, 97, 140, 203])
 @pytest.mark.parametrize("G, first_moving", [(5, 0), (5, 5), (77, 37), (77, 0), (77, 77),
                                              (200, 100)])
-def test_tau_deriv_kernels_tile_edges(cuda, n, G, first_moving):
-    """K8ct and K8cut on a seeded basis of n AOs (tiles of 32 points with P
-    whole at n = 9 and 70 for one density, 16 for two; P
-    16 rows at a time from n = 97 for two and n = 140 for one; 8 points at
-    n = 203) at G seeded points, the points from first_moving on moving:
-    every output 1e-12 of its largest |entry| from the plain version, both
-    kernels bitwise over two calls, each spin of K8cut bitwise K8ct's."""
+def test_tau_deriv_kernels_tile_edges(cuda, n, G, first_moving, outputs):
+    """The moving-grid kernel for one density (K8c, K8ct) and two (K8cu,
+    K8cut) at each output set, on a seeded basis of n AOs at G seeded
+    points, the points from first_moving on moving, at the host's layout
+    (with seven columns: tiles of 32 points with P whole at n = 9 and 70 for
+    one density, 16 for two; P 16 rows at a time from n = 97 for two and
+    n = 140 for one; 8 points at n = 203) and at every other layout that
+    fits: every output 1e-12 of its largest |entry| from the plain version,
+    bitwise over two calls and between layouts, each spin of the
+    two-density kernel bitwise the one-density kernel's, and without tau
+    bitwise the first four outputs of the kernel with tau."""
+    with_gradients, with_tau = outputs
     basis, moves = _seeded_basis(n, n)
     rng = np.random.default_rng(G + n)
     points = torch.as_tensor(rng.uniform([-3.0, -3.0, -3.0], [3.0, 3.0, 5.0], (G, 3)).T.copy(),
@@ -844,24 +855,47 @@ def test_tau_deriv_kernels_tile_edges(cuda, n, G, first_moving):
     origin = torch.as_tensor(basis.origin, device=cuda)
     moves = torch.as_tensor(moves, dtype=torch.int32, device=cuda)
     P_stack = torch.stack([torch.as_tensor(_density(n, seed), device=cuda) for seed in (n, n + 1)])
+    kernel = "density_tau_deriv_on_grid" if with_tau else "density_deriv_on_grid"
     singles = [grid.density_deriv_on_grid(basis, origin, moves, points, first_moving,
-                                          P_stack[s].contiguous(), True, with_tau=True)
+                                          P_stack[s].contiguous(), with_gradients, with_tau)
                for s in range(2)]
     _kernels.reset_launch_counts()
     both = grid.density_deriv_on_grid_spin(basis, origin, moves, points, first_moving, P_stack,
-                                           True, with_tau=True)
-    assert _kernels.launches["density_tau_deriv_on_grid_spin"] == 1
+                                           with_gradients, with_tau)
+    assert _kernels.launches[kernel + "_spin"] == 1
+    assert sum(_kernels.launches.values()) == 1
     again = grid.density_deriv_on_grid_spin(basis, origin, moves, points, first_moving, P_stack,
-                                            True, with_tau=True)
-    assert all(torch.equal(b, a) for b, a in zip(both, again))
+                                            with_gradients, with_tau)
+    assert all(b is a is None or torch.equal(b, a) for b, a in zip(both, again))
     for s in range(2):
         expected = grid._density_deriv_on_grid_plain(basis, origin, moves, points, first_moving,
-                                                      P_stack[s], True, with_tau=True)
+                                                      P_stack[s], with_gradients, with_tau)
         single_again = grid.density_deriv_on_grid(basis, origin, moves, points, first_moving,
-                                                  P_stack[s].contiguous(), True, with_tau=True)
+                                                  P_stack[s].contiguous(), with_gradients,
+                                                  with_tau)
         for b, one, one_again, e in zip(both, singles[s], single_again, expected):
+            if e is None:
+                assert b is None and one is None and one_again is None
+                continue
             assert one.shape == e.shape and _relative(one, e) <= 1e-12
             assert torch.equal(one, one_again) and torch.equal(b[s], one)
+    if with_gradients and not with_tau:
+        for s in range(2):
+            tau = grid.density_deriv_on_grid(basis, origin, moves, points, first_moving,
+                                             P_stack[s].contiguous(), True, True)
+            assert all(torch.equal(a, b) for a, b in zip(singles[s], tau[:4]))
+    for spins, P in ((1, P_stack[0].contiguous()), (2, P_stack)):
+        name = kernel + ("_spin" if spins == 2 else "")
+        default = singles[0] if spins == 1 else both
+        for points_a_tile in (32, 16, 8):
+            for whole in (True, False):
+                shared = grid.density_deriv_bytes(n, spins, points_a_tile, whole, with_gradients)
+                if points_a_tile * spins > 32 or shared > _kernels.SHARED_MEMORY_A_BLOCK:
+                    continue
+                got = grid._density_deriv_kernel(name, "tuna_" + name, basis, origin, moves,
+                                                 points, first_moving, P, with_gradients,
+                                                 with_tau, layout=(points_a_tile, whole))
+                assert all(g is d is None or torch.equal(g, d) for g, d in zip(got, default))
 
 
 @pytest.mark.parametrize("line,bond_ref,energy_ref,kernel", [

@@ -146,24 +146,67 @@ def test_tau_needs_the_gradients(moving_grid):
     (140, 1, 16, False), (140, 2, 16, False), (203, 1, 8, False), (203, 2, 8, False)])
 def test_tau_deriv_kernel_layout_fits_shared_memory(n, spins, points, whole):
     """K8ct's (spins = 1) and K8cut's (2) tile (dft/grid.py::
-    density_tau_deriv_layout): at most 32 / spins points (256 threads a
-    block); at cc-pVTZ's 70 Cartesian AOs 32 points with P whole for one
+    density_deriv_layout with tau): at most 32 / spins points (256 threads
+    a block); at cc-pVTZ's 70 Cartesian AOs 32 points with P whole for one
     density, 16 for two; from cc-pVQZ's 140, P 16 rows at a time; within an
     H100 block's shared memory, where the next larger tile is not."""
-    layout = grid.density_tau_deriv_layout(n, spins)
-    assert layout == (points, whole, grid.density_tau_deriv_bytes(n, spins, points, whole))
+    layout = grid.density_deriv_layout(n, spins)
+    assert layout == (points, whole, grid.density_deriv_bytes(n, spins, points, whole))
     assert layout[2] <= _kernels.SHARED_MEMORY_A_BLOCK
     if points < 32 // spins:
-        assert grid.density_tau_deriv_bytes(n, spins, 2 * points, whole) > \
+        assert grid.density_deriv_bytes(n, spins, 2 * points, whole) > \
             _kernels.SHARED_MEMORY_A_BLOCK
     if not whole:
-        assert grid.density_tau_deriv_bytes(n, spins, 8, True) > _kernels.SHARED_MEMORY_A_BLOCK
+        assert grid.density_deriv_bytes(n, spins, 8, True) > _kernels.SHARED_MEMORY_A_BLOCK
 
 
 @pytest.mark.parametrize("n, spins", [(252, 2), (288, 1)])
 def test_tau_deriv_kernel_layout_raises_past_the_card(n, spins):
     with pytest.raises(ValueError, match=f"{n} AOs with {spins} density matrices do not fit"):
-        grid.density_tau_deriv_layout(n, spins)
+        grid.density_deriv_layout(n, spins)
+
+
+# (with_gradients, with_tau) of the moving-grid kernel: K8c and K8cu
+# without gradients (the LDA branch), with them, and K8ct and K8cut
+OUTPUT_SETS = [(False, False), (True, False), (True, True)]
+
+
+@pytest.mark.parametrize("outputs", OUTPUT_SETS, ids=["rho", "gradients", "tau"])
+@pytest.mark.parametrize("spins", [1, 2])
+@pytest.mark.parametrize("n", [9, 70, 140, 190])
+def test_deriv_kernel_layout_covers_every_card_basis(n, spins, outputs):
+    """The moving-grid kernel's tile (dft/grid.py::density_deriv_layout)
+    for each output set (tau reads the seven columns of the gradients, so
+    shares their tile), up to 190 Cartesian AOs (T-AUG-CC-PVTZ's 95 an
+    atom, the largest with lmax <= 3, on a diatomic): it fits an H100
+    block's shared memory, and every tile before it in the host's order (32
+    / spins, 16, 8 points with P whole, then with 16 rows) does not."""
+    with_gradients, _ = outputs
+    points, whole, shared = grid.density_deriv_layout(n, spins, with_gradients)
+    assert shared == grid.density_deriv_bytes(n, spins, points, whole, with_gradients)
+    assert shared <= _kernels.SHARED_MEMORY_A_BLOCK and points * spins <= 32
+    order = [(t, w) for w in (True, False) for t in (32, 16, 8) if t * spins <= 32]
+    for t, w in order[:order.index((points, whole))]:
+        assert grid.density_deriv_bytes(n, spins, t, w, with_gradients) > \
+            _kernels.SHARED_MEMORY_A_BLOCK
+    if not with_gradients:   # two columns: the same or a larger tile than seven
+        assert points >= grid.density_deriv_layout(n, spins)[0]
+
+
+@pytest.mark.parametrize("outputs", OUTPUT_SETS, ids=["rho", "gradients", "tau"])
+@pytest.mark.parametrize("n, spins", [(252, 2), (288, 1), (508, 2), (708, 1)])
+def test_deriv_kernel_layout_raises_past_the_card(n, spins, outputs):
+    """Past an H100 block's shared memory the layout raises in words (no
+    other kernel or plain version takes the shape on the card): 252 AOs for
+    two densities and 288 for one with seven columns, 508 and 708 with
+    two."""
+    with_gradients, _ = outputs
+    if with_gradients or n > 300:
+        with pytest.raises(ValueError,
+                           match=f"{n} AOs with {spins} density matrices do not fit"):
+            grid.density_deriv_layout(n, spins, with_gradients)
+    else:
+        assert grid.density_deriv_layout(n, spins, False)[2] <= _kernels.SHARED_MEMORY_A_BLOCK
 
 
 def _k8ct_columns(basis, origin, ao_moves, points, point_moves):
@@ -197,37 +240,49 @@ def _k8ct_columns(basis, origin, ao_moves, points, point_moves):
     return columns
 
 
-def _k8ct_emulated(basis, origin, ao_moves, points, first_moving, P, tile):
-    """K8ct's arithmetic in NumPy on its tiles (csrc/dft_grid.cu
-    density_tau_deriv_on_grid_kernel): a tile's seven columns with rows
-    past n zero, phi' formed from the d_z phi column, and for each 16 AO
-    rows i the products {Y, Y'} and {Y_x, Y_y, Y_z} = P[i, :kp] B[:kp] (kp =
-    n rounded up to 8, the MMA's depth), then each warp's epilogue against
-    the columns at the same (i, point), summed over i."""
+def _k8ct_emulated(basis, origin, ao_moves, points, first_moving, P, tile,
+                   with_gradients=True, with_tau=True):
+    """The moving-grid kernel's arithmetic in NumPy on its tiles
+    (csrc/dft_grid.cu moving_grid_kernel): a tile's columns with rows past n
+    zero (seven with gradients, else phi and d_z phi), phi' formed from the
+    d_z phi column, and for each 16 AO rows i the products {Y, Y'} (Y alone
+    without gradients) and, with tau, {Y_x, Y_y, Y_z} = P[i, :kp] B[:kp] (kp
+    = n rounded up to 8, the MMA's depth), then each warp's epilogue against
+    the columns at the same (i, point), summed over i.  Returns the
+    outputs of density_deriv_on_grid for those flags."""
     n, G = basis.n_ao, points.shape[1]
     mp, kp = -(-n // 16) * 16, -(-n // 8) * 8
     P_padded = np.zeros((mp, kp))
     P_padded[:n, :n] = P
     moves_ao = np.zeros(mp)
     moves_ao[:n] = ao_moves
+    kept = [0, 1, 2, 3, 4, 5, 6] if with_gradients else [0, 3]   # the columns a tile holds
+    dz = kept.index(3)
     sums = np.zeros((10, G))
     for k0 in range(0, G, tile):
         k = np.arange(k0, min(k0 + tile, G))
         point_moves = (k >= first_moving).astype(np.float64)
-        columns = np.zeros((7, mp, len(k)))
-        columns[:, :n] = _k8ct_columns(basis, origin, ao_moves, points[:, k], point_moves)
-        moving_phi = (point_moves[None, :] - moves_ao[:, None]) * columns[3]
+        columns = np.zeros((len(kept), mp, len(k)))
+        columns[:, :n] = _k8ct_columns(basis, origin, ao_moves, points[:, k], point_moves)[kept]
+        moving_phi = (point_moves[None, :] - moves_ao[:, None]) * columns[dz]
         for i0 in range(0, mp, 16):
-            Y, Ym, *Yc = (P_padded[i0:i0 + 16] @ B[:kp]
-                          for B in (columns[0], moving_phi, *columns[1:4]))
             c, f = columns[:, i0:i0 + 16], moving_phi[i0:i0 + 16]
+            Y = P_padded[i0:i0 + 16] @ columns[0, :kp]
             sums[0, k] += np.sum(c[0] * Y, axis=0)
             sums[1, k] += np.sum(f * Y, axis=0)
+            if not with_gradients:
+                continue
+            Ym = P_padded[i0:i0 + 16] @ moving_phi[:kp]
             sums[2:5, k] += np.sum(c[1:4] * Y, axis=1)
             sums[5:8, k] += np.sum(c[1:4] * Ym + c[4:7] * Y, axis=1)
-            sums[8, k] += sum(np.sum(c[1 + a] * Yc[a], axis=0) for a in range(3))
-            sums[9, k] += sum(np.sum(c[4 + a] * Yc[a], axis=0) for a in range(3))
-    return sums[0], 2 * sums[2:5], 2 * sums[1], 2 * sums[5:8], 0.5 * sums[8], sums[9]
+            if with_tau:
+                Yc = [P_padded[i0:i0 + 16] @ B[:kp] for B in columns[1:4]]
+                sums[8, k] += sum(np.sum(c[1 + a] * Yc[a], axis=0) for a in range(3))
+                sums[9, k] += sum(np.sum(c[4 + a] * Yc[a], axis=0) for a in range(3))
+    if not with_gradients:
+        return sums[0], None, 2 * sums[1], None
+    outputs = (sums[0], 2 * sums[2:5], 2 * sums[1], 2 * sums[5:8])
+    return outputs + (0.5 * sums[8], sums[9]) if with_tau else outputs
 
 
 def test_k8ct_emulated_tiles_match_the_plain_version(moving_grid):
@@ -238,13 +293,37 @@ def test_k8ct_emulated_tiles_match_the_plain_version(moving_grid):
     largest |entry|."""
     basis, moves, points, G, P_stack = moving_grid
     assert basis.n_ao % 8 != 0   # the padding is exercised
-    tile = grid.density_tau_deriv_layout(basis.n_ao, 1)[0]
+    tile = grid.density_deriv_layout(basis.n_ao, 1)[0]
     first_moving = G // 2 + tile // 2 - G // 2 % tile   # mid-tile
     expected = grid.density_deriv_on_grid(basis, torch.as_tensor(basis.origin), moves, points,
                                           first_moving, P_stack[1], True, with_tau=True)
     got = _k8ct_emulated(basis, basis.origin, moves.numpy(), points.numpy(), first_moving,
                          P_stack[1].numpy(), tile)
     for g, e in zip(got, expected):
+        e = e.numpy()
+        assert g.shape == e.shape
+        assert np.max(np.abs(g - e)) <= 1e-13 * np.max(np.abs(e))
+
+
+@pytest.mark.parametrize("with_gradients", [True, False])
+def test_k8c_emulated_tiles_match_the_plain_version(moving_grid, with_gradients):
+    """K8c's tiling on the same template without tau (the {Y, Y'} warp's
+    epilogue alone; without gradients two columns and Y alone), emulated in
+    NumPy on OH/6-31G's loose grid at the host's tile for that output set,
+    against the plain version at a first_moving inside a tile: 1e-13 of
+    each output's largest |entry|."""
+    basis, moves, points, G, P_stack = moving_grid
+    tile = grid.density_deriv_layout(basis.n_ao, 1, with_gradients)[0]
+    first_moving = G // 2 + tile // 2 - G // 2 % tile   # mid-tile
+    expected = grid.density_deriv_on_grid(basis, torch.as_tensor(basis.origin), moves, points,
+                                          first_moving, P_stack[0], with_gradients)
+    got = _k8ct_emulated(basis, basis.origin, moves.numpy(), points.numpy(), first_moving,
+                         P_stack[0].numpy(), tile, with_gradients, with_tau=False)
+    assert len(got) == len(expected) == 4
+    for g, e in zip(got, expected):
+        if e is None:
+            assert g is None
+            continue
         e = e.numpy()
         assert g.shape == e.shape
         assert np.max(np.abs(g - e)) <= 1e-13 * np.max(np.abs(e))

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # The shared memory one block may take on an H100 (227 KB); the hosts of
-# K5, K7bt, K8ct and K8cut size their layouts against it.
+# K5, K7bt and the moving-grid kernel (K8c, K8cu, K8ct, K8cut) size their
+# layouts against it.
 SHARED_MEMORY_A_BLOCK = 232448
 
 _P = ctypes.c_void_p
@@ -91,15 +92,14 @@ SIGNATURES = {
     # as tuna_eri_deriv_energy with Pt = Pa + Pb, Pa, Pb in place of P
     "tuna_eri_deriv_energy_unrestricted": [_I, _I, _I] + [_P] * 12 + [_I] + [_P] * 5
                                           + [_D, _P, _I, _P, _P] + [_P],
-    # n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves,
-    # lmn, prim_start, exps, coefs, P, density, gradient, d_density,
-    # d_gradient
-    "tuna_density_deriv_on_grid": [_I, _I, _I, _I] + [_P] * 12 + [_P],
+    # n_ao, n_points, first_moving, with_gradients, points a tile, whole P,
+    # points, origin, ao_moves, lmn, prim_start, exps, coefs, P, density,
+    # gradient, d_density, d_gradient
+    "tuna_density_deriv_on_grid": [_I] * 6 + [_P] * 12 + [_P],
     # as tuna_density_deriv_on_grid with P (2, n_ao, n_ao) and each output
     # stacked over the two spins
-    "tuna_density_deriv_on_grid_spin": [_I, _I, _I, _I] + [_P] * 12 + [_P],
-    # n_ao, n_points, first_moving, with_gradients, points a tile, whole P,
-    # then as tuna_density_deriv_on_grid (..._spin), plus tau and d_tau
+    "tuna_density_deriv_on_grid_spin": [_I] * 6 + [_P] * 12 + [_P],
+    # as tuna_density_deriv_on_grid (..._spin), plus tau and d_tau
     "tuna_density_tau_deriv_on_grid": [_I] * 6 + [_P] * 14 + [_P],
     "tuna_density_tau_deriv_on_grid_spin": [_I] * 6 + [_P] * 14 + [_P],
 }
@@ -180,7 +180,10 @@ def build() -> pathlib.Path:
     shutil.rmtree(work, ignore_errors=True)
     if failed:
         partial.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log[-8000:]}")
+        # the failed units' own reports, not the tail of every unit's
+        errors = "".join(f"== {unit.name}\n{report[:8000]}" for unit, report, code in reports
+                         if code != 0)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{errors or log[-8000:]}")
     os.replace(partial, target)
     return target
 

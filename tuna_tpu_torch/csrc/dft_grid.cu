@@ -303,203 +303,62 @@ density_tau_on_grid_kernel(int n_ao, int n_points, int points, int mp, int kp, i
   }
 }
 
-// K8c: the density, its gradient and their R-tangents at fixed P, when
-// atom 1 moves along +z and the points of its half of the grid move with
-// it.  An AO value moves by (s_k - s_mu) d phi/dz, s = 1 for what moves
-// with atom 1 (a function and a point on the same atom move together), its
-// gradient by (s_k - s_mu) d(grad phi)/dz, the z column of the AO's
-// Hessian.  With Y = P phi and Y' = P phi' (P symmetric, Cartesian):
-//   rho' = 2 phi' . Y,   grad rho' = 2 (grad phi . Y' + grad phi' . Y).
-// One thread a point, as K7b; its columns phi and phi' in shared memory
-// (2 n_ao doubles a thread), each row of P the same for the warp (served
-// from L1), the AO gradients and Hessian columns recomputed from the
-// primitives row by row.  Every sum runs in a fixed order.
+// The moving-grid kernel (moving_grid_kernel<S, outputs, whole P>): K8c and
+// K8cu, K8ct and K8cut, one template over S = 1 or 2 densities (the spins)
+// and three output sets.  They replace tuna_tpu/drivers/gradients.py:123-160
+// (and :184-211 for both spins): basis_on_grid and density_quantities on
+// the moving grid under jax.grad.  At fixed P, when atom 1 moves along +z
+// and the points of its half of the grid move with it, an AO value moves by
+// (s_k - s_mu) d phi/dz (s = 1 for what moves with atom 1: a function and a
+// point on the same atom move together), its gradient by (s_k - s_mu)
+// d(grad phi)/dz, the z column of the AO's Hessian.  With Y = P phi, Y' =
+// P phi' and Y_c = P d_c phi (P symmetric, Cartesian), the outputs are
+// * kDerivRho (the LDA branch, K8c and K8cu without gradients): rho = phi
+//   . Y and rho' = 2 phi' . Y;
+// * kDerivGradients (K8c and K8cu): those and grad rho = 2 grad phi . Y,
+//   grad rho' = 2 (grad phi . Y' + grad phi' . Y);
+// * kDerivTau (K8ct and K8cut, :157-159): those and the meta-GGAs' tau =
+//   1/2 sum_c d_c phi . Y_c and tau' = sum_c (d_c phi)' . Y_c.
 //
-// K8cu (tuna_tpu/drivers/gradients.py:123-160 with :184-211, UHF and UKS)
-// is the same kernel over a stack of S densities (S = 2, the spins) in one
-// pass: the columns phi and phi' are formed once a point and serve every
-// density, so S costs registers (Y_s, Y'_s and the sums of each density)
-// and the S rows P_s read through L1, not a second copy of the columns.
-// Each density's sums run in the order of the single-density kernel (S =
-// 1 is K8c itself), so its outputs are K8c's on that density, bit for bit.
-// Bound as K8c: the products Y_s = P_s phi and Y'_s = P_s phi' at the
-// float64 rate, S times K8c's.
-constexpr int kDerivPoints = 32;  // threads (points) per block of K8c
-
-template <int S>
-__global__ void __launch_bounds__(kDerivPoints)
-density_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int with_gradients,
-                             const double* __restrict__ points, const double* __restrict__ origin,
-                             const int* __restrict__ ao_moves, const int* __restrict__ lmn,
-                             const int* __restrict__ prim_start, const double* __restrict__ exps,
-                             const double* __restrict__ coefs, const double* __restrict__ P,
-                             double* __restrict__ density, double* __restrict__ gradient,
-                             double* __restrict__ d_density, double* __restrict__ d_gradient) {
-  extern __shared__ double shared[];
-  const size_t column = static_cast<size_t>(n_ao) * kDerivPoints;
-  double* phi = shared;            // phi[j * kDerivPoints + t]
-  double* dphi = shared + column;  // its R-tangent
-  const int t = threadIdx.x;
-  const int k = blockIdx.x * kDerivPoints + t;
-  if (k >= n_points) return;  // no barrier below
-  const size_t G = static_cast<size_t>(n_points);
-  const size_t nn = static_cast<size_t>(n_ao) * n_ao;
-  const double x = points[k], y = points[G + k], z = points[2 * G + k];
-  const double point_moves = k >= first_moving ? 1.0 : 0.0;
-  for (int mu = 0; mu < n_ao; ++mu) {
-    const double X = x - origin[3 * mu], Y = y - origin[3 * mu + 1], Z = z - origin[3 * mu + 2];
-    const double r2 = X * X + Y * Y + Z * Z;
-    double s0 = 0.0, s1 = 0.0;
-    for (int p = prim_start[mu]; p < prim_start[mu + 1]; ++p) {
-      const double term = coefs[p] * exp(-exps[p] * r2);
-      s0 += term;
-      s1 += exps[p] * term;
-    }
-    const int l = lmn[3 * mu], m = lmn[3 * mu + 1], n = lmn[3 * mu + 2];
-    const double px = int_pow(X, l), py = int_pow(Y, m), pz = int_pow(Z, n);
-    const double poly = px * py * pz;
-    const double dz = n > 0 ? n * px * py * int_pow(Z, n - 1) : 0.0;
-    phi[mu * kDerivPoints + t] = s0 * poly;
-    dphi[mu * kDerivPoints + t] = (point_moves - ao_moves[mu]) * (dz * s0 - 2.0 * Z * poly * s1);
-  }
-  double rho[S], drho[S], g[S][3], dg[S][3];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    rho[s] = drho[s] = 0.0;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) g[s][c] = dg[s][c] = 0.0;
-  }
-  for (int i = 0; i < n_ao; ++i) {
-    double Yi[S], dYi[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const double* row = P + s * nn + static_cast<size_t>(i) * n_ao;
-      Yi[s] = 0.0;
-      dYi[s] = 0.0;
-      for (int j = 0; j < n_ao; ++j) {
-        Yi[s] += row[j] * phi[j * kDerivPoints + t];
-        dYi[s] += row[j] * dphi[j * kDerivPoints + t];
-      }
-      rho[s] += phi[i * kDerivPoints + t] * Yi[s];
-      drho[s] += dphi[i * kDerivPoints + t] * Yi[s];
-    }
-    if (!with_gradients) continue;
-    const double X = x - origin[3 * i], Y = y - origin[3 * i + 1], Z = z - origin[3 * i + 2];
-    const double r2 = X * X + Y * Y + Z * Z;
-    double s0 = 0.0, s1 = 0.0, s2 = 0.0;  // sum c a^q e^(-a r2), q = 0, 1, 2
-    for (int p = prim_start[i]; p < prim_start[i + 1]; ++p) {
-      const double term = coefs[p] * exp(-exps[p] * r2);
-      s0 += term;
-      s1 += exps[p] * term;
-      s2 += exps[p] * exps[p] * term;
-    }
-    const int l = lmn[3 * i], m = lmn[3 * i + 1], n = lmn[3 * i + 2];
-    const double px = int_pow(X, l), py = int_pow(Y, m), pz = int_pow(Z, n);
-    const double poly = px * py * pz;
-    // monomial derivatives, each only where its power is positive (the
-    // Lebedev directions hold X = 0, where 0^(-1) would give NaN)
-    const double dx = l > 0 ? l * int_pow(X, l - 1) * py * pz : 0.0;
-    const double dy = m > 0 ? m * px * int_pow(Y, m - 1) * pz : 0.0;
-    const double dz = n > 0 ? n * px * py * int_pow(Z, n - 1) : 0.0;
-    const double dxz = l > 0 && n > 0 ? l * n * int_pow(X, l - 1) * py * int_pow(Z, n - 1) : 0.0;
-    const double dyz = m > 0 && n > 0 ? m * n * px * int_pow(Y, m - 1) * int_pow(Z, n - 1) : 0.0;
-    const double dzz = n > 1 ? n * (n - 1) * px * py * int_pow(Z, n - 2) : 0.0;
-    const double grad[3] = {dx * s0 - 2.0 * X * poly * s1, dy * s0 - 2.0 * Y * poly * s1,
-                            dz * s0 - 2.0 * Z * poly * s1};
-    const double hess_z[3] = {
-        dxz * s0 - 2.0 * Z * dx * s1 - 2.0 * X * dz * s1 + 4.0 * X * Z * poly * s2,
-        dyz * s0 - 2.0 * Z * dy * s1 - 2.0 * Y * dz * s1 + 4.0 * Y * Z * poly * s2,
-        dzz * s0 - 4.0 * Z * dz * s1 - 2.0 * poly * s1 + 4.0 * Z * Z * poly * s2};
-    const double moves = point_moves - ao_moves[i];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        g[s][c] += grad[c] * Yi[s];
-        dg[s][c] += grad[c] * dYi[s] + moves * hess_z[c] * Yi[s];
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    density[s * G + k] = rho[s];
-    d_density[s * G + k] = 2.0 * drho[s];
-    if (with_gradients) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        gradient[(3 * s + c) * G + k] = 2.0 * g[s][c];
-        d_gradient[(3 * s + c) * G + k] = 2.0 * dg[s][c];
-      }
-    }
-  }
-}
-
-template <int S>
-cudaError_t launch_density_deriv(int n_ao, int n_points, int first_moving, int with_gradients,
-                                 const double* points, const double* origin, const int* ao_moves,
-                                 const int* lmn, const int* prim_start, const double* exps,
-                                 const double* coefs, const double* P, double* density,
-                                 double* gradient, double* d_density, double* d_gradient,
-                                 cudaStream_t stream) {
-  if (n_points == 0) return cudaSuccess;
-  const size_t shared = 2 * static_cast<size_t>(n_ao) * kDerivPoints * sizeof(double);
-  if (shared > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(density_deriv_on_grid_kernel<S>,
-                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                    static_cast<int>(shared));
-    if (status != cudaSuccess) return status;
-  }
-  const int blocks = (n_points + kDerivPoints - 1) / kDerivPoints;
-  density_deriv_on_grid_kernel<S><<<blocks, kDerivPoints, shared, stream>>>(
-      n_ao, n_points, first_moving, with_gradients, points, origin, ao_moves, lmn, prim_start,
-      exps, coefs, P, density, gradient, d_density, d_gradient);
-  return cudaGetLastError();
-}
-
-// K8ct and K8cut (density_tau_deriv_on_grid_kernel, S = 1 and 2 densities)
-// replace tuna_tpu/drivers/gradients.py:123-160 with :157-159 (and :184-211
-// for both spins): basis_on_grid and density_quantities on the moving grid
-// under jax.grad, with the meta-GGAs' tau = 1/2 sum_c d_c phi . Y_c and its
-// tangent tau' = sum_c (d_c phi)' . Y_c, Y_c = P d_c phi, beside K8c's
-// rho, grad rho and their tangents, all in one launch.
+// What bounds them on an H100: operations (chip_smoke.py density_deriv_ms,
+// at N2/cc-pVTZ, 70 Cartesian AOs and 80,724 points: 0.0442 ms for K8c,
+// 0.0854 for K8ct).  A density takes two products of 2 n^2 a point (Y, Y')
+// with gradients, five with tau, one (Y) without gradients, 4e9 operations
+// for tau, 0.059 ms at the DMMA rate; the columns (phi, grad phi and the
+// moving Hessian z column of every AO at every point, ~160 operations an
+// (AO, point)) take 0.026 ms on the CUDA cores; the bytes (points in, ten
+// outputs a point and density out) under 0.01 ms.
 //
-// What bounds them on an H100: operations (chip_smoke.py density_deriv_ms:
-// 0.0854 ms for S = 1 at N2/cc-pVTZ, 70 Cartesian AOs and 80,724 points).
-// A density takes five products of 2 n^2 a point, Y = P phi, Y' = P phi'
-// and Y_c = P d_c phi, 4e9 operations there, 0.059 ms at the DMMA rate;
-// the columns (phi, grad phi and the moving Hessian z column of every AO
-// at every point, ~160 operations an (AO, point)) take 0.026 ms on the
-// CUDA cores; the bytes (points in, ten outputs a point and density out)
-// under 0.01 ms.
-//
-// Their first form (K8c's kernel with a tau flag) took 2.444 ms a launch for
-// S = 1 and 4.191 for S = 2 (NVIDIA H100 80GB HBM3, 700.00 W): one warp a
-// block, its five columns in shared memory (89.6 KB at n = 70, so two
-// warps a multiprocessor), the products as dot products on the CUDA cores
-// reading P through L1 (~3% of the DMMA rate), and every AO's primitives
-// evaluated twice.  This design, after K7bt's:
+// Design, after K7bt's (the first forms, one thread a point with the
+// products as dot products on the CUDA cores, ran at ~3% of the DMMA rate):
 // * Persistent blocks take tiles of T points.  The whole block forms the
-//   tile's seven columns in shared memory, a thread an AO at two points of
-//   the tile in step (two independent chains of arithmetic, which ran
-//   faster than one point a thread at n = 70; the AO's data read once for
-//   both): phi, d_x phi, d_y phi, d_z phi and the moving Hessian z column
-//   (s_k - s_mu) d(d_c phi)/dz, c = x, y, z, each primitive's exponential
-//   once an (AO, point).  phi' = (s_k - s_mu) d_z phi gets no column of
-//   its own: it is formed from the d_z phi column where it is read, as a B
-//   fragment of Y' and in the epilogue (two multiplies), which keeps the
-//   columns to seven and lets T = 32 with P whole at n = 70 for S = 1.
-//   Rows past n_ao and points past n_points are zero.
+//   tile's columns in shared memory, a thread an AO at two points of the
+//   tile in step (two independent chains of arithmetic, which ran faster
+//   than one point a thread at n = 70; the AO's data read once for both):
+//   with gradients phi, d_x phi, d_y phi, d_z phi and the moving Hessian z
+//   column (s_k - s_mu) d(d_c phi)/dz, c = x, y, z, each primitive's
+//   exponential once an (AO, point); without, phi and d_z phi.  phi' =
+//   (s_k - s_mu) d_z phi gets no column of its own: it is formed from the
+//   d_z phi column where it is read, as a B fragment of Y' and in the
+//   epilogue (two multiplies), which keeps the columns to seven and lets
+//   T = 32 with P whole at n = 70 for S = 1.  Rows past n_ao and points past
+//   n_points are zero.
 // * The products on mma.sync.m16n8k8 f64, P (each density's, row-major,
 //   zero-padded: (mp, lda) with mp = n_ao rounded up to 16, the AO tiles,
 //   and the depth kp = n_ao rounded up to 8) staged once a block when it
 //   fits, else 16 rows at a time; lda = kp + 4 and T + 4, 4 or 12 mod 16
 //   doubles, keep the fragment loads free of bank conflicts.
 // * A block has 2S warps for each 8 points: for each density one warp
-//   takes {Y, Y'} (2 products on one A fragment) and one {Y_x, Y_y, Y_z}
-//   (3), so S = 2 doubles the warps, not a warp's registers, and each
-//   density runs exactly the code of S = 1: each spin of K8cut is K8ct's
-//   on that spin's density, bit for bit.  The two kinds alternate over the
-//   multiprocessor's four schedulers (warp w goes to scheduler w % 4).
+//   takes {Y, Y'} (2 products on one A fragment; Y alone without
+//   gradients) and, with tau, one {Y_x, Y_y, Y_z} (3).  Without tau the
+//   second warp of the pair forms columns and waits through the products:
+//   the columns keep the threads of K8ct's block, and the {Y, Y'} warp runs
+//   exactly K8ct's code, so K8c's outputs are K8ct's first four bit for
+//   bit.  S = 2 doubles the warps, not a warp's registers, and each density
+//   runs exactly the code of S = 1: each spin of K8cu (K8cut) is K8c's
+//   (K8ct's) on that spin's density, bit for bit.  The two kinds alternate
+//   over the multiprocessor's four schedulers (warp w goes to scheduler w %
+//   4).
 // * The epilogue in registers: each accumulator entry meets the staged
 //   column entries of the same (AO, point): rho += phi Y, rho' += phi' Y,
 //   g_c += d_c phi Y, g'_c += d_c phi Y' + (d_c phi)' Y from the {Y, Y'}
@@ -510,19 +369,28 @@ cudaError_t launch_density_deriv(int n_ao, int n_points, int first_moving, int w
 //   crosses a warp.
 // The host picks T (32 / S, 16 or 8: at most 256 threads a block, which
 // leaves a thread up to 255 registers) and whether P is staged whole (dft/
-// grid.py::density_tau_deriv_layout).  At n = 70: S = 1 takes T = 32 and
-// P whole, 210,560 B of shared memory and 8 warps a block; S = 2 T = 16,
-// 187,520 B and 8 warps; one block a multiprocessor, 160 registers a
-// thread (ptxas), no spills.  There K8ct takes 0.281 ms a launch on the
-// R2SCAN optimisation and K8cut 0.499 on the UKS TPSS one, 3.3-3.4x the
-// bound (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py), the columns and
-// the products about equal parts, one after the other.  Reading P through
-// L1 instead of staging it, so that two to four blocks share a
-// multiprocessor, was slower for S = 1 and about as fast for S = 2.  rho,
-// grad rho and their tangents agree with K8c's (K8cu's) to rounding, not
-// bitwise.
-constexpr int kTauDerivColumns = 7;       // phi, d_x, d_y, d_z phi, (d_x, d_y, d_z of d_z phi)'
-constexpr int kTauDerivMaxThreads = 256;  // 2 S warps for each 8 of at most 32 / S points
+// grid.py::density_deriv_layout).  At n = 70 with gradients: S = 1 takes
+// T = 32 and P whole, 210,560 B of shared memory and 8 warps a block; S = 2
+// T = 16, 187,520 B and 8 warps; one block a multiprocessor, 120 registers
+// a thread without tau and 160 with it (ptxas), no spills.  There K8c takes
+// 0.241 ms a launch on the B3LYP optimisation and K8cu 0.425 on the UKS
+// one, 5.5-6.1x the bound, most of it forming the columns; K8ct 0.279 on
+// the R2SCAN optimisation and K8cut 0.500 on the UKS TPSS one, 3.3-3.4x
+// (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py).  That block beat T = 16
+// with P in 16 rows, two blocks a multiprocessor; reading P through L1
+// instead of staging it was slower for S = 1 and about as fast for S = 2.
+// Without gradients two columns leave room for two blocks a multiprocessor
+// at n = 70, so the registers are held to 128 there.
+constexpr int kDerivRho = 0;              // rho, rho'
+constexpr int kDerivGradients = 1;        // and grad rho, grad rho'
+constexpr int kDerivTau = 2;              // and tau, tau'
+constexpr int kDerivMaxThreads = 256;     // 2 S warps for each 8 of at most 32 / S points
+
+// The columns a tile holds: phi, d_x, d_y, d_z phi, (d_x, d_y, d_z of
+// d_z phi)' with gradients; phi and d_z phi without.
+__host__ __device__ constexpr int deriv_columns(int outputs) {
+  return outputs == kDerivRho ? 2 : 7;
+}
 
 // x^n for each of two values, 1 for n <= 0.
 __device__ __forceinline__ void powers(double (&out)[2], const double (&x)[2], int n) {
@@ -542,36 +410,37 @@ __device__ __forceinline__ void stage_p_rows(int n_ao, int i0, int rows, int lda
   }
 }
 
-// Shared memory: the columns (7, mp, T + 4), then ao_moves as doubles (mp,
-// zero past n_ao), then each density's P, (mp, lda) when kWholeP, else (16,
-// lda).
-template <int S, bool kWholeP>
-__global__ void __launch_bounds__(kTauDerivMaxThreads, 1)
-density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int points, int mp,
-                                 int kp, int lda, const double* __restrict__ xyz,
-                                 const double* __restrict__ origin,
-                                 const int* __restrict__ ao_moves,
-                                 const int* __restrict__ lmn, const int* __restrict__ prim_start,
-                                 const double* __restrict__ exps, const double* __restrict__ coefs,
-                                 const double* __restrict__ P, double* __restrict__ density,
-                                 double* __restrict__ gradient, double* __restrict__ d_density,
-                                 double* __restrict__ d_gradient, double* __restrict__ tau,
-                                 double* __restrict__ d_tau) {
+// Shared memory: the columns (deriv_columns(kOutputs), mp, T + 4), then
+// ao_moves as doubles (mp, zero past n_ao), then each density's P, (mp,
+// lda) when kWholeP, else (16, lda).  gradient and d_gradient are not written
+// for kDerivRho, tau and d_tau only for kDerivTau.
+template <int S, int kOutputs, bool kWholeP>
+__global__ void __launch_bounds__(kDerivMaxThreads, kOutputs == kDerivRho ? 2 : 1)
+moving_grid_kernel(int n_ao, int n_points, int first_moving, int points, int mp, int kp, int lda,
+                   const double* __restrict__ xyz, const double* __restrict__ origin,
+                   const int* __restrict__ ao_moves, const int* __restrict__ lmn,
+                   const int* __restrict__ prim_start, const double* __restrict__ exps,
+                   const double* __restrict__ coefs, const double* __restrict__ P,
+                   double* __restrict__ density, double* __restrict__ gradient,
+                   double* __restrict__ d_density, double* __restrict__ d_gradient,
+                   double* __restrict__ tau, double* __restrict__ d_tau) {
+  constexpr bool kGradients = kOutputs != kDerivRho;
+  constexpr int kColumns = deriv_columns(kOutputs), kDz = kGradients ? 3 : 1;   // d_z phi's
   extern __shared__ __align__(16) double shared[];
   const int ldb = points + 4, column = mp * ldb;   // a column's doubles: (mp, ldb)
   double* columns = shared;
-  double* moves_ao = shared + kTauDerivColumns * column;
+  double* moves_ao = shared + kColumns * column;
   double* Ps = moves_ao + mp;
   const int rows = kWholeP ? mp : 16;
   const int lane = threadIdx.x & 31, g = lane >> 2, quad = lane & 3;
-  // warp w: kind 0 ({Y, Y'}) or 1 ({Y_c}), alternating over w % 4; then its
-  // density and its 8 points
+  // warp w: kind 0 ({Y, Y'}) or 1 ({Y_c} with tau, else columns only),
+  // alternating over w % 4; then its density and its 8 points
   const int warp = threadIdx.x >> 5, kind = (warp ^ (warp >> 2)) & 1, unit = warp >> 1;
   const int s = unit % S, first = 8 * (unit / S);
   const double* Pd = Ps + s * rows * lda;
   const size_t G = static_cast<size_t>(n_points), nn = static_cast<size_t>(n_ao) * n_ao;
   const int padding = (mp - n_ao) * ldb;
-  for (int e = threadIdx.x; e < kTauDerivColumns * padding; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kColumns * padding; e += blockDim.x) {
     const int c = e / padding;
     columns[c * column + n_ao * ldb + e - c * padding] = 0.0;
   }
@@ -587,8 +456,10 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
     for (int e = threadIdx.x; e < n_ao * half; e += blockDim.x) {
       const int mu = e / half, t = e - mu * half;
       const int l = lmn[3 * mu], m = lmn[3 * mu + 1], n = lmn[3 * mu + 2];
-      // s_q = sum c a^q e^(-a r2), q = 0, 1, 2, at each of the two points
-      double X[2], Y[2], Z[2], r2[2], s0[2] = {}, s1[2] = {}, s2[2] = {};
+      // s_q = sum c a^q e^(-a r2), q = 0, 1, 2 (2 only with gradients), at
+      // each of the two points
+      double X[2], Y[2], Z[2], r2[2], s0[2] = {}, s1[2] = {};
+      [[maybe_unused]] double s2[2] = {};
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int k = min(k0 + t + q * half, n_points - 1);   // past the last point: not stored
@@ -604,7 +475,7 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
           const double term = c * exp(-a * r2[q]);
           s0[q] += term;
           s1[q] += a * term;
-          s2[q] += a * a * term;
+          if constexpr (kGradients) s2[q] += a * a * term;
         }
       }
       // X^l, X^(l-1) (l > 0), ... and Z^(n-2) (n > 1): the monomial
@@ -625,34 +496,37 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
         double* at = columns + mu * ldb + t + q * half;
         if (k0 + t + q * half >= n_points) {
 #pragma unroll
-          for (int c = 0; c < kTauDerivColumns; ++c) at[c * column] = 0.0;
+          for (int c = 0; c < kColumns; ++c) at[c * column] = 0.0;
           continue;
         }
         const double poly = px[q] * py[q] * pz[q];
-        const double dx = l > 0 ? l * px1[q] * py[q] * pz[q] : 0.0;
-        const double dy = m > 0 ? m * px[q] * py1[q] * pz[q] : 0.0;
         const double dz = n > 0 ? n * px[q] * py[q] * pz1[q] : 0.0;
-        const double dxz = l > 0 && n > 0 ? l * n * px1[q] * py[q] * pz1[q] : 0.0;
-        const double dyz = m > 0 && n > 0 ? m * n * px[q] * py1[q] * pz1[q] : 0.0;
-        const double dzz = n > 1 ? n * (n - 1) * px[q] * py[q] * pz2[q] : 0.0;
-        const double x = X[q], y = Y[q], z = Z[q], f0 = s0[q], f1 = s1[q], f2 = s2[q];
-        const double moves = (k0 + t + q * half >= first_moving ? 1.0 : 0.0) - ao_moves[mu];
+        const double z = Z[q], f0 = s0[q], f1 = s1[q];
         at[0] = f0 * poly;
-        at[column] = dx * f0 - 2.0 * x * poly * f1;
-        at[2 * column] = dy * f0 - 2.0 * y * poly * f1;
-        at[3 * column] = dz * f0 - 2.0 * z * poly * f1;
-        at[4 * column] =
-            moves * (dxz * f0 - 2.0 * z * dx * f1 - 2.0 * x * dz * f1 + 4.0 * x * z * poly * f2);
-        at[5 * column] =
-            moves * (dyz * f0 - 2.0 * z * dy * f1 - 2.0 * y * dz * f1 + 4.0 * y * z * poly * f2);
-        at[6 * column] =
-            moves * (dzz * f0 - 4.0 * z * dz * f1 - 2.0 * poly * f1 + 4.0 * z * z * poly * f2);
+        at[kDz * column] = dz * f0 - 2.0 * z * poly * f1;
+        if constexpr (kGradients) {
+          const double x = X[q], y = Y[q], f2 = s2[q];
+          const double dx = l > 0 ? l * px1[q] * py[q] * pz[q] : 0.0;
+          const double dy = m > 0 ? m * px[q] * py1[q] * pz[q] : 0.0;
+          const double dxz = l > 0 && n > 0 ? l * n * px1[q] * py[q] * pz1[q] : 0.0;
+          const double dyz = m > 0 && n > 0 ? m * n * px[q] * py1[q] * pz1[q] : 0.0;
+          const double dzz = n > 1 ? n * (n - 1) * px[q] * py[q] * pz2[q] : 0.0;
+          const double moves = (k0 + t + q * half >= first_moving ? 1.0 : 0.0) - ao_moves[mu];
+          at[column] = dx * f0 - 2.0 * x * poly * f1;
+          at[2 * column] = dy * f0 - 2.0 * y * poly * f1;
+          at[4 * column] =
+              moves * (dxz * f0 - 2.0 * z * dx * f1 - 2.0 * x * dz * f1 + 4.0 * x * z * poly * f2);
+          at[5 * column] =
+              moves * (dyz * f0 - 2.0 * z * dy * f1 - 2.0 * y * dz * f1 + 4.0 * y * z * poly * f2);
+          at[6 * column] =
+              moves * (dzz * f0 - 4.0 * z * dz * f1 - 2.0 * poly * f1 + 4.0 * z * z * poly * f2);
+        }
       }
     }
     __syncthreads();
     // whether the point of this lane's B fragment column, and of its
     // accumulator columns first + 2 quad + r, moves with atom 1
-    const double b_moves = k0 + first + g >= first_moving ? 1.0 : 0.0;
+    [[maybe_unused]] const double b_moves = k0 + first + g >= first_moving ? 1.0 : 0.0;
     const double c_moves[2] = {k0 + first + 2 * quad >= first_moving ? 1.0 : 0.0,
                                k0 + first + 2 * quad + 1 >= first_moving ? 1.0 : 0.0};
     // kind 0: rho, rho', grad rho / 2, grad rho' / 2; kind 1: 2 tau, tau'
@@ -671,10 +545,12 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
           const double a[4] = {A[g * lda + kk], A[(g + 8) * lda + kk], A[g * lda + kk + 4],
                                A[(g + 8) * lda + kk + 4]};
           const double* b = columns + kk * ldb + first + g;
-          const double* bz = b + 3 * column;
           mma_f64(y[0], a, b[0], b[4 * ldb]);
-          mma_f64(y[1], a, (b_moves - moves_ao[kk]) * bz[0],
-                  (b_moves - moves_ao[kk + 4]) * bz[4 * ldb]);
+          if constexpr (kGradients) {
+            const double* bz = b + 3 * column;
+            mma_f64(y[1], a, (b_moves - moves_ao[kk]) * bz[0],
+                    (b_moves - moves_ao[kk + 4]) * bz[4 * ldb]);
+          }
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -682,21 +558,25 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const double* at = columns + i * ldb + first + 2 * quad + r;
-            const double f = at[0], dx = at[column], dy = at[2 * column], dz = at[3 * column];
-            const double hx = at[4 * column], hy = at[5 * column], hz = at[6 * column];
+            const double f = at[0], dz = at[kDz * column];
             const double fm = (c_moves[r] - moves_ao[i]) * dz;
-            const double y0 = y[0][2 * h + r], y1 = y[1][2 * h + r];
+            const double y0 = y[0][2 * h + r];
             sums[0][r] += f * y0;
             sums[1][r] += fm * y0;
-            sums[2][r] += dx * y0;
-            sums[3][r] += dy * y0;
-            sums[4][r] += dz * y0;
-            sums[5][r] += dx * y1 + hx * y0;
-            sums[6][r] += dy * y1 + hy * y0;
-            sums[7][r] += dz * y1 + hz * y0;
+            if constexpr (kGradients) {
+              const double dx = at[column], dy = at[2 * column];
+              const double hx = at[4 * column], hy = at[5 * column], hz = at[6 * column];
+              const double y1 = y[1][2 * h + r];
+              sums[2][r] += dx * y0;
+              sums[3][r] += dy * y0;
+              sums[4][r] += dz * y0;
+              sums[5][r] += dx * y1 + hx * y0;
+              sums[6][r] += dy * y1 + hy * y0;
+              sums[7][r] += dz * y1 + hz * y0;
+            }
           }
         }
-      } else {
+      } else if constexpr (kOutputs == kDerivTau) {
         double y[3][4] = {};  // Y_x, Y_y, Y_z, as above
         for (int kk = quad; kk < kp; kk += 8) {
           const double a[4] = {A[g * lda + kk], A[(g + 8) * lda + kk], A[g * lda + kk + 4],
@@ -717,10 +597,11 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
         }
       }
     }
-    const int values = kind == 0 ? 8 : 2;
+    // the sums each warp holds (the same for the whole warp)
+    const int values = kind == 0 ? (kGradients ? 8 : 2) : (kOutputs == kDerivTau ? 2 : 0);
 #pragma unroll
     for (int v = 0; v < 8; ++v) {
-      if (v < values) {       // the same for the whole warp
+      if (v < values) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           double x = sums[v][r];
@@ -731,7 +612,7 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
         }
       }
     }
-    if (g == 0) {
+    if (g == 0 && values > 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const size_t k = k0 + first + 2 * quad + r;
@@ -739,10 +620,12 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
         if (kind == 0) {
           density[s * G + k] = sums[0][r];
           d_density[s * G + k] = 2.0 * sums[1][r];
+          if constexpr (kGradients) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            gradient[(3 * s + c) * G + k] = 2.0 * sums[2 + c][r];
-            d_gradient[(3 * s + c) * G + k] = 2.0 * sums[5 + c][r];
+            for (int c = 0; c < 3; ++c) {
+              gradient[(3 * s + c) * G + k] = 2.0 * sums[2 + c][r];
+              d_gradient[(3 * s + c) * G + k] = 2.0 * sums[5 + c][r];
+            }
           }
         } else {
           tau[s * G + k] = 0.5 * sums[0][r];
@@ -754,24 +637,21 @@ density_tau_deriv_on_grid_kernel(int n_ao, int n_points, int first_moving, int p
   }
 }
 
-template <int S>
-cudaError_t launch_density_tau_deriv(int n_ao, int n_points, int first_moving,
-                                     int with_gradients, int points, int whole_p,
-                                     const double* xyz, const double* origin,
-                                     const int* ao_moves, const int* lmn, const int* prim_start,
-                                     const double* exps, const double* coefs, const double* P,
-                                     double* density, double* gradient, double* d_density,
-                                     double* d_gradient, double* tau, double* d_tau,
-                                     cudaStream_t stream) {
+template <int S, int kOutputs>
+cudaError_t launch_moving_grid(int n_ao, int n_points, int first_moving, int points, int whole_p,
+                               const double* xyz, const double* origin, const int* ao_moves,
+                               const int* lmn, const int* prim_start, const double* exps,
+                               const double* coefs, const double* P, double* density,
+                               double* gradient, double* d_density, double* d_gradient,
+                               double* tau, double* d_tau, cudaStream_t stream) {
   if (n_points == 0) return cudaSuccess;
-  if (!with_gradients || n_ao < 1 || points < 8 || points % 8 != 0 || points * S > 32)
-    return cudaErrorInvalidValue;   // tau reads the AO gradients
+  if (n_ao < 1 || points < 8 || points % 8 != 0 || points * S > 32) return cudaErrorInvalidValue;
   const int mp = (n_ao + 15) / 16 * 16, kp = (n_ao + 7) / 8 * 8, lda = kp + 4;
-  const size_t doubles = kTauDerivColumns * static_cast<size_t>(mp) * (points + 4) + mp +
+  const size_t doubles = deriv_columns(kOutputs) * static_cast<size_t>(mp) * (points + 4) + mp +
                          static_cast<size_t>(S) * (whole_p ? mp : 16) * lda;
   const int shared = static_cast<int>(doubles * sizeof(double));
-  auto kernel = whole_p ? density_tau_deriv_on_grid_kernel<S, true>
-                        : density_tau_deriv_on_grid_kernel<S, false>;
+  auto kernel = whole_p ? moving_grid_kernel<S, kOutputs, true>
+                        : moving_grid_kernel<S, kOutputs, false>;
   const int threads = 8 * points * S;   // 2 S warps for each 8 points
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -795,49 +675,53 @@ cudaError_t launch_density_tau_deriv(int n_ao, int n_points, int first_moving,
 
 }  // namespace
 
-// points (3, n_points), the points from first_moving on moving with atom 1;
-// origin (n_ao, 3) and ao_moves (n_ao, 1 for an AO on atom 1) of the
+// K8c: points (3, n_points), the points from first_moving on moving with
+// atom 1; origin (n_ao, 3) and ao_moves (n_ao, 1 for an AO on atom 1) of the
 // Cartesian AOs, lmn, prim_start, exps and coefs as for tuna_ao_on_grid;
 // P (n_ao, n_ao) symmetric.  density and d_density (n_points,); gradient
 // and d_gradient (3, n_points), written only when with_gradients is
-// non-zero (they may be null otherwise).  A block's columns take
-// 2 n_ao x 256 bytes of shared memory: past the default 48 KB (n_ao > 96)
-// the launch asks for more.
+// non-zero (they may be null otherwise).  points (8, 16 or 32 / S: the
+// tile) and whole_p (P staged whole, else 16 rows at a time) come from the
+// host (dft/grid.py::density_deriv_layout); the shared memory follows from
+// them, n_ao and with_gradients, and a layout past what the card holds
+// fails with the CUDA error of that request.
 extern "C" int tuna_density_deriv_on_grid(int n_ao, int n_points, int first_moving,
-                                          int with_gradients, const double* points,
-                                          const double* origin, const int* ao_moves,
-                                          const int* lmn, const int* prim_start,
-                                          const double* exps, const double* coefs,
-                                          const double* P, double* density, double* gradient,
-                                          double* d_density, double* d_gradient,
+                                          int with_gradients, int points, int whole_p,
+                                          const double* xyz, const double* origin,
+                                          const int* ao_moves, const int* lmn,
+                                          const int* prim_start, const double* exps,
+                                          const double* coefs, const double* P, double* density,
+                                          double* gradient, double* d_density, double* d_gradient,
                                           cudaStream_t stream) {
-  return launch_density_deriv<1>(n_ao, n_points, first_moving, with_gradients, points, origin,
-                                 ao_moves, lmn, prim_start, exps, coefs, P, density, gradient,
-                                 d_density, d_gradient, stream);
+  auto launch = with_gradients ? launch_moving_grid<1, kDerivGradients>
+                               : launch_moving_grid<1, kDerivRho>;
+  return launch(n_ao, n_points, first_moving, points, whole_p, xyz, origin, ao_moves, lmn,
+                prim_start, exps, coefs, P, density, gradient, d_density, d_gradient, nullptr,
+                nullptr, stream);
 }
 
 // K8cu: as tuna_density_deriv_on_grid over the two spins' symmetric
 // densities P (2, n_ao, n_ao) in one pass; density and d_density (2,
 // n_points), gradient and d_gradient (2, 3, n_points).
 extern "C" int tuna_density_deriv_on_grid_spin(int n_ao, int n_points, int first_moving,
-                                               int with_gradients, const double* points,
-                                               const double* origin, const int* ao_moves,
-                                               const int* lmn, const int* prim_start,
-                                               const double* exps, const double* coefs,
-                                               const double* P, double* density,
-                                               double* gradient, double* d_density,
-                                               double* d_gradient, cudaStream_t stream) {
-  return launch_density_deriv<2>(n_ao, n_points, first_moving, with_gradients, points, origin,
-                                 ao_moves, lmn, prim_start, exps, coefs, P, density, gradient,
-                                 d_density, d_gradient, stream);
+                                               int with_gradients, int points, int whole_p,
+                                               const double* xyz, const double* origin,
+                                               const int* ao_moves, const int* lmn,
+                                               const int* prim_start, const double* exps,
+                                               const double* coefs, const double* P,
+                                               double* density, double* gradient,
+                                               double* d_density, double* d_gradient,
+                                               cudaStream_t stream) {
+  auto launch = with_gradients ? launch_moving_grid<2, kDerivGradients>
+                               : launch_moving_grid<2, kDerivRho>;
+  return launch(n_ao, n_points, first_moving, points, whole_p, xyz, origin, ao_moves, lmn,
+                prim_start, exps, coefs, P, density, gradient, d_density, d_gradient, nullptr,
+                nullptr, stream);
 }
 
 // K8ct: as tuna_density_deriv_on_grid (with_gradients non-zero, else the
-// call returns cudaErrorInvalidValue), plus tau and d_tau (n_points,).
-// points (8, 16 or 32 / S: the tile) and whole_p (P staged whole, else 16 rows
-// at a time) come from the host (dft/grid.py::density_tau_deriv_layout);
-// the shared memory follows from them and n_ao, and a layout past what the
-// card holds fails with the CUDA error of that request.
+// call returns cudaErrorInvalidValue: tau reads the AO gradients), plus tau
+// and d_tau (n_points,).
 extern "C" int tuna_density_tau_deriv_on_grid(int n_ao, int n_points, int first_moving,
                                               int with_gradients, int points, int whole_p,
                                               const double* xyz, const double* origin,
@@ -847,10 +731,11 @@ extern "C" int tuna_density_tau_deriv_on_grid(int n_ao, int n_points, int first_
                                               double* density, double* gradient,
                                               double* d_density, double* d_gradient, double* tau,
                                               double* d_tau, cudaStream_t stream) {
-  return launch_density_tau_deriv<1>(n_ao, n_points, first_moving, with_gradients, points,
-                                     whole_p, xyz, origin, ao_moves, lmn, prim_start, exps, coefs,
-                                     P, density, gradient, d_density, d_gradient, tau, d_tau,
-                                     stream);
+  if (!with_gradients && n_points > 0) return cudaErrorInvalidValue;
+  return launch_moving_grid<1, kDerivTau>(n_ao, n_points, first_moving, points, whole_p, xyz,
+                                          origin, ao_moves, lmn, prim_start, exps, coefs, P,
+                                          density, gradient, d_density, d_gradient, tau, d_tau,
+                                          stream);
 }
 
 // K8cut: K8ct over the two spins' P (2, n_ao, n_ao) in one pass; tau and
@@ -865,10 +750,11 @@ extern "C" int tuna_density_tau_deriv_on_grid_spin(int n_ao, int n_points, int f
                                                    double* d_density, double* d_gradient,
                                                    double* tau, double* d_tau,
                                                    cudaStream_t stream) {
-  return launch_density_tau_deriv<2>(n_ao, n_points, first_moving, with_gradients, points,
-                                     whole_p, xyz, origin, ao_moves, lmn, prim_start, exps, coefs,
-                                     P, density, gradient, d_density, d_gradient, tau, d_tau,
-                                     stream);
+  if (!with_gradients && n_points > 0) return cudaErrorInvalidValue;
+  return launch_moving_grid<2, kDerivTau>(n_ao, n_points, first_moving, points, whole_p, xyz,
+                                          origin, ao_moves, lmn, prim_start, exps, coefs, P,
+                                          density, gradient, d_density, d_gradient, tau, d_tau,
+                                          stream);
 }
 
 // values (n_ao, n_points); gradients (3, n_ao, n_points), written only when

@@ -289,12 +289,9 @@ def density_deriv_on_grid(basis: GridBasis, origin, ao_moves, points, first_movi
     if points.device.type == "cpu":
         return _density_deriv_on_grid_plain(basis, origin, ao_moves, points, first_moving, P,
                                             with_gradients, with_tau)
-    if with_tau:
-        return _density_deriv_kernel("density_tau_deriv_on_grid",
-                                     "tuna_density_tau_deriv_on_grid", basis, origin, ao_moves,
-                                     points, first_moving, P, with_gradients, with_tau)
-    return _density_deriv_kernel("density_deriv_on_grid", "tuna_density_deriv_on_grid", basis,
-                                 origin, ao_moves, points, first_moving, P, with_gradients)
+    kernel = "density_tau_deriv_on_grid" if with_tau else "density_deriv_on_grid"
+    return _density_deriv_kernel(kernel, "tuna_" + kernel, basis, origin, ao_moves, points,
+                                 first_moving, P, with_gradients, with_tau)
 
 
 def density_deriv_on_grid_spin(basis: GridBasis, origin, ao_moves, points, first_moving: int,
@@ -312,21 +309,17 @@ def density_deriv_on_grid_spin(basis: GridBasis, origin, ao_moves, points, first
         return tuple(torch.stack(parts) if parts[0] is not None else None
                      for parts in zip(*outs))
     _kernels.check_tensor("P_stack", P_stack, (2, basis.n_ao, basis.n_ao), _F64, points.device)
-    if with_tau:
-        return _density_deriv_kernel("density_tau_deriv_on_grid_spin",
-                                     "tuna_density_tau_deriv_on_grid_spin", basis, origin,
-                                     ao_moves, points, first_moving, P_stack, with_gradients,
-                                     with_tau)
-    return _density_deriv_kernel("density_deriv_on_grid_spin", "tuna_density_deriv_on_grid_spin",
-                                 basis, origin, ao_moves, points, first_moving, P_stack,
-                                 with_gradients)
+    kernel = "density_tau_deriv_on_grid_spin" if with_tau else "density_deriv_on_grid_spin"
+    return _density_deriv_kernel(kernel, "tuna_" + kernel, basis, origin, ao_moves, points,
+                                 first_moving, P_stack, with_gradients, with_tau)
 
 
 def _density_deriv_kernel(kernel, entry, basis, origin, ao_moves, points, first_moving, P,
                           with_gradients, with_tau=False, layout=None):
-    """Launch K8c or K8ct (P (n, n)), K8cu or K8cut (P (2, n, n)); each
-    output carries the leading axes of P.  K8ct and K8cut take their tile
-    (points, P whole) from `layout`, by default density_tau_deriv_layout's."""
+    """Launch K8c or K8ct (P (n, n)), K8cu or K8cut (P (2, n, n)), one
+    template in csrc/dft_grid.cu; each output carries the leading axes of
+    P.  The tile (points, P whole) comes from `layout`, by default
+    density_deriv_layout's."""
     if points.device.type != "cuda":
         raise ValueError(f"no density derivative on the grid for device {points.device}")
     device = points.device
@@ -336,48 +329,56 @@ def _density_deriv_kernel(kernel, entry, basis, origin, ao_moves, points, first_
     _kernels.check_tensor("ao_moves", ao_moves, (n,), torch.int32, device)
     spins = P.shape[:-2]
     _kernels.check_tensor("P", P, (*spins, n, n), _F64, device)
+    tile, whole_p = layout or density_deriv_layout(n, spins[0] if spins else 1,
+                                                   with_gradients)[:2]
     t = basis.tensors(device)
     density, d_density = (torch.empty((*spins, G), dtype=_F64, device=device)
                           for _ in range(2))
     gradient, d_gradient = ((torch.empty((*spins, 3, G), dtype=_F64, device=device)
                              if with_gradients else None) for _ in range(2))
-    args = [points.data_ptr(), origin.data_ptr(), ao_moves.data_ptr(), t["lmn"].data_ptr(),
-            t["prim_start"].data_ptr(), t["exps"].data_ptr(), t["coefs"].data_ptr(),
-            P.data_ptr(), density.data_ptr(), gradient.data_ptr() if with_gradients else None,
-            d_density.data_ptr(), d_gradient.data_ptr() if with_gradients else None]
-    if not with_tau:
-        _kernels.launch(kernel, entry, device, n, G, int(first_moving), int(with_gradients),
-                        *args)
-        return density, gradient, d_density, d_gradient
-    tau, d_tau = (torch.empty((*spins, G), dtype=_F64, device=device) for _ in range(2))
-    tile, whole_p = layout or density_tau_deriv_layout(n, spins[0] if spins else 1)[:2]
+    tau, d_tau = ((torch.empty((*spins, G), dtype=_F64, device=device) if with_tau else None)
+                  for _ in range(2))
+    outputs = [x.data_ptr() if x is not None else None
+               for x in (density, gradient, d_density, d_gradient)]
+    if with_tau:
+        outputs += [tau.data_ptr(), d_tau.data_ptr()]
     _kernels.launch(kernel, entry, device, n, G, int(first_moving), int(with_gradients), tile,
-                    int(whole_p), *args, tau.data_ptr(), d_tau.data_ptr())
-    return density, gradient, d_density, d_gradient, tau, d_tau
+                    int(whole_p), points.data_ptr(), origin.data_ptr(), ao_moves.data_ptr(),
+                    t["lmn"].data_ptr(), t["prim_start"].data_ptr(), t["exps"].data_ptr(),
+                    t["coefs"].data_ptr(), P.data_ptr(), *outputs)
+    if with_tau:
+        return density, gradient, d_density, d_gradient, tau, d_tau
+    return density, gradient, d_density, d_gradient
 
 
-def density_tau_deriv_bytes(n: int, spins: int, points: int, whole: bool) -> int:
-    """Shared bytes of a K8ct (K8cut) block: see density_tau_deriv_layout."""
+def density_deriv_bytes(n: int, spins: int, points: int, whole: bool,
+                        with_gradients: bool = True) -> int:
+    """Shared bytes of a block of the moving-grid kernel: see
+    density_deriv_layout."""
     mp, lda = -(-n // 16) * 16, -(-n // 8) * 8 + 4
-    return 8 * (7 * mp * (points + 4) + mp + spins * (mp if whole else 16) * lda)
+    columns = 7 if with_gradients else 2
+    return 8 * (columns * mp * (points + 4) + mp + spins * (mp if whole else 16) * lda)
 
 
-def density_tau_deriv_layout(n: int, spins: int) -> tuple[int, bool, int]:
-    """The tile of K8ct (spins = 1) and K8cut (2) for n Cartesian AOs
-    (csrc/dft_grid.cu density_tau_deriv_on_grid_kernel): (points a tile, P
-    staged whole, shared bytes).  A block holds the tile's seven columns,
-    (7, n rounded up to 16, points + 4) doubles, the AOs' move flags (n
-    rounded up to 16 doubles) and each density's P whole ((n rounded up to
-    16) x lda doubles, lda = n rounded up to 8, plus 4) or 16 rows of it;
-    the first of 32 / spins (at most 256 threads a block), 16 and 8 points
-    with P whole that fits, else with 16 rows."""
+def density_deriv_layout(n: int, spins: int,
+                         with_gradients: bool = True) -> tuple[int, bool, int]:
+    """The tile of the moving-grid kernel (csrc/dft_grid.cu
+    moving_grid_kernel: K8c and K8ct for spins = 1, K8cu and K8cut for 2)
+    for n Cartesian AOs: (points a tile, P staged whole, shared bytes).  A
+    block holds the tile's columns, (7 with gradients, else 2; n rounded up
+    to 16; points + 4) doubles (with tau the same seven), the AOs' move
+    flags (n rounded up to 16 doubles) and each density's P whole ((n
+    rounded up to 16) x lda doubles, lda = n rounded up to 8, plus 4) or 16
+    rows of it; the first of 32 / spins (at most 256 threads a block), 16
+    and 8 points with P whole that fits, else with 16 rows."""
     for whole in (True, False):
         for points in (32, 16, 8):
-            shared = density_tau_deriv_bytes(n, spins, points, whole)
+            shared = density_deriv_bytes(n, spins, points, whole, with_gradients)
             if points * spins <= 32 and shared <= _kernels.SHARED_MEMORY_A_BLOCK:
                 return points, whole, shared
-    raise ValueError(f"tau on the moving grid: {n} AOs with {spins} density matrices do not "
-                     f"fit one block's shared memory ({_kernels.SHARED_MEMORY_A_BLOCK} bytes)")
+    raise ValueError(f"the density on the moving grid: {n} AOs with {spins} density matrices "
+                     f"do not fit one block's shared memory ({_kernels.SHARED_MEMORY_A_BLOCK} "
+                     f"bytes)")
 
 
 def _density_deriv_on_grid_plain(basis: GridBasis, origin, ao_moves, points, first_moving: int,
