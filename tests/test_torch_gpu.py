@@ -69,9 +69,24 @@ def _n2_grid(basis, device):
             grid.GridBasis(molecule.cartesian_basis_functions))
 
 
-@pytest.mark.parametrize("basis", ["STO-3G", "6-311G", "6-31G**", "CC-PVTZ"])
-def test_integral_kernels_match_plain(cuda, basis):
-    molecule, plan = _n2_plan(basis)
+def _diatomic(symbols, basis, bond_angstrom=1.1):
+    """A molecule of one or two atoms (the second on the z axis) under HF."""
+    calculation = Config("SPE", lookup_method("HF"), 0.0, [], basis, list(symbols),
+                         suppress_output=True)
+    coords = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, angstrom_to_bohr(bond_angstrom)]])
+    return Molecule(list(symbols), coords[:len(symbols)], calculation)
+
+
+@pytest.mark.parametrize("symbols, basis", [
+    (("N", "N"), "STO-3G"), (("N", "N"), "6-311G"), (("N", "N"), "6-31G**"),
+    (("N", "N"), "CC-PVTZ"), (("C", "O"), "6-31G**"), (("C", "O"), "CC-PVTZ"),
+    (("O", "H"), "6-31G**"), (("O", "H"), "CC-PVTZ"), (("C",), "6-31G")])
+def test_integral_kernels_match_plain(cuda, symbols, basis):
+    """K3 (on its lane schedule) and K1 against their plain versions, 1e-12
+    absolute, on N2 at four bases, CO and OH at 6-31G** and cc-pVTZ and one
+    atom; each bitwise over two calls."""
+    molecule = _diatomic(symbols, basis)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
     coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
     charges = torch.as_tensor(molecule.charges, dtype=torch.float64, device=cuda)
     _kernels.reset_launch_counts()
@@ -82,6 +97,9 @@ def test_integral_kernels_match_plain(cuda, basis):
     for g, e in zip(got, plan._one_electron_plain(coords, charges, molecule.centre_of_mass)):
         torch.testing.assert_close(g, e, rtol=0, atol=1e-12)
     torch.testing.assert_close(packed, plan._eri_packed_plain(coords), rtol=0, atol=1e-12)
+    again = plan.one_electron(coords, charges, molecule.centre_of_mass)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(packed, plan.eri_pair_packed(coords))
 
 
 def _triples_args(no, nv, device, seed):
@@ -242,6 +260,9 @@ def test_kernel_wrappers_check_their_inputs(cuda):
 
 @pytest.mark.parametrize("basis", ["6-31G**", "CC-PVTZ"])
 def test_grid_kernels_match_plain(cuda, basis):
+    """K7a and K7b on N2's medium grid against their plain versions (1e-12
+    absolute); K7b's rho with and without gradients, and its grad rho, bit
+    for bit K7bt's."""
     molecule, points, _, basis_data = _n2_grid(basis, cuda)
     _kernels.reset_launch_counts()
     values, grads = grid.ao_on_grid(basis_data, points, True)
@@ -262,6 +283,9 @@ def test_grid_kernels_match_plain(cuda, basis):
     torch.testing.assert_close(density, density_p, rtol=0, atol=1e-12)
     torch.testing.assert_close(rho_only, density_p, rtol=0, atol=1e-12)
     torch.testing.assert_close(gradient, gradient_p, rtol=0, atol=1e-12)
+    tau_set = grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
+    assert torch.equal(rho_only, density) and torch.equal(tau_set[0], density)
+    assert torch.equal(tau_set[1], gradient)
     # a non-symmetric P: the gradient is 2 sum_ij P_ij phi_i grad phi_j
     P = torch.as_tensor(A / n, device=cuda)
     density, gradient = grid.density_on_grid(P, bfs, bf_grads)
@@ -270,27 +294,57 @@ def test_grid_kernels_match_plain(cuda, basis):
     torch.testing.assert_close(gradient, gradient_p, rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("n", [97, 203])
-def test_density_kernel_wide_basis(cuda, n):
-    """More AOs than the default 48 KB of shared memory holds columns for
-    (n > 96), and n not a multiple of the kernel's 8 rows of Y."""
-    rng = np.random.default_rng(n)
-    G = 3001
+def _density_layout_cases():
+    """(n, outputs, layout) for K7b's two output sets at n = 9, N2/cc-pVTZ's
+    60, 97 (past the default 48 KB of shared memory), 203 (P^T in 16 rows
+    with gradients) and 302 (the most the first K7b took), every tile that
+    fits (dft/grid.py::density_layouts), the host's first marked."""
+    cases = []
+    for n in (9, 60, 97, 203, 302):
+        for outputs, name in ((grid.DENSITY_RHO, "rho"), (grid.DENSITY_GRADIENTS, "gradients")):
+            for layout in grid.density_layouts(n, outputs):
+                points, whole, buffers, _ = layout
+                first = "-first" if layout == grid.density_layout(n, outputs) else ""
+                tile = f"{points}-{'whole' if whole else 'rows'}-{buffers}"
+                cases.append(pytest.param(n, outputs, layout[:3], id=f"{n}-{name}-{tile}{first}"))
+    return cases
+
+
+@pytest.mark.parametrize("G", [1, 63, 65, 3001])
+@pytest.mark.parametrize("n, outputs, layout", _density_layout_cases())
+def test_density_kernel_wide_basis(cuda, n, outputs, layout, G):
+    """K7b at every tile that fits, without and with gradients, at point
+    counts that fill no tile, on a non-symmetric P: 1e-12 absolute from the
+    plain version, bitwise over two calls, and bit for bit K7bt's rho and
+    grad rho (the host's tile): a point's sums do not depend on the tile,
+    the staging of P^T or the buffers."""
+    rng = np.random.default_rng(1000 * n + G)
     bfs = torch.as_tensor(rng.standard_normal((n, G)) / n, device=cuda)
     bf_grads = torch.as_tensor(rng.standard_normal((3, n, G)) / n, device=cuda)
     P = torch.as_tensor(rng.standard_normal((n, n)), device=cuda)
-    density, gradient = grid.density_on_grid(P, bfs, bf_grads)
-    density_p, gradient_p = grid._density_on_grid_plain(P, bfs, bf_grads)
-    torch.testing.assert_close(density, density_p, rtol=0, atol=1e-12)
-    torch.testing.assert_close(gradient, gradient_p, rtol=0, atol=1e-12)
+    grads = bf_grads if outputs == grid.DENSITY_GRADIENTS else None
+    _kernels.reset_launch_counts()
+    got = grid._density_kernel(P, bfs, grads, False, layout)
+    again = grid._density_kernel(P, bfs, grads, False, layout)
+    assert _kernels.launches["density_on_grid"] == 2
+    expected = grid._density_on_grid_plain(P, bfs, grads)
+    torch.testing.assert_close(got[0], expected[0], rtol=0, atol=1e-12)
+    assert torch.equal(got[0], again[0])
+    tau_set = grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
+    assert torch.equal(got[0], tau_set[0])
+    if grads is None:
+        assert got[1] is None
+    else:
+        torch.testing.assert_close(got[1], expected[1], rtol=0, atol=1e-12)
+        assert torch.equal(got[1], again[1]) and torch.equal(got[1], tau_set[1])
 
 
 @pytest.mark.parametrize("basis", ["6-31G**", "CC-PVTZ"])
 def test_tau_kernel_matches_plain(cuda, basis):
     """K7bt on N2's medium grid: rho, grad rho and tau against the plain
     version (1e-12 absolute; tau 1e-12 of its largest |entry|), rho and
-    grad rho within 1e-12 absolute of K7b's (the two kernels sum in other
-    orders), bitwise over two calls."""
+    grad rho bit for bit K7b's (one template, the same code for them),
+    bitwise over two calls."""
     molecule, points, _, basis_data = _n2_grid(basis, cuda)
     values, grads = grid.ao_on_grid(basis_data, points, True)
     U = torch.as_tensor(molecule.spherical_transformation, device=cuda)
@@ -307,8 +361,7 @@ def test_tau_kernel_matches_plain(cuda, basis):
     assert _relative(got[2], expected[2]) <= 1e-12
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     rho, gradient = grid.density_on_grid(P, bfs, bf_grads)
-    torch.testing.assert_close(got[0], rho, rtol=0, atol=1e-12)
-    torch.testing.assert_close(got[1], gradient, rtol=0, atol=1e-12)
+    assert torch.equal(got[0], rho) and torch.equal(got[1], gradient)
 
 
 @pytest.mark.parametrize("n", [97, 203])
@@ -330,8 +383,8 @@ def test_tau_kernel_ragged_tiles(cuda, n, G):
     """Point counts that fill no tile (the tile is 32 points at n <= 97, 16
     at n = 203, whose P^T is staged 16 rows at a time): each output 1e-12
     of its largest |entry| from the plain version, bitwise over two calls,
-    rho and grad rho within 1e-12 absolute of K7b's; a non-symmetric P, as
-    the plain version takes any."""
+    rho and grad rho bit for bit K7b's; a non-symmetric P, as the plain
+    version takes any."""
     rng = np.random.default_rng(1000 * n + G)
     bfs = torch.as_tensor(rng.standard_normal((n, G)) / n, device=cuda)
     bf_grads = torch.as_tensor(rng.standard_normal((3, n, G)) / n, device=cuda)
@@ -343,8 +396,7 @@ def test_tau_kernel_ragged_tiles(cuda, n, G):
     again = grid.density_on_grid(P, bfs, bf_grads, with_tau=True)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     rho, gradient = grid.density_on_grid(P, bfs, bf_grads)
-    torch.testing.assert_close(got[0], rho, rtol=0, atol=1e-12)
-    torch.testing.assert_close(got[1], gradient, rtol=0, atol=1e-12)
+    assert torch.equal(got[0], rho) and torch.equal(got[1], gradient)
 
 
 def test_vv10_kernel_matches_plain(cuda):

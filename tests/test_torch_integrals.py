@@ -151,6 +151,88 @@ def test_kernels_dispatch_by_device():
         plan.one_electron(coords.to("meta"), charges.to("meta"), 0.0)
 
 
+# --- K3's lane schedule (csrc/one_electron.cu) -------------------------------
+
+LANE_SYSTEMS = SYSTEMS + [(("N", "N"), 1.10, "CC-PVTZ")]
+
+
+@pytest.mark.parametrize("symbols,bond,basis", LANE_SYSTEMS)
+def test_lane_schedule_holds_each_ao_pair_once(symbols, bond, basis):
+    """IntegralPlan.lane_schedule: whole warps; every AO pair in exactly
+    one group of w lanes, w the smallest power of two covering its
+    primitive pairs (at most 32), starting at a lane that is a multiple of
+    w; the pairs longest first, so a lane walks at most
+    ceil(count / 32) primitive pairs."""
+    _, plan = _plan(symbols, bond, basis)
+    lanes = plan.lane_schedule()
+    assert lanes.dtype == np.int32 and lanes.shape[1] == 2 and lanes.shape[0] % 32 == 0
+    count = np.diff(plan.pair_start)
+    pair, width = lanes[:, 0], lanes[:, 1]
+    live = np.flatnonzero(pair >= 0)
+    firsts = live[(live == 0) | (pair[live] != pair[np.maximum(live - 1, 0)]) | (live % 32 == 0)]
+    assert sorted(pair[firsts]) == list(range(plan.n_pairs))    # one group each
+    for lane in firsts:
+        p, w = pair[lane], width[lane]
+        assert lane % w == 0 and np.all(lanes[lane:lane + w] == (p, w))
+        assert w == min(32, 1 << int(np.ceil(np.log2(count[p]))))
+        assert w >= min(32, count[p]) and (w == 1 or w // 2 < count[p])
+    assert np.all(np.diff(count[pair[firsts]]) <= 0)           # longest first
+    assert np.all(width[pair < 0] == 1) and len(live) == width[firsts].sum()
+    assert lanes.shape[0] - len(live) < 32
+
+
+def _lane_sums_emulated(plan, values):
+    """K3's order in NumPy: lane r of an AO pair's group of w sums the
+    values (9, n_prim_pairs) of its primitive pairs r, r + w, ... in turn;
+    then five butterflies over each warp (lanes 1, 2, 4, 8, 16 apart, a step
+    adding only inside groups at least that wide); lane 0 of a group gives
+    [i, j] and [j, i] of the nine matrices."""
+    lanes = plan.lane_schedule()
+    N = plan.n_basis
+    out = np.full((9, N, N), np.nan)
+    for warp in lanes.reshape(-1, 32, 2):
+        x = np.zeros((32, 9))
+        for lane, (pair, width) in enumerate(warp):
+            if pair >= 0:
+                for k in range(plan.pair_start[pair] + (lane & (width - 1)),
+                               plan.pair_start[pair + 1], width):
+                    x[lane] = x[lane] + values[:, k]
+        for offset in (1, 2, 4, 8, 16):
+            x = np.where((warp[:, 1] > offset)[:, None], x + x[np.arange(32) ^ offset], x)
+        for lane, (pair, width) in enumerate(warp):
+            if pair >= 0 and lane % width == 0:
+                k0 = plan.pair_start[pair]
+                i, j = plan.ao_i[k0], plan.ao_j[k0]
+                out[:, i, j] = out[:, j, i] = x[lane]
+    return out
+
+
+@pytest.mark.parametrize("symbols,bond,basis", [
+    (("N", "N"), 1.10, "6-311G"), (("C", "O"), 1.13, "CC-PVTZ"), (("C",), 0.0, "6-31G")])
+def test_lane_sums_match_plain(symbols, bond, basis, monkeypatch):
+    """K3's lane-strided sums and butterflies, emulated in NumPy on the
+    plain version's per-primitive-pair values, against the plain version's
+    matrices: 1e-13 of each matrix's largest |entry|, every entry written
+    (N2/6-311G, CO/cc-pVTZ, and one atom)."""
+    molecule, plan = _plan(symbols, bond, basis)
+    captured = []
+    scatter = IntegralPlan._scatter_one_electron
+
+    def capture(self, t, s_val, t_val, v_val, d_vals, q_vals):
+        captured.append(torch.stack([s_val, t_val, v_val, *d_vals, *q_vals]).numpy())
+        return scatter(self, t, s_val, t_val, v_val, d_vals, q_vals)
+
+    monkeypatch.setattr(IntegralPlan, "_scatter_one_electron", capture)
+    S, T, V, D, Q = plan.one_electron(torch.as_tensor(molecule.coordinates, dtype=torch.float64),
+                                      torch.as_tensor(molecule.charges, dtype=torch.float64),
+                                      molecule.centre_of_mass)
+    expected = torch.cat([S[None], T[None], V[None], D, Q]).numpy()
+    got = _lane_sums_emulated(plan, captured[0])
+    assert not np.isnan(got).any()
+    for m in range(9):
+        assert np.max(np.abs(got[m] - expected[m])) <= 1e-13 * np.max(np.abs(expected[m])), m
+
+
 # --- the quartet kernels' work list (csrc/quartet.cuh) ----------------------
 
 WORK_LIST_SYSTEMS = [

@@ -310,43 +310,98 @@ def test_tau_on_the_grid_matches_tuna_tpu_einsum():
     assert torch.equal(plain_rho, density) and torch.equal(plain_gradient, gradient)
 
 
-@pytest.mark.parametrize("n, points, whole", [
-    (9, 32, True), (60, 32, True), (97, 32, True), (203, 16, False), (302, 8, False)])
-def test_tau_kernel_layout_fits_shared_memory(n, points, whole):
-    """K7bt's tile (dft/grid.py::density_tau_layout): 32 points with P^T
-    whole up to 97 AOs (N2/cc-pVTZ has 60), then fewer points with P^T
-    16 rows at a time, within an H100 block's shared memory."""
-    layout = grid.density_tau_layout(n)
-    assert layout[:2] == (points, whole)
-    assert layout[2] <= _kernels.SHARED_MEMORY_A_BLOCK
+# density_layout's output sets: K7b without and with gradients, K7bt
+DENSITY_SETS = [grid.DENSITY_RHO, grid.DENSITY_GRADIENTS, grid.DENSITY_TAU]
+DENSITY_SET_IDS = ["rho", "gradients", "tau"]
 
 
-def _k7bt_emulated(P, bfs, grads):
-    """K7bt's arithmetic in NumPy on its zero-padded tiles: for each 16 AO
-    rows i, Y_a = P^T[i, :kp] B_a[:kp] for B = (phi, d phi) (kp = n rounded
-    up to 8, the MMA's depth), then rho,
-    grad rho and tau summed over i from Y_a against B's entries at the same
-    (i, point)."""
+@pytest.mark.parametrize("n, points, whole, buffers, outputs", [
+    (9, 32, True, 1, grid.DENSITY_TAU), (60, 32, True, 1, grid.DENSITY_TAU),
+    (97, 32, True, 1, grid.DENSITY_TAU), (203, 16, False, 1, grid.DENSITY_TAU),
+    (302, 8, False, 1, grid.DENSITY_TAU), (60, 32, True, 2, grid.DENSITY_GRADIENTS),
+    (97, 32, True, 1, grid.DENSITY_GRADIENTS), (302, 8, False, 1, grid.DENSITY_GRADIENTS),
+    (60, 32, True, 1, grid.DENSITY_RHO), (302, 32, False, 1, grid.DENSITY_RHO)])
+def test_tau_kernel_layout_fits_shared_memory(n, points, whole, buffers, outputs):
+    """The tile of K7b and K7bt (dft/grid.py::density_layout): with
+    gradients or tau 32 points with P^T whole up to 97 AOs (N2/cc-pVTZ has
+    60), then fewer points with P^T 16 rows at a time (n = 302, the most
+    the first K7b took, fits with 8); without gradients one column, so 32
+    points through n = 302; K7b with gradients two column buffers where
+    they fit (at n = 60, not at 97), K7bt and K7b without gradients one;
+    within an H100 block's shared memory, where
+    every tile before it in the host's order is not."""
+    layout = grid.density_layout(n, outputs)
+    assert layout == (points, whole, buffers,
+                      grid.density_bytes(n, outputs, points, whole, buffers))
+    assert layout[3] <= _kernels.SHARED_MEMORY_A_BLOCK
+    assert layout == grid.density_layouts(n, outputs)[0]
+    buffers_first = (2, 1) if outputs == grid.DENSITY_GRADIENTS else (1, 2)
+    order = [(t, w, b) for w in (True, False) for t in (32, 16, 8) for b in buffers_first]
+    for t, w, b in order[:order.index(layout[:3])]:
+        assert grid.density_bytes(n, outputs, t, w, b) > _kernels.SHARED_MEMORY_A_BLOCK
+
+
+@pytest.mark.parametrize("outputs", DENSITY_SETS, ids=DENSITY_SET_IDS)
+@pytest.mark.parametrize("n", [1, 9, 60, 97, 203, 302])
+def test_density_layout_covers_the_first_kernels_bases(n, outputs):
+    """Every n the first K7b took (up to 302 AOs) has a tile in each output
+    set, and every tile listed fits a block."""
+    layouts = grid.density_layouts(n, outputs)
+    assert layouts and all(shared <= _kernels.SHARED_MEMORY_A_BLOCK
+                           and shared == grid.density_bytes(n, outputs, t, w, b)
+                           for t, w, b, shared in layouts)
+
+
+@pytest.mark.parametrize("n, outputs", [(449, grid.DENSITY_GRADIENTS), (449, grid.DENSITY_TAU),
+                                        (1033, grid.DENSITY_RHO)])
+def test_density_layout_raises_past_the_card(n, outputs):
+    """Past an H100 block's shared memory the layout raises in words (no
+    other kernel or plain version takes the shape on the card): from 449
+    AOs with gradients or tau, from 1033 without."""
+    assert not grid.density_layouts(n, outputs)
+    assert grid.density_layouts(n - 1, outputs)
+    with pytest.raises(ValueError, match=f"{n} AOs do not fit one block's shared memory"):
+        grid.density_layout(n, outputs)
+
+
+def _k7bt_emulated(P, bfs, grads, outputs=grid.DENSITY_TAU):
+    """The arithmetic of K7b and K7bt in NumPy on their zero-padded tiles:
+    for each 16 AO rows i, Y_a = P^T[i, :kp] B_a[:kp] (kp = n rounded up to
+    8, the MMA's depth) for B = (phi) without gradients, (phi) with them,
+    (phi, d phi) with tau, then rho, grad rho and tau summed over i from Y_a
+    against B's entries at the same (i, point).  Returns the output set's
+    (rho, grad rho or None[, tau])."""
     n = P.shape[0]
     mp, kp = -(-n // 16) * 16, -(-n // 8) * 8
     Pt = np.zeros((mp, kp))
     Pt[:n, :n] = P.T
-    B = np.zeros((4, mp, bfs.shape[1]))
-    B[0, :n], B[1:, :n] = bfs, grads
+    columns = 1 if outputs == grid.DENSITY_RHO else 4
+    products = 4 if outputs == grid.DENSITY_TAU else 1
+    B = np.zeros((columns, mp, bfs.shape[1]))
+    B[0, :n] = bfs
+    if columns == 4:
+        B[1:, :n] = grads
     sums = np.zeros((5, bfs.shape[1]))
     for i0 in range(0, mp, 16):
-        Y = [Pt[i0:i0 + 16] @ B[a, :kp] for a in range(4)]
+        Y = [Pt[i0:i0 + 16] @ B[a, :kp] for a in range(products)]
         rows = B[:, i0:i0 + 16]
-        sums[:4] += np.einsum("aik,ik->ak", rows, Y[0])
-        sums[4] += sum(np.einsum("ik,ik->k", rows[a], Y[a]) for a in (1, 2, 3))
+        sums[:columns] += np.einsum("aik,ik->ak", rows, Y[0])
+        if products == 4:
+            sums[4] += sum(np.einsum("ik,ik->k", rows[a], Y[a]) for a in (1, 2, 3))
+    if outputs == grid.DENSITY_RHO:
+        return sums[0], None
+    if outputs == grid.DENSITY_GRADIENTS:
+        return sums[0], 2 * sums[1:4]
     return sums[0], 2 * sums[1:4], 0.5 * sums[4]
 
 
-def test_k7bt_emulated_tiles_match_tuna_tpu():
-    """K7bt's tiling (n padded to 16 AO rows and the products' depth to 8,
-    the sums over i a tile of rows at a time), emulated in NumPy on N2/6-31G**
-    with a seeded non-symmetric P, against tuna_tpu's einsums: 1e-13 of
-    each output's largest |entry|."""
+@pytest.mark.parametrize("outputs", DENSITY_SETS, ids=DENSITY_SET_IDS)
+def test_k7bt_emulated_tiles_match_tuna_tpu(outputs):
+    """The tiling of K7b and K7bt (n padded to 16 AO rows and the products'
+    depth to 8, the sums over i a tile of rows at a time), emulated in NumPy
+    for each output set on N2/6-31G** with a seeded non-symmetric P, against
+    tuna_tpu's einsums: 1e-13 of each output's largest |entry|; the rho and
+    grad rho of every set the same numbers."""
     jax_mol, jax_cfg, mol, cfg = _molecules(("N", "N"), 1.1, "6-31G**", "TPSS")
     P, _ = _densities(mol, 3)
     bfs, _, grads, _ = grid.set_up_integration_grid(mol, P, P, cfg, True, "cpu")
@@ -357,9 +412,17 @@ def test_k7bt_emulated_tiles_match_tuna_tpu():
     expected = (jnp.einsum("ij,ik,jk->k", P_j, jax_bfs, jax_bfs, optimize=True),
                 2 * jnp.einsum("ij,ik,ajk->ak", P_j, jax_bfs, jax_grads, optimize=True),
                 0.5 * jnp.einsum("ij,aik,ajk->k", P_j, jax_grads, jax_grads, optimize=True))
-    for got, e in zip(_k7bt_emulated(P, bfs, grads), expected):
-        e = np.asarray(e)
-        assert np.max(np.abs(got - e)) <= 1e-13 * np.max(np.abs(e))
+    got = _k7bt_emulated(P, bfs, grads, outputs)
+    assert len(got) == (3 if outputs == grid.DENSITY_TAU else 2)
+    assert (got[1] is None) == (outputs == grid.DENSITY_RHO)
+    for g, e in zip(got, expected):
+        if g is not None:
+            e = np.asarray(e)
+            assert np.max(np.abs(g - e)) <= 1e-13 * np.max(np.abs(e))
+    tau_set = _k7bt_emulated(P, bfs, grads)
+    assert np.array_equal(got[0], tau_set[0])
+    if got[1] is not None:
+        assert np.array_equal(got[1], tau_set[1])
 
 
 @pytest.mark.parametrize("method,symbols,bond", [

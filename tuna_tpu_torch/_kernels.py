@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # The shared memory one block may take on an H100 (227 KB); the hosts of
-# K5, K7bt and the moving-grid kernel (K8c, K8cu, K8ct, K8cut) size their
+# K5, K7b and K7bt, and the moving-grid kernel (K8c, K8cu, K8ct, K8cut) size their
 # layouts against it.
 SHARED_MEMORY_A_BLOCK = 232448
 
@@ -46,9 +46,10 @@ SIGNATURES = {
     # pair_start, quartets, n_classes, classes (host), boys tables, rows
     # (scratch), packed (out)
     "tuna_eri_packed": [_I, _I, _I] + [_P] * 10 + [_I] + [_P] * 4 + [_P],
-    # lmax, n_atoms, n_basis, n_pairs, coords, charges, a, b, coef, l1, l2,
-    # atom1, atom2, ao_i, ao_j, pair_start, boys_table, dipole_origin_z, out
-    "tuna_one_electron": [_I, _I, _I, _I] + [_P] * 13 + [_D, _P] + [_P],
+    # lmax, n_atoms, n_basis, n_lanes, coords, charges, a, b, coef, l1, l2,
+    # atom1, atom2, ao_i, ao_j, pair_start, lanes, boys_table,
+    # dipole_origin_z, out
+    "tuna_one_electron": [_I, _I, _I, _I] + [_P] * 14 + [_D, _P] + [_P],
     # no, nv, n_batches, batches (host), slots, multisets, orbits, g_oovv,
     # g_ovvv, g_oovo, t1, t2, eps_o, eps_v, v_scale, workspace, partial
     "tuna_ccsd_t_energy": [_I, _I, _I] + [_P] * 11 + [_D, _P, _P] + [_P],
@@ -63,10 +64,12 @@ SIGNATURES = {
     # n_ao, n_points, with_gradients, points, origin, lmn, prim_start, exps,
     # coefs, values (out), gradients (out)
     "tuna_ao_on_grid": [_I, _I, _I] + [_P] * 8 + [_P],
-    # n_ao, n_points, with_gradients, P, phi, grads, density, gradient
-    "tuna_density_on_grid": [_I, _I, _I] + [_P] * 5 + [_P],
-    # n_ao, n_points, points a tile, whole P, P, phi, grads, density, gradient, tau
-    "tuna_density_tau_on_grid": [_I, _I, _I, _I] + [_P] * 6 + [_P],
+    # n_ao, n_points, with_gradients, points a tile, whole P, buffers, P,
+    # phi, grads, density, gradient
+    "tuna_density_on_grid": [_I] * 6 + [_P] * 5 + [_P],
+    # n_ao, n_points, points a tile, whole P, buffers, P, phi, grads,
+    # density, gradient, tau
+    "tuna_density_tau_on_grid": [_I] * 5 + [_P] * 6 + [_P],
     # n_points, n_tiles, points, omega, kappa, weighted density, beta,
     # partial
     "tuna_vv10_energy": [_I, _I] + [_P] * 4 + [_D, _P] + [_P],

@@ -14,73 +14,76 @@
 // included: rho_k = sum_i phi_ik Y_ik and grad rho_k = 2 sum_i grad phi_ik
 // Y_ik with Y_ik = sum_j P_ji phi_jk.
 //
-// What bounds them on an H100: bytes.  At N2/cc-pVTZ on the medium grid
-// (70 Cartesian AOs, 80,724 points) K7a writes values and gradients,
-// 4 x 70 x 80,724 doubles = 181 MB, for some 3e8 float64 operations; K7b
-// reads phi and the gradients (4 x 60 x 80,724 doubles, 155 MB) and writes
-// 4 doubles a point, for 2 n^2 = 7,200 operations a point (6e8 in all, under
-// half the byte time at the data sheet's rates).
+// What bounds K7a on an H100: bytes.  At N2/cc-pVTZ on the medium grid
+// (70 Cartesian AOs, 80,724 points) it writes values and gradients,
+// 4 x 70 x 80,724 doubles = 181 MB, for some 3e8 float64 operations.
 //
-// Design: one thread per grid point in both.  Threads of a warp take
+// K7a's design: one thread per grid point.  Threads of a warp take
 // neighbouring points, so every read and write of an (AO, point) array is
-// coalesced.  K7a walks the AOs; the contracted primitives come in CSR form
+// coalesced.  It walks the AOs; the contracted primitives come in CSR form
 // (prim_start per AO, coefficient x normalisation and exponent per
 // primitive), and the AO data, the same for every thread, is served from
 // L1.  It sums sum_k c_k e^(-a_k r^2) and sum_k c_k a_k e^(-a_k r^2) once
 // and forms the value and the three gradient components from them.  The
 // derivative of X^l is taken only for l > 0 (the reference's guard,
 // grid.py:122-124): Lebedev directions hold X = 0, where an unguarded
-// 0^(-1) gives inf x 0 = NaN.  K7b reads its point's column of phi from
-// device memory once into shared memory (n doubles a thread, read back by
-// that thread alone).  It then walks panels of kDensityPanel columns of P,
-// each staged in shared memory by the whole block, and forms Y for
-// kDensityRows AOs at a time in registers: each column entry, read once
-// from shared memory, meets kDensityRows entries of a row of the panel,
-// which are the same for every thread of the warp (a broadcast, two
-// entries a load).  P is staged rather than read through L1 in the inner
-// loop because the columns' shared memory leaves L1 too small to hold P
-// (28.8 KB at n = 60), and its loads would go to L2.  Y is never stored.
-// Every sum runs in a fixed order: deterministic, no atomics.
+// 0^(-1) gives inf x 0 = NaN.
 //
-// K7bt (density_tau_on_grid_kernel) replaces tuna_tpu/dft/__init__.py:48-49,
-// tau = 1/2 sum_a sum_ij P_ij d_a phi_i d_a phi_j, once a spin for UKS,
-// with rho and grad rho in the same launch.  What bounds it on an H100:
-// bytes, phi and d phi read once (155 MB at N2/cc-pVTZ on the medium grid,
-// 0.047 ms); its operations, the four products Y_a = P^T B_a (B_0 = phi,
-// B_a = d_a phi) of 2 n^2 a point, take 0.035 ms at the DMMA rate.  Its
-// first form ran K7b's loop once for rho and grad rho and once more for each
-// gradient column on the CUDA cores, staging P four times a block: 0.304 ms
-// a launch on the R2SCAN single point (NVIDIA H100 80GB HBM3, 700.00 W).
+// K7b and K7bt are one template, density_on_grid_kernel<outputs, whole P>,
+// over three output sets:
+// * kDensityRho (K7b without gradients, the LDA branch, dft/__init__.py:59):
+//   rho from one column (phi) and one product, Y_0 = P^T phi;
+// * kDensityGradients (K7b, the GGA paths and VV10): rho and grad rho from
+//   four columns [phi | d_x phi | d_y phi | d_z phi] and the one product Y_0;
+// * kDensityTau (K7bt, tuna_tpu/dft/__init__.py:48-49): those and tau =
+//   1/2 sum_a sum_ij P_ij d_a phi_i d_a phi_j from the four products Y_a =
+//   P^T B_a (B_0 = phi, B_a = d_a phi).
+// What bounds them on an H100: bytes, the columns read once (phi and d phi,
+// 155 MB at N2/cc-pVTZ on the medium grid, 0.047 ms; phi alone 0.012 ms);
+// the products (2 n^2 a point each) take 0.009 ms a product at the DMMA
+// rate there.  K7b's first form took one thread a point with the
+// products as dot products on the CUDA cores, P staged in panels with two
+// barriers a panel and the gradient columns read from device memory in
+// the epilogue: 0.115-0.159 ms a launch, 2.5-3.4x its bound.
 // Design: persistent blocks of T / 8 warps take tiles of T points.  A block
-// stages P^T once (zero-padded to the tiles), and for each tile the four
-// columns [phi | d_x phi | d_y phi | d_z phi] of its points with cp.async,
-// all in flight at once, coalesced along the points: the only read of phi
-// and d phi.  Each warp takes 8 points and walks the 16-row tiles i of the
-// AOs: the four products Y_a[i, :] on mma.sync.m16n8k8 f64 (the A fragment,
-// P^T, shared by the four), then the epilogue multiplies each accumulator
-// entry by the staged B entries of the same (i, point) and adds them over
-// i in registers: rho and grad rho from Y_0 against phi and d_a phi, tau
-// from Y_a against d_a phi.  Y is never stored.  After the last tile of i
-// the sums over the fragment rows go through three warp shuffles, in a
-// fixed order: deterministic, no atomics, no other warp involved.  The
-// host picks T (32, 16 or 8) and whether P^T fits whole (dft/grid.py::
-// density_tau_layout); where it does not, as at n = 203, P^T is staged 16
-// rows at a time (n = 302 fits with T = 8).  Its sums
-// run in another order than K7b's: rho and grad rho agree with K7b's to
-// rounding, not bitwise.  At N2/cc-pVTZ it takes 0.089 ms a launch on the
-// R2SCAN single point's grid (1.9x its byte bound) and 0.113 on O2's in
-// the UKS TPSS optimisation, where mma.sync.m16n8k8 ran 30% faster than
-// m16n8k4 (NVIDIA H100 80GB HBM3, 700.00 W).
+// stages P^T once (zero-padded to the tiles) and each tile's columns with
+// cp.async, coalesced along the points: the only read of phi and d phi.
+// With two column buffers the next tile's cp.async is in flight while the
+// block multiplies the current one.  Each warp takes 8 points and walks the
+// 16-row tiles i of the AOs: the products Y_a[i, :] on mma.sync.m16n8k8 f64
+// (the A fragment, P^T, shared by them), then the epilogue multiplies each
+// accumulator entry by the staged column entries of the same (i, point)
+// and adds them over i in registers: rho and grad rho from Y_0 against phi
+// and d_a phi, tau from Y_a against d_a phi.  Y is never stored.  After the
+// last tile of i the sums over the fragment rows go through three warp
+// shuffles, in a fixed order: deterministic, no atomics, no other warp
+// involved.  Y_0 and the rho and grad rho epilogue are the same code in
+// every output set, and a point's sums do not depend on the tile, on P^T's
+// staging or on the buffers, so K7b's rho and grad rho are K7bt's bit for
+// bit.  The host picks T (32, 16 or 8), whether P^T fits whole and one or
+// two column buffers (dft/grid.py::density_layout); where P^T does not fit
+// whole, as at n = 203 with gradients, it is staged 16 rows at a time.  At
+// N2/cc-pVTZ (n = 60, T = 32, P^T whole; chip_smoke.py, NVIDIA H100 80GB
+// HBM3, 700.00 W) two buffers (one block a multiprocessor) took 0.078 ms a
+// launch back to back with gradients against 0.089 with one (two blocks),
+// so K7b takes two; K7bt, four times the products, took 0.119 with one
+// against 0.128, so it takes one; without gradients (one column) the two
+// tied at 32 points (0.032) and one was ahead at 16 points and with P^T in
+// rows (0.038 against 0.039, 0.047 against 0.056), so it takes one as
+// well.  With one buffer K7b took 0.064 ms a
+// launch on the B3LYP single point (1.4x its byte bound; the first form
+// 0.115) and 0.078 on the UKS optimisation (0.159); without gradients
+// 0.021-0.030 (bound 0.012).
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <vector>
 
 #include "dmma.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;       // threads (points) per block of K7a
-constexpr int kDensityPoints = 64;  // threads (points) per block of K7b
-constexpr int kDensityPanel = 32;   // columns of P that K7b stages at a time
-constexpr int kDensityRows = 8;     // AOs of Y that K7b holds in registers at a time
 
 __device__ __forceinline__ double int_pow(double x, int n) {
   double result = 1.0;
@@ -124,159 +127,177 @@ ao_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double* __re
   }
 }
 
-__global__ void __launch_bounds__(kDensityPoints)
-density_on_grid_kernel(int n_ao, int n_points, int with_gradients, const double* __restrict__ P,
-                       const double* __restrict__ phi, const double* __restrict__ grads,
-                       double* __restrict__ density, double* __restrict__ gradient) {
-  extern __shared__ double shared[];
-  // column[j * kDensityPoints + t] = phi_j at thread t's point;
-  // panel[j * kDensityPanel + c] = P_j,(i0 + c), zero past the last AO
-  double* column = shared;
-  double* panel = shared + static_cast<size_t>(n_ao) * kDensityPoints;
-  const int t = threadIdx.x;
-  const int k = blockIdx.x * kDensityPoints + t;
-  const bool live = k < n_points;  // the others only help stage the panels
-  const size_t G = static_cast<size_t>(n_points);
-  const size_t plane = static_cast<size_t>(n_ao) * G;
-  // both load loops unrolled so that eight loads are in flight at a time
-#pragma unroll 8
-  for (int j = 0; j < n_ao; ++j) column[j * kDensityPoints + t] = live ? phi[j * G + k] : 0.0;
-  double rho = 0.0, gx = 0.0, gy = 0.0, gz = 0.0;
-  for (int i0 = 0; i0 < n_ao; i0 += kDensityPanel) {
-    __syncthreads();  // every thread is done with the previous panel
-#pragma unroll 8
-    for (int e = t; e < n_ao * kDensityPanel; e += kDensityPoints) {
-      const int j = e / kDensityPanel, c = e % kDensityPanel;
-      panel[e] = i0 + c < n_ao ? P[static_cast<size_t>(j) * n_ao + i0 + c] : 0.0;
+// The multiprocessor count of the current device times the blocks of
+// `kernel` one holds at `threads` threads and `shared` bytes of dynamic
+// shared memory: the grid of a persistent kernel.  The CUDA runtime is
+// asked once per (device, kernel, threads, shared) and the answer kept, so
+// a launch adds no query; a kernel's shared memory attribute only grows,
+// to the largest request so far.
+struct Residency {
+  int device;
+  const void* kernel;
+  int threads, shared, blocks;
+};
+
+cudaError_t resident_blocks(const void* kernel, int threads, int shared, int* blocks) {
+  static std::mutex lock;
+  static std::vector<Residency> known;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  int largest = -1;   // the kernel's shared memory attribute on this device, if set
+  for (const Residency& r : known) {
+    if (r.device != device || r.kernel != kernel) continue;
+    if (r.threads == threads && r.shared == shared) {
+      *blocks = r.blocks;
+      return cudaSuccess;
     }
-    __syncthreads();
-    for (int i1 = 0; i1 < kDensityPanel && i0 + i1 < n_ao; i1 += kDensityRows) {
-      double y[kDensityRows];  // Y_ik for i = i0 + i1 + r
-#pragma unroll
-      for (int r = 0; r < kDensityRows; ++r) y[r] = 0.0;
-#pragma unroll 4
-      for (int j = 0; j < n_ao; ++j) {
-        const double f = column[j * kDensityPoints + t];
-        const double2* row = reinterpret_cast<const double2*>(panel + j * kDensityPanel + i1);
-#pragma unroll
-        for (int r = 0; r < kDensityRows / 2; ++r) {
-          const double2 p = row[r];
-          y[2 * r] += p.x * f;
-          y[2 * r + 1] += p.y * f;
-        }
-      }
-      if (!live) continue;
-#pragma unroll
-      for (int r = 0; r < kDensityRows; ++r) {
-        const int i = i0 + i1 + r;
-        if (i < n_ao) {
-          rho += column[i * kDensityPoints + t] * y[r];
-          if (with_gradients) {
-            const size_t at = static_cast<size_t>(i) * G + k;
-            gx += grads[at] * y[r];
-            gy += grads[plane + at] * y[r];
-            gz += grads[2 * plane + at] * y[r];
-          }
-        }
-      }
-    }
+    largest = r.shared > largest ? r.shared : largest;
   }
-  if (!live) return;
-  density[k] = rho;
-  if (with_gradients) {
-    gradient[k] = 2.0 * gx;
-    gradient[G + k] = 2.0 * gy;
-    gradient[2 * G + k] = 2.0 * gz;
+  if (shared > largest) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return err;
   }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shared)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  known.push_back({device, kernel, threads, shared, sms * per_sm});
+  *blocks = sms * per_sm;
+  return cudaSuccess;
 }
 
-constexpr int kTauMaxWarps = 4;   // warps (8 points each) a block of K7bt at most
+constexpr int kDensityRho = 0;          // rho
+constexpr int kDensityGradients = 1;    // and grad rho
+constexpr int kDensityTau = 2;          // and tau
+constexpr int kDensityMaxWarps = 4;     // warps (8 points each) a block at most
 
-// P^T rows [i0, i0 + rows) into Pt (rows, lda), zero past n_ao.
+// The columns a tile holds: phi; with gradients (and tau) d_x, d_y, d_z phi too.
+__host__ __device__ constexpr int density_columns(int outputs) {
+  return outputs == kDensityRho ? 1 : 4;
+}
+
+// P^T rows [i0, i0 + rows) into Pt (rows, lda), zero past n_ao, by
+// cp.async: every load in flight at once, in the group of the caller's
+// next commit.
 __device__ __forceinline__ void stage_p_transposed(int n_ao, int i0, int rows, int lda,
                                                    const double* __restrict__ P, double* Pt) {
   for (int e = threadIdx.x; e < rows * lda; e += blockDim.x) {
     const int r = e / lda, j = e - r * lda, i = i0 + r;
-    Pt[e] = (i < n_ao && j < n_ao) ? P[static_cast<size_t>(j) * n_ao + i] : 0.0;
+    const bool inside = i < n_ao && j < n_ao;
+    cp_async8_zfill(Pt + e, P + (inside ? static_cast<size_t>(j) * n_ao + i : 0), inside);
   }
 }
 
-// K7bt (see the note at the top).  Shared memory: the columns (4, mp, T +
-// 4), rows past n_ao zero, then P^T (mp, lda) when kWholeP, else 16 rows of
-// it.  mp = n_ao rounded up to 16 (the AO tiles), kp = n_ao rounded up to 8
-// (the products' depth), lda = kp + 4: a
-// row stride of 4 or 12 mod 16 doubles, as T + 4 is, keeps every fragment
-// load free of bank conflicts.
-template <bool kWholeP>
-__global__ void __launch_bounds__(32 * kTauMaxWarps, 4)
-density_tau_on_grid_kernel(int n_ao, int n_points, int points, int mp, int kp, int lda,
-                           const double* __restrict__ P, const double* __restrict__ phi,
-                           const double* __restrict__ grads, double* __restrict__ density,
-                           double* __restrict__ gradient, double* __restrict__ tau) {
+// K7b and K7bt (see the note at the top).  Shared memory: `buffers` (1 or
+// 2) sets of the columns, (density_columns(kOutputs), mp, T + 4) each, rows
+// past n_ao zero, then P^T (mp, lda) when kWholeP, else 16 rows of it.  mp
+// = n_ao rounded up to 16 (the AO tiles), kp = n_ao rounded up to 8 (the
+// products' depth), lda = kp + 4: a row stride of 4 or 12 mod 16 doubles,
+// as T + 4 is, keeps every fragment load free of bank conflicts.  gradient
+// is written only with gradients, tau only for kDensityTau.
+template <int kOutputs, bool kWholeP>
+__global__ void __launch_bounds__(32 * kDensityMaxWarps, 4)
+density_on_grid_kernel(int n_ao, int n_points, int points, int buffers, int mp, int kp, int lda,
+                       const double* __restrict__ P, const double* __restrict__ phi,
+                       const double* __restrict__ grads, double* __restrict__ density,
+                       double* __restrict__ gradient, double* __restrict__ tau) {
+  constexpr int kColumns = density_columns(kOutputs);
+  constexpr int kProducts = kOutputs == kDensityTau ? 4 : 1;
+  // rho, grad rho (x, y, z) / 2, 2 tau
+  constexpr int kSums = kOutputs == kDensityRho ? 1 : kOutputs == kDensityGradients ? 4 : 5;
   extern __shared__ __align__(16) double shared[];
   const int ldb = points + 4, column = mp * ldb;   // a column's doubles: (mp, ldb)
-  double* columns = shared;                         // phi, d_x phi, d_y phi, d_z phi
-  double* Pt = shared + 4 * column;
+  const int set = kColumns * column;              // a buffer's
+  double* Pt = shared + buffers * set;
   const int lane = threadIdx.x & 31, g = lane >> 2, quad = lane & 3;
   const int first = 8 * (threadIdx.x >> 5);        // this warp's points in the tile
   const size_t G = static_cast<size_t>(n_points), plane = static_cast<size_t>(n_ao) * G;
   const int padding = (mp - n_ao) * ldb;
-  for (int e = threadIdx.x; e < 4 * padding; e += blockDim.x) {
-    const int a = e / padding;
-    columns[a * column + n_ao * ldb + e - a * padding] = 0.0;
+  for (int e = threadIdx.x; e < buffers * kColumns * padding; e += blockDim.x) {
+    const int c = e / padding;                     // buffer * kColumns + column
+    shared[c * column + n_ao * ldb + e - c * padding] = 0.0;
   }
+  // with the first tile's columns (its cp.async group)
   if constexpr (kWholeP) stage_p_transposed(n_ao, 0, mp, lda, P, Pt);
-  const int tiles = (n_points + points - 1) / points;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int k0 = tile * points;
-    // thread (t, j0) takes point t of rows j0, j0 + 4, ...: a warp reads 256
-    // contiguous bytes of a row (T = 32) or two rows' 128 (T = 16)
-    const int t = threadIdx.x % points, j0 = threadIdx.x / points;
-    const bool inside = k0 + t < n_points;
+  // A tile's columns into a buffer, one cp.async group: thread (t, j0) takes
+  // point t of rows j0, j0 + 4, ...; a warp reads 256 contiguous bytes of a
+  // row (T = 32) or two rows' 128 (T = 16); zeros past the last point.
+  const int t = threadIdx.x % points, j0 = threadIdx.x / points;
+  auto load = [&](int tile, double* columns) {
+    const int k = tile * points + t;
+    const bool inside = k < n_points;
+    const size_t at = inside ? k : 0;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const double* from = (a == 0 ? phi : grads + (a - 1) * plane) + k0 + t;
+    for (int a = 0; a < kColumns; ++a) {
+      const double* from = (a == 0 ? phi : grads + (a - 1) * plane) + at;
       for (int j = j0; j < n_ao; j += 4) {
-        double* to = columns + a * column + j * ldb + t;
-        if (inside) cp_async8(to, from + j * G); else *to = 0.0;
+        cp_async8_zfill(columns + a * column + j * ldb + t, from + j * G, inside);
       }
     }
-    cp_async_wait_all();
+    cp_async_commit();
+  };
+  const int tiles = (n_points + points - 1) / points;
+  int buffer = 0;
+  if (buffers == 2) load(blockIdx.x, shared);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const double* columns = shared + buffer * set;
+    if (buffers == 2) {        // the next tile's loads fly while this one is multiplied
+      const int next = tile + gridDim.x;
+      if (next < tiles) load(next, shared + (buffer ^ 1) * set); else cp_async_commit();
+      cp_async_wait<1>();
+      buffer ^= 1;
+    } else {
+      load(tile, shared);
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    double sums[5][2] = {};   // rho, grad rho (x, y, z) / 2, 2 tau at points first + 2 quad + r
+    double sums[kSums][2] = {};   // at points first + 2 quad + r
     for (int i0 = 0; i0 < mp; i0 += 16) {
       const double* A = Pt + i0 * lda;
       if constexpr (!kWholeP) {
         __syncthreads();      // every warp is done with the previous rows
         stage_p_transposed(n_ao, i0, 16, lda, P, Pt);
+        cp_async_commit();
+        cp_async_wait<0>();
         __syncthreads();
         A = Pt;
       }
-      double y[4][4] = {};    // Y_a for AOs i0 + g (+ 8) at points first + 2 quad (+ 1)
+      double y[kProducts][4] = {};   // Y_a for AOs i0 + g (+ 8) at points first + 2 quad (+ 1)
       for (int kk = quad; kk < kp; kk += 8) {
         const double a[4] = {A[g * lda + kk], A[(g + 8) * lda + kk], A[g * lda + kk + 4],
                              A[(g + 8) * lda + kk + 4]};
         const double* b = columns + kk * ldb + first + g;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) mma_f64(y[c], a, b[c * column], b[c * column + 4 * ldb]);
+        for (int c = 0; c < kProducts; ++c) {
+          mma_f64(y[c], a, b[c * column], b[c * column + 4 * ldb]);
+        }
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const double* at = columns + (i0 + g + 8 * h) * ldb + first + 2 * quad + r;
-          const double f = at[0], dx = at[column], dy = at[2 * column], dz = at[3 * column];
           const double y0 = y[0][2 * h + r];
-          sums[0][r] += f * y0;
-          sums[1][r] += dx * y0;
-          sums[2][r] += dy * y0;
-          sums[3][r] += dz * y0;
-          sums[4][r] += dx * y[1][2 * h + r] + dy * y[2][2 * h + r] + dz * y[3][2 * h + r];
+          sums[0][r] += at[0] * y0;
+          if constexpr (kOutputs != kDensityRho) {
+            const double dx = at[column], dy = at[2 * column], dz = at[3 * column];
+            sums[1][r] += dx * y0;
+            sums[2][r] += dy * y0;
+            sums[3][r] += dz * y0;
+            if constexpr (kOutputs == kDensityTau) {
+              sums[4][r] += dx * y[1][2 * h + r] + dy * y[2][2 * h + r] + dz * y[3][2 * h + r];
+            }
+          }
         }
       }
     }
 #pragma unroll
-    for (int v = 0; v < 5; ++v) {
+    for (int v = 0; v < kSums; ++v) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         double x = sums[v][r];
@@ -289,18 +310,47 @@ density_tau_on_grid_kernel(int n_ao, int n_points, int points, int mp, int kp, i
     if (g == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int k = k0 + first + 2 * quad + r;
+        const int k = tile * points + first + 2 * quad + r;
         if (k < n_points) {
           density[k] = sums[0][r];
-          gradient[k] = 2.0 * sums[1][r];
-          gradient[G + k] = 2.0 * sums[2][r];
-          gradient[2 * G + k] = 2.0 * sums[3][r];
-          tau[k] = 0.5 * sums[4][r];
+          if constexpr (kOutputs != kDensityRho) {
+            gradient[k] = 2.0 * sums[1][r];
+            gradient[G + k] = 2.0 * sums[2][r];
+            gradient[2 * G + k] = 2.0 * sums[3][r];
+          }
+          if constexpr (kOutputs == kDensityTau) tau[k] = 0.5 * sums[4][r];
         }
       }
     }
     __syncthreads();          // every warp is done with the tile's columns
   }
+}
+
+template <int kOutputs>
+cudaError_t launch_density(int n_ao, int n_points, int points, int whole_p, int buffers,
+                           const double* P, const double* phi, const double* grads,
+                           double* density, double* gradient, double* tau, cudaStream_t stream) {
+  if (n_points == 0) return cudaSuccess;
+  if (n_ao < 1 || points < 8 || points % 8 != 0 || points > 8 * kDensityMaxWarps ||
+      (buffers != 1 && buffers != 2))
+    return cudaErrorInvalidValue;
+  const int mp = (n_ao + 15) / 16 * 16, kp = (n_ao + 7) / 8 * 8, lda = kp + 4;
+  const size_t doubles =
+      static_cast<size_t>(buffers) * density_columns(kOutputs) * mp * (points + 4) +
+      static_cast<size_t>(whole_p ? mp : 16) * lda;
+  const int shared = static_cast<int>(doubles * sizeof(double));
+  auto kernel = whole_p ? density_on_grid_kernel<kOutputs, true>
+                        : density_on_grid_kernel<kOutputs, false>;
+  const int threads = 4 * points;   // a warp for each 8 points
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks(reinterpret_cast<const void*>(kernel), threads, shared, &resident);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n_points + points - 1) / points;
+  const int blocks = tiles < resident ? tiles : resident;
+  kernel<<<blocks, threads, shared, stream>>>(n_ao, n_points, points, buffers, mp, kp, lda, P,
+                                             phi, grads, density, gradient, tau);
+  return cudaGetLastError();
 }
 
 // The moving-grid kernel (moving_grid_kernel<S, outputs, whole P>): K8c and
@@ -653,19 +703,12 @@ cudaError_t launch_moving_grid(int n_ao, int n_points, int first_moving, int poi
   auto kernel = whole_p ? moving_grid_kernel<S, kOutputs, true>
                         : moving_grid_kernel<S, kOutputs, false>;
   const int threads = 8 * points * S;   // 2 S warps for each 8 points
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks(reinterpret_cast<const void*>(kernel), threads, shared, &resident);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shared)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles = (n_points + points - 1) / points;
-  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
+  const int blocks = tiles < resident ? tiles : resident;
   kernel<<<blocks, threads, shared, stream>>>(n_ao, n_points, first_moving, points, mp, kp, lda,
                                              xyz, origin, ao_moves, lmn, prim_start, exps, coefs,
                                              P, density, gradient, d_density, d_gradient, tau,
@@ -771,64 +814,28 @@ extern "C" int tuna_ao_on_grid(int n_ao, int n_points, int with_gradients, const
   return cudaGetLastError();
 }
 
-// density (n_points,); gradient (3, n_points), written only when
+// K7b: density (n_points,); gradient (3, n_points), written only when
 // with_gradients is non-zero (grads and gradient may be null otherwise).
-// P (n_ao, n_ao), phi (n_ao, n_points), grads (3, n_ao, n_points).  A
-// block's columns of phi and panel of P take n_ao x 768 bytes of shared
-// memory: past the default 48 KB (n_ao > 64) the launch asks for more, and
-// an n_ao past what the card holds (302 on an H100) fails with the CUDA
-// error of that request.
-extern "C" int tuna_density_on_grid(int n_ao, int n_points, int with_gradients, const double* P,
-                                    const double* phi, const double* grads, double* density,
-                                    double* gradient, cudaStream_t stream) {
-  if (n_points == 0) return cudaSuccess;
-  const size_t shared =
-      static_cast<size_t>(n_ao) * (kDensityPoints + kDensityPanel) * sizeof(double);
-  if (shared > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        density_on_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
-    if (status != cudaSuccess) return status;
-  }
-  const int blocks = (n_points + kDensityPoints - 1) / kDensityPoints;
-  density_on_grid_kernel<<<blocks, kDensityPoints, shared, stream>>>(
-      n_ao, n_points, with_gradients, P, phi, grads, density, gradient);
-  return cudaGetLastError();
+// P (n_ao, n_ao), phi (n_ao, n_points), grads (3, n_ao, n_points).  points
+// (8, 16 or 32: the tile, 8 a warp), whole_p (P^T staged whole, else 16
+// rows at a time) and buffers (1 or 2 sets of the tile's columns) come from
+// the host (dft/grid.py::density_layout); the shared memory follows from
+// them, n_ao and with_gradients, and a layout past what the card holds
+// fails with the CUDA error of that request.
+extern "C" int tuna_density_on_grid(int n_ao, int n_points, int with_gradients, int points,
+                                    int whole_p, int buffers, const double* P, const double* phi,
+                                    const double* grads, double* density, double* gradient,
+                                    cudaStream_t stream) {
+  auto launch = with_gradients ? launch_density<kDensityGradients> : launch_density<kDensityRho>;
+  return launch(n_ao, n_points, points, whole_p, buffers, P, phi, grads, density, gradient,
+                nullptr, stream);
 }
 
 // K7bt: as tuna_density_on_grid with the gradients, plus tau (n_points,).
-// points (8, 16 or 32: the tile, 8 a warp) and whole_p (P^T staged whole,
-// else 16 rows at a time) come from the host (dft/grid.py::
-// density_tau_layout); the shared memory follows from them and n_ao, and a
-// layout past what the card holds fails with the CUDA error of that
-// request.
 extern "C" int tuna_density_tau_on_grid(int n_ao, int n_points, int points, int whole_p,
-                                        const double* P, const double* phi, const double* grads,
-                                        double* density, double* gradient, double* tau,
-                                        cudaStream_t stream) {
-  if (n_points == 0) return cudaSuccess;
-  if (n_ao < 1 || points < 8 || points % 8 != 0 || points > 8 * kTauMaxWarps)
-    return cudaErrorInvalidValue;
-  const int mp = (n_ao + 15) / 16 * 16, kp = (n_ao + 7) / 8 * 8, lda = kp + 4;
-  const size_t doubles = 4 * static_cast<size_t>(mp) * (points + 4) +
-                         static_cast<size_t>(whole_p ? mp : 16) * lda;
-  const int shared = static_cast<int>(doubles * sizeof(double));
-  auto kernel = whole_p ? density_tau_on_grid_kernel<true> : density_tau_on_grid_kernel<false>;
-  const int threads = 4 * points;   // a warp for each 8 points
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shared)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int tiles = (n_points + points - 1) / points;
-  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
-  kernel<<<blocks, threads, shared, stream>>>(n_ao, n_points, points, mp, kp, lda, P, phi, grads,
-                                             density, gradient, tau);
-  return cudaGetLastError();
+                                        int buffers, const double* P, const double* phi,
+                                        const double* grads, double* density, double* gradient,
+                                        double* tau, cudaStream_t stream) {
+  return launch_density<kDensityTau>(n_ao, n_points, points, whole_p, buffers, P, phi, grads,
+                                     density, gradient, tau, stream);
 }

@@ -10,7 +10,8 @@ device of the tensors they are given:
     (csrc/dft_grid.cu) on a CUDA tensor, `_ao_on_grid_plain` on a CPU
     tensor; the spherical transform is a torch.matmul after either;
   * density_on_grid (rho and grad rho from P; with_tau, tau too): kernel
-    K7b `density_on_grid` (K7bt with tau) on a CUDA tensor, the reference
+    K7b `density_on_grid` (K7bt with tau; one template in csrc/dft_grid.cu,
+    its tile from `density_layout`) on a CUDA tensor, the reference
     einsums (`_density_on_grid_plain`) on a CPU tensor;
   * density_deriv_on_grid (rho, grad rho and their R-tangents at fixed P on
     a grid whose second half moves with atom 1, for the analytic gradient;
@@ -25,6 +26,8 @@ values (n_basis, N, M) and gradients (3, n_basis, N, M).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -216,49 +219,91 @@ def density_on_grid(P, bfs, grads=None, with_tau: bool = False):
         return _density_on_grid_plain(P, bfs, grads, with_tau)
     if bfs.device.type != "cuda":
         raise ValueError(f"no density on the grid for device {bfs.device}")
-    device = bfs.device
-    n = bfs.shape[0]
     shape = bfs.shape[1:]
-    phi = bfs.reshape(n, -1)
-    G = phi.shape[1]
+    outputs = _density_kernel(P, bfs.reshape(bfs.shape[0], -1),
+                              grads.reshape(3, bfs.shape[0], -1) if grads is not None else None,
+                              with_tau)
+    density, gradient = outputs[0].reshape(shape), outputs[1]
+    gradient = gradient.reshape(3, *shape) if gradient is not None else None
+    if with_tau:
+        return density, gradient, outputs[2].reshape(shape)
+    return density, gradient
+
+
+# density_layout's output sets (csrc/dft_grid.cu kDensityRho, ...)
+DENSITY_RHO, DENSITY_GRADIENTS, DENSITY_TAU = 0, 1, 2
+
+
+def _density_kernel(P, phi, grads, with_tau: bool, layout=None):
+    """Launch K7b (rho; with grads, grad rho) or K7bt (with_tau) on phi (n,
+    G) and grads (3, n, G) or None: (rho (G,), grad rho (3, G) or None[,
+    tau (G,)]).  The tile (points, P^T whole, buffers) comes from `layout`,
+    by default density_layout's."""
+    device = phi.device
+    n, G = phi.shape
     _kernels.check_tensor("P", P, (n, n), _F64, device)
     _kernels.check_tensor("bfs", phi, (n, G), _F64, device)
     if grads is not None:
-        grads = grads.reshape(3, n, G)
         _kernels.check_tensor("grads", grads, (3, n, G), _F64, device)
+    outputs = (DENSITY_TAU if with_tau else DENSITY_GRADIENTS if grads is not None
+               else DENSITY_RHO)
+    points, whole_p, buffers = layout or density_layout(n, outputs)[:3]
     density = torch.empty(G, dtype=_F64, device=device)
     gradient = torch.empty((3, G), dtype=_F64, device=device) if grads is not None else None
+    pointers = [P.data_ptr(), phi.data_ptr(), grads.data_ptr() if grads is not None else None,
+                density.data_ptr(), gradient.data_ptr() if gradient is not None else None]
     if with_tau:
         tau = torch.empty(G, dtype=_F64, device=device)
-        points, whole_p, _ = density_tau_layout(n)
-        _kernels.launch(
-            "density_tau_on_grid", "tuna_density_tau_on_grid", device,
-            n, G, points, int(whole_p), P.data_ptr(), phi.data_ptr(), grads.data_ptr(),
-            density.data_ptr(), gradient.data_ptr(), tau.data_ptr())
-        return density.reshape(shape), gradient.reshape(3, *shape), tau.reshape(shape)
-    _kernels.launch(
-        "density_on_grid", "tuna_density_on_grid", device,
-        n, G, int(grads is not None), P.data_ptr(), phi.data_ptr(),
-        grads.data_ptr() if grads is not None else None, density.data_ptr(),
-        gradient.data_ptr() if grads is not None else None)
-    return (density.reshape(shape),
-            gradient.reshape(3, *shape) if gradient is not None else None)
+        _kernels.launch("density_tau_on_grid", "tuna_density_tau_on_grid", device, n, G, points,
+                        int(whole_p), buffers, *pointers, tau.data_ptr())
+        return density, gradient, tau
+    _kernels.launch("density_on_grid", "tuna_density_on_grid", device, n, G,
+                    int(grads is not None), points, int(whole_p), buffers, *pointers)
+    return density, gradient
 
 
-def density_tau_layout(n: int) -> tuple[int, bool, int]:
-    """K7bt's tile for n AOs (csrc/dft_grid.cu density_tau_on_grid_kernel):
-    (points a tile, P^T staged whole, shared bytes).  A block holds the
-    tile's four columns, (4, n rounded up to 16, points + 4) doubles, and
-    P^T whole ((n rounded up to 16) x lda doubles) or 16 rows of it; the
-    first of 32, 16 and 8 points with P^T whole that fits, else with 16
-    rows."""
+def density_bytes(n: int, outputs: int, points: int, whole: bool, buffers: int) -> int:
+    """Shared bytes of a block of K7b/K7bt: see density_layout."""
     mp, lda = -(-n // 16) * 16, -(-n // 8) * 8 + 4
+    columns = 1 if outputs == DENSITY_RHO else 4
+    return 8 * (buffers * columns * mp * (points + 4) + (mp if whole else 16) * lda)
+
+
+def density_layouts(n: int, outputs: int) -> list[tuple[int, bool, int, int]]:
+    """Every tile of K7b (outputs DENSITY_RHO, DENSITY_GRADIENTS) and K7bt
+    (DENSITY_TAU) for n AOs that fits an H100 block's shared memory, in the
+    host's order of preference: (points a tile, P^T staged whole, column
+    buffers, shared bytes).  A block holds `buffers` sets of the tile's
+    columns (phi; with gradients or tau also d phi), (1 or 4, n rounded up
+    to 16, points + 4) doubles each, and P^T whole ((n rounded up to 16) x
+    lda doubles, lda = n rounded up to 8, plus 4) or 16 rows of it.  The
+    order: P^T whole before 16 rows, then 32, 16 and 8 points, then for K7b
+    with gradients two buffers before one (four columns and one product: the
+    next tile's loads in flight during it pay), for K7bt and for K7b
+    without gradients one before two (four products, or one column: the
+    smaller block, two blocks a multiprocessor, pays more), as
+    chip_smoke.py's tiles_back_to_back_ms measured (PERF.md)."""
+    order = (2, 1) if outputs == DENSITY_GRADIENTS else (1, 2)
+    layouts = []
     for whole in (True, False):
         for points in (32, 16, 8):
-            shared = 8 * (4 * mp * (points + 4) + (mp if whole else 16) * lda)
-            if shared <= _kernels.SHARED_MEMORY_A_BLOCK:
-                return points, whole, shared
-    raise ValueError(f"tau on the grid: {n} AOs do not fit one block's shared memory")
+            for buffers in order:
+                shared = density_bytes(n, outputs, points, whole, buffers)
+                if shared <= _kernels.SHARED_MEMORY_A_BLOCK:
+                    layouts.append((points, whole, buffers, shared))
+    return layouts
+
+
+@functools.lru_cache(maxsize=None)
+def density_layout(n: int, outputs: int) -> tuple[int, bool, int, int]:
+    """The tile the wrappers of K7b and K7bt take for n AOs: the first of
+    density_layouts; a shape that fits none raises (no other kernel or
+    plain version takes it on the card)."""
+    layouts = density_layouts(n, outputs)
+    if not layouts:
+        raise ValueError(f"the density on the grid: {n} AOs do not fit one block's shared "
+                         f"memory ({_kernels.SHARED_MEMORY_A_BLOCK} bytes)")
+    return layouts[0]
 
 
 def _density_on_grid_plain(P, bfs, grads=None, with_tau: bool = False):

@@ -287,6 +287,7 @@ class IntegralPlan:
             self.pair_id, np.arange(self.n_pairs + 1)).astype(np.int32)
         self._device_tensors: dict = {}
         self._work_list = None
+        self._lane_schedule = None
         self._device_quartets: dict = {}  # device -> the work list's quartets
         self._setup_plain_blocks()
 
@@ -343,6 +344,7 @@ class IntegralPlan:
                 "pid_i": i32(self.pid_i), "pid_j": i32(self.pid_j),
                 "pair_index": torch.as_tensor(self.pair_index, dtype=torch.int64,
                                               device=device),
+                "lanes": i32(self.lane_schedule()),
                 # the quartet kernels' Taylor tables, Boys orders 0..4 lmax + 1
                 # (the derivative quartets of K8b go one order higher)
                 "boys_quartets": torch.stack([taylor_table(n, device)
@@ -412,6 +414,29 @@ class IntegralPlan:
         self._work_list = (quartets, classes)
         return self._work_list
 
+    def lane_schedule(self) -> np.ndarray:
+        """K3's lanes (csrc/one_electron.cu), (n_lanes, 2) int32 with n_lanes
+        a multiple of 32: each lane's AO pair (-1 for none) and the width of
+        its group.  An AO pair with c primitive pairs gets a group of w
+        lanes, w the smallest power of two >= c, at most 32, whose lane r
+        takes its primitive pairs r, r + w, ...  The AO pairs come sorted
+        by c, largest first (ties by pair index), packed into warps in that
+        order: widths only shrink along a warp, so every group starts at a
+        lane that is a multiple of its width.  It depends on the basis only,
+        so it is built once."""
+        if self._lane_schedule is not None:
+            return self._lane_schedule
+        count = np.diff(self.pair_start).astype(np.int64)
+        order = np.lexsort((np.arange(self.n_pairs), -count))
+        width = np.minimum(32, 1 << np.ceil(np.log2(np.maximum(count[order], 1))).astype(np.int64))
+        first = np.concatenate([[0], np.cumsum(width)[:-1]])
+        n_lanes = -(-int(width.sum()) // 32) * 32
+        lanes = np.full((n_lanes, 2), (-1, 1), dtype=np.int32)
+        for pair, w, lane in zip(order, width, first):
+            lanes[lane:lane + w] = (pair, w)
+        self._lane_schedule = lanes
+        return lanes
+
     def _kernel_work_list(self, device):
         """The work list's quartets on `device` (cached) and its class table,
         which stays on the host."""
@@ -453,12 +478,13 @@ class IntegralPlan:
         out = torch.empty((9, N, N), dtype=_F64, device=device)
         _kernels.launch(
             "one_electron", "tuna_one_electron", device,
-            self.lmax, n_atoms, N, self.n_pairs,
+            self.lmax, n_atoms, N, t["lanes"].shape[0],
             coords.data_ptr(), charges.data_ptr(), t["a"].data_ptr(),
             t["b"].data_ptr(), t["coef"].data_ptr(), t["l1"].data_ptr(),
             t["l2"].data_ptr(), t["atom1"].data_ptr(), t["atom2"].data_ptr(),
             t["ao_i"].data_ptr(), t["ao_j"].data_ptr(), t["pair_start"].data_ptr(),
-            t["boys_one_electron"].data_ptr(), float(dipole_origin_z), out.data_ptr())
+            t["lanes"].data_ptr(), t["boys_one_electron"].data_ptr(),
+            float(dipole_origin_z), out.data_ptr())
         return out[0], out[1], out[2], out[3:6], out[6:9]
 
     def _one_electron_plain(self, coords, charges, dipole_origin_z):
