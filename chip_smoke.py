@@ -50,13 +50,16 @@ non-zero without printing a result):
      counts and against the port's stored twin (the same line without
      DIRECT, run once), then its profile;
   9. gradient kernels: K8a (one-electron tangent) and K8b (two-electron
-     energy tangent, bitwise over two calls) against their plain versions
-     at N2/cc-pVTZ and CO/6-31G; K8c (the density's tangent on the moving
-     grid, on DMMA) at the DFT path's grid with its converged density, in
-     phase 6: with and without gradients 1e-12 of each output's largest
-     |entry| from its plain version and bitwise over two calls, its time
-     at every tile the card holds, its products alone as one batched
-     torch.matmul, the bound and the registers (no spills);
+     energy tangent) against their plain versions at N2/cc-pVTZ and
+     CO/6-31G, both bitwise over two calls; K8a's lane schedule (warps,
+     longest chain), its device ms a launch (torch.profiler), and its
+     registers and stack frames (ptxas; a spill fails the run); K8c (the
+     density's tangent on the moving grid, on DMMA) at the DFT path's grid
+     with its converged density, in phase 6: with and without gradients
+     1e-12 of each output's largest |entry| from its plain version and
+     bitwise over two calls, its time at every tile the card holds, its
+     products alone as one batched torch.matmul, the bound and the
+     registers (no spills);
  10. gradient path: `OPT : N N 1.1 : B3LYP CC-PVTZ : TIGHTSCF` (optimised
      bond length, energy and iteration count) and `FREQ : C O 1.13 : HF
      CC-PVTZ : TIGHTSCF` (frequency and zero-point energy) against
@@ -197,10 +200,11 @@ at M = 51,320 points, both on seeded inputs through cc.ccsd_t_energy and
 vv10.vv10_energy, with their energies; K5's two phases at N2/cc-pVTZ
 (motransform.pair_packed_to_mo on the packed ERI matrix, a seeded W) beside
 torch.matmul on the expanded rows, K7bt and K7b (with and without
-gradients) on the N2/cc-pVTZ medium grid (a seeded density-like P), K3 at
-N2/6-311G and N2/cc-pVTZ (K7b, K7bt and K3 also with their host ms a call:
-200 calls enqueued, the device left behind), and K8ct and K8c there and K8cut and K8cu on O2's
-(atom 1's half moving, seeded densities), each with a sum of its outputs; K9 at (o, v) =
+gradients) on the N2/cc-pVTZ medium grid (a seeded density-like P), K3 and
+K8a at N2/6-311G and N2/cc-pVTZ (K7b, K7bt, K3 and K8a also with their host
+ms a call: 200 calls enqueued, the device left behind), and K8ct and K8c
+there and K8cut and K8cu on O2's (atom 1's half moving, seeded densities),
+each with a sum of its outputs; K9 at (o, v) =
 (7, 19) and (7, 53) and K2u at the UHF lines A (16, 36) and C (16, 104)
 on seeded inputs, with their energies; with the tuna_tpu_torch of each ROOT
 in turn (each in its own interpreter, building its own kernels), and prints
@@ -794,23 +798,31 @@ def density_ms(n: int, n_points: int, with_gradients: bool) -> float:
     return n_points * (2.0 * n * n / FP64_MMA_PER_MS + rest / FP64_PER_MS)
 
 
-def one_electron_deriv_operations(plan: IntegralPlan) -> float:
-    """csrc/one_electron_deriv.cu: per primitive pair seven Hermite
-    recursions (x and y at (i, j), z at (i, j) and its four neighbours) of
-    2 lmax + 5 entries, 5 operations an entry and raise, raised i + j + 2
-    (+1) times, the tangent terms, the x/y pairing, and per atom whose
-    weight is not zero a Boys evaluation and a Hermite Coulomb table of
-    order 2 lmax + 1."""
+def one_electron_deriv_operations(plan: IntegralPlan) -> tuple[float, float]:
+    """(needed, first form's) float64 operations of K8a.  Needed, as
+    csrc/one_electron_deriv.cu forms them: per primitive pair the x and y
+    Hermite chains raised i + j + 2 times on rows of 2 lmax + 3 entries; in
+    z one i-chain raised iz + 1 times and three j-chains raised jz + 2
+    (from row iz + 1), jz + 2 (from row iz - 1, only when iz > 0) and jz + 3
+    (from row iz) times, on rows of 2 lmax + 4 entries; 5 operations an
+    entry and raise.  The first form's count, kept beside it: seven full
+    recursions of 2 lmax + 5 entries (x and y at (i, j), z at (i, j) and
+    its four neighbours, each z one raised iz + jz + 3 times).  Both add
+    the tangent terms, the x/y pairing, and per atom whose weight is not
+    zero a Boys evaluation and a Hermite Coulomb table of order 2 lmax + 1."""
     L = plan.lmax
-    LEN, NMAX = 2 * L + 5, 2 * L + 1
+    NMAX = 2 * L + 1
     l_xy = (plan.l1[:, :2] + plan.l2[:, :2]).sum(axis=1).astype(np.float64)
-    l_z = (plan.l1[:, 2] + plan.l2[:, 2]).astype(np.float64)
-    raises = l_xy + 4 + 5 * (l_z + 3)
-    per_pair = 5 * LEN * raises + 100 + 3 * (L + 1) ** 2
+    iz, jz = plan.l1[:, 2].astype(np.float64), plan.l2[:, 2].astype(np.float64)
+    z_chains = (iz + 1) + (jz + 2) + np.where(iz > 0, jz + 2, 0.0) + (jz + 3)
+    needed_raises = 5 * (2 * L + 3) * (l_xy + 4) + 5 * (2 * L + 4) * z_chains
+    first_raises = 5 * (2 * L + 5) * (l_xy + 4 + 5 * (iz + jz + 3))
+    terms = 100 + 3 * (L + 1) ** 2
     moving_a, moving_b = plan.atom1 == 1, plan.atom2 == 1
     atoms_with_weight = (moving_a | moving_b).astype(np.float64) + (~(moving_a & moving_b))
     per_atom = (23 + 4 * NMAX) + 4 * (NMAX + 1) + 1 + 5 * NMAX * (NMAX + 1) // 2 + 4 * NMAX + 8
-    return float(np.sum(per_pair + atoms_with_weight * per_atom))
+    rest = np.sum(terms + atoms_with_weight * per_atom)
+    return float(np.sum(needed_raises) + rest), float(np.sum(first_raises) + rest)
 
 
 def density_tau_ms(n: int, n_points: int) -> float:
@@ -851,15 +863,32 @@ def density_deriv_ms(basis: grid.GridBasis, n_points: int, with_gradients: bool,
 # ---------------------------------------------------------------------------
 
 def lane_summary(plan: IntegralPlan) -> str:
-    """K3's lane schedule: warps, busy lanes, and the longest chain of
-    primitive pairs a lane walks (the first form walked each AO pair's
-    whole chain on one thread)."""
+    """The lane schedule of K3 and K8a: warps, busy lanes, and the longest
+    chain of primitive pairs a lane walks (their first forms walked each AO
+    pair's whole chain on one thread)."""
     lanes = plan.lane_schedule()
     count = np.diff(plan.pair_start)
     live = lanes[:, 0] >= 0
     chain = int(np.max(-(-count[lanes[live, 0]] // lanes[live, 1])))
     return (f"lane schedule {lanes.shape[0] // 32} warps, {int(live.sum())} busy lanes, longest "
             f"chain {chain} primitive pairs a lane (one thread an AO pair: {int(count.max())})")
+
+
+def lane_kernel_registers(unit: str, kernel: str, entry: dict, registers: dict,
+                          frames: dict) -> dict:
+    """ptxas's registers and stack frame of each of the four instantiations
+    (lmax 0-3) of a lane-scheduled kernel (K3, K8a), into its record entry;
+    a spill or a missing instantiation fails the run."""
+    instantiations = {key: (value, frames.get(key)) for key, value in registers.items()
+                      if key.startswith(f"{unit}:{kernel}<")}
+    require(len(instantiations) == 4 and all(isinstance(regs, int) and frame is not None
+                                             for regs, frame in instantiations.values()),
+            f"{kernel}: registers and stack frames {instantiations} (a spill or a missing "
+            f"entry)")
+    entry["registers"] = {key.split(":")[1]: regs for key, (regs, _) in instantiations.items()}
+    entry["stack_frame_bytes"] = {key.split(":")[1]: frame
+                                  for key, (_, frame) in instantiations.items()}
+    return instantiations
 
 
 def check_integrals(basis: str, device, record: dict, registers: dict, frames: dict) -> str:
@@ -907,16 +936,8 @@ def check_integrals(basis: str, device, record: dict, registers: dict, frames: d
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
     one_electron = record["one_electron"]
     one_electron.setdefault("device_ms_a_launch", {})[basis] = launch_ms
-    instantiations = {key: (value, frames.get(key)) for key, value in registers.items()
-                      if key.startswith("one_electron:one_electron_kernel<")}
-    require(len(instantiations) == 4 and all(isinstance(regs, int) and frame is not None
-                                             for regs, frame in instantiations.values()),
-            f"one_electron_kernel: registers and stack frames {instantiations} (a spill or a "
-            f"missing entry)")
-    one_electron["registers"] = {key.split(":")[1]: regs
-                                 for key, (regs, _) in instantiations.items()}
-    one_electron["stack_frame_bytes"] = {key.split(":")[1]: frame
-                                         for key, (_, frame) in instantiations.items()}
+    instantiations = lane_kernel_registers("one_electron", "one_electron_kernel", one_electron,
+                                           registers, frames)
     needed, algorithm = eri_operations(plan)
     eri_bound = bound(eri_input_bytes(plan, coords) + 8 * plan.n_pairs ** 2,
                       needed / FP64_PER_MS)
@@ -1587,10 +1608,13 @@ def check_direct_path() -> dict:
 # ---------------------------------------------------------------------------
 
 def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, basis: str,
-                             device, record: dict) -> str:
+                             device, record: dict, registers: dict, frames: dict) -> str:
     """K8a and K8b against their plain versions on one molecule (atom 1
-    moving, the origin at the centre of mass), K8b on a seeded density-like
-    P and against a repeated call of itself (bitwise)."""
+    moving, the origin at the centre of mass), both bitwise over two calls,
+    K8b on a seeded density-like P; K8a's device ms a launch
+    (torch.profiler), its lane schedule, and its registers and stack frames
+    (a spill fails the run).  The record keeps the times at N2/cc-pVTZ, and
+    K8a's device ms a launch and bound at each molecule."""
     molecule = diatomic(symbol, bond_angstrom, basis, partner)
     plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
     coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
@@ -1615,38 +1639,56 @@ def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, ba
     def plain_2e():
         return plan._eri_deriv_energy_plain(coords, P, hfx)
 
-    err_1e = max(float(torch.max(torch.abs(k - p))) for k, p in zip(kernel_1e(), plain_1e()))
+    got_1e, again_1e = kernel_1e(), kernel_1e()
+    err_1e = max(float(torch.max(torch.abs(k - p))) for k, p in zip(got_1e, plain_1e()))
     e_kernel, e_again, e_plain = kernel_2e(), kernel_2e(), plain_2e()
     torch.cuda.synchronize()
     err_2e = abs(float(e_kernel - e_plain))
+    require(all(bool(torch.all(torch.isfinite(x))) for x in got_1e),
+            f"{basis}: non-finite one-electron tangent")
     require(bool(torch.isfinite(e_kernel)), f"{basis}: non-finite two-electron tangent")
     require(err_1e <= INTEGRAL_TOLERANCE,
             f"{basis}: one_electron_deriv off its plain version by {err_1e:.3e}")
+    require(all(torch.equal(a, b) for a, b in zip(got_1e, again_1e)),
+            f"{basis}: two one_electron_deriv calls differ")
     require(err_2e <= INTEGRAL_TOLERANCE,
             f"{basis}: eri_deriv_energy off its plain version by {err_2e:.3e}")
     require(torch.equal(e_kernel, e_again), f"{basis}: two eri_deriv_energy calls differ")
     ms_1e, ms_1e_plain = median_ms(kernel_1e), median_ms(plain_1e)
     ms_2e, ms_2e_plain = median_ms(kernel_2e), median_ms(plain_2e, repeats=1)
+    launch_ms = device_ms_a_launch(kernel_1e, "one_electron_deriv_kernel")
     t = plan.tensors(device)
+    needed_1e, first_count_1e = one_electron_deriv_operations(plan)
     one_electron_bound = bound(
         tensor_bytes(coords, charges, t["a"], t["b"], t["coef"], t["l1"], t["l2"], t["atom1"],
                      t["atom2"], t["pair_start"], t["ao_i"], t["ao_j"],
                      t["boys_one_electron_deriv"]) + 8 * 9 * N * N,
-        one_electron_deriv_operations(plan) / FP64_PER_MS)
+        needed_1e / FP64_PER_MS)
     needed, algorithm = eri_operations(plan, derivative=True)
     eri_bound = bound(eri_input_bytes(plan, coords) + tensor_bytes(P, t["pid_i"], t["pid_j"]) + 8,
                       needed / FP64_PER_MS)
     for name, err in (("one_electron_deriv", err_1e), ("eri_deriv_energy", err_2e)):
         entry = record.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    one_electron = record["one_electron_deriv"]
+    molecule_name = f"{symbol}{partner or symbol}/{basis}"
+    one_electron.setdefault("device_ms_a_launch", {})[molecule_name] = launch_ms
+    one_electron.setdefault("bound_ms_at", {})[molecule_name] = one_electron_bound["bound_ms"]
+    instantiations = lane_kernel_registers("one_electron_deriv", "one_electron_deriv_kernel",
+                                           one_electron, registers, frames)
     if basis == "CC-PVTZ" and partner is None:
-        record["one_electron_deriv"].update(ms=ms_1e, plain_ms=ms_1e_plain, library_ms=None,
-                                            **one_electron_bound)
+        one_electron.update(ms=ms_1e, plain_ms=ms_1e_plain, library_ms=None,
+                            host_ms_a_call=ms_1e - launch_ms, **one_electron_bound)
         record["eri_deriv_energy"].update(ms=ms_2e, plain_ms=ms_2e_plain, library_ms=None,
                                           **eri_bound)
-    return (f"gradient kernels {symbol}{partner or symbol}/{basis}: one_electron_deriv "
-            f"max|diff| {err_1e:.3e} ({ms_1e:.4f} ms vs plain {ms_1e_plain:.4f} ms, bound "
-            f"{one_electron_bound['bound_ms']:.5f} ms by {one_electron_bound['bound_by']}); "
+    return (f"gradient kernels {molecule_name}: lmax {plan.lmax}, {plan.n_pairs} AO pairs, "
+            f"{plan.n_prim_pairs} primitive pairs; one_electron_deriv max|diff| {err_1e:.3e}, "
+            f"two calls bitwise equal ({lane_summary(plan)}; {ms_1e:.4f} ms vs plain "
+            f"{ms_1e_plain:.4f} ms; device ms a launch {launch_ms:.5f}; bound "
+            f"{one_electron_bound['bound_ms']:.5f} ms by {one_electron_bound['bound_by']} "
+            f"({needed_1e:.4g} operations needed; the first form's count {first_count_1e:.4g}, "
+            f"{first_count_1e / FP64_PER_MS:.5f} ms); registers and stack frame bytes "
+            f"(ptxas) {json.dumps(instantiations)}); "
             f"eri_deriv_energy dE/dR {float(e_kernel)!r}, |diff| {err_2e:.3e}, two calls bitwise "
             f"equal ({ms_2e:.4f} ms vs plain {ms_2e_plain:.4f} ms, one run; bound "
             f"{eri_bound['bound_ms']:.5f} ms by {eri_bound['bound_by']}; {needed:.4g} "
@@ -3039,8 +3081,9 @@ def spe_devices(line: str = LINE_UKS_SPE, reference: float = E_REF_UKS_SPE) -> d
 # dft.vv10.vv10_energy, ops.motransform.pair_packed_to_mo and
 # .half_transform, dft.grid's ao_on_grid, density_on_grid (with and without
 # gradients and tau) and density_deriv_on_grid(_spin) with and without tau,
-# IntegralPlan.one_electron, and post.cc.ccsdt_q_energy and
-# .uccsd_t_energy, which every checkout with the meta-GGAs has.
+# IntegralPlan.one_electron and .one_electron_deriv, and
+# post.cc.ccsdt_q_energy and .uccsd_t_energy, which every checkout with the
+# meta-GGAs has.
 _WALLS = """
 import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -3153,18 +3196,23 @@ tau_call = lambda: grid.density_on_grid(P_tau, bfs, bf_grads, with_tau=True)
 # K7b on the same grid and P, with and without gradients
 rho_call = lambda: grid.density_on_grid(P_tau, bfs, bf_grads)
 rho_only_call = lambda: grid.density_on_grid(P_tau, bfs)
-# K3 at N2/6-311G and N2/cc-pVTZ
+# K3 and K8a (atom 1 moving) at N2/6-311G and N2/cc-pVTZ
 one_electron = {}
 for tag, basis_1e in (("6_311g", "6-311G"), ("cc_pvtz", "CC-PVTZ")):
     cfg_1e = Config("SPE", lookup_method("HF"), 0.0, [], basis_1e, ["N", "N"],
                     suppress_output=True)
     mol_1e = Molecule(["N", "N"], mol.coordinates, cfg_1e)
     plan_1e = IntegralPlan(mol_1e.cartesian_basis_functions, mol_1e.n_atoms)
-    args_1e = (gpu(mol_1e.coordinates), gpu(mol_1e.charges), mol_1e.centre_of_mass)
-    one_electron[f"one_electron_{tag}_ms"] = median_ms(lambda: plan_1e.one_electron(*args_1e))
-    one_electron[f"one_electron_{tag}_host_ms"] = host_ms(lambda: plan_1e.one_electron(*args_1e))
-    one_electron[f"one_electron_{tag}_sums"] = [float(x.sum())
-                                                for x in plan_1e.one_electron(*args_1e)]
+    fraction_1e = float(mol_1e.masses[1] / mol_1e.masses.sum())
+    for name, fn, args_1e in (
+            ("one_electron", plan_1e.one_electron,
+             (gpu(mol_1e.coordinates), gpu(mol_1e.charges), mol_1e.centre_of_mass)),
+            ("one_electron_deriv", plan_1e.one_electron_deriv,
+             (gpu(mol_1e.coordinates), gpu(mol_1e.charges),
+              fraction_1e * mol_1e.bond_length, fraction_1e))):
+        one_electron[f"{name}_{tag}_ms"] = median_ms(lambda: fn(*args_1e))
+        one_electron[f"{name}_{tag}_host_ms"] = host_ms(lambda: fn(*args_1e))
+        one_electron[f"{name}_{tag}_sums"] = [float(x.sum()) for x in fn(*args_1e)]
 # K8ct and K8c on N2/cc-pVTZ's medium grid, K8cut and K8cu on O2's (atom
 # 1's half of the points moving), seeded density-like P
 tau_deriv = {}
@@ -3397,7 +3445,8 @@ def main() -> int:
     # --- 9. gradient kernels against their plain versions ---------------------
     for symbol, partner, bond_angstrom, basis in (("N", None, 1.1, "CC-PVTZ"),
                                                   ("C", "O", 1.13, "6-31G")):
-        print(check_gradient_integrals(symbol, partner, bond_angstrom, basis, device, record))
+        print(check_gradient_integrals(symbol, partner, bond_angstrom, basis, device, record,
+                                       registers, frames))
 
     # --- 10 and 11. gradient paths, BASELINE configs 3 and 5 --------------------
     launches = check_gradient_paths(record)

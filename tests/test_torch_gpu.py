@@ -706,7 +706,8 @@ def _diatomic_plan(symbols, bond, basis):
     (("N", "N"), 1.1, "CC-PVTZ"), (("C", "O"), 1.13, "CC-PVTZ")])
 def test_gradient_integral_kernels_match_plain(cuda, symbols, bond, basis):
     """K8a and K8b (atom 1 moving) against their plain versions, f shells
-    included (cc-pVTZ: Boys order 13); K8b bitwise over two calls."""
+    included (cc-pVTZ: Boys order 13); both bitwise over two calls (K8a's
+    lanes sum in a fixed order, K8b's partials too)."""
     molecule, plan = _diatomic_plan(symbols, bond, basis)
     coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
     charges = torch.as_tensor(molecule.charges, dtype=torch.float64, device=cuda)
@@ -715,13 +716,15 @@ def test_gradient_integral_kernels_match_plain(cuda, symbols, bond, basis):
     P = torch.as_tensor(_density(plan.n_basis, 8), device=cuda)
     _kernels.reset_launch_counts()
     got = plan.one_electron_deriv(coords, charges, fraction * molecule.bond_length, fraction)
+    again = plan.one_electron_deriv(coords, charges, fraction * molecule.bond_length, fraction)
     first, second = plan.eri_deriv_energy(coords, P, 0.25), plan.eri_deriv_energy(coords, P, 0.25)
-    assert _kernels.launches["one_electron_deriv"] == 1
+    assert _kernels.launches["one_electron_deriv"] == 2
     assert _kernels.launches["eri_deriv_energy"] == 2
     expected = plan._one_electron_deriv_plain(coords, charges, fraction * molecule.bond_length,
                                               fraction)
-    for g, e in zip(got, expected):
+    for g, a, e in zip(got, again, expected):
         torch.testing.assert_close(g, e, rtol=0, atol=1e-12)
+        assert torch.equal(g, a)
     assert torch.equal(first, second)
     assert abs(float(first) - float(plan._eri_deriv_energy_plain(coords, P, 0.25))) <= 1e-12
 

@@ -151,7 +151,7 @@ def test_kernels_dispatch_by_device():
         plan.one_electron(coords.to("meta"), charges.to("meta"), 0.0)
 
 
-# --- K3's lane schedule (csrc/one_electron.cu) -------------------------------
+# --- the lane schedule of K3 and K8a (csrc/one_electron.cu, one_electron_deriv.cu)
 
 LANE_SYSTEMS = SYSTEMS + [(("N", "N"), 1.10, "CC-PVTZ")]
 
@@ -182,11 +182,11 @@ def test_lane_schedule_holds_each_ao_pair_once(symbols, bond, basis):
 
 
 def _lane_sums_emulated(plan, values):
-    """K3's order in NumPy: lane r of an AO pair's group of w sums the
-    values (9, n_prim_pairs) of its primitive pairs r, r + w, ... in turn;
-    then five butterflies over each warp (lanes 1, 2, 4, 8, 16 apart, a step
-    adding only inside groups at least that wide); lane 0 of a group gives
-    [i, j] and [j, i] of the nine matrices."""
+    """The order of K3 and K8a in NumPy: lane r of an AO pair's group of w
+    sums the values (9, n_prim_pairs) of its primitive pairs r, r + w, ...
+    in turn; then five butterflies over each warp (lanes 1, 2, 4, 8, 16
+    apart, a step adding only inside groups at least that wide); lane 0 of
+    a group gives [i, j] and [j, i] of the nine matrices."""
     lanes = plan.lane_schedule()
     N = plan.n_basis
     out = np.full((9, N, N), np.nan)
@@ -207,13 +207,29 @@ def _lane_sums_emulated(plan, values):
     return out
 
 
+def _one_electron_call(function, molecule, plan):
+    """The plan's `function` on the CPU: K3's integrals with the origin at
+    the centre of mass, or K8a's tangents with atom 1 moving and the origin
+    at its mass fraction of the bond (a single atom: the origin moving at
+    half the rate)."""
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64)
+    charges = torch.as_tensor(molecule.charges, dtype=torch.float64)
+    if function == "one_electron":
+        return plan.one_electron(coords, charges, molecule.centre_of_mass)
+    masses = np.asarray(molecule.masses, dtype=np.float64)
+    fraction = float(masses[1] / masses.sum()) if molecule.n_atoms == 2 else 0.5
+    return plan.one_electron_deriv(coords, charges, molecule.centre_of_mass, fraction)
+
+
+@pytest.mark.parametrize("function", ["one_electron", "one_electron_deriv"])
 @pytest.mark.parametrize("symbols,bond,basis", [
     (("N", "N"), 1.10, "6-311G"), (("C", "O"), 1.13, "CC-PVTZ"), (("C",), 0.0, "6-31G")])
-def test_lane_sums_match_plain(symbols, bond, basis, monkeypatch):
-    """K3's lane-strided sums and butterflies, emulated in NumPy on the
-    plain version's per-primitive-pair values, against the plain version's
-    matrices: 1e-13 of each matrix's largest |entry|, every entry written
-    (N2/6-311G, CO/cc-pVTZ, and one atom)."""
+def test_lane_sums_match_plain(function, symbols, bond, basis, monkeypatch):
+    """The lane-strided sums and butterflies of K3 (one_electron) and K8a
+    (one_electron_deriv), emulated in NumPy on the plain version's
+    per-primitive-pair values, against the plain version's matrices: 1e-13
+    of each matrix's largest |entry|, every entry written (N2/6-311G,
+    CO/cc-pVTZ, and one atom)."""
     molecule, plan = _plan(symbols, bond, basis)
     captured = []
     scatter = IntegralPlan._scatter_one_electron
@@ -223,9 +239,7 @@ def test_lane_sums_match_plain(symbols, bond, basis, monkeypatch):
         return scatter(self, t, s_val, t_val, v_val, d_vals, q_vals)
 
     monkeypatch.setattr(IntegralPlan, "_scatter_one_electron", capture)
-    S, T, V, D, Q = plan.one_electron(torch.as_tensor(molecule.coordinates, dtype=torch.float64),
-                                      torch.as_tensor(molecule.charges, dtype=torch.float64),
-                                      molecule.centre_of_mass)
+    S, T, V, D, Q = _one_electron_call(function, molecule, plan)
     expected = torch.cat([S[None], T[None], V[None], D, Q]).numpy()
     got = _lane_sums_emulated(plan, captured[0])
     assert not np.isnan(got).any()

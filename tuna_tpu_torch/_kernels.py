@@ -83,10 +83,10 @@ SIGNATURES = {
     # n_rows, n_ao, n_mo, staged, run, panel, n_jobs1, n_jobs2, row_stride,
     # col_stride, M, pair_kl, W, table, out
     "tuna_mo_half_transform": [_I] * 8 + [_L, _L] + [_P] * 5 + [_P],
-    # lmax, n_atoms, n_basis, n_pairs, coords, charges, a, b, coef, l1, l2,
-    # atom1, atom2, ao_i, ao_j, pair_start, boys_table, dipole_origin_z,
-    # origin_rate, out
-    "tuna_one_electron_deriv": [_I, _I, _I, _I] + [_P] * 13 + [_D, _D, _P] + [_P],
+    # lmax, n_atoms, n_basis, n_lanes, coords, charges, a, b, coef, l1, l2,
+    # atom1, atom2, ao_i, ao_j, pair_start, lanes, boys_table,
+    # dipole_origin_z, origin_rate, out
+    "tuna_one_electron_deriv": [_I, _I, _I, _I] + [_P] * 14 + [_D, _D, _P] + [_P],
     # lmax, n_prim_pairs, n_basis, coords, a, b, coef, l1, l2, atom1, atom2,
     # pair_start, pid_i, pid_j, quartets, n_classes, classes (host), boys
     # tables, P, hfx, rows (scratch), n_partials, partials (scratch), out

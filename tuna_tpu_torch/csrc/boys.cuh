@@ -1,5 +1,5 @@
-// Boys function F_0..F_NMAX(T) on the device, shared by the ERI sweep
-// (eri.cu) and the one-electron integrals (one_electron.cu).
+// Boys function F_0..F_NMAX(T) on the device, shared by the quartet kernels
+// and the one-electron integrals and their tangents.
 //
 // Same two-regime scheme as tuna_tpu/ops/boys.py::boys_table and its
 // plain twin tuna_tpu_torch/ops/boys.py:
@@ -9,8 +9,10 @@
 //   T >= 30: F_0 = sqrt(pi / 4T), then upward recursion
 //            F_{m+1} = ((2m + 1) F_m - e^-T) / (2T).
 // The (301, 10) table tab[i][k] = F_{NMAX+k}(T_i) (-1)^k / k! is built on
-// the host (ops/boys.py::_taylor_table) for this NMAX; callers stage it in
-// shared memory (24 KB) with load_boys_table.
+// the host (ops/boys.py::_taylor_table) for this NMAX.  The quartet kernels
+// (quartet.cuh, eri_deriv.cu) stage it in shared memory (24 KB) with
+// load_boys_table; the one-electron kernels (one_electron.cu,
+// one_electron_deriv.cu) read it from device memory through L1.
 #pragma once
 
 #define TUNA_BOYS_T_SWITCH 30.0

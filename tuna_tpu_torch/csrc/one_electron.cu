@@ -27,16 +27,18 @@
 // Taylor table read through L1.  Then each value goes through five
 // __shfl_xor_sync butterflies (lanes 1, 2, 4, 8, 16 apart; a step adds only
 // inside a group of that width), in a fixed order, and lane 0 of the group
-// writes all nine matrices at [i, j] and [j, i]: deterministic, no atomics,
-// every entry written once.  Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W):
-// 0.006-0.013 ms a launch from N2/STO-3G to N2/cc-pVTZ, where the longest
-// chain is 2 primitive pairs a lane; the Boys table staged in each block's
-// shared memory (24 KB a block, read once) took 0.010-0.016, so it is read
+// writes all nine matrices at [i, j] and [j, i] (lane_sums.cuh, shared with
+// K8a): deterministic, no atomics, every entry written once.  Measured
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.006-0.013 ms a
+// launch from N2/STO-3G to N2/cc-pVTZ, where the longest chain is 2
+// primitive pairs a lane; the Boys table staged in each block's shared
+// memory (24 KB a block, read once) took 0.010-0.016, so it is read
 // through L1; 118-158 registers, no stack frame.
 #include <cuda_runtime.h>
 
 #include "boys.cuh"
 #include "hermite.cuh"
+#include "lane_sums.cuh"
 
 namespace {
 
@@ -131,8 +133,7 @@ __device__ __forceinline__ void primitive_pair(
   sums[2] += coef[k] * v_pair;
 }
 
-// lanes (n_lanes, 2): each lane's AO pair (-1 for none) and its group's
-// width, from IntegralPlan.lane_schedule; n_lanes a multiple of 32.
+// lanes (n_lanes, 2) from IntegralPlan.lane_schedule (lane_sums.cuh).
 template <int LMAX>
 __global__ void __launch_bounds__(kThreads)
 one_electron_kernel(int n_atoms, int n_basis, int n_lanes, const double* __restrict__ coords,
@@ -144,56 +145,11 @@ one_electron_kernel(int n_atoms, int n_basis, int n_lanes, const double* __restr
                     const int* __restrict__ pair_start, const int2* __restrict__ lanes,
                     const double* __restrict__ boys_table, double dipole_origin_z,
                     double* __restrict__ out) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  const int2 lane = slot < n_lanes ? lanes[slot] : make_int2(-1, 1);
-  const int pair = lane.x, width = lane.y, rank = threadIdx.x & (width - 1);
-
-  double sums[9] = {};
-  if (pair >= 0) {
-    for (int k = pair_start[pair] + rank; k < pair_start[pair + 1]; k += width) {
-      primitive_pair<LMAX>(k, n_atoms, coords, charges, a, b, coef, l1, l2, atom1, atom2,
-                           boys_table, dipole_origin_z, sums);
-    }
-  }
-  // the group's sum, the same order in every group: lanes 1, 2, 4, 8, 16
-  // apart, each step only inside groups at least that wide (every lane
-  // takes part in every shuffle)
-#pragma unroll
-  for (int offset = 1; offset < 32; offset <<= 1) {
-#pragma unroll
-    for (int m = 0; m < 9; ++m) {
-      const double other = __shfl_xor_sync(0xffffffffu, sums[m], offset);
-      if (offset < width) sums[m] += other;
-    }
-  }
-  if (pair < 0 || rank != 0) return;
-  const int k0 = pair_start[pair];
-  const int i = ao_i[k0], j = ao_j[k0];
-  const size_t nn = static_cast<size_t>(n_basis) * n_basis;
-#pragma unroll
-  for (int m = 0; m < 9; ++m) {
-    out[m * nn + static_cast<size_t>(i) * n_basis + j] = sums[m];
-    out[m * nn + static_cast<size_t>(j) * n_basis + i] = sums[m];
-  }
-}
-
-template <int LMAX>
-cudaError_t launch_one_electron(int n_atoms, int n_basis, int n_lanes, const double* coords,
-                                const double* charges, const double* a, const double* b,
-                                const double* coef, const int* l1, const int* l2,
-                                const int* atom1, const int* atom2, const int* ao_i,
-                                const int* ao_j, const int* pair_start, const int* lanes,
-                                const double* boys_table, double dipole_origin_z, double* out,
-                                cudaStream_t stream) {
-  if (n_lanes % 32 != 0) return cudaErrorInvalidValue;
-  if (n_lanes > 0) {
-    const int blocks = (n_lanes + kThreads - 1) / kThreads;
-    one_electron_kernel<LMAX><<<blocks, kThreads, 0, stream>>>(
-        n_atoms, n_basis, n_lanes, coords, charges, a, b, coef, l1, l2, atom1, atom2, ao_i,
-        ao_j, pair_start, reinterpret_cast<const int2*>(lanes), boys_table, dipole_origin_z,
-        out);
-  }
-  return cudaGetLastError();
+  tuna::lane_sums<9>(n_lanes, lanes, pair_start, ao_i, ao_j, n_basis, out,
+                     [&](int k, double (&sums)[9]) {
+                       primitive_pair<LMAX>(k, n_atoms, coords, charges, a, b, coef, l1, l2,
+                                            atom1, atom2, boys_table, dipole_origin_z, sums);
+                     });
 }
 
 }  // namespace
@@ -209,9 +165,10 @@ extern "C" int tuna_one_electron(int lmax, int n_atoms, int n_basis, int n_lanes
                                  double dipole_origin_z, double* out, cudaStream_t stream) {
 #define TUNA_ONE_ELECTRON_CASE(L)                                                            \
   case L:                                                                                    \
-    return launch_one_electron<L>(n_atoms, n_basis, n_lanes, coords, charges, a, b, coef, \
-                                  l1, l2, atom1, atom2, ao_i, ao_j, pair_start, lanes,    \
-                                  boys_table, dipole_origin_z, out, stream);
+    return tuna::launch_lanes<kThreads>(                                                     \
+        one_electron_kernel<L>, n_lanes, stream, n_atoms, n_basis, n_lanes, coords, charges, \
+        a, b, coef, l1, l2, atom1, atom2, ao_i, ao_j, pair_start,                            \
+        reinterpret_cast<const int2*>(lanes), boys_table, dipole_origin_z, out);
   switch (lmax) {
     TUNA_ONE_ELECTRON_CASE(0)
     TUNA_ONE_ELECTRON_CASE(1)

@@ -415,7 +415,8 @@ class IntegralPlan:
         return self._work_list
 
     def lane_schedule(self) -> np.ndarray:
-        """K3's lanes (csrc/one_electron.cu), (n_lanes, 2) int32 with n_lanes
+        """The lanes of K3 and K8a (csrc/one_electron.cu,
+        csrc/one_electron_deriv.cu), (n_lanes, 2) int32 with n_lanes
         a multiple of 32: each lane's AO pair (-1 for none) and the width of
         its group.  An AO pair with c primitive pairs gets a group of w
         lanes, w the smallest power of two >= c, at most 32, whose lane r
@@ -613,13 +614,13 @@ class IntegralPlan:
         out = torch.empty((9, N, N), dtype=_F64, device=device)
         _kernels.launch(
             "one_electron_deriv", "tuna_one_electron_deriv", device,
-            self.lmax, n_atoms, N, self.n_pairs,
+            self.lmax, n_atoms, N, t["lanes"].shape[0],
             coords.data_ptr(), charges.data_ptr(), t["a"].data_ptr(),
             t["b"].data_ptr(), t["coef"].data_ptr(), t["l1"].data_ptr(),
             t["l2"].data_ptr(), t["atom1"].data_ptr(), t["atom2"].data_ptr(),
             t["ao_i"].data_ptr(), t["ao_j"].data_ptr(), t["pair_start"].data_ptr(),
-            t["boys_one_electron_deriv"].data_ptr(), float(dipole_origin_z),
-            float(origin_rate), out.data_ptr())
+            t["lanes"].data_ptr(), t["boys_one_electron_deriv"].data_ptr(),
+            float(dipole_origin_z), float(origin_rate), out.data_ptr())
         return out[0], out[1], out[2], out[3:6], out[6:9]
 
     def _one_electron_deriv_plain(self, coords, charges, dipole_origin_z, origin_rate):
