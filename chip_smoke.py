@@ -52,8 +52,10 @@ non-zero without printing a result):
   9. gradient kernels: K8a (one-electron tangent) and K8b (two-electron
      energy tangent) against their plain versions at N2/cc-pVTZ and
      CO/6-31G, both bitwise over two calls; K8a's lane schedule (warps,
-     longest chain), its device ms a launch (torch.profiler), and its
-     registers and stack frames (ptxas; a spill fails the run); K8c (the
+     longest chain) and K8b's shell-quartet schedule (shell quartets,
+     tasks, class kernels), their device ms a launch (torch.profiler),
+     K8b's launches and host ms a call, and their registers and stack
+     frames (ptxas; a spill or a missing instantiation fails the run); K8c (the
      density's tangent on the moving grid, on DMMA) at the DFT path's grid
      with its converged density, in phase 6: with and without gradients
      1e-12 of each output's largest |entry| from its plain version and
@@ -114,7 +116,9 @@ non-zero without printing a result):
      with exchange per spin) against its plain version at O2/cc-pVTZ and
      OH/6-31G on a seeded pair of density-like Pa != Pb (1e-12 relative),
      bitwise over two calls, and at Pa = Pb = P/2 against K8b(P) (1e-14
-     relative); K8cu (both spins' density tangents in one pass) on the
+     relative), its device ms a launch (torch.profiler) at O2/cc-pVTZ, and
+     its registers and stack frames (no spill, no more registers than
+     K8b's); K8cu (both spins' density tangents in one pass) on the
      grid of `SPE : O O 1.21 : B3LYP CC-PVTZ : ML 3 TIGHTSCF` with its
      converged Pa and Pb, checked and timed as K8c in phase 6, each spin
      bitwise equal to K8c on that density;
@@ -186,7 +190,8 @@ iteration, and the medians of the port's phase timers) and one run under
 torch.profiler (device busy time as the union of the kernel intervals, the
 device idle share, kernel and cudaLaunchKernel counts, the device time
 of the top kernels, the launches and device time of each kernel of csrc/,
-and for K1 and K4 the union of their class kernels' intervals a call).
+and for K1, K4, K8b and K8bu the union of their kernels' intervals a call;
+K8b's or K8bu's launched without any device time recorded fails the run).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -204,12 +209,16 @@ gradients) on the N2/cc-pVTZ medium grid (a seeded density-like P), K3 and
 K8a at N2/6-311G and N2/cc-pVTZ (K7b, K7bt, K3 and K8a also with their host
 ms a call: 200 calls enqueued, the device left behind), and K8ct and K8c
 there and K8cut and K8cu on O2's (atom 1's half moving, seeded densities),
-each with a sum of its outputs; K9 at (o, v) =
+each with a sum of its outputs; K8b at N2/cc-pVTZ, CO/6-31G and
+O2/cc-pVTZ and K8bu at O2/cc-pVTZ on seeded densities (device ms a launch
+from torch.profiler, ms and host ms a call, the value), and a SHA-256 of
+K1's packed ERI at N2/6-311G and N2/cc-pVTZ; K9 at (o, v) =
 (7, 19) and (7, 53) and K2u at the UHF lines A (16, 36) and C (16, 104)
 on seeded inputs, with their energies; with the tuna_tpu_torch of each ROOT
 in turn (each in its own interpreter, building its own kernels), and prints
 one JSON line for each: two checkouts, say a parent commit and this one,
-compared on one card in one call (run them in the order A B B A).
+compared on one card in one call (run them in the order A B B A).  With
+--kernels-only it times the kernels alone and leaves the paths out.
 
 --uks-spe-devices runs phase 19's UKS single point on the card and on the
 host's CPU and prints one JSON line: both distances from tuna_tpu's energy,
@@ -242,7 +251,8 @@ from tuna_tpu_torch.constants import angstrom_to_bohr, bohr_to_angstrom
 from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
 from tuna_tpu_torch.ops import motransform
-from tuna_tpu_torch.ops.integrals import HEAVY_THRESHOLD, IntegralPlan, quartet_operations
+from tuna_tpu_torch.ops.integrals import (HEAVY_THRESHOLD, SHELL_TASK_THREADS, IntegralPlan,
+                                          deriv_quartet_operations, quartet_operations)
 from tuna_tpu_torch.post import cc
 from tuna_tpu_torch.system import Molecule
 
@@ -604,35 +614,6 @@ def diatomic(symbol: str, bond_angstrom: float, basis: str, partner: str | None 
 # Operation counts, from each kernel's loop body
 # ---------------------------------------------------------------------------
 
-def shell_pairs(plan: IntegralPlan) -> tuple[np.ndarray, np.ndarray]:
-    """(shell-pair id of each AO pair, primitive pairs of each shell pair).
-    The AOs of one atom with one total angular momentum and the same
-    primitive exponents form a shell (a general contraction's shells
-    merge), so the AO pairs of a shell pair have the same primitive pairs'
-    p and P_z, whatever their Cartesian components."""
-    n_prim = np.diff(plan.pair_start)
-    shell_of, shells = np.empty(plan.n_basis, dtype=np.int64), {}
-    for i in range(plan.n_basis):
-        diagonal = plan.pair_index[i, i]
-        s, n = plan.pair_start[diagonal], int(round(np.sqrt(n_prim[diagonal])))
-        key = (int(plan.atom1[s]), int(plan.l1[s].sum()), plan.b[s:s + n].tobytes())
-        shell_of[i] = shells.setdefault(key, len(shells))
-    si, sj = shell_of[plan.pid_i], shell_of[plan.pid_j]
-    _, first, ids = np.unique(np.maximum(si, sj) * len(shells) + np.minimum(si, sj),
-                              return_index=True, return_inverse=True)
-    return ids, n_prim[first].astype(np.float64)
-
-
-def deriv_quartet_operations(l_bra: int, l_ket: int) -> tuple[int, int]:
-    """(shared, own) float64 operations of one derivative primitive quartet
-    of csrc/eri_deriv.cu: quartet_operations' with the Boys order and the
-    R^n_00v recursion one order higher, plus the second z product of
-    [d bra | ket] + [bra | d ket] (two operations a term)."""
-    shared = quartet_operations(l_bra, l_ket + 1)[0]
-    own = quartet_operations(l_bra, l_ket)[1] + 2 * (l_bra + 2) * (l_ket + 2)
-    return shared, own
-
-
 def eri_operations(plan: IntegralPlan, derivative: bool = False) -> tuple[float, float]:
     """(needed, kernel's) float64 operations of the packed ERI matrix over
     the unordered AO-pair quartets with matching x/y parities, each at its
@@ -644,10 +625,12 @@ def eri_operations(plan: IntegralPlan, derivative: bool = False) -> tuple[float,
     The kernel computes every part of quartet_operations for each primitive
     quartet of each AO-pair quartet.  The function needs the shared part
     (alpha and T, Boys, the R^n_00v recursion) only once a primitive
-    quartet of a shell-pair quartet (shell_pairs), and the own part
-    (Hermite products, x/y pairing, contraction) for each AO-pair quartet:
-    that count is the bound's.  pair_rows_kernel, ~0.1% of either, is left
-    out."""
+    quartet of a shell-pair quartet (IntegralPlan.shell_pairs), and the own
+    part (Hermite products, x/y pairing, contraction) for each AO-pair
+    quartet: that count is the bound's.  With `derivative`, the kernel's
+    count is K8b's first form's, every part for each primitive quartet of
+    each AO-pair quartet (the kernel's own is deriv_operations).  pair_rows_kernel,
+    ~0.1% of either, is left out."""
     quartets, classes = plan.work_list()
     n_prim = np.diff(plan.pair_start).astype(np.float64)
     counts = n_prim[quartets[:, 0]] * n_prim[quartets[:, 1]]
@@ -656,7 +639,8 @@ def eri_operations(plan: IntegralPlan, derivative: bool = False) -> tuple[float,
         atom = np.where(plan.atom1[first] == plan.atom2[first], plan.atom1[first], -1)
         bra_atom, ket_atom = atom[quartets[:, 0]], atom[quartets[:, 1]]
         counts = np.where((bra_atom >= 0) & (bra_atom == ket_atom), 0.0, counts)
-    shell_pair, shell_prim = shell_pairs(plan)
+    shell_pair, shell_prim = plan.shell_pairs()
+    shell_prim = shell_prim.astype(np.float64)
     n_shell_pairs = len(shell_prim)
     needed = kernel = 0.0
     for la, lb, begin, _, end, _, _ in classes:
@@ -669,6 +653,51 @@ def eri_operations(plan: IntegralPlan, derivative: bool = False) -> tuple[float,
         needed += own * primitive_quartets + shared * np.sum(
             shell_prim[shell_quartets // n_shell_pairs] * shell_prim[shell_quartets % n_shell_pairs])
     return float(needed), float(kernel)
+
+
+def deriv_launches(plan: IntegralPlan) -> int:
+    """Kernel launches of one K8b or K8bu call: rows, weights, the shared
+    parts of the cut runs (when there are any), a kernel a class and the
+    reduction."""
+    _, classes = plan.deriv_schedule()
+    _, owner, _ = plan.deriv_tables()
+    return len(classes) + 3 + (len(owner) > 0)
+
+
+def deriv_operations(plan: IntegralPlan) -> float:
+    """Float64 operations of K8b's and K8bu's algorithm (csrc/eri_deriv.cu):
+    the shared part once a primitive quartet of each shell quartet (in its
+    task, or in deriv_shared_kernel for the runs cut into several tasks)
+    and the own part once an item (IntegralPlan.deriv_schedule),
+    deriv_quartet_operations each; the shared part depends on L_bra + L_ket
+    alone."""
+    tasks, classes = plan.deriv_schedule()
+    runs, _, _ = plan.deriv_tables()
+    total = sum(deriv_quartet_operations(int(l_sum), 0)[0] * float(n)
+                for l_sum, n in zip(runs[:, 3], runs[:, 5]))
+    for la, lb, begin, end, _ in classes:
+        shared, own = deriv_quartet_operations(int(la), int(lb))
+        prims = tasks[begin:end, 4].astype(np.float64)
+        total += shared * prims[tasks[begin:end, 7] < 0].sum()
+        total += own * np.sum(prims * (tasks[begin:end, 6] - tasks[begin:end, 5]))
+    return total
+
+
+def deriv_schedule_summary(plan: IntegralPlan) -> str:
+    """K8b's shell quartets, tasks and class kernels (one call launches the
+    rows, the weights, a kernel a class and the reduction)."""
+    components, quartets = plan.shell_quartets()
+    tasks, classes = plan.deriv_schedule()
+    _, shell_prim = plan.shell_pairs()
+    prims = shell_prim[quartets[:, 2]] * shell_prim[quartets[:, 3]]
+    items = tasks[:, 4].astype(np.int64) * (tasks[:, 6] - tasks[:, 5])
+    return (f"{len(quartets)} shell quartets of {int(prims.sum())} primitive quartets and "
+            f"{len(components)} AO-pair quartets, {int(items.sum())} items in {len(tasks)} "
+            f"tasks, at most "
+            f"{int((-(-items // SHELL_TASK_THREADS)).max(initial=0))} items a thread; a call "
+            f"launches {deriv_launches(plan)} kernels, {len(classes)} of them class kernels; "
+            f"{len(plan.deriv_tables()[1])} shared parts formed before the class kernels, for "
+            f"the runs cut into several tasks")
 
 
 def fock_direct_operations(plan: IntegralPlan) -> tuple[float, float]:
@@ -701,8 +730,9 @@ def work_list_summary(plan: IntegralPlan) -> str:
 def ptxas_report(log: str, frames: dict | None = None) -> dict:
     """Registers of each kernel, and its spill stores if any, from the
     build's ptxas report, keyed by source and kernel (the class kernels as
-    quartet_light_kernel<L_bra,L_ket>, K8bu's as deriv_light_kernel<L_bra,
-    L_ket>[unrestricted], the grid kernels with their template arguments, as
+    quartet_light_kernel<L_bra,L_ket> or deriv_shell_kernel<L_bra,L_ket>,
+    K8bu's weight pass as deriv_weights_kernel[unrestricted], the grid
+    kernels with their template arguments, as
     moving_grid_kernel<2,2,true> for K8cut with P whole).  With `frames`,
     each kernel's stack frame in bytes goes there under the same key."""
     report, unit, kernel, spills, frame = {}, "", "", 0, 0
@@ -1125,11 +1155,22 @@ def profile_path(line: str) -> dict:
     }
 
 
-# the class kernels of each quartet-engine wrapper, by kernel name
+# the kernels of each quartet-engine wrapper, by kernel name: K1's and K4's
+# class kernels; all of K8b's and K8bu's (rows, weights, the class kernels
+# both share, the reduction), which no session launches both of
 QUARTET_KERNELS = {"eri_packed": r"PackedOut", "fock_direct": r"FockOut",
-                   "eri_deriv_energy": r"::deriv_(light|heavy)_kernel<[^>]*::EnergyWeight>",
+                   "eri_deriv_energy": r"::deriv_(rows|shared|shell|reduce)_kernel"
+                                       r"|::deriv_weights_kernel<[^>]*::EnergyWeight>",
                    "eri_deriv_energy_unrestricted":
-                       r"::deriv_(light|heavy)_kernel<[^>]*UnrestrictedEnergyWeight>"}
+                       r"::deriv_(rows|shared|shell|reduce)_kernel"
+                       r"|::deriv_weights_kernel<[^>]*UnrestrictedEnergyWeight>"}
+# the kernels that every K8b or K8bu call launches once each, by which a
+# session's recorded calls are counted (the most recorded of them)
+DERIV_CALL_KERNELS = {"eri_deriv_energy": (r"::deriv_rows_kernel", r"::deriv_reduce_kernel",
+                                           r"::deriv_weights_kernel<[^>]*::EnergyWeight>"),
+                      "eri_deriv_energy_unrestricted":
+                          (r"::deriv_rows_kernel", r"::deriv_reduce_kernel",
+                           r"::deriv_weights_kernel<[^>]*UnrestrictedEnergyWeight>")}
 
 
 def profiled_run(line: str) -> dict:
@@ -1186,11 +1227,25 @@ def profiled_call(counted) -> dict:
             entry["launches"] += 1
             entry["device_ms"] += e.time_range.elapsed_us() / 1e3
     # the quartet engine's class kernels overlap on side streams: a wrapper
-    # call's device time is the union of its kernels' intervals
-    quartet_ms_a_launch = {
-        name: _busy_us([(e.time_range.start, e.time_range.end) for e in kernels
-                        if re.search(pattern, e.name)]) / 1e3 / profiled_launches[name]
-        for name, pattern in QUARTET_KERNELS.items() if profiled_launches[name]}
+    # call's device time is the union of its kernels' intervals, over its
+    # calls (K8b's and K8bu's over their recorded calls: a session records
+    # the library's launches only in part)
+    require(not (profiled_launches["eri_deriv_energy"]
+                 and profiled_launches["eri_deriv_energy_unrestricted"]),
+            "a profiled session launched both K8b and K8bu, whose class kernels are one")
+    quartet_ms_a_launch = {}
+    for name, pattern in QUARTET_KERNELS.items():
+        if not profiled_launches[name]:
+            continue
+        calls = profiled_launches[name]
+        if name in DERIV_CALL_KERNELS:
+            calls = max(sum(1 for e in kernels if re.search(once, e.name))
+                        for once in DERIV_CALL_KERNELS[name])
+            require(calls > 0, f"{name}: {profiled_launches[name]} launches and no device time "
+                               f"recorded for them")
+        quartet_ms_a_launch[name] = _busy_us([(e.time_range.start, e.time_range.end)
+                                              for e in kernels
+                                              if re.search(pattern, e.name)]) / 1e3 / calls
     return {
         "profile_attempts": attempt,
         "profiled_wall_s": profiled_wall,
@@ -1409,10 +1464,11 @@ def check_fock_direct(basis: str, device, record: dict) -> str:
 
 def device_ms_a_launch(fn, key: str, calls: int = 50):
     """Device ms a launch of the csrc/ kernel `key` (as profiled_call names
-    it in hand_kernels) over `calls` calls of fn() under torch.profiler:
-    the session records the launches of the library's kernels only in
-    part, the fewer the shorter the session, so the time is a recorded
-    launch's, over enough calls."""
+    it in hand_kernels, or a quartet-engine wrapper of QUARTET_KERNELS:
+    the union of its kernels a call) over `calls` calls of fn() under
+    torch.profiler: the session records the launches of the library's
+    kernels only in part, the fewer the shorter the session, so the time is
+    a recorded launch's, over enough calls."""
     def counted():
         _kernels.reset_launch_counts()
         torch.ones(1, device="cuda")   # one torch kernel in the session as well
@@ -1423,7 +1479,10 @@ def device_ms_a_launch(fn, key: str, calls: int = 50):
         return time.perf_counter() - start, dict(_kernels.launches)
 
     fn()
-    return _device_ms_a_launch(profiled_call(counted), key)
+    profile = profiled_call(counted)
+    if key in QUARTET_KERNELS:
+        return profile["quartet_class_kernels_busy_ms_a_launch"][key]
+    return _device_ms_a_launch(profile, key)
 
 
 def stage_ms(profile: dict, stages: tuple, launches_a_call: int) -> dict:
@@ -1607,14 +1666,62 @@ def check_direct_path() -> dict:
 # K8a-K8c, the gradient paths, BASELINE configs 3 and 5
 # ---------------------------------------------------------------------------
 
+def host_ms_a_call(fn, calls: int = 50) -> float:
+    """Host ms a call of fn(): the enqueue of `calls` calls, the device left
+    behind, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - start) / calls * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+# K8b's and K8bu's class kernels in csrc/eri_deriv.cu, the
+# deriv_shell_kernel<LA, LB> instantiations, one a class of csrc/quartet.cuh's
+# TUNA_QUARTET_CLASSES (the rows, weight, shared-part and reduction kernels
+# are counted apart)
+DERIV_CLASS_KERNELS = 28
+
+
+def deriv_kernel_registers(entry: dict, registers: dict, frames: dict,
+                           weight: str) -> dict:
+    """ptxas's registers and stack frames of K8b's or K8bu's kernels (its
+    weight pass `weight`, the class kernels and the rows both share) into
+    its record entry; a spill or a missing instantiation fails the run."""
+    unit = "eri_deriv:"
+    found = {key[len(unit):]: (value, frames.get(key)) for key, value in registers.items()
+             if key.startswith(unit) and (key[len(unit):] == weight
+                                          or not key[len(unit):].startswith("deriv_weights"))}
+    shells = [key for key in found if key.startswith("deriv_shell_kernel<")]
+    rows = [key for key in found if key.startswith("deriv_rows_kernel<")]
+    require(len(shells) == DERIV_CLASS_KERNELS and len(rows) == 4 and weight in found
+            and "deriv_reduce_kernel" in found and "deriv_shared_kernel" in found
+            and all(isinstance(regs, int) and frame is not None
+                    for regs, frame in found.values()),
+            f"eri_deriv.cu: registers and stack frames {found} (a spill or a missing "
+            f"instantiation)")
+    entry["registers"] = {key: regs for key, (regs, _) in found.items()}
+    entry["stack_frame_bytes"] = {key: frame for key, (_, frame) in found.items()}
+    class_registers = [found[k][0] for k in shells]
+    return {"class kernels": [min(class_registers), max(class_registers)],
+            weight: found[weight][0], "rows": [found[k][0] for k in sorted(rows)],
+            "shared parts": found["deriv_shared_kernel"][0],
+            "stack frames": sorted({frame for _, frame in found.values()})}
+
+
 def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, basis: str,
                              device, record: dict, registers: dict, frames: dict) -> str:
     """K8a and K8b against their plain versions on one molecule (atom 1
     moving, the origin at the centre of mass), both bitwise over two calls,
-    K8b on a seeded density-like P; K8a's device ms a launch
-    (torch.profiler), its lane schedule, and its registers and stack frames
-    (a spill fails the run).  The record keeps the times at N2/cc-pVTZ, and
-    K8a's device ms a launch and bound at each molecule."""
+    K8b on a seeded density-like P; their device ms a launch
+    (torch.profiler), K8a's lane schedule and K8b's shell-quartet schedule,
+    K8b's launches and host ms a call, and their registers and stack frames
+    (a spill or a missing instantiation fails the run).  The record keeps
+    the times at N2/cc-pVTZ, and the device ms a launch and bounds at each
+    molecule."""
     molecule = diatomic(symbol, bond_angstrom, basis, partner)
     plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
     coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
@@ -1657,6 +1764,8 @@ def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, ba
     ms_1e, ms_1e_plain = median_ms(kernel_1e), median_ms(plain_1e)
     ms_2e, ms_2e_plain = median_ms(kernel_2e), median_ms(plain_2e, repeats=1)
     launch_ms = device_ms_a_launch(kernel_1e, "one_electron_deriv_kernel")
+    launch_ms_2e = device_ms_a_launch(kernel_2e, "eri_deriv_energy")
+    host_ms_2e = host_ms_a_call(kernel_2e)
     t = plan.tensors(device)
     needed_1e, first_count_1e = one_electron_deriv_operations(plan)
     one_electron_bound = bound(
@@ -1664,7 +1773,8 @@ def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, ba
                      t["atom2"], t["pair_start"], t["ao_i"], t["ao_j"],
                      t["boys_one_electron_deriv"]) + 8 * 9 * N * N,
         needed_1e / FP64_PER_MS)
-    needed, algorithm = eri_operations(plan, derivative=True)
+    needed, first_count = eri_operations(plan, derivative=True)
+    algorithm = deriv_operations(plan)
     eri_bound = bound(eri_input_bytes(plan, coords) + tensor_bytes(P, t["pid_i"], t["pid_j"]) + 8,
                       needed / FP64_PER_MS)
     for name, err in (("one_electron_deriv", err_1e), ("eri_deriv_energy", err_2e)):
@@ -1676,11 +1786,17 @@ def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, ba
     one_electron.setdefault("bound_ms_at", {})[molecule_name] = one_electron_bound["bound_ms"]
     instantiations = lane_kernel_registers("one_electron_deriv", "one_electron_deriv_kernel",
                                            one_electron, registers, frames)
+    two_electron = record["eri_deriv_energy"]
+    two_electron.setdefault("device_ms_a_launch", {})[molecule_name] = launch_ms_2e
+    two_electron.setdefault("host_ms_a_call", {})[molecule_name] = host_ms_2e
+    two_electron.setdefault("launches_a_call", {})[molecule_name] = deriv_launches(plan)
+    two_electron.setdefault("bound_ms_at", {})[molecule_name] = eri_bound["bound_ms"]
+    deriv_registers = deriv_kernel_registers(two_electron, registers, frames,
+                                             "deriv_weights_kernel")
     if basis == "CC-PVTZ" and partner is None:
         one_electron.update(ms=ms_1e, plain_ms=ms_1e_plain, library_ms=None,
                             host_ms_a_call=ms_1e - launch_ms, **one_electron_bound)
-        record["eri_deriv_energy"].update(ms=ms_2e, plain_ms=ms_2e_plain, library_ms=None,
-                                          **eri_bound)
+        two_electron.update(ms=ms_2e, plain_ms=ms_2e_plain, library_ms=None, **eri_bound)
     return (f"gradient kernels {molecule_name}: lmax {plan.lmax}, {plan.n_pairs} AO pairs, "
             f"{plan.n_prim_pairs} primitive pairs; one_electron_deriv max|diff| {err_1e:.3e}, "
             f"two calls bitwise equal ({lane_summary(plan)}; {ms_1e:.4f} ms vs plain "
@@ -1690,10 +1806,13 @@ def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, ba
             f"{first_count_1e / FP64_PER_MS:.5f} ms); registers and stack frame bytes "
             f"(ptxas) {json.dumps(instantiations)}); "
             f"eri_deriv_energy dE/dR {float(e_kernel)!r}, |diff| {err_2e:.3e}, two calls bitwise "
-            f"equal ({ms_2e:.4f} ms vs plain {ms_2e_plain:.4f} ms, one run; bound "
-            f"{eri_bound['bound_ms']:.5f} ms by {eri_bound['bound_by']}; {needed:.4g} "
-            f"operations needed, {algorithm:.4g} in the kernel's algorithm, "
-            f"{algorithm / FP64_PER_MS:.5f} ms)")
+            f"equal ({deriv_schedule_summary(plan)}; {ms_2e:.4f} ms vs plain {ms_2e_plain:.4f} "
+            f"ms, one run; device ms a launch {launch_ms_2e:.5f}, host ms a call "
+            f"{host_ms_2e:.4f}; bound {eri_bound['bound_ms']:.5f} ms by "
+            f"{eri_bound['bound_by']}; {needed:.4g} operations needed, {algorithm:.4g} in the "
+            f"kernel's algorithm, {algorithm / FP64_PER_MS:.5f} ms (the first form's: "
+            f"{first_count:.4g}, {first_count / FP64_PER_MS:.5f} ms); registers (ptxas) "
+            f"{json.dumps(deriv_registers)})")
 
 
 def profile_gradient_path(line: str) -> dict:
@@ -2458,10 +2577,14 @@ def check_batched_scan(device, extreme_batch: np.ndarray) -> dict:
 # ---------------------------------------------------------------------------
 
 def check_unrestricted_eri_deriv(symbol: str, partner: str | None, bond_angstrom: float,
-                                 basis: str, device, record: dict, registers: dict) -> str:
+                                 basis: str, device, record: dict, registers: dict,
+                                 frames: dict) -> str:
     """K8bu against its plain version on a seeded pair of density-like
     Pa != Pb (relative), against a repeated call of itself (bitwise), and at
-    Pa = Pb = P/2 against K8b(P) (relative)."""
+    Pa = Pb = P/2 against K8b(P) (relative); its device ms a launch
+    (torch.profiler), host ms a call, and registers and stack frames (a
+    spill or a missing instantiation fails the run; its class kernels are
+    K8b's)."""
     molecule = diatomic(symbol, bond_angstrom, basis, partner)
     plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
     coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
@@ -2494,33 +2617,47 @@ def check_unrestricted_eri_deriv(symbol: str, partner: str | None, bond_angstrom
     require(half <= UNRESTRICTED_HALF_TOLERANCE,
             f"{basis}: K8bu at Pa = Pb = P/2 off K8b(P) by {half:.3e} (relative)")
     ms, plain_ms = median_ms(kernel), median_ms(plain, repeats=1)
+    launch_ms = device_ms_a_launch(kernel, "eri_deriv_energy_unrestricted")
+    restricted_launch_ms = device_ms_a_launch(lambda: plan.eri_deriv_energy(coords, P, hfx),
+                                              "eri_deriv_energy")
+    host_ms = host_ms_a_call(kernel)
     t = plan.tensors(device)
-    needed, algorithm = eri_operations(plan, derivative=True)
+    needed, first_count = eri_operations(plan, derivative=True)
+    algorithm = deriv_operations(plan)
     eri_bound = bound(eri_input_bytes(plan, coords) + 3 * tensor_bytes(P)
                       + tensor_bytes(t["pid_i"], t["pid_j"]) + 8, needed / FP64_PER_MS)
+    molecule_name = f"{symbol}{partner or symbol}/{basis}"
     entry = record.setdefault("eri_deriv_energy_unrestricted", {"max_abs_err": 0.0})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry.setdefault("device_ms_a_launch", {})[molecule_name] = launch_ms
+    entry.setdefault("k8b_device_ms_a_launch", {})[molecule_name] = restricted_launch_ms
+    entry.setdefault("host_ms_a_call", {})[molecule_name] = host_ms
+    entry.setdefault("launches_a_call", {})[molecule_name] = deriv_launches(plan)
+    entry.setdefault("bound_ms_at", {})[molecule_name] = eri_bound["bound_ms"]
+    own = deriv_kernel_registers(entry, registers, frames, "deriv_weights_kernel[unrestricted]")
     if basis == "CC-PVTZ":
         entry.update(ms=ms, plain_ms=plain_ms, library_ms=None, **eri_bound)
-    own = {k: v for k, v in registers.items() if k.endswith("[unrestricted]")}
-    return (f"unrestricted gradient kernels {symbol}{partner or symbol}/{basis}: "
+    return (f"unrestricted gradient kernels {molecule_name}: "
             f"eri_deriv_energy_unrestricted dE/dR {float(e_kernel)!r}, relative |diff| "
             f"{relative:.3e}, two calls bitwise equal; at Pa = Pb = P/2 {half:.3e} from "
-            f"eri_deriv_energy(P); {ms:.4f} ms vs plain {plain_ms:.4f} ms (one run); bound "
-            f"{eri_bound['bound_ms']:.5f} ms by {eri_bound['bound_by']} ({needed:.4g} "
-            f"operations needed, {algorithm:.4g} in the kernel's algorithm); registers (ptxas) "
-            f"{max(v if isinstance(v, int) else int(str(v).split()[0]) for v in own.values())} "
-            f"at most over its {len(own)} class kernels")
+            f"eri_deriv_energy(P); {ms:.4f} ms vs plain {plain_ms:.4f} ms (one run); device ms "
+            f"a launch {launch_ms:.5f} (eri_deriv_energy on P in the same run "
+            f"{restricted_launch_ms:.5f}), host ms a call {host_ms:.4f}, "
+            f"{deriv_launches(plan)} launches a call; bound {eri_bound['bound_ms']:.5f} ms by "
+            f"{eri_bound['bound_by']} ({needed:.4g} operations needed, {algorithm:.4g} in the "
+            f"kernel's algorithm, the first form's {first_count:.4g}); registers (ptxas; the "
+            f"class kernels are eri_deriv_energy's) {json.dumps(own)}")
 
 
-def check_unrestricted_gradient_kernels(device, record: dict, registers: dict) -> str:
+def check_unrestricted_gradient_kernels(device, record: dict, registers: dict,
+                                        frames: dict) -> str:
     """Phase 18: K8bu at O2/cc-pVTZ and OH/6-31G, then K8cu on the grid of
     the UKS path with its converged densities (one uncounted run of
     LINE_UKS_SPE gives them)."""
     for symbol, partner, bond_angstrom, basis in (("O", None, 1.21, "CC-PVTZ"),
                                                   ("O", "H", 0.97, "6-31G")):
         print(check_unrestricted_eri_deriv(symbol, partner, bond_angstrom, basis, device,
-                                           record, registers))
+                                           record, registers, frames))
     SCF_output, molecule, _, _ = run(LINE_UKS_SPE, suppress_output=True, device="cuda")
     U = torch.as_tensor(molecule.spherical_transformation, dtype=torch.float64, device=device)
     P_stack = torch.stack([U.T @ SCF_output.P_alpha @ U, U.T @ SCF_output.P_beta @ U])
@@ -2532,16 +2669,15 @@ def profile_unrestricted_path(line: str) -> dict:
     gradients, and rho only for the guess densities), K8bu's and K8cu's
     launches and device ms from its profiled run."""
     profile = profile_gradient_path(line)
-    hand, launches = profile["hand_kernels"], profile["profiled_launches"]
+    launches = profile["profiled_launches"]
     profile["path_kernels"] = {
         "density_on_grid (K7b)": hand_entry(profile, "density_on_grid_kernel[1]"),
         "density_on_grid (K7b, rho only)": hand_entry(profile, "density_on_grid_kernel[0]"),
         "eri_deriv_energy_unrestricted (K8bu)": {
             "launches": launches.get("eri_deriv_energy_unrestricted", 0),
-            "class_kernel_launches": sum(v["launches"] for k, v in hand.items()
-                                         if k.endswith("[UnrestrictedEnergyWeight]")),
-            "device_ms_a_launch": profile["quartet_class_kernels_busy_ms_a_launch"].get(
-                "eri_deriv_energy_unrestricted")},
+            "class_kernel_launches": hand_entry(profile, "deriv_shell_kernel")["launches"],
+            "device_ms_a_launch": profile["quartet_class_kernels_busy_ms_a_launch"][
+                "eri_deriv_energy_unrestricted"]},
         "density_deriv_on_grid_spin (K8cu)": hand_entry(profile, "moving_grid_kernel[2,1]"),
     }
     return profile
@@ -3085,7 +3221,7 @@ def spe_devices(line: str = LINE_UKS_SPE, reference: float = E_REF_UKS_SPE) -> d
 # post.cc.ccsdt_q_energy and .uccsd_t_energy, which every checkout with the
 # meta-GGAs has.
 _WALLS = """
-import json, statistics, sys, time
+import hashlib, json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
@@ -3285,7 +3421,64 @@ def median_of(fn, repeats):   # CUDA events, median of `repeats` after a warm-up
     return statistics.median(times)
 
 
+def union_ms_a_call(fn, once, calls=50):   # torch.profiler: a call's kernels' union
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, -float("inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy, end = busy + max(0.0, e - max(s, end)), max(end, e)
+    recorded = sum(once in e.name for e in events)   # calls recorded: the kernel run once a call
+    return busy / 1e3 / recorded if recorded else None
+
+
+def diatomic_plan(symbols, bond, basis):
+    config = Config("SPE", lookup_method("HF"), 0.0, [], basis, list(symbols),
+                    suppress_output=True)
+    molecule = Molecule(list(symbols), np.array([[0.0, 0.0, 0.0],
+                                                 [0.0, 0.0, angstrom_to_bohr(bond)]]), config)
+    return (IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms),
+            torch.as_tensor(molecule.coordinates, dtype=torch.float64, device="cuda"))
+
+
+# K8b and K8bu alone on seeded density-like matrices (chip_smoke's phases 9
+# and 18): device ms a launch (the union of a call's kernels over the calls
+# that the profiler recorded, counted by the rows kernel, which both
+# checkouts launch once a call), CUDA-event ms and host ms a call, and the
+# value; K1's packed ERI at N2/6-311G and cc-pVTZ as a SHA-256 of its bytes
 kernels = {}
+for symbols, bond, basis in ((("N", "N"), 1.1, "CC-PVTZ"), (("C", "O"), 1.13, "6-31G"),
+                             (("O", "O"), 1.21, "CC-PVTZ")):
+    deriv_plan, deriv_coords = diatomic_plan(symbols, bond, basis)
+    n = deriv_plan.n_basis
+    key = f"{''.join(symbols).lower()}_{basis.lower().replace('-', '_')}"
+    C = np.random.default_rng(13).standard_normal((n, 7)) / np.sqrt(n)
+    P_deriv = gpu(C @ C.T)
+    restricted = lambda: deriv_plan.eri_deriv_energy(deriv_coords, P_deriv, 0.2)
+    kernels[f"eri_deriv_energy_{key}"] = float(restricted())
+    kernels[f"eri_deriv_energy_{key}_device_ms_a_launch"] = union_ms_a_call(
+        restricted, "deriv_rows_kernel")
+    kernels[f"eri_deriv_energy_{key}_ms"] = median_ms(restricted)
+    kernels[f"eri_deriv_energy_{key}_host_ms"] = host_ms(restricted)
+    if symbols == ("O", "O"):
+        rng = np.random.default_rng(14)
+        C_a, C_b = (rng.standard_normal((n, k)) / np.sqrt(n) for k in (8, 7))
+        P_a, P_b = gpu(C_a @ C_a.T), gpu(C_b @ C_b.T)
+        spins = lambda: deriv_plan.eri_deriv_energy_unrestricted(deriv_coords, P_a, P_b, 0.2)
+        kernels[f"eri_deriv_energy_unrestricted_{key}"] = float(spins())
+        kernels[f"eri_deriv_energy_unrestricted_{key}_device_ms_a_launch"] = union_ms_a_call(
+            spins, "deriv_rows_kernel")
+        kernels[f"eri_deriv_energy_unrestricted_{key}_ms"] = median_ms(spins)
+        kernels[f"eri_deriv_energy_unrestricted_{key}_host_ms"] = host_ms(spins)
+for basis in ("6-311G", "CC-PVTZ"):
+    eri_plan, eri_coords = diatomic_plan(("N", "N"), 1.1, basis)
+    kernels[f"eri_packed_n2_{basis.lower().replace('-', '_')}_sha256"] = hashlib.sha256(
+        eri_plan.eri_pair_packed(eri_coords).cpu().numpy().tobytes()).hexdigest()
+del deriv_plan, eri_plan
 for no, nv, repeats in ((7, 19, 10), (7, 53, 3)):
     q_args = quadruples_inputs(no, nv, 23)
     kernels[f"ccsdt_q_energy_o{no}_v{nv}_ms"] = median_of(lambda: cc.ccsdt_q_energy(*q_args),
@@ -3323,12 +3516,12 @@ print(json.dumps({"root": sys.argv[1], "package": tuna_tpu_torch.__file__, **ker
 """
 
 
-def compare(roots) -> int:
+def compare(roots, with_paths: bool = True) -> int:
+    lines = (LINE, LINE_DFT, LINE_DIRECT, LINE_Q, LINE_UHF_TZ) if with_paths else ()
     for root in roots:
         result = subprocess.run([sys.executable, "-c", _WALLS, str(pathlib.Path(root).resolve()),
-                                 str(WARM_RUNS), LINE, LINE_DFT, LINE_DIRECT, LINE_Q,
-                                 LINE_UHF_TZ], cwd=root, capture_output=True, text=True,
-                                timeout=900)
+                                 str(WARM_RUNS), *lines], cwd=root, capture_output=True,
+                                text=True, timeout=900)
         if result.returncode != 0:
             print(result.stderr[-4000:], file=sys.stderr)
             return result.returncode
@@ -3339,6 +3532,8 @@ def compare(roots) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--compare", nargs="+", metavar="ROOT")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="with --compare: the kernels alone, not the paths' walls")
     parser.add_argument("--uks-spe-devices", action="store_true")
     parser.add_argument("--meta-gga-spe-devices", action="store_true")
     args = parser.parse_args()
@@ -3354,7 +3549,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
     if args.compare:
-        return compare(args.compare)
+        return compare(args.compare, with_paths=not args.kernels_only)
     if args.uks_spe_devices:
         _kernels.build()
         print("uks_spe_devices: " + json.dumps(spe_devices()))
@@ -3476,7 +3671,7 @@ def main() -> int:
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     # --- 18. K8bu and K8cu against their plain versions -------------------------
-    print(check_unrestricted_gradient_kernels(device, record, registers))
+    print(check_unrestricted_gradient_kernels(device, record, registers, frames))
 
     # --- 19. the unrestricted gradient paths --------------------------------------
     launches = check_unrestricted_gradient_paths(record)

@@ -729,9 +729,14 @@ def test_gradient_integral_kernels_match_plain(cuda, symbols, bond, basis):
     assert abs(float(first) - float(plan._eri_deriv_energy_plain(coords, P, 0.25))) <= 1e-12
 
 
-@pytest.mark.parametrize("threshold", [0, 10 ** 9])
+@pytest.mark.parametrize("threshold", [1, 10 ** 9])
 def test_eri_deriv_kernel_all_light_or_all_heavy(cuda, threshold, monkeypatch):
-    monkeypatch.setattr(integrals, "HEAVY_THRESHOLD", threshold)
+    """K8b at the two extremes of its schedule's split of work
+    (IntegralPlan.deriv_schedule, SHELL_TASK_OPS): one component a task
+    (the shared parts of every run of several components from the tables
+    of deriv_tables), or every run with all its components in one task
+    (every shared part formed in its task)."""
+    monkeypatch.setattr(integrals, "SHELL_TASK_OPS", threshold)
     molecule, plan = _diatomic_plan(("H", "F"), 0.95, "6-31G**")
     coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
     P = torch.as_tensor(_density(plan.n_basis, 9), device=cuda)

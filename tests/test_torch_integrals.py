@@ -434,3 +434,338 @@ def test_class_truncation_is_exact():
     np.testing.assert_allclose(got.numpy(), plan._eri_packed_plain(coords).numpy(),
                                rtol=0, atol=1e-13)
     np.testing.assert_allclose(got.numpy(), packed_jax, rtol=0, atol=1e-12)
+
+
+# --- the shell quartets of K8b and K8bu (csrc/eri_deriv.cu) -----------------
+
+SHELL_SYSTEMS = SYSTEMS + [(("N", "N"), 1.10, "CC-PVTZ")]
+# (shell quartets, their primitive quartets) at N2/cc-pVTZ
+N2_CC_PVTZ_SHELL_QUARTETS = (12636, 227388)
+
+
+def _live_work_list(plan):
+    """The work list's AO-pair quartets whose four functions do not all sit
+    on one atom, as sorted unordered keys."""
+    quartets, _ = plan.work_list()
+    first = plan.pair_start[:-1]
+    atom = np.where(plan.atom1[first] == plan.atom2[first], plan.atom1[first], -1)
+    A, B = quartets[:, 0].astype(np.int64), quartets[:, 1].astype(np.int64)
+    live = ~((atom[A] >= 0) & (atom[A] == atom[B]))
+    return np.sort(np.maximum(A, B)[live] * plan.n_pairs + np.minimum(A, B)[live]), atom
+
+
+@pytest.mark.parametrize("symbols,bond,basis", SHELL_SYSTEMS)
+def test_shell_quartets_hold_each_live_quartet_once(symbols, bond, basis):
+    """IntegralPlan.shell_quartets: every live AO-pair quartet of the work
+    list exactly once, none on one atom, each in the shell quartet of its
+    two shell pairs with A in the bra, the bra of the larger L; rows sorted
+    by class and contiguous over the components."""
+    molecule, plan = _plan(symbols, bond, basis)
+    components, quartets = plan.shell_quartets()
+    shell_pair, shell_prim = plan.shell_pairs()
+    assert components.dtype == np.int32 and quartets.dtype == np.int32
+    assert quartets.shape[1] == 6
+    expected, atom = _live_work_list(plan)
+    A, B = components[:, 0].astype(np.int64), components[:, 1].astype(np.int64)
+    got = np.sort(np.maximum(A, B) * plan.n_pairs + np.minimum(A, B))
+    np.testing.assert_array_equal(got, expected)
+    assert not np.any((atom[A] >= 0) & (atom[A] == atom[B]))
+    L, _, _ = _pair_angular_momenta(molecule, plan)
+    np.testing.assert_array_equal(quartets[:, 4], np.r_[0, quartets[:-1, 5]])
+    assert quartets[-1, 5] == len(components)
+    for la, lb, sa, sb, begin, end in quartets:
+        assert begin < end and la >= lb and (la > lb or sa >= sb)
+        assert np.all(shell_pair[A[begin:end]] == sa) and np.all(shell_pair[B[begin:end]] == sb)
+        assert np.all(L[A[begin:end]] == la) and np.all(L[B[begin:end]] == lb)
+    keys = quartets[:, 2].astype(np.int64) * len(shell_prim) + quartets[:, 3]
+    assert len(np.unique(keys)) == len(quartets)
+    assert np.all(np.diff(quartets[:, 0] * 16 + quartets[:, 1]) >= 0)
+    if basis == "CC-PVTZ":
+        prims = shell_prim[quartets[:, 2]] * shell_prim[quartets[:, 3]]
+        assert (len(quartets), int(prims.sum())) == N2_CC_PVTZ_SHELL_QUARTETS
+
+
+@pytest.mark.parametrize("symbols,bond,basis", SHELL_SYSTEMS)
+def test_shell_pairs_share_their_primitive_pairs(symbols, bond, basis):
+    """Every AO pair of one shell pair has the same count of primitive
+    pairs and, pair by pair, the same p and P_z bit for bit; its AOs share
+    an atom, L and exponents."""
+    molecule, plan = _plan(symbols, bond, basis)
+    shell_pair, shell_prim = plan.shell_pairs()
+    z = np.asarray(molecule.coordinates)[:, 2]
+    p = plan.a + plan.b
+    Pz = (plan.a * z[plan.atom1] + plan.b * z[plan.atom2]) / p
+    count = np.diff(plan.pair_start)
+    _, first = np.unique(shell_pair, return_index=True)
+    np.testing.assert_array_equal(count[first], shell_prim)
+    for pair in range(plan.n_pairs):
+        head = first[shell_pair[pair]]
+        own = slice(plan.pair_start[pair], plan.pair_start[pair + 1])
+        ref = slice(plan.pair_start[head], plan.pair_start[head + 1])
+        assert count[pair] == count[head]
+        assert p[own].tobytes() == p[ref].tobytes() and Pz[own].tobytes() == Pz[ref].tobytes()
+        assert np.array_equal(plan.atom1[own], plan.atom1[ref])
+        assert np.array_equal(plan.atom2[own], plan.atom2[ref])
+
+
+@pytest.mark.parametrize("ops", [1, 300, 1000, 10 ** 9])
+@pytest.mark.parametrize("symbols,bond,basis", SHELL_SYSTEMS)
+def test_deriv_schedule_covers_each_item_once(symbols, bond, basis, ops, monkeypatch):
+    """IntegralPlan.deriv_schedule at SHELL_TASK_OPS = `ops` (1: runs cut
+    into tasks of one component; 10**9: no run cut): a shell quartet's
+    primitive quartets in runs of at most SHELL_TASK_THREADS from 0, each
+    run's components tiled by its tasks, so every (component, primitive
+    quartet) item is one task's; a run in one
+    task forms its shared parts there (-1), a run cut into several tasks
+    reads them from its row of deriv_tables; a task holds at most `ops`
+    operations of own part a thread (one component at least); the class
+    rows cover the tasks, each class's tasks contiguous, sorted by the
+    items a thread takes, with the most primitive quartets of one."""
+    molecule, _ = _plan(symbols, bond, basis)
+    monkeypatch.setattr(integrals, "SHELL_TASK_OPS", ops)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    components, quartets = plan.shell_quartets()
+    _, shell_prim = plan.shell_pairs()
+    tasks, classes = plan.deriv_schedule()
+    runs, owner, _ = plan.deriv_tables()
+    width = integrals.SHELL_TASK_THREADS
+    assert tasks.dtype == np.int32 and tasks.shape[1] == 8 and classes.shape[1] == 5
+    begin, end = quartets[:, 4].astype(np.int64), quartets[:, 5].astype(np.int64)
+    nc = shell_prim[quartets[:, 3]]
+    all_prims = shell_prim[quartets[:, 2]] * nc
+    bra0, ket0, t_nc, g0, n, c0, c1, formed = (tasks[:, k].astype(np.int64) for k in range(8))
+    sq = np.searchsorted(begin, c0, side="right") - 1
+    assert np.all(c0 >= begin[sq]) and np.all(c1 <= end[sq]) and np.all(c0 < c1)
+    assert np.all(t_nc == nc[sq])
+    assert np.all(bra0 == plan.pair_start[components[begin[sq], 0]])
+    assert np.all(ket0 == plan.pair_start[components[begin[sq], 1]])
+    assert np.all((g0 % width == 0) & (n == np.minimum(width, all_prims[sq] - g0)) & (n > 0))
+    own = np.array([integrals.deriv_quartet_operations(int(la), int(lb))[1]
+                    for la, lb in quartets[sq, :2]])
+    assert np.all((n * (c1 - c0) * own <= width * ops) | (c1 - c0 == 1))
+    if ops == 10 ** 9:
+        assert np.all(formed == -1) and len(runs) == 0
+    # each (shell quartet, run of primitive quartets): components tiled once
+    order = np.lexsort((c0, g0, sq))
+    run = sq[order] * (all_prims.max() + 1) + g0[order]
+    starts = np.r_[True, run[1:] != run[:-1]]
+    ends = np.r_[starts[1:], True]
+    assert np.all(c0[order][starts] == begin[sq[order][starts]])
+    assert np.all(c1[order][ends] == end[sq[order][ends]])
+    assert np.all(c1[order][:-1][~ends[:-1]] == c0[order][1:][~starts[1:]])
+    np.testing.assert_array_equal(np.bincount(sq[order][starts], minlength=len(quartets)),
+                                  -(-all_prims // width))
+    assert np.sum(n * (c1 - c0)) == np.sum(all_prims * (end - begin))
+    # a run in one task forms its shared parts; a cut run reads its table
+    pieces = np.diff(np.r_[np.flatnonzero(starts), len(run)])
+    cut = np.repeat(pieces > 1, pieces)
+    assert np.all(formed[order][~cut] == -1)
+    assert np.all(np.isin(formed[order][cut], runs[:, 6]))
+    head = order[starts][pieces > 1]
+    np.testing.assert_array_equal(np.sort(formed[head]), np.sort(runs[:, 6]))
+    # each shared part formed once: in its task or in the pass over the runs
+    assert np.sum(n[order][starts][pieces == 1]) + len(owner) == np.sum(all_prims)
+    # classes: every task once, of the class's (L_bra, L_ket), largest first
+    spans = sorted(map(tuple, classes[:, 2:4].tolist()))
+    assert spans[0][0] == 0 and spans[-1][1] == len(tasks)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    thread_items = -(-(n * (c1 - c0)) // width)
+    for la, lb, first, last, most in classes:
+        assert np.all(quartets[sq[first:last], 0] == la)
+        assert np.all(quartets[sq[first:last], 1] == lb)
+        assert np.all(np.diff(thread_items[first:last]) <= 0)
+        assert most == n[first:last].max()
+    assert plan.deriv_partial_count() == len(tasks)
+
+
+@pytest.mark.parametrize("symbols,bond,basis", SHELL_SYSTEMS)
+def test_deriv_tables_place_each_cut_run_once(symbols, bond, basis, monkeypatch):
+    """IntegralPlan.deriv_tables at SHELL_TASK_OPS = 1, where every run of
+    more than one component is cut: a row a run (its shell quartet's first bra and ket primitive
+    pairs, nc, L_bra + L_ket, g0, n, the offset of its tables, its first
+    primitive quartet in the flat count); the tables tile `doubles`
+    without a gap, coulomb_entries(L_bra + L_ket) entries a primitive
+    quartet, and owner names each flat primitive quartet's run once."""
+    molecule, _ = _plan(symbols, bond, basis)
+    monkeypatch.setattr(integrals, "SHELL_TASK_OPS", 1)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    components, quartets = plan.shell_quartets()
+    _, shell_prim = plan.shell_pairs()
+    runs, owner, doubles = plan.deriv_tables()
+    assert runs.dtype == np.int32 and runs.shape[1] == 8
+    one_component = quartets[:, 5] - quartets[:, 4] == 1
+    prims = shell_prim[quartets[:, 2]] * shell_prim[quartets[:, 3]]
+    assert len(owner) == prims[~one_component].sum()
+    bra0, ket0, nc, l_sum, g0, n, offset, first = (runs[:, k].astype(np.int64)
+                                                   for k in range(8))
+    row = {(int(b), int(k), int(g)): i for i, (b, k, g) in enumerate(zip(bra0, ket0, g0))}
+    assert len(row) == len(runs)
+    start = plan.pair_start[components[quartets[:, 4]]]
+    for sq in np.flatnonzero(~one_component):
+        for g in range(0, prims[sq], integrals.SHELL_TASK_THREADS):
+            i = row[(int(start[sq, 0]), int(start[sq, 1]), g)]
+            assert nc[i] == shell_prim[quartets[sq, 3]]
+            assert l_sum[i] == quartets[sq, 0] + quartets[sq, 1]
+            assert n[i] == min(integrals.SHELL_TASK_THREADS, prims[sq] - g)
+    size = n * np.array([integrals.coulomb_entries(int(k)) for k in l_sum])
+    np.testing.assert_array_equal(offset, np.cumsum(size) - size)
+    np.testing.assert_array_equal(first, np.cumsum(n) - n)
+    assert doubles == size.sum()
+    np.testing.assert_array_equal(owner, np.repeat(np.arange(len(runs)), n))
+    assert [integrals.coulomb_entries(k) for k in (0, 1, 11, 12)] == [2, 3, 48, 56]
+
+
+def test_deriv_schedule_of_one_atom_is_empty():
+    """One atom: every quartet sits on it, so no shell quartet is live, and
+    the schedule, the tables and the partials are empty (the sum is 0)."""
+    _, plan = _plan(("C",), 0.0, "6-31G")
+    components, quartets = plan.shell_quartets()
+    tasks, classes = plan.deriv_schedule()
+    runs, owner, doubles = plan.deriv_tables()
+    assert components.shape == (0, 2) and quartets.shape == (0, 6)
+    assert tasks.shape == (0, 8) and classes.shape == (0, 5)
+    assert runs.shape == (0, 8) and owner.shape == (0,) and doubles == 0
+    assert plan.deriv_partial_count() == 0
+
+
+def _deriv_weights(plan, components, P_a, P_b, hfx, unrestricted):
+    """Each component's weight as csrc/eri_deriv.cu's weight pass forms it:
+    the degeneracy times the Coulomb and exchange products (EnergyWeight on
+    P = P_a + P_b, or UnrestrictedEnergyWeight)."""
+    A, B = components[:, 0], components[:, 1]
+    i, j, k, l = plan.pid_i[A], plan.pid_j[A], plan.pid_i[B], plan.pid_j[B]
+    degeneracy = (np.where(i != j, 2.0, 1.0) * np.where(k != l, 2.0, 1.0)
+                  * np.where(A != B, 2.0, 1.0))
+    P = P_a + P_b
+    coulomb = 0.5 * P[i, j] * P[k, l]
+    if unrestricted:
+        ik_jl = P_a[i, k] * P_a[j, l] + P_b[i, k] * P_b[j, l]
+        il_jk = P_a[i, l] * P_a[j, k] + P_b[i, l] * P_b[j, k]
+        exchange = 0.25 * hfx * (ik_jl + il_jk)
+    else:
+        exchange = 0.125 * hfx * (P[i, k] * P[j, l] + P[i, l] * P[j, k])
+    return degeneracy * (coulomb - exchange)
+
+
+def _deriv_kernel_order(plan, task_thread_sums):
+    """csrc/eri_deriv.cu's order of summation over the thread sums of each
+    task (one block of SHELL_TASK_THREADS threads): a fixed-order shuffle a
+    warp, the block's warps in turn, the tasks in the classes' launch
+    order, then the 256-thread reduction of the partials."""
+    _, classes = plan.deriv_schedule()
+    partials = []
+    for _, _, first, last, _ in classes:
+        for idx in range(first, last):
+            partial = None
+            for v in task_thread_sums(idx).reshape(-1, 32):
+                for offset in (16, 8, 4, 2, 1):
+                    v = v + np.concatenate([v[offset:], v[32 - offset:]])
+                partial = v[0] if partial is None else partial + v[0]
+            partials.append(partial)
+    red = np.zeros(256)
+    for t in range(256):
+        for x in partials[t::256]:
+            red[t] = red[t] + x
+    for s in (128, 64, 32, 16, 8, 4, 2, 1):
+        red[:s] = red[:s] + red[s:2 * s]
+    return red[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _deriv_inputs(symbols, bond, basis):
+    """(molecule, plan, coords, seeded P_a != P_b, the plain sweep's packed
+    derivative values) for the weight emulation."""
+    molecule, plan = _plan(symbols, bond, basis)
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64)
+    rng = np.random.default_rng(18)
+    C_a, C_b = (rng.standard_normal((plan.n_basis, k)) / np.sqrt(plan.n_basis) for k in (3, 2))
+    packed = plan._eri_packed_plain(coords, derivative=True).numpy()
+    return molecule, plan, coords, C_a @ C_a.T, C_b @ C_b.T, packed
+
+
+DERIV_EMULATION_SYSTEMS = [(("H", "H"), 0.74, "STO-3G"), (("C", "O"), 1.13, "6-31G"),
+                           (("H", "F"), 0.95, "6-31G**")]
+
+
+@pytest.mark.parametrize("hfx", [0.0, 0.25])
+@pytest.mark.parametrize("unrestricted", [False, True])
+@pytest.mark.parametrize("symbols,bond,basis", DERIV_EMULATION_SYSTEMS)
+def test_deriv_weights_emulated_match_plain(symbols, bond, basis, unrestricted, hfx):
+    """K8b's and K8bu's weights (degeneracies included) on the plain
+    sweep's derivative values of each component, summed shell quartet by
+    shell quartet in the schedule's order, against the plain versions'
+    contraction of the N^4 tangent: 1e-13 relative, Pa != Pb seeded."""
+    _, plan, coords, P_a, P_b, packed = _deriv_inputs(symbols, bond, basis)
+    components, quartets = plan.shell_quartets()
+    tasks, classes = plan.deriv_schedule()
+    weights = _deriv_weights(plan, components, P_a, P_b, hfx, unrestricted)
+    values = packed[components[:, 0], components[:, 1]] * weights
+    seen, total = set(), 0.0
+    for _, _, first, last, _ in classes:
+        for c0 in tasks[first:last, 5]:
+            sq = int(np.searchsorted(quartets[:, 4], c0, side="right") - 1)
+            if sq not in seen:
+                seen.add(sq)
+                part = 0.0
+                for v in values[quartets[sq, 4]:quartets[sq, 5]]:
+                    part += v
+                total += part
+    assert len(seen) == len(quartets)
+    if unrestricted:
+        expected = plan._eri_deriv_energy_unrestricted_plain(
+            coords, torch.as_tensor(P_a), torch.as_tensor(P_b), hfx)
+    else:
+        expected = plan._eri_deriv_energy_plain(coords, torch.as_tensor(P_a + P_b), hfx)
+    assert abs(total - float(expected)) <= 1e-13 * abs(float(expected))
+
+
+@pytest.mark.parametrize("ops", [1, 300, 1000])
+@pytest.mark.parametrize("symbols,bond,basis", DERIV_EMULATION_SYSTEMS[:2])
+def test_deriv_tasks_emulated_match_plain(symbols, bond, basis, ops, monkeypatch):
+    """K8b's items in NumPy: thread t of a task takes items t, t + 128, ...
+    (component c0 + i // n, primitive quartet g0 + i % n: bra primitive
+    pair g // nc of its A, ket g % nc of its B), each the plain sweep's
+    primitive-quartet value times its weight, in csrc/eri_deriv.cu's order
+    of summation; against the plain version: 1e-13 relative, at
+    SHELL_TASK_OPS 1 (every run of several components cut into tasks of
+    one), 300 and 1000 (some runs cut into several tasks)."""
+    molecule, _, coords, P_a, P_b, _ = _deriv_inputs(symbols, bond, basis)
+    monkeypatch.setattr(integrals, "SHELL_TASK_OPS", ops)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    components, quartets = plan.shell_quartets()
+    tasks, _ = plan.deriv_schedule()
+    weights = _deriv_weights(plan, components, P_a, P_b, 0.25, False)
+    _, block_values = plan._plain_sweep(coords, derivative=True)
+    start = plan.pair_start.astype(np.int64)
+    tables = {}   # shell quartet -> (its primitive-quartet values, bra rows, ket rows)
+
+    def values(sq, rows, cols):
+        if sq not in tables:
+            begin, end = quartets[sq, 4], quartets[sq, 5]
+            bra = np.unique(np.concatenate([np.arange(start[A], start[A + 1])
+                                            for A in np.unique(components[begin:end, 0])]))
+            ket = np.unique(np.concatenate([np.arange(start[B], start[B + 1])
+                                            for B in np.unique(components[begin:end, 1])]))
+            tables[sq] = (block_values(torch.as_tensor(bra), torch.as_tensor(ket)).numpy(),
+                          bra, ket)
+        table, bra, ket = tables[sq]
+        return table[np.searchsorted(bra, rows), np.searchsorted(ket, cols)]
+
+    def thread_sums(idx):
+        _, _, nc, g0, n, c0, c1, _ = (int(x) for x in tasks[idx])
+        i = np.arange(n * (c1 - c0))
+        j, g = c0 + i // n, g0 + i % n
+        rows = plan.pair_start[components[j, 0]] + g // nc
+        cols = plan.pair_start[components[j, 1]] + g % nc
+        sq = int(np.searchsorted(quartets[:, 4], c0, side="right") - 1)
+        width = integrals.SHELL_TASK_THREADS
+        items_ = np.zeros(-(-len(i) // width) * width)
+        items_[:len(i)] = weights[j] * values(sq, rows, cols)
+        acc = np.zeros(width)
+        for row in items_.reshape(-1, width):
+            acc = acc + row
+        return acc
+
+    got = _deriv_kernel_order(plan, thread_sums)
+    expected = float(plan._eri_deriv_energy_plain(coords, torch.as_tensor(P_a + P_b), 0.25))
+    assert abs(got - expected) <= 1e-13 * abs(expected)

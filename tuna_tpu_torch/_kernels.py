@@ -88,13 +88,16 @@ SIGNATURES = {
     # dipole_origin_z, origin_rate, out
     "tuna_one_electron_deriv": [_I, _I, _I, _I] + [_P] * 14 + [_D, _D, _P] + [_P],
     # lmax, n_prim_pairs, n_basis, coords, a, b, coef, l1, l2, atom1, atom2,
-    # pair_start, pid_i, pid_j, quartets, n_classes, classes (host), boys
-    # tables, P, hfx, rows (scratch), n_partials, partials (scratch), out
-    "tuna_eri_deriv_energy": [_I, _I, _I] + [_P] * 12 + [_I] + [_P] * 3
-                             + [_D, _P, _I, _P, _P] + [_P],
+    # pid_i, pid_j, n_components, components, component_rows, tasks,
+    # n_classes, classes (host), n_shared, shared_runs, shared_owner, boys
+    # tables, P, hfx, rows, weights and tables (scratch), n_partials,
+    # partials (scratch), out
+    "tuna_eri_deriv_energy": [_I, _I, _I] + [_P] * 10 + [_I] + [_P] * 3 + [_I, _P, _I]
+                             + [_P] * 4 + [_D] + [_P] * 3 + [_I, _P, _P] + [_P],
     # as tuna_eri_deriv_energy with Pt = Pa + Pb, Pa, Pb in place of P
-    "tuna_eri_deriv_energy_unrestricted": [_I, _I, _I] + [_P] * 12 + [_I] + [_P] * 5
-                                          + [_D, _P, _I, _P, _P] + [_P],
+    "tuna_eri_deriv_energy_unrestricted": [_I, _I, _I] + [_P] * 10 + [_I] + [_P] * 3
+                                          + [_I, _P, _I] + [_P] * 6 + [_D] + [_P] * 3
+                                          + [_I, _P, _P] + [_P],
     # n_ao, n_points, first_moving, with_gradients, points a tile, whole P,
     # points, origin, ao_moves, lmn, prim_start, exps, coefs, P, density,
     # gradient, d_density, d_gradient

@@ -1,7 +1,9 @@
 // The quartet engine shared by the packed ERI sweep (K1, eri.cu) and the
 // direct Fock build (K4, fock_direct.cu), so the two kernels cannot drift;
-// the R-tangent of the two-electron energy (K8b, eri_deriv.cu) walks the
-// same work list with the same x/y pairing, Coulomb table and side streams.
+// the R-tangent of the two-electron energy (K8b, K8bu, eri_deriv.cu) takes
+// the live quartets of the same work list by shell quartet
+// (IntegralPlan.shell_quartets) and shares the x/y pairing, the class list
+// and the side streams.
 //
 // Work list.  IntegralPlan.work_list (ops/integrals.py) builds, once per
 // basis, the unordered AO-pair quartets whose x and y Hermite parities match
@@ -34,9 +36,10 @@
 //
 // No tensor-core path applies at this grain: a quartet's Hermite
 // contraction is at most 7 x 7 an axis and differs from lane to lane.
-// Sharing the Boys values and R^n_00v of a primitive quartet across the
-// Cartesian components of a shell pair would turn it into small matrix
-// products for the float64 tensor cores (ROADMAP, queue 2).
+// K8b (eri_deriv.cu) shares the Boys values and R^n_00v of a primitive
+// quartet across the Cartesian components of a shell quartet and keeps
+// each component's own part on the CUDA cores; K1 and K4 do not share them
+// yet (ROADMAP, queue 2).
 //
 // Everything here has internal linkage: each translation unit that includes
 // the header gets its own copy of the kernels and of the side streams.

@@ -21,7 +21,9 @@ dispatch on the device of the coordinates they are given:
     a CPU tensor.
 
 The quartet kernels share csrc/quartet.cuh and walk the plan's work list
-(`IntegralPlan.work_list`), built on the host once per basis.
+(`IntegralPlan.work_list`), built on the host once per basis; K8b and K8bu
+take its live quartets by shell quartet (`IntegralPlan.shell_quartets`,
+`deriv_schedule`, `deriv_tables`).
 
 The plain versions mirror the JAX functions, including the TPU's scaled
 Hermite form (Rt[v,n] = R[v,n] / (2 alpha)^(n+v)); the kernels work
@@ -45,6 +47,15 @@ KERNEL_MAX_LMAX = 3                    # highest LMAX instantiated in csrc/
 # Primitive quartets above which a work-list quartet gets a warp of its own
 # instead of a thread (csrc/quartet.cuh); tuned on the card (PERF.md).
 HEAVY_THRESHOLD = 16
+# K8b's and K8bu's tasks (csrc/eri_deriv.cu kTaskThreads): a block of
+# SHELL_TASK_THREADS threads takes a run of at most SHELL_TASK_THREADS
+# primitive quartets of one shell quartet (a thread each) with its
+# components, cut into several tasks where they would take more than
+# SHELL_TASK_OPS float64 operations of own part a thread
+# (deriv_quartet_operations); SHELL_TASK_OPS was tuned on the card
+# (PERF.md).  Tests monkeypatch SHELL_TASK_OPS before building a plan.
+SHELL_TASK_THREADS = 128
+SHELL_TASK_OPS = 2000
 # Shared memory of a heavy class kernel's block (csrc/quartet.cuh): the Boys
 # Taylor table (TUNA_BOYS_TABLE_SIZE doubles, csrc/boys.cuh) and, for each of
 # its kHeavyWarps warps, the staged bra and ket rows.  An H100 gives a block
@@ -83,6 +94,25 @@ def quartet_operations(l_bra: int, l_ket: int) -> tuple[int, int]:
     dots = sum(min(nxy, (nm - v) // 2) + 1 for v in range(nm + 1))
     contraction = 2 * dots + 2 * nm + 1
     return 6 + boys + recursion + 4, hermite + pairing + contraction + 4
+
+
+def deriv_quartet_operations(l_bra: int, l_ket: int) -> tuple[int, int]:
+    """(shared, own) float64 operations of one derivative primitive quartet
+    of class (l_bra, l_ket) for K8b and K8bu (csrc/eri_deriv.cu):
+    quartet_operations' with the Boys order and the R^n_00v recursion one
+    order higher, plus the second z product of [d bra | ket] + [bra | d ket]
+    (two operations a term)."""
+    shared = quartet_operations(l_bra, l_ket + 1)[0]
+    own = quartet_operations(l_bra, l_ket)[1] + 2 * (l_bra + 2) * (l_ket + 2)
+    return shared, own
+
+
+def coulomb_entries(l_sum: int) -> int:
+    """Entries R^n_00v of a derivative quartet's Coulomb table with
+    L_bra + L_ket = l_sum that K8b's own part reads (csrc/eri_deriv.cu
+    CoulombShape): n <= l_sum // 2 and v + 2n <= l_sum + 1."""
+    nm = l_sum + 1
+    return sum(min((nm - v) // 2, l_sum // 2) + 1 for v in range(nm + 1))
 
 
 def heavy_shared_bytes(classes: np.ndarray) -> np.ndarray:
@@ -288,7 +318,12 @@ class IntegralPlan:
         self._device_tensors: dict = {}
         self._work_list = None
         self._lane_schedule = None
+        self._shell_pairs = None
+        self._shell_quartets = None
+        self._deriv_schedule = None
+        self._deriv_tables = None
         self._device_quartets: dict = {}  # device -> the work list's quartets
+        self._device_deriv: dict = {}     # device -> K8b's components and tasks
         self._setup_plain_blocks()
 
     def _setup_plain_blocks(self):
@@ -437,6 +472,179 @@ class IntegralPlan:
             lanes[lane:lane + w] = (pair, w)
         self._lane_schedule = lanes
         return lanes
+
+    def shell_pairs(self) -> tuple[np.ndarray, np.ndarray]:
+        """(shell pair of each AO pair, primitive pairs of each shell pair),
+        int64.  The AOs of one atom with one total angular momentum and the
+        same primitive exponents form a shell (a general contraction's
+        shells merge).  The AO pair (i, j), i >= j, belongs to the shell pair
+        (shell of i, shell of j) in that order, so every AO pair of a shell
+        pair lists the same primitive pairs in the same order: the same
+        count, p and P_z, whatever its Cartesian components.  It depends on
+        the basis only, so it is built once."""
+        if self._shell_pairs is None:
+            n_prim = np.diff(self.pair_start).astype(np.int64)
+            shell_of, shells = np.empty(self.n_basis, dtype=np.int64), {}
+            for i in range(self.n_basis):
+                diagonal = self.pair_index[i, i]
+                s, n = self.pair_start[diagonal], int(round(np.sqrt(n_prim[diagonal])))
+                key = (int(self.atom1[s]), int(self.l1[s].sum()), self.b[s:s + n].tobytes())
+                shell_of[i] = shells.setdefault(key, len(shells))
+            key = shell_of[self.pid_i] * len(shells) + shell_of[self.pid_j]
+            _, first, ids = np.unique(key, return_index=True, return_inverse=True)
+            self._shell_pairs = (ids.astype(np.int64), n_prim[first])
+        return self._shell_pairs
+
+    def shell_quartets(self) -> tuple[np.ndarray, np.ndarray]:
+        """(components, quartets): the live shell quartets, K8b's and K8bu's
+        unit of work (csrc/eri_deriv.cu).  It depends on the basis only, so
+        it is built once.
+
+        components, (n, 2) int32, holds every AO-pair quartet of
+        work_list() whose four functions do not all sit on one atom, each
+        once, as (A, B) with A in its shell quartet's bra shell pair,
+        grouped by shell quartet and sorted by (A, B) within one.  quartets,
+        (n_shell_quartets, 6) int32, has one row each: L_bra, L_ket, the
+        bra's and the ket's shell pair (shell_pairs) and its components
+        [begin, end).  The bra is the shell pair of the larger L, at equal L
+        the one of the larger index; the rows are sorted by class (L_bra,
+        L_ket), then bra, then ket."""
+        if self._shell_quartets is not None:
+            return self._shell_quartets
+        quartets, _ = self.work_list()
+        first = self.pair_start[:-1]
+        atom = np.where(self.atom1[first] == self.atom2[first], self.atom1[first], -1)
+        A, B = quartets[:, 0].astype(np.int64), quartets[:, 1].astype(np.int64)
+        live = ~((atom[A] >= 0) & (atom[A] == atom[B]))
+        A, B = A[live], B[live]
+        shell_pair, _ = self.shell_pairs()
+        L = (self.l1[first].sum(axis=1) + self.l2[first].sum(axis=1)).astype(np.int64)
+        swap = (L[A] == L[B]) & (shell_pair[B] > shell_pair[A])   # L[A] >= L[B] already
+        A, B = np.where(swap, B, A), np.where(swap, A, B)
+        sa, sb = shell_pair[A], shell_pair[B]
+        order = np.lexsort((B, A, sb, sa, L[B], L[A]))
+        A, B, sa, sb = A[order], B[order], sa[order], sb[order]
+        begin = np.flatnonzero(np.r_[len(A) > 0, (sa[1:] != sa[:-1]) | (sb[1:] != sb[:-1])])
+        end = np.r_[begin[1:], len(A)][:len(begin)].astype(np.int64)
+        components = np.ascontiguousarray(np.stack([A, B], axis=1), dtype=np.int32)
+        table = np.stack([L[A[begin]], L[B[begin]], sa[begin], sb[begin], begin, end], axis=1)
+        self._shell_quartets = (components, table.astype(np.int32).reshape(-1, 6))
+        return self._shell_quartets
+
+    def deriv_schedule(self) -> tuple[np.ndarray, np.ndarray]:
+        """(tasks, classes): K8b's and K8bu's schedule over shell_quartets()
+        (csrc/eri_deriv.cu), one block of SHELL_TASK_THREADS threads a task.
+        It depends on the basis only, so it is built once.
+
+        A shell quartet of nr x nc primitive quartets (g -> bra primitive
+        pair g // nc, ket g % nc) and M components is cut into runs of at
+        most SHELL_TASK_THREADS primitive quartets; a run of n takes all M
+        components in one task unless n x M x own > SHELL_TASK_THREADS x
+        SHELL_TASK_OPS (own: deriv_quartet_operations), and is then cut
+        into several tasks of runs of its components, which read its
+        primitive quartets' shared parts from deriv_tables.  So each shared
+        part is formed once.  tasks, (n, 8) int32, one row each: the first
+        primitive pair of its shell quartet's first component's A and of
+        its B (the shared part reads p and P_z there), nc, the first
+        primitive quartet g0 and the count n of its primitive quartets, its
+        components [c0, c1), and where its run's shared parts start in the
+        tables (-1: the task forms them).  The tasks of a class are
+        contiguous, sorted by the items a thread takes, largest first.
+        classes, (n_classes, 5) int32: L_bra, L_ket, the class's tasks
+        [begin, end) and the most primitive quartets of one of them, in
+        launch order: the longest serial chain of a thread first, then the
+        most work."""
+        if self._deriv_schedule is None:
+            self._build_deriv_schedule()
+        return self._deriv_schedule
+
+    def deriv_tables(self) -> tuple[np.ndarray, np.ndarray, int]:
+        """(runs, owner, doubles): the runs of primitive quartets that
+        deriv_schedule cuts into several tasks, whose shared parts K8b's
+        pass deriv_shared_kernel (csrc/eri_deriv.cu) forms once, a thread
+        each, into tables of `doubles` doubles.  runs, (n_runs, 8) int32:
+        the first primitive pair of the shell quartet's bra and of its ket,
+        nc, L_bra + L_ket, the run's first primitive quartet g0 and its
+        count n, the offset of its tables (entry e of its primitive quartet
+        k at offset + e n + k, coulomb_entries(L_bra + L_ket) entries each)
+        and its first primitive quartet in the flat count over the runs;
+        owner, (n_shared,) int32: the run of each primitive quartet in that
+        count."""
+        if self._deriv_tables is None:
+            self._build_deriv_schedule()
+        return self._deriv_tables
+
+    def _build_deriv_schedule(self):
+        components, quartets = self.shell_quartets()
+        _, shell_prim = self.shell_pairs()
+        la, lb, sa, sb, begin, end = (quartets[:, k].astype(np.int64) for k in range(6))
+        nc = shell_prim[sb]
+        prims, count = shell_prim[sa] * nc, end - begin
+        head = components[begin].astype(np.int64)
+        bra0, ket0 = self.pair_start[head[:, 0]], self.pair_start[head[:, 1]]
+        own = np.array([deriv_quartet_operations(int(a), int(b))[1] for a, b in zip(la, lb)],
+                       dtype=np.int64)
+        # runs of primitive quartets
+        width = SHELL_TASK_THREADS
+        chunks = -(-prims // width)
+        sq = np.repeat(np.arange(len(quartets)), chunks)
+        g0 = (np.arange(len(sq)) - np.repeat(np.cumsum(chunks) - chunks, chunks)) * width
+        n = np.minimum(width, prims[sq] - g0)
+        per = np.maximum(1, (width * SHELL_TASK_OPS) // (n * own[sq]))
+        pieces = -(-count[sq] // per)
+        # the runs cut into several tasks: their shared parts in the tables
+        cut = np.flatnonzero(pieces > 1)
+        l_sum = la + lb
+        entries = np.array([coulomb_entries(k) for k in range(int(l_sum.max(initial=0)) + 1)],
+                           dtype=np.int64)
+        size = n[cut] * entries[l_sum[sq[cut]]]
+        offset = np.full(len(sq), -1, dtype=np.int64)
+        offset[cut] = np.cumsum(size) - size
+        first = np.cumsum(n[cut]) - n[cut]
+        runs = np.stack([bra0[sq[cut]], ket0[sq[cut]], nc[sq[cut]], l_sum[sq[cut]], g0[cut],
+                         n[cut], offset[cut], first], axis=1)
+        owner = np.repeat(np.arange(len(cut)), n[cut])
+        # tasks: each run's components in pieces
+        task = np.repeat(np.arange(len(sq)), pieces)   # the run of each task
+        piece = np.arange(len(task)) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+        sq, g0, n, per, formed = sq[task], g0[task], n[task], per[task], offset[task]
+        c0 = begin[sq] + piece * per
+        c1 = np.minimum(c0 + per, end[sq])
+        thread_items = -(-(n * (c1 - c0)) // width)
+        order = np.lexsort((c0, task, -thread_items, lb[sq], la[sq]))
+        sq, g0, n, c0, c1, formed, thread_items = (
+            x[order] for x in (sq, g0, n, c0, c1, formed, thread_items))
+        tasks = np.stack([bra0[sq], ket0[sq], nc[sq], g0, n, c0, c1, formed], axis=1)
+        cls = la[sq] * 16 + lb[sq]
+        starts = np.flatnonzero(np.r_[len(cls) > 0, cls[1:] != cls[:-1]])
+        stops = np.r_[starts[1:], len(cls)].astype(np.int64)
+        rows, chain, work = [], [], []
+        for s, e in zip(starts, stops):
+            shared, own_ops = deriv_quartet_operations(int(la[sq[s]]), int(lb[sq[s]]))
+            rows.append((la[sq[s]], lb[sq[s]], s, e, n[s:e].max()))
+            chain.append(shared + own_ops * int(thread_items[s]))
+            work.append(int(np.sum(shared * n[s:e] + own_ops * n[s:e] * (c1[s:e] - c0[s:e]))))
+        launch = np.lexsort((-np.array(work, dtype=np.int64), -np.array(chain, dtype=np.int64)))
+        classes = np.array([rows[k] for k in launch], dtype=np.int32).reshape(-1, 5)
+        self._deriv_schedule = (np.ascontiguousarray(tasks, dtype=np.int32).reshape(-1, 8),
+                                classes)
+        self._deriv_tables = (np.ascontiguousarray(runs, dtype=np.int32).reshape(-1, 8),
+                              np.ascontiguousarray(owner, dtype=np.int32), int(size.sum()))
+
+    def _kernel_deriv_schedule(self, device):
+        """K8b's components, their first primitive pairs, its tasks, and its
+        shared runs and their owners on `device` (cached), and its class
+        table, which stays on the host."""
+        tasks, classes = self.deriv_schedule()
+        runs, owner, _ = self.deriv_tables()
+        device = torch.device(device)
+        cached = self._device_deriv.get(device)
+        if cached is None:
+            components, _ = self.shell_quartets()
+            cached = self._device_deriv[device] = tuple(
+                torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=device)
+                for x in (components, self.pair_start[components], tasks, runs, owner))
+        return (*cached, classes)
 
     def _kernel_work_list(self, device):
         """The work list's quartets on `device` (cached) and its class table,
@@ -1076,13 +1284,9 @@ class IntegralPlan:
         raise ValueError(f"no two-electron energy derivative for device {coords.device}")
 
     def deriv_partial_count(self) -> int:
-        """Block partial sums of one K8b or K8bu call: a block of 128 light
-        quartets or of 4 heavy ones (csrc/eri_deriv.cu), class part by class
-        part."""
-        _, classes = self.work_list()
-        light = classes[:, 3].astype(np.int64) - classes[:, 2]
-        heavy = classes[:, 4].astype(np.int64) - classes[:, 3]
-        return int(np.sum(-(-light // 128)) + np.sum(-(-heavy // _HEAVY_WARPS)))
+        """Partial sums of one K8b or K8bu call: one a task, a block each
+        (csrc/eri_deriv.cu)."""
+        return len(self.deriv_schedule()[0])
 
     def _eri_deriv_energy_kernel(self, kernel, entry, coords, densities, hfx):
         """Launch K8b (densities [P]) or K8bu ([P_a + P_b, P_a, P_b])."""
@@ -1093,9 +1297,12 @@ class IntegralPlan:
         for P in densities:
             _kernels.check_tensor("P", P, (N, N), _F64, device)
         t = self.tensors(device)
-        quartets, classes = self._kernel_work_list(device)
-        row_size = 4 * (2 * self.lmax + 1) + 4
-        rows = torch.empty((self.n_prim_pairs, row_size), dtype=_F64, device=device)
+        (components, component_rows, tasks, shared_runs, shared_owner,
+         classes) = self._kernel_deriv_schedule(device)
+        rows = torch.empty((4 * (2 * self.lmax + 1) + 4, self.n_prim_pairs), dtype=_F64,
+                           device=device)
+        weights = torch.empty(max(len(components), 1), dtype=_F64, device=device)
+        tables = torch.empty(max(self.deriv_tables()[2], 1), dtype=_F64, device=device)
         n_partials = self.deriv_partial_count()
         partials = torch.empty(max(n_partials, 1), dtype=_F64, device=device)
         out = torch.empty((), dtype=_F64, device=device)
@@ -1104,10 +1311,12 @@ class IntegralPlan:
             self.lmax, self.n_prim_pairs, N,
             coords.data_ptr(), t["a"].data_ptr(), t["b"].data_ptr(),
             t["coef"].data_ptr(), t["l1"].data_ptr(), t["l2"].data_ptr(),
-            t["atom1"].data_ptr(), t["atom2"].data_ptr(), t["pair_start"].data_ptr(),
-            t["pid_i"].data_ptr(), t["pid_j"].data_ptr(), quartets.data_ptr(),
-            len(classes), classes.ctypes.data, t["boys_quartets"].data_ptr(),
-            *(P.data_ptr() for P in densities), float(hfx), rows.data_ptr(), n_partials,
+            t["atom1"].data_ptr(), t["atom2"].data_ptr(), t["pid_i"].data_ptr(),
+            t["pid_j"].data_ptr(), len(components), components.data_ptr(),
+            component_rows.data_ptr(), tasks.data_ptr(), len(classes), classes.ctypes.data,
+            len(shared_owner), shared_runs.data_ptr(), shared_owner.data_ptr(),
+            t["boys_quartets"].data_ptr(), *(P.data_ptr() for P in densities), float(hfx),
+            rows.data_ptr(), weights.data_ptr(), tables.data_ptr(), n_partials,
             partials.data_ptr(), out.data_ptr())
         return out
 
