@@ -156,7 +156,18 @@ non-zero without printing a result):
      (1e-8 Ha); then a `polish` line: SCF ms an iteration with the
      polished eigh the port runs and with the library's eigh in its place
      on the CCSD[T], DFT and UKS OPT lines (POLISH_RUNS warm runs a
-     variant, in the order library, polished, polished, library).
+     variant, in the order library, polished, polished, library);
+ 22. perturbation theory and double hybrids: BASELINE.json config 2,
+     `SPE : N N 1.1 : MP2 6-31G`, as written and at TIGHTSCF; `SPE : N N
+     1.1 : MP4 CC-PVTZ : TIGHTSCF` (its MP2, MP3 and MP4 parts each) with
+     its `profile` line (phase timers "MP2", "MP3", "MP4") and peak device
+     memory, and its DIRECT twin (K4 and K5) against it (DIRECT_TOLERANCE);
+     `SPE : N N 1.1 : B2PLYP CC-PVTZ : TIGHTSCF`, `SPE : O O 1.21 : UMP3
+     CC-PVTZ : ML 3 TIGHTSCF`, IMP2, LMP2 and OMP2 of N2 at 6-31G with
+     their step counts, and `SPE : H F 1.733 : MP2 6-31G : RELAXED NATORBS
+     TIGHTSCF` with the relaxed density's dipole moment and natural
+     occupancies: each line's total energy and MP parts within
+     MP_TOLERANCE of tuna_tpu's, with its SCF cycles and steps.
 
 A device time read from torch.profiler fails the run when the kernel ran
 and the profile has no entry for it.  A session records the launches of
@@ -244,7 +255,7 @@ import numpy as np
 import torch
 
 import tuna_tpu_torch
-from tuna_tpu_torch import _kernels, output, parallel
+from tuna_tpu_torch import _kernels, output, parallel, props
 from tuna_tpu_torch.cli import parse_input, process_method, run
 from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.constants import angstrom_to_bohr, bohr_to_angstrom
@@ -253,7 +264,8 @@ from tuna_tpu_torch.methods import lookup_method
 from tuna_tpu_torch.ops import motransform
 from tuna_tpu_torch.ops.integrals import (HEAVY_THRESHOLD, SHELL_TASK_THREADS, IntegralPlan,
                                           deriv_quartet_operations, quartet_operations)
-from tuna_tpu_torch.post import cc
+from tuna_tpu_torch.post import cc, mp
+from tuna_tpu_torch.scf.guess import natural_orbitals_of_density
 from tuna_tpu_torch.system import Molecule
 
 LINE = "SPE : N N 1.1 : CCSD[T] 6-311G : TIGHTSCF"
@@ -429,6 +441,50 @@ BOND_REF_UMGGA_OPT = 2.3071853036665284   # bohr
 E_REF_UMGGA_OPT = -150.40374948414586
 ITERATIONS_UMGGA_OPT = 5
 LINE_SCAN_MGGA = "SCAN : N N 1.0 : TPSS CC-PVTZ : NUM 4 STEP 0.05 TIGHTSCF"
+# Perturbation theory and double hybrids (phase 22).  Constants from the
+# reference package on the JAX CPU backend: the total energy run(LINE)[2],
+# "Self-consistent field converged in N cycles!" and the rows of the
+# IMP2/OMP2 step table of its printout, and the MP2, MP3 and MP4 parts
+# that tuna_tpu.post.mp.run_perturbation_theory_calculation returns (the
+# double hybrid's MP2 part before its MPC scaling), read by wrapping that
+# function; for the relaxed line also the dipole moment of the density
+# run(LINE)[3] (props.calculate_analytical_dipole_moment) and the natural
+# occupancies that run printed.  Each: line, E_total, SCF cycles, steps,
+# (E_MP2, E_MP3, E_MP4), kernels.
+MP_LINES = (
+    ("SPE : N N 1.1 : MP2 6-31G", -109.10705463697698, 10, 0,           # BASELINE.json config 2
+     (-0.23943634781371997, 0.0, 0.0), ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : MP2 6-31G : TIGHTSCF", -109.10705463842848, 12, 0,
+     (-0.23943634784597584, 0.0, 0.0), ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : B2PLYP CC-PVTZ : TIGHTSCF", -109.5059381240706, 11, 0,
+     (-0.49211270439808524, 0.0, 0.0),
+     ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid")),
+    ("SPE : O O 1.21 : UMP3 CC-PVTZ : ML 3 TIGHTSCF", -150.12824715021233, 15, 0,
+     (-0.4598463762314528, 0.006324011134660662, 0.0), ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : IMP2 6-31G : TIGHTSCF", -109.10705463842845, 12, 3,
+     (-0.2394363478459534, 0.0, 0.0), ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : LMP2 6-31G : TIGHTSCF", -109.10706061432363, 12, 0,
+     (-0.23944232374112942, 0.0, 0.0), ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : OMP2 6-31G : TIGHTSCF", -109.11115239864046, 12, 9,
+     (-0.2435341080579576, 0.0, 0.0), ("eri_packed", "one_electron")),
+)
+LINE_MP4 = "SPE : N N 1.1 : MP4 CC-PVTZ : TIGHTSCF"       # 60 AOs, o = 7, v = 53
+LINE_MP4_DIRECT = "SPE : N N 1.1 : MP4 CC-PVTZ : DIRECT TIGHTSCF"
+E_REF_MP4 = -109.40601712791569
+SCF_ITERATIONS_MP4 = 14
+PARTS_REF_MP4 = (-0.40002224115077667, 0.007939274459799032, -0.030927629167002528)
+LINE_MP2_RELAXED = "SPE : H F 1.733 : MP2 6-31G : RELAXED NATORBS TIGHTSCF"
+E_REF_MP2_RELAXED = -99.97154581790926
+SCF_ITERATIONS_MP2_RELAXED = 13
+PARTS_REF_MP2_RELAXED = (-0.17282719084443018, 0.0, 0.0)
+DIPOLE_REF_MP2_RELAXED = -0.8795773829975141
+NATURAL_OCCUPANCIES_REF_MP2_RELAXED = (
+    1.999967278211531, 1.9908659516976301, 1.9819031401710272, 1.9819031401710272,
+    1.9014586154616957, 0.09892475297496857, 0.017495145991556587, 0.01749514599155656,
+    0.0086231808290753, 0.0009942712043265393, 0.00036937729560392095)
+MP_TOLERANCE = 1e-10         # Ha, each line's total energy and MP parts against tuna_tpu's
+NATURAL_OCCUPANCY_TOLERANCE = 1e-8
+DIPOLE_TOLERANCE = 1e-8      # atomic units
 TAU_TOLERANCE = 1e-13       # relative to the largest |entry|, K7bt, K8ct, K8cut
 POLISH_RUNS = 2             # warm runs a variant, for the polished eigh's cost
 LINE_SCAN = "SCAN : N N 1.0 : B3LYP CC-PVTZ : NL NUM 8 STEP 0.05 TIGHTSCF"
@@ -2030,26 +2086,27 @@ def check_u_triples(no: int, nv: int, device, record: dict, registers: dict,
 
 
 class Recorder:
-    """Wraps the function `name` of post.cc while a path runs, keeping the
-    inputs and the result of each call, so that the path's (T) or (Q) can
-    be held to the kernel's plain version on the same tensors."""
+    """Wraps the function `name` of `module` (post.cc unless given) while a
+    path runs, keeping the positional inputs and the result of each call,
+    so that the path's (T) or (Q) can be held to the kernel's plain version
+    on the same tensors, and its MP parts read."""
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, module=cc):
+        self.name, self.module = name, module
 
     def __enter__(self):
-        self.calls, self.original = [], getattr(cc, self.name)
+        self.calls, self.original = [], getattr(self.module, self.name)
 
-        def recording(*args):
-            result = self.original(*args)
+        def recording(*args, **kwargs):
+            result = self.original(*args, **kwargs)
             self.calls.append((args, result))
             return result
 
-        setattr(cc, self.name, recording)
+        setattr(self.module, self.name, recording)
         return self
 
     def __exit__(self, *exc):
-        setattr(cc, self.name, self.original)
+        setattr(self.module, self.name, self.original)
 
 
 def check_uhf_path(line: str, kernels: tuple, iterations_ref: tuple, E_scf_ref: float,
@@ -3105,6 +3162,88 @@ def check_meta_gga_paths(device, record: dict) -> dict:
     return {name: sum(r[name] for r in runs) for name in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: perturbation theory and double hybrids
+# ---------------------------------------------------------------------------
+
+def check_mp_line(line: str, E_ref: float, scf_ref: int, steps_ref: int, parts_ref: tuple,
+                  kernels: tuple) -> tuple:
+    """One MPn, IMP2, LMP2, OMP2 or double-hybrid line on the card against
+    tuna_tpu's total energy and MP2, MP3 and MP4 parts (MP_TOLERANCE), its
+    SCF cycles and IMP2/OMP2 steps, with the peak device memory of the run.
+    Returns (SCF output, molecule, energy, P, parts, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder("run_perturbation_theory_calculation", mp) as recorder:
+        SCF_output, molecule, energy, P, wall, launches = drive(line, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    require(len(recorder.calls) == 1, f"{line}: {len(recorder.calls)} perturbation calls")
+    parts = tuple(float(x) for x in recorder.calls[0][1][:3])
+    counts = (len(SCF_output.iteration_seconds), len(SCF_output.correlation_iteration_seconds))
+    require(counts == (scf_ref, steps_ref),
+            f"{line}: {counts} SCF cycles and steps, the reference takes {(scf_ref, steps_ref)}")
+    deltas = {"E_total": energy - E_ref,
+              **{name: parts[i] - parts_ref[i] for i, name in enumerate(("E_MP2", "E_MP3",
+                                                                         "E_MP4"))}}
+    for name, delta in deltas.items():
+        require(abs(delta) <= MP_TOLERANCE, f"{line}: {name} {delta:.3e} Ha from the reference")
+    print(f"end to end: {line}; E_total {energy!r}, MP parts {parts}; from the reference: "
+          + ", ".join(f"{name} {delta:.3e} Ha" for name, delta in deltas.items())
+          + f"; SCF {counts[0]} iterations, median "
+          f"{statistics.median(SCF_output.iteration_seconds) * 1e3:.3f} ms/iteration; "
+          f"{counts[1]} steps; wall {wall:.3f} s; peak device memory {peak} B; "
+          f"launches {({name: n for name, n in launches.items() if n})}")
+    return SCF_output, molecule, energy, P, parts, launches
+
+
+def check_perturbation_paths() -> dict:
+    """Phase 22: BASELINE.json config 2 (as written and at TIGHTSCF), MP4
+    at cc-pVTZ (MP2, MP3 and MP4 parts each) with its profile and peak
+    memory and its DIRECT twin (K4, K5) against the stored line, B2PLYP at
+    cc-pVTZ, UMP3 of triplet O2 at cc-pVTZ, IMP2, LMP2 and OMP2 with their
+    step counts, and the relaxed MP2 density of HF with its dipole moment
+    and natural occupancies, against tuna_tpu's numbers.  Returns the
+    launches summed over the counted runs."""
+    runs = []
+    for line, E_ref, scf_ref, steps_ref, parts_ref, kernels in MP_LINES[:2]:
+        runs.append(check_mp_line(line, E_ref, scf_ref, steps_ref, parts_ref, kernels)[-1])
+    stored, _, stored_energy, _, stored_parts, launches = check_mp_line(
+        LINE_MP4, E_REF_MP4, SCF_ITERATIONS_MP4, 0, PARTS_REF_MP4, ("eri_packed", "one_electron"))
+    runs.append(launches)
+    torch.cuda.reset_peak_memory_stats()
+    profile = profile_path(LINE_MP4)
+    profile["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    print("profile: " + json.dumps(profile))
+    direct, _, direct_energy, _, direct_parts, launches = check_mp_line(
+        LINE_MP4_DIRECT, E_REF_MP4, SCF_ITERATIONS_MP4, 0, PARTS_REF_MP4,
+        DIRECT_PATH_KERNELS[:-1])
+    require(direct.integrals.ERI_AO is None and stored.integrals.ERI_AO is not None,
+            f"{LINE_MP4_DIRECT}: the ERI tensor was stored")
+    twin = tuple(float(x) for x in np.subtract((direct_energy, *direct_parts),
+                                                (stored_energy, *stored_parts)))
+    require(max(abs(x) for x in twin) <= DIRECT_TOLERANCE,
+            f"{LINE_MP4_DIRECT}: DIRECT minus stored {twin} Ha")
+    print(f"twin: {LINE_MP4_DIRECT} minus {LINE_MP4}: E_total and MP parts {twin} Ha")
+    runs.append(launches)
+    for line, E_ref, scf_ref, steps_ref, parts_ref, kernels in MP_LINES[2:]:
+        runs.append(check_mp_line(line, E_ref, scf_ref, steps_ref, parts_ref, kernels)[-1])
+    SCF_output, molecule, _, P, _, launches = check_mp_line(
+        LINE_MP2_RELAXED, E_REF_MP2_RELAXED, SCF_ITERATIONS_MP2_RELAXED, 0,
+        PARTS_REF_MP2_RELAXED, ("eri_packed", "one_electron"))
+    runs.append(launches)
+    dipole = props.calculate_analytical_dipole_moment(
+        molecule.centre_of_mass, molecule.charges, molecule.coordinates, P.cpu().numpy(),
+        SCF_output.integrals.D.cpu().numpy())[0]
+    occupancies = natural_orbitals_of_density(P, SCF_output.X, SCF_output.S)[0].cpu().numpy()
+    occupancy_error = float(np.max(np.abs(occupancies - NATURAL_OCCUPANCIES_REF_MP2_RELAXED)))
+    require(abs(dipole - DIPOLE_REF_MP2_RELAXED) <= DIPOLE_TOLERANCE
+            and occupancy_error <= NATURAL_OCCUPANCY_TOLERANCE,
+            f"{LINE_MP2_RELAXED}: dipole {dipole!r}, natural occupancies off by "
+            f"{occupancy_error:.3e}")
+    print(f"relaxed density: {LINE_MP2_RELAXED}; dipole {dipole!r} (reference "
+          f"{DIPOLE_REF_MP2_RELAXED!r}); natural occupancies within {occupancy_error:.3e}")
+    return {name: sum(r[name] for r in runs) for name in KERNELS}
+
+
 def polish_cost() -> dict:
     """SCF ms an iteration with the polished eigh (ops/linalg.py::eigh, what
     the port runs) and with the library's eigh in its place, on the
@@ -3684,6 +3823,10 @@ def main() -> int:
     launches = check_meta_gga_paths(device, record)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
     print("polish: " + json.dumps(polish_cost()))
+
+    # --- 22. perturbation theory and double hybrids -----------------------------------
+    launches = check_perturbation_paths()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": path_launches[name], **record[name]}

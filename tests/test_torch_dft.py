@@ -359,9 +359,10 @@ def test_n2_b3lyp_631gss_matches_tuna_tpu():
 
 
 @pytest.mark.parametrize("line", [
-    "SPE : O O 1.21 : B2PLYP STO-3G : ML 3",   # an unrestricted double hybrid
-    "SPE : H H 0.74 : R2SCAN0-DH STO-3G",   # a meta-GGA double hybrid
-    "SPE : H H 0.74 : B2PLYP STO-3G",
+    # relaxed densities of double hybrids: unrestricted, meta-GGA, restricted
+    "SPE : O O 1.21 : B2PLYP STO-3G : ML 3 RELAXED",
+    "SPE : H H 0.74 : R2SCAN0-DH STO-3G : RELAXED",
+    "SPE : H H 0.74 : B2PLYP STO-3G : RELAXED",
 ])
 def test_unported_dft_raises(line):
     with pytest.raises(TunaError, match="not yet ported"):

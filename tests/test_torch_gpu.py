@@ -1172,3 +1172,25 @@ def test_ccsdt_q_runs_through_k9(cuda, line):
     assert _kernels.launches["ccsdt_q_energy"] == 1
     _, _, energy_cpu, _ = run(line, suppress_output=True, device="cpu")
     assert abs(energy - energy_cpu) <= 1e-10
+
+
+@pytest.mark.parametrize("line", [
+    "SPE : N N 1.1 : MP2 6-31G",                       # BASELINE.json config 2
+    "SPE : O H 0.97 : UMP2 6-31G : ML 2 TIGHTSCF",
+    "SPE : O H 0.97 : UMP3 6-31G : ML 2 TIGHTSCF",
+    "SPE : N N 1.1 : IMP2 6-31G : TIGHTSCF",
+])
+def test_perturbation_theory_on_the_card_matches_the_cpu(cuda, line):
+    """MP2 (BASELINE.json config 2), UMP2, UMP3 and IMP2 on the card: the
+    energy the CPU path's to 1e-10 Ha, the same SCF cycles and IMP2 steps,
+    K1 and K3 launched."""
+    from tuna_tpu_torch.cli import run
+
+    _kernels.reset_launch_counts()
+    card, _, energy, _ = run(line, suppress_output=True, device="cuda")
+    assert _kernels.launches["eri_packed"] > 0 and _kernels.launches["one_electron"] > 0
+    host, _, energy_cpu, _ = run(line, suppress_output=True, device="cpu")
+    assert abs(energy - energy_cpu) <= 1e-10
+    assert len(card.iteration_seconds) == len(host.iteration_seconds)
+    assert (len(card.correlation_iteration_seconds)
+            == len(host.correlation_iteration_seconds) == (3 if "IMP2" in line else 0))

@@ -308,14 +308,14 @@ def test_central_difference_gradient_with_nl_takes_the_batch(monkeypatch):
 def test_refused_lines_are_refused_through_scan(monkeypatch):
     """What the serial path refuses, SCAN refuses in the same words, with
     one device or two."""
-    spe = "SPE : H H 0.74 : R2SCAN0-DH STO-3G"
+    spe = "SPE : H H 0.74 : R2SCAN0-DH STO-3G : RELAXED"
     with pytest.raises(TunaError) as refused:
         run(spe, suppress_output=True, device="cpu")
     for count in (1, 2):
         monkeypatch.setattr(parallel, "device_count", lambda: count)
         with pytest.raises(TunaError) as through_scan:
-            run("SCAN : H H 0.74 : R2SCAN0-DH STO-3G : NUM 2 STEP 0.1", suppress_output=True,
-                device="cpu")
+            run("SCAN : H H 0.74 : R2SCAN0-DH STO-3G : RELAXED NUM 2 STEP 0.1",
+                suppress_output=True, device="cpu")
         assert str(through_scan.value) == str(refused.value)
         assert "not yet ported" in str(refused.value)
 

@@ -43,7 +43,8 @@ def test_unported_calculations_raise():
     with pytest.raises(TunaError, match="not yet ported"):
         run("ANHARM : H H 0.74 : HF STO-3G", suppress_output=True, device="cpu")
     with pytest.raises(TunaError, match="not yet ported"):
-        run("SPE : O O 1.21 : R2SCAN0-DH STO-3G : ML 3", suppress_output=True, device="cpu")
+        run("SPE : O O 1.21 : R2SCAN0-DH STO-3G : ML 3 RELAXED", suppress_output=True,
+            device="cpu")
 
 
 @pytest.mark.parametrize("spread", [1.0, 1e-7])

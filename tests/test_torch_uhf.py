@@ -452,9 +452,10 @@ def test_unrestricted_gradients_raise(calculation):
 
 
 @pytest.mark.parametrize("line", [
-    "SPE : O O 1.21 : R2SCAN0-DH STO-3G : ML 3",   # an unrestricted meta-GGA double hybrid
-    "SPE : O O 1.21 : UHF STO-3G : ML 3 NATORBS",
-    "SPE : O O 1.21 : CCSD STO-3G : ML 3 NATORBS",
+    # the relaxed density of an unrestricted meta-GGA double hybrid
+    "SPE : O O 1.21 : R2SCAN0-DH STO-3G : ML 3 RELAXED",
+    "SPE : O O 1.21 : UHF STO-3G : ML 3 STAB",
+    "SPE : O O 1.21 : CCSD STO-3G : ML 3 TD",
 ])
 def test_unported_unrestricted_options_raise(line):
     with pytest.raises(TunaError, match="not yet ported"):

@@ -70,7 +70,8 @@ def _refuse_unported(calculation, do_correlation):
     dft = calculation.DFT_calculation
     missing_functional = unported_functional(calculation) if dft else None
     unported = [
-        (dft and calculation.MPC_prop != 0, "double-hybrid functionals (they need MP2)"),
+        (dft and calculation.MPC_prop != 0 and calculation.relaxed_density,
+         "the relaxed density of a Kohn-Sham reference (it needs the XC kernel)"),
         (missing_functional is not None, missing_functional or ""),
         (getattr(calculation, "read_checkpoint", False)
          or getattr(calculation, "checkpoint", False), "checkpoints"),

@@ -81,3 +81,31 @@ def solve_linear_small(A: torch.Tensor, b: torch.Tensor):
     residual = np.linalg.norm(A_host @ x - b_host)
     ok = bool(np.isfinite(residual) and residual < 1e-8 * (1.0 + np.linalg.norm(b_host)))
     return torch.as_tensor(x, dtype=A.dtype, device=A.device), ok
+
+
+def solve_symmetric(A: torch.Tensor, b: torch.Tensor):
+    """Solve A x = b for symmetric A through the polished eigendecomposition,
+    as tuna_tpu/ops/linalg.py::solve_symmetric does: eigenvalues below
+    1e-14 of the largest |w| are dropped (a pseudo-inverse for near-singular
+    systems).  Returns (x, ok), ok a bool tensor that certifies a small
+    residual."""
+    w, V = eigh(A)
+    cutoff = 1e-14 * torch.clamp(torch.max(torch.abs(w)), min=1e-300)
+    safe = torch.abs(w) > cutoff
+    inv_w = torch.where(safe, 1.0 / torch.where(safe, w, 1.0), 0.0)
+    x = V @ (inv_w * (V.T @ b))
+    residual = torch.linalg.norm(A @ x - b)
+    return x, residual < 1e-8 * (1.0 + torch.linalg.norm(b))
+
+
+def expm_skew(K: torch.Tensor):
+    """exp(K) for skew-symmetric K (orbital rotations), through the polished
+    eigh of -K^2 as tuna_tpu/ops/linalg.py::expm_skew: -K^2 has eigenpairs
+    (theta^2, V), and on each invariant plane exp(K) = cos(theta) + K
+    sinc(theta)."""
+    w, V = eigh(-K @ K)
+    theta = torch.sqrt(torch.clamp(w, min=0.0))
+    cos_term = (V * torch.cos(theta)) @ V.T
+    safe = theta > 1e-12
+    sinc = torch.where(safe, torch.sin(theta) / torch.where(safe, theta, 1.0), 1.0)
+    return cos_term + K @ ((V * sinc) @ V.T)

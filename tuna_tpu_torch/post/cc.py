@@ -1619,13 +1619,13 @@ def print_largest_amplitudes(t_ia, t_ijab, n_occ, calculation, spin_orbital_labe
 def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X,
                                       calculation, silent):
     """CC on the SCF orbitals, spatial for RHF and spin-orbital for UHF
-    references; returns (E_CC, E_perturbative, (P, P_alpha, P_beta), None,
-    None) and records the per-iteration wall seconds on
+    references; returns (E_CC, E_perturbative, (P, P_alpha, P_beta),
+    natural occupancies, natural orbitals), the last two None without
+    NATORBS, and records the per-iteration wall seconds on
     SCF_output.correlation_iteration_seconds."""
     timer("Coupled cluster", 0)
     E_perturbative = 0.0
-    if calculation.natural_orbitals:
-        error("Natural orbitals are not yet ported to tuna_tpu_torch!")
+    occupancies = natural_orbitals = None
 
     if calculation.reference == "RHF":
         n_occ = molecule.n_doubly_occ
@@ -1672,6 +1672,10 @@ def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X
     density_matrices = linearised_density(t_ia, t_ijab, molecule.n_orbitals, n_occ,
                                           o, v, calculation, molecular_orbitals,
                                           silent=silent)
+    if calculation.natural_orbitals:
+        from .mp import print_natural_orbitals
+        occupancies, natural_orbitals = print_natural_orbitals(
+            density_matrices[0], X, SCF_output.S, calculation, silent)
 
     if "[T]" in method.name or "(T)" in method.name:
         triples = (restricted_CCSD_T if calculation.reference == "RHF"
@@ -1685,4 +1689,4 @@ def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X
 
     log_spacer(calculation, silent=silent)
     timer("Coupled cluster", 1)
-    return E_CC, E_perturbative, density_matrices, None, None
+    return E_CC, E_perturbative, density_matrices, occupancies, natural_orbitals

@@ -38,6 +38,11 @@ def ao_to_so_physicists(ERI_spin_block, C1, C2):
     return torch.einsum("mqrs,mp->pqrs", temp, C2)
 
 
+def chemists_to_physicists(ERI):
+    """(pq|rs) -> <pr|qs>, a view."""
+    return ERI.transpose(1, 2)
+
+
 def antisymmetrise(ERI_physicists):
     """<pq||rs> = <pq|rs> - <pq|sr>."""
     return ERI_physicists - ERI_physicists.transpose(2, 3)
@@ -233,9 +238,12 @@ def begin_spatial_orbital_calculation(molecule, ERI_AO, SCF_output, calculation,
 
 
 def begin_spin_orbital_calculation(molecule, ERI_AO, SCF_output, calculation,
-                                   silent=False):
+                                   silent=False, keep_tensors=False):
     """Spin-orbital setup: antisymmetrised physicists' integrals, the
-    spin-orbital coefficients and energies, slices and labels."""
+    spin-orbital coefficients and energies, slices and labels.  With
+    keep_tensors (perturbation theory) the spin-blocked AO tensor (None
+    under DIRECT) and <pq|rs> are returned after them, as tuna_tpu returns
+    them; without, both are freed here."""
     minimum_orbital = molecule.n_core_spin_orbitals if calculation.freeze_core else 0
     if molecule.n_core_spin_orbitals > molecule.n_electrons:
         error("Not enough spin orbitals to freeze!")
@@ -253,14 +261,17 @@ def begin_spin_orbital_calculation(molecule, ERI_AO, SCF_output, calculation,
     C_spin_block = spin_block_orbitals(SCF_output.molecular_orbitals_alpha,
                                        SCF_output.molecular_orbitals_beta,
                                        epsilons_combined)
+    ERI_spin_block = None
     if ERI_AO is None:
         # Integral-direct SCF deferred the stored tensor: build <pq|rs>
         # straight from the packed pair sweep.
         ERI_SO = transform_direct_so_physicists(molecule, SCF_output, calculation)
     else:
-        ERI_SO = ao_to_so_physicists(spin_block_eri(ERI_AO), C_spin_block, C_spin_block)
+        ERI_spin_block = spin_block_eri(ERI_AO)
+        ERI_SO = ao_to_so_physicists(ERI_spin_block, C_spin_block, C_spin_block)
     g = antisymmetrise(ERI_SO)
-    del ERI_SO
+    if not keep_tensors:
+        del ERI_SO, ERI_spin_block
     timer("Molecular orbital transformation", 1)
 
     order = spin_orbital_order(epsilons_combined)
@@ -284,5 +295,8 @@ def begin_spin_orbital_calculation(molecule, ERI_AO, SCF_output, calculation,
     else:
         log("\n All electrons will be correlated.", calculation, 1, silent=silent)
 
+    if keep_tensors:
+        return (g, C_spin_block, epsilons_sorted, o, v, spin_labels_sorted,
+                spin_orbital_labels_sorted, ERI_spin_block, ERI_SO)
     return (g, C_spin_block, epsilons_sorted, o, v, spin_labels_sorted,
             spin_orbital_labels_sorted)
