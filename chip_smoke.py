@@ -168,6 +168,22 @@ non-zero without printing a result):
      TIGHTSCF` with the relaxed density's dipole moment and natural
      occupancies: each line's total energy and MP parts within
      MP_TOLERANCE of tuna_tpu's, with its SCF cycles and steps.
+ 23. the rest of restricted CC/CI and the last calculation types: `SPE :
+     N N 1.1 : CC3 CC-PVTZ : TIGHTSCF` with its `profile` line and peak
+     device memory, CC2 and QCISD(T) at cc-pVTZ (one K2 launch at QCISD's
+     disconnected scale 2; the DIRECT twin, K4 and K5, against the stored
+     line), LCCD, CCD, CEPA(0) and CID of N2 at 6-311G, `ANHARM : C O 1.13
+     : HF CC-PVTZ`, `SPE : C O 1.13 : CCSD CC-PVTZ : DIPOLE QUADRUPOLE
+     POLAR HYPER TIGHTSCF`, `IP : C O 1.13 : CCSD(T) CC-PVDZ : VERTICAL`,
+     `EA : F : CCSD(T) CC-PVTZ`, `BDE : H F 0.92 : MP2 CC-PVTZ : ZPE` and
+     `SPE : N N 1.1 : CCSD(T) CC-PVDZ : EXTRAPOLATE TIGHTSCF`, each against
+     tuna_tpu's numbers (REFERENCES_23): energies within
+     PHASE_23_TOLERANCE, the SCF cycles of every SCF and the CC iterations
+     of every solve equal, each (T) also against its kernel's plain
+     version on the path's inputs, each finite-field property within what
+     that tolerance allows through its stencil, ANHARM's levels and
+     zero-point energy within ANHARM_TOLERANCE, its fundamental and chi
+     (times the harmonic frequency) within 0.01 per cm, and its scans.
 
 A device time read from torch.profiler fails the run when the kernel ran
 and the profile has no entry for it.  A session records the launches of
@@ -255,7 +271,7 @@ import numpy as np
 import torch
 
 import tuna_tpu_torch
-from tuna_tpu_torch import _kernels, output, parallel, props
+from tuna_tpu_torch import _kernels, constants, output, parallel, props
 from tuna_tpu_torch.cli import parse_input, process_method, run
 from tuna_tpu_torch.config import Config
 from tuna_tpu_torch.constants import angstrom_to_bohr, bohr_to_angstrom
@@ -485,6 +501,137 @@ NATURAL_OCCUPANCIES_REF_MP2_RELAXED = (
 MP_TOLERANCE = 1e-10         # Ha, each line's total energy and MP parts against tuna_tpu's
 NATURAL_OCCUPANCY_TOLERANCE = 1e-8
 DIPOLE_TOLERANCE = 1e-8      # atomic units
+# The rest of restricted CC/CI and the last calculation types (phase 23).
+# Constants from tests/chip_smoke_references.py: tuna_tpu on the JAX CPU
+# backend with one device, each line's result, the SCF cycles of every SCF
+# and the CC iterations of every coupled-cluster solve in the order they
+# ran, and what the line's finite-field properties, (T) energies, IP/EA
+# states, CBS parts and anharmonic levels return.  The IP line is VERTICAL
+# (without it each state is a CCSD(T) geometry optimisation by finite
+# differences, beyond this phase's time) and at cc-pVDZ: tuna_tpu's
+# spin-orbital CCSD of CO+ at cc-pVTZ (120 spin orbitals) took more than
+# 45 GB of that host's memory.
+LINE_CC3 = "SPE : N N 1.1 : CC3 CC-PVTZ : TIGHTSCF"       # o = 7, v = 53
+LINE_QCISD_T = "SPE : N N 1.1 : QCISD(T) CC-PVTZ : TIGHTSCF"
+LINE_QCISD_T_DIRECT = "SPE : N N 1.1 : QCISD(T) CC-PVTZ : DIRECT TIGHTSCF"
+LINE_ANHARM = "ANHARM : C O 1.13 : HF CC-PVTZ"
+LINE_PROPERTIES = "SPE : C O 1.13 : CCSD CC-PVTZ : DIPOLE QUADRUPOLE POLAR HYPER TIGHTSCF"
+REFERENCES_23 = {
+    "SPE : N N 1.1 : CC3 CC-PVTZ : TIGHTSCF": {
+        "scf_cycles": [7, 14],
+        "cc_iterations": [13],
+        "energy": -109.40093117479964,
+    },
+    "SPE : N N 1.1 : CC2 CC-PVTZ : TIGHTSCF": {
+        "scf_cycles": [7, 14],
+        "cc_iterations": [9],
+        "energy": -109.38989743474094,
+    },
+    "SPE : N N 1.1 : QCISD(T) CC-PVTZ : TIGHTSCF": {
+        "scf_cycles": [7, 14],
+        "cc_iterations": [13],
+        "energy": -109.40045765052761,
+        "restricted_T": [-0.018250761182763725],
+    },
+    "SPE : N N 1.1 : LCCD 6-311G : TIGHTSCF": {
+        "scf_cycles": [7, 12],
+        "cc_iterations": [17],
+        "energy": -109.16941383994293,
+    },
+    "SPE : N N 1.1 : CCD 6-311G : TIGHTSCF": {
+        "scf_cycles": [7, 12],
+        "cc_iterations": [13],
+        "energy": -109.16519153017425,
+    },
+    "SPE : N N 1.1 : CEPA(0) 6-311G : TIGHTSCF": {
+        "scf_cycles": [7, 12],
+        "cc_iterations": [16],
+        "energy": -109.17461485831541,
+    },
+    "SPE : N N 1.1 : CID 6-311G : TIGHTSCF": {
+        "scf_cycles": [7, 12],
+        "cc_iterations": [14],
+        "energy": -109.14618241208407,
+    },
+    "ANHARM : C O 1.13 : HF CC-PVTZ": {
+        "scf_cycles": [13, 18, 17, 17, 14, 14, 12, 13, 18, 13, 18, 12, 17, 17, 17, 17, 17,
+            16, 15, 13, 20, 16, 18, 12, 17, 16, 16, 13, 20, 18, 17, 12, 17, 16, 15, 14, 20,
+            17, 19, 12, 17, 16, 16],
+        "cc_iterations": [],
+        "result": [-112.77630100183906, -112.76535283086623, -112.7545052588488,
+            -112.74375752406415, -112.7331098531492, -112.72256148818364],
+        "scans": 7,
+        "levels": [-112.77630100183906, -112.76535283086623, -112.7545052588488,
+            -112.74375752406415, -112.7331098531492, -112.72256148818364],
+        "zero_point_energy": 0.005514948837969769,
+        "chi": 0.0045519331722253835,
+    },
+    "SPE : C O 1.13 : CCSD CC-PVTZ : DIPOLE QUADRUPOLE POLAR HYPER TIGHTSCF": {
+        "scf_cycles": [12, 16, 12, 16, 12, 16, 13, 17, 13, 17, 13, 17, 13, 17, 12, 16, 12,
+            16, 12, 16, 12, 16, 13, 17, 13, 17, 13, 17, 13, 17, 12, 16, 12, 16, 12, 16, 12,
+            16, 12, 16, 12, 16, 12, 16, 12, 16, 13, 17, 13, 17, 13, 17, 13, 17],
+        "cc_iterations": [15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+            15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15],
+        "energy": -113.16317480726099,
+        "calculate_numerical_dipole_moment": 0.04037625631773256,
+        "calculate_numerical_quadrupole_moment": -2.365429240319337,
+        "calculate_polarisability": 11.287203779630772,
+        "calculate_hyperpolarisability": [19.84139353338339, 4.241003268732499],
+        "polarisability_components": [14.063806596927481, 9.898902370982418],
+    },
+    "IP : C O 1.13 : CCSD(T) CC-PVDZ : VERTICAL": {
+        "scf_cycles": [12, 14, 21, 22],
+        "cc_iterations": [14, 23],
+        "result": 0.5003619214008239,
+        "restricted_T": [-0.010760714877424377],
+        "unrestricted_T": [-0.010985752148956892],
+        "state_energies": [-113.05819425318057, -112.55783233177975],
+    },
+    "EA : F : CCSD(T) CC-PVTZ": {
+        "scf_cycles": [15, 12],
+        "cc_iterations": [12, 10],
+        "result": 0.07827721943907306,
+        "restricted_T": [-0.005658642040431893],
+        "unrestricted_T": [-0.003675623699923078],
+        "state_energies": [-99.63219230900778, -99.71046952844685],
+    },
+    "BDE : H F 0.92 : MP2 CC-PVTZ : ZPE": {
+        "scf_cycles": [9, 17, 9, 17, 9, 17, 15, 9, 17, 9, 17, 15, 9, 17, 9, 17, 12, 9, 17,
+            9, 17, 10, 9, 17, 9, 17, 9, 17, 9, 17, 9, 17, 9, 17, 1, 11, 11, 19],
+        "cc_iterations": [],
+        "result": 0.42775095660361073,
+    },
+    "SPE : N N 1.1 : CCSD(T) CC-PVDZ : EXTRAPOLATE TIGHTSCF": {
+        "scf_cycles": [7, 13, 7, 14],
+        "cc_iterations": [13, 13],
+        "energy": -109.46485248512161,
+        "extrapolation": {"inputs": [-108.95379624074559, -108.98300653205771,
+            -0.32560161534212284, -0.4168909569827548], "parts": [-108.9925061929965,
+            -0.4723462921251032]},
+        "restricted_T": [-0.012008560154231119, -0.01895383888754702],
+    },
+}
+PHASE_23_TOLERANCE = 1e-10   # Ha, each energy against tuna_tpu's
+BDE_TOLERANCE = 1e-8         # Ha: the BDE less a zero-point energy from a five-point Hessian
+ANHARM_TOLERANCE = 1e-8      # Ha, each vibrational level and the zero-point energy
+CM_TOLERANCE = 0.01          # per cm, the fundamental and chi times the harmonic frequency
+CC3_WARM_RUNS = 3            # warm runs of LINE_CC3, for its profile
+# SCF cycles a line's SCFs may differ by from tuna_tpu's (the number of SCFs
+# is equal): ANHARM's 43 SCFs stop at EXTREMESCF's thresholds, where
+# rounding decides the last cycle (an H100 run took 16 cycles at one scan
+# point against tuna_tpu's 15, every other SCF equal)
+SCF_CYCLE_SLACK = {LINE_ANHARM: 1}
+# (step, sum of |coefficients| over the denominator, order) of each
+# finite-field property's stencil (stencils.py): the property is held to
+# what PHASE_23_TOLERANCE of energy allows through it, that sum times the
+# tolerance over step ** order
+FIELD_STENCILS = {
+    "calculate_numerical_dipole_moment": (1e-5, 1.0, 1),
+    "calculate_numerical_quadrupole_moment": (1e-5, 1.0, 1),
+    "calculate_polarisability": (1e-3, 64 / 12, 2),
+    "polarisability_components": (1e-3, 64 / 12, 2),
+    "calculate_hyperpolarisability": (1.5e-3, 2 * (7 + 72 + 338 + 488) / 240, 3),
+}
 TAU_TOLERANCE = 1e-13       # relative to the largest |entry|, K7bt, K8ct, K8cut
 POLISH_RUNS = 2             # warm runs a variant, for the polished eigh's cost
 LINE_SCAN = "SCAN : N N 1.0 : B3LYP CC-PVTZ : NL NUM 8 STEP 0.05 TIGHTSCF"
@@ -590,6 +737,23 @@ MGGA_GRADIENT_PATH_KERNELS = MGGA_PATH_KERNELS + ("one_electron_deriv", "eri_der
 UMGGA_GRADIENT_PATH_KERNELS = MGGA_PATH_KERNELS + ("one_electron_deriv",
                                                    "eri_deriv_energy_unrestricted",
                                                    "density_tau_deriv_on_grid_spin")
+
+# the lines of phase 23 with the kernels each must launch
+PHASE_23_LINES = (
+    (LINE_CC3, ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : CC2 CC-PVTZ : TIGHTSCF", ("eri_packed", "one_electron")),
+    (LINE_QCISD_T, ("eri_packed", "one_electron", "ccsd_t_energy")),
+    ("SPE : N N 1.1 : LCCD 6-311G : TIGHTSCF", ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : CCD 6-311G : TIGHTSCF", ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : CEPA(0) 6-311G : TIGHTSCF", ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : CID 6-311G : TIGHTSCF", ("eri_packed", "one_electron")),
+    (LINE_ANHARM, HF_GRADIENT_PATH_KERNELS),
+    (LINE_PROPERTIES, ("eri_packed", "one_electron")),
+    ("IP : C O 1.13 : CCSD(T) CC-PVDZ : VERTICAL", UHF_PATH_KERNELS + ("ccsd_t_energy",)),
+    ("EA : F : CCSD(T) CC-PVTZ", UHF_PATH_KERNELS + ("ccsd_t_energy",)),
+    ("BDE : H F 0.92 : MP2 CC-PVTZ : ZPE", ("eri_packed", "one_electron")),
+    ("SPE : N N 1.1 : CCSD(T) CC-PVDZ : EXTRAPOLATE TIGHTSCF", CC_PATH_KERNELS),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -1189,10 +1353,10 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_path(line: str) -> dict:
-    """WARM_RUNS warm runs of `line`, then one under torch.profiler."""
+def profile_path(line: str, warm_runs: int = WARM_RUNS) -> dict:
+    """warm_runs warm runs of `line`, then one under torch.profiler."""
     walls, scf_ms, cc_ms, phases = [], [], [], {}
-    for _ in range(WARM_RUNS):
+    for _ in range(warm_runs):
         SCF_output, _, _, _, wall, _ = drive(line, ())
         walls.append(wall)
         scf_ms.append(statistics.median(SCF_output.iteration_seconds) * 1e3)
@@ -3244,6 +3408,169 @@ def check_perturbation_paths() -> dict:
     return {name: sum(r[name] for r in runs) for name in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the rest of restricted CC/CI and the last calculation types
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def solve_counts():
+    """The SCF cycles of every SCF and the CC iterations of every CC solve
+    of the runs inside the block, in the order they ran (the STO-3G guess
+    SCFs included): what tests/chip_smoke_references.py reads from
+    tuna_tpu's log."""
+    from tuna_tpu_torch.drivers import energy
+    counts = {"scf_cycles": [], "cc_iterations": []}
+    serial_scf, solve = energy.run_self_consistent_field, cc.solve_amplitudes
+
+    def scf_counted(*args, **kwargs):
+        SCF_output = serial_scf(*args, **kwargs)
+        counts["scf_cycles"].append(len(SCF_output.iteration_seconds))
+        return SCF_output
+
+    def solve_counted(*args, **kwargs):
+        result = solve(*args, **kwargs)
+        counts["cc_iterations"].append(result[0])
+        return result
+
+    energy.run_self_consistent_field, cc.solve_amplitudes = scf_counted, solve_counted
+    try:
+        yield counts
+    finally:
+        energy.run_self_consistent_field, cc.solve_amplitudes = serial_scf, solve
+
+
+def _within(name: str, got, expected, limit: float, deltas: dict) -> None:
+    delta = float(np.max(np.abs(np.subtract(got, expected))))
+    deltas[name] = delta
+    require(delta <= limit, f"{name} {got!r} is {delta:.3e} from the reference {expected!r} "
+                            f"(limit {limit:.1e})")
+
+
+def check_line_23(line: str, kernels: tuple) -> tuple:
+    """One line of phase 23 on the card against tuna_tpu's numbers in
+    REFERENCES_23: its result, the SCF cycles of every SCF and the CC
+    iterations of every solve, and where the line has them its (T)
+    energies (each K2 and K2u call also against its plain version on the
+    path's inputs), IP/EA states, finite-field properties, CBS parts and
+    anharmonic levels.  Returns (what run returns, launches, recorders)."""
+    from tuna_tpu_torch.drivers import common, electric, energy, freq
+    ref = REFERENCES_23[line]
+    watched = (("restricted_CCSD_T", cc), ("unrestricted_CCSD_T", cc), ("ccsd_t_energy", cc),
+               ("uccsd_t_energy", cc), ("second_derivative", electric),
+               *((name, electric) for name in FIELD_STENCILS if hasattr(electric, name)),
+               ("evaluate_molecular_energy", energy), ("scan_coordinate", energy),
+               ("extrapolate_energies", common), ("solve_nuclear_schroedinger", freq),
+               ("_process_anharmonic_output", freq), ("calculate_harmonic_frequency", freq))
+    with contextlib.ExitStack() as stack:
+        counts = stack.enter_context(solve_counts())
+        rec = {name: stack.enter_context(Recorder(name, module)) for name, module in watched}
+        result, wall, launches = run_counted(line, kernels)
+    slack = SCF_CYCLE_SLACK.get(line, 0)
+    require(len(counts["scf_cycles"]) == len(ref["scf_cycles"])
+            and all(abs(a - b) <= slack for a, b in zip(counts["scf_cycles"], ref["scf_cycles"]))
+            and counts["cc_iterations"] == ref["cc_iterations"],
+            f"{line}: SCF cycles {counts['scf_cycles']}, CC iterations "
+            f"{counts['cc_iterations']}; the reference {ref['scf_cycles']}, "
+            f"{ref['cc_iterations']}")
+    deltas: dict = {}
+    for name, plain in (("ccsd_t_energy", cc._ccsd_t_energy_plain),
+                        ("uccsd_t_energy", cc._uccsd_t_energy_plain)):
+        for args, E_T in rec[name].calls:
+            _within(f"{name} against its plain version", float(E_T), float(plain(*args)),
+                    TRIPLES_TOLERANCE * abs(float(E_T)), deltas)
+    for name in ("restricted_T", "unrestricted_T"):
+        got = [float(r) for _, r in rec[name.replace("_T", "_CCSD_T")].calls]
+        require(len(got) == len(ref.get(name, [])), f"{line}: {len(got)} {name} energies")
+        if got:
+            _within(name, got, ref[name], PHASE_23_TOLERANCE, deltas)
+    if line.startswith("SPE"):
+        _within("E_total", float(result[2]), ref["energy"], PHASE_23_TOLERANCE, deltas)
+    elif line.startswith(("IP", "EA")):
+        states = [float(r[2]) for _, r in rec["evaluate_molecular_energy"].calls]
+        _within("state energies", states, ref["state_energies"], PHASE_23_TOLERANCE, deltas)
+        _within("result", float(result), ref["result"], PHASE_23_TOLERANCE, deltas)
+    elif line.startswith("BDE"):
+        _within("result", float(result), ref["result"], BDE_TOLERANCE, deltas)
+    for name, (step, weight, order) in FIELD_STENCILS.items():
+        if name in ref:
+            got = ([-float(r) for _, r in rec["second_derivative"].calls]
+                   if name == "polarisability_components"
+                   else rec[name].calls[0][1])
+            _within(name, got, ref[name], weight * PHASE_23_TOLERANCE / step ** order, deltas)
+    if "extrapolation" in ref:
+        args, parts = rec["extrapolate_energies"].calls[0]
+        _within("CBS inputs", args[1:5], ref["extrapolation"]["inputs"], PHASE_23_TOLERANCE,
+                deltas)
+        _within("CBS parts", parts, ref["extrapolation"]["parts"], PHASE_23_TOLERANCE, deltas)
+    if line.startswith("ANHARM"):
+        levels, _, _, _, V = rec["solve_nuclear_schroedinger"].calls[-1][1]
+        chi = rec["_process_anharmonic_output"].calls[0][0][4]
+        harmonic_cm = rec["calculate_harmonic_frequency"].calls[0][1][2]
+        scans = len(rec["scan_coordinate"].calls)
+        require(scans == ref["scans"], f"{line}: {scans} scans, the reference {ref['scans']}")
+        _within("levels", levels, ref["levels"], ANHARM_TOLERANCE, deltas)
+        _within("zero-point energy", levels[0] - np.min(V), ref["zero_point_energy"],
+                ANHARM_TOLERANCE, deltas)
+        per_cm = constants.PER_CM_IN_HARTREE
+        _within("fundamental (per cm)", (levels[1] - levels[0]) * per_cm,
+                (ref["levels"][1] - ref["levels"][0]) * per_cm, CM_TOLERANCE, deltas)
+        _within("chi times the harmonic frequency (per cm)", chi * harmonic_cm,
+                ref["chi"] * harmonic_cm, CM_TOLERANCE, deltas)
+        print(f"anharmonic: {line}; fundamental {float(levels[1] - levels[0]) * per_cm!r} per cm, "
+              f"chi {float(chi)!r}, zero-point energy {float(levels[0] - np.min(V))!r}, "
+              f"harmonic {float(harmonic_cm)!r} per cm, {scans} scans ({(scans - 1) // 2} widening "
+              f"iterations)")
+    print(f"end to end: {line}; from the reference: "
+          + ", ".join(f"{name} {delta:.3e}" for name, delta in deltas.items())
+          + f"; {len(counts['scf_cycles'])} SCFs ({sum(counts['scf_cycles'])} cycles, "
+          f"{sum(a != b for a, b in zip(counts['scf_cycles'], ref['scf_cycles']))} unlike the "
+          f"reference's), CC iterations {counts['cc_iterations']}; wall {wall:.3f} s; launches "
+          f"{({name: n for name, n in launches.items() if n})}")
+    return result, launches, rec
+
+
+def check_phase_23() -> dict:
+    """Phase 23: every line of PHASE_23_LINES against tuna_tpu's numbers
+    (check_line_23); LINE_CC3's profile with its peak device memory; one K2
+    launch a QCISD(T) line, with QCISD's disconnected scale 2; and the
+    QCISD(T) line's DIRECT twin (K4, K5) against the stored line.  Returns
+    the launches summed over the counted runs."""
+    start = time.perf_counter()
+    runs = []
+    for line, kernels in PHASE_23_LINES:
+        torch.cuda.reset_peak_memory_stats()
+        result, launches, rec = check_line_23(line, kernels)
+        runs.append(launches)
+        if line == LINE_CC3:
+            peak = torch.cuda.max_memory_allocated()
+            profile = profile_path(LINE_CC3, CC3_WARM_RUNS)
+            profile["peak_device_memory_bytes"] = peak
+            print("profile: " + json.dumps(profile))
+        if line == LINE_QCISD_T:
+            calls = rec["ccsd_t_energy"].calls
+            require(launches["ccsd_t_energy"] == 1 and len(calls) == 1 and calls[0][0][-1] == 2.0,
+                    f"{line}: K2 launched {launches['ccsd_t_energy']} times, v_scale "
+                    f"{[args[-1] for args, _ in calls]}")
+            stored_scf, _, stored_energy, _ = result
+            direct, _, direct_energy, _, wall, launches = drive(LINE_QCISD_T_DIRECT,
+                                                               DIRECT_PATH_KERNELS)
+            runs.append(launches)
+            counts = (len(direct.iteration_seconds), len(direct.correlation_iteration_seconds))
+            require(direct.integrals.ERI_AO is None
+                    and abs(direct_energy - stored_energy) <= DIRECT_TOLERANCE
+                    and counts == (len(stored_scf.iteration_seconds),
+                                   len(stored_scf.correlation_iteration_seconds)),
+                    f"{LINE_QCISD_T_DIRECT}: {direct_energy - stored_energy:.3e} Ha from the "
+                    f"stored line, counts {counts}")
+            print(f"twin: {LINE_QCISD_T_DIRECT} minus {LINE_QCISD_T}: "
+                  f"{direct_energy - stored_energy:.3e} Ha; wall {wall:.3f} s; launches "
+                  f"{({name: n for name, n in launches.items() if n})}")
+    launches = {name: sum(r[name] for r in runs) for name in KERNELS}
+    print(f"phase 23: {time.perf_counter() - start:.1f} s; launches "
+          f"{({name: n for name, n in launches.items() if n})}")
+    return launches
+
+
 def polish_cost() -> dict:
     """SCF ms an iteration with the polished eigh (ops/linalg.py::eigh, what
     the port runs) and with the library's eigh in its place, on the
@@ -3826,6 +4153,10 @@ def main() -> int:
 
     # --- 22. perturbation theory and double hybrids -----------------------------------
     launches = check_perturbation_paths()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 23. the rest of restricted CC/CI and the last calculation types --------------
+    launches = check_phase_23()
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1194,3 +1194,176 @@ def test_perturbation_theory_on_the_card_matches_the_cpu(cuda, line):
     assert len(card.iteration_seconds) == len(host.iteration_seconds)
     assert (len(card.correlation_iteration_seconds)
             == len(host.correlation_iteration_seconds) == (3 if "IMP2" in line else 0))
+
+
+# The small lines of tests/test_torch_cc.py and tests/test_torch_properties.py
+# (the rest of restricted CC/CI and the last calculation types).  Constants
+# from tests/chip_smoke_references.py: tuna_tpu on the JAX CPU backend with
+# one device, the line's total energy or result, the SCF cycles of every SCF
+# and the CC iterations of every solve in the order they ran, and the
+# finite-field properties' values.
+SMALL_LINES = {
+    "SPE : N N 1.1 : LCCD STO-3G : TIGHTSCF": {
+        "energy": -107.65310260027428,
+        "scf_cycles": [7, 7],
+        "cc_iterations": [13],
+    },
+    "SPE : N N 1.1 : CCD STO-3G : TIGHTSCF": {
+        "energy": -107.64995995395651,
+        "scf_cycles": [7, 7],
+        "cc_iterations": [13],
+    },
+    "SPE : N N 1.1 : CEPA(0) STO-3G : TIGHTSCF": {
+        "energy": -107.65338555685418,
+        "scf_cycles": [7, 7],
+        "cc_iterations": [14],
+    },
+    "SPE : N N 1.1 : CID STO-3G : TIGHTSCF": {
+        "energy": -107.64145282340243,
+        "scf_cycles": [7, 7],
+        "cc_iterations": [13],
+    },
+    "SPE : N N 1.1 : QCISD STO-3G : TIGHTSCF": {
+        "energy": -107.65025311279747,
+        "scf_cycles": [7, 7],
+        "cc_iterations": [13],
+    },
+    "SPE : N N 1.1 : QCISD(T) STO-3G : TIGHTSCF": {
+        "energy": -107.65195137238676,
+        "scf_cycles": [7, 7],
+        "cc_iterations": [13],
+    },
+    "SPE : N N 1.1 : CC2 6-31G : TIGHTSCF FREEZECORE": {
+        "energy": -108.89392438169018,
+        "scf_cycles": [7, 12],
+        "cc_iterations": [14],
+    },
+    "SPE : N N 1.1 : CC3 STO-3G : TIGHTSCF": {
+        "energy": -107.65198634011772,
+        "scf_cycles": [7, 7],
+        "cc_iterations": [13],
+    },
+    "ANHARM : H H 0.74 : HF STO-3G": {
+        "result": [-1.1050896749105505, -1.0809737991426698, -1.057636756345618,
+            -1.0350152756858544, -1.01306556594401, -0.9917455716189727],
+        "scf_cycles": [3, 2, 2, 2, 2, 2, 2, 3, 2, 3, 2, 3, 2, 2, 2, 2, 2, 2, 2, 3, 2, 2, 2,
+            3, 2, 2, 2, 3, 2, 2, 2, 3, 2, 2, 2, 3, 2, 2, 2, 3, 2, 2, 2, 3, 2, 2, 2, 3, 2, 3,
+            2, 2, 2, 3, 2, 3, 2, 2, 2, 3, 2],
+        "cc_iterations": [],
+    },
+    "SPE : H F 0.92 : HF STO-3G : DIPOLE QUADRUPOLE POLAR HYPER TIGHTSCF": {
+        "energy": -98.57110051608088,
+        "scf_cycles": [9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 10,
+            10, 10, 10, 10, 10, 10, 10, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 10,
+            10, 10, 10, 10, 10, 10, 10],
+        "cc_iterations": [],
+        "calculate_numerical_dipole_moment": -0.5057904033075911,
+        "calculate_numerical_quadrupole_moment": -2.5074857519484572,
+        "calculate_polarisability": 1.0566100109422727,
+        "calculate_hyperpolarisability": [6.349622803953272, -0.01750777300912887],
+    },
+    "IP : H F 0.92 : HF STO-3G": {
+        "result": 0.38100164698271044,
+        "scf_cycles": [9, 2, 8, 8, 7, 7, 11, 2, 10, 10, 9, 8],
+        "cc_iterations": [],
+    },
+    "EA : F : HF STO-3G": {
+        "result": -0.37319028013550337,
+        "scf_cycles": [2, 2],
+        "cc_iterations": [],
+    },
+    "BDE : H F 0.92 : HF STO-3G": {
+        "result": 0.08999138316293909,
+        "scf_cycles": [9, 2, 8, 8, 7, 7, 1, 1, 10, 2],
+        "cc_iterations": [],
+    },
+    "SPE : H H 0.74 : MP2 CC-PVDZ : EXTRAPOLATE TIGHTSCF": {
+        "energy": -1.1692537285639262,
+        "scf_cycles": [3, 7, 3, 9],
+        "cc_iterations": [],
+    },
+}
+
+
+def _counted_line(line, device):
+    """`line` through cli.run on `device`: (total energy or result, the SCF
+    cycles of every SCF, the CC iterations of every solve, the properties'
+    values by function name)."""
+    from tuna_tpu_torch.cli import run
+    from tuna_tpu_torch.drivers import electric, energy
+
+    counts, values = {"scf_cycles": [], "cc_iterations": []}, {}
+    serial_scf, solve = energy.run_self_consistent_field, cc.solve_amplitudes
+    properties = {name: getattr(electric, name) for name in _FIELD_STENCILS}
+
+    def scf_counted(*args, **kwargs):
+        SCF_output = serial_scf(*args, **kwargs)
+        counts["scf_cycles"].append(len(SCF_output.iteration_seconds))
+        return SCF_output
+
+    def solve_counted(*args, **kwargs):
+        result = solve(*args, **kwargs)
+        counts["cc_iterations"].append(result[0])
+        return result
+
+    def recorded(name):
+        def call(*args, **kwargs):
+            values[name] = properties[name](*args, **kwargs)
+            return values[name]
+        return call
+
+    energy.run_self_consistent_field, cc.solve_amplitudes = scf_counted, solve_counted
+    for name in properties:
+        setattr(electric, name, recorded(name))
+    try:
+        result = run(line, suppress_output=True, device=device)
+    finally:
+        energy.run_self_consistent_field, cc.solve_amplitudes = serial_scf, solve
+        for name, function in properties.items():
+            setattr(electric, name, function)
+    value = result[2] if line.startswith("SPE") else result
+    return np.asarray(value, dtype=np.float64), counts, values
+
+
+# (step, sum of |coefficients| over the denominator, order) of each
+# property's stencil: held to what 1e-10 Ha of energy allows through it
+_FIELD_STENCILS = {
+    "calculate_numerical_dipole_moment": (1e-5, 1.0, 1),
+    "calculate_numerical_quadrupole_moment": (1e-5, 1.0, 1),
+    "calculate_polarisability": (1e-3, 64 / 12, 2),
+    "calculate_hyperpolarisability": (1.5e-3, 2 * (7 + 72 + 338 + 488) / 240, 3),
+}
+
+
+@pytest.mark.parametrize("line", sorted(SMALL_LINES))
+def test_small_lines_on_the_card_match_tuna_tpu_and_the_cpu(cuda, line):
+    """Each line on the card: its energy (ANHARM: its vibrational levels)
+    within 1e-10 Ha of tuna_tpu's and of the CPU path's, the same SCF
+    cycles and CC iterations, the properties within their stencils'
+    limits; K1 and K3 launched, K2 on the (T) lines."""
+    reference = SMALL_LINES[line]
+    _kernels.reset_launch_counts()
+    card, card_counts, card_values = _counted_line(line, "cuda")
+    assert _kernels.launches["eri_packed"] > 0 and _kernels.launches["one_electron"] > 0
+    assert (_kernels.launches["ccsd_t_energy"] > 0) == ("(T)" in line)
+    host, host_counts, host_values = _counted_line(line, "cpu")
+    expected = reference.get("energy", reference.get("result"))
+    assert np.max(np.abs(card - expected)) <= 1e-10
+    assert np.max(np.abs(card - host)) <= 1e-10
+    assert card_counts == host_counts == {key: reference[key]
+                                          for key in ("scf_cycles", "cc_iterations")}
+    assert set(card_values) == {name for name in _FIELD_STENCILS if name in reference}
+    for name, value in card_values.items():
+        step, weight, order = _FIELD_STENCILS[name]
+        limit = weight * 1e-10 / step ** order
+        assert np.max(np.abs(np.subtract(value, reference[name]))) <= limit
+        assert np.max(np.abs(np.subtract(value, host_values[name]))) <= limit
+
+
+def test_extrapolation_from_triple_zeta_refuses_lmax_4_on_the_card(cuda):
+    """EXTRAPOLATE from cc-pVTZ needs cc-pVQZ, whose g shells the kernels do
+    not instantiate: the card raises, and nothing falls back to the CPU."""
+    from tuna_tpu_torch.cli import run
+
+    with pytest.raises(NotImplementedError, match="lmax = 4"):
+        run("SPE : N N 1.1 : HF CC-PVTZ : EXTRAPOLATE", suppress_output=True, device="cuda")

@@ -333,7 +333,7 @@ def test_batch_refuses_unrestricted_kohn_sham(entry):
 
 
 @pytest.mark.parametrize("keywords, message", [
-    ("NUM 2", "STEP"), ("STEP 0.1", "NUM"), ("NUM 2 STEP 0.1 DIPOLE", "not yet ported"),
+    ("NUM 2", "STEP"), ("STEP 0.1", "NUM"), ("NUM 2 STEP 0.1 STAB", "not yet ported"),
     ("NUM 2 STEP 0.1 SCANPLOT", "not yet ported")])
 def test_scan_keyword_errors(keywords, message):
     with pytest.raises(TunaError, match=message):

@@ -1,0 +1,253 @@
+"""The port's last calculation types against tuna_tpu: CBS extrapolation,
+the reverse scan, finite-field electric properties, ANHARM, IP, EA and BDE,
+and the DIRECT refusals of CC2 and CC3.
+
+The same line runs through tuna_tpu and through tuna_tpu_torch on the CPU
+(device="cpu"), with tuna_tpu held to one JAX device so that it walks every
+scan and stencil serially, as the port does on one card.  Energies agree
+within 1e-10 Ha with equal SCF cycles; a finite-field property within what
+1e-10 Ha of energy allows through its stencil (the sum of the stencil's
+|coefficients| times 1e-10 over its denominator and h to the power of the
+derivative's order).
+"""
+
+import contextlib
+import io
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tuna_tpu import constants as jax_constants
+from tuna_tpu.cli import parse_input as jax_parse_input, process_method as jax_process
+from tuna_tpu.cli import run as jax_run
+from tuna_tpu.config import Config as JaxConfig
+from tuna_tpu.drivers import common as jax_common
+from tuna_tpu.drivers import electric as jax_electric
+from tuna_tpu.drivers import energy as jax_energy
+from tuna_tpu.output import TunaError as JaxTunaError
+
+from tuna_tpu_torch import _kernels
+from tuna_tpu_torch.cli import parse_input, process_method, run
+from tuna_tpu_torch.config import Config
+from tuna_tpu_torch.drivers import common, electric, energy
+from tuna_tpu_torch.output import TunaError
+
+torch.set_num_threads(2)
+
+ENERGY_TOLERANCE = 1e-10   # Ha
+
+
+@pytest.fixture(autouse=True)
+def _one_jax_device(monkeypatch):
+    """tuna_tpu batches scans and stencils on several JAX devices (the
+    conftest makes eight); with one it walks them serially, as the port."""
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+
+
+def _printed(runner, line, **kwargs):
+    """(what runner(line) returns, its printout)."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = runner(line, **kwargs)
+    return result, printed.getvalue()
+
+
+def _scf_cycles(text):
+    return [int(n) for n in re.findall(r"converged in (\d+) cycles", text)]
+
+
+@pytest.mark.parametrize("basis", sorted(common.EXTRAPOLATION_ALPHA))
+def test_extrapolate_energies_matches_tuna_tpu(basis):
+    zeta = energy._detect_zeta(basis)
+    assert zeta == jax_energy._detect_zeta(basis)
+    assert energy._NEXT_BASIS.get(basis) == jax_energy._NEXT_BASIS.get(basis)
+    args = (basis, -100.1, -100.3, -0.31, -0.42, zeta)
+    assert common.extrapolate_energies(*args) == jax_common.extrapolate_energies(*args)
+
+
+def test_extrapolated_energy_matches_tuna_tpu():
+    line = "SPE : H H 0.74 : MP2 CC-PVDZ : EXTRAPOLATE TIGHTSCF"
+    (_, _, expected, _), jax_text = _printed(jax_run, line)
+    (_, _, got, _), text = _printed(run, line, device="cpu")
+    assert abs(got - expected) <= ENERGY_TOLERANCE
+    assert _scf_cycles(text) == _scf_cycles(jax_text) and len(_scf_cycles(text)) >= 2
+    parts = r"Extrapolated (SCF|correlation|total) energy:\s+(-?\d+\.\d+)"
+    assert re.findall(parts, text) == re.findall(parts, jax_text)
+    assert len(re.findall(parts, text)) == 3
+
+
+def _calculations(line):
+    """The Config of `line` in each package."""
+    calc_type, method, basis, symbols, coordinates, params = parse_input(line)
+    port = Config(calc_type, process_method(method), 0.0, params, basis, symbols,
+                  suppress_output=True)
+    jax_calc_type, jax_method, jax_basis, _, _, jax_params = jax_parse_input(line)
+    reference = JaxConfig(jax_calc_type, jax_process(jax_method), 0.0, jax_params, jax_basis,
+                          symbols, suppress_output=True)
+    return port, reference, symbols, coordinates
+
+
+def test_reverse_scan_stops_at_a_fifth_of_an_angstrom():
+    """The reverse walk from 0.55 angstrom in 0.1 steps takes 0.55, 0.45,
+    0.35 and 0.25 and stops, its next bond at or below 0.2 angstrom."""
+    port, reference, symbols, coordinates = _calculations(
+        "SCAN : H H 0.55 : HF STO-3G : NUM 10 STEP 0.1 TIGHTSCF")
+    got = energy.scan_coordinate(port, symbols, coordinates, silent=True, reverse=True,
+                                 device="cpu")
+    expected = jax_energy.scan_coordinate(reference, symbols, coordinates, silent=True,
+                                          reverse=True)
+    assert np.allclose(jax_constants.bohr_to_angstrom(np.array(got[0])),
+                       [0.55, 0.45, 0.35, 0.25], rtol=0, atol=1e-12)
+    assert np.array_equal(got[0], expected[0])
+    assert np.max(np.abs(np.subtract(got[1], expected[1]))) <= ENERGY_TOLERANCE
+    assert np.max(np.abs(np.subtract(got[2], expected[2]))) <= 1e-8
+
+
+_PROPERTIES = {  # function: (step, its stencil's sum of |coefficients| / denominator, order)
+    "calculate_numerical_dipole_moment": (jax_constants.FIRST_ELEC_DERIVATIVE_STEP, 1.0, 1),
+    "calculate_numerical_quadrupole_moment": (jax_constants.FIRST_ELEC_DERIVATIVE_STEP, 1.0, 1),
+    "calculate_polarisability": (jax_constants.SECOND_ELEC_DERIVATIVE_STEP, 64 / 12, 2),
+    "calculate_hyperpolarisability": (jax_constants.THIRD_ELEC_DERIVATIVE_STEP,
+                                      2 * (7 + 72 + 338 + 488) / 240, 3),
+}
+
+
+@contextlib.contextmanager
+def _recording(module, record):
+    """Record what each finite-field property of `module` returns."""
+    originals = {name: getattr(module, name) for name in _PROPERTIES}
+
+    def recorded(name):
+        def call(*args, **kwargs):
+            record[name] = originals[name](*args, **kwargs)
+            return record[name]
+        return call
+
+    for name in _PROPERTIES:
+        setattr(module, name, recorded(name))
+    try:
+        yield
+    finally:
+        for name, function in originals.items():
+            setattr(module, name, function)
+
+
+@pytest.mark.parametrize("line", [
+    "SPE : H F 0.92 : HF STO-3G : DIPOLE QUADRUPOLE POLAR HYPER TIGHTSCF",
+    "SPE : H F 0.92 : CCSD 6-31G : DIPOLE POLAR TIGHTSCF",
+])
+def test_electric_properties_match_tuna_tpu(line):
+    expected, got = {}, {}
+    with _recording(jax_electric, expected):
+        (_, _, jax_energy_total, _), jax_text = _printed(jax_run, line)
+    with _recording(electric, got):
+        (_, _, energy_total, _), text = _printed(run, line, device="cpu")
+    assert abs(energy_total - jax_energy_total) <= ENERGY_TOLERANCE
+    assert _scf_cycles(text) == _scf_cycles(jax_text)
+    keywords = ("DIPOLE", "QUADRUPOLE", "POLAR", "HYPER")
+    assert set(got) == set(expected)
+    assert len(got) == sum(keyword in line.split() for keyword in keywords)
+    for name, value in expected.items():
+        h, weight, order = _PROPERTIES[name]
+        limit = weight * ENERGY_TOLERANCE / h ** order
+        assert np.max(np.abs(np.subtract(got[name], value))) <= limit, (name, got[name], value)
+
+
+@contextlib.contextmanager
+def _dipole_calls(module, calls):
+    """Record what every numerical dipole moment of `module` returns."""
+    original = module.calculate_numerical_dipole_moment
+
+    def call(*args, **kwargs):
+        calls.append(original(*args, **kwargs))
+        return calls[-1]
+
+    module.calculate_numerical_dipole_moment = call
+    try:
+        yield
+    finally:
+        module.calculate_numerical_dipole_moment = original
+
+
+@pytest.mark.parametrize("line", [
+    "SCAN : H F 0.9 : HF STO-3G : NUM 2 STEP 0.05 DIPOLE TIGHTSCF",
+    "FREQ : H F 0.92 : HF STO-3G : DIPOLE",
+])
+def test_numerical_dipole_routes_match_tuna_tpu(line):
+    """SCAN's and FREQ's DIPOLE: a finite-field dipole at each scan point
+    and at both displaced geometries of the dipole derivative.  As in
+    tuna_tpu, the printed single points compute it too: each scan point
+    twice, FREQ's energy once more."""
+    expected_dipoles, dipoles = [], []
+    with _dipole_calls(jax_electric, expected_dipoles):
+        expected, jax_text = _printed(jax_run, line)
+    with _dipole_calls(electric, dipoles):
+        got, text = _printed(run, line, device="cpu")
+    assert len(dipoles) == len(expected_dipoles) == (4 if line.startswith("SCAN") else 3)
+    h, weight, order = _PROPERTIES["calculate_numerical_dipole_moment"]
+    assert np.max(np.abs(np.subtract(dipoles, expected_dipoles))) <= weight * ENERGY_TOLERANCE / h
+    if line.startswith("SCAN"):
+        assert np.max(np.abs(np.subtract(got[1], expected[1]))) <= ENERGY_TOLERANCE
+        assert np.array_equal(got[2], dipoles[1::2])
+    else:
+        assert abs(got[2] - expected[2]) <= 0.01 and abs(got[3] - expected[3]) <= 1e-8
+        derivative = r"Dipole moment derivative:\s+(-?\d+\.\d+)"
+        assert re.findall(derivative, text) == re.findall(derivative, jax_text)
+    assert _scf_cycles(text) == _scf_cycles(jax_text)
+
+
+def test_anharmonic_frequency_matches_tuna_tpu():
+    """ANHARM of H2: OPT, FREQ, then the scans widened until the fundamental
+    converges; the same levels, widening steps and scan points."""
+    line = "ANHARM : H H 0.74 : HF STO-3G"
+    expected, jax_text = _printed(jax_run, line)
+    got, text = _printed(run, line, device="cpu")
+    assert np.max(np.abs(got - expected)) <= ENERGY_TOLERANCE
+    steps = r"^\s+(\d+)\s+(\d+\.\d\d)\s+(-?\d+\.\d{5})\s+\d+\.\d\d\s+(\d\.\d{5}) - (\d\.\d{5})"
+    assert re.findall(steps, text, re.M) == re.findall(steps, jax_text, re.M)
+    assert len(re.findall(steps, text, re.M)) >= 2
+    assert _scf_cycles(text) == _scf_cycles(jax_text)
+
+
+@pytest.mark.parametrize("line", [
+    "IP : H F 0.92 : HF STO-3G",
+    "EA : F : HF STO-3G",
+    "BDE : H F 0.92 : HF STO-3G",
+])
+def test_composite_energies_match_tuna_tpu(line):
+    """IP (adiabatic: both states optimised, the cation UHF), EA of an atom
+    (vertical) and the counterpoise-corrected BDE, whose atoms carry the
+    partner's basis functions on a ghost centre."""
+    expected, jax_text = _printed(jax_run, line)
+    _kernels.reset_launch_counts()
+    got, text = _printed(run, line, device="cpu")
+    assert all(count == 0 for count in _kernels.launches.values())
+    assert abs(got - expected) <= ENERGY_TOLERANCE
+    assert _scf_cycles(text) == _scf_cycles(jax_text)
+    if line.startswith("BDE"):
+        assert "Calculating counterpoise-corrected atomic energies" in text
+
+
+@pytest.mark.parametrize("method", ["CC2", "CC3"])
+def test_direct_refuses_ao_iterating_methods_like_tuna_tpu(method):
+    line = f"SPE : H H 0.74 : {method} STO-3G : DIRECT"
+    with pytest.raises(JaxTunaError) as expected:
+        jax_run(line, suppress_output=True)
+    with pytest.raises(TunaError) as got:
+        run(line, suppress_output=True, device="cpu")
+    assert str(got.value) == str(expected.value)
+    assert "CC2/CC3" in str(got.value)
+
+
+def test_direct_qcisd_t_matches_stored():
+    """QCISD(T) transform-direct (K5's plain version here) against the
+    stored tensor's, in the port."""
+    direct = run("SPE : N N 1.1 : QCISD(T) STO-3G : DIRECT TIGHTSCF", suppress_output=True,
+                 device="cpu")
+    stored = run("SPE : N N 1.1 : QCISD(T) STO-3G : TIGHTSCF", suppress_output=True,
+                 device="cpu")
+    assert direct[0].integrals.ERI_AO is None
+    assert abs(direct[2] - stored[2]) <= ENERGY_TOLERANCE

@@ -4,10 +4,11 @@ Twin of tuna_tpu/cli.py with the same grammar and printed output:
 
     TUNA CALC : A [B R] : METHOD BASIS [: KEYWORDS...]
 
-Single points (SPE), coordinate scans (SCAN), geometry optimisation (OPT,
-FORCE), harmonic frequencies (FREQ, OPTFREQ) and molecular dynamics (MD)
-are ported; the other calculation types raise.  The command line runs on the GPU and
-refuses to run without one.
+Every calculation type runs: single points (SPE), coordinate scans (SCAN),
+geometry optimisation (OPT, FORCE), harmonic and anharmonic frequencies
+(FREQ, OPTFREQ, ANHARM), molecular dynamics (MD), ionisation potentials and
+electron affinities (IP, EA) and bond dissociation energies (BDE).  The
+command line runs on the GPU and refuses to run without one.
 """
 
 from __future__ import annotations
@@ -117,15 +118,27 @@ def run_calculation(calculation_type, calculation, atomic_symbols, coordinates,
     if calculation_type in ("SCAN", "OPT", "OPTFREQ", "FORCE", "FREQ", "ANHARM",
                             "MD", "BDE") and calculation.monatomic:
         error(f"{CALCULATION_TYPES.get(calculation_type)} requested for a single atom!")
-    if calculation_type not in ("SPE", "SCAN", "OPT", "FORCE", "FREQ", "OPTFREQ", "MD"):
-        error(f"{CALCULATION_TYPES.get(calculation_type)} calculations are not yet "
-              "ported to tuna_tpu_torch!")
+    if calculation_type == "ANHARM" and calculation.plot_vibrational_wavefunctions:
+        error("Plotting the vibrational wavefunctions is not yet ported to tuna_tpu_torch!")
+
+    result = None
 
     if calculation_type == "SPE":
         timer("Energy evaluation", 0)
         result = energ.evaluate_molecular_energy(calculation, atomic_symbols, coordinates,
                                                  device=device)
         timer("Energy evaluation", 1)
+
+    elif calculation_type in ("IP", "EA"):
+        from .drivers import composite
+        delta = +1 if calculation_type == "IP" else -1
+        result = composite.run_charge_change(calculation, atomic_symbols,
+                                             coordinates, charge_delta=delta, device=device)
+
+    elif calculation_type == "BDE":
+        from .drivers import composite
+        result = composite.calculate_bond_dissociation_energy(
+            calculation, atomic_symbols, coordinates, device=device)
 
     elif calculation_type == "SCAN":
         if calculation.step is None:
@@ -144,6 +157,16 @@ def run_calculation(calculation_type, calculation, atomic_symbols, coordinates,
         from .drivers import freq
         result = freq.calculate_harmonic_frequency(
             calculation, atomic_symbols=atomic_symbols, coordinates=coordinates, device=device)
+
+    elif calculation_type == "ANHARM":
+        from .drivers import freq, opt
+        optimised_molecule, optimised_energy = opt.optimise_geometry(
+            calculation, atomic_symbols, coordinates, device=device)
+        _, _, harmonic_frequency_per_cm, _ = freq.calculate_harmonic_frequency(
+            calculation, molecule=optimised_molecule, energy=optimised_energy, device=device)
+        result = freq.calculate_anharmonic_frequency(
+            calculation, atomic_symbols, harmonic_frequency_per_cm, optimised_molecule,
+            device=device)
 
     elif calculation_type == "OPTFREQ":
         from .drivers import freq, opt

@@ -1,6 +1,7 @@
 """Shared driver-level machinery: coordinate hygiene, nuclear repulsion,
-orthogonalisation, dispersion corrections, electric fields and the
-spherical-harmonic integral transformation.
+orthogonalisation, dispersion corrections, electric fields, the
+spherical-harmonic integral transformation and the two-point CBS
+extrapolation.
 
 Twin of the pieces of tuna_tpu/drivers/common.py on the single-point path.
 """
@@ -187,6 +188,42 @@ def calculate_analytical_integrals(molecule, calculation, silent, device) -> Int
     S, T, V_NE, D, Q, ERI = transform_to_spherical_harmonics(
         S, T, V_NE, D, Q, ERI, molecule, calculation, silent)
     return Integrals(S, T, V_NE, D, Q, ERI)
+
+
+# --- CBS extrapolation (tuna_kernel.py:152-248) ---------------------------
+
+EXTRAPOLATION_ALPHA = {
+    "CC-PVDZ": 4.42, "CC-PVTZ": 5.46, "CC-PVQZ": 9.74, "CC-PV5Z": 9.74,
+    "AUG-CC-PVDZ": 4.30, "AUG-CC-PVTZ": 5.79, "AUG-CC-PVQZ": 9.71, "AUG-CC-PV5Z": 9.71,
+    "D-AUG-CC-PVDZ": 4.30, "D-AUG-CC-PVTZ": 5.79, "D-AUG-CC-PVQZ": 9.71, "D-AUG-CC-PV5Z": 9.71,
+    "T-AUG-CC-PVDZ": 4.30, "T-AUG-CC-PVTZ": 5.79, "T-AUG-CC-PVQZ": 9.71, "T-AUG-CC-PV5Z": 9.71,
+    "PC-1": 7.02, "PC-2": 9.78, "PC-3": 9.78,
+    "DEF2-SVP": 10.39, "DEF2-TZVPP": 7.88, "DEF2-TZVP": 7.88,
+    "DEF2-SVPD": 10.39, "DEF2-TZVPPD": 7.88, "DEF2-TZVPD": 7.88,
+    "ANO-PVDZ": 5.41, "ANO-PVTZ": 4.48, "ANO-PVQZ": 4.48,
+    "AUG-ANO-PVDZ": 5.12, "AUG-ANO-PVTZ": 5.00, "AUG-ANO-PVQZ": 5.00,
+}
+
+ZETA_PARAMS = {
+    "double": ("Double", "Triple", 2, 3, 2.4),
+    "triple": ("Triple", "Quadruple", 3, 4, 3.0),
+    "quadruple": ("Quadruple", "Quintuple", 4, 5, 3.0),
+    "quintuple": ("Quintuple", "Sextuple", 5, 6, 3.0),
+}
+
+
+def extrapolate_energies(small_basis, E_SCF_small, E_SCF_large, E_corr_small,
+                         E_corr_large, small_basis_zeta):
+    """Two-point CBS extrapolation (ORCA-compatible formulas)."""
+    alpha = EXTRAPOLATION_ALPHA.get(small_basis)
+    if alpha is None:
+        error("Your chosen basis set is not parameterised for extrapolation!")
+    _, _, n_small, n_large, beta = ZETA_PARAMS[small_basis_zeta]
+    E_SCF_cbs = E_SCF_small + (E_SCF_large - E_SCF_small) / (
+        1 - np.exp(alpha * (np.sqrt(n_small) - np.sqrt(n_large))))
+    E_corr_cbs = (n_small**beta * E_corr_small - n_large**beta * E_corr_large) / (
+        n_small**beta - n_large**beta)
+    return E_SCF_cbs, E_corr_cbs
 
 
 def print_molecule_information(molecule, calculation, silent=False):

@@ -1,10 +1,11 @@
 """Single-point energy pipeline: molecule + integrals + guess (+ DFT grid)
--> SCF -> VV10 -> post-SCF correlation, and the coordinate scan.
+-> SCF -> VV10 -> post-SCF correlation -> finite-field properties; plus
+CBS extrapolation and the coordinate scan (forward, or reverse as ANHARM
+walks it).
 
-Twin of the single-point path and the scan of tuna_tpu/drivers/energy.py.
-Every tensor lives on the `device` the caller names; the minimal-basis
-guess SCF runs on the same device, with its own grid when the calculation
-is DFT or VV10.
+Twin of tuna_tpu/drivers/energy.py.  Every tensor lives on the `device`
+the caller names; the minimal-basis guess SCF runs on the same device, with
+its own grid when the calculation is DFT or VV10.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def _direct_fock_closure(calculation, molecule, device):
     return lambda P: closure(coords, P)
 
 
-def _refuse_unported(calculation, do_correlation):
+def _refuse_unported(calculation):
     """Raise for the options of this pipeline that the port lacks so far."""
     dft = calculation.DFT_calculation
     missing_functional = unported_functional(calculation) if dft else None
@@ -75,12 +76,7 @@ def _refuse_unported(calculation, do_correlation):
         (missing_functional is not None, missing_functional or ""),
         (getattr(calculation, "read_checkpoint", False)
          or getattr(calculation, "checkpoint", False), "checkpoints"),
-        (calculation.extrapolate, "basis-set extrapolation"),
     ]
-    if do_correlation:
-        unported.append((calculation.dipole or calculation.quadrupole
-                         or calculation.polarisability or calculation.hyperpolarisability,
-                         "numerical electric properties"))
     for requested, what in unported:
         if requested:
             error(f"{what[0].upper() + what[1:]} is not yet ported to tuna_tpu_torch!")
@@ -178,7 +174,7 @@ def calculate_energy(calculation, atomic_symbols, coordinates, P_guess=None,
                      terse=False, silent=False, do_correlation=True, integrals=None,
                      device="cuda"):
     """The single-point pipeline (reference: tuna_energy.py:875-964)."""
-    _refuse_unported(calculation, do_correlation)
+    _refuse_unported(calculation)
     device = torch.device(device)
     guess_container = (P_guess, P_guess_alpha, P_guess_beta, E_guess)
     coordinates = common.clean_coordinates(coordinates)
@@ -215,6 +211,26 @@ def calculate_energy(calculation, atomic_symbols, coordinates, P_guess=None,
     final_energy, P = run_post_SCF_energy_calculation(
         molecule, integrals, SCF_output, grid_container, calculation, X, V_NN, silent,
         terse)
+
+    if not calculation.extrapolate and not silent:
+        from . import electric
+        if calculation.dipole:
+            electric.calculate_numerical_dipole_moment(
+                molecule, calculation, False, atomic_symbols, coordinates, integrals,
+                device=device)
+        if calculation.quadrupole:
+            electric.calculate_numerical_quadrupole_moment(
+                molecule, calculation, False, atomic_symbols, coordinates, integrals,
+                device=device)
+        if calculation.polarisability:
+            electric.calculate_polarisability(
+                molecule, calculation, final_energy, False, atomic_symbols,
+                coordinates, integrals, device=device)
+        if calculation.hyperpolarisability:
+            electric.calculate_hyperpolarisability(
+                molecule, calculation, False, atomic_symbols, coordinates, integrals,
+                device=device)
+
     return SCF_output, molecule, final_energy, P
 
 
@@ -222,10 +238,107 @@ def evaluate_molecular_energy(calculation, atomic_symbols, coordinates,
                               P_guess=None, P_guess_alpha=None, P_guess_beta=None,
                               E_guess=None, terse=False, silent=False,
                               do_correlation=True, integrals=None, device="cuda"):
-    """Single-point energy (basis-set extrapolation is not ported yet)."""
+    """Wrapper choosing plain vs basis-set-extrapolated energy."""
+    if calculation.extrapolate:
+        return calculate_extrapolated_energy(
+            calculation, atomic_symbols, coordinates, P_guess, P_guess_alpha,
+            P_guess_beta, E_guess, terse, silent, device=device)
     return calculate_energy(calculation, atomic_symbols, coordinates, P_guess,
                             P_guess_alpha, P_guess_beta, E_guess, terse, silent,
                             do_correlation, integrals, device)
+
+
+def _detect_zeta(basis: str) -> str:
+    b = basis.upper()
+    for tag, zeta in (("DZ", "double"), ("TZ", "triple"), ("QZ", "quadruple"),
+                      ("5Z", "quintuple")):
+        if b.endswith(tag):
+            return zeta
+    if "SVP" in b:
+        return "double"
+    if "TZV" in b:
+        return "triple"
+    if b == "PC-1":
+        return "double"
+    if b == "PC-2":
+        return "triple"
+    if b == "PC-3":
+        return "quadruple"
+    error("Your chosen basis set is not parameterised for extrapolation!")
+
+
+_NEXT_BASIS = {
+    # cc family
+    "CC-PVDZ": "CC-PVTZ", "CC-PVTZ": "CC-PVQZ", "CC-PVQZ": "CC-PV5Z", "CC-PV5Z": "CC-PV6Z",
+    "AUG-CC-PVDZ": "AUG-CC-PVTZ", "AUG-CC-PVTZ": "AUG-CC-PVQZ",
+    "AUG-CC-PVQZ": "AUG-CC-PV5Z", "AUG-CC-PV5Z": "AUG-CC-PV6Z",
+    "D-AUG-CC-PVDZ": "D-AUG-CC-PVTZ", "D-AUG-CC-PVTZ": "D-AUG-CC-PVQZ",
+    "D-AUG-CC-PVQZ": "D-AUG-CC-PV5Z", "D-AUG-CC-PV5Z": "D-AUG-CC-PV6Z",
+    "T-AUG-CC-PVDZ": "T-AUG-CC-PVTZ", "T-AUG-CC-PVTZ": "T-AUG-CC-PVQZ",
+    "T-AUG-CC-PVQZ": "T-AUG-CC-PV5Z", "T-AUG-CC-PV5Z": "T-AUG-CC-PV6Z",
+    "PC-1": "PC-2", "PC-2": "PC-3", "PC-3": "PC-4",
+    "DEF2-SVP": "DEF2-TZVPP", "DEF2-SVPD": "DEF2-TZVPPD",
+    "DEF2-TZVP": "DEF2-QZVP", "DEF2-TZVPP": "DEF2-QZVPP",
+    "DEF2-TZVPD": "DEF2-QZVPD", "DEF2-TZVPPD": "DEF2-QZVPPD",
+    "ANO-PVDZ": "ANO-PVTZ", "ANO-PVTZ": "ANO-PVQZ", "ANO-PVQZ": "ANO-PV5Z",
+    "AUG-ANO-PVDZ": "AUG-ANO-PVTZ", "AUG-ANO-PVTZ": "AUG-ANO-PVQZ",
+    "AUG-ANO-PVQZ": "AUG-ANO-PV5Z",
+}
+
+
+def calculate_extrapolated_energy(calculation, atomic_symbols, coordinates,
+                                  P_guess=None, P_guess_alpha=None,
+                                  P_guess_beta=None, E_guess=None, terse=False,
+                                  silent=False, device="cuda"):
+    """Run small + large basis back-to-back and extrapolate to the CBS limit."""
+    small_basis = calculation.basis.upper()
+    large_basis = _NEXT_BASIS.get(small_basis)
+    if large_basis is None:
+        error("Your chosen basis set is not parameterised for extrapolation!")
+    zeta = _detect_zeta(small_basis)
+
+    log(f"\n Using two-point extrapolation from {small_basis} with "
+        f"{large_basis}.", calculation, 1, silent=silent)
+
+    SCF_small, molecule, E_small, _ = calculate_energy(
+        calculation, atomic_symbols, coordinates, P_guess, P_guess_alpha,
+        P_guess_beta, E_guess, terse=True, silent=silent, device=device)
+    E_SCF_small = SCF_small.energy
+    E_corr_small = E_small - E_SCF_small - SCF_small.dispersion_energy
+
+    old_basis = calculation.basis
+    calculation.basis = large_basis
+    try:
+        SCF_large, molecule, E_large, P = calculate_energy(
+            calculation, atomic_symbols, coordinates, terse=True, silent=silent,
+            device=device)
+    finally:
+        calculation.basis = old_basis
+    E_SCF_large = SCF_large.energy
+    E_corr_large = E_large - E_SCF_large - SCF_large.dispersion_energy
+
+    E_SCF_cbs, E_corr_cbs = common.extrapolate_energies(
+        small_basis, E_SCF_small, E_SCF_large, E_corr_small, E_corr_large, zeta)
+    E_extrapolated = E_SCF_cbs + E_corr_cbs
+    dispersion = SCF_large.dispersion_energy
+
+    log_spacer(calculation, silent=silent, start="\n")
+    log("                Basis Set Extrapolation", calculation, 1, silent=silent)
+    log_spacer(calculation, silent=silent)
+    log(f"  SCF energy ({small_basis}):".ljust(35) + f"{E_SCF_small:16.10f}", calculation, 1, silent=silent)
+    log(f"  SCF energy ({large_basis}):".ljust(35) + f"{E_SCF_large:16.10f}", calculation, 1, silent=silent)
+    if calculation.method.correlated_method:
+        log("\n" + f"  Correlation energy ({small_basis}):".ljust(36) + f"{E_corr_small:15.10f}", calculation, 1, silent=silent)
+        log(f"  Correlation energy ({large_basis}):".ljust(36) + f"{E_corr_large:15.10f}", calculation, 1, silent=silent)
+    log(f"\n  Extrapolated SCF energy:         {E_SCF_cbs:16.10f}", calculation, 1, silent=silent)
+    if calculation.method.correlated_method:
+        log(f"  Extrapolated correlation energy: {E_corr_cbs:16.10f}", calculation, 1, silent=silent)
+    log(f"  Extrapolated total energy:       {E_extrapolated:16.10f}", calculation, 1, silent=silent)
+    if dispersion != 0:
+        log(f"\n  Dispersion-corrected total energy:{E_extrapolated + dispersion:15.10f}", calculation, 1, silent=silent)
+    log_spacer(calculation, silent=silent)
+
+    return SCF_large, molecule, E_extrapolated + dispersion, P
 
 
 def _print_scan_table(calculation, silent, energies, bond_lengths):
@@ -244,20 +357,20 @@ def _print_scan_table(calculation, silent, energies, bond_lengths):
 
 
 def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
-                    silent=False, device="cuda"):
+                    silent=False, reverse=False, device="cuda"):
     """Bond-length scan with MOREAD density chaining (tuna_energy.py:975-1085).
-    Returns (bond lengths, energies, analytic dipole moments).  tuna_tpu's
-    `reverse` walk serves ANHARM, which is not ported yet."""
+    Returns (bond lengths, energies, dipole moments: analytic, or numerical
+    under DIPOLE).  `reverse` walks to shorter bonds and stops at 0.2
+    angstrom, as ANHARM's left scans do."""
     from .. import props as props_mod
 
-    if calculation.dipole:
-        error("Numerical dipole moments in a coordinate scan are not yet ported to "
-              "tuna_tpu_torch!")
     if calculation.scan_plot:
         error("Plotting a coordinate scan is not yet ported to tuna_tpu_torch!")
     timer("Coordinate scan", 0)
     coordinates = common.clean_coordinates(starting_coordinates)
     step_size = constants.angstrom_to_bohr(calculation.step)
+    if reverse:
+        step_size = -step_size
 
     bond_length = float(np.linalg.norm(coordinates[1] - coordinates[0]))
     log(f"Initialising a {calculation.number_of_steps} step coordinate scan in "
@@ -272,12 +385,15 @@ def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
     # More than one device: the scan points are independent, so the whole
     # scan runs as one batched SCF (parallel.py) instead of the serial
     # MOREAD-chained walk, which stays the fallback for an unconverged batch.
-    if (parallel.device_count() > 1
+    if (parallel.device_count() > 1 and not calculation.dipole
             and parallel.mean_field_batchable(calculation, atomic_symbols)):
         bonds, bond = [], bond_length
         for _ in range(calculation.number_of_steps):
             bonds.append(bond)
-            bond = bond + step_size
+            next_bond = bond + step_size
+            if reverse and next_bond <= constants.angstrom_to_bohr(0.2):
+                break
+            bond = next_bond
         devices = parallel.devices_like(device)
         log(f"Distributing {len(bonds)} scan points over "
             f"{len(devices)} devices...", calculation, 1, silent=silent)
@@ -305,9 +421,15 @@ def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
             calculation, atomic_symbols, coordinates, P_guess, P_guess_alpha,
             P_guess_beta, E_guess, terse=True, silent=silent, device=device)
 
-        dipole_moment, _, _ = props_mod.calculate_analytical_dipole_moment(
-            molecule.centre_of_mass, molecule.charges, coordinates,
-            to_numpy(SCF_output.P), to_numpy(SCF_output.integrals.D))
+        if calculation.dipole:
+            from . import electric
+            dipole_moment = electric.calculate_numerical_dipole_moment(
+                molecule, calculation, True, atomic_symbols, coordinates,
+                SCF_output.integrals, device=device)
+        else:
+            dipole_moment, _, _ = props_mod.calculate_analytical_dipole_moment(
+                molecule.centre_of_mass, molecule.charges, coordinates,
+                to_numpy(SCF_output.P), to_numpy(SCF_output.integrals.D))
         dipole_moments.append(dipole_moment)
 
         if calculation.MO_read:
@@ -317,6 +439,8 @@ def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
         energies.append(energy)
         bond_lengths.append(bond_length)
         coordinates = np.array([coordinates[0], [0, 0, bond_length + step_size]])
+        if bond_length + step_size <= constants.angstrom_to_bohr(0.2) and reverse:
+            break
 
     _print_scan_table(calculation, silent, energies, bond_lengths)
     timer("Coordinate scan", 1)

@@ -1,21 +1,22 @@
-"""Vibrational frequencies: harmonic (with IR intensity and thermochemistry)
-and VPT1/VPT2 perturbative anharmonicity.
+"""Vibrational frequencies: harmonic (with IR intensity and thermochemistry),
+VPT1/VPT2 perturbative anharmonicity, and fully anharmonic frequencies via a
+scanned PES and grid nuclear Schrodinger equation.
 
 Twin of tuna_tpu/drivers/freq.py; its stencils batch through
 opt._batched_displaced_energies when more than one device is visible.  The
-dipole derivative is the seminumerical one; the fully numerical route
-(DIPOLE) needs the finite-field electric properties, which the energy
-driver refuses, and the scanned-PES anharmonic frequency (ANHARM) is not
+dipole derivative is seminumerical, or fully numerical (finite fields)
+under DIPOLE.  Plotting the vibrational wavefunctions (VIBPLOT) is not
 ported yet.  Every tensor lives on `device`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+from scipy import interpolate, linalg
 
 from .. import constants, props
 from ..containers import to_numpy
-from ..output import log, log_spacer, timer, warning
+from ..output import error, log, log_big_spacer, log_spacer, timer, warning
 from ..stencils import first_derivative, fourth_derivative, third_derivative
 from . import energy as energ
 from . import opt, thermo
@@ -44,21 +45,32 @@ def check_sign_of_hessian(hessian, reduced_mass):
 
 
 def calculate_dipole_derivative(coordinates, molecule, SCF_forward, SCF_backward,
-                                P_forward, P_backward, calculation, step):
-    """Seminumerical, gauge-invariant dipole derivative in normal coordinates."""
+                                P_forward, P_backward, calculation, step, device="cuda"):
+    """Seminumerical, gauge-invariant dipole derivative in normal coordinates;
+    fully numerical (finite fields at each displaced geometry) under DIPOLE."""
     timer("Dipole derivative", 0)
     prod = np.array([[0.0, 0.0, -molecule.masses[1] * step],
                      [0.0, 0.0, molecule.masses[0] * step]]) / molecule.total_mass
     forward_coords = coordinates + prod
     backward_coords = coordinates - prod
 
-    log(" Calculating seminumerical dipole derivative...       ", calculation, 1, end="")
-    mu_f, _, _ = props.calculate_analytical_dipole_moment(
-        molecule.centre_of_mass, molecule.charges, forward_coords, to_numpy(P_forward),
-        to_numpy(SCF_forward.integrals.D))
-    mu_b, _, _ = props.calculate_analytical_dipole_moment(
-        molecule.centre_of_mass, molecule.charges, backward_coords, to_numpy(P_backward),
-        to_numpy(SCF_backward.integrals.D))
+    if calculation.dipole:
+        log(" Calculating fully numerical dipole derivative...     ", calculation, 1, end="")
+        from . import electric
+        mu_f = electric.calculate_numerical_dipole_moment(
+            molecule, calculation, True, calculation.atomic_symbols,
+            forward_coords, SCF_forward.integrals, device=device)
+        mu_b = electric.calculate_numerical_dipole_moment(
+            molecule, calculation, True, calculation.atomic_symbols,
+            backward_coords, SCF_backward.integrals, device=device)
+    else:
+        log(" Calculating seminumerical dipole derivative...       ", calculation, 1, end="")
+        mu_f, _, _ = props.calculate_analytical_dipole_moment(
+            molecule.centre_of_mass, molecule.charges, forward_coords, to_numpy(P_forward),
+            to_numpy(SCF_forward.integrals.D))
+        mu_b, _, _ = props.calculate_analytical_dipole_moment(
+            molecule.centre_of_mass, molecule.charges, backward_coords, to_numpy(P_backward),
+            to_numpy(SCF_backward.integrals.D))
 
     dipole_derivative = first_derivative(mu_b, mu_f, step) / np.sqrt(molecule.reduced_mass)
     log("[Done]\n", calculation, 1)
@@ -112,7 +124,7 @@ def calculate_harmonic_frequency(calculation, atomic_symbols=None, coordinates=N
 
     dipole_derivative = calculate_dipole_derivative(
         coordinates, molecule, SCF_forward, SCF_backward, P_forward, P_backward,
-        calculation, hessian_step)
+        calculation, hessian_step, device=device)
     # Vibrational overlap contribution (matches ORCA convention)
     dipole_derivative /= np.sqrt(2 * frequency_hartree)
     intensity = calculate_transition_intensity(frequency_per_cm, dipole_derivative)
@@ -217,3 +229,138 @@ def vibrational_perturbation_theory(frequency_hartree, energy, calculation,
     log_spacer(calculation)
     timer("Perturbative anharmonic frequency", 1)
     return fundamental, zero_point_energy
+
+
+# ---------------------------------------------------------------------------
+# Anharmonic frequencies via a scanned PES
+# ---------------------------------------------------------------------------
+
+def interpolate_function(F_raw, x_raw, n_grid_points):
+    x = np.linspace(np.min(x_raw), np.max(x_raw), n_grid_points)
+    return x, interpolate.interp1d(x_raw, F_raw, kind="cubic")(x)
+
+
+def solve_nuclear_schroedinger(x_values, V_values, reduced_mass, scan_extent,
+                               grid_density, dipole_moments, n_states=6):
+    """Cubic-spline PES -> tridiagonal FD Hamiltonian -> lowest eigenstates."""
+    n_grid = int(grid_density * scan_extent)
+    x, V = interpolate_function(V_values, x_values, n_grid)
+    _, dipoles = interpolate_function(dipole_moments, x_values, n_grid)
+
+    dx = x[1] - x[0]
+    T = 1 / (reduced_mass * dx**2)
+    main_diag = T + V
+    off_diag = np.full(len(V) - 1, -T / 2)
+    levels, wavefunctions = linalg.eigh_tridiagonal(
+        main_diag, off_diag, select="i", select_range=(0, n_states - 1))
+    return levels, wavefunctions, dipoles, x, V
+
+
+def calculate_anharmonic_frequency(calculation, atomic_symbols,
+                                   harmonic_frequency_per_cm, molecule, device="cuda"):
+    """Iteratively widen the scanned PES until the fundamental converges."""
+    if calculation.plot_vibrational_wavefunctions:
+        error("Plotting the vibrational wavefunctions is not yet ported to tuna_tpu_torch!")
+    timer("Anharmonic frequency", 0)
+    GRID_DENSITY = 1000
+    SCAN_EXTENT = 0.35
+    calculation.step = 0.05 if calculation.step is None else calculation.step
+    transition_per_cm = 0.0
+
+    log_spacer(calculation, 1, start="\n", space="")
+    log(" Beginning anharmonic frequency calculation...", calculation, 1)
+    log_spacer(calculation, 1, space="")
+    log(f"\n Using a scan step length of {calculation.step} angstroms.\n", calculation, 1)
+
+    log(" Calculating initial potential energy surface around minimum...  ",
+        calculation, 1, end="")
+    calculation.number_of_steps = int(SCAN_EXTENT / calculation.step) + 1
+    coordinates = molecule.coordinates.copy()
+    coordinates_right = molecule.coordinates.copy()
+    coordinates_left = molecule.coordinates.copy()
+    coordinates[1][2] -= constants.angstrom_to_bohr(SCAN_EXTENT) / 2
+
+    x_values, V_values, dipole_moments = energ.scan_coordinate(
+        calculation, atomic_symbols, coordinates, silent=True, device=device)
+    log("[Done]\n", calculation, 1)
+
+    calculation.number_of_steps = int(SCAN_EXTENT / calculation.step / 3) + 1
+
+    log_big_spacer(calculation, 1)
+    log("                                          Anharmonic Frequency", calculation, 1)
+    log_big_spacer(calculation, 1)
+    log("  Step       Fundamental Freq. (per cm)         Chi        Harmonic Freq. "
+        "(per cm)     Bond Length Range", calculation, 1)
+    log_big_spacer(calculation, 1)
+
+    for iteration in range(30):
+        transition_old = transition_per_cm
+        scan_extent_bohr = max(x_values) - min(x_values)
+        coordinates_right[1][2] = np.max(x_values)
+        coordinates_left[1][2] = np.min(x_values)
+
+        xr, Vr, dr = energ.scan_coordinate(calculation, atomic_symbols,
+                                           coordinates_right, silent=True, device=device)
+        xl, Vl, dl = energ.scan_coordinate(calculation, atomic_symbols,
+                                           coordinates_left, silent=True, reverse=True,
+                                           device=device)
+
+        x_values = np.concatenate((np.array(xl[1:][::-1]), np.array(x_values), np.array(xr[1:])))
+        V_values = np.concatenate((np.array(Vl[1:][::-1]), np.array(V_values), np.array(Vr[1:])))
+        dipole_moments = np.concatenate((np.array(dl[1:][::-1]), np.array(dipole_moments),
+                                         np.array(dr[1:])))
+
+        levels, wavefunctions, dipoles, x, V = solve_nuclear_schroedinger(
+            x_values, V_values, molecule.reduced_mass, scan_extent_bohr,
+            GRID_DENSITY, dipole_moments)
+
+        transition_matrix = np.abs(levels[:, None] - levels[None, :])
+        transition_per_cm = transition_matrix[0][1] * constants.PER_CM_IN_HARTREE
+        chi = ((transition_matrix[0][1] - transition_matrix[1][2])
+               / (2 * harmonic_frequency_per_cm / constants.PER_CM_IN_HARTREE))
+
+        log(f"    {iteration + 1}               {transition_per_cm:8.2f}          "
+            f"       {chi:8.5f}             {harmonic_frequency_per_cm:8.2f}      "
+            f"       {constants.bohr_to_angstrom(min(x_values)):.5f} - "
+            f"{constants.bohr_to_angstrom(max(x_values)):.5f}", calculation, 1)
+
+        if abs(transition_per_cm - transition_old) < calculation.anharm_convergence:
+            log_big_spacer(calculation, 1)
+            _process_anharmonic_output(calculation, wavefunctions, levels,
+                                       transition_matrix, chi, dipoles, x, V, molecule)
+            timer("Anharmonic frequency", 1)
+            return levels
+
+    error("Anharmonic frequency calculation did not converge!")
+
+
+def _process_anharmonic_output(calculation, wavefunctions, levels,
+                               transition_matrix, chi, dipoles, x, V, molecule):
+    zero_point_energy = levels[0] - np.min(V)
+    frequency_matrix = transition_matrix * constants.PER_CM_IN_HARTREE
+    wavelength_matrix = 1e7 / np.where(frequency_matrix != 0, frequency_matrix, 1)
+
+    log(f"\n Final fundamental frequency (per cm):  {frequency_matrix[0][1]:6.2f}", calculation, 1)
+    log(f" Final anharmonicity constant:  {chi:7.5f}", calculation, 1)
+    log(f"\n Zero-point energy:   {zero_point_energy:13.10f}", calculation, 1)
+    log(f" Equilibrium energy:  {levels[0]:13.10f}", calculation, 1)
+
+    dipole_matrix = np.einsum("ni,n,nj->ij", wavefunctions, dipoles, wavefunctions)
+    intensity_matrix = calculate_transition_intensity(frequency_matrix, dipole_matrix)
+
+    log_big_spacer(calculation, 1, start="\n")
+    log("                                        Anharmonic Absorption Spectrum", calculation, 1)
+    log_big_spacer(calculation, 1)
+    log("  Transition         Energy          Frequency (per cm)       Wavelength (nm)"
+        "     Intensity (km per mol)", calculation, 1)
+    log_big_spacer(calculation, 1)
+    for i in range(3):
+        for j in range(i + 1, 4):
+            log(f"    {i} -> {j}    {transition_matrix[i][j]:16.10f}    "
+                f"{frequency_matrix[i][j]:16.2f}       {wavelength_matrix[i][j]:16.2f}"
+                f"       {intensity_matrix[i][j]:16.2f}", calculation, 1)
+    log_big_spacer(calculation, 1)
+
+    if calculation.additional_print:
+        thermo.calculate_thermochemical_corrections(
+            molecule, calculation, transition_matrix[0][1], levels[0], zero_point_energy)

@@ -1,22 +1,25 @@
 """Coupled cluster and iterative CI with the (T)/[T] triples and the (Q)/[Q]
-quadruples energies: restricted CCSD and CISD, and on UHF references the
-spin-orbital LCCD, CCD, LCCSD (CEPA), CID, CISD, QCISD and CCSD; CCSDT,
-CISDT and CCSDTQ are iterated by post/cc_triples.py.
+quadruples energies: restricted LCCD, CCD, LCCSD (CEPA), CID, CISD, QCISD,
+CCSD, CC2 and CC3, and on UHF references the spin-orbital LCCD, CCD, LCCSD
+(CEPA), CID, CISD, QCISD and CCSD; CCSDT, CISDT and CCSDTQ are iterated by
+post/cc_triples.py.
 
 Twin of tuna_tpu/post/cc.py's restricted closed-shell path (the
 spin-adapted spatial-orbital equations in the tau-based formulation with
 occupied-leading integral blocks and L = 2<pq|rs> - <pq|sr>, the fused CCSD
-residual) and its unrestricted path (the antisymmetrised spin-orbital
-equations on <pq||rs>), both on the pure-float64 amplitude DIIS loop of
-`_build_cc_solver_fn` (its f32 spread extrapolation included, so iterates
-follow tuna_tpu's CPU path).  A Python loop on the device takes the place
-of the while_loop.
+residual, which also serves CCD; CC2 and CC3 rebuild T1-dressed integrals
+from the AO tensor every iteration) and its unrestricted path (the
+antisymmetrised spin-orbital equations on <pq||rs>), both on the
+pure-float64 amplitude DIIS loop of `_build_cc_solver_fn` (its f32 spread
+extrapolation included, so iterates follow tuna_tpu's CPU path).  A Python
+loop on the device takes the place of the while_loop.
 
 The restricted (T) energy runs through `ccsd_t_energy`, the K2 CUDA kernel
 (csrc/ccsd_t.cu) on CUDA tensors; the unrestricted one through
 `uccsd_t_energy`, the K2u kernel (csrc/ccsd_t_u.cu); the (Q) energy of
 CCSDT[Q]/(Q) through `ccsdt_q_energy`, the K9 kernel (csrc/ccsdt_q.cu).  On
-CPU tensors each takes its plain torch version.
+CPU tensors each takes its plain torch version.  Everything else here is
+torch.einsum and torch.tensordot on two operands at a time.
 """
 
 from __future__ import annotations
@@ -68,8 +71,8 @@ def _tau_of(t1, t2):
 
 
 # ---------------------------------------------------------------------------
-# T1 dressing (tuna_tpu/post/cc.py:505-537): CCSDT and CCSDTQ here, CC2 and
-# CC3 later
+# T1 dressing (tuna_tpu/post/cc.py:505-541): CCSDT and CCSDTQ dress the MO
+# tensor, CC2 and CC3 the AO tensor
 # ---------------------------------------------------------------------------
 
 def _t1_dressed_orbitals(C, t1, o, v):
@@ -99,6 +102,14 @@ def _t1_dressed_mo_oneelectron(H_MO, t1, o, v):
     H[v] += torch.einsum("ip,iq->pq", -t1, H[o])
     H[:, o] += torch.einsum("qb,pb->pq", t1, H[:, v])
     return H
+
+
+def _dressed_block(ERI_AO, X, Y, s1, s2, s3, s4):
+    """(X_s1 Y_s2 | X_s3 Y_s4)-transformed chemists' block of the AO ERI."""
+    out = torch.tensordot(X[:, s1], ERI_AO, dims=([0], [0]))
+    out = torch.tensordot(Y[:, s2], out, dims=([0], [1])).permute(1, 0, 2, 3)
+    out = torch.tensordot(X[:, s3], out, dims=([0], [2])).permute(1, 2, 0, 3)
+    return torch.tensordot(Y[:, s4], out, dims=([0], [3])).permute(1, 2, 3, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +198,7 @@ def _r_rings(Aovvo, Aovov, t2):
 
 
 def _r_singles_linear(B, t1, t2):
-    """Singles terms common to LCCSD / CISD."""
+    """Singles terms common to LCCSD / CISD / QCISD."""
     return (torch.einsum("icak,kc->ia", B["Lovvo"], t1)
             + torch.einsum("kadc,ikcd->ia", B["Lovvv"], t2)
             - torch.einsum("ickl,klac->ia", B["Lovoo"], t2))
@@ -199,18 +210,71 @@ def _r_doubles_singles_driven(B, t1):
             - torch.einsum("ijak,kb->ijab", B["oovo"], t1))
 
 
+def _r_dressed_mosaic(B, t1, t2):
+    """Fock-dressed and ring-dressed intermediates of QCISD: tuna_tpu's
+    _r_dressed_mosaic with with_t1=False (tau = t2, no t1 dressing)."""
+    dFoo = torch.einsum("klcd,ilcd->ik", B["Loovv"], t2)
+    dFvv = -torch.einsum("klcd,klad->ca", B["Loovv"], t2)
+    Fov = torch.einsum("klcd,ld->kc", B["Loovv"], t1)
+    Woooo = B["oooo"] + torch.einsum("klcd,ijcd->ijkl", B["oovv"], t2)
+    half = 0.5 * t2
+    Wovvo = (B["ovvo"]
+             - torch.einsum("lkdc,ilda->icak", B["oovv"], half)
+             + 0.5 * torch.einsum("lkdc,ilad->icak", B["Loovv"], t2))
+    Wovov = B["ovov"] - torch.einsum("lkcd,ilda->icka", B["oovv"], half)
+    return dFoo, dFvv, Fov, Woooo, Wovvo, Wovov
+
+
 # ---------------------------------------------------------------------------
 # Restricted residual -> new-amplitude maps
 # ---------------------------------------------------------------------------
-# Each update has signature (B, F_ov, d1, d2, t1, t2) -> (t1_new, t2_new)
+# Each update has signature (B, F_ov, d1, d2, t1, t2, aux) -> (t1_new,
+# t2_new); aux holds what CC2 and CC3 dress every iteration (the AO tensor,
+# the MO coefficients, the core Hamiltonian, CC3's triples denominators, and
+# the occupied and virtual slices o, v of the whole orbital space).
 
-def _r_cisd(B, F_ov, d1, d2, t1, t2):
+def _r_lccd(B, F_ov, d1, d2, t1, t2, aux):
+    r2 = (0.5 * B["oovv"] + _r_pair_ladder(B["oooo"], B["vvvv"], t2, t2)
+          + _r_rings(B["ovvo"], B["ovov"], t2))
+    return t1, d2 * _sym_pair(r2)
+
+
+def _r_cid(B, F_ov, d1, d2, t1, t2, aux):
+    r2 = _sym_pair(0.5 * B["oovv"] + _r_pair_ladder(B["oooo"], B["vvvv"], t2, t2)
+                   + _r_rings(B["ovvo"], B["ovov"], t2))
+    E_corr = torch.einsum("ijab,ijab->", B["oovv"], _u_of(t2))
+    return t1, d2 * (r2 - E_corr * t2)
+
+
+def _r_lccsd(B, F_ov, d1, d2, t1, t2, aux):
+    r1 = _r_singles_linear(B, t1, t2)
+    r2 = (0.5 * B["oovv"] + _r_pair_ladder(B["oooo"], B["vvvv"], t2, t2)
+          + _r_doubles_singles_driven(B, t1)
+          + _r_rings(B["ovvo"], B["ovov"], t2))
+    return d1 * r1, d2 * _sym_pair(r2)
+
+
+def _r_cisd(B, F_ov, d1, d2, t1, t2, aux):
     r1 = _r_singles_linear(B, t1, t2)
     r2 = _sym_pair(0.5 * B["oovv"] + _r_doubles_singles_driven(B, t1)
                    + _r_pair_ladder(B["oooo"], B["vvvv"], t2, t2)
                    + _r_rings(B["ovvo"], B["ovov"], t2))
     E_corr = torch.einsum("ijab,ijab->", B["oovv"], _u_of(t2))
     return d1 * (r1 - E_corr * t1), d2 * (r2 - E_corr * t2)
+
+
+def _r_qcisd(B, F_ov, d1, d2, t1, t2, aux):
+    dFoo, dFvv, Fov, Woooo, Wovvo, Wovov = _r_dressed_mosaic(B, t1, t2)
+    r1 = (torch.einsum("ca,ic->ia", dFvv, t1)
+          - torch.einsum("ik,ka->ia", dFoo, t1)
+          + torch.einsum("kc,kica->ia", Fov, _u_of(t2))
+          + _r_singles_linear(B, t1, t2))
+    r2 = (0.5 * B["oovv"] + _r_pair_ladder(Woooo, B["vvvv"], t2, t2)
+          + torch.einsum("ca,ijcb->ijab", dFvv, t2)
+          - torch.einsum("ik,kjab->ijab", dFoo, t2)
+          + _r_doubles_singles_driven(B, t1)
+          + _r_rings(Wovvo, Wovov, t2))
+    return d1 * r1, d2 * _sym_pair(r2)
 
 
 def _ccsd_fused_cats(B):
@@ -259,13 +323,15 @@ def _ccsd_fused_cats(B):
     return cat
 
 
-def _r_ccsd(B, F_ov, d1, d2, t1, t2):
-    """Fused-contraction CCSD residual (tuna_tpu/post/cc.py::_r_ccsd)."""
+def _r_ccsd(B, F_ov, d1, d2, t1, t2, aux, freeze_singles: bool = False):
+    """Fused-contraction CCSD residual (tuna_tpu/post/cc.py::_r_ccsd).  With
+    freeze_singles (CCD, t1 = 0) tau = t2, the ladder is not T1-dressed and
+    t1 comes back unchanged; the groups that contract t1, exactly zero
+    there, are left out."""
     no, nv = t2.shape[0], t2.shape[2]
     o2, v2, ov = no * no, nv * nv, no * nv
 
-    tau = _tau_of(t1, t2)
-    u_t2 = _u_of(t2)
+    tau = t2 if freeze_singles else _tau_of(t1, t2)
 
     # --- group CD: Woooo build + particle ladder + Y in ONE matmul -------
     CD = B["cat_cd"] @ tau.permute(2, 3, 0, 1).reshape(v2, o2)
@@ -283,32 +349,10 @@ def _r_ccsd(B, F_ov, d1, d2, t1, t2):
     dFoo = KCD[:no].T                                              # (i,k)
     r1_lovvv = KCD[no:].T                                          # (i,a)
 
-    # --- group V_T1 --------------------------------------------------------
-    V1 = B["cat_v_t1"] @ t1.T
-    n0 = no * o2
-    woooo_t1 = V1[:n0].reshape(no, no, no, no).permute(2, 3, 0, 1)
-    r2_ovvv = V1[n0:n0 + no * v2].reshape(no, nv, nv, no).permute(0, 3, 1, 2)
-    wovvo_v = V1[n0 + no * v2:n0 + no * v2 + ov * nv].reshape(
-        no, nv, nv, no).permute(3, 2, 1, 0)                        # icak
-    wovov_v = V1[n0 + no * v2 + ov * nv:].reshape(
-        no, nv, nv, no).permute(3, 2, 0, 1)                        # icka
-
-    # --- group O_T1 --------------------------------------------------------
-    O1 = B["cat_o_t1"] @ t1
-    r2_oovo = O1[:o2 * nv].reshape(no, no, nv, nv)                 # ijab
-    wovvo_o = O1[o2 * nv:o2 * nv + ov * no].reshape(
-        no, nv, no, nv).permute(0, 1, 3, 2)                        # icak
-    wovov_o = O1[o2 * nv + ov * no:].reshape(no, nv, no, nv)       # icka
-
-    # --- group OV_T1 (matvec) ----------------------------------------------
-    OV1 = B["cat_ov_t1"] @ t1.reshape(-1)
-    Fov = OV1[:ov].reshape(no, nv)
-    dLoo_t1 = OV1[ov:ov + o2].reshape(no, no)
-    dLvv_t1 = OV1[ov + o2:ov + o2 + v2].reshape(nv, nv)
-    r1_lovvo = OV1[ov + o2 + v2:].reshape(no, nv)
-
     # --- group LD: the three ring-dressing contractions ---------------------
-    half = 0.5 * t2 + torch.einsum("id,la->ilda", t1, t1)
+    half = 0.5 * t2
+    if not freeze_singles:
+        half = half + torch.einsum("id,la->ilda", t1, t1)
     half_ld = half.permute(1, 2, 0, 3).reshape(ov, ov)
     t2_ld = t2.permute(1, 3, 0, 2).reshape(ov, ov)
     LD = B["cat_ld"] @ torch.cat([half_ld, t2_ld], dim=1)
@@ -317,39 +361,169 @@ def _r_ccsd(B, F_ov, d1, d2, t1, t2):
     w_oovv_half_x = LD[2 * ov:, :ov].reshape(no, nv, no, nv).permute(2, 1, 0, 3)
 
     # --- assemble the dressed intermediates ---------------------------------
-    Woooo = B["oooo"] + Woooo_tau + _sym_pair(woooo_t1)
-    Wovvo = B["ovvo"] - w_oovv_half + 0.5 * w_loovv_t2 - wovvo_o + wovvo_v
-    Wovov = B["ovov"] - w_oovv_half_x - wovov_o + wovov_v
-    dLoo = dFoo + dLoo_t1
-    dLvv = dFvv + dLvv_t1
+    Woooo = B["oooo"] + Woooo_tau
+    Wovvo = B["ovvo"] - w_oovv_half + 0.5 * w_loovv_t2
+    Wovov = B["ovov"] - w_oovv_half_x
+    dLoo, dLvv = dFoo, dFvv
+    if not freeze_singles:
+        # --- groups V_T1, O_T1 and OV_T1: the contractions with t1 ---------
+        V1 = B["cat_v_t1"] @ t1.T
+        n0 = no * o2
+        woooo_t1 = V1[:n0].reshape(no, no, no, no).permute(2, 3, 0, 1)
+        r2_ovvv = V1[n0:n0 + no * v2].reshape(no, nv, nv, no).permute(0, 3, 1, 2)
+        wovvo_v = V1[n0 + no * v2:n0 + no * v2 + ov * nv].reshape(
+            no, nv, nv, no).permute(3, 2, 1, 0)                    # icak
+        wovov_v = V1[n0 + no * v2 + ov * nv:].reshape(
+            no, nv, nv, no).permute(3, 2, 0, 1)                    # icka
+        O1 = B["cat_o_t1"] @ t1
+        r2_oovo = O1[:o2 * nv].reshape(no, no, nv, nv)             # ijab
+        wovvo_o = O1[o2 * nv:o2 * nv + ov * no].reshape(
+            no, nv, no, nv).permute(0, 1, 3, 2)                    # icak
+        wovov_o = O1[o2 * nv + ov * no:].reshape(no, nv, no, nv)   # icka
+        OV1 = B["cat_ov_t1"] @ t1.reshape(-1)
+        Fov = OV1[:ov].reshape(no, nv)
+        dLoo_t1 = OV1[ov:ov + o2].reshape(no, no)
+        dLvv_t1 = OV1[ov + o2:ov + o2 + v2].reshape(nv, nv)
+        r1_lovvo = OV1[ov + o2 + v2:].reshape(no, nv)
+
+        Woooo = Woooo + _sym_pair(woooo_t1)
+        Wovvo = Wovvo - wovvo_o + wovvo_v
+        Wovov = Wovov - wovov_o + wovov_v
+        dLoo = dFoo + dLoo_t1
+        dLvv = dFvv + dLvv_t1
 
     # --- ladder, with the Y-driven T1 dressing of the particle ladder -------
     ladder = 0.5 * (torch.einsum("ijkl,klab->ijab", Woooo, tau) + ladder_pp)
-    C = (Y.permute(1, 2, 3, 0).reshape(nv * o2, no) @ t1).reshape(nv, no, no, nv)
-    ladder = ladder - 0.5 * (C.permute(2, 1, 0, 3) + C.permute(1, 2, 3, 0))
+    if not freeze_singles:
+        C = (Y.permute(1, 2, 3, 0).reshape(nv * o2, no) @ t1).reshape(nv, no, no, nv)
+        ladder = ladder - 0.5 * (C.permute(2, 1, 0, 3) + C.permute(1, 2, 3, 0))
 
     # --- residuals -------------------------------------------------------------
-    r1 = (torch.einsum("ca,ic->ia", dFvv, t1)
-          - torch.einsum("ik,ka->ia", dFoo, t1)
-          - r1_lovoo
-          + torch.einsum("kc,kica->ia", Fov, u_t2)
-          + torch.einsum("kc,ic,ka->ia", Fov, t1, t1)
-          + r1_lovvo
-          + r1_lovvv)
-
     r2 = (0.5 * B["oovv"] + ladder
           + torch.einsum("ca,ijcb->ijab", dLvv, t2)
-          - torch.einsum("ik,kjab->ijab", dLoo, t2)
-          + r2_ovvv
+          - torch.einsum("ik,kjab->ijab", dLoo, t2))
+    if freeze_singles:
+        return t1, d2 * _sym_pair(r2 + _r_rings(Wovvo, Wovov, t2))
+    r2 = (r2 + r2_ovvv
           - torch.einsum("ickb,ka,jc->ijab", B["ovov"], t1, t1)
           - r2_oovo
           - torch.einsum("icak,jc,kb->ijab", B["ovvo"], t1, t1)
           + _r_rings(Wovvo, Wovov, t2))
 
+    r1 = (torch.einsum("ca,ic->ia", dFvv, t1)
+          - torch.einsum("ik,ka->ia", dFoo, t1)
+          - r1_lovoo
+          + torch.einsum("kc,kica->ia", Fov, _u_of(t2))
+          + torch.einsum("kc,ic,ka->ia", Fov, t1, t1)
+          + r1_lovvo
+          + r1_lovvv)
     return d1 * r1, d2 * _sym_pair(r2)
 
 
-_RESTRICTED_UPDATES = {"CCSD": _r_ccsd, "CISD": _r_cisd}
+def _r_ccd(B, F_ov, d1, d2, t1, t2, aux):
+    """CCD = CCSD with the singles channel frozen at zero."""
+    return _r_ccsd(B, F_ov, d1, d2, torch.zeros_like(t1), t2, aux, freeze_singles=True)
+
+
+def _r_cc2(B, F_ov, d1, d2, t1, t2_unused, aux):
+    """CC2: exact singles, first-order doubles in the T1-dressed basis (the
+    doubles are rebuilt from the dressed (vo|vo) block every iteration)."""
+    o, v = aux["o"], aux["v"]
+    ERI_AO, C, H = aux["ERI_AO"], aux["C"], aux["H_core"]
+    X, Y = _t1_dressed_orbitals(C, t1, o, v)
+    h_hat = X.T @ H @ Y
+
+    g_vovo = _dressed_block(ERI_AO, X, Y, v, o, v, o)
+    g_ovvv = _dressed_block(ERI_AO, X, Y, o, v, v, v)
+    g_ooov = _dressed_block(ERI_AO, X, Y, o, o, o, v)
+    g_oovo = _dressed_block(ERI_AO, X, Y, o, o, v, o)
+    g_ovoo = _dressed_block(ERI_AO, X, Y, o, v, o, o)
+
+    F_vo = (h_hat[v, o] + 2.0 * torch.einsum("kkai->ai", g_oovo)
+            - torch.einsum("kiak->ai", g_oovo))
+    F_ov_hat = (h_hat[o, v] + 2.0 * torch.einsum("kkia->ia", g_ooov)
+                - torch.einsum("kaik->ia", g_ovoo))
+
+    t2 = g_vovo.permute(1, 3, 0, 2) * d2
+    u2 = _u_of(t2)
+
+    r1 = (F_vo.T
+          + torch.einsum("kicd,kcad->ia", u2, g_ovvv)
+          - torch.einsum("klac,kilc->ia", u2, g_ooov)
+          + torch.einsum("kc,ikac->ia", F_ov_hat, u2))
+    return t1 + d1 * r1, t2
+
+
+def _r_cc3(B, F_ov, d1, d2, t1, t2, aux):
+    """CC3: CCSD-like doubles plus approximate triples, T1-dressed.  The o^3
+    v^3 arrays (t3, u3 and one combination at a time) are freed as soon as
+    their last contraction has read them."""
+    from .mp import second_order_triples_amplitudes
+
+    o, v = aux["o"], aux["v"]
+    ERI_AO, C, H, d3 = aux["ERI_AO"], aux["C"], aux["H_core"], aux["d3"]
+    X, Y = _t1_dressed_orbitals(C, t1, o, v)
+    every = slice(None)
+    g_hat = _dressed_block(ERI_AO, X, Y, every, every, every, every)
+    h_hat = X.T @ H @ Y
+
+    l_hat = 2.0 * g_hat - g_hat.transpose(1, 3)
+    u2 = _u_of(t2)
+    occ_all = slice(0, o.stop)
+    F_hat = h_hat + torch.einsum("kkpq->pq", l_hat[occ_all, occ_all, :, :])
+    g_ovov = g_hat[o, v, o, v]
+
+    A_ia = torch.einsum("kicd,kcad->ia", u2, g_hat[o, v, v, v])
+    B_ia = -torch.einsum("klac,kilc->ia", u2, g_hat[o, o, o, v])
+    C_ia = torch.einsum("kc,ikac->ia", F_hat[o, v], u2)
+
+    beta = (g_hat[o, o, o, o].permute(1, 3, 0, 2)
+            + torch.einsum("ijcd,kcld->ijkl", t2, g_ovov))
+    gamma = g_hat[o, o, v, v] - 0.5 * torch.einsum("liad,kdlc->kiac", t2, g_ovov)
+    delta = 2.0 * g_hat[v, o, o, v] - g_hat[o, o, v, v].permute(2, 1, 0, 3)
+    delta = delta + 0.5 * torch.einsum("ilad,ldkc->aikc", u2,
+                                       2.0 * g_ovov - g_ovov.transpose(1, 3))
+    Fvv_tt = F_hat[v, v] - torch.einsum("klbd,ldkc->bc", u2, g_ovov)
+    Foo_tt = F_hat[o, o] + torch.einsum("ljcd,kdlc->kj", u2, g_ovov)
+
+    A2 = torch.einsum("ijcd,acbd->ijab", t2, g_hat[v, v, v, v])
+    B2 = torch.einsum("klab,ijkl->ijab", t2, beta)
+    C2 = -torch.einsum("kjbc,kiac->ijab", t2, gamma)
+    D2 = 0.5 * torch.einsum("jkbc,aikc->ijab", u2, delta)
+    E2 = torch.einsum("ijac,bc->ijab", t2, Fvv_tt)
+    G2 = -torch.einsum("ikab,kj->ijab", t2, Foo_tt)
+
+    t3 = second_order_triples_amplitudes(d3, t2, g_hat, o, v)
+    u3 = 2.0 * t3
+    u3 -= t3.transpose(3, 4)
+    u3 -= t3.transpose(3, 5)
+
+    combination = t3 - t3.transpose(4, 5)
+    trip2 = torch.einsum("kc,ijkabc->ijab", F_hat[o, v], combination)
+    combination += t3
+    combination -= t3.transpose(3, 5)      # 2 t3 - t3^(45) - t3^(35)
+    trip2 = trip2 + torch.einsum("ackd,ijkcbd->ijab", g_hat[v, v, o, v], combination)
+    del combination
+    trip2 = trip2 - torch.einsum("kilc,ljkcba->ijab", g_hat[o, o, o, v], u3)
+    del u3
+
+    r1 = F_hat[v, o].T + A_ia + B_ia + C_ia
+    t3 -= t3.transpose(3, 4).clone()       # t3 - t3^(34)
+    r1 = r1 + torch.einsum("jbkc,ijkabc->ia", l_hat[o, v, o, v], t3)
+    del t3
+    r2 = g_hat[v, o, v, o].permute(1, 3, 0, 2) + A2 + B2
+    r2 = r2 + permute_symmetric(0.5 * C2 + C2.transpose(0, 1) + D2 + E2 + G2,
+                                (0, 1), (2, 3))
+    r2 = r2 + permute_symmetric(trip2, (0, 1), (2, 3))
+
+    return t1 + d1 * r1, t2 + d2 * r2
+
+
+_RESTRICTED_UPDATES = {
+    "LCCD": _r_lccd, "CCD": _r_ccd, "LCCSD": _r_lccsd, "CID": _r_cid,
+    "CISD": _r_cisd, "QCISD": _r_qcisd, "CCSD": _r_ccsd, "CC2": _r_cc2,
+    "CC3": _r_cc3,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -597,19 +771,20 @@ def _diis_coefficients_from_gram(G, n_valid, M):
 
 
 def solve_amplitudes(settings: CCSettings, g, F, d1, d2, t1_0, t2_0, energy_conv,
-                     amp_conv, on_start=None, on_iteration=None):
+                     amp_conv, on_start=None, on_iteration=None, aux=None):
     """Iterate the amplitude equations to convergence.
 
     on_start(guess MP2 energy) is called before the first iteration and
-    on_iteration(step, E, dE, seconds) after each.  Returns (n_steps,
-    converged, failed, E, t1, t2, (E_singles, E_connected, E_disconnected))."""
+    on_iteration(step, E, dE, seconds) after each; aux goes to the
+    restricted updates (CC2 and CC3 read it).  Returns (n_steps, converged,
+    failed, E, t1, t2, (E_singles, E_connected, E_disconnected))."""
     M = settings.max_diis
     no = settings.n_occ
     o, v = slice(0, no), slice(no, None)
     F_ov = F[o, v]
     if settings.restricted:
         B = _restricted_blocks(g, o, v)
-        update = partial(_RESTRICTED_UPDATES[settings.method], B, F_ov)
+        update = partial(_RESTRICTED_UPDATES[settings.method], B, F_ov, aux=aux)
         energy = _restricted_energy
     else:
         B = _unrestricted_blocks(g, o, v)
@@ -741,6 +916,12 @@ def calculate_coupled_cluster_energy(g, o, v, t_amplitudes, e_denominators, F,
         max_diis=int(calculation.max_DIIS_matrices),
         damping=float(calculation.correlated_damping_parameter),
     )
+    # CC2 and CC3 dress the AO tensor every iteration, indexed in the whole
+    # orbital space (o and v start at o.start under FREEZECORE)
+    aux = None
+    if base_name in ("CC2", "CC3"):
+        aux = {"ERI_AO": integrals.ERI_AO, "C": SCF_output.molecular_orbitals,
+               "H_core": integrals.H_core, "d3": e_denominators[2], "o": o, "v": v}
     # Frozen-core slices start at o.start; shift to local indexing.
     if (o.start or 0) != 0:
         g = g[o.start:, o.start:, o.start:, o.start:]
@@ -757,7 +938,7 @@ def calculate_coupled_cluster_energy(g, o, v, t_amplitudes, e_denominators, F,
         settings, g, F, d1, d2, t_ia, t_ijab, calculation.energy_convergence,
         calculation.amp_conv,
         on_start=lambda e_guess: _initial_print(e_guess, method, calculation, silent),
-        on_iteration=on_iteration)
+        on_iteration=on_iteration, aux=aux)
 
     if failed:
         error(f'Non-finite encountered in {base_name} iteration. Try stronger '
@@ -1647,14 +1828,16 @@ def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X
     log("\n Preparing arrays for coupled cluster...     ", calculation, 1, end="", silent=silent)
     e_ia = transforms.singles_epsilons(epsilons, o, v)
     e_ijab = transforms.doubles_epsilons(epsilons, epsilons, o, o, v, v)
-    # (Q) reads the orbital energies, so only CCSDTQ's update forms e_ijklabcd
+    # (Q) reads the orbital energies, so only CCSDTQ's update forms
+    # e_ijklabcd; CC3's update reads e_ijkabc and keeps no t3
     e_ijkabc = (transforms.triples_epsilons(epsilons, o, v)
-                if method.name in _ITERATIVE_TRIPLES else None)
+                if method.name in _ITERATIVE_TRIPLES + ("CC3",) else None)
     e_ijklabcd = (transforms.quadruples_epsilons(epsilons, o, v)
                   if method.name == "CCSDTQ" else None)
     t_ia = e_ia * F[o, v]
     t_ijab = g[o, o, v, v] * e_ijab
-    t_ijkabc = torch.zeros_like(e_ijkabc) if e_ijkabc is not None else None
+    t_ijkabc = (torch.zeros_like(e_ijkabc) if method.name in _ITERATIVE_TRIPLES
+                else None)
     t_ijklabcd = torch.zeros_like(e_ijklabcd) if e_ijklabcd is not None else None
     log("[Done]", calculation, 1, silent=silent)
 
