@@ -1,9 +1,10 @@
-"""Prints the tuna_tpu numbers that phase 23 of chip_smoke.py holds the port
-to, one JSON line a calculation line:
+"""Prints the tuna_tpu numbers that phases 23 and 24 of chip_smoke.py hold
+the port to, one JSON line a calculation line:
 
     JAX_PLATFORMS=cpu python tests/chip_smoke_references.py [LINE ...]
+    JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 24 [LINE ...]
 
-(no LINE: every line of phase 23).  Each runs through tuna_tpu.cli.run on
+(no LINE: every line of the phase, 23 by default).  Each runs through tuna_tpu.cli.run on
 the JAX CPU backend with one device, so scans and stencils walk serially as
 the port does on one card, and reports what run returns, the SCF cycles of
 every SCF in the order they ran (the STO-3G guess SCFs included), the CC
@@ -11,7 +12,10 @@ iterations of every coupled-cluster solve, and, where the line has them,
 the values of the finite-field properties (the polarisability's parallel
 and perpendicular second derivatives as well), the (T) energies, the
 energies of the IP/EA states, the CBS parts, and the anharmonic levels,
-zero-point energy, chi and number of scans.
+zero-point energy, chi and number of scans; for the excited-state and
+stability lines of phase 24, the first NSTATES excitation energies and
+oscillator strengths of the printed spectrum, the (D) corrections and the
+lowest eigenvalue of each stability Hessian.
 tuna_tpu's analytic gradient (jax.grad) needs more than 30 GB of host
 memory at cc-pVTZ; its forward-mode derivative (jax.jvp), which
 tests/test_torch_uhf_gradients.py holds to jax.grad at 1e-12 Ha/bohr,
@@ -31,7 +35,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from tuna_tpu import cli, scf  # noqa: E402
 from tuna_tpu.drivers import common, electric, energy, freq, gradients  # noqa: E402
-from tuna_tpu.post import cc  # noqa: E402
+from tuna_tpu.post import cc, excited, rpa  # noqa: E402
 
 LINES = (
     "SPE : N N 1.1 : CC3 CC-PVTZ : TIGHTSCF",
@@ -47,6 +51,15 @@ LINES = (
     "EA : F : CCSD(T) CC-PVTZ",
     "BDE : H F 0.92 : MP2 CC-PVTZ : ZPE",
     "SPE : N N 1.1 : CCSD(T) CC-PVDZ : EXTRAPOLATE TIGHTSCF",
+)
+LINES_24 = (
+    "SPE : N N 1.1 : TDHF CC-PVTZ : TIGHTSCF",
+    "SPE : N N 1.1 : CIS(D) CC-PVTZ : TIGHTSCF",
+    "SPE : N N 1.1 : SVWN CC-PVTZ : TD TIGHTSCF",
+    "SPE : O O 1.21 : CIS(D) CC-PVTZ : ML 3 TIGHTSCF",
+    "SPE : O O 1.21 : SVWN CC-PVTZ : ML 3 TD TIGHTSCF",
+    "SPE : N N 1.1 : HF CC-PVTZ : STAB TIGHTSCF",
+    "SPE : O O 1.21 : UHF CC-PVTZ : ML 3 STAB TIGHTSCF",
 )
 _CC_ROW = re.compile(r"^\s+\d+\s+-?\d+\.\d{10}\s+-?\d+\.\d{10}\s*$")
 
@@ -101,6 +114,10 @@ def _install() -> None:
     _wrap(freq, "solve_nuclear_schroedinger", RECORD, "schroedinger")
     _wrap(freq, "_process_anharmonic_output", RECORD, "anharmonic_output")
     _wrap(energy, "scan_coordinate", RECORD, "scans")
+    _wrap(excited, "print_absorption_spectrum", RECORD, "spectrum")
+    _wrap(excited, "restricted_doubles_correction", RECORD, "doubles")
+    _wrap(excited, "unrestricted_doubles_correction", RECORD, "doubles")
+    _wrap(rpa, "orbital_hessian_lowest", RECORD, "hessian_lowest")
     gradients.jax = types.SimpleNamespace(
         jit=jax.jit,
         grad=lambda f, argnums=0: (lambda R, *a: jax.jvp(lambda r: f(r, *a), (R,), (1.0,))[1]))
@@ -142,6 +159,16 @@ def reference(line: str) -> dict:
             out[key] = [float(r) for _, r in record[key]]
     if line.split()[0] in ("IP", "EA"):
         out["state_energies"] = [float(r[2]) for _, r in record["energies"]]
+    if "spectrum" in record:
+        args, _ = record["spectrum"][0]
+        energies, calculation, strengths = args[1], args[2], args[4]
+        n = min(len(energies), calculation.n_states)
+        out["excitation_energies"] = _plain(np.asarray(energies)[:n])
+        out["oscillator_strengths"] = _plain(np.asarray(strengths)[:n])
+    if "doubles" in record:
+        out["doubles"] = [float(r) for _, r in record["doubles"]]
+    if "hessian_lowest" in record:
+        out["hessian_lowest"] = [float(r) for _, r in record["hessian_lowest"]]
     if line.startswith("ANHARM"):
         out["scans"] = len(record["scans"])
         levels, _, _, _, V = record["schroedinger"][-1][1]
@@ -153,7 +180,12 @@ def reference(line: str) -> dict:
 
 def main() -> int:
     _install()
-    for line in sys.argv[1:] or LINES:
+    arguments = sys.argv[1:]
+    lines = LINES
+    if arguments[:1] == ["--phase"]:
+        lines = {"23": LINES, "24": LINES_24}[arguments[1]]
+        arguments = arguments[2:]
+    for line in arguments or lines:
         print(json.dumps(reference(line)), flush=True)
     return 0
 

@@ -1367,3 +1367,198 @@ def test_extrapolation_from_triple_zeta_refuses_lmax_4_on_the_card(cuda):
 
     with pytest.raises(NotImplementedError, match="lmax = 4"):
         run("SPE : N N 1.1 : HF CC-PVTZ : EXTRAPOLATE", suppress_output=True, device="cuda")
+
+
+# Excited states and stability at small sizes (the lines of
+# tests/test_torch_excited.py).  Constants from `tests/chip_smoke_references.py
+# --phase 24 LINE`: tuna_tpu on the JAX CPU backend, the line's total energy,
+# the SCF cycles of every SCF, the first NSTATES excitation energies and
+# oscillator strengths of its spectrum, its (D) correction and the lowest
+# eigenvalue of each stability Hessian.
+EXCITED_SMALL_LINES = {
+    "SPE : H H 0.74 : CIS 6-31G : NSTATES 3 TIGHTSCF": {
+        "scf_cycles": [3, 6],
+        "energy": -0.7476366259822895,
+        "excitation_energies": [0.3791186874672148, 0.5603391498541199, 0.8385643291349013],
+        "oscillator_strengths": [0.0, 0.769990978948462, 0.0],
+    },
+    "SPE : H H 0.74 : TDHF 6-31G : TIGHTSCF": {
+        "scf_cycles": [3, 6],
+        "energy": -0.7668597461597058,
+        "excitation_energies": [0.3598955672897985, 0.5519609956139673, 0.8314010339314486,
+            1.051638108372343, 1.34952712639686, 1.6035634159484253],
+        "oscillator_strengths": [0.0, 0.6509476140635941, 0.0, 3.663305057365302e-30, 0.0,
+            0.06349598126371161],
+    },
+    "SPE : H H 0.74 : CIS[D] 6-31G : TIGHTSCF": {
+        "scf_cycles": [3, 6],
+        "energy": -0.7360251868272004,
+        "excitation_energies": [0.3791186874672148, 0.5603391498541199, 0.8385643291349013,
+            1.0573103451003139, 1.3582965869670307, 1.6124667190070752],
+        "oscillator_strengths": [0.0, 0.769990978948462, 0.0, 4.499604741898307e-30, 0.0,
+            0.10829325705276342],
+        "doubles": [0.011611439155089089],
+    },
+    "SPE : H H 0.74 : SVWN 6-31G : TD TIGHTSCF": {
+        "scf_cycles": [3, 6],
+        "energy": -0.7306173346136848,
+        "excitation_energies": [0.40202448899670434, 0.5323017957434572, 0.862376857863091,
+            1.0454977631851667, 1.3516291569088867, 1.5715363682369974],
+        "oscillator_strengths": [0.0, 0.6154002787457018, 0.0, 7.523961511482107e-31, 0.0,
+            0.07326649975595008],
+    },
+    "SPE : H H 0.74 : SPW 6-31G : TD TDA TIGHTSCF": {
+        "scf_cycles": [3, 6],
+        "energy": -0.7254862638180487,
+        "excitation_energies": [0.4069945961911007, 0.5437829875590333, 0.8658823028940368,
+            1.0522402546764658, 1.3568487903934576, 1.5838360803670433],
+        "oscillator_strengths": [0.0, 0.7408441355539519, 0.0, 3.827886756864682e-31, 0.0,
+            0.1430354894520071],
+    },
+    "SPE : N H 1.04 : SVWN 6-31G : ML 3 TD TIGHTSCF": {
+        "scf_cycles": [10, 14],
+        "energy": -54.58076734216713,
+        "excitation_energies": [0.14034903998844173, 0.14034903998844178, 0.3296287925657076,
+            0.3296287925657078, 0.34830400842749304, 0.4415902968812691, 0.5596253797044869,
+            0.5596253797044869, 0.7422071262447736, 0.8364920400581612],
+        "oscillator_strengths": [0.00893128458258514, 0.008931284582585136, 0.00696729124336461,
+            0.006967291243364612, 0.018641483132561695, 0.46242925611948477, 0.17693690964618908,
+            0.1769369096461892, 0.020356157180129862, 0.03549413290589965],
+    },
+    "SPE : O H 0.97 : CIS(D) 6-31G : ML 2 TIGHTSCF": {
+        "scf_cycles": [10, 15],
+        "energy": -75.36224326359235,
+        "excitation_energies": [0.0007471657040111409, 0.16513092056141032, 0.3301030906115344,
+            0.3834466649011271, 0.42421421089276834, 0.45974811191843146, 0.5556064895601492,
+            0.7971896220564804, 0.9647452787667936, 1.0500661182399718],
+        "oscillator_strengths": [5.979341284724221e-38, 0.005153634114881202,
+            0.001528379523402196, 0.008246743538387027, 0.009061458307192693,
+            0.010508054172628237, 0.49096197726262036, 0.21594868419922222, 0.0019473847707744299,
+            5.8250715742580014e-30],
+        "doubles": [0.00017781676343830988],
+    },
+    "SPE : H H 2.5 : HF 6-31G : STAB TIGHTSCF": {
+        "scf_cycles": [3, 6],
+        "energy": -0.8568959618237292,
+        "hessian_lowest": [0.05847189154540263, -0.32300740001513367],
+    },
+    "SPE : O H 0.97 : UHF 6-31G : ML 2 STAB TIGHTSCF": {
+        "scf_cycles": [10, 15],
+        "energy": -75.3631682460598,
+        "hessian_lowest": [-9.273100569388011e-11],
+    },
+    "SPE : H H 0.74 : SVWN 6-31G : STAB TIGHTSCF": {
+        "scf_cycles": [3, 6],
+        "energy": -1.1326418236103892,
+        "hessian_lowest": [0.4549675838276731, 0.35385024718626795],
+    },
+}
+
+
+def _excited_line(line, device):
+    """(total energy, SCF cycles, excitation energies and oscillator
+    strengths of the printed spectrum, (D) corrections, stability
+    eigenvalues) of one run of `line` on `device`."""
+    from tuna_tpu_torch.cli import run
+    from tuna_tpu_torch.drivers import energy
+    from tuna_tpu_torch.post import excited, rpa
+
+    record = {"cycles": [], "spectrum": [], "doubles": [], "lowest": []}
+    watched = {(energy, "run_self_consistent_field"): ("cycles",
+                                                       lambda a, r: len(r.iteration_seconds)),
+               (excited, "print_absorption_spectrum"): (
+                   "spectrum", lambda a, r: (a[1].cpu().numpy(), a[4].cpu().numpy())),
+               (excited, "restricted_doubles_correction"): ("doubles", lambda a, r: float(r)),
+               (excited, "unrestricted_doubles_correction"): ("doubles", lambda a, r: float(r)),
+               (rpa, "orbital_hessian_lowest"): ("lowest", lambda a, r: float(r))}
+    originals = {key: getattr(*key) for key in watched}
+
+    def recorded(key):
+        name, keep = watched[key]
+
+        def call(*args, **kwargs):
+            result = originals[key](*args, **kwargs)
+            record[name].append(keep(args, result))
+            return result
+        return call
+
+    for key in watched:
+        setattr(*key, recorded(key))
+    try:
+        _, _, total, _ = run(line, suppress_output=True, device=device)
+    finally:
+        for key, original in originals.items():
+            setattr(*key, original)
+    return float(total), record
+
+
+@pytest.mark.parametrize("line", sorted(EXCITED_SMALL_LINES))
+def test_excited_lines_on_the_card_match_tuna_tpu_and_the_cpu(cuda, line):
+    """Each excited-state or stability line on the card: its total energy,
+    first NSTATES excitation energies, (D) correction and stability
+    eigenvalues within 1e-10 of tuna_tpu's and of the CPU path's, its
+    oscillator strengths within 1e-8, the same SCF cycles; K1 and K3
+    launched, K7a and K7b on the TD-LDA lines."""
+    reference = EXCITED_SMALL_LINES[line]
+    _kernels.reset_launch_counts()
+    card, card_record = _excited_line(line, "cuda")
+    assert _kernels.launches["eri_packed"] > 0 and _kernels.launches["one_electron"] > 0
+    grid_line = "SVWN" in line or "SPW" in line
+    assert (_kernels.launches["density_on_grid"] > 0) == grid_line
+    host, host_record = _excited_line(line, "cpu")
+    for got in (card, host):
+        assert abs(got - reference["energy"]) <= 1e-10
+    assert card_record["cycles"] == host_record["cycles"] == reference["scf_cycles"]
+    if "excitation_energies" in reference:
+        n = len(reference["excitation_energies"])
+        for energies, strengths in (card_record["spectrum"][0], host_record["spectrum"][0]):
+            assert np.max(np.abs(energies[:n] - reference["excitation_energies"])) <= 1e-10
+            assert np.max(np.abs(strengths[:n] - reference["oscillator_strengths"])) <= 1e-8
+    for key, name in (("doubles", "doubles"), ("lowest", "hessian_lowest")):
+        expected = reference.get(name, [])
+        assert len(card_record[key]) == len(host_record[key]) == len(expected)
+        if expected:
+            assert np.max(np.abs(np.subtract(card_record[key], expected))) <= 1e-10
+            assert np.max(np.abs(np.subtract(card_record[key], host_record[key]))) <= 1e-10
+
+
+def test_checkpoints_on_the_card(cuda, tmp_path, monkeypatch):
+    """CHKPT on the card writes the densities and CC amplitudes under the
+    CPU path's keys; READCHK on the card reads it and a file the CPU path
+    wrote and reaches the CPU path's energy from the same file (1e-10 Ha)
+    in as many SCF cycles.  A single point restarts only its guess from the
+    file (tuna_tpu's rule), so its SCF converges to TIGHTSCF's 1e-8 Ha of
+    the written energy, not bit for bit."""
+    from tuna_tpu_torch.cli import run
+
+    monkeypatch.chdir(tmp_path)
+    line = "SPE : LI H 1.6 : CCSD 6-31G : TIGHTSCF"
+    _, _, written, _ = run(f"{line} CHKPT CARD", suppress_output=True, device="cuda")
+    run(f"{line} CHKPT HOST", suppress_output=True, device="cpu")
+    with np.load(tmp_path / "CARD.npz") as card, np.load(tmp_path / "HOST.npz") as host:
+        assert sorted(card.files) == sorted(host.files) == [
+            "cc/E_CC", "cc/t1", "cc/t2", "scf/P", "scf/P_alpha", "scf/P_beta", "scf/energy"]
+        assert np.max(np.abs(card["scf/P"] - host["scf/P"])) <= 1e-8
+    for source in ("CARD", "HOST"):
+        scf, _, energy, _ = run(f"{line} READCHK {source}", suppress_output=True,
+                                device="cuda")
+        host_scf, _, host_energy, _ = run(f"{line} READCHK {source}", suppress_output=True,
+                                          device="cpu")
+        assert abs(energy - host_energy) <= 1e-10
+        assert abs(energy - written) <= 1e-8
+        assert len(scf.iteration_seconds) == len(host_scf.iteration_seconds)
+
+
+def test_density_plot_on_the_card(cuda, tmp_path, monkeypatch):
+    """DENSPLOT SAVEPLOT on the card: the plane's AOs through K7a and its
+    density through K7b (rho alone), saved as a file."""
+    pytest.importorskip("matplotlib")
+    from tuna_tpu_torch.cli import run
+
+    monkeypatch.chdir(tmp_path)
+    _kernels.reset_launch_counts()
+    run("SPE : H H 0.74 : HF 6-31G : DENSPLOT SAVEPLOT DENS.PNG", suppress_output=True,
+        device="cuda")
+    assert _kernels.launches["ao_on_grid"] == 1 and _kernels.launches["density_on_grid"] == 1
+    saved = [p for p in tmp_path.iterdir() if p.name.upper() == "DENS.PNG"]
+    assert len(saved) == 1 and saved[0].stat().st_size > 1000

@@ -37,6 +37,7 @@ from tuna_tpu.ops import boys as jax_boys
 from tuna_tpu.ops.integrals import IntegralPlan as JaxPlan
 from tuna_tpu.system import Molecule as JaxMolecule
 
+from ported_lines import assert_line_matches_tuna_tpu
 from tuna_tpu_torch import _kernels
 from tuna_tpu_torch.cli import parse_input, process_method, run
 from tuna_tpu_torch.config import Config
@@ -295,16 +296,18 @@ def test_md_writes_tuna_tpus_trajectory(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("line", [
-    # every calculation type runs; these options of them do not yet
+    # options of the calculation types once refused as not ported
     "ANHARM : C O 1.13 : HF STO-3G : VIBPLOT",
     "SCAN : C O 1.13 : HF STO-3G : STEP 0.1 NUM 2 SCANPLOT",
     "IP : C O 1.13 : HF STO-3G : STAB",
     "BDE : C O 1.13 : HF STO-3G : TD",
     "FREQ : C O 1.13 : HF STO-3G : DENSPLOT",
 ])
-def test_unported_calculations_raise(line):
-    with pytest.raises(TunaError, match="not yet ported"):
-        _run(line)
+def test_unported_calculations_raise(line, monkeypatch, tmp_path):
+    """Each line runs as in tuna_tpu: the numbers it returns within 1e-10
+    (relative above 1), equal SCF cycles."""
+    monkeypatch.chdir(tmp_path)
+    assert_line_matches_tuna_tpu(line)
 
 
 def test_single_atom_optimisation_raises():

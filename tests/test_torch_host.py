@@ -37,7 +37,7 @@ torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 COPIED = ["constants.py", "methods.py", "output.py", "periodic.py", "spherical.py",
           "system.py", "config.py", "props.py", "basis/__init__.py", "stencils.py",
-          "drivers/thermo.py"]
+          "drivers/thermo.py", "checkpoint.py"]
 SLICE_LINE = "SPE : N N 1.1 : CCSD[T] 6-311G : TIGHTSCF"
 
 
@@ -114,6 +114,21 @@ def test_driver_copies_match_tuna_tpu_source(relative, emptied):
         body = next(node for node in tree.body
                     if isinstance(node, ast.FunctionDef) and node.name == function).body
         assert ast.dump(body[-1]) == ast.dump(ast.parse("return None").body[0])
+
+
+def test_plotting_copy_matches_tuna_tpu_source():
+    """plotting.py is tuna_tpu's but for its docstring and the body of
+    show_two_dimensional_plot, which evaluates the plane's AOs and densities
+    through dft.grid (K7a and K7b on the card)."""
+    emptied = ("show_two_dimensional_plot",)
+    original = (REPO / "tuna_tpu" / "plotting.py").read_text()
+    copy = (REPO / "tuna_tpu_torch" / "plotting.py").read_text()
+    assert _without_device(copy, emptied) == _without_device(original, emptied)
+    body = next(node for node in ast.parse(copy).body
+                if isinstance(node, ast.FunctionDef)
+                and node.name == "show_two_dimensional_plot").body
+    source = ast.unparse(body)
+    assert "basis_on_grid" in source and "density_on_grid" in source
 
 
 def test_uccsdt_term_table_matches_tuna_tpu():

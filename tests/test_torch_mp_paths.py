@@ -18,6 +18,7 @@ from tuna_tpu.cli import run as jax_run
 from tuna_tpu.output import TunaError as JaxTunaError
 
 from mp_lines import assert_lines_match, port_line
+from ported_lines import RELAXED_DH, assert_line_matches_tuna_tpu
 from tuna_tpu_torch.cli import run
 from tuna_tpu_torch.constants import bohr_to_angstrom
 from tuna_tpu_torch.output import TunaError
@@ -74,9 +75,11 @@ def test_mp2_optimisation_matches_tuna_tpu():
     "SPE : H H 0.74 : MP2 STO-3G : TD",
     "SPE : H H 0.74 : MP2 STO-3G : DENSPLOT",
 ])
-def test_unported_options_raise(line):
-    with pytest.raises(TunaError, match="not yet ported"):
-        run(line, suppress_output=True, device="cpu")
+def test_unported_options_raise(line, monkeypatch, tmp_path):
+    """Options once refused as not ported: each line runs, or is refused,
+    as in tuna_tpu."""
+    monkeypatch.chdir(tmp_path)
+    assert_line_matches_tuna_tpu(line, refusal=RELAXED_DH if "RELAXED" in line else None)
 
 
 @pytest.mark.parametrize("line", [

@@ -24,10 +24,10 @@ from tuna_tpu.cli import run as jax_run
 from tuna_tpu.post import cc as jax_cc
 from tuna_tpu.post import transforms as jax_transforms
 
+from ported_lines import RELAXED_DH, assert_line_matches_tuna_tpu
 from tuna_tpu_torch import _kernels
 from tuna_tpu_torch.cli import run
 from tuna_tpu_torch.constants import angstrom_to_bohr
-from tuna_tpu_torch.output import TunaError
 from tuna_tpu_torch.post import cc, transforms
 
 torch.set_num_threads(2)
@@ -458,5 +458,6 @@ def test_unrestricted_gradients_raise(calculation):
     "SPE : O O 1.21 : CCSD STO-3G : ML 3 TD",
 ])
 def test_unported_unrestricted_options_raise(line):
-    with pytest.raises(TunaError, match="not yet ported"):
-        run(line, suppress_output=True, device="cpu")
+    """Once refused as not ported: each line runs, or is refused, as in
+    tuna_tpu."""
+    assert_line_matches_tuna_tpu(line, refusal=RELAXED_DH if "RELAXED" in line else None)

@@ -27,6 +27,7 @@ from tuna_tpu.post import mp as jax_mp
 from tuna_tpu.post import transforms as jax_transforms
 
 from mp_lines import as_tensor, assert_lines_match, port_line, relative_error, tuna_tpu_line
+from ported_lines import assert_line_matches_tuna_tpu
 from tuna_tpu_torch.cli import run
 from tuna_tpu_torch.output import TunaError
 from tuna_tpu_torch.post import mp
@@ -148,8 +149,9 @@ def test_frozen_core_mp3_matches_tuna_tpu_unrestricted():
     "SPE : O H 0.97 : UMP2 STO-3G : ML 2 TD",
 ])
 def test_unported_unrestricted_options_raise(line):
-    with pytest.raises(TunaError, match="not yet ported"):
-        run(line, suppress_output=True, device="cpu")
+    """Once refused as not ported: STAB runs and TD after MP2 is refused, as
+    in tuna_tpu."""
+    assert_line_matches_tuna_tpu(line)
 
 
 @pytest.mark.parametrize("line", [

@@ -118,8 +118,6 @@ def run_calculation(calculation_type, calculation, atomic_symbols, coordinates,
     if calculation_type in ("SCAN", "OPT", "OPTFREQ", "FORCE", "FREQ", "ANHARM",
                             "MD", "BDE") and calculation.monatomic:
         error(f"{CALCULATION_TYPES.get(calculation_type)} requested for a single atom!")
-    if calculation_type == "ANHARM" and calculation.plot_vibrational_wavefunctions:
-        error("Plotting the vibrational wavefunctions is not yet ported to tuna_tpu_torch!")
 
     result = None
 

@@ -67,19 +67,10 @@ def _direct_fock_closure(calculation, molecule, device):
 
 
 def _refuse_unported(calculation):
-    """Raise for the options of this pipeline that the port lacks so far."""
-    dft = calculation.DFT_calculation
-    missing_functional = unported_functional(calculation) if dft else None
-    unported = [
-        (dft and calculation.MPC_prop != 0 and calculation.relaxed_density,
-         "the relaxed density of a Kohn-Sham reference (it needs the XC kernel)"),
-        (missing_functional is not None, missing_functional or ""),
-        (getattr(calculation, "read_checkpoint", False)
-         or getattr(calculation, "checkpoint", False), "checkpoints"),
-    ]
-    for requested, what in unported:
-        if requested:
-            error(f"{what[0].upper() + what[1:]} is not yet ported to tuna_tpu_torch!")
+    """Raise for a functional that the port lacks."""
+    missing = unported_functional(calculation) if calculation.DFT_calculation else None
+    if missing is not None:
+        error(f"{missing[0].upper() + missing[1:]} is not yet ported to tuna_tpu_torch!")
 
 
 def enforce_density_matrix_trace(P_alpha, P_beta, S, n_alpha, n_beta):
@@ -145,6 +136,16 @@ def build_molecule_and_integrals(calculation, atomic_symbols, coordinates, silen
     common.check_overlap_eigenvalues(smallest_S_eigenvalue, calculation, silent=silent)
 
     P_guess, P_guess_alpha, P_guess_beta, E_guess = guess_container
+    if (P_guess is None and getattr(calculation, "read_checkpoint", False)):
+        from .. import checkpoint
+        stage = checkpoint.load_stage(calculation, "scf")
+        if stage is not None and stage["P"].shape[0] == int(integrals.n_basis):
+            P_guess, P_guess_alpha, P_guess_beta = (
+                torch.as_tensor(stage[key], dtype=_F64, device=device)
+                for key in ("P", "P_alpha", "P_beta"))
+            E_guess = float(stage["energy"])
+            log(" Restarting SCF from checkpoint density.", calculation, 1,
+                silent=silent)
     if (calculation.self_consistent_guess and do_correlation and P_guess is None
             and P_guess_alpha is None and P_guess_beta is None):
         P_guess, P_guess_alpha, P_guess_beta, E_guess = calculate_self_consistent_guess(
@@ -199,6 +200,12 @@ def calculate_energy(calculation, atomic_symbols, coordinates, P_guess=None,
     SCF_output = run_self_consistent_field(
         molecule, calculation, integrals, V_NN, X, guess_container, silent,
         xc_closure=xc_closure, fock_closure=fock_closure)
+
+    if getattr(calculation, "checkpoint", False):
+        from .. import checkpoint
+        checkpoint.save_stage(calculation, "scf", {
+            "P": to_numpy(SCF_output.P), "P_alpha": to_numpy(SCF_output.P_alpha),
+            "P_beta": to_numpy(SCF_output.P_beta), "energy": SCF_output.energy})
 
     if not do_correlation:
         return SCF_output, molecule, SCF_output.energy, SCF_output.P
@@ -356,6 +363,14 @@ def _print_scan_table(calculation, silent, energies, bond_lengths):
     log_spacer(calculation, silent=silent)
 
 
+def _plot_scan(calculation, bond_lengths, energies):
+    if calculation.scan_plot:
+        from .. import plotting
+        plotting.generate_one_dimensional_plot(
+            calculation, constants.bohr_to_angstrom(np.array(bond_lengths)),
+            energies, "coordinate scan")
+
+
 def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
                     silent=False, reverse=False, device="cuda"):
     """Bond-length scan with MOREAD density chaining (tuna_energy.py:975-1085).
@@ -364,8 +379,6 @@ def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
     angstrom, as ANHARM's left scans do."""
     from .. import props as props_mod
 
-    if calculation.scan_plot:
-        error("Plotting a coordinate scan is not yet ported to tuna_tpu_torch!")
     timer("Coordinate scan", 0)
     coordinates = common.clean_coordinates(starting_coordinates)
     step_size = constants.angstrom_to_bohr(calculation.step)
@@ -405,6 +418,7 @@ def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
             dipole_moments = [float(d) for d in batch_dip]
             _print_scan_table(calculation, silent, energies, bond_lengths)
             timer("Coordinate scan", 1)
+            _plot_scan(calculation, bond_lengths, energies)
             return bond_lengths, energies, dipole_moments
         log("Sharded scan did not fully converge; falling back to the serial "
             "density-chained walk.", calculation, 1, silent=silent)
@@ -444,4 +458,5 @@ def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
 
     _print_scan_table(calculation, silent, energies, bond_lengths)
     timer("Coordinate scan", 1)
+    _plot_scan(calculation, bond_lengths, energies)
     return bond_lengths, energies, dipole_moments

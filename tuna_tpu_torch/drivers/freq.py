@@ -259,8 +259,6 @@ def solve_nuclear_schroedinger(x_values, V_values, reduced_mass, scan_extent,
 def calculate_anharmonic_frequency(calculation, atomic_symbols,
                                    harmonic_frequency_per_cm, molecule, device="cuda"):
     """Iteratively widen the scanned PES until the fundamental converges."""
-    if calculation.plot_vibrational_wavefunctions:
-        error("Plotting the vibrational wavefunctions is not yet ported to tuna_tpu_torch!")
     timer("Anharmonic frequency", 0)
     GRID_DENSITY = 1000
     SCAN_EXTENT = 0.35
@@ -364,3 +362,8 @@ def _process_anharmonic_output(calculation, wavefunctions, levels,
     if calculation.additional_print:
         thermo.calculate_thermochemical_corrections(
             molecule, calculation, transition_matrix[0][1], levels[0], zero_point_energy)
+
+    if calculation.plot_vibrational_wavefunctions:
+        from .. import plotting
+        plotting.plot_vibrational_wavefunctions(
+            calculation, constants.bohr_to_angstrom(x), V, levels, wavefunctions)

@@ -52,31 +52,73 @@ def inverse_sqrt(S: torch.Tensor):
     return X, torch.min(w), 0.5 * (S_inverse + S_inverse.T)
 
 
+def _two_sum(a, b):
+    """s + t = a + b exactly, s = fl(a + b) (Knuth)."""
+    s = a + b
+    b_virtual = s - a
+    return s, (a - (s - b_virtual)) + (b - b_virtual)
+
+
+def _two_product(a, b):
+    """p + e = a b exactly, p = fl(a b) (Dekker, Veltkamp's split)."""
+    def split(x):
+        c = 134217729.0 * x
+        high = c - (c - x)
+        return high, x - high
+
+    p = a * b
+    a_high, a_low = split(a)
+    b_high, b_low = split(b)
+    return p, ((a_high * b_high - p) + a_high * b_low + a_low * b_high) + a_low * b_low
+
+
+def _round_to_odd_sum(a, b):
+    """a + b rounded to odd: fl(a + b) when exact, else whichever neighbour
+    of the exact sum has an odd last mantissa bit."""
+    s, t = _two_sum(a, b)
+    even = (s.view(np.int64) & 1) == 0
+    toward = np.where(t > 0, np.inf, -np.inf)
+    return np.where((t != 0) & even, np.nextafter(s, toward), s)
+
+
+def fused_multiply_add(a, b, c):
+    """a b + c rounded once, elementwise on float64 arrays (Boldo and
+    Melquiond's emulation by rounding to odd; NumPy has no fma)."""
+    u_high, u_low = _two_product(a, b)
+    t_high, t_low = _two_sum(c, u_high)
+    return t_high + _round_to_odd_sum(t_low, u_low)
+
+
 def solve_linear_small(A: torch.Tensor, b: torch.Tensor):
     """Solve a small dense system (DIIS) by row-equilibrated Gauss-Jordan
     elimination without pivoting; returns (x on A's device, ok).
 
-    The arithmetic of tuna_tpu/ops/linalg.py::solve_linear_small.  Late in
-    a small-basis SCF the bordered DIIS system is close to singular, and
-    another factorisation (LAPACK's pivoted LU) gives other coefficients
-    there and so another number of iterations (8 instead of 6 for
-    H2/6-31G B3LYP).  The system is at most (max DIIS + 1) square, so it
-    is solved on the host in NumPy: one copy each way instead of some
-    10 (n + 1) tiny device launches.  ok (a bool) is False when the
-    residual is not small, the caller's signal to reset its DIIS history."""
+    The arithmetic of tuna_tpu/ops/linalg.py::solve_linear_small as XLA
+    compiles it inside tuna_tpu's jitted SCF: each elimination update
+    M - f r is one fused multiply-add (rounded once).  Late in a
+    small-basis SCF the bordered DIIS system is close to singular, and
+    another arithmetic gives other coefficients there and so another
+    number of iterations: LAPACK's pivoted LU took 8 instead of 6 for
+    H2/6-31G B3LYP, the update rounded twice 7 instead of 6 for H2/6-31G
+    HF (its fourth error's pivot cancels to zero).  The system is at most
+    (max DIIS + 1) square, so it is solved on the host in NumPy: one copy
+    each way instead of some 10 (n + 1) tiny device launches.  ok (a bool)
+    is False when the residual is not small, the caller's signal to reset
+    its DIIS history."""
     A_host = A.detach().cpu().numpy()
     b_host = b.detach().cpu().numpy()
     n = A_host.shape[0]
     r = np.max(np.abs(A_host), axis=1)
     r = np.where(r > 0, r, 1.0)
     M = np.concatenate([A_host / r[:, None], (b_host / r)[:, None]], axis=1)
-    for k in range(n):
-        pivot = M[k, k]
-        row_k = M[k] * (1.0 / pivot if abs(pivot) > 1e-300 else 0.0)
-        factors = M[:, k].copy()
-        factors[k] = 0.0
-        M = M - factors[:, None] * row_k[None, :]
-        M[k] = row_k
+    with np.errstate(over="ignore", invalid="ignore"):
+        for k in range(n):
+            pivot = M[k, k]
+            row_k = M[k] * (1.0 / pivot if abs(pivot) > 1e-300 else 0.0)
+            factors = M[:, k].copy()
+            factors[k] = 0.0
+            M = fused_multiply_add(-factors[:, None], row_k[None, :], M)
+            M[k] = row_k
     x = M[:, n]
     residual = np.linalg.norm(A_host @ x - b_host)
     ok = bool(np.isfinite(residual) and residual < 1e-8 * (1.0 + np.linalg.norm(b_host)))

@@ -1836,6 +1836,15 @@ def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X
                   if method.name == "CCSDTQ" else None)
     t_ia = e_ia * F[o, v]
     t_ijab = g[o, o, v, v] * e_ijab
+    if getattr(calculation, "read_checkpoint", False):
+        from .. import checkpoint
+        stage = checkpoint.load_stage(calculation, "cc")
+        if (stage is not None and stage.get("t2") is not None
+                and tuple(stage["t2"].shape) == tuple(t_ijab.shape)):
+            t_ia = torch.as_tensor(stage["t1"], dtype=t_ia.dtype, device=t_ia.device)
+            t_ijab = torch.as_tensor(stage["t2"], dtype=t_ijab.dtype, device=t_ijab.device)
+            log("\n Restarting amplitudes from checkpoint.", calculation, 1,
+                silent=silent)
     t_ijkabc = (torch.zeros_like(e_ijkabc) if method.name in _ITERATIVE_TRIPLES
                 else None)
     t_ijklabcd = torch.zeros_like(e_ijklabcd) if e_ijklabcd is not None else None
@@ -1846,6 +1855,12 @@ def begin_coupled_cluster_calculation(method, molecule, SCF_output, integrals, X
             g, o, v, (t_ia, t_ijab, t_ijkabc, t_ijklabcd), (e_ia, e_ijab, e_ijkabc, e_ijklabcd),
             F, method, calculation, silent, SCF_output, integrals))
     SCF_output.correlation_iteration_seconds = iteration_seconds
+
+    if getattr(calculation, "checkpoint", False):
+        from .. import checkpoint
+        checkpoint.save_stage(calculation, "cc", {
+            "t1": to_numpy(t_ia if t_ia is not None else torch.zeros_like(e_ia)),
+            "t2": to_numpy(t_ijab), "E_CC": E_CC})
 
     T1_diagnostic(molecule, t_ia, spin_labels_sorted, n_occ, molecule.n_alpha,
                   molecule.n_beta, calculation, silent)

@@ -105,9 +105,10 @@ def _frozen_core_rotation(P0, w, gc, epsilons, o, v, spin_adapted):
 
 
 def _restricted_relaxed_density(P_unrelaxed, amp_weights, gc, epsilons, o, v,
-                                n_occ, n_virt, calculation):
+                                n_occ, n_virt, calculation, K_XC=None, K_XC_full=None):
     """Spin-adapted Z-vector (response) MP2 density; gc is the full chemists'
-    MO tensor, amp_weights the pre-scaled amplitude combinations."""
+    MO tensor, amp_weights the pre-scaled amplitude combinations; K_XC and
+    K_XC_full the singlet XC kernel blocks of a Kohn-Sham reference."""
     w = amp_weights
     oa = slice(0, n_occ)  # all occupied, frozen included
 
@@ -130,8 +131,10 @@ def _restricted_relaxed_density(P_unrelaxed, amp_weights, gc, epsilons, o, v,
     L_fock = L_fock - hfx * (
         torch.tensordot(gc[v, :, oa, :], P_relaxed, dims=([1, 3], [0, 1]))
         + torch.tensordot(gc[v, :, oa, :], P_relaxed, dims=([1, 3], [1, 0]))).T
+    if K_XC_full is not None:
+        L_fock = L_fock + 2.0 * torch.tensordot(K_XC_full, P_relaxed, dims=2)
 
-    apb = rpa.restricted_apb(gc, epsilons, oa, v, hfx)
+    apb = rpa.restricted_apb(gc, epsilons, oa, v, hfx, "singlet", K_XC)
     z = rpa.zvector_solve(apb, L + L_fock)
     P_relaxed[oa, v] += 0.5 * z
     P_relaxed[v, oa] += 0.5 * z.T
@@ -139,7 +142,8 @@ def _restricted_relaxed_density(P_unrelaxed, amp_weights, gc, epsilons, o, v,
 
 
 def _unrestricted_relaxed_density(P_unrelaxed, amp_weights, g, ERI_SO, epsilons,
-                                  o, v, n_occ, n_virt, calculation):
+                                  o, v, n_occ, n_virt, calculation, K_XC=None,
+                                  K_XC_full=None):
     """Spin-orbital Z-vector MP2 density; g is the antisymmetrised
     physicists' tensor."""
     w = amp_weights
@@ -157,8 +161,10 @@ def _unrestricted_relaxed_density(P_unrelaxed, amp_weights, g, ERI_SO, epsilons,
     g_response = ERI_SO - calculation.HFX_prop * ERI_SO.transpose(2, 3)
     L_fock = 2.0 * torch.tensordot(g_response[v, :, oa, :], P_relaxed,
                                    dims=([1, 3], [0, 1])).T
+    if K_XC_full is not None:
+        L_fock = L_fock + 2.0 * torch.tensordot(K_XC_full, P_relaxed, dims=2)
 
-    apb = rpa.spin_orbital_apb(g_response, epsilons, oa, v)
+    apb = rpa.spin_orbital_apb(g_response, epsilons, oa, v, K_XC)
     del g_response
     z = rpa.zvector_solve(apb, L + L_fock)
     P_relaxed[oa, v] += 0.5 * z
@@ -185,7 +191,7 @@ def _restricted_mp2_core(g_ijab, e_ijab):
 
 
 def run_restricted_MP2(ERI_MO, epsilons, molecular_orbitals, o, v, X, calculation,
-                       molecule, S=None, silent=False):
+                       molecule, S=None, silent=False, K_XC=None, K_XC_full=None):
     natural_occ, naturals = None, None
     e_ijab = transforms.doubles_epsilons(epsilons, epsilons, o, o, v, v)
 
@@ -231,9 +237,11 @@ def run_restricted_MP2(ERI_MO, epsilons, molecular_orbitals, o, v, X, calculatio
         w_SS = 2.0 * (g_ijab - g_ijab.transpose(2, 3)) * e_ijab
         n_virt = n_basis - molecule.n_doubly_occ
         P_OS = _restricted_relaxed_density(P_OS, w_OS, ERI_MO, epsilons, o, v,
-                                           molecule.n_doubly_occ, n_virt, calculation)
+                                           molecule.n_doubly_occ, n_virt, calculation,
+                                           K_XC, K_XC_full)
         P_SS = _restricted_relaxed_density(P_SS, w_SS, ERI_MO, epsilons, o, v,
-                                           molecule.n_doubly_occ, n_virt, calculation)
+                                           molecule.n_doubly_occ, n_virt, calculation,
+                                           K_XC, K_XC_full)
 
     n_doubly_occ = molecule.n_doubly_occ
     P_MO = _zeros_like_square(n_basis, g_ijab)
@@ -259,7 +267,8 @@ def run_restricted_MP2(ERI_MO, epsilons, molecular_orbitals, o, v, X, calculatio
 
 def run_unrestricted_MP2(molecule, calculation, SCF_output, n_SO, o,
                          ERI_spin_block, X, silent=False, g=None, ERI_SO=None,
-                         epsilons_sorted=None, C_spin_block=None, spin_labels=None):
+                         epsilons_sorted=None, C_spin_block=None, spin_labels=None,
+                         K_XC=None, K_XC_full=None):
     natural_occ, naturals = None, None
 
     C_a = SCF_output.molecular_orbitals_alpha
@@ -369,7 +378,8 @@ def run_unrestricted_MP2(molecule, calculation, SCF_output, n_SO, o,
         P_SO[o, o] -= 0.5 * torch.einsum("jkab,ikab->ij", w_ijab, t_ijab)
         P_SO[v_full, v_full] += 0.5 * torch.einsum("ijac,ijbc->ab", w_ijab, t_ijab)
         P_SO = _unrestricted_relaxed_density(P_SO, w_ijab, g, ERI_SO, epsilons_sorted,
-                                             o, v_full, n_occ, n_virt, calculation)
+                                             o, v_full, n_occ, n_virt, calculation,
+                                             K_XC, K_XC_full)
         P_SO[:n_occ, :n_occ] += torch.eye(n_occ, dtype=P_SO.dtype, device=P_SO.device)
         P, P_alpha, P_beta = transforms.density_so_to_ao(P_SO, C_spin_block, n_SO)
 
@@ -850,13 +860,21 @@ def run_orbital_optimised_MP2(molecule, calculation, C_spin_block, H_core, V_NN,
 # Driver
 # ---------------------------------------------------------------------------
 
+def _check_relaxed_kernel(calculation):
+    if not calculation.functional.time_dependent_available:
+        error("The relaxed density is not yet available for this exchange-correlation functional!")
+
+
 def run_perturbation_theory_calculation(method, molecule, SCF_output, integrals,
-                                        calculation, V_NN, silent=False):
+                                        calculation, V_NN, grid_container=None,
+                                        silent=False):
     E_MP2 = E_MP3 = E_MP4 = 0.0
     P, P_alpha, P_beta = SCF_output.P, SCF_output.P_alpha, SCF_output.P_beta
     n_SO = molecule.n_SO
     X = SCF_output.X
     natural_occ, naturals = None, None
+    K_XC, K_XC_full = None, None
+    relaxed_kernel = calculation.DFT_calculation and calculation.relaxed_density
 
     if calculation.reference == "UHF" or method.name == "OMP2":
         if not calculation.method.unrestricted_available:
@@ -865,9 +883,23 @@ def run_perturbation_theory_calculation(method, molecule, SCF_output, integrals,
          ERI_SO) = transforms.begin_spin_orbital_calculation(
             molecule, integrals.ERI_AO, SCF_output, calculation, silent=silent,
             keep_tensors=True)
+        if relaxed_kernel:
+            _check_relaxed_kernel(calculation)
+            from ..dft import kernels as dft_kernels
+            K_XC, K_XC_full = dft_kernels.unrestricted_xc_kernel_matrices(
+                slice(0, molecule.n_occ), v, P_alpha, P_beta, grid_container[0],
+                C_spin_block, spin_labels, calculation, grid_container[1], silent,
+                return_full_kernel=True)
     else:
         ERI_MO, molecular_orbitals, epsilons, o, v = transforms.begin_spatial_orbital_calculation(
             molecule, integrals.ERI_AO, SCF_output, calculation, silent=silent)
+        if relaxed_kernel:
+            _check_relaxed_kernel(calculation)
+            from ..dft import kernels as dft_kernels
+            K_XC, _, K_XC_full = dft_kernels.restricted_xc_kernel_matrices(
+                slice(0, molecule.n_doubly_occ), v, SCF_output.density,
+                grid_container[0], molecular_orbitals, calculation,
+                grid_container[1], silent)
 
     timer("MP2", 0)
     if method.name == "OMP2":
@@ -891,12 +923,13 @@ def run_perturbation_theory_calculation(method, molecule, SCF_output, integrals,
             E_MP2, P, P_alpha, P_beta, natural_occ, naturals = run_unrestricted_MP2(
                 molecule, calculation, SCF_output, n_SO, o, ERI_spin_block, X,
                 silent=silent, g=g, ERI_SO=ERI_SO, epsilons_sorted=epsilons_sorted,
-                C_spin_block=C_spin_block, spin_labels=spin_labels)
+                C_spin_block=C_spin_block, spin_labels=spin_labels, K_XC=K_XC,
+                K_XC_full=K_XC_full)
             del ERI_spin_block, ERI_SO
         else:
             E_MP2, P, P_alpha, P_beta, natural_occ, naturals = run_restricted_MP2(
                 ERI_MO, epsilons, molecular_orbitals, o, v, X, calculation,
-                molecule, S=SCF_output.S, silent=silent)
+                molecule, S=SCF_output.S, silent=silent, K_XC=K_XC, K_XC_full=K_XC_full)
         timer("MP2", 1)
 
         if method.method_base in ("MP3", "MP4"):

@@ -339,6 +339,14 @@ def run_scf_cycles(settings: SCFSettings, T, V_NE, ERI, S, X, Fld, G, P_a0, P_b0
 # The batched loop: B geometries in lockstep
 # ---------------------------------------------------------------------------
 
+def _batch_jk(ERI, P):
+    """Each geometry's J and K as its serial SCF forms them: one geometry's iterations do not depend on the batch it is
+    in, which a batched einsum, summing in an order that depends on the
+    batch size, does not ensure where a DIIS system is nearly singular."""
+    return (torch.stack([coulomb_matrix(P_i, E) for E, P_i in zip(ERI, P)]),
+            torch.stack([exchange_matrix(P_i, E) for E, P_i in zip(ERI, P)]))
+
+
 def scf_batch_iterations(settings: SCFSettings, T, V_NE, ERI, S, X, P_a0, P_b0, HFX_prop,
                          conv, static_damping, max_damping, xc_closures=None, DFX_prop=0.0,
                          DFC_prop=0.0):
@@ -395,14 +403,12 @@ def scf_batch_iterations(settings: SCFSettings, T, V_NE, ERI, S, X, P_a0, P_b0, 
             V_XC, E_x_grid, E_c_grid = (torch.stack(parts) for parts in zip(*xc))
         else:
             V_XC, E_x_grid, E_c_grid = 0.0, 0.0, 0.0
-        J_a = torch.einsum("bijkl,bkl->bij", ERI, P_a)
-        K_a = torch.einsum("bilkj,bkl->bij", ERI, P_a)
+        J_a, K_a = _batch_jk(ERI, P_a)
         if restricted:
             J_b, K_b = J_a, K_a
             F_a = F_b = symmetrise(T + V_NE + 2.0 * J_a - K_a * HFX_prop + V_XC)
         else:
-            J_b = torch.einsum("bijkl,bkl->bij", ERI, P_b)
-            K_b = torch.einsum("bilkj,bkl->bij", ERI, P_b)
+            J_b, K_b = _batch_jk(ERI, P_b)
             F_a = symmetrise(T + V_NE + J_a + J_b - K_a * HFX_prop)
             F_b = symmetrise(T + V_NE + J_a + J_b - K_b * HFX_prop)
 
