@@ -196,6 +196,24 @@ non-zero without printing a result):
      the first NSTATES excitation energies, the (D) correction and each
      stability Hessian's lowest eigenvalue within EXCITED_TOLERANCE, the
      oscillator strengths within STRENGTH_TOLERANCE, the SCF cycles equal.
+ 25. g and h shells (lmax 4-5): K1, K3 and K4 against their plain
+     versions on reduced plans of N2 (one s, f and g shell of cc-pVQZ on
+     each atom; s, f, g and h of cc-pV5Z): K1 and K3 within
+     INTEGRAL_TOLERANCE and bitwise over two calls, K4 within
+     FOCK_TOLERANCE on a seeded density, each with its ms, device ms a
+     launch, bound and plain ms; K4 at the full N2/cc-pV5Z (252 functions)
+     against J and K formed from K1's 8.1 GB packed matrix, with the host's
+     work list build; then `SPE : N N 1.1 : CCSD[T] CC-PVQZ : TIGHTSCF`
+     (its (T) against K2's plain version), `SPE : N N 1.1 : HF CC-PVTZ :
+     EXTRAPOLATE TIGHTSCF`, `SPE : N N 1.1 : B3LYP DEF2-QZVP : TIGHTSCF`,
+     `SPE : H F 0.917 : HF CC-PV5Z : TIGHTSCF` and its DIRECT twin, and
+     `SPE : N N 1.1 : HF CC-PV5Z : DIRECT TIGHTSCF` (its 32 GB N^4 tensor
+     never formed), each run twice against tuna_tpu's numbers
+     (REFERENCES_25, PHASE_25_TOLERANCE, equal SCF cycles and CC
+     iterations; the last line's energy has no pin, see REFERENCES_25),
+     with the first and warm walls, SCF ms an iteration, K1's and K4's ms
+     a call and the peak device memory.  The build line names
+     the registers and spills of the kernels added for lmax 4-5.
 
 A device time read from torch.profiler fails the run when the kernel ran
 and the profile has no entry for it.  A session records the launches of
@@ -203,7 +221,9 @@ the library's kernels (csrc/, launched through ctypes) only in part, the
 fewer the shorter the session, and none in the sessions right after the
 UKS OPT's long one (phase 20's K7bt measurement).  So device ms are a
 recorded launch's, over 50 calls where the wrapper is timed alone, and a
-session without any device event is run again, a second later, up to
+session without any device event, or without one of the csrc/ kernels
+whose time the caller reads from it (K2u's two stages were missed so
+right after the gradient paths), is run again, a second later, up to
 PROFILE_ATTEMPTS times.
 
 Each path's launch counts are read from zero: the counts are reset just
@@ -291,8 +311,9 @@ from tuna_tpu_torch.constants import angstrom_to_bohr, bohr_to_angstrom
 from tuna_tpu_torch.dft import grid, vv10
 from tuna_tpu_torch.methods import lookup_method
 from tuna_tpu_torch.ops import motransform
-from tuna_tpu_torch.ops.integrals import (HEAVY_THRESHOLD, SHELL_TASK_THREADS, IntegralPlan,
-                                          deriv_quartet_operations, quartet_operations)
+from tuna_tpu_torch.ops.integrals import (HEAVY_THRESHOLD, KERNEL_MAX_LMAX, SHELL_TASK_THREADS,
+                                          IntegralPlan, deriv_quartet_operations,
+                                          quartet_operations, shell_subset)
 from tuna_tpu_torch.post import cc, mp
 from tuna_tpu_torch.scf.guess import natural_orbitals_of_density
 from tuna_tpu_torch.system import Molecule
@@ -736,8 +757,44 @@ TDLDA_WARM_RUNS = 3          # warm runs of LINE_TDLDA, for its profile
 # 1e-8 Ha contract (excitation energies too) and its last SCF's cycles to
 # a slack; every other SCF's are equal.
 ROUNDING_DECIDED_24 = {LINE_UKS_TD: (1e-8, 2)}    # (Ha, the last SCF's slack in cycles)
+# g and h shells (phase 25).  Constants from `tests/chip_smoke_references.py
+# --phase 25`: tuna_tpu on the JAX CPU backend, each line's total (and SCF)
+# energy and the SCF cycles of every SCF and CC iterations of every solve.
+# tuna_tpu's restricted (T) forms o^3 v^3 arrays several times over, 2.9 GB
+# each at o = 7, v = 103, more than the pinning host holds, so LINE_QZ_CC's
+# constants are those of its CCSD line ("SPE : N N 1.1 : CCSD CC-PVQZ :
+# TIGHTSCF"), and its (T) is held to K2's plain version on the path's inputs.
+LINE_QZ_CC = "SPE : N N 1.1 : CCSD[T] CC-PVQZ : TIGHTSCF"
+LINE_QZ_EXTRAPOLATE = "SPE : N N 1.1 : HF CC-PVTZ : EXTRAPOLATE TIGHTSCF"
+LINE_QZVP_DFT = "SPE : N N 1.1 : B3LYP DEF2-QZVP : TIGHTSCF"
+LINE_5Z_HF = "SPE : H F 0.917 : HF CC-PV5Z : TIGHTSCF"
+LINE_5Z_HF_DIRECT = "SPE : H F 0.917 : HF CC-PV5Z : DIRECT TIGHTSCF"
+LINE_5Z_N2_DIRECT = "SPE : N N 1.1 : HF CC-PV5Z : DIRECT TIGHTSCF"
+REFERENCES_25 = {
+    LINE_QZ_CC: {"scf_cycles": [7, 14], "cc_iterations": [13],
+                 "scf_energy": -108.9906006517339, "ccsd_energy": -109.44280750817778},
+    LINE_QZ_EXTRAPOLATE: {"scf_cycles": [7, 14, 7, 14], "cc_iterations": [],
+                          "energy": -108.99288878978848},
+    LINE_QZVP_DFT: {"scf_cycles": [7, 10], "cc_iterations": [], "energy": -109.52665906643259},
+    LINE_5Z_HF: {"scf_cycles": [9, 14], "cc_iterations": [], "energy": -100.07043035467812},
+    # tuna_tpu's DIRECT run of this line did not end within two hours on the
+    # pinning host, so it has no energy here: the line is held by its SCF
+    # cycles (the STO-3G guess's 7, as in every N2 line above, and the 14 an
+    # H100 took, PERF.md), by its warm run, and by phase 25's K4 against K1
+    # at N2/cc-pV5Z
+    LINE_5Z_N2_DIRECT: {"scf_cycles": [7, 14], "cc_iterations": [], "energy": None},
+}
+PHASE_25_TOLERANCE = 1e-10   # Ha, every phase 25 line against tuna_tpu; DIRECT against stored
+# reduced plans of N2 for the kernels against their plain versions: the
+# first shell of each l on each atom
+HIGH_L_PLANS = (("CC-PVQZ", (0, 3, 4)), ("CC-PV5Z", (0, 3, 4, 5)))
+# clock cycles the card sleeps while the host enqueues phase 25's timed
+# calls back to back (~50 ms; a call of K1 or K4 enqueues ~45-100 class
+# kernels); torch.profiler is not used there: after phase 24's profiles
+# its sessions recorded no device event
+HIGH_L_SLEEP_CYCLES = 100_000_000
 TAU_TOLERANCE = 1e-13       # relative to the largest |entry|, K7bt, K8ct, K8cut
-POLISH_RUNS = 2             # warm runs a variant, for the polished eigh's cost
+POLISH_RUNS = 1             # warm runs a variant, for the polished eigh's cost
 LINE_SCAN = "SCAN : N N 1.0 : B3LYP CC-PVTZ : NL NUM 8 STEP 0.05 TIGHTSCF"
 LINE_SCAN_UHF = "SCAN : O O 1.21 : HF 6-311G : ML 3 NUM 4 STEP 0.05 TIGHTSCF"
 LINE_SCAN_EXTREME = LINE_SCAN.replace("TIGHTSCF", "EXTREMESCF")
@@ -772,7 +829,7 @@ TRANSFORM_TOLERANCE = 1e-12  # relative to the largest |entry| of the output
 DERIV_GRID_TOLERANCE = 1e-12  # relative to the largest |entry| of each K8c output
 UNRESTRICTED_HALF_TOLERANCE = 1e-14  # relative, K8bu at Pa = Pb = P/2 against K8b(P)
 
-WARM_RUNS = 5                  # warm runs of a path, for its profile and --compare
+WARM_RUNS = 3                  # warm runs of a path, for its profile and --compare
 PROFILE_ATTEMPTS = 5           # torch.profiler sessions tried before a run fails
 
 BYTES_PER_MS = 3.35e12 / 1e3   # H100 SXM device memory
@@ -870,6 +927,17 @@ PHASE_24_LINES = (
     ("SPE : O O 1.21 : UHF CC-PVTZ : ML 3 STAB TIGHTSCF", ("eri_packed", "one_electron")),
 )
 
+# the lines of phase 25 with the kernels each must launch; the DIRECT lines
+# form no N^4 tensor (no K1 launch)
+PHASE_25_LINES = (
+    (LINE_QZ_CC, CC_PATH_KERNELS),
+    (LINE_QZ_EXTRAPOLATE, ("eri_packed", "one_electron")),
+    (LINE_QZVP_DFT, ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid")),
+    (LINE_5Z_HF, ("eri_packed", "one_electron")),
+    (LINE_5Z_HF_DIRECT, ("one_electron", "fock_direct")),
+    (LINE_5Z_N2_DIRECT, ("one_electron", "fock_direct")),
+)
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -904,17 +972,19 @@ def median_ms(fn, repeats: int = 5) -> float:
     return medians_ms((fn,), repeats)[0]
 
 
-def back_to_back_ms(fn, calls: int = 20, repeats: int = 5) -> float:
+def back_to_back_ms(fn, calls: int = 20, repeats: int = 5, sleep_cycles: int = 5_000_000) -> float:
     """Device ms a call of fn() with its launches back to back: the card
-    is kept busy (torch.cuda._sleep) while the host enqueues `calls`
-    calls, so CUDA events around them time the device alone, gaps between
-    launches included; median of `repeats` after a warm-up.  For
-    comparing a kernel's tiles without the profiler's sessions."""
+    is kept busy (torch.cuda._sleep, `sleep_cycles` clock cycles: a few ms
+    by default) while the host enqueues `calls` calls, so CUDA events
+    around them time the device alone, gaps between launches included;
+    median of `repeats` after a warm-up.  For comparing a kernel's tiles,
+    and timing the quartet kernels at g and h shells, without the
+    profiler's sessions."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
-        torch.cuda._sleep(5_000_000)   # a few ms, longer than enqueueing the calls
+        torch.cuda._sleep(sleep_cycles)   # longer than enqueueing the calls
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -984,7 +1054,9 @@ def eri_operations(plan: IntegralPlan, derivative: bool = False) -> tuple[float,
         kernel += (shared + own) * primitive_quartets
         live = slice(begin, end) if not derivative else np.flatnonzero(counts[begin:end]) + begin
         bra, ket = shell_pair[quartets[live, 0]], shell_pair[quartets[live, 1]]
-        shell_quartets = np.unique(np.maximum(bra, ket) * n_shell_pairs + np.minimum(bra, ket))
+        seen = np.zeros(n_shell_pairs * n_shell_pairs, dtype=bool)   # the class's shell quartets
+        seen[np.maximum(bra, ket) * n_shell_pairs + np.minimum(bra, ket)] = True
+        shell_quartets = np.flatnonzero(seen)
         needed += own * primitive_quartets + shared * np.sum(
             shell_prim[shell_quartets // n_shell_pairs] * shell_prim[shell_quartets % n_shell_pairs])
     return float(needed), float(kernel)
@@ -1065,7 +1137,8 @@ def work_list_summary(plan: IntegralPlan) -> str:
 def ptxas_report(log: str, frames: dict | None = None) -> dict:
     """Registers of each kernel, and its spill stores if any, from the
     build's ptxas report, keyed by source and kernel (the class kernels as
-    quartet_light_kernel<L_bra,L_ket> or deriv_shell_kernel<L_bra,L_ket>,
+    quartet_light_kernel<L_bra,L_ket>[PackedOut] for K1, [FockOut] for K4,
+    or deriv_shell_kernel<L_bra,L_ket>,
     K8bu's weight pass as deriv_weights_kernel[unrestricted], the grid
     kernels with their template arguments, as
     moving_grid_kernel<2,2,true> for K8cut with P whole).  With `frames`,
@@ -1086,6 +1159,8 @@ def ptxas_report(log: str, frames: dict | None = None) -> dict:
                         for kind, value in re.findall(r"L([ib])(\d+)E", rest)]
                 kernel += f"<{','.join(args)}>" if args else ""
                 kernel += "[unrestricted]" if "UnrestrictedEnergyWeight" in rest else ""
+                kernel += next((f"[{out}]" for out in ("PackedOut", "FockOut") if out in rest),
+                               "")
         elif "bytes spill stores" in line:
             spills = int(line.split("bytes spill stores")[0].split(",")[-1])
             frame = int(line.split("bytes stack frame")[0].split()[-1])
@@ -1241,13 +1316,15 @@ def lane_summary(plan: IntegralPlan) -> str:
 
 def lane_kernel_registers(unit: str, kernel: str, entry: dict, registers: dict,
                           frames: dict) -> dict:
-    """ptxas's registers and stack frame of each of the four instantiations
-    (lmax 0-3) of a lane-scheduled kernel (K3, K8a), into its record entry;
-    a spill or a missing instantiation fails the run."""
+    """ptxas's registers and stack frame of each instantiation of a
+    lane-scheduled kernel (K3: lmax 0-5; K8a: lmax 0-3; the unit is its
+    KERNEL_MAX_LMAX key), into its record entry; a spill or a missing
+    instantiation fails the run."""
     instantiations = {key: (value, frames.get(key)) for key, value in registers.items()
                       if key.startswith(f"{unit}:{kernel}<")}
-    require(len(instantiations) == 4 and all(isinstance(regs, int) and frame is not None
-                                             for regs, frame in instantiations.values()),
+    require(len(instantiations) == KERNEL_MAX_LMAX[unit][1] + 1
+            and all(isinstance(regs, int) and frame is not None
+                    for regs, frame in instantiations.values()),
             f"{kernel}: registers and stack frames {instantiations} (a spill or a missing "
             f"entry)")
     entry["registers"] = {key.split(":")[1]: regs for key, (regs, _) in instantiations.items()}
@@ -1468,8 +1545,9 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_path(line: str, warm_runs: int = WARM_RUNS) -> dict:
-    """warm_runs warm runs of `line`, then one under torch.profiler."""
+def profile_path(line: str, warm_runs: int = WARM_RUNS, needs: tuple = ()) -> dict:
+    """warm_runs warm runs of `line`, then one under torch.profiler (see
+    profiled_call for `needs`)."""
     walls, scf_ms, cc_ms, phases = [], [], [], {}
     for _ in range(warm_runs):
         SCF_output, _, _, _, wall, _ = drive(line, ())
@@ -1486,7 +1564,7 @@ def profile_path(line: str, warm_runs: int = WARM_RUNS) -> dict:
         "scf_ms_per_iteration": statistics.median(scf_ms),
         "cc_ms_per_iteration": statistics.median(cc_ms) if cc_ms else None,
         "phase_host_ms": {name: statistics.median(v) for name, v in phases.items()},
-        **profiled_run(line),
+        **profiled_run(line, needs),
     }
 
 
@@ -1508,46 +1586,14 @@ DERIV_CALL_KERNELS = {"eri_deriv_energy": (r"::deriv_rows_kernel", r"::deriv_red
                            r"::deriv_weights_kernel<[^>]*UnrestrictedEnergyWeight>")}
 
 
-def profiled_run(line: str) -> dict:
-    """One run of `line` under torch.profiler (see profiled_call)."""
-    return profiled_call(lambda: run_counted(line, ())[1:])
-
-
-def profiled_call(counted) -> dict:
-    """One call of counted() (which returns its wall seconds and launches)
-    under torch.profiler: device busy time as the union of the kernel
-    intervals, the idle share, kernel and cudaLaunchKernel counts, the top
-    kernels, each csrc/ kernel's launches and device time, and for the
-    quartet-engine wrappers the union of their class kernels' intervals a
-    call."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        with torch.profiler.profile(activities=activities) as prof:
-            profiled_wall, profiled_launches = counted()
-        events = prof.events()
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels:
-            break
-        # a session records the launches of the library's kernels only in
-        # part, and short sessions after a long one (the UKS OPT's) have
-        # come back with none: wait a second and run it again
-        print(f"profiler: a session of {len(events)} events recorded no device event "
-              f"(attempt {attempt} of {PROFILE_ATTEMPTS})")
-        time.sleep(1.0)
-    require(bool(kernels), f"torch.profiler recorded no device event in {PROFILE_ATTEMPTS} "
-                           f"sessions")
-    busy_us = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
-    launch_calls = [e for e in events if e.name == "cudaLaunchKernel"]
-    by_kernel: dict = {}
-    for e in kernels:
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    # the kernels of csrc/, by function name (and K1/K4 output, K8b/K8bu
-    # weight, the moving-grid kernel's densities and output set, as
-    # moving_grid_kernel[1,1] for K8c, [2,1] for K8cu, [1,2] for K8ct,
-    # [2,2] for K8cut, [S,0] without gradients; the density kernel's output
-    # set, as density_on_grid_kernel[1] for K7b, [0] for K7b without
-    # gradients, [2] for K7bt)
+def hand_kernels(kernels) -> dict:
+    """Launches and device ms of each csrc/ kernel among a profile's device
+    events, by function name (and K1/K4 output, K8b/K8bu weight, the
+    moving-grid kernel's densities and output set, as
+    moving_grid_kernel[1,1] for K8c, [2,1] for K8cu, [1,2] for K8ct, [2,2]
+    for K8cut, [S,0] without gradients; the density kernel's output set, as
+    density_on_grid_kernel[1] for K7b, [0] for K7b without gradients, [2]
+    for K7bt)."""
     hand: dict = {}
     for e in kernels:
         match = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.name)
@@ -1561,6 +1607,59 @@ def profiled_call(counted) -> dict:
             entry = hand.setdefault(key, {"launches": 0, "device_ms": 0.0})
             entry["launches"] += 1
             entry["device_ms"] += e.time_range.elapsed_us() / 1e3
+    return hand
+
+
+def recorded(key: str, kernels, hand: dict) -> bool:
+    """Whether a profile has device time for `key`: a key of hand_kernels,
+    or a wrapper of QUARTET_KERNELS (K8b's and K8bu's by the kernels that
+    each of their calls launches once, by which their calls are counted)."""
+    if key in DERIV_CALL_KERNELS:
+        return any(re.search(once, e.name) for once in DERIV_CALL_KERNELS[key] for e in kernels)
+    if key in QUARTET_KERNELS:
+        return any(re.search(QUARTET_KERNELS[key], e.name) for e in kernels)
+    return key in hand
+
+
+def profiled_run(line: str, needs: tuple = ()) -> dict:
+    """One run of `line` under torch.profiler (see profiled_call)."""
+    return profiled_call(lambda: run_counted(line, ())[1:], needs)
+
+
+def profiled_call(counted, needs: tuple = ()) -> dict:
+    """One call of counted() (which returns its wall seconds and launches)
+    under torch.profiler: device busy time as the union of the kernel
+    intervals, the idle share, kernel and cudaLaunchKernel counts, the top
+    kernels, each csrc/ kernel's launches and device time, and for the
+    quartet-engine wrappers the union of their class kernels' intervals a
+    call.  `needs` names the csrc/ kernels (keys of hand_kernels, or
+    wrappers of QUARTET_KERNELS) that the caller reads from the profile."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=activities) as prof:
+            profiled_wall, profiled_launches = counted()
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        hand = hand_kernels(kernels)
+        missing = [key for key in needs if not recorded(key, kernels, hand)]
+        if kernels and not missing:
+            break
+        # a session records the launches of the library's kernels only in
+        # part, and short sessions after a long one have come back with
+        # none of them: wait a second and run it again
+        print(f"profiler: a session of {len(events)} events recorded {len(kernels)} device "
+              f"events and none of {missing or 'the kernels'} (attempt {attempt} of "
+              f"{PROFILE_ATTEMPTS})")
+        time.sleep(1.0)
+    require(bool(kernels) and not missing,
+            f"torch.profiler recorded no device event of {missing or 'any kernel'} in "
+            f"{PROFILE_ATTEMPTS} sessions; the last one's csrc/ kernels: {sorted(hand)}")
+    busy_us = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    launch_calls = [e for e in events if e.name == "cudaLaunchKernel"]
+    by_kernel: dict = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     # the quartet engine's class kernels overlap on side streams: a wrapper
     # call's device time is the union of its kernels' intervals, over its
     # calls (K8b's and K8bu's over their recorded calls: a session records
@@ -1797,6 +1896,26 @@ def check_fock_direct(basis: str, device, record: dict) -> str:
             f"calls bitwise equal; fock_direct / eri_packed {ms / eri_ms:.3f}")
 
 
+def repeated_calls(fn, calls: int):
+    """A counted() for profiled_call: `calls` calls of fn(), and twice as
+    many in each session that profiled_call runs again (a session misses
+    the first launches of the library's kernels, so a longer one records
+    more of them)."""
+    sessions = []
+
+    def counted():
+        sessions.append(calls * 2 ** len(sessions))
+        _kernels.reset_launch_counts()
+        torch.ones(1, device="cuda")   # one torch kernel in the session as well
+        start = time.perf_counter()
+        for _ in range(sessions[-1]):
+            fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - start, dict(_kernels.launches)
+
+    return counted
+
+
 def device_ms_a_launch(fn, key: str, calls: int = 50):
     """Device ms a launch of the csrc/ kernel `key` (as profiled_call names
     it in hand_kernels, or a quartet-engine wrapper of QUARTET_KERNELS:
@@ -1804,17 +1923,8 @@ def device_ms_a_launch(fn, key: str, calls: int = 50):
     torch.profiler: the session records the launches of the library's
     kernels only in part, the fewer the shorter the session, so the time is
     a recorded launch's, over enough calls."""
-    def counted():
-        _kernels.reset_launch_counts()
-        torch.ones(1, device="cuda")   # one torch kernel in the session as well
-        start = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - start, dict(_kernels.launches)
-
     fn()
-    profile = profiled_call(counted)
+    profile = profiled_call(repeated_calls(fn, calls), (key,))
     if key in QUARTET_KERNELS:
         return profile["quartet_class_kernels_busy_ms_a_launch"][key]
     return _device_ms_a_launch(profile, key)
@@ -1839,17 +1949,8 @@ def stage_ms(profile: dict, stages: tuple, launches_a_call: int) -> dict:
 def stage_ms_a_call(fn, stages: tuple, launches_a_call: int, calls: int = 5) -> dict:
     """stage_ms over `calls` calls of fn() under torch.profiler, after one
     call outside it."""
-    def counted():
-        _kernels.reset_launch_counts()
-        torch.ones(1, device="cuda")   # one torch kernel in the session as well
-        start = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - start, dict(_kernels.launches)
-
     fn()
-    return stage_ms(profiled_call(counted), stages, launches_a_call)
+    return stage_ms(profiled_call(repeated_calls(fn, calls), stages), stages, launches_a_call)
 
 
 def unit_registers(registers: dict, unit: str) -> dict:
@@ -2150,11 +2251,11 @@ def check_gradient_integrals(symbol: str, partner: str, bond_angstrom: float, ba
             f"{json.dumps(deriv_registers)})")
 
 
-def profile_gradient_path(line: str) -> dict:
+def profile_gradient_path(line: str, needs: tuple = ()) -> dict:
     """WARM_RUNS warm runs of an OPT line (the wall per OPT iteration and
     the gradient's share of it, from the port's phase timers; one analytic
     gradient, so one K8a launch, an iteration), then one under
-    torch.profiler."""
+    torch.profiler (see profiled_call for `needs`)."""
     walls, per_iteration, gradient_ms, shares, phases = [], [], [], [], {}
     for _ in range(WARM_RUNS):
         _, wall, launches = run_counted(line, ())
@@ -2175,7 +2276,7 @@ def profile_gradient_path(line: str) -> dict:
         "gradient_ms_per_opt_iteration": statistics.median(gradient_ms),
         "gradient_share_of_wall": statistics.median(shares),
         "phase_host_ms": {name: statistics.median(v) for name, v in phases.items()},
-        **profiled_run(line),
+        **profiled_run(line, needs),
     }
 
 
@@ -2221,7 +2322,7 @@ def check_gradient_paths(record: dict) -> dict:
     launches summed over these runs."""
     runs = [check_optimisation(LINE_OPT, GRADIENT_PATH_KERNELS, BOND_REF_OPT, E_REF_OPT,
                                ITERATIONS_OPT)]
-    profile = profile_gradient_path(LINE_OPT)
+    profile = profile_gradient_path(LINE_OPT, ("moving_grid_kernel[1,1]",))
     record.setdefault("density_deriv_on_grid", {})["device_ms_a_launch"] = \
         _device_ms_a_launch(profile, "moving_grid_kernel[1,1]")
     print("profile: " + json.dumps(profile))
@@ -2451,7 +2552,7 @@ def check_uhf_paths(record: dict) -> dict:
     energy, scf, launches = check_uhf_path(LINE_UHF, UHF_PATH_KERNELS, ITERATIONS_UHF,
                                            E_SCF_REF_UHF, E_ref=E_REF_UHF)
     runs.append(launches)
-    profile = profile_path(LINE_UHF)
+    profile = profile_path(LINE_UHF, needs=U_TRIPLES_STAGES)
     paths = record["uccsd_t_energy"].setdefault("paths", {})
     paths["A"] = stage_ms(profile, U_TRIPLES_STAGES,
                           len(cc.u_triples_plan(16, 36, cc.U_TRIPLES_WORKSPACE_BYTES)))
@@ -2478,7 +2579,7 @@ def check_uhf_paths(record: dict) -> dict:
     require(scf.integrals.ERI_AO is None, f"{LINE_UHF_TZ}: the ERI tensor was stored")
     runs.append(launches)
     check_uhf_twin(LINE_UHF_TZ_STORED, energy, scf)
-    profile = profile_path(LINE_UHF_TZ)
+    profile = profile_path(LINE_UHF_TZ, needs=U_TRIPLES_STAGES)
     paths["C"] = stage_ms(profile, U_TRIPLES_STAGES,
                           len(cc.u_triples_plan(16, 104, cc.U_TRIPLES_WORKSPACE_BYTES)))
     print("profile: " + json.dumps(profile))
@@ -2718,7 +2819,7 @@ def check_quadruples_path(record: dict) -> dict:
           f"{statistics.median(SCF_output.correlation_iteration_seconds) * 1e3:.3f} "
           f"ms/iteration; wall {wall:.3f} s; launches {launches}")
     runs = [launches]
-    profile = profile_path(LINE_Q)
+    profile = profile_path(LINE_Q, needs=QUADRUPLES_STAGES)
     record["ccsdt_q_energy"]["path"] = stage_ms(
         profile, QUADRUPLES_STAGES, len(cc.quadruples_plan(7, 19, cc.QUADRUPLES_WORKSPACE_BYTES)[0]))
     print("profile: " + json.dumps(profile))
@@ -3004,7 +3105,9 @@ def profile_unrestricted_path(line: str) -> dict:
     """profile_gradient_path of the UKS OPT line, with K7b's (with
     gradients, and rho only for the guess densities), K8bu's and K8cu's
     launches and device ms from its profiled run."""
-    profile = profile_gradient_path(line)
+    profile = profile_gradient_path(line, (
+        "density_on_grid_kernel[1]", "density_on_grid_kernel[0]", "deriv_shell_kernel",
+        "eri_deriv_energy_unrestricted", "moving_grid_kernel[2,1]"))
     launches = profile["profiled_launches"]
     profile["path_kernels"] = {
         "density_on_grid (K7b)": hand_entry(profile, "density_on_grid_kernel[1]"),
@@ -3357,7 +3460,9 @@ def profile_meta_gga_opt(line: str) -> dict:
     """profile_gradient_path of a meta-GGA OPT line, with K7bt's, K8ct's
     and K7b's (the guess densities, rho only) launches and device ms from
     its profiled run."""
-    profile = profile_gradient_path(line)
+    profile = profile_gradient_path(line, ("density_on_grid_kernel[2]",
+                                           "moving_grid_kernel[1,2]",
+                                           "density_on_grid_kernel[0]"))
     profile["path_kernels"] = {
         "density_tau_on_grid (K7bt)": hand_entry(profile, "density_on_grid_kernel[2]"),
         "density_tau_deriv_on_grid (K8ct)": hand_entry(profile, "moving_grid_kernel[1,2]"),
@@ -3393,7 +3498,7 @@ def check_meta_gga_paths(device, record: dict) -> dict:
     launch."""
     runs = [check_meta_gga_spe(LINE_MGGA, E_REF_MGGA, SCF_ITERATIONS_MGGA, MGGA_PATH_KERNELS, 1,
                                MGGA_TOLERANCE)]
-    profile = profile_path(LINE_MGGA)
+    profile = profile_path(LINE_MGGA, needs=("density_on_grid_kernel[2]",))
     record["density_tau_on_grid"]["device_ms_a_launch"] = _device_ms_a_launch(
         profile, "density_on_grid_kernel[2]")
     print("profile: " + json.dumps(profile))
@@ -3417,7 +3522,7 @@ def check_meta_gga_paths(device, record: dict) -> dict:
                 profile, "moving_grid_kernel[1,2]")
             print("profile: " + json.dumps(profile))
         else:
-            profile = profiled_run(line)
+            profile = profiled_run(line, ("moving_grid_kernel[2,2]",))
             record[tau_kernel]["device_ms_a_launch"] = _device_ms_a_launch(
                 profile, "moving_grid_kernel[2,2]")
             print(f"profiled run: {line}; " + json.dumps(
@@ -3781,6 +3886,309 @@ def check_phase_24() -> dict:
             print("profile: " + json.dumps(profile))
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     print(f"phase 24: {time.perf_counter() - start:.1f} s; launches "
+          f"{({name: n for name, n in launches.items() if n})}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: K1, K4 and K3 at g and h shells, and the lines they open
+# ---------------------------------------------------------------------------
+
+def high_l_build_summary(registers: dict) -> str:
+    """ptxas's registers and spills of the instantiations that take g and h
+    shells: K1's and K4's light and heavy kernels of the classes with
+    L_bra = 7..10 (csrc/quartet_l7.cu .. quartet_l10.cu; the classes up
+    to (6, 6) are those of lmax 3), K1's and K4's pair rows and K3 at lmax
+    4 and 5."""
+    added = ("eri:pair_rows_kernel<4>", "eri:pair_rows_kernel<5>",
+             "fock_direct:pair_rows_kernel<4>", "fock_direct:pair_rows_kernel<5>",
+             "one_electron:one_electron_kernel<4>", "one_electron:one_electron_kernel<5>")
+    new = {key: value for key, value in registers.items()
+           if key in added or (key.startswith("quartet_l") and ":quartet_" in key)}
+    classes = [key for key in new if "quartet_" in key]
+    require(len(classes) == 2 * 2 * sum(la + 1 for la in range(7, 11)),
+            f"{len(classes)} class kernels of L_bra 7..10, expected 152")
+    regs = [value if isinstance(value, int) else int(value.split()[0]) for value in new.values()]
+    spilled = {key: value for key, value in new.items() if not isinstance(value, int)}
+    return (f"the {len(new)} kernels added for lmax 4-5 ({len(classes)} class kernels of K1 "
+            f"and K4, the pair rows, K3): {min(regs)}-{max(regs)} registers, "
+            f"{len(spilled)} with spill stores {json.dumps(spilled)}")
+
+
+def fock_from_packed(plan: IntegralPlan, packed, P):
+    """J and K of a symmetric P from K1's packed matrix: J_ij = sum_kl
+    (ij|kl) P_kl from the pair vector, K_ij = sum_kl (ik|jl) P_kl a row i
+    at a time, (N, N, N) gathered from the packed rows of the pairs (i, k)."""
+    t = plan.tensors(packed.device)
+    pair_index, pi, pj = t["pair_index"], t["pid_i"].long(), t["pid_j"].long()
+    J_pair = packed @ (P[pi, pj] * torch.where(pi == pj, 1.0, 2.0))
+    J = torch.zeros_like(P)
+    J[pi, pj] = J_pair
+    J[pj, pi] = J_pair
+    K = torch.empty_like(P)
+    for i in range(plan.n_basis):
+        K[i] = torch.einsum("kjl,kl->j", packed[pair_index[i]][:, pair_index], P)
+    return J, K
+
+
+def check_high_l_kernels(device, record: dict) -> str:
+    """Phase 25 (a): K1, K3 and K4 on reduced plans of N2 (HIGH_L_PLANS: g
+    shells at cc-pVQZ, classes up to (8, 8); g and h at cc-pV5Z, up to (10,
+    10)) against their plain versions: K1 and K3 within INTEGRAL_TOLERANCE
+    and bitwise over two calls, K4 within FOCK_TOLERANCE of the largest
+    |entry| on a seeded density; ms (CUDA events, median of 5), device ms a
+    call back to back (back_to_back_ms: 10 calls, median of 3), bound, and
+    plain ms (the checked call, host clock to a sync) of each, into
+    record[...]["high_l"], and the lmax reached into
+    record[...]["lmax_reached"]."""
+    parts = []
+    for basis, ls in HIGH_L_PLANS:
+        molecule = diatomic("N", 1.1, basis)
+        functions = shell_subset(molecule.cartesian_basis_functions,
+                                 [(atom, l) for atom in (0, 1) for l in ls])
+        plan = IntegralPlan(functions, molecule.n_atoms)
+        coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
+        charges = torch.as_tensor(molecule.charges, dtype=torch.float64, device=device)
+        origin = molecule.centre_of_mass
+        N = plan.n_basis
+        C = np.random.default_rng(25).standard_normal((N, 7)) / np.sqrt(N)
+        P = torch.as_tensor(C @ C.T, dtype=torch.float64, device=device)
+        fns = {"eri_packed": (lambda: plan.eri_pair_packed(coords),
+                              lambda: plan._eri_packed_plain(coords)),
+               "one_electron": (lambda: plan.one_electron(coords, charges, origin),
+                                lambda: plan._one_electron_plain(coords, charges, origin)),
+               "fock_direct": (lambda: plan.fock_direct(coords, P),
+                               lambda: plan._fock_direct_plain(coords, P))}
+        got, plain_ms = {}, {}
+        for name, (kernel, plain) in fns.items():
+            first, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            expected = plain()
+            torch.cuda.synchronize()
+            plain_ms[name] = (time.perf_counter() - start) * 1e3
+            got[name] = (first, again, expected)
+        errors = {}
+        for name, (first, again, plain) in got.items():
+            first, again, plain = ((x,) if torch.is_tensor(x) else x
+                                   for x in (first, again, plain))
+            require(all(bool(torch.all(torch.isfinite(x))) for x in first),
+                    f"{name} N2/{basis}: non-finite values")
+            if name == "fock_direct":
+                errors[name] = max(_relative(a, b) for a, b in zip(first, plain))
+                require(errors[name] <= FOCK_TOLERANCE,
+                        f"fock_direct N2/{basis}: {errors[name]:.3e} from its plain version")
+                absolute = max(float(torch.max(torch.abs(a - b))) for a, b in zip(first, plain))
+            else:
+                errors[name] = absolute = max(float(torch.max(torch.abs(a - b)))
+                                              for a, b in zip(first, plain))
+                require(errors[name] <= INTEGRAL_TOLERANCE,
+                        f"{name} N2/{basis}: {errors[name]:.3e} from its plain version")
+                require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                        f"{name} N2/{basis}: two calls differ")
+            record[name]["max_abs_err"] = max(record[name]["max_abs_err"], absolute)
+        del got
+        t = plan.tensors(device)
+        needed, algorithm = eri_operations(plan)
+        fock_needed, _ = fock_direct_operations(plan)
+        bounds = {
+            "eri_packed": bound(eri_input_bytes(plan, coords) + 8 * plan.n_pairs ** 2,
+                                needed / FP64_PER_MS),
+            "fock_direct": bound(eri_input_bytes(plan, coords)
+                                 + tensor_bytes(P, t["pid_i"], t["pid_j"]) + 2 * 8 * N * N,
+                                 fock_needed / FP64_PER_MS),
+            "one_electron": bound(
+                tensor_bytes(coords, charges, t["a"], t["b"], t["coef"], t["l1"], t["l2"],
+                             t["atom1"], t["atom2"], t["pair_start"], t["ao_i"], t["ao_j"],
+                             t["boys_one_electron"]) + 8 * 9 * N * N,
+                one_electron_operations(plan) / FP64_PER_MS)}
+        shape = f"N2/{basis} {'+'.join('spdfgh'[l] for l in ls)} ({N} functions)"
+        texts = []
+        for name, (kernel, _) in fns.items():
+            entry = {"lmax": plan.lmax, "classes": len(plan.work_list()[1]),
+                     "max_abs_err" if name != "fock_direct" else "relative_err": errors[name],
+                     "ms": median_ms(kernel), "plain_ms": plain_ms[name],
+                     "device_ms_a_launch": back_to_back_ms(kernel, calls=10, repeats=3,
+                                                           sleep_cycles=HIGH_L_SLEEP_CYCLES),
+                     **bounds[name]}
+            record[name].setdefault("high_l", {})[shape] = entry
+            record[name]["lmax_reached"] = max(record[name].get("lmax_reached", 0), plan.lmax)
+            texts.append(f"{name} {errors[name]:.3e} ({entry['ms']:.4f} ms, back to back "
+                         f"{entry['device_ms_a_launch']:.4f}, bound {entry['bound_ms']:.6f} ms "
+                         f"by {entry['bound_by']}, plain {entry['plain_ms']:.2f} ms)")
+        parts.append(f"{shape}, lmax {plan.lmax}, {work_list_summary(plan)}: "
+                     + "; ".join(texts) + f"; K1's algorithm {algorithm:.4g} operations, "
+                     f"{needed:.4g} needed")
+    return "kernels g and h shells: " + " | ".join(parts)
+
+
+def check_fock_against_eri_full(device, record: dict) -> str:
+    """Phase 25 (a), full size: K4 at N2/cc-pV5Z (252 functions, 31,878 AO
+    pairs) against J and K formed from K1's packed matrix (8.1 GB) on a
+    seeded density, FOCK_TOLERANCE of the largest |entry|; the host's work
+    list build, K1 and K4 ms (CUDA events) and device ms a call back to
+    back (3 calls, median of 3), their bounds."""
+    molecule = diatomic("N", 1.1, "CC-PV5Z")
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    start = time.perf_counter()
+    quartets, classes = plan.work_list()
+    work_list_s = time.perf_counter() - start
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
+    N = plan.n_basis
+    C = np.random.default_rng(13).standard_normal((N, 7)) / np.sqrt(N)
+    P = torch.as_tensor(C @ C.T, dtype=torch.float64, device=device)
+    J, K = plan.fock_direct(coords, P)
+    packed = plan.eri_pair_packed(coords)
+    J_ref, K_ref = fock_from_packed(plan, packed, P)
+    del packed
+    torch.cuda.synchronize()
+    err = max(_relative(J, J_ref), _relative(K, K_ref))
+    require(bool(torch.all(torch.isfinite(J)) and torch.all(torch.isfinite(K))),
+            "fock_direct N2/cc-pV5Z: non-finite J or K")
+    require(err <= FOCK_TOLERANCE, f"fock_direct N2/cc-pV5Z: {err:.3e} from K1's J and K")
+    fock_ms = median_ms(lambda: plan.fock_direct(coords, P), repeats=3)
+    eri_ms = median_ms(lambda: plan.eri_pair_packed(coords), repeats=3)
+    fock_launch = back_to_back_ms(lambda: plan.fock_direct(coords, P), calls=3, repeats=3,
+                                  sleep_cycles=HIGH_L_SLEEP_CYCLES)
+    eri_launch = back_to_back_ms(lambda: plan.eri_pair_packed(coords), calls=3, repeats=3,
+                                 sleep_cycles=HIGH_L_SLEEP_CYCLES)
+    t = plan.tensors(device)
+    needed, algorithm = eri_operations(plan)
+    fock_needed, _ = fock_direct_operations(plan)
+    eri_bound = bound(eri_input_bytes(plan, coords) + 8 * plan.n_pairs ** 2,
+                      needed / FP64_PER_MS)
+    fock_bound = bound(eri_input_bytes(plan, coords) + tensor_bytes(P, t["pid_i"], t["pid_j"])
+                       + 2 * 8 * N * N, fock_needed / FP64_PER_MS)
+    shape = "N2/CC-PV5Z (252 functions)"
+    record["fock_direct"].setdefault("high_l", {})[shape] = {
+        "relative_err_against_eri_packed": err, "ms": fock_ms,
+        "device_ms_a_launch": fock_launch, **fock_bound}
+    record["eri_packed"].setdefault("high_l", {})[shape] = {
+        "ms": eri_ms, "device_ms_a_launch": eri_launch, "work_list_host_s": work_list_s,
+        **eri_bound}
+    return (f"kernels full size {shape}: {work_list_summary(plan)}, built on the host in "
+            f"{work_list_s:.2f} s; fock_direct against J and K from eri_packed's packed matrix "
+            f"{err:.3e}; fock_direct {fock_ms:.3f} ms (back to back {fock_launch:.3f}, "
+            f"bound {fock_bound['bound_ms']:.4f} ms by {fock_bound['bound_by']}); eri_packed "
+            f"{eri_ms:.3f} ms (back to back {eri_launch:.3f}, bound "
+            f"{eri_bound['bound_ms']:.4f} ms by {eri_bound['bound_by']}; {needed:.4g} operations "
+            f"needed, {algorithm:.4g} in the kernel's algorithm)")
+
+
+@contextlib.contextmanager
+def integral_call_ms():
+    """The device ms of every K1 (eri_pair_packed) and K4 (fock_direct) call
+    of the runs inside the block, by CUDA events on the caller's stream
+    (the side streams join it), read when the block ends."""
+    events = {"eri_packed": [], "fock_direct": []}
+    originals = {"eri_packed": IntegralPlan.eri_pair_packed,
+                 "fock_direct": IntegralPlan.fock_direct}
+
+    def timed(name):
+        def call(self, coords, *args):
+            if coords.device.type != "cuda":
+                return originals[name](self, coords, *args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = originals[name](self, coords, *args)
+            end.record()
+            events[name].append((start, end))
+            return result
+        return call
+
+    times: dict = {}
+    IntegralPlan.eri_pair_packed = timed("eri_packed")
+    IntegralPlan.fock_direct = timed("fock_direct")
+    try:
+        yield times
+    finally:
+        IntegralPlan.eri_pair_packed = originals["eri_packed"]
+        IntegralPlan.fock_direct = originals["fock_direct"]
+        torch.cuda.synchronize()
+        times.update({name: [start.elapsed_time(end) for start, end in pairs]
+                      for name, pairs in events.items()})
+
+
+def check_line_25(line: str, kernels: tuple) -> dict:
+    """One line of phase 25 on the card, twice (the first run, then a warm
+    one), against tuna_tpu's numbers in REFERENCES_25 (a DIRECT HF line
+    against its stored twin's run too): the energy within
+    PHASE_25_TOLERANCE, the SCF cycles of every SCF and the CC iterations
+    of every solve equal; a (T) against K2's plain version on the path's
+    inputs.  Prints the walls, SCF ms an iteration, K1's and K4's ms a call
+    and the peak device memory; returns the first run's launches and what
+    it returned."""
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        with contextlib.ExitStack() as stack:
+            counts = stack.enter_context(solve_counts())
+            triples = stack.enter_context(Recorder("ccsd_t_energy"))
+            call_ms = stack.enter_context(integral_call_ms())
+            result, wall, launches = run_counted(line, kernels)
+        runs.append((result, wall, launches, counts, triples.calls, call_ms))
+    peak = torch.cuda.max_memory_allocated()
+    result, wall, launches, counts, triple_calls, _ = runs[0]
+    SCF_output, energy = result[0], float(result[2])
+    reference = REFERENCES_25.get(line, REFERENCES_25.get(line.replace(" DIRECT", "")))
+    deltas: dict = {}
+    require(runs[1][3] == counts, f"{line}: the warm run's counts {runs[1][3]} are not the "
+                                  f"first's {counts}")
+    _within("warm run", float(runs[1][0][2]), energy, PHASE_25_TOLERANCE, deltas)
+    require(counts == {key: reference[key] for key in ("scf_cycles", "cc_iterations")},
+            f"{line}: SCF cycles {counts['scf_cycles']}, CC iterations "
+            f"{counts['cc_iterations']}; the reference {reference['scf_cycles']}, "
+            f"{reference['cc_iterations']}")
+    if "ccsd_energy" in reference:
+        require(len(triple_calls) == 1, f"{line}: {len(triple_calls)} (T) calls")
+        args, E_T = triple_calls[0]
+        _within("(T) against its plain version", float(E_T),
+                float(cc._ccsd_t_energy_plain(*args)), TRIPLES_TOLERANCE * abs(float(E_T)),
+                deltas)
+        _within("E_SCF", float(SCF_output.energy), reference["scf_energy"], PHASE_25_TOLERANCE,
+                deltas)
+        _within("E_total - E_(T)", energy - float(E_T), reference["ccsd_energy"],
+                PHASE_25_TOLERANCE, deltas)
+    elif reference["energy"] is not None:
+        _within("E_total", energy, reference["energy"], PHASE_25_TOLERANCE, deltas)
+    if "DIRECT" in line:
+        require(SCF_output.integrals.ERI_AO is None and launches["eri_packed"] == 0,
+                f"{line}: the N^4 tensor was formed")
+    scf_ms = statistics.median(runs[1][0][0].iteration_seconds) * 1e3
+    integral_ms = {name: [round(ms, 3) for ms in times] for name, times in runs[1][5].items()
+                   if times}
+    print(f"end to end: {line}; E_total {energy!r}; from the reference: "
+          + (", ".join(f"{name} {delta:.3e}" for name, delta in deltas.items()))
+          + f"; SCF cycles {counts['scf_cycles']}, CC iterations {counts['cc_iterations']}; "
+          f"wall {wall:.3f} s first, {runs[1][1]:.3f} s warm; SCF {scf_ms:.3f} ms an iteration "
+          f"(warm); K1/K4 ms a call (warm, CUDA events) {json.dumps(integral_ms)}; peak device "
+          f"memory {peak} bytes; launches {({name: n for name, n in launches.items() if n})}")
+    return {"result": result, "launches": launches, "counts": counts}
+
+
+def check_phase_25() -> dict:
+    """Phase 25 (b): every line of PHASE_25_LINES (check_line_25); each
+    DIRECT HF line also against the stored line before it, where there is
+    one (LINE_5Z_HF_DIRECT against LINE_5Z_HF: PHASE_25_TOLERANCE and equal
+    counts).  Returns the launches summed over the first runs."""
+    start = time.perf_counter()
+    runs, outcomes = [], {}
+    for line, kernels in PHASE_25_LINES:
+        outcomes[line] = check_line_25(line, kernels)
+        runs.append(outcomes[line]["launches"])
+    stored, direct = outcomes[LINE_5Z_HF], outcomes[LINE_5Z_HF_DIRECT]
+    difference = float(direct["result"][2]) - float(stored["result"][2])
+    require(abs(difference) <= PHASE_25_TOLERANCE and direct["counts"] == stored["counts"],
+            f"{LINE_5Z_HF_DIRECT}: {difference:.3e} Ha from the stored line, counts "
+            f"{direct['counts']} against {stored['counts']}")
+    print(f"twin: {LINE_5Z_HF_DIRECT} minus {LINE_5Z_HF}: {difference:.3e} Ha, equal counts")
+    print(f"unpinned: {LINE_5Z_N2_DIRECT}: tuna_tpu's DIRECT run of this line did not end "
+          f"within two hours on the pinning host, so its energy is held by no constant: the "
+          f"line is held by its SCF cycles, its warm run and phase 25's K4 against K1 at "
+          f"N2/cc-pV5Z (ROADMAP queue 3)")
+    launches = {name: sum(r[name] for r in runs) for name in KERNELS}
+    print(f"phase 25: {time.perf_counter() - start:.1f} s; launches "
           f"{({name: n for name, n in launches.items() if n})}")
     return launches
 
@@ -4285,7 +4693,8 @@ def main() -> int:
     frames: dict = {}
     registers = ptxas_report(library.with_suffix(".log").read_text(), frames)
     print(f"build: {library.name} in {time.perf_counter() - start:.1f} s; {len(registers)} "
-          f"kernels; registers (ptxas): {json.dumps(registers)}")
+          f"kernels; {high_l_build_summary(registers)}; registers (ptxas): "
+          f"{json.dumps(registers)}")
 
     # --- 3. K1-K3 against their plain versions -------------------------------
     record: dict = {}
@@ -4306,7 +4715,7 @@ def main() -> int:
           f"{statistics.median(cc_seconds) * 1e3:.3f} ms/iteration; wall {wall:.3f} s; "
           f"launches {launches}")
     cc_launches = launches
-    profile = profile_path(LINE)
+    profile = profile_path(LINE, needs=("one_electron_kernel",))
     record["one_electron"]["cc_path_device_ms_a_launch"] = _device_ms_a_launch(
         profile, "one_electron_kernel")
     print("profile: " + json.dumps(profile))
@@ -4328,7 +4737,7 @@ def main() -> int:
           f"wall {wall:.3f} s; launches {launches}")
     # each kernel's launches over the paths' runs
     path_launches = {name: cc_launches[name] + launches[name] for name in KERNELS}
-    profile = profile_path(LINE_DFT)
+    profile = profile_path(LINE_DFT, needs=("density_on_grid_kernel[1]",))
     print("profile: " + json.dumps(profile))
 
     # --- 6. DFT kernels against their plain versions --------------------------
@@ -4406,6 +4815,12 @@ def main() -> int:
 
     # --- 24. excited states and SCF stability -------------------------------------------
     launches = check_phase_24()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 25. g and h shells: K1, K4 and K3 at lmax 4-5, and the lines they open -----------
+    print(check_high_l_kernels(device, record))
+    print(check_fock_against_eri_full(device, record))
+    launches = check_phase_25()
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,8 +1,9 @@
-"""Prints the tuna_tpu numbers that phases 23 and 24 of chip_smoke.py hold
-the port to, one JSON line a calculation line:
+"""Prints the tuna_tpu numbers that phases 23, 24 and 25 of chip_smoke.py
+hold the port to, one JSON line a calculation line:
 
     JAX_PLATFORMS=cpu python tests/chip_smoke_references.py [LINE ...]
     JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 24 [LINE ...]
+    JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 25 [LINE ...]
 
 (no LINE: every line of the phase, 23 by default).  Each runs through tuna_tpu.cli.run on
 the JAX CPU backend with one device, so scans and stencils walk serially as
@@ -15,7 +16,13 @@ energies of the IP/EA states, the CBS parts, and the anharmonic levels,
 zero-point energy, chi and number of scans; for the excited-state and
 stability lines of phase 24, the first NSTATES excitation energies and
 oscillator strengths of the printed spectrum, the (D) corrections and the
-lowest eigenvalue of each stability Hessian.
+lowest eigenvalue of each stability Hessian; for a single point, its SCF
+energy as well.  Phase 25's lines are the g- and h-shell bases; its first
+is CCSD where chip_smoke.py runs CCSD[T]: tuna_tpu's restricted (T) forms
+o^3 v^3 arrays several times over, 2.9 GB each at o = 7, v = 103, too many
+for a host of 62 GB, so the port's (T) there is held to K2's plain version
+on the card.  Its last line, N2 HF/cc-pV5Z DIRECT, ran for more than two
+hours on the JAX CPU backend without ending.
 tuna_tpu's analytic gradient (jax.grad) needs more than 30 GB of host
 memory at cc-pVTZ; its forward-mode derivative (jax.jvp), which
 tests/test_torch_uhf_gradients.py holds to jax.grad at 1e-12 Ha/bohr,
@@ -60,6 +67,13 @@ LINES_24 = (
     "SPE : O O 1.21 : SVWN CC-PVTZ : ML 3 TD TIGHTSCF",
     "SPE : N N 1.1 : HF CC-PVTZ : STAB TIGHTSCF",
     "SPE : O O 1.21 : UHF CC-PVTZ : ML 3 STAB TIGHTSCF",
+)
+LINES_25 = (
+    "SPE : N N 1.1 : CCSD CC-PVQZ : TIGHTSCF",
+    "SPE : N N 1.1 : HF CC-PVTZ : EXTRAPOLATE TIGHTSCF",
+    "SPE : N N 1.1 : B3LYP DEF2-QZVP : TIGHTSCF",
+    "SPE : H F 0.917 : HF CC-PV5Z : TIGHTSCF",
+    "SPE : N N 1.1 : HF CC-PV5Z : DIRECT TIGHTSCF",
 )
 _CC_ROW = re.compile(r"^\s+\d+\s+-?\d+\.\d{10}\s+-?\d+\.\d{10}\s*$")
 
@@ -141,6 +155,8 @@ def reference(line: str) -> dict:
     out = {"line": line, "scf_cycles": scf_cycles, "cc_iterations": cc_iterations}
     if line.startswith("SPE"):
         out["energy"] = float(result[2])
+        if hasattr(result[0], "energy"):
+            out["scf_energy"] = float(result[0].energy)
     else:
         out["result"] = _plain(result)
     if "extrapolation" in record:
@@ -183,7 +199,7 @@ def main() -> int:
     arguments = sys.argv[1:]
     lines = LINES
     if arguments[:1] == ["--phase"]:
-        lines = {"23": LINES, "24": LINES_24}[arguments[1]]
+        lines = {"23": LINES, "24": LINES_24, "25": LINES_25}[arguments[1]]
         arguments = arguments[2:]
     for line in arguments or lines:
         print(json.dumps(reference(line)), flush=True)

@@ -582,13 +582,31 @@ def test_quartet_kernels_all_light_or_all_heavy(cuda, threshold, monkeypatch):
         assert _relative(got, expected) <= 1e-12
 
 
-def test_fock_direct_kernel_refuses_lmax_4(cuda):
-    molecule, plan = _n2_plan("CC-PVQZ")
-    assert plan.lmax == 4
-    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
-    P = torch.eye(plan.n_basis, dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="lmax"):
-        plan.fock_direct(coords, P)
+def test_quartet_kernels_at_g_and_h_shells(cuda):
+    """K1, K4 and K3 on reduced plans of N2 (one s, f and g shell on each
+    atom of cc-pVQZ, with an h shell at cc-pV5Z: classes up to (8, 8) and
+    (10, 10)): K1 and K3 1e-12 from their plain versions and bitwise over
+    two calls, K4 1e-12 of the largest |entry| on a seeded density."""
+    for basis, keep, lmax in (("CC-PVQZ", (0, 3, 4), 4), ("CC-PV5Z", (0, 3, 4, 5), 5)):
+        molecule = _n2(basis)
+        functions = integrals.shell_subset(molecule.cartesian_basis_functions,
+                                           [(atom, l) for atom in (0, 1) for l in keep])
+        plan = IntegralPlan(functions, molecule.n_atoms)
+        assert plan.lmax == lmax
+        coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+        charges = torch.as_tensor(molecule.charges, dtype=torch.float64, device=cuda)
+        packed = plan.eri_pair_packed(coords)
+        assert torch.equal(packed, plan.eri_pair_packed(coords))
+        torch.testing.assert_close(packed, plan._eri_packed_plain(coords), rtol=0, atol=1e-12)
+        got = plan.one_electron(coords, charges, molecule.centre_of_mass)
+        again = plan.one_electron(coords, charges, molecule.centre_of_mass)
+        for g, a, e in zip(got, again, plan._one_electron_plain(coords, charges,
+                                                                molecule.centre_of_mass)):
+            assert torch.equal(g, a)
+            torch.testing.assert_close(g, e, rtol=0, atol=1e-12)
+        P = torch.as_tensor(_density(plan.n_basis, 22), device=cuda)
+        for g, e in zip(plan.fock_direct(coords, P), plan._fock_direct_plain(coords, P)):
+            assert _relative(g, e) <= 1e-12
 
 
 def _mo_inputs(basis, device, seed):
@@ -1360,13 +1378,35 @@ def test_small_lines_on_the_card_match_tuna_tpu_and_the_cpu(cuda, line):
         assert np.max(np.abs(np.subtract(value, host_values[name]))) <= limit
 
 
-def test_extrapolation_from_triple_zeta_refuses_lmax_4_on_the_card(cuda):
-    """EXTRAPOLATE from cc-pVTZ needs cc-pVQZ, whose g shells the kernels do
-    not instantiate: the card raises, and nothing falls back to the CPU."""
+def test_extrapolation_from_triple_zeta_on_the_card(cuda):
+    """EXTRAPOLATE from cc-pVTZ runs cc-pVQZ's g shells on the card: the
+    extrapolated energy within 1e-10 Ha of tuna_tpu's and its SCF cycles
+    (`tests/chip_smoke_references.py --phase 25`)."""
+    _kernels.reset_launch_counts()
+    energy, counts, _ = _counted_line("SPE : N N 1.1 : HF CC-PVTZ : EXTRAPOLATE TIGHTSCF",
+                                      "cuda")
+    assert abs(energy - -108.99288878978848) <= 1e-10
+    assert counts == {"scf_cycles": [7, 14, 7, 14], "cc_iterations": []}
+    assert _kernels.launches["eri_packed"] == 4 and _kernels.launches["one_electron"] == 4
+
+
+def test_gradient_at_g_shells_refuses_on_the_card(cuda, monkeypatch):
+    """The analytic gradient's kernels stop at f shells: FORCE at cc-pVQZ
+    raises NotImplementedError naming K8a after the SCF on the card, and no
+    plain version runs."""
     from tuna_tpu_torch.cli import run
 
-    with pytest.raises(NotImplementedError, match="lmax = 4"):
-        run("SPE : N N 1.1 : HF CC-PVTZ : EXTRAPOLATE", suppress_output=True, device="cuda")
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version ran")
+
+    for name in ("_one_electron_plain", "_eri_packed_plain", "_fock_direct_plain",
+                 "_one_electron_deriv_plain", "_eri_deriv_energy_plain"):
+        monkeypatch.setattr(IntegralPlan, name, refused)
+    _kernels.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match=r"^K8a \(one_electron_deriv\) .* above lmax 3"):
+        run("FORCE : N N 1.1 : HF CC-PVQZ", suppress_output=True, device="cuda")
+    assert _kernels.launches["eri_packed"] > 0 and _kernels.launches["one_electron"] > 0
+    assert _kernels.launches["one_electron_deriv"] == 0
 
 
 # Excited states and stability at small sizes (the lines of

@@ -31,7 +31,7 @@ from tuna_tpu_torch.ops import boys, integrals
 from tuna_tpu_torch.ops.integrals import (KERNEL_MAX_LMAX, SHARED_MEMORY_PER_BLOCK,
                                           TWO_PI_POW_2_5, IntegralPlan, _double_factorial,
                                           build_E_table, cross_overlap, gather_E_row,
-                                          heavy_shared_bytes, stack_E_table)
+                                          heavy_shared_bytes, shell_subset, stack_E_table)
 from tuna_tpu_torch.system import Molecule
 
 torch.set_num_threads(2)
@@ -52,12 +52,23 @@ def _coordinates(bond_angstrom, n_atoms):
 
 
 def _molecules(symbols, bond, basis):
+    """tuna_tpu's and the port's molecule.  A basis written "NAME:0h,1s"
+    is a reduced one: each molecule keeps only the first shell of each
+    (atom, l) listed (ops/integrals.py::shell_subset), the same subset in
+    both packages."""
     symbols = list(symbols)
     coords = _coordinates(bond, len(symbols))
+    basis, _, shells = basis.partition(":")
     jax_cfg = JaxConfig("SPE", jax_lookup_method("HF"), 0.0, [], basis, symbols,
                         suppress_output=True)
     cfg = Config("SPE", lookup_method("HF"), 0.0, [], basis, symbols, suppress_output=True)
-    return JaxMolecule(symbols, coords, jax_cfg), Molecule(symbols, coords, cfg)
+    molecules = JaxMolecule(symbols, coords, jax_cfg), Molecule(symbols, coords, cfg)
+    if shells:
+        keep = [(int(shell[:-1]), "spdfgh".index(shell[-1])) for shell in shells.split(",")]
+        for molecule in molecules:
+            molecule.cartesian_basis_functions = shell_subset(
+                molecule.cartesian_basis_functions, keep)
+    return molecules
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,7 +106,7 @@ def test_plan_arrays_match_tuna_tpu(symbols, bond, basis):
     np.testing.assert_array_equal(np.diff(plan.pair_start), counts)
 
 
-@pytest.mark.parametrize("nmax", [0, 2, 4, 12])
+@pytest.mark.parametrize("nmax", [0, 2, 4, 12, 16, 20, 21])
 def test_boys_table_matches_tuna_tpu(nmax):
     rng = np.random.default_rng(nmax)
     T = np.concatenate([np.linspace(0.0, 60.0, 2401), rng.uniform(0.0, 60.0, 2000),
@@ -253,6 +264,7 @@ WORK_LIST_SYSTEMS = [
     (("N", "N"), 1.10, "6-31G"),
     (("H", "F"), 0.95, "6-31G**"),
     (("N", "N"), 1.10, "CC-PVTZ"),   # f shells: classes up to (6, 6)
+    (("H", "H"), 0.74, "CC-PV6Z:0h,1s"),   # an h shell: classes up to (10, 10)
 ]
 
 
@@ -281,6 +293,62 @@ def test_work_list_holds_each_parity_matched_quartet_once(symbols, bond, basis):
     got = np.sort(np.maximum(bra, ket) * plan.n_pairs + np.minimum(bra, ket))
     np.testing.assert_array_equal(got, expected)   # each once, nothing else
     assert np.all(L[bra] >= L[ket])
+
+
+def _sorted_work_list(plan):
+    """IntegralPlan.work_list by a sort of every quartet: each parity
+    class's unordered AO-pair quartets, the bra the pair of the larger L,
+    sorted by (L_bra, L_ket, heavy, count descending, bra, ket); the class
+    rows in launch order (longest chain, then most work)."""
+    first = plan.pair_start[:-1]
+    L = (plan.l1[first].sum(axis=1) + plan.l2[first].sum(axis=1)).astype(np.int64)
+    parity = (2 * ((plan.l1[first, 0] + plan.l2[first, 0]) & 1)
+              + ((plan.l1[first, 1] + plan.l2[first, 1]) & 1))
+    n_prim = np.diff(plan.pair_start).astype(np.int64)
+    P, Q = [], []
+    for cls in range(4):
+        members = np.flatnonzero(parity == cls)
+        rows, cols = np.tril_indices(len(members))
+        P.append(members[rows])
+        Q.append(members[cols])
+    P, Q = np.concatenate(P), np.concatenate(Q)
+    bra, ket = np.where(L[Q] > L[P], Q, P), np.where(L[Q] > L[P], P, Q)
+    count = n_prim[bra] * n_prim[ket]
+    threshold = integrals.HEAVY_THRESHOLD
+    order = np.lexsort((ket, bra, -count, count > threshold, L[ket], L[bra]))
+    bra, ket, count = bra[order], ket[order], count[order]
+    l_bra, l_ket = L[bra], L[ket]
+    begins = np.flatnonzero(np.r_[True, (l_bra[1:] != l_bra[:-1]) | (l_ket[1:] != l_ket[:-1])])
+    ends = np.r_[begins[1:], len(bra)]
+    classes, chain, work = [], [], []
+    for begin, end in zip(begins, ends):
+        split = begin + int(np.sum(count[begin:end] <= threshold))
+        ops = sum(integrals.quartet_operations(int(l_bra[begin]), int(l_ket[begin])))
+        classes.append((l_bra[begin], l_ket[begin], begin, split, end,
+                        n_prim[bra[split:end]].max(initial=0),
+                        n_prim[ket[split:end]].max(initial=0)))
+        chain.append(ops * max(count[begin] if split > begin else 0,
+                               -(-count[split] // 32) if end > split else 0))
+        work.append(ops * int(count[begin:end].sum()))
+    classes = np.array([classes[k] for k in np.lexsort((-np.array(work), -np.array(chain)))],
+                       dtype=np.int32).reshape(-1, 7)
+    return np.stack([bra, ket], axis=1).astype(np.int32), classes
+
+
+@pytest.mark.parametrize("threshold", [0, 16, 10 ** 9])
+@pytest.mark.parametrize("symbols,bond,basis", WORK_LIST_SYSTEMS)
+def test_work_list_matches_a_sort_of_every_quartet(symbols, bond, basis, threshold,
+                                                   monkeypatch):
+    """The work list, built class by class and run by run, is the array a
+    sort of every quartet gives, bit for bit, classes and all."""
+    molecule, _ = _plan(symbols, bond, basis)
+    monkeypatch.setattr(integrals, "HEAVY_THRESHOLD", threshold)
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    quartets, classes = plan.work_list()
+    expected_quartets, expected_classes = _sorted_work_list(plan)
+    assert quartets.dtype == np.int32 and quartets.flags.c_contiguous
+    np.testing.assert_array_equal(quartets, expected_quartets)
+    np.testing.assert_array_equal(classes, expected_classes)
 
 
 @pytest.mark.parametrize("threshold", [0, 16, 10 ** 9])
@@ -315,8 +383,8 @@ def test_work_list_classes_are_uniform_sorted_and_split(symbols, bond, basis, th
 
 def test_heavy_rows_fit_in_shared_memory_for_every_basis():
     """A heavy quartet's warp stages its bra and ket primitive pairs in
-    shared memory.  For each basis of the library the kernels take (lmax <=
-    3), the most primitive pairs of a pair of total angular momentum L over
+    shared memory.  For each basis of the library K1 and K4 take (lmax <=
+    5: all of them), the most primitive pairs of a pair of total angular momentum L over
     all its elements bounds any molecule's rows of that L; every class
     (L_bra, L_ket) at that bound fits a block."""
     worst = 0
@@ -326,7 +394,7 @@ def test_heavy_rows_fit_in_shared_memory_for_every_basis():
             for letter, primitives in shells:
                 l = "SPDFGH".index(letter)
                 most[l] = max(most.get(l, 0), len(primitives))
-        if max(most) > KERNEL_MAX_LMAX:
+        if max(most) > KERNEL_MAX_LMAX["eri_packed"][1]:
             continue
         pairs = {}  # L -> most primitive pairs of an AO pair
         for l1, n1 in most.items():
@@ -434,6 +502,21 @@ def test_class_truncation_is_exact():
     np.testing.assert_allclose(got.numpy(), plan._eri_packed_plain(coords).numpy(),
                                rtol=0, atol=1e-13)
     np.testing.assert_allclose(got.numpy(), packed_jax, rtol=0, atol=1e-12)
+
+
+def test_class_truncation_is_exact_to_h_shells():
+    """As test_class_truncation_is_exact at lmax 5: an h shell on one H of
+    H2/cc-pV6Z and an s shell on the other, classes up to (10, 10) and Boys
+    order 20, against the plain sweep at the molecule's LMAX (which
+    tests/test_torch_high_l.py holds to tuna_tpu on the same subset)."""
+    molecule, plan = _plan(("H", "H"), 0.74, "CC-PV6Z:0h,1s")
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64)
+    got = _eri_packed_by_class(plan, coords)
+    assert plan.lmax == 5
+    assert sorted(map(tuple, plan.work_list()[1][:, :2].tolist())) == [
+        (0, 0), (5, 0), (5, 5), (10, 0), (10, 5), (10, 10)]
+    np.testing.assert_allclose(got.numpy(), plan._eri_packed_plain(coords).numpy(),
+                               rtol=0, atol=1e-13)
 
 
 # --- the shell quartets of K8b and K8bu (csrc/eri_deriv.cu) -----------------

@@ -19,31 +19,19 @@
 //   * the matrix is zeroed once (cudaMemsetAsync): the work list holds only
 //     the parity-matched quartets;
 //   * pair_rows_kernel builds the per-primitive-pair rows;
-//   * one kernel a class (L_bra, L_ket) and part: light quartets one thread
-//     each, heavy ones one warp each with a fixed-order reduction; each
-//     writes packed[P,Q] and packed[Q,P] itself, no atomics, so two calls
-//     give the same bits.
+//   * one kernel a class (L_bra, L_ket) and part, up to (10, 10) (lmax 5;
+//     the classes of L_bra = 7..10 in quartet_l7.cu .. quartet_l10.cu):
+//     light quartets one thread each, heavy ones one warp each with a
+//     fixed-order reduction; each writes packed[P,Q] and packed[Q,P]
+//     itself (quartet.cuh PackedOut), no atomics, so two calls give the
+//     same bits.
 #include <cuda_runtime.h>
 
 #include "quartet.cuh"
 
-namespace {
-
-struct PackedOut {
-  double* packed;
-  int n_pairs;
-
-  __device__ __forceinline__ void operator()(double v, int P, int Q) const {
-    packed[static_cast<size_t>(P) * n_pairs + Q] = v;
-    packed[static_cast<size_t>(Q) * n_pairs + P] = v;
-  }
-};
-
-}  // namespace
-
 // quartets: (n, 2) int32 on the device; classes: (n_classes, 7) int32 on the
 // host (ClassPart rows); boys_tables: the Taylor tables of Boys orders
-// 0..4 lmax, one after another.
+// 0..4 lmax (and above), one after another; lmax <= 5.
 extern "C" int tuna_eri_packed(int lmax, int n_pairs, int n_prim_pairs, const double* coords,
                                const double* a, const double* b, const double* coef,
                                const int* l1, const int* l2, const int* atom1, const int* atom2,
@@ -60,7 +48,7 @@ extern "C" int tuna_eri_packed(int lmax, int n_pairs, int n_prim_pairs, const do
   const QuartetPart part{reinterpret_cast<const int2*>(quartets), 0, pair_start, rows,
                          2 * lmax + 1, boys_tables};
   return launch_work_list(n_classes, reinterpret_cast<const ClassPart*>(classes), part,
-                          PackedOut{packed, n_pairs}, stream);
+                          tuna_quartet::PackedOut{packed, n_pairs}, stream);
 }
 
 extern "C" const char* tuna_error_string(int code) {

@@ -15,8 +15,10 @@
 //
 // Design, on K1's engine (csrc/quartet.cuh):
 //   * pair_rows_kernel builds the per-primitive-pair rows;
-//   * one kernel a class (L_bra, L_ket) and part, over the work list of
-//     parity-matched unordered AO-pair quartets; each quartet's value
+//   * one kernel a class (L_bra, L_ket) and part, up to (10, 10) (lmax 5;
+//     the classes of L_bra = 7..10 in quartet_l7.cu .. quartet_l10.cu),
+//     over the work list of parity-matched unordered AO-pair quartets;
+//     each quartet's value (quartet.cuh FockOut)
 //     v = (ij|kl) is added in both orientations, (ij|kl) and, when the two
 //     pairs differ, (kl|ij):
 //       J_pair[P] += v P_kl (2 if k != l), and the mirror term;
@@ -32,38 +34,6 @@
 #include "quartet.cuh"
 
 namespace {
-
-// Adds the orientation (ij|kl) of value v: rows "ij" = AO pair pid_ij, cols
-// "kl".  K[m,n] += (ms|tn) P[t,s] over (m,s) in {(i,j),(j,i)} and (t,n) in
-// {(k,l),(l,k)}, the degenerate options left out.
-__device__ __forceinline__ void add_orientation(double v, int pid_ij, int i, int j, int k, int l,
-                                                int n, const double* __restrict__ P,
-                                                double* __restrict__ J_pair,
-                                                double* __restrict__ K) {
-  const bool m_ij = i != j, m_kl = k != l;
-  atomicAdd(J_pair + pid_ij, v * P[k * n + l] * (m_kl ? 2.0 : 1.0));
-  atomicAdd(K + i * n + l, v * P[k * n + j]);
-  if (m_kl) atomicAdd(K + i * n + k, v * P[l * n + j]);
-  if (m_ij) {
-    atomicAdd(K + j * n + l, v * P[k * n + i]);
-    if (m_kl) atomicAdd(K + j * n + k, v * P[l * n + i]);
-  }
-}
-
-struct FockOut {
-  int n_basis;
-  const int* pid_i;
-  const int* pid_j;
-  const double* P;
-  double* J_pair;
-  double* K;
-
-  __device__ __forceinline__ void operator()(double v, int A, int B) const {
-    const int i = pid_i[A], j = pid_j[A], k = pid_i[B], l = pid_j[B];
-    add_orientation(v, A, i, j, k, l, n_basis, P, J_pair, K);
-    if (A != B) add_orientation(v, B, k, l, i, j, n_basis, P, J_pair, K);
-  }
-};
 
 __global__ void __launch_bounds__(kQuartetThreads)
 fock_unpack_kernel(int n_pairs, int n_basis, const int* __restrict__ pid_i,
@@ -99,7 +69,7 @@ extern "C" int tuna_fock_direct(int lmax, int n_pairs, int n_prim_pairs, int n_b
   const QuartetPart part{reinterpret_cast<const int2*>(quartets), 0, pair_start, rows,
                          2 * lmax + 1, boys_tables};
   err = launch_work_list(n_classes, reinterpret_cast<const ClassPart*>(classes), part,
-                         FockOut{n_basis, pid_i, pid_j, P, J_pair, K}, stream);
+                         tuna_quartet::FockOut{n_basis, pid_i, pid_j, P, J_pair, K}, stream);
   if (err != cudaSuccess || n_pairs == 0) return err;
   fock_unpack_kernel<<<(n_pairs + kQuartetThreads - 1) / kQuartetThreads, kQuartetThreads, 0,
                        stream>>>(n_pairs, n_basis, pid_i, pid_j, J_pair, J);

@@ -33,7 +33,8 @@
 // launch from N2/STO-3G to N2/cc-pVTZ, where the longest chain is 2
 // primitive pairs a lane; the Boys table staged in each block's shared
 // memory (24 KB a block, read once) took 0.010-0.016, so it is read
-// through L1; 118-158 registers, no stack frame.
+// through L1; 118-158 registers, no stack frame (lmax 0-3).  Instantiated
+// for lmax 0-5 (h shells: Hermite rows of 11 orders, Boys order 10).
 #include <cuda_runtime.h>
 
 #include "boys.cuh"
@@ -174,6 +175,8 @@ extern "C" int tuna_one_electron(int lmax, int n_atoms, int n_basis, int n_lanes
     TUNA_ONE_ELECTRON_CASE(1)
     TUNA_ONE_ELECTRON_CASE(2)
     TUNA_ONE_ELECTRON_CASE(3)
+    TUNA_ONE_ELECTRON_CASE(4)
+    TUNA_ONE_ELECTRON_CASE(5)
     default:
       return cudaErrorInvalidValue;
   }

@@ -34,15 +34,25 @@
 // run beside large ones instead of leaving the card idle at the tail of
 // each.
 //
+// Classes.  K1 and K4 take every class up to (10, 10), the g and h shells
+// of lmax 5.  The classes up to (6, 6) are instantiated in the translation
+// unit of their kernel (eri.cu, fock_direct.cu); those of L_bra = 7..10 in
+// quartet_l7.cu .. quartet_l10.cu, one source an L_bra for both kernels, so
+// that nvcc builds them in parallel (launch_high_class).  A thread of a
+// class with L_bra > 6 reads its bra row again for each ket instead of
+// keeping it in registers across the ket loop: the Boys values and the
+// Hermite Coulomb rows of order up to 20 then have those registers.
+//
 // No tensor-core path applies at this grain: a quartet's Hermite
-// contraction is at most 7 x 7 an axis and differs from lane to lane.
+// contraction is at most 11 x 11 an axis and differs from lane to lane.
 // K8b (eri_deriv.cu) shares the Boys values and R^n_00v of a primitive
 // quartet across the Cartesian components of a shell quartet and keeps
 // each component's own part on the CUDA cores; K1 and K4 do not share them
 // yet (ROADMAP, queue 2).
 //
-// Everything here has internal linkage: each translation unit that includes
-// the header gets its own copy of the kernels and of the side streams.
+// Everything here but the types of namespace tuna_quartet has internal
+// linkage: each translation unit that includes the header gets its own copy
+// of the kernels and of the side streams.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -94,7 +104,7 @@ pair_rows_kernel(int n_prim_pairs, const double* __restrict__ coords,
 }
 
 // Launches pair_rows_kernel over every primitive pair: rows of 3 (2 lmax + 1)
-// + 3 doubles.
+// + 3 doubles, 36 at lmax 5.
 cudaError_t launch_pair_rows(int lmax, int n_prim_pairs, const double* coords, const double* a,
                              const double* b, const double* coef, const int* l1, const int* l2,
                              const int* atom1, const int* atom2, double* rows,
@@ -112,6 +122,8 @@ cudaError_t launch_pair_rows(int lmax, int n_prim_pairs, const double* coords, c
     TUNA_PAIR_ROWS(1)
     TUNA_PAIR_ROWS(2)
     TUNA_PAIR_ROWS(3)
+    TUNA_PAIR_ROWS(4)
+    TUNA_PAIR_ROWS(5)
 #undef TUNA_PAIR_ROWS
     default:
       return cudaErrorInvalidValue;
@@ -225,9 +237,11 @@ __device__ __forceinline__ double primitive_quartet(const PairRow<LA + 1>& A,
   return quartet_value<S::NM, S::NXY>(A.p, C.p, A.Pz, C.Pz, A.coef * C.coef, gz, axy, tab);
 }
 
-// ---------------------------------------------------------------------------
-// The class kernels
-// ---------------------------------------------------------------------------
+}  // namespace
+
+// The types that cross translation units (the classes of L_bra = 7..10 are
+// launched from quartet_l7.cu .. quartet_l10.cu) have external linkage.
+namespace tuna_quartet {
 
 // One part of the work list, as a kernel reads it.
 struct QuartetPart {
@@ -239,11 +253,83 @@ struct QuartetPart {
   const double* boys;     // Taylor table of the class's Boys order
 };
 
-// One thread a quartet: the bra row in registers, the ket rows read through
-// L1.  out(value, bra, ket) takes the contracted value.
+// One row of the host's class table: the class (la, lb), its light part
+// [begin, split) and heavy part [split, end) of the work list, and the most
+// primitive pairs of a bra and of a ket in the heavy part.
+struct ClassPart {
+  int la, lb, begin, split, end, max_bra, max_ket;
+};
+
+// K1's output: the value of the AO-pair quartet (P|Q) at packed[P, Q] and
+// packed[Q, P] (eri.cu).
+struct PackedOut {
+  double* packed;
+  int n_pairs;
+
+  __device__ __forceinline__ void operator()(double v, int P, int Q) const {
+    packed[static_cast<size_t>(P) * n_pairs + Q] = v;
+    packed[static_cast<size_t>(Q) * n_pairs + P] = v;
+  }
+};
+
+// Adds the orientation (ij|kl) of value v: rows "ij" = AO pair pid_ij, cols
+// "kl".  K[m,n] += (ms|tn) P[t,s] over (m,s) in {(i,j),(j,i)} and (t,n) in
+// {(k,l),(l,k)}, the degenerate options left out.
+__device__ __forceinline__ void add_orientation(double v, int pid_ij, int i, int j, int k, int l,
+                                                int n, const double* __restrict__ P,
+                                                double* __restrict__ J_pair,
+                                                double* __restrict__ K) {
+  const bool m_ij = i != j, m_kl = k != l;
+  atomicAdd(J_pair + pid_ij, v * P[k * n + l] * (m_kl ? 2.0 : 1.0));
+  atomicAdd(K + i * n + l, v * P[k * n + j]);
+  if (m_kl) atomicAdd(K + i * n + k, v * P[l * n + j]);
+  if (m_ij) {
+    atomicAdd(K + j * n + l, v * P[k * n + i]);
+    if (m_kl) atomicAdd(K + j * n + k, v * P[l * n + i]);
+  }
+}
+
+// K4's output: the value of (A|B) added to J_pair and K in both
+// orientations, by atomics (fock_direct.cu).
+struct FockOut {
+  int n_basis;
+  const int* pid_i;
+  const int* pid_j;
+  const double* P;
+  double* J_pair;
+  double* K;
+
+  __device__ __forceinline__ void operator()(double v, int A, int B) const {
+    const int i = pid_i[A], j = pid_j[A], k = pid_i[B], l = pid_j[B];
+    add_orientation(v, A, i, j, k, l, n_basis, P, J_pair, K);
+    if (A != B) add_orientation(v, B, k, l, i, j, n_basis, P, J_pair, K);
+  }
+};
+
+// Launches the light and heavy kernels of one class with L_bra = LA, 7 <=
+// LA <= 10; defined, for Out = PackedOut and FockOut, in quartet_l<LA>.cu.
+template <int LA, class Out>
+cudaError_t launch_high_class(const ClassPart& cls, const QuartetPart& part, const Out& out,
+                              cudaStream_t light, cudaStream_t heavy);
+
+}  // namespace tuna_quartet
+
+namespace {
+
+using tuna_quartet::ClassPart;
+using tuna_quartet::QuartetPart;
+
+// ---------------------------------------------------------------------------
+// The class kernels
+// ---------------------------------------------------------------------------
+
+// One thread a quartet: the bra row in registers (read again for each ket
+// above L_bra = 6), the ket rows read through L1.  out(value, bra, ket)
+// takes the contracted value.
 template <int LA, int LB, class Out>
 __global__ void __launch_bounds__(kQuartetThreads)
 quartet_light_kernel(QuartetPart part, Out out) {
+  constexpr bool kBraInRegisters = LA <= 6;
   __shared__ double tab[TUNA_BOYS_TABLE_SIZE];
   tuna::load_boys_table(tab, part.boys);
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -254,9 +340,11 @@ quartet_light_kernel(QuartetPart part, Out out) {
   const int c0 = part.pair_start[q.y], c1 = part.pair_start[q.y + 1];
   double sum = 0.0;
   for (int r = part.pair_start[q.x]; r < r1; ++r) {
+    const double* bra_row = part.rows + static_cast<size_t>(r) * rs;
     PairRow<LA + 1> bra;
-    bra.load(part.rows + static_cast<size_t>(r) * rs, part.tl);
+    if constexpr (kBraInRegisters) bra.load(bra_row, part.tl);
     for (int c = c0; c < c1; ++c) {
+      if constexpr (!kBraInRegisters) bra.load(bra_row, part.tl);
       PairRow<LB + 1> ket;
       ket.load(part.rows + static_cast<size_t>(c) * rs, part.tl);
       sum += primitive_quartet<LA, LB>(bra, ket, tab);
@@ -321,13 +409,6 @@ quartet_heavy_kernel(QuartetPart part, int max_bra, int max_ket, Out out) {
 // Launching a work list
 // ---------------------------------------------------------------------------
 
-// One row of the host's class table: the class (la, lb), its light part
-// [begin, split) and heavy part [split, end) of the work list, and the most
-// primitive pairs of a bra and of a ket in the heavy part.
-struct ClassPart {
-  int la, lb, begin, split, end, max_bra, max_ket;
-};
-
 template <int LA, int LB, class Out>
 cudaError_t launch_class(const ClassPart& cls, QuartetPart part, Out out, cudaStream_t light,
                          cudaStream_t heavy) {
@@ -361,11 +442,25 @@ cudaError_t launch_class(const ClassPart& cls, QuartetPart part, Out out, cudaSt
   return cudaGetLastError();
 }
 
-// Every class with L_bra >= L_ket up to 2 KERNEL_MAX_LMAX = 6.
+// Every class with L_bra >= L_ket up to (6, 6), the classes of lmax 3: those
+// of K1 and K4 built beside their kernels, and all of K8b's and K8bu's
+// (eri_deriv.cu), whose gradients stop at f shells.
 #define TUNA_QUARTET_CLASSES(X)                                                                \
   X(0, 0) X(1, 0) X(1, 1) X(2, 0) X(2, 1) X(2, 2) X(3, 0) X(3, 1) X(3, 2) X(3, 3) X(4, 0)       \
   X(4, 1) X(4, 2) X(4, 3) X(4, 4) X(5, 0) X(5, 1) X(5, 2) X(5, 3) X(5, 4) X(5, 5) X(6, 0)       \
   X(6, 1) X(6, 2) X(6, 3) X(6, 4) X(6, 5) X(6, 6)
+
+// The light and heavy kernels of class (LA, cls.lb) for LB <= cls.lb <= LA.
+template <int LA, int LB, class Out>
+cudaError_t launch_class_from(const ClassPart& cls, const QuartetPart& part, const Out& out,
+                              cudaStream_t light, cudaStream_t heavy) {
+  if constexpr (LB > LA) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (cls.lb == LB) return launch_class<LA, LB, Out>(cls, part, out, light, heavy);
+    return launch_class_from<LA, LB + 1, Out>(cls, part, out, light, heavy);
+  }
+}
 
 template <class Out>
 cudaError_t launch_class_part(const ClassPart& cls, const QuartetPart& part, const Out& out,
@@ -376,6 +471,19 @@ cudaError_t launch_class_part(const ClassPart& cls, const QuartetPart& part, con
     return launch_class<A, B, Out>(cls, part, out, light, heavy);
     TUNA_QUARTET_CLASSES(TUNA_CLASS_CASE)
 #undef TUNA_CLASS_CASE
+    default:
+      break;
+  }
+  if (cls.lb < 0 || cls.lb > cls.la) return cudaErrorInvalidValue;
+  switch (cls.la) {
+    case 7:
+      return tuna_quartet::launch_high_class<7, Out>(cls, part, out, light, heavy);
+    case 8:
+      return tuna_quartet::launch_high_class<8, Out>(cls, part, out, light, heavy);
+    case 9:
+      return tuna_quartet::launch_high_class<9, Out>(cls, part, out, light, heavy);
+    case 10:
+      return tuna_quartet::launch_high_class<10, Out>(cls, part, out, light, heavy);
     default:
       return cudaErrorInvalidValue;
   }

@@ -43,7 +43,14 @@ from .boys import boys_table, taylor_table
 
 TWO_PI_POW_2_5 = 2.0 * math.pi ** 2.5  # 34.9868366552497...
 PI_POW_1_5 = math.pi ** 1.5
-KERNEL_MAX_LMAX = 3                    # highest LMAX instantiated in csrc/
+# The highest lmax instantiated in csrc/ for each kernel, by its name in
+# _kernels.launches, with its label: K1, K4 and K3 (and the pair rows K1 and
+# K4 share) to h shells, so to quartet classes (10, 10) and Boys order 20;
+# the gradient kernels K8a, K8b and K8bu to f shells.  Every basis of the
+# library stops at h.
+KERNEL_MAX_LMAX = {"eri_packed": ("K1", 5), "fock_direct": ("K4", 5),
+                   "one_electron": ("K3", 5), "one_electron_deriv": ("K8a", 3),
+                   "eri_deriv_energy": ("K8b", 3), "eri_deriv_energy_unrestricted": ("K8bu", 3)}
 # Primitive quartets above which a work-list quartet gets a warp of its own
 # instead of a thread (csrc/quartet.cuh); tuned on the card (PERF.md).
 HEAVY_THRESHOLD = 16
@@ -212,23 +219,22 @@ def gather_E_scalar(E_stacked, l1_idx, l2_idx, t: int):
 def build_scaled_Rz_table(vmax: int, nmax: int, PQz, alpha):
     """Rt[v][n] = R^n_{00v} / (2 alpha)^(n+v), built from (-1)^n F_n.
 
-    Returns (batch, vmax+1, nmax+1); entries with n > nmax - v are unused
-    and callers only touch valid (v, n)."""
+    Returns (batch, vmax+1, nmax+1); only the entries n <= nmax - v are
+    formed (each from entries of the same kind), the others are zero, and
+    callers only touch valid (v, n)."""
     F = boys_table(nmax, alpha * PQz * PQz)  # (batch, nmax+1)
     signs = torch.tensor([(-1.0) ** n for n in range(nmax + 1)], dtype=F.dtype,
                          device=F.device)
-    rows = [F * signs]
+    R = torch.zeros(F.shape[:1] + (vmax + 1, nmax + 1), dtype=F.dtype, device=F.device)
+    R[:, 0] = F * signs
     inv_s = 0.5 / alpha
-    for v in range(1, vmax + 1):
-        prev1 = rows[v - 1]
-        shifted1 = torch.cat([prev1[:, 1:], torch.zeros_like(prev1[:, :1])], dim=1)
-        row = PQz[:, None] * shifted1
+    for v in range(1, min(vmax, nmax) + 1):
+        top = nmax - v + 1
+        row = PQz[:, None] * R[:, v - 1, 1:top + 1]
         if v > 1:
-            prev2 = rows[v - 2]
-            shifted2 = torch.cat([prev2[:, 1:], torch.zeros_like(prev2[:, :1])], dim=1)
-            row = row + ((v - 1) * inv_s)[:, None] * shifted2
-        rows.append(row)
-    return torch.stack(rows, dim=1)
+            row = row + ((v - 1) * inv_s)[:, None] * R[:, v - 2, 1:top + 1]
+        R[:, v, :top] = row
+    return R
 
 
 # =========================================================================
@@ -412,37 +418,62 @@ class IntegralPlan:
         first = self.pair_start[:-1]
         L = (self.l1[first].sum(axis=1) + self.l2[first].sum(axis=1)).astype(np.int64)
         parity = (2 * ((self.l1[first, 0] + self.l2[first, 0]) & 1)
-                  + ((self.l1[first, 1] + self.l2[first, 1]) & 1))
+                  + ((self.l1[first, 1] + self.l2[first, 1]) & 1)).astype(np.int64)
         n_prim = np.diff(self.pair_start).astype(np.int64)
-        P, Q = [], []
-        for cls in range(4):
-            members = np.flatnonzero(parity == cls)
-            rows, cols = np.tril_indices(len(members))
-            P.append(members[rows])
-            Q.append(members[cols])
-        P, Q = np.concatenate(P), np.concatenate(Q)
-        swap = L[Q] > L[P]
-        bra, ket = np.where(swap, Q, P), np.where(swap, P, Q)
-        count = n_prim[bra] * n_prim[ket]
-        order = np.lexsort((ket, bra, -count, count > HEAVY_THRESHOLD, L[ket], L[bra]))
-        bra, ket, count = bra[order], ket[order], count[order]
-        l_bra, l_ket = L[bra], L[ket]
-        quartets = np.ascontiguousarray(np.stack([bra, ket], axis=1), dtype=np.int32)
-
-        new_class = np.r_[True, (l_bra[1:] != l_bra[:-1]) | (l_ket[1:] != l_ket[:-1])]
-        begins = np.flatnonzero(new_class)
-        ends = np.r_[begins[1:], len(bra)].astype(np.int64)
-        classes, chain, work = [], [], []
-        for begin, end in zip(begins, ends):
-            split = begin + int(np.sum(count[begin:end] <= HEAVY_THRESHOLD))
-            heavy = slice(split, end)
-            ops = sum(quartet_operations(int(l_bra[begin]), int(l_ket[begin])))
-            classes.append((l_bra[begin], l_ket[begin], begin, split, end,
-                            n_prim[bra[heavy]].max(initial=0), n_prim[ket[heavy]].max(initial=0)))
-            # iterations of the busiest thread (light) or lane (heavy), first in each part
-            chain.append(ops * max(count[begin] if split > begin else 0,
-                                   -(-count[split] // 32) if end > split else 0))
-            work.append(ops * int(count[begin:end].sum()))
+        # The AO pairs sorted by (L, parity, primitive pairs, index): the kets
+        # of a bra at a given count form one run of `runs` whose key is
+        # `prefix`; the quartets of a class come out run by run in the order
+        # of the keys (count, bra, ket) with no sort over the quartets.
+        width = int(n_prim.max(initial=0)) + 1
+        prefix = (L * 4 + parity) * width + n_prim
+        runs = np.lexsort((np.arange(self.n_pairs), prefix))
+        keys = prefix[runs] * self.n_pairs + runs
+        quartets, classes, chain, work = [], [], [], []
+        begin = 0
+        for la in range(int(L.max(initial=-1)) + 1):
+            bras = np.flatnonzero(L == la)
+            for lb in range(la + 1):
+                kets = L == lb
+                counts = np.unique(np.concatenate(
+                    [np.outer(np.unique(n_prim[bras[parity[bras] == c]]),
+                              np.unique(n_prim[kets & (parity == c)])).ravel()
+                     for c in range(4)]))
+                # light counts, then heavy ones, each largest first
+                counts = np.r_[counts[counts <= HEAVY_THRESHOLD][::-1],
+                               counts[counts > HEAVY_THRESHOLD][::-1]]
+                parts, sizes, max_bra, max_ket = [], [], 0, 0
+                for count in counts:
+                    b = bras[(count % n_prim[bras] == 0) & (count // n_prim[bras] < width)]
+                    n_ket = count // n_prim[b]
+                    key = ((lb * 4 + parity[b]) * width + n_ket) * self.n_pairs
+                    start = np.searchsorted(keys, key)
+                    stop = np.searchsorted(keys, key + (b + 1 if la == lb else self.n_pairs))
+                    lengths = stop - start
+                    if not lengths.any():
+                        continue
+                    total = int(lengths.sum())
+                    offsets = np.cumsum(lengths) - lengths
+                    ket = runs[np.arange(total) - np.repeat(offsets - start, lengths)]
+                    parts.append(np.stack([np.repeat(b, lengths), ket], axis=1).astype(np.int32))
+                    sizes.append((int(count), total))
+                    if count > HEAVY_THRESHOLD:
+                        max_bra = max(max_bra, int(n_prim[b[lengths > 0]].max()))
+                        max_ket = max(max_ket, int(n_ket[lengths > 0].max()))
+                if not parts:
+                    continue
+                n = sum(total for _, total in sizes)
+                n_light = sum(total for count, total in sizes if count <= HEAVY_THRESHOLD)
+                quartets.extend(parts)
+                classes.append((la, lb, begin, begin + n_light, begin + n, max_bra, max_ket))
+                ops = sum(quartet_operations(la, lb))
+                light = [count for count, _ in sizes if count <= HEAVY_THRESHOLD]
+                heavy = [count for count, _ in sizes if count > HEAVY_THRESHOLD]
+                # iterations of the busiest thread (light) or lane (heavy), first in each part
+                chain.append(ops * max(light[0] if light else 0,
+                                       -(-heavy[0] // 32) if heavy else 0))
+                work.append(ops * sum(count * total for count, total in sizes))
+                begin += n
+        quartets = np.concatenate(quartets) if quartets else np.empty((0, 2), dtype=np.int32)
         # rows of csrc/quartet.cuh::ClassPart
         classes = np.array([classes[k] for k in np.lexsort((-np.array(work), -np.array(chain)))],
                            dtype=np.int32).reshape(-1, 7)
@@ -678,7 +709,7 @@ class IntegralPlan:
         raise ValueError(f"no one-electron integrals for device {coords.device}")
 
     def _one_electron_kernel(self, coords, charges, dipole_origin_z):
-        self._check_kernel_lmax()
+        self._check_kernel_lmax("one_electron")
         device = coords.device
         N, n_atoms = self.n_basis, self.n_atoms
         _kernels.check_tensor("coords", coords, (n_atoms, 3), _F64, device)
@@ -813,7 +844,7 @@ class IntegralPlan:
         raise ValueError(f"no one-electron integral derivatives for device {coords.device}")
 
     def _one_electron_deriv_kernel(self, coords, charges, dipole_origin_z, origin_rate):
-        self._check_kernel_lmax()
+        self._check_kernel_lmax("one_electron_deriv")
         device = coords.device
         N, n_atoms = self.n_basis, self.n_atoms
         _kernels.check_tensor("coords", coords, (n_atoms, 3), _F64, device)
@@ -951,14 +982,17 @@ class IntegralPlan:
             return self._eri_packed_kernel(coords)
         raise ValueError(f"no electron repulsion integrals for device {coords.device}")
 
-    def _check_kernel_lmax(self):
-        if self.lmax > KERNEL_MAX_LMAX:
+    def _check_kernel_lmax(self, kernel: str):
+        """Raise unless the CUDA kernel `kernel` (a key of KERNEL_MAX_LMAX)
+        is instantiated for this basis's lmax."""
+        label, most = KERNEL_MAX_LMAX[kernel]
+        if self.lmax > most:
             raise NotImplementedError(
-                f"the CUDA integral kernels are instantiated up to lmax = "
-                f"{KERNEL_MAX_LMAX}; this basis has lmax = {self.lmax}")
+                f"{label} ({kernel}) is not yet ported to tuna_tpu_torch above lmax {most}; "
+                f"this basis has lmax {self.lmax}")
 
     def _eri_packed_kernel(self, coords):
-        self._check_kernel_lmax()
+        self._check_kernel_lmax("eri_packed")
         device = coords.device
         _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
         t = self.tensors(device)
@@ -1182,7 +1216,7 @@ class IntegralPlan:
         return closure
 
     def _fock_direct_kernel(self, coords, P):
-        self._check_kernel_lmax()
+        self._check_kernel_lmax("fock_direct")
         device = coords.device
         N = self.n_basis
         _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
@@ -1290,7 +1324,7 @@ class IntegralPlan:
 
     def _eri_deriv_energy_kernel(self, kernel, entry, coords, densities, hfx):
         """Launch K8b (densities [P]) or K8bu ([P_a + P_b, P_a, P_b])."""
-        self._check_kernel_lmax()
+        self._check_kernel_lmax(kernel)
         device = coords.device
         N = self.n_basis
         _kernels.check_tensor("coords", coords, (self.n_atoms, 3), _F64, device)
@@ -1345,6 +1379,23 @@ class IntegralPlan:
         K_b = torch.einsum("ilkj,kl->ij", d_eri, P_b)
         return 0.5 * torch.sum(P * J) - 0.5 * hfx * (torch.sum(P_a * K_a)
                                                      + torch.sum(P_b * K_b))
+
+
+def shell_subset(basis_functions, keep) -> list:
+    """The basis functions of the first shell of each (atom, l) in `keep`,
+    in basis order.  A shell is a run of the (l + 1)(l + 2) / 2 Cartesian
+    components of one total angular momentum l on one atom.  Reduced plans
+    of a large basis (a few of its g and h shells) are built this way."""
+    keep, chosen, seen, i = set(keep), [], set(), 0
+    while i < len(basis_functions):
+        function = basis_functions[i]
+        l = function.l_total
+        shell = basis_functions[i:i + (l + 1) * (l + 2) // 2]
+        if (function.atom_index, l) in keep - seen:
+            seen.add((function.atom_index, l))
+            chosen.extend(shell)
+        i += len(shell)
+    return chosen
 
 
 def cross_overlap(basis_functions_1, basis_functions_2) -> np.ndarray:
