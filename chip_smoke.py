@@ -214,6 +214,25 @@ non-zero without printing a result):
      with the first and warm walls, SCF ms an iteration, K1's and K4's ms
      a call and the peak device memory.  The build line names
      the registers and spills of the kernels added for lmax 4-5.
+ 26. analytic gradients at g and h shells (lmax 4-5): K8a, K8b and K8bu
+     against their plain versions (INTEGRAL_TOLERANCE, bitwise over two
+     calls; K8bu at Pa = Pb = P/2 against K8b(P)) on reduced H2 plans (a
+     g shell of cc-pV5Z, the h shell of cc-pV6Z, each with an s shell on
+     the other atom), whole N2/cc-pVQZ and HF/cc-pV5Z (K8b's and K8bu's
+     plain versions contracting one dense tangent, 11.8 GB at HF/cc-pV5Z),
+     with ms, device ms a call back to back, bounds, K8b's launches and
+     host ms a call and the registers of K8a at lmax 4-5 and of K8b's
+     classes (no spill); K8b at the whole N2/cc-pV5Z against the
+     four-point central difference of E_2 from K1's packed matrix
+     (DIFFERENCE_TOLERANCE), with the host's shell quartets; then `FORCE :
+     N N 1.1 : HF CC-PVQZ`, `FORCE : O O 1.21 : UHF CC-PVQZ : ML 3`,
+     `FORCE : N N 1.1 : B3LYP CC-PVQZ` and `FORCE : H F 0.917 : HF
+     CC-PV5Z` at TIGHTSCF with no plain version allowed, each against
+     tuna_tpu's energy and gradient (REFERENCES_26) and against the
+     central difference of the card's own EXTREMESCF energies
+     (GRADIENT_TOLERANCE), and `OPT : N N 1.1 : HF CC-PVQZ : TIGHTSCF`
+     against tuna_tpu's bond length, energy and iterations, with its
+     `profile` line.
 
 A device time read from torch.profiler fails the run when the kernel ran
 and the profile has no entry for it.  A session records the launches of
@@ -649,7 +668,7 @@ PHASE_23_TOLERANCE = 1e-10   # Ha, each energy against tuna_tpu's
 BDE_TOLERANCE = 1e-8         # Ha: the BDE less a zero-point energy from a five-point Hessian
 ANHARM_TOLERANCE = 1e-8      # Ha, each vibrational level and the zero-point energy
 CM_TOLERANCE = 0.01          # per cm, the fundamental and chi times the harmonic frequency
-CC3_WARM_RUNS = 3            # warm runs of LINE_CC3, for its profile
+CC3_WARM_RUNS = 2            # warm runs of LINE_CC3, for its profile
 # SCF cycles an SCF of a line may differ by from tuna_tpu's, by the SCF's
 # index in the order they ran (the number of SCFs is equal, every other
 # SCF's cycles too): ANHARM's SCF 18, the last point of its first forward
@@ -746,7 +765,7 @@ REFERENCES_24 = {
 }
 EXCITED_TOLERANCE = 1e-10    # Ha, energies, excitation energies, (D), stability eigenvalues
 STRENGTH_TOLERANCE = 1e-8    # the oscillator strengths, absolute
-TDLDA_WARM_RUNS = 3          # warm runs of LINE_TDLDA, for its profile
+TDLDA_WARM_RUNS = 2          # warm runs of LINE_TDLDA, for its profile
 # Lines whose last SCF rounding decides (--uks-td-devices shows it): the
 # UKS SVWN SCF of LINE_UKS_TD ends in DIIS systems of condition 5e9-7e10,
 # where the card's and the host's runs, equal within 2.3e-13 Ha until
@@ -829,7 +848,52 @@ TRANSFORM_TOLERANCE = 1e-12  # relative to the largest |entry| of the output
 DERIV_GRID_TOLERANCE = 1e-12  # relative to the largest |entry| of each K8c output
 UNRESTRICTED_HALF_TOLERANCE = 1e-14  # relative, K8bu at Pa = Pb = P/2 against K8b(P)
 
-WARM_RUNS = 3                  # warm runs of a path, for its profile and --compare
+# The analytic gradient at g and h shells (phase 26).  Constants from
+# `tests/chip_smoke_references.py --phase 26` (tuna_tpu on the JAX CPU
+# backend, its jax.grad through the jax.jvp substitute): each line's energy
+# at the input geometry, the SCF cycles of every SCF and tuna_tpu's
+# gradient (HF/cc-pV5Z's took 1212 s and 31 GB on the pinning host); the
+# OPT line's bond length, energy and geometry iterations.  At TIGHTSCF the
+# B3LYP line stops 2.6e-10 Ha from tuna_tpu's on the card and on the host's
+# CPU alike (the port on both 1.4e-11 apart), in as many cycles: both runs
+# stop within the 1e-9 Ha energy criterion of the same minimum, which `SPE :
+# N N 1.1 : B3LYP CC-PVQZ : EXTREMESCF` reaches in both packages 6.6e-13
+# apart.  So that line's energy is held to the BASELINE contract, and the
+# card's EXTREMESCF single point at its geometry to tuna_tpu's
+# ("extreme_energy") at PHASE_26_TOLERANCE.
+LINE_QZ_FORCE = "FORCE : N N 1.1 : HF CC-PVQZ : TIGHTSCF"
+LINE_QZ_UHF_FORCE = "FORCE : O O 1.21 : UHF CC-PVQZ : ML 3 TIGHTSCF"
+LINE_QZ_DFT_FORCE = "FORCE : N N 1.1 : B3LYP CC-PVQZ : TIGHTSCF"
+LINE_5Z_FORCE = "FORCE : H F 0.917 : HF CC-PV5Z : TIGHTSCF"
+LINE_QZ_OPT = "OPT : N N 1.1 : HF CC-PVQZ : TIGHTSCF"
+REFERENCES_26 = {
+    LINE_QZ_FORCE: {"scf_cycles": [7, 14], "energy": -108.9906006517254,
+                    "gradient": 0.11451397033788469},
+    LINE_QZ_UHF_FORCE: {"scf_cycles": [9, 16], "energy": -149.686951469586,
+                        "gradient": 0.09727650535069365},
+    LINE_QZ_DFT_FORCE: {"scf_cycles": [7, 11], "energy": -109.5245496811221,
+                        "energy_tolerance": E_TOLERANCE, "extreme_energy": -109.52454968077438,
+                        "gradient": 0.027830415091774863},
+    LINE_5Z_FORCE: {"scf_cycles": [9, 15], "energy": -100.07043035444228,
+                    "gradient": 0.025569084218005023},
+    LINE_QZ_OPT: {"bond_length": 2.013660760420279, "energy": -108.99447021418584,
+                  "iterations": 6},
+}
+PHASE_26_TOLERANCE = 1e-10          # Ha, each line's energy at its input geometry
+GRADIENT_TOLERANCE = 1e-6           # Ha/bohr, a line's gradient against its central difference
+GRADIENT_PIN_TOLERANCE = 1e-8       # Ha/bohr, a line's gradient against tuna_tpu's
+# bohr: the step of the four-point central differences (R +- h, R +- 2h),
+# whose truncation error h^4 E^(5) / 30 stays below 1e-9 Ha/bohr here
+DIFFERENCE_STEP = 0.005
+DIFFERENCE_TOLERANCE = 1e-8         # Ha/bohr, K8b against K1's E_2 at N2/cc-pV5Z
+# the gradient kernels' plans: reduced diatomics (a g shell of H/cc-pV5Z, the
+# h shell of H/cc-pV6Z, each with an s shell on the other atom), then whole
+# N2/cc-pVQZ (140 functions) and HF/cc-pV5Z (196)
+HIGH_L_GRADIENT_PLANS = (("H", None, 0.74, "CC-PV5Z", ((0, 4), (1, 0))),
+                         ("H", None, 0.74, "CC-PV6Z", ((0, 5), (1, 0))),
+                         ("N", None, 1.1, "CC-PVQZ", None),
+                         ("H", "F", 0.917, "CC-PV5Z", None))
+WARM_RUNS = 2                  # warm runs of a path, for its profile and --compare
 PROFILE_ATTEMPTS = 5           # torch.profiler sessions tried before a run fails
 
 BYTES_PER_MS = 3.35e12 / 1e3   # H100 SXM device memory
@@ -938,6 +1002,14 @@ PHASE_25_LINES = (
     (LINE_5Z_N2_DIRECT, ("one_electron", "fock_direct")),
 )
 
+# the lines of phase 26 with the kernels each must launch
+PHASE_26_LINES = (
+    (LINE_QZ_FORCE, HF_GRADIENT_PATH_KERNELS),
+    (LINE_QZ_UHF_FORCE, UHF_GRADIENT_PATH_KERNELS),
+    (LINE_QZ_DFT_FORCE, GRADIENT_PATH_KERNELS),
+    (LINE_5Z_FORCE, HF_GRADIENT_PATH_KERNELS),
+)
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -1025,7 +1097,7 @@ def eri_operations(plan: IntegralPlan, derivative: bool = False) -> tuple[float,
     own class (L_bra, L_ket), from ops/integrals.py::quartet_operations;
     higher orders are exact zeros.  With `derivative`, those of K8b's
     derivative quartets (deriv_quartet_operations), without the quartets on
-    one atom, which it skips.
+    one atom, which it skips: the components of IntegralPlan.shell_quartets.
 
     The kernel computes every part of quartet_operations for each primitive
     quartet of each AO-pair quartet.  The function needs the shared part
@@ -1036,24 +1108,28 @@ def eri_operations(plan: IntegralPlan, derivative: bool = False) -> tuple[float,
     count is K8b's first form's, every part for each primitive quartet of
     each AO-pair quartet (the kernel's own is deriv_operations).  pair_rows_kernel,
     ~0.1% of either, is left out."""
+    shell_pair, shell_prim = plan.shell_pairs()
+    shell_prim = shell_prim.astype(np.float64)
+    if derivative:   # every AO-pair quartet of a shell quartet has its primitive quartets
+        _, quartets = plan.shell_quartets()
+        la, lb, sa, sb, begin, end = (quartets[:, k].astype(np.int64) for k in range(6))
+        top = int(la.max(initial=0)) + 1
+        ops = np.array([[deriv_quartet_operations(a, b) for b in range(top)]
+                        for a in range(top)], dtype=np.float64).reshape(top, top, 2)
+        shared, own = ops[la, lb, 0], ops[la, lb, 1]
+        prims, count = shell_prim[sa] * shell_prim[sb], (end - begin).astype(np.float64)
+        return (float(np.sum((own * count + shared) * prims)),
+                float(np.sum((shared + own) * count * prims)))
     quartets, classes = plan.work_list()
     n_prim = np.diff(plan.pair_start).astype(np.float64)
     counts = n_prim[quartets[:, 0]] * n_prim[quartets[:, 1]]
-    if derivative:
-        first = plan.pair_start[:-1]
-        atom = np.where(plan.atom1[first] == plan.atom2[first], plan.atom1[first], -1)
-        bra_atom, ket_atom = atom[quartets[:, 0]], atom[quartets[:, 1]]
-        counts = np.where((bra_atom >= 0) & (bra_atom == ket_atom), 0.0, counts)
-    shell_pair, shell_prim = plan.shell_pairs()
-    shell_prim = shell_prim.astype(np.float64)
     n_shell_pairs = len(shell_prim)
     needed = kernel = 0.0
     for la, lb, begin, _, end, _, _ in classes:
-        shared, own = (deriv_quartet_operations if derivative else quartet_operations)(la, lb)
+        shared, own = quartet_operations(la, lb)
         primitive_quartets = counts[begin:end].sum()
         kernel += (shared + own) * primitive_quartets
-        live = slice(begin, end) if not derivative else np.flatnonzero(counts[begin:end]) + begin
-        bra, ket = shell_pair[quartets[live, 0]], shell_pair[quartets[live, 1]]
+        bra, ket = shell_pair[quartets[begin:end, 0]], shell_pair[quartets[begin:end, 1]]
         seen = np.zeros(n_shell_pairs * n_shell_pairs, dtype=bool)   # the class's shell quartets
         seen[np.maximum(bra, ket) * n_shell_pairs + np.minimum(bra, ket)] = True
         shell_quartets = np.flatnonzero(seen)
@@ -1317,7 +1393,7 @@ def lane_summary(plan: IntegralPlan) -> str:
 def lane_kernel_registers(unit: str, kernel: str, entry: dict, registers: dict,
                           frames: dict) -> dict:
     """ptxas's registers and stack frame of each instantiation of a
-    lane-scheduled kernel (K3: lmax 0-5; K8a: lmax 0-3; the unit is its
+    lane-scheduled kernel (K3 and K8a: lmax 0-5; the unit is its
     KERNEL_MAX_LMAX key), into its record entry; a spill or a missing
     instantiation fails the run."""
     instantiations = {key: (value, frames.get(key)) for key, value in registers.items()
@@ -2115,36 +2191,44 @@ def host_ms_a_call(fn, calls: int = 50) -> float:
     return host
 
 
-# K8b's and K8bu's class kernels in csrc/eri_deriv.cu, the
-# deriv_shell_kernel<LA, LB> instantiations, one a class of csrc/quartet.cuh's
-# TUNA_QUARTET_CLASSES (the rows, weight, shared-part and reduction kernels
-# are counted apart)
-DERIV_CLASS_KERNELS = 28
+# K8b's and K8bu's class kernels, the deriv_shell_kernel<LA, LB>
+# instantiations, one a class (L_bra, L_ket) up to (10, 10): those up to
+# (6, 6) in csrc/eri_deriv.cu, those of L_bra = 7..10 in
+# csrc/eri_deriv_l7.cu .. eri_deriv_l10.cu (the rows, weight, shared-part
+# and reduction kernels are counted apart)
+DERIV_CLASS_KERNELS = 66
+DERIV_UNITS = ("eri_deriv", "eri_deriv_l7", "eri_deriv_l8", "eri_deriv_l9", "eri_deriv_l10")
 
 
 def deriv_kernel_registers(entry: dict, registers: dict, frames: dict,
                            weight: str) -> dict:
     """ptxas's registers and stack frames of K8b's or K8bu's kernels (its
-    weight pass `weight`, the class kernels and the rows both share) into
-    its record entry; a spill or a missing instantiation fails the run."""
-    unit = "eri_deriv:"
-    found = {key[len(unit):]: (value, frames.get(key)) for key, value in registers.items()
-             if key.startswith(unit) and (key[len(unit):] == weight
-                                          or not key[len(unit):].startswith("deriv_weights"))}
-    shells = [key for key in found if key.startswith("deriv_shell_kernel<")]
-    rows = [key for key in found if key.startswith("deriv_rows_kernel<")]
-    require(len(shells) == DERIV_CLASS_KERNELS and len(rows) == 4 and weight in found
-            and "deriv_reduce_kernel" in found and "deriv_shared_kernel" in found
+    weight pass `weight`, the class kernels and the rows both share, in
+    DERIV_UNITS) into its record entry; a spill or a missing instantiation
+    fails the run."""
+    found = {}
+    for key, value in registers.items():
+        unit, _, kernel = key.partition(":")
+        if unit in DERIV_UNITS and (kernel == weight or not kernel.startswith("deriv_weights")):
+            found[key] = (value, frames.get(key))
+    shells = [key for key in found if ":deriv_shell_kernel<" in key]
+    rows = [key for key in found if key.startswith("eri_deriv:deriv_rows_kernel<")]
+    weight_key, reduce_key = f"eri_deriv:{weight}", "eri_deriv:deriv_reduce_kernel"
+    require(len(shells) == DERIV_CLASS_KERNELS and len(rows) == KERNEL_MAX_LMAX[
+        "eri_deriv_energy"][1] + 1 and weight_key in found and reduce_key in found
+            and "eri_deriv:deriv_shared_kernel" in found
             and all(isinstance(regs, int) and frame is not None
                     for regs, frame in found.values()),
-            f"eri_deriv.cu: registers and stack frames {found} (a spill or a missing "
+            f"eri_deriv: registers and stack frames {found} (a spill or a missing "
             f"instantiation)")
     entry["registers"] = {key: regs for key, (regs, _) in found.items()}
     entry["stack_frame_bytes"] = {key: frame for key, (_, frame) in found.items()}
     class_registers = [found[k][0] for k in shells]
+    high = [found[k][0] for k in shells if not k.startswith("eri_deriv:")]
     return {"class kernels": [min(class_registers), max(class_registers)],
-            weight: found[weight][0], "rows": [found[k][0] for k in sorted(rows)],
-            "shared parts": found["deriv_shared_kernel"][0],
+            "class kernels of L_bra 7-10": [min(high), max(high)],
+            weight: found[weight_key][0], "rows": [found[k][0] for k in sorted(rows)],
+            "shared parts": found["eri_deriv:deriv_shared_kernel"][0],
             "stack frames": sorted({frame for _, frame in found.values()})}
 
 
@@ -4193,6 +4277,344 @@ def check_phase_25() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: K8a, K8b and K8bu at g and h shells, and the gradient lines
+# ---------------------------------------------------------------------------
+
+def check_high_l_gradient_kernels(device, record: dict, registers: dict, frames: dict) -> str:
+    """Phase 26 (a): K8a, K8b and K8bu on HIGH_L_GRADIENT_PLANS (atom 1
+    moving, the origin at the centre of mass; K8b on a seeded density-like
+    P, K8bu on seeded Pa != Pb) against their plain versions within
+    INTEGRAL_TOLERANCE, each bitwise over two calls, K8bu at Pa = Pb = P/2
+    against K8b(P); K8b's and K8bu's plain versions contract one dense
+    tangent (11.8 GB at HF/cc-pV5Z).  Into record[...]["high_l"] for each
+    plan: ms (CUDA events, median of 5), device ms a call back to back,
+    plain ms, the bound (eri_operations, one_electron_deriv_operations), K8b's
+    launches and host ms a call and the host's build of its schedule; the
+    registers and stack frames of K8a at lmax 4-5 and of K8b's classes of
+    L_bra 7-10 (a spill fails the run)."""
+    parts = []
+    for symbol, partner, bond, basis, keep in HIGH_L_GRADIENT_PLANS:
+        molecule = diatomic(symbol, bond, basis, partner)
+        functions = (shell_subset(molecule.cartesian_basis_functions, keep) if keep
+                     else molecule.cartesian_basis_functions)
+        plan = IntegralPlan(functions, molecule.n_atoms)
+        start = time.perf_counter()
+        plan.deriv_schedule()
+        schedule_s = time.perf_counter() - start
+        coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=device)
+        charges = torch.as_tensor(molecule.charges, dtype=torch.float64, device=device)
+        masses = np.asarray(molecule.masses, dtype=np.float64)
+        fraction = float(masses[1] / masses.sum())
+        origin = fraction * molecule.bond_length
+        N = plan.n_basis
+        rng = np.random.default_rng(26)
+        C, C_a, C_b = (rng.standard_normal((N, k)) / np.sqrt(N) for k in (7, 8, 7))
+        P, P_a, P_b = (torch.as_tensor(x @ x.T, dtype=torch.float64, device=device)
+                       for x in (C, C_a, C_b))
+        hfx = 0.2
+        fns = {"one_electron_deriv": lambda: plan.one_electron_deriv(coords, charges, origin,
+                                                                     fraction),
+               "eri_deriv_energy": lambda: plan.eri_deriv_energy(coords, P, hfx),
+               "eri_deriv_energy_unrestricted":
+                   lambda: plan.eri_deriv_energy_unrestricted(coords, P_a, P_b, hfx)}
+        got = {name: (fn(), fn()) for name, fn in fns.items()}
+        half = plan.eri_deriv_energy_unrestricted(coords, P / 2, P / 2, hfx)
+        torch.cuda.synchronize()
+        plain_ms = {}
+        start = time.perf_counter()
+        expected = {"one_electron_deriv": plan._one_electron_deriv_plain(coords, charges, origin,
+                                                                         fraction)}
+        torch.cuda.synchronize()
+        plain_ms["one_electron_deriv"] = (time.perf_counter() - start) * 1e3
+        start = time.perf_counter()
+        tangent = plan._eri_tangent_plain(coords)
+        torch.cuda.synchronize()
+        tangent_ms = (time.perf_counter() - start) * 1e3
+        for name, plain, args in (
+                ("eri_deriv_energy", plan._eri_deriv_energy_plain, (P, hfx)),
+                ("eri_deriv_energy_unrestricted", plan._eri_deriv_energy_unrestricted_plain,
+                 (P_a, P_b, hfx))):
+            start = time.perf_counter()
+            expected[name] = plain(coords, *args, tangent=tangent)
+            torch.cuda.synchronize()
+            plain_ms[name] = tangent_ms + (time.perf_counter() - start) * 1e3
+        del tangent
+        torch.cuda.empty_cache()
+        errors = {}
+        for name, (first, again) in got.items():
+            first, again, plain = ((x,) if torch.is_tensor(x) else x
+                                   for x in (first, again, expected[name]))
+            require(all(bool(torch.all(torch.isfinite(x))) for x in first),
+                    f"{name} {basis}: non-finite values")
+            errors[name] = max(float(torch.max(torch.abs(a - b))) for a, b in zip(first, plain))
+            require(errors[name] <= INTEGRAL_TOLERANCE,
+                    f"{name} {basis}: {errors[name]:.3e} from its plain version")
+            require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                    f"{name} {basis}: two calls differ")
+            record[name]["max_abs_err"] = max(record[name]["max_abs_err"], errors[name])
+        restricted = got["eri_deriv_energy"][0]
+        half_err = abs(float(half - restricted)) / abs(float(restricted))
+        require(half_err <= UNRESTRICTED_HALF_TOLERANCE,
+                f"{basis}: K8bu at Pa = Pb = P/2 off K8b(P) by {half_err:.3e} (relative)")
+        t = plan.tensors(device)
+        needed_1e, _ = one_electron_deriv_operations(plan)
+        needed_2e, _ = eri_operations(plan, derivative=True)
+        algorithm = deriv_operations(plan)
+        eri_bytes = eri_input_bytes(plan, coords) + tensor_bytes(t["pid_i"], t["pid_j"]) + 8
+        bounds = {
+            "one_electron_deriv": bound(
+                tensor_bytes(coords, charges, t["a"], t["b"], t["coef"], t["l1"], t["l2"],
+                             t["atom1"], t["atom2"], t["pair_start"], t["ao_i"], t["ao_j"],
+                             t["boys_one_electron_deriv"]) + 8 * 9 * N * N,
+                needed_1e / FP64_PER_MS),
+            "eri_deriv_energy": bound(eri_bytes + tensor_bytes(P), needed_2e / FP64_PER_MS),
+            "eri_deriv_energy_unrestricted": bound(eri_bytes + 3 * tensor_bytes(P),
+                                                   needed_2e / FP64_PER_MS)}
+        shape = (f"{symbol}{partner or symbol}/{basis}"
+                 + (f" {'+'.join('spdfgh'[l] + str(atom) for atom, l in keep)}" if keep else "")
+                 + f" ({N} functions)")
+        texts = []
+        for name, fn in fns.items():
+            entry = {"lmax": plan.lmax, "max_abs_err": errors[name], "ms": median_ms(fn),
+                     "plain_ms": plain_ms[name],
+                     "device_ms_a_launch": back_to_back_ms(fn, calls=10, repeats=3,
+                                                           sleep_cycles=HIGH_L_SLEEP_CYCLES),
+                     **bounds[name]}
+            if name != "one_electron_deriv":
+                entry.update(launches_a_call=deriv_launches(plan), host_ms_a_call=host_ms_a_call(fn),
+                             operations_needed=needed_2e, operations_in_kernel=algorithm,
+                             schedule_host_s=schedule_s)
+            record[name].setdefault("high_l", {})[shape] = entry
+            record[name]["lmax_reached"] = max(record[name].get("lmax_reached", 0), plan.lmax)
+            texts.append(f"{name} {errors[name]:.3e} ({entry['ms']:.4f} ms, back to back "
+                         f"{entry['device_ms_a_launch']:.4f}, bound {entry['bound_ms']:.6f} ms by "
+                         f"{entry['bound_by']}, plain {entry['plain_ms']:.1f} ms"
+                         + (f", {entry['launches_a_call']} launches and host "
+                            f"{entry['host_ms_a_call']:.3f} ms a call" if "host_ms_a_call" in entry
+                            else "") + ")")
+        parts.append(f"{shape}, lmax {plan.lmax}: " + "; ".join(texts)
+                     + f"; K8bu at Pa = Pb = P/2 {half_err:.1e} from K8b(P); "
+                     f"{deriv_schedule_summary(plan)}, built on the host in {schedule_s:.2f} s; "
+                     f"K8b's algorithm {algorithm:.4g} operations, {needed_2e:.4g} needed")
+        del plan
+    one_electron = lane_kernel_registers("one_electron_deriv", "one_electron_deriv_kernel",
+                                         record["one_electron_deriv"], registers, frames)
+    deriv = deriv_kernel_registers(record["eri_deriv_energy"], registers, frames,
+                                   "deriv_weights_kernel")
+    return ("gradient kernels g and h shells: " + " | ".join(parts)
+            + f"; registers and stack frame bytes (ptxas): K8a {json.dumps(one_electron)}, "
+            f"K8b {json.dumps(deriv)}")
+
+
+def two_electron_energy(plan: IntegralPlan, coords, P, hfx: float) -> float:
+    """E_2 = 1/2 sum P_ij P_kl (ij|kl) - hfx/4 sum P_ik P_jl (ij|kl) from
+    K1's packed matrix at `coords` (fock_from_packed's J and K)."""
+    packed = plan.eri_pair_packed(coords)
+    J, K = fock_from_packed(plan, packed, P)
+    del packed
+    return float(0.5 * torch.sum(P * J) - 0.25 * hfx * torch.sum(P * K))
+
+
+def four_point_difference(energy, R: float, h: float) -> float:
+    """dE/dR from energy(R +- h) and energy(R +- 2h): error h^4 E^(5) / 30."""
+    return (8.0 * (energy(R + h) - energy(R - h)) - (energy(R + 2 * h) - energy(R - 2 * h))) / (
+        12.0 * h)
+
+
+def check_deriv_against_eri_difference(device, record: dict) -> str:
+    """Phase 26 (a), full size: K8b at N2/cc-pV5Z (252 functions, lmax 5) on
+    a seeded density-like P against the four-point central difference of
+    E_2(R) formed from K1's packed matrix (8.1 GB) at the same P
+    (DIFFERENCE_STEP, DIFFERENCE_TOLERANCE); the host's shell quartets and
+    schedule, K8b's ms, device ms a call back to back, host ms a call and
+    bound."""
+    molecule = diatomic("N", 1.1, "CC-PV5Z")
+    plan = IntegralPlan(molecule.cartesian_basis_functions, molecule.n_atoms)
+    start = time.perf_counter()
+    components, _ = plan.shell_quartets()
+    shell_quartets_s = time.perf_counter() - start
+    start = time.perf_counter()
+    plan.deriv_schedule()
+    schedule_s = time.perf_counter() - start
+    N, R = plan.n_basis, molecule.bond_length
+    C = np.random.default_rng(26).standard_normal((N, 7)) / np.sqrt(N)
+    P = torch.as_tensor(C @ C.T, dtype=torch.float64, device=device)
+    hfx = 0.2
+
+    def coords_at(r):
+        return torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, r]], dtype=torch.float64, device=device)
+
+    coords = coords_at(R)
+    got = float(plan.eri_deriv_energy(coords, P, hfx))
+    difference = four_point_difference(lambda r: two_electron_energy(plan, coords_at(r), P, hfx),
+                                       R, DIFFERENCE_STEP)
+    err = abs(got - difference)
+    require(np.isfinite(got), "eri_deriv_energy N2/cc-pV5Z: non-finite tangent")
+    require(err <= DIFFERENCE_TOLERANCE,
+            f"eri_deriv_energy N2/cc-pV5Z: {got!r} is {err:.3e} from the central difference of "
+            f"K1's E_2, {difference!r}")
+
+    def fn():
+        return plan.eri_deriv_energy(coords, P, hfx)
+
+    t = plan.tensors(device)
+    needed, _ = eri_operations(plan, derivative=True)
+    algorithm = deriv_operations(plan)
+    eri_bound = bound(eri_input_bytes(plan, coords) + tensor_bytes(P, t["pid_i"], t["pid_j"]) + 8,
+                      needed / FP64_PER_MS)
+    shape = "N2/CC-PV5Z (252 functions)"
+    entry = {"error_against_eri_packed_difference": err, "ms": median_ms(fn, repeats=3),
+             "device_ms_a_launch": back_to_back_ms(fn, calls=3, repeats=3,
+                                                   sleep_cycles=HIGH_L_SLEEP_CYCLES),
+             "host_ms_a_call": host_ms_a_call(fn, calls=10),
+             "launches_a_call": deriv_launches(plan), "shell_quartets_host_s": shell_quartets_s,
+             "schedule_host_s": schedule_s, "operations_needed": needed,
+             "operations_in_kernel": algorithm, **eri_bound}
+    record["eri_deriv_energy"].setdefault("high_l", {})[shape] = entry
+    return (f"gradient kernels full size {shape}: {len(components)} AO-pair quartets in shell "
+            f"quartets built on the host in {shell_quartets_s:.2f} s, the schedule in "
+            f"{schedule_s:.2f} s ({deriv_schedule_summary(plan)}); eri_deriv_energy dE_2/dR "
+            f"{got!r}, the four-point difference of eri_packed's E_2 (h = {DIFFERENCE_STEP} "
+            f"bohr) {difference!r}, {err:.3e} apart; {entry['ms']:.3f} ms (back to back "
+            f"{entry['device_ms_a_launch']:.3f}, host {entry['host_ms_a_call']:.3f} ms a call, "
+            f"{entry['launches_a_call']} launches; bound {eri_bound['bound_ms']:.4f} ms by "
+            f"{eri_bound['bound_by']}; {needed:.4g} operations needed, {algorithm:.4g} in the "
+            f"kernel's algorithm)")
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """Inside the block, any plain version of the integral kernels raises
+    (a line on the card must run every kernel it needs)."""
+    names = ("_one_electron_plain", "_eri_packed_plain", "_fock_direct_plain",
+             "_one_electron_deriv_plain", "_eri_deriv_energy_plain",
+             "_eri_deriv_energy_unrestricted_plain")
+    originals = {name: getattr(IntegralPlan, name) for name in names}
+
+    def refused(*args, **kwargs):
+        raise SmokeFailure("a plain version of an integral kernel ran on the card")
+
+    for name in names:
+        setattr(IntegralPlan, name, refused)
+    try:
+        yield
+    finally:
+        for name, original in originals.items():
+            setattr(IntegralPlan, name, original)
+
+
+def displaced_line(line: str, bond_bohr: float) -> str:
+    """`line` as an EXTREMESCF single point at another bond length."""
+    _, atoms, method, keywords = line.split(" : ")
+    symbols = " ".join(atoms.split()[:2])
+    keywords = " ".join(k for k in keywords.split() if k != "TIGHTSCF") + " EXTREMESCF"
+    return f"SPE : {symbols} {bohr_to_angstrom(bond_bohr)!r} : {method} : {keywords.strip()}"
+
+
+def check_line_26(line: str, kernels: tuple) -> dict:
+    """One gradient line of phase 26 on the card, with no plain version of
+    an integral kernel allowed: its energy at the input geometry against
+    tuna_tpu's (PHASE_26_TOLERANCE, or the line's "energy_tolerance" with
+    its EXTREMESCF single point at PHASE_26_TOLERANCE) with equal SCF
+    cycles, its analytic gradient against the four-point central
+    difference of the card's own EXTREMESCF energies (GRADIENT_TOLERANCE)
+    and against tuna_tpu's (GRADIENT_PIN_TOLERANCE).  Prints the
+    wall, the gradient's ms, the moving grid's tile and the peak device
+    memory; returns the launches, the energy and the gradient."""
+    from tuna_tpu_torch.drivers import energy as energy_driver
+    from tuna_tpu_torch.drivers import gradients as gradient_driver
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(no_plain_versions())
+        counts = stack.enter_context(solve_counts())
+        energies = stack.enter_context(Recorder("evaluate_molecular_energy", energy_driver))
+        gradients = stack.enter_context(Recorder("calculate_analytic_gradient", gradient_driver))
+        _, wall, launches = run_counted(line, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    require(len(energies.calls) == 1 and len(gradients.calls) == 1,
+            f"{line}: {len(energies.calls)} energies and {len(gradients.calls)} gradients")
+    _, molecule, energy, _ = energies.calls[0][1]
+    gradient = float(gradients.calls[0][1])
+    reference = REFERENCES_26[line]
+    deltas: dict = {}
+    _within("E", float(energy), reference["energy"],
+            reference.get("energy_tolerance", PHASE_26_TOLERANCE), deltas)
+    require(counts["scf_cycles"] == reference["scf_cycles"],
+            f"{line}: SCF cycles {counts['scf_cycles']}, the reference {reference['scf_cycles']}")
+    R = molecule.bond_length
+    if "extreme_energy" in reference:
+        _within("E at EXTREMESCF", float(run(displaced_line(line, R), suppress_output=True,
+                                             device="cuda")[2]),
+                reference["extreme_energy"], PHASE_26_TOLERANCE, deltas)
+    start = time.perf_counter()
+    difference = four_point_difference(
+        lambda r: float(run(displaced_line(line, r), suppress_output=True, device="cuda")[2]),
+        R, DIFFERENCE_STEP)
+    difference_s = time.perf_counter() - start
+    _within("gradient against the central difference", gradient, difference, GRADIENT_TOLERANCE,
+            deltas)
+    _within("gradient against tuna_tpu", gradient, reference["gradient"],
+            GRADIENT_PIN_TOLERANCE, deltas)
+    n = molecule.n_cartesian_basis
+    tile = (f"; the moving grid's tile {grid.density_deriv_layout(n, 1)[:2]} (points, P whole)"
+            if launches["density_deriv_on_grid"] else "")
+    print(f"end to end: {line}; E {energy!r}, dE/dR {gradient!r} Ha/bohr; the central "
+          f"difference of EXTREMESCF single points (h = {DIFFERENCE_STEP} bohr, {difference_s:.1f} "
+          f"s) {difference!r}; from the references: "
+          + ", ".join(f"{name} {delta:.3e}" for name, delta in deltas.items())
+          + f"; SCF cycles {counts['scf_cycles']}; {n} Cartesian functions, lmax "
+          f"{max(bf.l_total for bf in molecule.cartesian_basis_functions)}{tile}; wall "
+          f"{wall:.3f} s, gradient {dict(output.timer_table()).get('Gradient', 0.0):.3f} s; peak "
+          f"device memory {peak} bytes; launches "
+          f"{({name: k for name, k in launches.items() if k})}")
+    return {"launches": launches, "energy": float(energy), "gradient": gradient}
+
+
+def check_phase_26(record: dict) -> dict:
+    """Phase 26 (b): every line of PHASE_26_LINES (check_line_26), then
+    LINE_QZ_OPT with its `profile` line: its first energy and gradient
+    those of LINE_QZ_FORCE bit for bit, one K8a, K8b launch a geometry
+    iteration, its bond length, energy and iterations against tuna_tpu's
+    (BOND_TOLERANCE, E_TOLERANCE, equal).  Returns the launches summed over
+    the counted runs."""
+    from tuna_tpu_torch.drivers import energy as energy_driver
+    from tuna_tpu_torch.drivers import gradients as gradient_driver
+    start = time.perf_counter()
+    runs, outcomes = [], {}
+    for line, kernels in PHASE_26_LINES:
+        outcomes[line] = check_line_26(line, kernels)
+        runs.append(outcomes[line]["launches"])
+    reference = REFERENCES_26[LINE_QZ_OPT]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(no_plain_versions())
+        energies = stack.enter_context(Recorder("evaluate_molecular_energy", energy_driver))
+        gradients = stack.enter_context(Recorder("calculate_analytic_gradient", gradient_driver))
+        launches = check_optimisation(LINE_QZ_OPT, HF_GRADIENT_PATH_KERNELS,
+                                      reference["bond_length"], reference["energy"],
+                                      reference["iterations"])
+    force = outcomes[LINE_QZ_FORCE]
+    steps = [float(g) for _, g in gradients.calls]
+    require(float(energies.calls[0][1][2]) == force["energy"] and steps[0] == force["gradient"],
+            f"{LINE_QZ_OPT}: its first energy and gradient are not {LINE_QZ_FORCE}'s")
+    require(launches["one_electron_deriv"] == launches["eri_deriv_energy"] == len(steps),
+            f"{LINE_QZ_OPT}: {launches['one_electron_deriv']} K8a and "
+            f"{launches['eri_deriv_energy']} K8b launches for {len(steps)} gradients")
+    runs.append(launches)
+    print(f"{LINE_QZ_OPT}: gradients {steps}; its first energy and gradient "
+          f"{LINE_QZ_FORCE}'s bit for bit")
+    profile = profile_gradient_path(LINE_QZ_OPT, ("one_electron_deriv_kernel", "eri_deriv_energy"))
+    record["eri_deriv_energy"]["qz_opt_device_ms_a_launch"] = profile[
+        "quartet_class_kernels_busy_ms_a_launch"]["eri_deriv_energy"]
+    record["one_electron_deriv"]["qz_opt_device_ms_a_launch"] = _device_ms_a_launch(
+        profile, "one_electron_deriv_kernel")
+    print("profile: " + json.dumps(profile))
+    total = {name: sum(r[name] for r in runs) for name in KERNELS}
+    print(f"phase 26: {time.perf_counter() - start:.1f} s; launches "
+          f"{({name: n for name, n in total.items() if n})}")
+    return total
+
+
 def polish_cost() -> dict:
     """SCF ms an iteration with the polished eigh (ops/linalg.py::eigh, what
     the port runs) and with the library's eigh in its place, on the
@@ -4821,6 +5243,12 @@ def main() -> int:
     print(check_high_l_kernels(device, record))
     print(check_fock_against_eri_full(device, record))
     launches = check_phase_25()
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 26. g and h shells: K8a, K8b and K8bu at lmax 4-5, and the gradient lines -------
+    print(check_high_l_gradient_kernels(device, record, registers, frames))
+    print(check_deriv_against_eri_difference(device, record))
+    launches = check_phase_26(record)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -4,6 +4,7 @@ hold the port to, one JSON line a calculation line:
     JAX_PLATFORMS=cpu python tests/chip_smoke_references.py [LINE ...]
     JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 24 [LINE ...]
     JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 25 [LINE ...]
+    JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 26 [LINE ...]
 
 (no LINE: every line of the phase, 23 by default).  Each runs through tuna_tpu.cli.run on
 the JAX CPU backend with one device, so scans and stencils walk serially as
@@ -22,7 +23,10 @@ is CCSD where chip_smoke.py runs CCSD[T]: tuna_tpu's restricted (T) forms
 o^3 v^3 arrays several times over, 2.9 GB each at o = 7, v = 103, too many
 for a host of 62 GB, so the port's (T) there is held to K2's plain version
 on the card.  Its last line, N2 HF/cc-pV5Z DIRECT, ran for more than two
-hours on the JAX CPU backend without ending.
+hours on the JAX CPU backend without ending.  Phase 26's lines are the
+analytic gradients at g and h shells: for each, the energy of every SCF, the
+gradient of every geometry iteration (dE/dR, Ha/bohr) and the seconds the
+line took; tuna_tpu's OPT line also its bond length and energy.
 tuna_tpu's analytic gradient (jax.grad) needs more than 30 GB of host
 memory at cc-pVTZ; its forward-mode derivative (jax.jvp), which
 tests/test_torch_uhf_gradients.py holds to jax.grad at 1e-12 Ha/bohr,
@@ -33,6 +37,7 @@ import json
 import pathlib
 import re
 import sys
+import time
 import types
 
 import jax
@@ -74,6 +79,13 @@ LINES_25 = (
     "SPE : N N 1.1 : B3LYP DEF2-QZVP : TIGHTSCF",
     "SPE : H F 0.917 : HF CC-PV5Z : TIGHTSCF",
     "SPE : N N 1.1 : HF CC-PV5Z : DIRECT TIGHTSCF",
+)
+LINES_26 = (
+    "FORCE : N N 1.1 : HF CC-PVQZ : TIGHTSCF",
+    "FORCE : O O 1.21 : UHF CC-PVQZ : ML 3 TIGHTSCF",
+    "FORCE : N N 1.1 : B3LYP CC-PVQZ : TIGHTSCF",
+    "FORCE : H F 0.917 : HF CC-PV5Z : TIGHTSCF",
+    "OPT : N N 1.1 : HF CC-PVQZ : TIGHTSCF",
 )
 _CC_ROW = re.compile(r"^\s+\d+\s+-?\d+\.\d{10}\s+-?\d+\.\d{10}\s*$")
 
@@ -132,6 +144,7 @@ def _install() -> None:
     _wrap(excited, "restricted_doubles_correction", RECORD, "doubles")
     _wrap(excited, "unrestricted_doubles_correction", RECORD, "doubles")
     _wrap(rpa, "orbital_hessian_lowest", RECORD, "hessian_lowest")
+    _wrap(gradients, "calculate_analytic_gradient", RECORD, "gradients")
     gradients.jax = types.SimpleNamespace(
         jit=jax.jit,
         grad=lambda f, argnums=0: (lambda R, *a: jax.jvp(lambda r: f(r, *a), (R,), (1.0,))[1]))
@@ -141,7 +154,9 @@ def reference(line: str) -> dict:
     RECORD.clear()
     MESSAGES.clear()
     record, messages = RECORD, MESSAGES
+    start = time.perf_counter()
     result = cli.run(line, suppress_output=True)
+    seconds = time.perf_counter() - start
 
     scf_cycles = [int(m.group(1)) for text in messages
                   for m in [re.search(r"converged in (\d+) cycles", text)] if m]
@@ -173,6 +188,10 @@ def reference(line: str) -> dict:
     for key in ("restricted_T", "unrestricted_T"):
         if key in record:
             out[key] = [float(r) for _, r in record[key]]
+    if line.split()[0] in ("FORCE", "OPT"):
+        out["energies"] = [float(r[2]) for _, r in record["energies"]]
+        out["gradients"] = [float(r) for _, r in record.get("gradients", [])]
+        out["seconds"] = seconds
     if line.split()[0] in ("IP", "EA"):
         out["state_energies"] = [float(r[2]) for _, r in record["energies"]]
     if "spectrum" in record:
@@ -199,7 +218,7 @@ def main() -> int:
     arguments = sys.argv[1:]
     lines = LINES
     if arguments[:1] == ["--phase"]:
-        lines = {"23": LINES, "24": LINES_24, "25": LINES_25}[arguments[1]]
+        lines = {"23": LINES, "24": LINES_24, "25": LINES_25, "26": LINES_26}[arguments[1]]
         arguments = arguments[2:]
     for line in arguments or lines:
         print(json.dumps(reference(line)), flush=True)

@@ -1391,22 +1391,79 @@ def test_extrapolation_from_triple_zeta_on_the_card(cuda):
 
 
 def test_gradient_at_g_shells_refuses_on_the_card(cuda, monkeypatch):
-    """The analytic gradient's kernels stop at f shells: FORCE at cc-pVQZ
-    raises NotImplementedError naming K8a after the SCF on the card, and no
-    plain version runs."""
+    """FORCE at cc-pVQZ (g shells) runs on the card through K8a and K8b
+    with no plain version (the name is kept from when the gradient kernels
+    stopped at f shells and this line raised): tuna_tpu's energy (1e-10
+    Ha) and its gradient (1e-8 Ha/bohr; `tests/chip_smoke_references.py
+    --phase 26`)."""
     from tuna_tpu_torch.cli import run
+    from tuna_tpu_torch.drivers import gradients
 
     def refused(*args, **kwargs):
         raise AssertionError("a plain version ran")
 
     for name in ("_one_electron_plain", "_eri_packed_plain", "_fock_direct_plain",
-                 "_one_electron_deriv_plain", "_eri_deriv_energy_plain"):
+                 "_one_electron_deriv_plain", "_eri_deriv_energy_plain",
+                 "_eri_deriv_energy_unrestricted_plain"):
         monkeypatch.setattr(IntegralPlan, name, refused)
+    found = []
+    analytic = gradients.calculate_analytic_gradient
+
+    def recorded(molecule, calculation, SCF_output, coordinates):
+        found.append((SCF_output.energy, analytic(molecule, calculation, SCF_output, coordinates)))
+        return found[-1][1]
+
+    monkeypatch.setattr(gradients, "calculate_analytic_gradient", recorded)
     _kernels.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match=r"^K8a \(one_electron_deriv\) .* above lmax 3"):
-        run("FORCE : N N 1.1 : HF CC-PVQZ", suppress_output=True, device="cuda")
+    assert run("FORCE : N N 1.1 : HF CC-PVQZ : TIGHTSCF", suppress_output=True,
+               device="cuda") is None
     assert _kernels.launches["eri_packed"] > 0 and _kernels.launches["one_electron"] > 0
-    assert _kernels.launches["one_electron_deriv"] == 0
+    assert _kernels.launches["one_electron_deriv"] == _kernels.launches["eri_deriv_energy"] == 1
+    (energy, gradient), = found
+    assert abs(float(energy) - -108.9906006517254) <= 1e-10
+    assert abs(gradient - 0.11451397033788469) <= 1e-8
+
+
+@pytest.mark.parametrize("symbols, basis, keep, lmax", [
+    (("N", "N"), "CC-PVQZ", ((0, 0), (0, 3), (0, 4), (1, 0), (1, 3), (1, 4)), 4),
+    (("N", "N"), "CC-PV5Z", ((0, 0), (0, 4), (0, 5), (1, 0), (1, 5)), 5),
+    (("H", "H"), "CC-PV5Z", ((0, 4), (1, 0)), 4),
+    (("H", "H"), "CC-PV6Z", ((0, 5), (1, 0)), 5)])
+def test_gradient_kernels_at_g_and_h_shells(cuda, symbols, basis, keep, lmax):
+    """K8a, K8b and K8bu (atom 1 moving) on reduced plans with g and h
+    shells (derivative classes up to (8, 8) and (10, 10), Boys order up to
+    21) against their plain versions, 1e-12 absolute, each bitwise over
+    two calls; K8bu at Pa = Pb = P/2 within 1e-14 of K8b(P)."""
+    molecule = _diatomic(symbols, basis, 0.74 if symbols[0] == "H" else 1.1)
+    functions = integrals.shell_subset(molecule.cartesian_basis_functions, keep)
+    plan = IntegralPlan(functions, molecule.n_atoms)
+    assert plan.lmax == lmax
+    coords = torch.as_tensor(molecule.coordinates, dtype=torch.float64, device=cuda)
+    charges = torch.as_tensor(molecule.charges, dtype=torch.float64, device=cuda)
+    masses = np.asarray(molecule.masses, dtype=np.float64)
+    fraction = float(masses[1] / masses.sum())
+    origin = fraction * molecule.bond_length
+    P, P_a, P_b = (torch.as_tensor(_density(plan.n_basis, seed), device=cuda)
+                   for seed in (23, 24, 25))
+    _kernels.reset_launch_counts()
+    got = plan.one_electron_deriv(coords, charges, origin, fraction)
+    again = plan.one_electron_deriv(coords, charges, origin, fraction)
+    first, second = plan.eri_deriv_energy(coords, P, 0.3), plan.eri_deriv_energy(coords, P, 0.3)
+    spins = plan.eri_deriv_energy_unrestricted(coords, P_a, P_b, 0.3)
+    assert torch.equal(spins, plan.eri_deriv_energy_unrestricted(coords, P_a, P_b, 0.3))
+    assert _kernels.launches["one_electron_deriv"] == _kernels.launches["eri_deriv_energy"] == 2
+    for g, a, e in zip(got, again, plan._one_electron_deriv_plain(coords, charges, origin,
+                                                                   fraction)):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, e, rtol=0, atol=1e-12)
+    assert torch.equal(first, second)
+    tangent = plan._eri_tangent_plain(coords)
+    assert abs(float(first) - float(plan._eri_deriv_energy_plain(coords, P, 0.3,
+                                                                 tangent=tangent))) <= 1e-12
+    assert abs(float(spins) - float(plan._eri_deriv_energy_unrestricted_plain(
+        coords, P_a, P_b, 0.3, tangent=tangent))) <= 1e-12
+    half = plan.eri_deriv_energy_unrestricted(coords, P / 2, P / 2, 0.3)
+    assert abs(float(half - first)) <= 1e-14 * abs(float(first))
 
 
 # Excited states and stability at small sizes (the lines of

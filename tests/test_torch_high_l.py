@@ -1,8 +1,10 @@
 """Bases with g and h shells (lmax 4 and 5) in the port against tuna_tpu.
 
-On the card K1, K4 and K3 take lmax up to 5, the gradient kernels K8a, K8b
-and K8bu up to 3 (ops/integrals.py::KERNEL_MAX_LMAX).  The CUDA kernels
-run only there (tests/test_torch_gpu.py, chip_smoke.py phase 25); here
+On the card every kernel takes lmax up to 5, K1, K4 and K3 and the
+gradient kernels K8a, K8b and K8bu (ops/integrals.py::KERNEL_MAX_LMAX;
+the gradient kernels' plain versions meet tuna_tpu in
+tests/test_torch_high_l_gradients.py).  The CUDA kernels run only there
+(tests/test_torch_gpu.py, chip_smoke.py phases 25 and 26); here
 the plain versions, which the wrappers take for CPU tensors, meet
 tuna_tpu on the same inputs.  Reduced plans hold a few shells of a large
 basis, the same subset in both packages (ops/integrals.py::shell_subset):
@@ -111,27 +113,25 @@ def test_reduced_eri_matches_tuna_tpu(system, lmax):
 
 
 def test_kernel_lmax_limits():
-    """The check before each launch (no card needed): K1, K4 and K3 take
-    lmax 4 and 5 and refuse 6; K8a, K8b and K8bu refuse lmax 4, each by
+    """The check before each launch (no card needed): all six kernels, K1,
+    K4, K3, K8a, K8b and K8bu, take lmax 4 and 5 and refuse 6, each by
     name."""
-    accepted = ("eri_packed", "fock_direct", "one_electron")
-    refused = {"one_electron_deriv": "K8a", "eri_deriv_energy": "K8b",
-               "eri_deriv_energy_unrestricted": "K8bu"}
-    assert set(KERNEL_MAX_LMAX) == set(accepted) | set(refused)
+    labels = {"eri_packed": "K1", "fock_direct": "K4", "one_electron": "K3",
+              "one_electron_deriv": "K8a", "eri_deriv_energy": "K8b",
+              "eri_deriv_energy_unrestricted": "K8bu"}
+    assert KERNEL_MAX_LMAX == {kernel: (label, 5) for kernel, label in labels.items()}
     for system, lmax in REDUCED:
         _, plan, _, _, _, _ = _reference(system)
-        for kernel in accepted:
+        assert plan.lmax == lmax
+        for kernel in labels:
             plan._check_kernel_lmax(kernel)
-        for kernel, label in refused.items():
-            with pytest.raises(NotImplementedError,
-                               match=rf"^{label} \({kernel}\) is not yet ported to tuna_tpu_torch "
-                                     rf"above lmax 3; this basis has lmax {lmax}$"):
-                plan._check_kernel_lmax(kernel)
     # an i shell (l = 6) on one atom: beyond every kernel
     plan = IntegralPlan.from_arrays([1.0], [1.0], [1.0], [(6, 0, 0)], [(6, 0, 0)], [0], [0],
                                     [0], [0], [0], [[0]], n_atoms=1)
-    for kernel, (label, most) in KERNEL_MAX_LMAX.items():
-        with pytest.raises(NotImplementedError, match=rf"^{label} .* above lmax {most};"):
+    for kernel, label in labels.items():
+        with pytest.raises(NotImplementedError,
+                           match=rf"^{label} \({kernel}\) is not yet ported to tuna_tpu_torch "
+                                 rf"above lmax 5; this basis has lmax 6$"):
             plan._check_kernel_lmax(kernel)
 
 

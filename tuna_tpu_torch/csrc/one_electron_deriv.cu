@@ -34,6 +34,7 @@
 // registers; the Boys table read through L1; then the fixed-order
 // butterflies and lane 0's write of [i, j] and [j, i] of all nine matrices
 // (lane_sums.cuh): deterministic, no atomics, every entry written once.
+// Instantiated for lmax 0-5 (h shells: z rows of 14 orders, Boys order 11).
 #include <cuda_runtime.h>
 
 #include "boys.cuh"
@@ -264,6 +265,8 @@ extern "C" int tuna_one_electron_deriv(int lmax, int n_atoms, int n_basis, int n
     TUNA_ONE_ELECTRON_DERIV_CASE(1)
     TUNA_ONE_ELECTRON_DERIV_CASE(2)
     TUNA_ONE_ELECTRON_DERIV_CASE(3)
+    TUNA_ONE_ELECTRON_DERIV_CASE(4)
+    TUNA_ONE_ELECTRON_DERIV_CASE(5)
     default:
       return cudaErrorInvalidValue;
   }

@@ -443,8 +443,9 @@ cudaError_t launch_class(const ClassPart& cls, QuartetPart part, Out out, cudaSt
 }
 
 // Every class with L_bra >= L_ket up to (6, 6), the classes of lmax 3: those
-// of K1 and K4 built beside their kernels, and all of K8b's and K8bu's
-// (eri_deriv.cu), whose gradients stop at f shells.
+// of K1 and K4 built beside their kernels, and those of K8b and K8bu
+// (eri_deriv.cu; their classes of L_bra = 7..10 in eri_deriv_l7.cu ..
+// eri_deriv_l10.cu).
 #define TUNA_QUARTET_CLASSES(X)                                                                \
   X(0, 0) X(1, 0) X(1, 1) X(2, 0) X(2, 1) X(2, 2) X(3, 0) X(3, 1) X(3, 2) X(3, 3) X(4, 0)       \
   X(4, 1) X(4, 2) X(4, 3) X(4, 4) X(5, 0) X(5, 1) X(5, 2) X(5, 3) X(5, 4) X(5, 5) X(6, 0)       \

@@ -44,13 +44,13 @@ from .boys import boys_table, taylor_table
 TWO_PI_POW_2_5 = 2.0 * math.pi ** 2.5  # 34.9868366552497...
 PI_POW_1_5 = math.pi ** 1.5
 # The highest lmax instantiated in csrc/ for each kernel, by its name in
-# _kernels.launches, with its label: K1, K4 and K3 (and the pair rows K1 and
-# K4 share) to h shells, so to quartet classes (10, 10) and Boys order 20;
-# the gradient kernels K8a, K8b and K8bu to f shells.  Every basis of the
-# library stops at h.
+# _kernels.launches, with its label: every kernel to h shells, so K1 and K4
+# (and the pair rows they share) to quartet classes (10, 10) and Boys order
+# 20, the gradient kernels K8b and K8bu to derivative classes (10, 10) and
+# Boys order 21, K8a to Boys order 11.  Every basis of the library stops at h.
 KERNEL_MAX_LMAX = {"eri_packed": ("K1", 5), "fock_direct": ("K4", 5),
-                   "one_electron": ("K3", 5), "one_electron_deriv": ("K8a", 3),
-                   "eri_deriv_energy": ("K8b", 3), "eri_deriv_energy_unrestricted": ("K8bu", 3)}
+                   "one_electron": ("K3", 5), "one_electron_deriv": ("K8a", 5),
+                   "eri_deriv_energy": ("K8b", 5), "eri_deriv_energy_unrestricted": ("K8bu", 5)}
 # Primitive quartets above which a work-list quartet gets a warp of its own
 # instead of a thread (csrc/quartet.cuh); tuned on the card (PERF.md).
 HEAVY_THRESHOLD = 16
@@ -241,8 +241,11 @@ def build_scaled_Rz_table(vmax: int, nmax: int, PQz, alpha):
 # Integral plan: host-side primitive-pair enumeration + device kernels
 # =========================================================================
 
-# Workspace per block pair of the plain ERI sweep; the block edge follows.
+# Workspace per block pair of the plain ERI sweep on the host and on a card
+# (where the sweep's time is its launches: larger blocks, fewer of them); the
+# block edge follows.
 _PLAIN_BLOCK_BYTES = 64e6
+_PLAIN_BLOCK_BYTES_CARD = 1e9
 
 
 class IntegralPlan:
@@ -330,16 +333,20 @@ class IntegralPlan:
         self._deriv_tables = None
         self._device_quartets: dict = {}  # device -> the work list's quartets
         self._device_deriv: dict = {}     # device -> K8b's components and tasks
-        self._setup_plain_blocks()
+        self._plain_layouts: dict = {}   # block bytes -> the plain sweep's blocks
 
-    def _setup_plain_blocks(self):
-        """Parity-blocked symmetric quartet sweep of the plain ERI version.
+    def _plain_layout(self, block_bytes: float):
+        """(blocks, block pairs) of the parity-blocked symmetric quartet
+        sweep of the plain ERI version, blocks of about `block_bytes` of
+        workspace a block pair (cached).
 
         For molecules on the z axis a quartet vanishes unless its bra and
         ket pairs have matching x and matching y Hermite parities, so the
         primitive pairs are grouped into 4 parity classes and the sweep
         visits class-diagonal, upper-triangular block pairs only
         (tuna_tpu/ops/integrals.py:226-276)."""
+        if block_bytes in self._plain_layouts:
+            return self._plain_layouts[block_bytes]
         parity_cls = (2 * ((self.l1[:, 0] + self.l2[:, 0]) & 1)
                       + ((self.l1[:, 1] + self.l2[:, 1]) & 1))
         npp = self.n_prim_pairs
@@ -347,7 +354,7 @@ class IntegralPlan:
         lmax = self.lmax
         per_quartet_bytes = 8 * ((4 * lmax + 1) * (4 * lmax + 1)
                                  + 14 * (2 * lmax + 1))
-        T = int(np.sqrt(_PLAIN_BLOCK_BYTES / per_quartet_bytes))
+        T = int(np.sqrt(block_bytes / per_quartet_bytes))
         max_class = max((len(ix) for ix in class_idx if len(ix)), default=1)
         T = max(8, min(T, (max_class + 3) // 4))
         blocks, block_pairs = [], []
@@ -362,8 +369,9 @@ class IntegralPlan:
             for bi in range(nb):
                 for bj in range(bi, nb):
                     block_pairs.append((base + bi, base + bj))
-        self._plain_blocks = np.asarray(blocks, dtype=np.int64).reshape(-1, T)
-        self._plain_block_pairs = block_pairs
+        layout = (np.asarray(blocks, dtype=np.int64).reshape(-1, T), block_pairs)
+        self._plain_layouts[block_bytes] = layout
+        return layout
 
     def tensors(self, device) -> dict:
         """The plan's arrays as contiguous tensors on `device` (cached)."""
@@ -539,26 +547,70 @@ class IntegralPlan:
         bra's and the ket's shell pair (shell_pairs) and its components
         [begin, end).  The bra is the shell pair of the larger L, at equal L
         the one of the larger index; the rows are sorted by class (L_bra,
-        L_ket), then bra, then ket."""
+        L_ket), then bra, then ket.
+
+        Built shell quartet by shell quartet, with no sort over the AO-pair
+        quartets (10^8 of them at N2/cc-pV5Z): L and the atoms of an AO pair
+        are its shell pair's, so a shell quartet is live or not as a whole,
+        and its components are, for each bra AO pair A in index order, the
+        ket shell pair's AO pairs of A's x/y parity in index order (at the
+        same shell pair those up to A: each unordered quartet once, as in
+        work_list)."""
         if self._shell_quartets is not None:
             return self._shell_quartets
-        quartets, _ = self.work_list()
+        n_pairs = self.n_pairs
         first = self.pair_start[:-1]
-        atom = np.where(self.atom1[first] == self.atom2[first], self.atom1[first], -1)
-        A, B = quartets[:, 0].astype(np.int64), quartets[:, 1].astype(np.int64)
-        live = ~((atom[A] >= 0) & (atom[A] == atom[B]))
-        A, B = A[live], B[live]
-        shell_pair, _ = self.shell_pairs()
         L = (self.l1[first].sum(axis=1) + self.l2[first].sum(axis=1)).astype(np.int64)
-        swap = (L[A] == L[B]) & (shell_pair[B] > shell_pair[A])   # L[A] >= L[B] already
-        A, B = np.where(swap, B, A), np.where(swap, A, B)
-        sa, sb = shell_pair[A], shell_pair[B]
-        order = np.lexsort((B, A, sb, sa, L[B], L[A]))
-        A, B, sa, sb = A[order], B[order], sa[order], sb[order]
-        begin = np.flatnonzero(np.r_[len(A) > 0, (sa[1:] != sa[:-1]) | (sb[1:] != sb[:-1])])
-        end = np.r_[begin[1:], len(A)][:len(begin)].astype(np.int64)
-        components = np.ascontiguousarray(np.stack([A, B], axis=1), dtype=np.int32)
-        table = np.stack([L[A[begin]], L[B[begin]], sa[begin], sb[begin], begin, end], axis=1)
+        parity = (2 * ((self.l1[first, 0] + self.l2[first, 0]) & 1)
+                  + ((self.l1[first, 1] + self.l2[first, 1]) & 1)).astype(np.int64)
+        atom = np.where(self.atom1[first] == self.atom2[first], self.atom1[first], -1)
+        shell_pair, _ = self.shell_pairs()
+        n_sp = int(shell_pair.max(initial=-1)) + 1
+        sp_L, sp_atom = np.zeros(n_sp, dtype=np.int64), np.zeros(n_sp, dtype=np.int64)
+        sp_L[shell_pair], sp_atom[shell_pair] = L, atom
+        index = np.arange(n_pairs)
+        # the bra AO pairs of each shell pair, and its AO pairs of each
+        # parity (group 4 s + c), each in index order
+        by_pair = np.lexsort((index, shell_pair))
+        pair_first = np.searchsorted(shell_pair[by_pair], np.arange(n_sp + 1))
+        grouped = np.lexsort((index, parity, shell_pair))
+        group = (shell_pair * 4 + parity)[grouped]
+        group_first = np.searchsorted(group, np.arange(4 * n_sp + 1))
+        rank = np.empty(n_pairs, dtype=np.int64)
+        rank[grouped] = np.arange(n_pairs) - group_first[group]
+        # the live shell quartets in (L_bra, L_ket, bra, ket) order
+        sa, sb = np.divmod(np.arange(n_sp * n_sp, dtype=np.int64), n_sp)
+        keep = ((sp_L[sa] > sp_L[sb]) | ((sp_L[sa] == sp_L[sb]) & (sa >= sb))) & ~(
+            (sp_atom[sa] >= 0) & (sp_atom[sa] == sp_atom[sb]))
+        sa, sb = sa[keep], sb[keep]
+        order = np.lexsort((sb, sa, sp_L[sb], sp_L[sa]))
+        sa, sb = sa[order], sb[order]
+        # one run of kets a (shell quartet, bra AO pair)
+        bras = pair_first[sa + 1] - pair_first[sa]
+        run_quartet = np.repeat(np.arange(len(sa)), bras)
+        run_A = by_pair[np.repeat(pair_first[sa] - (np.cumsum(bras) - bras), bras)
+                        + np.arange(len(run_quartet))]
+        run_start = group_first[sb[run_quartet] * 4 + parity[run_A]]
+        same = sa[run_quartet] == sb[run_quartet]
+        run_length = np.where(same, rank[run_A] + 1,
+                              group_first[sb[run_quartet] * 4 + parity[run_A] + 1] - run_start)
+        count = np.bincount(run_quartet, weights=run_length, minlength=len(sa)).astype(np.int64)
+        end = np.cumsum(count)
+        components = np.empty((int(end[-1]) if len(end) else 0, 2), dtype=np.int32)
+        # the runs expanded in pieces of about 2^24 components
+        run_end = np.cumsum(run_length)
+        cuts = np.unique(np.searchsorted(
+            run_end, np.arange(0, run_end[-1] if len(run_end) else 0, 1 << 24), side="right"))
+        for r0, r1 in zip(cuts, np.r_[cuts[1:], len(run_end)]):
+            lengths = run_length[r0:r1]
+            c0 = int(run_end[r0] - lengths[0])
+            offsets = np.cumsum(lengths) - lengths
+            n = int(lengths.sum())
+            components[c0:c0 + n, 0] = np.repeat(run_A[r0:r1], lengths)
+            components[c0:c0 + n, 1] = grouped[np.repeat(run_start[r0:r1] - offsets, lengths)
+                                               + np.arange(n)]
+        live = count > 0
+        table = np.stack([sp_L[sa], sp_L[sb], sa, sb, end - count, end], axis=1)[live]
         self._shell_quartets = (components, table.astype(np.int32).reshape(-1, 6))
         return self._shell_quartets
 
@@ -613,8 +665,9 @@ class IntegralPlan:
         prims, count = shell_prim[sa] * nc, end - begin
         head = components[begin].astype(np.int64)
         bra0, ket0 = self.pair_start[head[:, 0]], self.pair_start[head[:, 1]]
-        own = np.array([deriv_quartet_operations(int(a), int(b))[1] for a, b in zip(la, lb)],
-                       dtype=np.int64)
+        top = int(la.max(initial=0)) + 1
+        own = np.array([[deriv_quartet_operations(a, b)[1] for b in range(top)]
+                        for a in range(top)], dtype=np.int64).reshape(top, top)[la, lb]
         # runs of primitive quartets
         width = SHELL_TASK_THREADS
         chunks = -(-prims // width)
@@ -1161,8 +1214,10 @@ class IntegralPlan:
         quartet once (the diagonal included), the strict mask c > r marks
         the quartets whose mirror orientation still has to be added."""
         data, block_values = self._plain_sweep(coords, derivative)
-        blocks = torch.as_tensor(self._plain_blocks, device=coords.device)
-        for bl, br in self._plain_block_pairs:
+        blocks, block_pairs = self._plain_layout(
+            _PLAIN_BLOCK_BYTES if coords.device.type == "cpu" else _PLAIN_BLOCK_BYTES_CARD)
+        blocks = torch.as_tensor(blocks, device=coords.device)
+        for bl, br in block_pairs:
             rows, cols = blocks[bl], blocks[br]
             yield (data["pid"][rows], data["pid"][cols], block_values(rows, cols),
                    cols[None, :] >= rows[:, None], cols[None, :] > rows[:, None])
@@ -1361,18 +1416,20 @@ class IntegralPlan:
         pidx = self.tensors(coords.device)["pair_index"]
         return packed[pidx[:, :, None, None], pidx[None, None, :, :]]
 
-    def _eri_deriv_energy_plain(self, coords, P, hfx):
+    def _eri_deriv_energy_plain(self, coords, P, hfx, tangent=None):
         """The ERI tangent contracted by einsum, as tuna_tpu's total_energy
-        contracts the ERI."""
-        d_eri = self._eri_tangent_plain(coords)
+        contracts the ERI; `tangent`, the tangent of _eri_tangent_plain at
+        these coords, spares forming it again."""
+        d_eri = self._eri_tangent_plain(coords) if tangent is None else tangent
         J = torch.einsum("ijkl,kl->ij", d_eri, P)
         K = torch.einsum("ilkj,kl->ij", d_eri, P)
         return 0.5 * torch.sum(P * J) - 0.25 * hfx * torch.sum(P * K)
 
-    def _eri_deriv_energy_unrestricted_plain(self, coords, P_a, P_b, hfx):
+    def _eri_deriv_energy_unrestricted_plain(self, coords, P_a, P_b, hfx, tangent=None):
         """The ERI tangent contracted with both spins, as tuna_tpu's
-        total_energy contracts the ERI for an unrestricted reference."""
-        d_eri = self._eri_tangent_plain(coords)
+        total_energy contracts the ERI for an unrestricted reference
+        (`tangent` as for _eri_deriv_energy_plain)."""
+        d_eri = self._eri_tangent_plain(coords) if tangent is None else tangent
         P = P_a + P_b
         J = torch.einsum("ijkl,kl->ij", d_eri, P)
         K_a = torch.einsum("ilkj,kl->ij", d_eri, P_a)
