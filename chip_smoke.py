@@ -110,8 +110,8 @@ non-zero without printing a result):
      E_REF_DFT), and at EXTREMESCF phase 16's batch against the serial
      SCAN (1e-10 Ha); `SCAN : O O 1.21 : HF 6-311G : ML 3 NUM 4 STEP 0.05
      TIGHTSCF` batched against serial (1e-8 Ha); and a `profile` line with
-     both DFT walls (SCAN_WARM_RUNS runs each, SCF iterations a point, one
-     run each under torch.profiler);
+     both DFT walls (the counted runs', SCF iterations a point, and one run
+     each of its first three points under torch.profiler);
  18. unrestricted gradient kernels: K8bu (the two-electron energy tangent
      with exchange per spin) against its plain version at O2/cc-pVTZ and
      OH/6-31G on a seeded pair of density-like Pa != Pb (1e-12 relative),
@@ -233,6 +233,24 @@ non-zero without printing a result):
      (GRADIENT_TOLERANCE), and `OPT : N N 1.1 : HF CC-PVQZ : TIGHTSCF`
      against tuna_tpu's bond length, energy and iterations, with its
      `profile` line.
+ 27. the correlated, finite-field and UKS batches of parallel.py, each
+     line through cli.run as two shards on the card (two_shards: the
+     drivers are shown two devices, both the card): `SCAN : N N 1.0 :
+     CCSD(T) CC-PVTZ : NUM 6 STEP 0.04 TIGHTSCF` (one K2 launch a point),
+     `SCAN : O O 1.16 : B3LYP CC-PVTZ : ML 3 NUM 4 STEP 0.05 TIGHTSCF`
+     (UKS), `SCAN : O O 1.11 : CCSD(T) CC-PVDZ : ML 3 NUM 4 STEP 0.05
+     TIGHTSCF` (one K2u launch a point) and its MP2/cc-pVTZ twin, an MP2
+     CBS scan from cc-pVDZ and a B2PLYP/cc-pVTZ scan, each point within
+     1e-8 Ha of the serial walk of the same line at EXTREMESCF; `FORCE : N
+     N 1.1 : CCSD(T) CC-PVTZ : TIGHTSCF` (its two displaced energies in
+     one batch against the serial FORCE's at EXTREMESCF); phase 23's
+     property line and `SPE : N N
+     1.1 : B3LYP CC-PVTZ : NL POLAR TIGHTSCF` (one K6b launch for its field
+     batch, K6b against its plain version on the batch's densities), each
+     field point within 1e-10 Ha of tuna_tpu's field batch, the properties
+     printed beside phase 23's serial ones; the pinned lines' energies and
+     every SCF and CC solve of their batches against tuna_tpu's batch
+     (REFERENCES_27), with the walls and launches of each run.
 
 A device time read from torch.profiler fails the run when the kernel ran
 and the profile has no entry for it.  A session records the launches of
@@ -825,7 +843,103 @@ LINE_SCAN_EXTREME = LINE_SCAN.replace("TIGHTSCF", "EXTREMESCF")
 SCAN_TOLERANCE = 1e-8
 SCAN_EXTREME_TOLERANCE = 1e-10
 SCAN_UHF_TOLERANCE = 1e-8   # Ha, the UHF batch against its serial SCAN
-SCAN_WARM_RUNS = 2          # warm runs of the batched and of the serial scan, for the profile
+# the profiled scans of phase 17: three of LINE_SCAN's points (a profile
+# of all eight took ~100 s a session with the event parsing)
+LINE_SCAN_PROFILE = LINE_SCAN.replace("NUM 8", "NUM 3")
+# The correlated, finite-field and unrestricted Kohn-Sham batches of
+# parallel.py (phase 27), each line through cli.run with the drivers shown
+# two devices, both the one card (two_shards): two shards in one lockstep
+# loop.  Constants from `tests/chip_smoke_references.py --phase 27`:
+# tuna_tpu.parallel on the JAX CPU backend with 8 virtual devices, each
+# line's energies (the field lines': of every field batch of its property
+# stencils, and the properties derived from them) and every SCF and CC
+# solve inside tuna_tpu's batches as (iterations, energy).
+# N2's two pinned lines run at EXTREMESCF: from 1.08 angstrom the core
+# guess, every batch's start, occupies one orbital of the degenerate pi
+# pair at the HOMO and LUMO, so eigh's choice in the pair (rounding) picks
+# the SCF's path.  At TIGHTSCF the CCSD(T) scan on the card stopped 1.55e-10
+# Ha from tuna_tpu's batch and the field batch 5.5e-10 (the port on the CPU:
+# 2.7e-10, in 13-16 SCF iterations against tuna_tpu's 14-17); at EXTREMESCF
+# the energies agree, the counts stay rounding's (PHASE_27_SOLVE_LIMITS)
+LINE_27_SCAN_CC = "SCAN : N N 1.0 : CCSD(T) CC-PVTZ : NUM 6 STEP 0.04 EXTREMESCF"  # o = 7, v = 53
+LINE_27_FIELD_VV10 = "SPE : N N 1.1 : B3LYP CC-PVTZ : NL POLAR EXTREMESCF"
+LINE_27_UKS = "SCAN : O O 1.16 : B3LYP CC-PVTZ : ML 3 NUM 4 STEP 0.05 TIGHTSCF"
+# The triplet O2 lines start at 1.11 angstrom: from 1.31 angstrom at
+# cc-pVDZ (1.26 at 6-31G) the core guess every batch starts from, in
+# tuna_tpu's as in the port's, converges to a UHF state 0.20 Ha above the
+# one the serial walk's chained densities keep (ROADMAP.md queue 3)
+LINE_27_UCC = "SCAN : O O 1.11 : CCSD(T) CC-PVDZ : ML 3 NUM 4 STEP 0.05 TIGHTSCF"  # o = 16, v = 40
+LINE_27_UMP2 = "SCAN : O O 1.11 : MP2 CC-PVTZ : ML 3 NUM 4 STEP 0.05 TIGHTSCF"
+LINE_27_CBS = "SCAN : N N 1.0 : MP2 CC-PVDZ : EXTRAPOLATE NUM 4 STEP 0.05 TIGHTSCF"
+LINE_27_DH = "SCAN : N N 1.0 : B2PLYP CC-PVTZ : NUM 4 STEP 0.05 TIGHTSCF"
+LINE_27_FORCE = "FORCE : N N 1.1 : CCSD(T) CC-PVTZ : TIGHTSCF"
+# The serial walk a correlated line is held to runs at EXTREMESCF
+# (serial_line): on the card the TIGHTSCF walk of CCSD(T)/cc-pVTZ stopped
+# 1.16e-8 Ha from the TIGHTSCF batch at 1.12 angstrom, the EXTREMESCF walk
+# within 1.2e-10 of it at every point (a correlation energy is first-order
+# in the SCF orbitals' residual rotation, and the walk starts each point
+# from the previous one's density, the batch from the core guess).
+# The scan lines with the kernels each must launch and the launches a
+# point of the batch of those that run once a point
+PHASE_27_SCANS = (
+    (LINE_27_SCAN_CC, ("eri_packed", "one_electron", "ccsd_t_energy"), {"ccsd_t_energy": 1}),
+    (LINE_27_UKS, ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid"), {}),
+    (LINE_27_UCC, ("eri_packed", "one_electron", "uccsd_t_energy"), {"uccsd_t_energy": 1}),
+    (LINE_27_UMP2, ("eri_packed", "one_electron"), {}),
+    (LINE_27_CBS, ("eri_packed", "one_electron"), {}),
+    (LINE_27_DH, ("eri_packed", "one_electron", "ao_on_grid", "density_on_grid"), {}),
+)
+PHASE_27_TOLERANCE = 1e-10         # Ha, a point against tuna_tpu's batch of the same points
+PHASE_27_SERIAL_TOLERANCE = 1e-8   # Ha, a point against the serial walk (other guesses)
+# (energy limit, iteration slack) of a line's solves where they are not
+# PHASE_27_TOLERANCE and equal: UKS O2 B3LYP is decided by the card's
+# rounding (ROADMAP.md queue 3); N2's pinned lines take the path rounding
+# picks from a degenerate guess, so their counts are printed, not held (None)
+PHASE_27_SOLVE_LIMITS = {LINE_27_UKS: (1e-8, 1), LINE_27_SCAN_CC: (PHASE_27_TOLERANCE, None),
+                         LINE_27_FIELD_VV10: (PHASE_27_TOLERANCE, None)}
+REFERENCES_27 = {
+    'SCAN : N N 1.0 : CCSD(T) CC-PVTZ : NUM 6 STEP 0.04 EXTREMESCF': {
+        'bonds': [1.8897261259065457, 1.9653151709428074, 2.040904215979069, 2.116493261015331, 2.1920823060515926, 2.2676713510878543],
+        'energies': [-109.36538285600096, -109.38859229295701, -109.39871693604809, -109.39894706781858, -109.39180146418047, -109.37926870952876],
+        'converged': [True, True, True, True, True, True],
+        'scf_solves': [(17, -134.89769832899958), (17, -133.91618611284045), (17, -132.12926807973787), (18, -132.994953455268), (18, -131.3148261383422), (18, -130.5477121628536)],
+        'cc_solves': [(15, -0.3880009150683579), (16, -0.40144626986727705), (16, -0.38186781982942786), (17, -0.4087557099880904), (17, -0.39452633144085714), (18, -0.41644186009079515)],
+        'seconds': 126.17026610000175,
+    },
+    'SPE : C O 1.13 : CCSD CC-PVTZ : DIPOLE QUADRUPOLE POLAR HYPER TIGHTSCF': {
+        'field_batches': [{'fields': [[0.0, 0.0, 1e-05], [0.0, 0.0, -1e-05]], 'energies': [-113.16317518847575, -113.16317442749528]}, {'fields': [[0, 0, 0], [0, 0, 0], [0, 0, 0], [0, 0, 0]], 'energies': [-113.16309904095596, -113.1632505756626, -113.1630990409561, -113.16325057566249]}, {'fields': [[0.0, 0.0, 0.002], [0.0, 0.0, 0.001], [0.0, 0.0, -0.001], [0.0, 0.0, -0.002], [0.002, 0.0, 0.0], [0.001, 0.0, 0.0], [-0.001, 0.0, 0.0], [-0.002, 0.0, 0.0]], 'energies': [-113.16327905943828, -113.16321989151342, -113.16314378690134, -113.16312681049095, -113.16319460541351, -113.16317975673556, -113.1631797567357, -113.16319460541351]}, {'fields': [[0.0, 0.0, 0.0015], [0.0, 0.0, 0.003], [0.0, 0.0, 0.0045000000000000005], [0.0, 0.0, 0.006], [0.0, 0.0, -0.0015], [0.0, 0.0, -0.003], [0.0, 0.0, -0.0045000000000000005], [0.0, 0.0, -0.006], [0.0015, 0.0, 0.0015], [-0.0015, 0.0, 0.0015], [0.0015, 0.0, -0.0015], [-0.0015, 0.0, -0.0015]], 'energies': [-113.16324771377256, -113.16335233088355, -113.16348872634626, -113.16365696762779, -113.16313354443173, -113.16312385833882, -113.1631456825462, -113.16319895099926, -113.16325885745798, -113.16325885745789, -113.1631446736443, -113.16314467364438]}],
+        'calculate_numerical_dipole_moment': 0.040376259159903505,
+        'calculate_numerical_quadrupole_moment': -2.3654292718200653,
+        'calculate_polarisability': 11.28724011560204,
+        'calculate_hyperpolarisability': [19.808135782372077, 4.288225412623164],
+        'scf_solves': [(12, -133.7030778095514), (16, -135.2584573743863), (18, -135.25882474922753), (18, -135.2586889077006), (18, -135.25862600119572), (18, -135.25856644149468), (18, -135.2582108078496), (19, -135.25931228891542), (19, -135.25905353833622), (19, -135.2586368396218), (19, -135.25863683962172), (19, -135.2585329339024), (19, -135.25853293390227), (19, -135.2584766512878), (19, -135.25846219355788), (19, -135.25846219355773), (19, -135.25845839867483), (19, -135.25845635148485), (19, -135.25838181693723), (19, -135.2583818169371), (19, -135.2583617304401), (19, -135.25832979773946), (19, -135.25832979773938), (19, -135.25831894962062), (19, -135.25827953358373), (19, -135.25813303103476), (19, -135.25808570101725)],
+        'cc_solves': [(15, -0.38389525433499877), (15, -0.3836796830359404), (15, -0.38346551075841717), (15, -0.383323513578992), (15, -0.3832530474429669), (15, -0.3832530474429666), (15, -0.3832527518764051), (15, -0.38318214879777285), (15, -0.38304282471534074), (15, -0.38304194185016016), (15, -0.3830419418501597), (15, -0.3830416294846585), (15, -0.3830416294846558), (15, -0.3830415509022828), (15, -0.3830415509022825), (15, -0.38304142059914714), (15, -0.38304121174331585), (15, -0.38304121174330835), (15, -0.38304001654489517), (15, -0.38290133313112457), (15, -0.38283182174702574), (15, -0.38283182174702546), (15, -0.38283153096044803), (15, -0.3827618905148139), (15, -0.38262309683574924), (15, -0.3824161319344369), (15, -0.382210649808288)],
+        'seconds': 173.04694374499923,
+    },
+    'SPE : N N 1.1 : B3LYP CC-PVTZ : NL POLAR EXTREMESCF': {
+        'field_batches': [{'fields': [[0.0, 0.0, 0.002], [0.0, 0.0, 0.001], [0.0, 0.0, -0.001], [0.0, 0.0, -0.002], [0.002, 0.0, 0.0], [0.001, 0.0, 0.0], [-0.001, 0.0, 0.0], [-0.002, 0.0, 0.0]], 'energies': [-109.43608470355886, -109.4360632302151, -109.43606323021524, -109.43608470355875, -109.43607105531586, -109.43605981816071, -109.43605981816143, -109.43607105532439]}],
+        'calculate_polarisability': 9.766140227580106,
+        'scf_solves': [(7, -131.55764541306004), (14, -133.0884843028991), (15, -133.08849927629194), (16, -133.0884880462457), (17, -133.08851290616946), (17, -133.08851290616934), (17, -133.08849927628341), (17, -133.0884880462464), (19, -133.08849145371158), (19, -133.08849145371144)],
+        'cc_solves': [],
+        'seconds': 125.76966796600027,
+    },
+    'SCAN : O O 1.16 : B3LYP CC-PVTZ : ML 3 NUM 4 STEP 0.05 TIGHTSCF': {
+        'bonds': [2.192082306051593, 2.28656861234692, 2.3810549186422474, 2.4755412249375746],
+        'energies': [-150.31762671726898, -150.32100132952706, -150.317345929104, -150.30876969789463],
+        'converged': [True, True, True, True],
+        'scf_solves': [(20, -179.51361074730187), (20, -177.19618836945173), (20, -176.1617021214352), (21, -178.3105397384842)],
+        'cc_solves': [],
+        'seconds': 168.97063581100065,
+    },
+    'SCAN : O O 1.11 : CCSD(T) CC-PVDZ : ML 3 NUM 4 STEP 0.05 TIGHTSCF': {
+        'bonds': [2.097595999756266, 2.192082306051593, 2.28656861234692, 2.3810549186422474],
+        'energies': [-149.9693564232338, -149.98456375835408, -149.98936934957447, -149.98700191604385],
+        'converged': [True, True, True, True],
+        'scf_solves': [(17, -180.1375206191388), (17, -178.82824735972375), (17, -177.61684579612083), (18, -176.493653253424)],
+        'cc_solves': [(14, -0.34370359968922204), (14, -0.3354344734596976), (15, -0.36097103242722856), (15, -0.3522309125029748)],
+        'seconds': 240.26826111499759,
+    },
+}
 Q_TOLERANCE = 1e-10         # Ha, the (Q) path and the triples lines against tuna_tpu
 BOND_TOLERANCE = 1e-6       # angstrom
 FREQUENCY_TOLERANCE = 0.01  # per cm
@@ -2929,6 +3043,16 @@ def scan_setup(line: str):
     return calculation, symbols, bonds
 
 
+def vv10_ragged(elements, b: float, C: float):
+    """K6b and its plain version over the active points of each element
+    (density, weights, sigma, points): (kernel call, plain call, counts)."""
+    counts = [int(e[0].shape[0]) for e in elements]
+    inputs = [torch.cat(parts).contiguous() for parts in zip(*elements)]
+    terms = vv10._vv10_point_terms(*inputs[:3], b, C)
+    return (lambda: vv10.vv10_energy_batch(counts, *inputs, b, C),
+            lambda: vv10._vv10_pair_sums_plain(counts, inputs[3], *terms), counts)
+
+
 def check_vv10_batch(device, record: dict, registers: dict) -> np.ndarray:
     """Phase 16: K6b against its plain version on the active points of the
     scan's densities converged at EXTREMESCF, on their own grids (a batched
@@ -2946,14 +3070,7 @@ def check_vv10_batch(device, record: dict, registers: dict) -> np.ndarray:
         bfs, w, grads, pts = m["grid"]
         active.append(vv10._active_points(P_point, bfs, grads, w, pts))
 
-    def ragged(elements):
-        counts = [int(e[0].shape[0]) for e in elements]
-        inputs = [torch.cat(parts).contiguous() for parts in zip(*elements)]
-        terms = vv10._vv10_point_terms(*inputs[:3], b, C)
-        return (lambda: vv10.vv10_energy_batch(counts, *inputs, b, C),
-                lambda: vv10._vv10_pair_sums_plain(counts, inputs[3], *terms), counts)
-
-    kernel, plain, counts = ragged(active)
+    kernel, plain, counts = vv10_ragged(active, b, C)
     e_kernel, e_plain = kernel(), plain()
     err = torch.abs(e_kernel - e_plain)
     relative = float(torch.max(err / torch.abs(e_plain)))
@@ -2963,7 +3080,7 @@ def check_vv10_batch(device, record: dict, registers: dict) -> np.ndarray:
     empty = tuple(x[:0] for x in active[0])
     densest = max(int(torch.argmax(active[0][0])), 150)   # 300 points around it: one tile
     small = tuple(x[densest - 150:densest + 150] for x in active[0])
-    kernel_r, plain_r, counts_r = ragged([empty, small, active[1]])
+    kernel_r, plain_r, counts_r = vv10_ragged([empty, small, active[1]], b, C)
     e_r, e_rp = kernel_r(), plain_r()
     relative_r = float(torch.max(torch.abs(e_r - e_rp)[1:] / torch.abs(e_rp[1:])))
     require(float(e_r[0]) == 0.0 and relative_r <= VV10_TOLERANCE
@@ -3031,8 +3148,9 @@ def check_batched_scan(device, extreme_batch: np.ndarray) -> dict:
     (one K6b launch) and through the serial cli.run SCAN, point by point;
     the 1.10 angstrom point against E_REF_DFT; the EXTREMESCF batch of
     phase 16 against the serial SCAN at EXTREMESCF; a 4-point UHF batch
-    against its serial SCAN; a profile of both DFT walls (the counted run
-    and SCAN_WARM_RUNS - 1 more each, and one each under torch.profiler).
+    against its serial SCAN; a profile of both DFT walls (the counted
+    runs' walls, and one run each of LINE_SCAN_PROFILE under
+    torch.profiler).
     Returns the launches summed over the four counted runs."""
     _, _, bonds = scan_setup(LINE_SCAN)
     with scf_iterations() as iterations:
@@ -3075,21 +3193,17 @@ def check_batched_scan(device, extreme_batch: np.ndarray) -> dict:
           f"{u_deltas.tolist()} Ha; wall batch {u_wall:.3f} s, serial {u_serial_wall:.3f} s")
 
     def batch_counted():
-        return batched_scan(LINE_SCAN, device)[1:]
+        return batched_scan(LINE_SCAN_PROFILE, device)[1:]
 
     def serial_counted():
-        return run_counted(LINE_SCAN, ())[1:]
-
-    def walls(first: float, counted) -> dict:
-        runs = [first] + [counted()[0] for _ in range(SCAN_WARM_RUNS - 1)]
-        return {"median": statistics.median(runs), "min": min(runs), "max": max(runs)}
+        return run_counted(LINE_SCAN_PROFILE, ())[1:]
 
     print("profile: " + json.dumps({
-        "line": LINE_SCAN, "points": len(bonds), "warm_runs": SCAN_WARM_RUNS,
-        "batch": {"warm_wall_s": walls(batch_wall, batch_counted),
-                  "scf_iterations": iterations["batch"], **profiled_call(batch_counted)},
-        "serial": {"warm_wall_s": walls(serial_wall, serial_counted),
-                   "scf_iterations": iterations["serial"], **profiled_call(serial_counted)}}))
+        "line": LINE_SCAN, "points": len(bonds), "profiled_line": LINE_SCAN_PROFILE,
+        "batch": {"warm_wall_s": batch_wall, "scf_iterations": iterations["batch"],
+                  **profiled_call(batch_counted)},
+        "serial": {"warm_wall_s": serial_wall, "scf_iterations": iterations["serial"],
+                   **profiled_call(serial_counted)}}))
     runs = (batch_launches, serial_launches, u_launches, u_serial_launches)
     return {name: sum(r[name] for r in runs) for name in KERNELS}
 
@@ -3576,7 +3690,8 @@ def check_meta_gga_paths(device, record: dict) -> dict:
     the R2SCAN single point with its profile, B97M-V (tau and VV10), the
     UKS TPSS single point, the R2SCAN OPT with its profile (one K8ct launch
     a gradient) and the UKS TPSS OPT (one K8cut launch a gradient; one
-    profiled run gives K8cut's device time); none launches K8c or K8cu.
+    profiled FORCE of the same line gives K8cut's device time); none
+    launches K8c or K8cu.
     Then a 4-point TPSS batch against the serial SCAN.  Returns the
     launches summed over these runs; records each tau kernel's device ms a
     launch."""
@@ -3606,10 +3721,13 @@ def check_meta_gga_paths(device, record: dict) -> dict:
                 profile, "moving_grid_kernel[1,2]")
             print("profile: " + json.dumps(profile))
         else:
-            profile = profiled_run(line, ("moving_grid_kernel[2,2]",))
+            # one gradient (FORCE) at the OPT's start: a profile of the whole OPT
+            # took ~100 s with the event parsing
+            force = line.replace("OPT", "FORCE", 1)
+            profile = profiled_run(force, ("moving_grid_kernel[2,2]",))
             record[tau_kernel]["device_ms_a_launch"] = _device_ms_a_launch(
                 profile, "moving_grid_kernel[2,2]")
-            print(f"profiled run: {line}; " + json.dumps(
+            print(f"profiled run: {force}; " + json.dumps(
                 {key: profile[key] for key in ("profiled_wall_s", "device_busy_ms",
                                                "device_idle_share", "hand_kernels")}))
     for r in runs:
@@ -3743,11 +3861,18 @@ def solve_counts():
         energy.run_self_consistent_field, cc.solve_amplitudes = serial_scf, solve
 
 
-def _within(name: str, got, expected, limit: float, deltas: dict) -> None:
+def _within(name: str, got, expected, limit: float, deltas: dict,
+            failures: list | None = None) -> None:
+    """deltas[name] = the largest distance of got from expected; beyond
+    `limit` it fails, or, where `failures` is given, is added to it."""
     delta = float(np.max(np.abs(np.subtract(got, expected))))
     deltas[name] = delta
-    require(delta <= limit, f"{name} {got!r} is {delta:.3e} from the reference {expected!r} "
-                            f"(limit {limit:.1e})")
+    message = (f"{name} {np.asarray(got).tolist()!r} is {delta:.3e} from the reference "
+               f"{np.asarray(expected).tolist()!r} (limit {limit:.1e})")
+    if failures is None:
+        require(delta <= limit, message)
+    elif not delta <= limit:
+        failures.append(message)
 
 
 def check_line_23(line: str, kernels: tuple) -> tuple:
@@ -3756,7 +3881,8 @@ def check_line_23(line: str, kernels: tuple) -> tuple:
     iterations of every solve, and where the line has them its (T)
     energies (each K2 and K2u call also against its plain version on the
     path's inputs), IP/EA states, finite-field properties, CBS parts and
-    anharmonic levels.  Returns (what run returns, launches, recorders)."""
+    anharmonic levels.  Returns (what run returns, launches, recorders,
+    wall seconds)."""
     from tuna_tpu_torch.drivers import common, electric, energy, freq
     ref = REFERENCES_23[line]
     watched = (("restricted_CCSD_T", cc), ("unrestricted_CCSD_T", cc), ("ccsd_t_energy", cc),
@@ -3831,21 +3957,26 @@ def check_line_23(line: str, kernels: tuple) -> tuple:
           f"{sum(a != b for a, b in zip(counts['scf_cycles'], ref['scf_cycles']))} unlike the "
           f"reference's), CC iterations {counts['cc_iterations']}; wall {wall:.3f} s; launches "
           f"{({name: n for name, n in launches.items() if n})}")
-    return result, launches, rec
+    return result, launches, rec, wall
 
 
-def check_phase_23() -> dict:
+def check_phase_23(serial_properties: dict) -> dict:
     """Phase 23: every line of PHASE_23_LINES against tuna_tpu's numbers
     (check_line_23); LINE_CC3's profile with its peak device memory; one K2
     launch a QCISD(T) line, with QCISD's disconnected scale 2; and the
-    QCISD(T) line's DIRECT twin (K4, K5) against the stored line.  Returns
-    the launches summed over the counted runs."""
+    QCISD(T) line's DIRECT twin (K4, K5) against the stored line.  Puts
+    LINE_PROPERTIES's properties and wall into serial_properties (phase 27
+    prints them beside its batch's).  Returns the launches summed over the
+    counted runs."""
     start = time.perf_counter()
     runs = []
     for line, kernels in PHASE_23_LINES:
         torch.cuda.reset_peak_memory_stats()
-        result, launches, rec = check_line_23(line, kernels)
+        result, launches, rec, wall = check_line_23(line, kernels)
         runs.append(launches)
+        if line == LINE_PROPERTIES:
+            serial_properties.update({name: rec[name].calls[0][1] for name in FIELD_STENCILS
+                                      if name in rec and rec[name].calls}, wall=wall)
         if line == LINE_CC3:
             peak = torch.cuda.max_memory_allocated()
             profile = profile_path(LINE_CC3, CC3_WARM_RUNS)
@@ -4659,6 +4790,277 @@ def scf_seconds():
 
 
 # ---------------------------------------------------------------------------
+# Phase 27: the correlated, finite-field and UKS batches as two shards
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def two_shards(device):
+    """The drivers' view of a machine of two cards, both `device`: their
+    gates then hand scans, stencils and field stencils to parallel.py,
+    which runs them as two shards on the one card."""
+    count, like = parallel.device_count, parallel.devices_like
+    parallel.device_count = lambda: 2
+    parallel.devices_like = lambda _device: [device, device]
+    try:
+        yield
+    finally:
+        parallel.device_count, parallel.devices_like = count, like
+
+
+@contextlib.contextmanager
+def batch_solves():
+    """(iterations, electronic energy) of every point of every lockstep SCF
+    batch, padding included, and (iterations, correlation energy) of every
+    CC solve, of the runs inside the block."""
+    solves = {"scf": [], "cc": []}
+    lockstep, solve = parallel.run_in_lockstep, cc.solve_amplitudes
+
+    def lockstep_recorded(loops):
+        results = lockstep(loops)
+        for n_steps, _, E, *_ in results:
+            solves["scf"] += [(int(n), float(e)) for n, e in zip(n_steps, E.tolist())]
+        return results
+
+    def solve_recorded(*args, **kwargs):
+        result = solve(*args, **kwargs)
+        solves["cc"].append((int(result[0]), float(result[3])))
+        return result
+
+    parallel.run_in_lockstep, cc.solve_amplitudes = lockstep_recorded, solve_recorded
+    try:
+        yield solves
+    finally:
+        parallel.run_in_lockstep, cc.solve_amplitudes = lockstep, solve
+
+
+def matched_solves(name: str, got: list, pinned: list, limit: float, slack: int | None,
+                   failures: list) -> float:
+    """Each (iterations, energy) of `got` against the pinned pair nearest in
+    energy (tuna_tpu's batch reports its solves in its devices' order):
+    within `limit`, the iterations within `slack` (None: not held); each
+    that is not is added to `failures`.  Returns the largest energy
+    distance."""
+    if not (got and pinned):
+        failures.append(f"{name}: {len(got)} solves, {len(pinned)} pinned")
+        return float("inf")
+    worst = 0.0
+    for n, E in got:
+        n_ref, E_ref = min(pinned, key=lambda pair: abs(pair[1] - E))
+        if not (abs(E - E_ref) <= limit and (slack is None or abs(n - n_ref) <= slack)):
+            failures.append(f"{name}: a solve of {n} iterations at {E!r}; the nearest pinned "
+                            f"one {n_ref} at {E_ref!r} (limits {limit:.0e}, {slack} iterations)")
+        worst = max(worst, abs(E - E_ref))
+    return worst
+
+
+def check_phase_27_pins(line: str, solves: dict, deltas: dict, failures: list) -> None:
+    """The SCF and CC solves of a pinned line's batch against tuna_tpu's."""
+    ref = REFERENCES_27[line]
+    limit, slack = PHASE_27_SOLVE_LIMITS.get(line, (PHASE_27_TOLERANCE, 0))
+    deltas["SCF solves from tuna_tpu's"] = matched_solves(
+        f"{line}: SCF", solves["scf"], ref["scf_solves"], limit, slack, failures)
+    if ref["cc_solves"]:
+        deltas["CC solves from tuna_tpu's"] = matched_solves(
+            f"{line}: CC", solves["cc"], ref["cc_solves"], limit, slack, failures)
+
+
+def serial_line(line: str) -> str:
+    """The line a phase 27 batch is held to: the same, at EXTREMESCF where
+    the energy has a correlation part (the UKS line's is variational in
+    its orbitals, and its UKS SCF is rounding-sensitive at EXTREMESCF)."""
+    return line if line == LINE_27_UKS else line.replace("TIGHTSCF", "EXTREMESCF")
+
+
+def single_points(line: str, bonds: list, kernels: tuple) -> tuple:
+    """The single points of a SCAN line at `bonds` (bohr) through run_counted:
+    (energies, wall seconds, launches), summed over the points."""
+    _, atoms, method, keywords = line.split(":")
+    keywords = re.sub(r"\b(NUM|STEP) \S+", "", keywords).split()
+    energies, wall, launches = [], 0.0, dict.fromkeys(KERNELS, 0)
+    for R in bonds:
+        spe = (f"SPE : {' '.join(atoms.split()[:2])} {bohr_to_angstrom(R)!r} :{method}: "
+               + " ".join(keywords))
+        result, seconds, counts = run_counted(spe, kernels)
+        energies.append(float(result[2]))
+        wall += seconds
+        launches = {name: launches[name] + counts[name] for name in KERNELS}
+    return energies, wall, launches
+
+
+def check_scan_27(line: str, kernels: tuple, launches_a_point: dict, device,
+                  card: str) -> dict:
+    """A SCAN line through cli.run with two shards on the card against the
+    serial walk of serial_line(line) (an EXTRAPOLATE line: its single
+    points) within PHASE_27_SERIAL_TOLERANCE a point and, where pinned, against
+    tuna_tpu's batch (PHASE_27_TOLERANCE a point, its SCF and CC solves as
+    check_phase_27_pins holds them).  Returns the launches of both runs."""
+    with two_shards(device), batch_solves() as solves:
+        with Recorder(*(("cbs_scan_points_parallel", parallel) if "EXTRAPOLATE" in line
+                        else ("scan_points_parallel", parallel))) as batched:
+            (bonds, energies, dipoles), wall, launches = run_counted(line, kernels)
+    require(len(batched.calls) == 1, f"{line}: {len(batched.calls)} batches")
+    n = len(bonds)
+    for name, per_point in launches_a_point.items():
+        require(launches[name] == per_point * n,
+                f"{line}: {launches[name]} {name} launches for {n} points")
+    if "EXTRAPOLATE" in line:
+        # the serial SCAN walk hands a point's large-basis density to the next
+        # point's small-basis SCF and fails at its second point, as tuna_tpu's
+        # does (ROADMAP.md queue 3): the batch is held to single points
+        serial, serial_wall, serial_launches = single_points(serial_line(line), bonds, kernels)
+        serial_bonds = bonds
+    else:
+        (serial_bonds, serial, _), serial_wall, serial_launches = run_counted(
+            serial_line(line), kernels)
+    require(np.allclose(serial_bonds, bonds, rtol=0, atol=1e-12) and np.all(np.isfinite(dipoles)),
+            f"{line}: the batch took other bond lengths")
+    deltas = {"batch minus serial": float(np.max(np.abs(np.subtract(energies, serial))))}
+    if line == LINE_27_SCAN_CC:
+        # the serial walk at TIGHTSCF beside it, printed and not held: the
+        # gap an EXTREMESCF walk closes
+        (_, tight, _), tight_wall, tight_launches = run_counted(
+            line.replace("EXTREMESCF", "TIGHTSCF"), kernels)
+        deltas["batch minus the TIGHTSCF serial walk"] = float(
+            np.max(np.abs(np.subtract(energies, tight))))
+        print(f"{line}: batch minus the TIGHTSCF serial walk "
+              f"{np.subtract(energies, tight).tolist()} Ha, minus the EXTREMESCF walk "
+              f"{np.subtract(energies, serial).tolist()} Ha (TIGHTSCF walk {tight_wall:.3f} s)")
+        serial_launches = {name: serial_launches[name] + tight_launches[name]
+                           for name in KERNELS}
+    failures = []
+    if not deltas["batch minus serial"] <= PHASE_27_SERIAL_TOLERANCE:
+        failures.append(f"{line}: batch minus serial {np.subtract(energies, serial).tolist()} Ha")
+    if line in REFERENCES_27:
+        ref = REFERENCES_27[line]
+        _within("energies from tuna_tpu's batch", energies, ref["energies"],
+                PHASE_27_SOLVE_LIMITS.get(line, (PHASE_27_TOLERANCE, 0))[0], deltas, failures)
+        check_phase_27_pins(line, solves, deltas, failures)
+    print(f"end to end: {line}; two shards on the card, {n} points; "
+          + ", ".join(f"{name} {delta:.3e}" for name, delta in deltas.items())
+          + f" Ha; the batch's SCF iterations {[n for n, _ in solves['scf']]}, CC iterations "
+          f"{[n for n, _ in solves['cc']]}; wall batch {wall:.3f} s, serial {serial_wall:.3f} s "
+          f"({card}); launches batch {({k: v for k, v in launches.items() if v})}, serial "
+          f"{({k: v for k, v in serial_launches.items() if v})}")
+    require(not failures, "\n".join(failures))
+    return {name: launches[name] + serial_launches[name] for name in KERNELS}
+
+
+def check_force_27(device, card: str) -> dict:
+    """LINE_27_FORCE through cli.run with two shards: its central
+    difference's two displaced energies in one batch (one K2 launch each)
+    against those of the serial FORCE of serial_line(LINE_27_FORCE)
+    (PHASE_27_SERIAL_TOLERANCE)."""
+    from tuna_tpu_torch.drivers import energy, opt
+    kernels = CC_PATH_KERNELS
+    with two_shards(device), Recorder("stencil_points_parallel", parallel) as batched, \
+            Recorder("calculate_gradient", opt) as batch_gradient:
+        _, wall, launches = run_counted(LINE_27_FORCE, kernels)
+    require(len(batched.calls) == 1 and len(batched.calls[0][1][0]) == 2
+            and launches["ccsd_t_energy"] == 3,
+            f"{LINE_27_FORCE}: {len(batched.calls)} batches, {launches['ccsd_t_energy']} K2 "
+            f"launches (one for the single point, one a displaced point)")
+    with Recorder("evaluate_molecular_energy", energy) as serial_energies, \
+            Recorder("calculate_gradient", opt) as serial_gradient:
+        _, serial_wall, serial_launches = run_counted(serial_line(LINE_27_FORCE), kernels)
+    E_backward, E_forward = batched.calls[0][1][0]
+    serial_forward, serial_backward = (float(r[2]) for _, r in serial_energies.calls[1:3])
+    deltas = np.array([E_backward - serial_backward, E_forward - serial_forward])
+    require(np.max(np.abs(deltas)) <= PHASE_27_SERIAL_TOLERANCE,
+            f"{LINE_27_FORCE}: displaced energies batch minus serial {deltas.tolist()} Ha")
+    print(f"end to end: {LINE_27_FORCE}; two shards on the card: displaced energies batch "
+          f"minus serial {deltas.tolist()} Ha; gradient batch "
+          f"{float(batch_gradient.calls[0][1])!r}, serial {float(serial_gradient.calls[0][1])!r} "
+          f"Ha/bohr; wall batch {wall:.3f} s, serial {serial_wall:.3f} s ({card}); launches "
+          f"batch {({k: v for k, v in launches.items() if v})}")
+    return {name: launches[name] + serial_launches[name] for name in KERNELS}
+
+
+def check_field_27(line: str, kernels: tuple, device, serial: dict, card: str) -> dict:
+    """A property line through cli.run with two shards: each field batch's
+    energies against tuna_tpu's field batch (PHASE_27_TOLERANCE a point),
+    its SCF and CC solves as check_phase_27_pins holds them, and the
+    properties the driver derives from the batches printed beside tuna_tpu's
+    and, where `serial` has them, beside phase 23's serial walk.  With
+    VV10: one K6b launch for the whole line, and K6b against its plain
+    version on the batch's own densities (VV10_TOLERANCE relative,
+    bitwise over two calls).  Returns the launches."""
+    from tuna_tpu_torch.drivers import electric
+    ref = REFERENCES_27[line]
+    names = [name for name in FIELD_STENCILS if hasattr(electric, name)]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(two_shards(device))
+        solves = stack.enter_context(batch_solves())
+        batches = stack.enter_context(Recorder("field_energies_parallel", parallel))
+        vv10_calls = stack.enter_context(Recorder("vv10_energies_batch", vv10))
+        properties = {name: stack.enter_context(Recorder(name, electric)) for name in names}
+        _, wall, launches = run_counted(line, kernels)
+    require(len(batches.calls) == len(ref["field_batches"]),
+            f"{line}: {len(batches.calls)} field batches, tuna_tpu's {len(ref['field_batches'])}")
+    deltas: dict = {}
+    failures = []
+    for k, ((args, (energies, converged)), pinned) in enumerate(zip(batches.calls,
+                                                                   ref["field_batches"])):
+        require(bool(converged.all()) and np.allclose(np.asarray(args[3], dtype=float),
+                                                      pinned["fields"], rtol=0, atol=1e-15),
+                f"{line}: field batch {k} did not converge, or took other fields")
+        _within(f"field batch {k} ({len(energies)} points)", energies, pinned["energies"],
+                PHASE_27_TOLERANCE, deltas, failures)
+    check_phase_27_pins(line, solves, deltas, failures)
+    got = {name: rec.calls[0][1] for name, rec in properties.items() if rec.calls}
+    if "vv10_energy_batch" in kernels:
+        require(launches["vv10_energy_batch"] == 1 and len(vv10_calls.calls) == 1,
+                f"{line}: {launches['vv10_energy_batch']} K6b launches for one field batch")
+        (P, bfs, grads, w, pts, functional), _ = vv10_calls.calls[0]
+        b, C, _ = vv10._parameters(functional)
+        active = [vv10._active_points(P_i, bfs, grads, w, pts) for P_i in P]
+        kernel, plain, counts = vv10_ragged(active, b, C)
+        e_kernel, e_plain = kernel(), plain()
+        relative = float(torch.max(torch.abs(e_kernel - e_plain) / torch.abs(e_plain)))
+        require(relative <= VV10_TOLERANCE and torch.equal(kernel(), e_kernel),
+                f"{line}: K6b on the field batch's densities {relative:.3e} from its plain "
+                f"version, or two calls differ")
+        deltas["K6b from its plain version (relative)"] = relative
+        print(f"K6b: {line}'s field batch, {len(counts)} densities on one grid, {counts} active "
+              f"points; relative to the plain version {relative:.3e}, two calls bitwise equal")
+    print(f"end to end: {line}; two shards on the card, {len(batches.calls)} field batches of "
+          f"{[len(c[1][0]) for c in batches.calls]} points; from tuna_tpu's: "
+          + ", ".join(f"{name} {delta:.3e}" for name, delta in deltas.items())
+          + f"; properties from the batches {json.dumps({k: np.asarray(v).tolist() for k, v in got.items()})}, "
+          f"tuna_tpu's batches {json.dumps({k: ref[k] for k in got if k in ref})}, phase 23's "
+          f"serial walk {json.dumps({k: np.asarray(v).tolist() for k, v in serial.items() if k in got})}"
+          f" (serial wall {serial.get('wall', float('nan')):.3f} s); SCF iterations "
+          f"{[s[0] for s in solves['scf']]}; wall {wall:.3f} s ({card}); launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    for name, value in got.items():
+        if name in ref:
+            step, weight, order = FIELD_STENCILS[name]
+            _within(f"{name} from tuna_tpu's batches", value, ref[name],
+                    weight * PHASE_27_TOLERANCE / step ** order, deltas, failures)
+    require(not failures, "\n".join(failures))
+    return launches
+
+
+def check_phase_27(device, serial_properties: dict, card: str) -> dict:
+    """Phase 27: PHASE_27_SCANS (check_scan_27), the field lines
+    (check_field_27: LINE_PROPERTIES, which phase 23 ran serially, and
+    LINE_27_FIELD_VV10) and LINE_27_FORCE (check_force_27), each as two
+    shards on the card.  Returns the launches summed over the counted
+    runs."""
+    start = time.perf_counter()
+    runs = []
+    for line, kernels, per_point in PHASE_27_SCANS:
+        runs.append(check_scan_27(line, kernels, per_point, device, card))
+    runs.append(check_field_27(LINE_PROPERTIES, ("eri_packed", "one_electron"), device,
+                               serial_properties, card))
+    runs.append(check_field_27(LINE_27_FIELD_VV10, BATCH_PATH_KERNELS, device, {}, card))
+    runs.append(check_force_27(device, card))
+    launches = {name: sum(r[name] for r in runs) for name in KERNELS}
+    print(f"phase 27: {time.perf_counter() - start:.1f} s ({card}); launches "
+          f"{({name: n for name, n in launches.items() if n})}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # --uks-spe-devices, --meta-gga-spe-devices: where a single point's distance
 # from tuna_tpu arises
 # ---------------------------------------------------------------------------
@@ -5084,7 +5486,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     if args.compare:
         return compare(args.compare, with_paths=not args.kernels_only)
     if args.uks_spe_devices:
@@ -5232,7 +5635,8 @@ def main() -> int:
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     # --- 23. the rest of restricted CC/CI and the last calculation types --------------
-    launches = check_phase_23()
+    serial_properties: dict = {}
+    launches = check_phase_23(serial_properties)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     # --- 24. excited states and SCF stability -------------------------------------------
@@ -5249,6 +5653,10 @@ def main() -> int:
     print(check_high_l_gradient_kernels(device, record, registers, frames))
     print(check_deriv_against_eri_difference(device, record))
     launches = check_phase_26(record)
+    path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
+
+    # --- 27. the correlated, finite-field and UKS batches as two shards on the card -------
+    launches = check_phase_27(device, serial_properties, card)
     path_launches = {name: path_launches[name] + launches[name] for name in KERNELS}
 
     kernels = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,

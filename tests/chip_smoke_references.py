@@ -6,6 +6,8 @@ hold the port to, one JSON line a calculation line:
     JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 25 [LINE ...]
     JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 26 [LINE ...]
 
+    JAX_PLATFORMS=cpu python tests/chip_smoke_references.py --phase 27 [LINE ...]
+
 (no LINE: every line of the phase, 23 by default).  Each runs through tuna_tpu.cli.run on
 the JAX CPU backend with one device, so scans and stencils walk serially as
 the port does on one card, and reports what run returns, the SCF cycles of
@@ -30,7 +32,17 @@ line took; tuna_tpu's OPT line also its bond length and energy.
 tuna_tpu's analytic gradient (jax.grad) needs more than 30 GB of host
 memory at cc-pVTZ; its forward-mode derivative (jax.jvp), which
 tests/test_torch_uhf_gradients.py holds to jax.grad at 1e-12 Ha/bohr,
-takes its place here.
+takes its place here.  Phase 27's lines are the batches of
+tuna_tpu/parallel.py on the conftest's 8 virtual CPU devices: each scan
+through parallel.scan_points_parallel (the CCSD(T) lines one point a call,
+on one device: tuna_tpu's (T) forms o^3 v^3 arrays several times over,
+2.1 GB each at O2/cc-pVDZ, for every point of a batch at once), each field
+line through cli.run, whose property stencils call
+parallel.field_energies_parallel; for each, the energies of every point,
+and every SCF and CC solve inside tuna_tpu's batches as (iterations,
+electronic or correlation energy) pairs, read by jax.debug.callback from
+the vmapped kernels (the order of a batch's callbacks is the devices', so
+chip_smoke.py matches them to its points by energy).
 """
 
 import json
@@ -40,12 +52,14 @@ import sys
 import time
 import types
 
+import os
+
 import jax
 import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from tuna_tpu import cli, scf  # noqa: E402
+from tuna_tpu import cli, constants, scf  # noqa: E402
 from tuna_tpu.drivers import common, electric, energy, freq, gradients  # noqa: E402
 from tuna_tpu.post import cc, excited, rpa  # noqa: E402
 
@@ -86,6 +100,13 @@ LINES_26 = (
     "FORCE : N N 1.1 : B3LYP CC-PVQZ : TIGHTSCF",
     "FORCE : H F 0.917 : HF CC-PV5Z : TIGHTSCF",
     "OPT : N N 1.1 : HF CC-PVQZ : TIGHTSCF",
+)
+LINES_27 = (
+    "SCAN : N N 1.0 : CCSD(T) CC-PVTZ : NUM 6 STEP 0.04 EXTREMESCF",
+    "SPE : C O 1.13 : CCSD CC-PVTZ : DIPOLE QUADRUPOLE POLAR HYPER TIGHTSCF",
+    "SPE : N N 1.1 : B3LYP CC-PVTZ : NL POLAR EXTREMESCF",
+    "SCAN : O O 1.16 : B3LYP CC-PVTZ : ML 3 NUM 4 STEP 0.05 TIGHTSCF",
+    "SCAN : O O 1.11 : CCSD(T) CC-PVDZ : ML 3 NUM 4 STEP 0.05 TIGHTSCF",
 )
 _CC_ROW = re.compile(r"^\s+\d+\s+-?\d+\.\d{10}\s+-?\d+\.\d{10}\s*$")
 
@@ -213,10 +234,92 @@ def reference(line: str) -> dict:
     return out
 
 
+def _install_27() -> dict:
+    """Record (iterations, energy) of every SCF and CC solve inside
+    tuna_tpu's batches, and each field batch's fields and energies."""
+    from tuna_tpu import parallel
+    from tuna_tpu import scf as scf_module
+    solves = {"scf": set(), "cc": set(), "field_batches": []}
+
+    def counting(kernel, key, energy_at):
+        def counted(*args):
+            out = kernel(*args)
+            jax.debug.callback(lambda n, E: solves[key].add((int(n), float(E))), out[0],
+                               out[energy_at])
+            return out
+        return counted
+
+    get_kernel, make_kernel = parallel.get_scf_kernel, scf_module.make_scf_kernel_fn
+    build_solver = cc._build_cc_solver_fn
+    parallel.get_scf_kernel = lambda *a, **k: counting(get_kernel(*a, **k), "scf", 2)
+    scf_module.make_scf_kernel_fn = lambda *a, **k: counting(make_kernel(*a, **k), "scf", 2)
+    cc._build_cc_solver_fn = lambda *a, **k: counting(build_solver(*a, **k), "cc", 3)
+    field_batch = parallel.field_energies_parallel
+
+    def recorded(calculation, symbols, coordinates, fields, gradients=None, mesh=None):
+        energies, converged = field_batch(calculation, symbols, coordinates, fields, gradients,
+                                          mesh)
+        solves["field_batches"].append({"fields": _plain(fields),
+                                        "gradients": _plain(gradients),
+                                        "energies": _plain(energies),
+                                        "converged": _plain(converged)})
+        return energies, converged
+
+    parallel.field_energies_parallel = recorded
+    return solves
+
+
+def reference_27(line: str, solves: dict) -> dict:
+    from tuna_tpu import parallel
+    from tuna_tpu.config import Config
+    for value in solves.values():
+        value.clear()
+    start = time.perf_counter()
+    out = {"line": line}
+    if line.startswith("SCAN"):
+        ct, method, basis, symbols, coordinates, params = cli.parse_input(line)
+        calculation = Config(ct, cli.process_method(method), time.time(), params, basis,
+                             symbols, suppress_output=True)
+        bonds, bond = [], float(coordinates[1][2])
+        for _ in range(calculation.number_of_steps):
+            bonds.append(bond)
+            bond = bond + constants.angstrom_to_bohr(calculation.step)
+        groups = [[b] for b in bonds] if "CCSD(T)" in line else [bonds]
+        mesh = parallel.device_mesh(1 if len(groups) > 1 else 8)
+        energies, converged = [], []
+        for group in groups:
+            E, conv, _ = parallel.scan_points_parallel(calculation, symbols, np.array(group),
+                                                       mesh)
+            energies += _plain(E)
+            converged += _plain(conv)
+        out.update(bonds=bonds, energies=energies, converged=converged)
+    else:
+        RECORD.clear()
+        cli.run(line, suppress_output=True)
+        out["field_batches"] = list(solves["field_batches"])
+        for key in ("calculate_numerical_dipole_moment", "calculate_numerical_quadrupole_moment",
+                    "calculate_polarisability", "calculate_hyperpolarisability"):
+            if key in RECORD:
+                out[key] = _plain(RECORD[key][0][1])
+    out["scf_solves"] = sorted(solves["scf"])
+    out["cc_solves"] = sorted(solves["cc"])
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
 def main() -> int:
     _install()
     arguments = sys.argv[1:]
     lines = LINES
+    if arguments[:2] == ["--phase", "27"]:
+        # the conftest's mesh; set before JAX's backend starts
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+        if jax.device_count() != 8:
+            raise RuntimeError(f"{jax.device_count()} JAX devices, phase 27 pins on 8")
+        solves = _install_27()
+        for line in arguments[2:] or LINES_27:
+            print(json.dumps(reference_27(line, solves)), flush=True)
+        return 0
     if arguments[:1] == ["--phase"]:
         lines = {"23": LINES, "24": LINES_24, "25": LINES_25, "26": LINES_26}[arguments[1]]
         arguments = arguments[2:]

@@ -492,6 +492,53 @@ def test_batched_scan_runs_through_k6b(cuda):
         assert abs(E - run(line, suppress_output=True, device="cuda")[2]) <= 1e-9
 
 
+@pytest.mark.parametrize("line, bonds, kernel", [
+    ("CCSD(T) 6-31G : TIGHTSCF", ("N N", 1.0, 1.05, 1.1), "ccsd_t_energy"),
+    ("CCSD(T) 6-31G : ML 3 TIGHTSCF", ("O O", 1.11, 1.16, 1.21), "uccsd_t_energy"),
+], ids=["CCSD(T)", "UCCSD(T)"])
+def test_batched_coupled_cluster_runs_through_k2_and_k2u(cuda, line, bonds, kernel):
+    """A batched CCSD(T) scan (K2) and UCCSD(T) scan (K2u) as two shards on
+    the card: one launch of the (T) kernel a point, each point within 1e-8
+    Ha of the same single point run serially on the card (another guess)."""
+    from tuna_tpu_torch import parallel
+    from tuna_tpu_torch.cli import parse_input, process_method, run
+
+    pair, *angstroms = bonds
+    symbols = pair.split()
+    _, method, basis, _, _, params = parse_input(f"SPE : {pair} 1.0 : {line}")
+    calculation = Config("SPE", process_method(method), 0.0, params, basis, symbols,
+                         suppress_output=True)
+    R = [angstrom_to_bohr(r) for r in angstroms]
+    _kernels.reset_launch_counts()
+    energies, converged, _ = parallel.scan_points_parallel(calculation, symbols, R,
+                                                           devices=[cuda, cuda])
+    assert _kernels.launches[kernel] == len(R) and converged.all()
+    for r, E in zip(angstroms, energies):
+        serial = run(f"SPE : {pair} {r} : {line}", suppress_output=True, device="cuda")[2]
+        assert abs(E - serial) <= 1e-8
+
+
+def test_field_batch_runs_through_k6b_once(cuda):
+    """parallel.field_energies_parallel with VV10 as two shards on the card:
+    one K6b launch for the whole batch (one shared grid), each field point
+    within 1e-8 Ha of the same field's single point run serially."""
+    from tuna_tpu_torch import parallel
+    from tuna_tpu_torch.cli import run
+
+    calculation = Config("SPE", lookup_method("B3LYP"), 0.0, ["NL", "TIGHTSCF"], "6-31G",
+                         ["H", "F"], suppress_output=True)
+    coordinates = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, angstrom_to_bohr(0.92)]])
+    fields = [np.array([0.0, 0.0, 2e-3]), np.array([0.0, 0.0, -1e-3]),
+              np.array([1e-3, 0.0, 0.0])]
+    _kernels.reset_launch_counts()
+    energies, converged = parallel.field_energies_parallel(
+        calculation, ["H", "F"], coordinates, fields, devices=[cuda, cuda])
+    assert _kernels.launches["vv10_energy_batch"] == 1 and converged.all()
+    for (ex, _, ez), E in zip(fields, energies):
+        line = f"SPE : H F 0.92 : B3LYP 6-31G : NL TIGHTSCF EX {ex} EZ {ez}"
+        assert abs(E - run(line, suppress_output=True, device="cuda")[2]) <= 1e-8
+
+
 def test_wrong_dtype_on_the_card_raises(cuda):
     """A CUDA tensor of the wrong dtype raises; it does not fall back to the
     plain version."""

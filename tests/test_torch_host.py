@@ -103,17 +103,21 @@ def _without_device(source, emptied=()):
 ])
 def test_driver_copies_match_tuna_tpu_source(relative, emptied):
     """electric.py and composite.py use no JAX: the port's copies differ only
-    in their docstrings, in passing `device` down, and (electric.py) in the
-    field batch, which the port does not have yet, so its
-    _prefetch_field_energies returns None (every stencil walks serially)."""
+    in their docstrings, in passing `device` down, and (electric.py) in how
+    _prefetch_field_energies reaches the field batch (the port's device
+    count and devices, a log line where the batch did not converge); it
+    returns the batch's energies as tuna_tpu's does."""
     original = (REPO / "tuna_tpu" / relative).read_text()
     copy = (REPO / "tuna_tpu_torch" / relative).read_text()
     assert _without_device(copy, emptied) == _without_device(original, emptied)
-    tree = ast.parse(copy)
-    for function in emptied:
-        body = next(node for node in tree.body
+
+    def body(source, function):
+        return next(node for node in ast.parse(source).body
                     if isinstance(node, ast.FunctionDef) and node.name == function).body
-        assert ast.dump(body[-1]) == ast.dump(ast.parse("return None").body[0])
+
+    for function in emptied:
+        assert ast.dump(body(copy, function)[-1]) == ast.dump(body(original, function)[-1])
+        assert "parallel.field_energies_parallel(" in ast.unparse(body(copy, function))
 
 
 def test_plotting_copy_matches_tuna_tpu_source():

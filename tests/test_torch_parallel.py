@@ -136,7 +136,8 @@ def _batched(cfg, settings, batch, xc_closures, points):
     "SPE : H F 0.9 : HF STO-3G : TIGHTSCF",
     "SPE : LI H 1.6 : UHF STO-3G : CH 1 ML 2 TIGHTSCF",
     "SPE : H F 0.9 : B3LYP STO-3G : LOOSEGRID TIGHTSCF",
-], ids=["RHF", "UHF", "RKS"])
+    "SPE : O O 1.21 : B3LYP STO-3G : ML 3 LOOSEGRID TIGHTSCF",
+], ids=["RHF", "UHF", "RKS", "UKS"])
 def test_batch_of_one_matches_serial_loop(line):
     R = angstrom_to_bohr(float(line.split(":")[1].split()[2]))
     cfg, settings, batch, xc_closures = _batch(line, [R])
@@ -319,18 +320,6 @@ def test_refused_lines_are_refused_through_scan(monkeypatch):
                 suppress_output=True, device="cpu")
         assert str(through_scan.value) == str(refused.value)
         assert str(refused.value) == f"\nERROR: {RELAXED_DH}"   # tuna_tpu's words
-
-
-@pytest.mark.parametrize("entry", ["scan_points_parallel", "scan_energies_parallel",
-                                   "stencil_points_parallel"])
-def test_batch_refuses_unrestricted_kohn_sham(entry):
-    """The batch's XC call is restricted, so each public batch entry refuses
-    a UKS line in words rather than returning its energies without the
-    spin-resolved XC (the drivers send UKS to the serial walk)."""
-    _, cfg, symbols = _configs("SCAN : O O 1.21 : B3LYP STO-3G : ML 3 NUM 2 STEP 0.05")
-    with pytest.raises(TunaError, match="Unrestricted Kohn-Sham in the batched SCF is not yet "
-                                        "ported"):
-        getattr(parallel, entry)(cfg, symbols, [2.28, 2.38], [CPU])
 
 
 @pytest.mark.parametrize("keywords, message", [

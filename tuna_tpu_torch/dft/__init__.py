@@ -17,15 +17,16 @@ from . import xc
 from .grid import density_on_grid
 
 
-def unported_functional(calculation):
+def unported_functional(calculation, reference=None):
     """The name of the calculation's exchange or correlation functional if
     tuna_tpu_torch lacks it, else None; the correlation functional is
-    looked up in the registry of the calculation's reference, as tuna_tpu
-    looks it up (drivers/gradients.py:52-56)."""
+    looked up in the registry of the reference ("RHF" or "UHF"; the
+    calculation's by default), as tuna_tpu looks it up
+    (drivers/gradients.py:52-56)."""
     functional = calculation.functional
     if functional.x_name is not None and functional.x_name not in xc.EXCHANGE_FUNCTIONALS:
         return f"The {functional.x_name} exchange functional"
-    registry = (xc.CORRELATION_FUNCTIONALS if calculation.reference == "RHF"
+    registry = (xc.CORRELATION_FUNCTIONALS if (reference or calculation.reference) == "RHF"
                 else xc.UNRESTRICTED_CORRELATION_FUNCTIONALS)
     if functional.c_name is not None and functional.c_name not in registry:
         return f"The {functional.c_name} correlation functional"

@@ -2,10 +2,11 @@
 polarisability and hyperpolarisability.
 
 Twin of tuna_tpu/drivers/electric.py, which uses no JAX: the same code, with
-the `device` of every energy passed down, and no field batch yet
-(`_prefetch_field_energies`), so every stencil walks serially.  The
-integrals object is reused across all field displacements (only the field
-contraction changes).
+the `device` of every energy passed down.  With more than one device
+visible, a stencil's field displacements are solved in one batch
+(`_prefetch_field_energies`, parallel.field_energies_parallel); otherwise
+they walk serially, and the integrals object is reused across all field
+displacements (only the field contraction changes).
 """
 
 from __future__ import annotations
@@ -38,13 +39,35 @@ def _energy_at_gradient(calculation, atomic_symbols, coordinates, integrals, gra
 
 
 def _prefetch_field_energies(calculation, atomic_symbols, coordinates,
-                             fields=None, gradients=None):
-    """The energies of every field displacement of a stencil from one
-    batched SCF, or None when the stencil must walk serially.  tuna_tpu
-    batches them on several devices (parallel.field_energies_parallel); the
-    port has no field batch yet, so it always walks serially, as the
-    reference TUNA does (tuna_energy.py:315-759)."""
-    return None
+                             fields=None, gradients=None, device="cuda"):
+    """The energies of every field displacement of a stencil, in the order
+    of `fields` or `gradients`, from one batch over the devices like
+    `device` (parallel.field_energies_parallel) when more than one device
+    is visible and the method batches: mean-field HF and Kohn-Sham, and,
+    at zero base field, restricted MP2 and CC/CI.  None when the stencil
+    must walk serially: one device, another method, or a batch that did
+    not converge (the reference always walks serially,
+    tuna_energy.py:315-759)."""
+    from .. import parallel
+    batchable = (parallel.mean_field_batchable(calculation, atomic_symbols, fields_free=False)
+                 or parallel.mp2_scan_batchable(calculation, atomic_symbols)
+                 or parallel.cc_scan_batchable(calculation, atomic_symbols))
+    if parallel.device_count() <= 1 or not batchable:
+        return None
+    # the axis not being displaced keeps its user-applied base value
+    n = len(fields) if fields is not None else len(gradients)
+    if fields is None:
+        fields = [calculation.electric_field] * n
+    if gradients is None:
+        gradients = [calculation.electric_field_gradient] * n
+    energies, converged = parallel.field_energies_parallel(
+        calculation, atomic_symbols, coordinates, fields, gradients,
+        parallel.devices_like(device))
+    if not converged.all():
+        log(" Sharded field stencil did not fully converge; falling back to the serial "
+            "walk.", calculation, 1)
+        return None
+    return [float(E) for E in energies]
 
 
 def calculate_polarisability(molecule, calculation, energy, silent, atomic_symbols,
@@ -66,7 +89,7 @@ def calculate_polarisability(molecule, calculation, energy, silent, atomic_symbo
                       original + field_x * 2, original + field_x,
                       original - field_x, original - field_x * 2]
     batch = _prefetch_field_energies(calculation, atomic_symbols, coordinates,
-                                     fields=stencil_fields)
+                                     fields=stencil_fields, device=device)
 
     def second_field_derivative(field, batch_offset):
         if batch is not None:
@@ -129,7 +152,7 @@ def calculate_hyperpolarisability(molecule, calculation, silent, atomic_symbols,
                          original + field_x - field_z,
                          original - field_x - field_z])
     batch = _prefetch_field_energies(calculation, atomic_symbols, coordinates,
-                                     fields=stencil_fields)
+                                     fields=stencil_fields, device=device)
 
     def E_at(multiple):
         if batch is not None:
@@ -183,7 +206,7 @@ def calculate_numerical_dipole_moment(molecule, calculation, silent, atomic_symb
 
     batch = _prefetch_field_energies(calculation, atomic_symbols, coordinates,
                                      fields=[original + field_z,
-                                             original - field_z])
+                                             original - field_z], device=device)
     if batch is not None:
         E_f, E_b = batch
     else:
@@ -222,7 +245,7 @@ def calculate_numerical_quadrupole_moment(molecule, calculation, silent,
     batch = _prefetch_field_energies(
         calculation, atomic_symbols, coordinates,
         gradients=[original + grad_z, original - grad_z,
-                   original + grad_x, original - grad_x])
+                   original + grad_x, original - grad_x], device=device)
 
     log("\n  Calculating parallel derivative...         ", calculation, 1, silent=silent, end="")
     if batch is not None:

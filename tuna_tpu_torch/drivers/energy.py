@@ -396,10 +396,16 @@ def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
     P_guess = P_guess_alpha = P_guess_beta = E_guess = None
 
     # More than one device: the scan points are independent, so the whole
-    # scan runs as one batched SCF (parallel.py) instead of the serial
-    # MOREAD-chained walk, which stays the fallback for an unconverged batch.
-    if (parallel.device_count() > 1 and not calculation.dipole
-            and parallel.mean_field_batchable(calculation, atomic_symbols)):
+    # scan runs as one batch (parallel.py) instead of the serial
+    # MOREAD-chained walk, which stays the fallback for an unconverged batch:
+    # mean-field HF and Kohn-Sham, double hybrids, restricted and
+    # spin-orbital MP2 and CC/CI, and CBS extrapolations of these.
+    batchable = any(gate(calculation, atomic_symbols) for gate in (
+        parallel.mean_field_batchable, parallel.dh_scan_batchable,
+        parallel.mp2_scan_batchable, parallel.cc_scan_batchable,
+        parallel.ump2_scan_batchable, parallel.ucc_scan_batchable,
+        parallel.cbs_scan_batchable))
+    if parallel.device_count() > 1 and not calculation.dipole and batchable:
         bonds, bond = [], bond_length
         for _ in range(calculation.number_of_steps):
             bonds.append(bond)
@@ -410,8 +416,10 @@ def scan_coordinate(calculation, atomic_symbols, starting_coordinates,
         devices = parallel.devices_like(device)
         log(f"Distributing {len(bonds)} scan points over "
             f"{len(devices)} devices...", calculation, 1, silent=silent)
-        batch_E, batch_conv, batch_dip = parallel.scan_points_parallel(
-            calculation, atomic_symbols, bonds, devices)
+        scan_fn = (parallel.cbs_scan_points_parallel
+                   if getattr(calculation, "extrapolate", False)
+                   else parallel.scan_points_parallel)
+        batch_E, batch_conv, batch_dip = scan_fn(calculation, atomic_symbols, bonds, devices)
         if batch_conv.all():
             bond_lengths = [float(bv) for bv in bonds]
             energies = [float(E) for E in batch_E]

@@ -3,10 +3,11 @@ VPT1/VPT2 perturbative anharmonicity, and fully anharmonic frequencies via a
 scanned PES and grid nuclear Schrodinger equation.
 
 Twin of tuna_tpu/drivers/freq.py; its stencils batch through
-opt._batched_displaced_energies when more than one device is visible.  The
-dipole derivative is seminumerical, or fully numerical (finite fields)
-under DIPOLE.  Plotting the vibrational wavefunctions (VIBPLOT) is not
-ported yet.  Every tensor lives on `device`.
+opt._batched_displaced_energies when more than one device is visible (the
+VPT window's energies of correlated methods too).  The dipole derivative
+is seminumerical, or fully numerical (finite fields) under DIPOLE.
+VIBPLOT plots the vibrational wavefunctions.  Every tensor lives on
+`device`.
 """
 
 from __future__ import annotations

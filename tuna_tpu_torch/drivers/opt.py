@@ -4,9 +4,10 @@ exact Hessian, trust radius, convexity guard and MOREAD warm starts.
 Twin of tuna_tpu/drivers/opt.py.  The gradient is analytic
 (drivers/gradients.py) for restricted HF and KS, a central finite
 difference of full energy evaluations otherwise.  With more than one
-device visible, a mean-field stencil's displaced geometries are solved in
-one batched SCF (_batched_displaced_energies, parallel.py); otherwise, and
-for correlated methods, in turn.  Every tensor lives on `device`.
+device visible, a stencil's displaced geometries are solved in one batch
+(_batched_displaced_energies, parallel.py): mean-field methods always,
+and, where only energies are needed, restricted and spin-orbital MP2 and
+CC/CI; otherwise in turn.  Every tensor lives on `device`.
 """
 
 from __future__ import annotations
@@ -65,18 +66,25 @@ def calculate_gradient(coordinates, calculation, atomic_symbols, silent=False,
 def _batched_displaced_energies(coordinates, calculation, atomic_symbols, displacements,
                                 silent=False, energies_only=False, device="cuda"):
     """The displaced bond lengths of a finite-difference stencil in one
-    batched SCF when more than one device is visible and the method is
-    mean-field (tuna_tpu/drivers/opt.py:60).  Returns (energies, total
-    densities, integrals containers) in displacement order, or None when
-    the stencil must walk serially.  With energies_only tuna_tpu also
-    batches restricted MP2 and CC energies; the port does not yet, so those
-    walk serially."""
+    batch when more than one device is visible (tuna_tpu/drivers/opt.py:60).
+    Mean-field methods always qualify; with energies_only (callers that
+    never read the densities: numerical gradients, VPT windows) restricted
+    and spin-orbital MP2 and CC/CI too, their correlation energy added a
+    point.  Returns (energies, total densities, integrals containers) in
+    displacement order, or None when the stencil must walk serially."""
     coords = np.asarray(coordinates, dtype=float)
     clean_diatomic = (coords.shape == (2, 3) and np.allclose(coords[0], 0.0)
                       and np.allclose(coords[1][:2], 0.0) and coords[1][2] > 0)
     has_ghost = any(str(s).upper().startswith("X") for s in atomic_symbols)
+    batchable = parallel.mean_field_batchable(calculation, atomic_symbols)
+    include_correlation = False
+    if not batchable and energies_only:
+        batchable = include_correlation = any(
+            gate(calculation, atomic_symbols) for gate in (
+                parallel.mp2_scan_batchable, parallel.cc_scan_batchable,
+                parallel.ump2_scan_batchable, parallel.ucc_scan_batchable))
     if (parallel.device_count() <= 1 or not clean_diatomic or has_ghost
-            or not parallel.mean_field_batchable(calculation, atomic_symbols)):
+            or not batchable):
         return None
 
     bonds = [coords[1][2] + d for d in displacements]
@@ -86,7 +94,7 @@ def _batched_displaced_energies(coordinates, calculation, atomic_symbols, displa
     log(f" Distributing {len(bonds)} displaced geometries over "
         f"{len(devices)} devices...", calculation, 1, silent=silent)
     energies, converged, P, meta = parallel.stencil_points_parallel(
-        calculation, atomic_symbols, bonds, devices)
+        calculation, atomic_symbols, bonds, devices, include_correlation=include_correlation)
     if not converged.all():
         log(" Sharded stencil did not fully converge; falling back to the "
             "serial walk.", calculation, 1, silent=silent)

@@ -349,7 +349,7 @@ def _batch_jk(ERI, P):
 
 def scf_batch_iterations(settings: SCFSettings, T, V_NE, ERI, S, X, P_a0, P_b0, HFX_prop,
                          conv, static_damping, max_damping, xc_closures=None, DFX_prop=0.0,
-                         DFC_prop=0.0):
+                         DFC_prop=0.0, Fld=None, G=None):
     """The SCF of B geometries in lockstep, as a generator that yields after
     each iteration and returns what run_scf_cycles_batched returns.
 
@@ -365,14 +365,16 @@ def scf_batch_iterations(settings: SCFSettings, T, V_NE, ERI, S, X, P_a0, P_b0, 
     T, V_NE, S, X (B, N, N) and ERI (B, N, N, N, N) on one device; the
     guesses P_a0, P_b0 (B, N, N); the starting energy is 0, as tuna_tpu's
     batch passes it.  xc_closures: one closure of run_scf_cycles's form a
-    geometry (restricted Kohn-Sham), called for the geometries still
-    iterating, or None; unrestricted Kohn-Sham is refused."""
+    geometry (restricted or unrestricted Kohn-Sham), called for the
+    geometries still iterating, or None.  Fld and G (B, N, N): each
+    point's field and field-gradient matrices, zero by default; they enter
+    the Fock matrix and the energy where run_scf_cycles puts them."""
     restricted = settings.reference == "RHF"
-    if xc_closures is not None and not restricted:
-        error("Unrestricted Kohn-Sham in the batched SCF is not yet ported to tuna_tpu_torch!")
     B, N, M = T.shape[0], settings.n_basis, settings.max_diis
     device, dtype = T.device, T.dtype
     zeros = torch.zeros((B, N, N), dtype=dtype, device=device)
+    Fld = zeros if Fld is None else Fld
+    G = zeros if G is None else G
     E = torch.zeros(B, dtype=dtype, device=device)
     P_a, P_b = P_a0, P_b0
     P_old_a = P_raw_prev_a = P_very_old_a = zeros
@@ -396,21 +398,22 @@ def scf_batch_iterations(settings: SCFSettings, T, V_NE, ERI, S, X, P_a0, P_b0, 
         live = torch.as_tensor(active, device=device)
         P = P_a + P_b
         if xc_closures is not None:
-            xc = [(zeros[0], zeros[0, 0, 0], zeros[0, 0, 0])] * B
+            xc = [(zeros[0], zeros[0], zeros[0, 0, 0], zeros[0, 0, 0])] * B
             for i in rows:
-                V, _, E_x, E_c, *_ = xc_closures[i](P_a[i], P_a[i], DFX_prop, DFC_prop)
-                xc[i] = (V, E_x, E_c)
-            V_XC, E_x_grid, E_c_grid = (torch.stack(parts) for parts in zip(*xc))
+                V_a, V_b, E_x, E_c, *_ = xc_closures[i](
+                    P_a[i], P_a[i] if restricted else P_b[i], DFX_prop, DFC_prop)
+                xc[i] = (V_a, V_b, E_x, E_c)
+            V_XC_a, V_XC_b, E_x_grid, E_c_grid = (torch.stack(parts) for parts in zip(*xc))
         else:
-            V_XC, E_x_grid, E_c_grid = 0.0, 0.0, 0.0
+            V_XC_a = V_XC_b = E_x_grid = E_c_grid = 0.0
         J_a, K_a = _batch_jk(ERI, P_a)
         if restricted:
             J_b, K_b = J_a, K_a
-            F_a = F_b = symmetrise(T + V_NE + 2.0 * J_a - K_a * HFX_prop + V_XC)
+            F_a = F_b = symmetrise(T + V_NE + Fld + G + 2.0 * J_a - K_a * HFX_prop + V_XC_a)
         else:
             J_b, K_b = _batch_jk(ERI, P_b)
-            F_a = symmetrise(T + V_NE + J_a + J_b - K_a * HFX_prop)
-            F_b = symmetrise(T + V_NE + J_a + J_b - K_b * HFX_prop)
+            F_a = symmetrise(T + V_NE + J_a + J_b + Fld + G - K_a * HFX_prop + V_XC_a)
+            F_b = symmetrise(T + V_NE + J_a + J_b + Fld + G - K_b * HFX_prop + V_XC_b)
 
         comm_a, err_a = _diis_error(F_a, P_a, S, X)
         if restricted:
@@ -445,8 +448,8 @@ def scf_batch_iterations(settings: SCFSettings, T, V_NE, ERI, S, X, P_a0, P_b0, 
 
         # Energy: fresh density against this iteration's (old density's) J/K
         # and XC energies
-        E_new, _ = _electronic_energy(P_new_a, P_new_b, J_a, J_b, K_a, K_b, T, V_NE, zeros,
-                                      zeros, HFX_prop, restricted, E_x_grid, E_c_grid)
+        E_new, _ = _electronic_energy(P_new_a, P_new_b, J_a, J_b, K_a, K_b, T, V_NE, Fld, G,
+                                      HFX_prop, restricted, E_x_grid, E_c_grid)
 
         if settings.use_diis and step > 2:
             grams = (error_ring @ error_ring.mT).reshape(B, M * M)
